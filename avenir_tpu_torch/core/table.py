@@ -1,0 +1,93 @@
+"""Columnar dataset: CSV text -> encoded numpy arrays.
+
+The port's copy of ``avenir_tpu/core/table.py``, trimmed to what forest
+serving reads: a dataset is a struct of columns, each encoded once on load:
+
+  * categorical columns  -> int32 vocabulary codes (schema cardinality order;
+    unknown values -> -1)
+  * numeric columns      -> float64 values
+  * id/string columns    -> kept host-side as python lists (never on device)
+
+Only the pure-Python parse is here; the native CSV reader is not ported yet.
+"""
+
+from __future__ import annotations
+
+import io
+import re
+from dataclasses import dataclass, field as dc_field
+from typing import Dict, List, Optional, Union
+
+import numpy as np
+
+from .schema import FeatureSchema
+
+
+@dataclass
+class ColumnarTable:
+    schema: FeatureSchema
+    n_rows: int
+    # ordinal -> encoded column; int32 codes for categorical, float64 for numeric
+    columns: Dict[int, np.ndarray]
+    # ordinal -> raw string column for id/string/text fields (host side)
+    str_columns: Dict[int, List[str]] = dc_field(default_factory=dict)
+    # raw tokenized rows, kept only when the caller needs record echo in outputs
+    raw_rows: Optional[List[List[str]]] = None
+
+
+def _make_splitter(delim_regex: str):
+    """ONE line-splitter for every parse path: literal fast path when the
+    regex is a plain string, compiled re.split otherwise."""
+    if re.escape(delim_regex) == delim_regex:
+        return lambda line: line.split(delim_regex)
+    return re.compile(delim_regex).split
+
+
+def _tokenize(text: str, delim_regex: str) -> List[List[str]]:
+    """Split lines on the reference's field.delim.regex (usually a plain ',')."""
+    split = _make_splitter(delim_regex)
+    return [split(line) for line in text.splitlines() if line.strip()]
+
+
+# Contract: categorical values are trimmed of exactly these six ASCII
+# whitespace bytes (not unicode whitespace) before vocab lookup — the same
+# contract as the JAX package's encoders.
+CATEGORICAL_TRIM = " \t\r\n\v\f"
+
+
+def encode_rows(rows: List[List[str]], schema: FeatureSchema,
+                keep_raw: bool = False) -> ColumnarTable:
+    """Encode tokenized rows into a ColumnarTable per the schema:
+    categorical -> ``vocab.get(value.strip(CATEGORICAL_TRIM), -1)`` int32,
+    numeric -> ``float(value)`` float64, everything else a host string
+    column; a short row (any schema ordinal missing) raises."""
+    n = len(rows)
+    columns: Dict[int, np.ndarray] = {}
+    str_columns: Dict[int, List[str]] = {}
+    for f in schema.fields:
+        o = f.ordinal
+        if f.is_categorical:
+            vocab = {v: i for i, v in enumerate(f.cardinality or [])}
+            columns[o] = np.fromiter(
+                (vocab.get(r[o].strip(CATEGORICAL_TRIM), -1) for r in rows),
+                dtype=np.int32, count=n)
+        elif f.is_numeric:
+            columns[o] = np.fromiter((float(r[o]) for r in rows),
+                                     dtype=np.float64, count=n)
+        else:  # id / string / text: host side only
+            str_columns[o] = [r[o] for r in rows]
+    return ColumnarTable(schema=schema, n_rows=n, columns=columns,
+                         str_columns=str_columns,
+                         raw_rows=rows if keep_raw else None)
+
+
+def load_csv(source: Union[str, io.TextIOBase], schema: FeatureSchema,
+             delim_regex: str = ",", keep_raw: bool = False) -> ColumnarTable:
+    """Load a CSV file (path or file object) into a ColumnarTable."""
+    if isinstance(source, str):
+        with open(source, "r") as fh:
+            text = fh.read()
+    else:
+        text = source.read()
+    return encode_rows(_tokenize(text, delim_regex), schema,
+                       keep_raw=keep_raw)

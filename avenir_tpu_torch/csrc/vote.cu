@@ -1,0 +1,197 @@
+// Forest ensemble vote on Hopper (sm_90a).
+//
+// Replaces the TPU kernel ops/pallas/vote.py:119 `ensemble_vote` (body
+// models/forest.py `_ensemble_vote_body` = `_member_votes_body` +
+// `_vote_finalize`).  For every row: per tree, the first of P stacked
+// paths whose predicates all hold; add the tree's weight to that path's
+// class; then the first-max argmax with the min-odds veto (index K).
+//
+// Predicate semantics (avenir_tpu/models/tree.py `_match_ok`):
+//   numeric      lo < v <= hi, tested only where the num flag is set, so a
+//                NaN fails a restricted feature and nothing else;
+//   categorical  code >= 0 && mask[t,p,f,min(code, C-1)], tested only where
+//                the cat flag is set (codes >= C take the last mask bit,
+//                as the reference's clip does);
+//   pad paths    lo = +inf with the num flag set: they never match.
+// A tree whose P paths all fail votes with path 0, as the reference's
+// argmax over an all-false row does.  Stacked forests end every tree with
+// an always-match sentinel, so that case only arises for hand-made inputs.
+//
+// Exactness: tallies are sums of integer-valued float32 weights below 2^24
+// (EnsembleModel.stacked_host rejects anything else), so every summation
+// order gives the same bits and the (n,) int32 result is bit-identical to
+// the reference.  The veto divides top / max(second, 1e-12f) with IEEE
+// float32 division: build without --use_fast_math.
+//
+// What bounds it on the H100: each row reads its F values and F codes and
+// writes one int32 — about (8F + 4) bytes a row, 36 B at the published
+// forest's F = 4 — against at most T*P*F predicate tests a row, fewer with
+// the early exits (36 MB, ~11 us of HBM traffic at 3.35 TB/s for a million
+// rows).  The predicate tensors are a few KB and are read from shared memory
+// when they fit in 48 KB, from global memory (through L1/L2) when they do
+// not, so a wide forest still runs.
+//
+// Design (simple and right first): one thread per row, grid-stride over
+// rows; each thread walks trees and paths with early exits and keeps its
+// (K,) tally in local memory (K <= 32) or in a global scratch row.  What
+// it leaves on the table: row loads are strided by F (not coalesced),
+// threads of a warp diverge on the data-dependent path scans, and the
+// tally sits in local memory instead of registers.  A faster form would
+// stage row tiles through shared memory, give a warp one row and its
+// lanes the paths of a tree, and keep the tally in registers.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr unsigned char kNumFlag = 1;
+constexpr unsigned char kCatFlag = 2;
+
+struct Preds {
+  const float* lo;            // (T,P,F)
+  const float* hi;            // (T,P,F)
+  const unsigned int* catw;   // (T,P,F,W) allowed-code bitmask words
+  const int* cls;             // (T,P) class index, -1 = votes nothing
+  const float* w;             // (T,)
+  const unsigned char* flags; // (T,P,F) kNumFlag | kCatFlag
+};
+
+// KMAX > 0: the tally lives in a per-thread array of KMAX floats;
+// KMAX == 0: in scratch[row*K .. row*K+K).  SMEM: predicates staged into
+// dynamic shared memory by every block before its rows.
+template <int KMAX, bool SMEM>
+__global__ void vote_kernel(const float* __restrict__ vals,
+                            const int* __restrict__ codes, long long n,
+                            int F, Preds g, int T, int P, int C, int W,
+                            int K, float min_odds,
+                            float* __restrict__ scratch,
+                            int* __restrict__ out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  Preds p = g;
+  if (SMEM) {
+    const int tpf = T * P * F;
+    float* s_lo = reinterpret_cast<float*>(smem);
+    float* s_hi = s_lo + tpf;
+    unsigned int* s_cw = reinterpret_cast<unsigned int*>(s_hi + tpf);
+    int* s_cls = reinterpret_cast<int*>(s_cw + (long long)tpf * W);
+    float* s_w = reinterpret_cast<float*>(s_cls + T * P);
+    unsigned char* s_fl = reinterpret_cast<unsigned char*>(s_w + T);
+    for (int i = threadIdx.x; i < tpf; i += blockDim.x) {
+      s_lo[i] = g.lo[i];
+      s_hi[i] = g.hi[i];
+      s_fl[i] = g.flags[i];
+    }
+    for (int i = threadIdx.x; i < tpf * W; i += blockDim.x) s_cw[i] = g.catw[i];
+    for (int i = threadIdx.x; i < T * P; i += blockDim.x) s_cls[i] = g.cls[i];
+    for (int i = threadIdx.x; i < T; i += blockDim.x) s_w[i] = g.w[i];
+    __syncthreads();
+    p = Preds{s_lo, s_hi, s_cw, s_cls, s_w, s_fl};
+  }
+
+  float local[KMAX > 0 ? KMAX : 1];
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long row = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+       row < n; row += stride) {
+    float* tally = KMAX > 0 ? local : scratch + row * K;
+    for (int k = 0; k < K; ++k) tally[k] = 0.0f;
+    const float* v = vals + row * F;
+    const int* c = codes + row * F;
+    for (int t = 0; t < T; ++t) {
+      int hit = 0;  // no match -> path 0, as argmax of an all-false row
+      for (int q = 0; q < P; ++q) {
+        const int base = (t * P + q) * F;
+        bool ok = true;
+        for (int f = 0; f < F && ok; ++f) {
+          const unsigned char fl = p.flags[base + f];
+          if (fl & kNumFlag) {
+            const float x = v[f];
+            ok = (x > p.lo[base + f]) && (x <= p.hi[base + f]);
+          }
+          if (ok && (fl & kCatFlag)) {
+            const int code = c[f];
+            if (code < 0) {
+              ok = false;
+            } else {
+              const int s = code < C ? code : C - 1;
+              ok = (p.catw[(long long)(base + f) * W + (s >> 5)] >> (s & 31)) & 1u;
+            }
+          }
+        }
+        if (ok) {
+          hit = q;
+          break;
+        }
+      }
+      const int k = p.cls[t * P + hit];
+      if (k >= 0) tally[k] += p.w[t];
+    }
+    int best = 0;
+    float top = tally[0];
+    for (int k = 1; k < K; ++k) {
+      if (tally[k] > top) {
+        top = tally[k];
+        best = k;
+      }
+    }
+    float second = -INFINITY;
+    for (int k = 0; k < K; ++k) {
+      if (k != best) second = fmaxf(second, tally[k]);
+    }
+    const bool veto = (min_odds > 1.0f) && (top / fmaxf(second, 1e-12f) <= min_odds);
+    out[row] = veto ? K : best;
+  }
+}
+
+template <int KMAX>
+cudaError_t launch(bool use_smem, size_t smem_bytes, int blocks,
+                   cudaStream_t stream, const float* vals, const int* codes,
+                   long long n, int F, Preds g, int T, int P, int C, int W,
+                   int K, float min_odds, float* scratch, int* out) {
+  if (use_smem) {
+    vote_kernel<KMAX, true><<<blocks, kThreads, smem_bytes, stream>>>(
+        vals, codes, n, F, g, T, P, C, W, K, min_odds, scratch, out);
+  } else {
+    vote_kernel<KMAX, false><<<blocks, kThreads, 0, stream>>>(
+        vals, codes, n, F, g, T, P, C, W, K, min_odds, scratch, out);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch on `stream`; returns cudaGetLastError() after the launch (0 = ok).
+// `use_smem` / `smem_bytes` come from the wrapper, which sizes the staged
+// predicate tensors; `scratch` is an (n, K) float buffer when K > 32, else
+// unused.
+extern "C" int avenir_ensemble_vote(
+    const float* vals, const int* codes, long long n, int F,
+    const float* lo, const float* hi, const unsigned char* flags,
+    const unsigned int* catw, const int* cls, const float* wvec, int T,
+    int P, int C, int W, int K, float min_odds, float* scratch, int* out,
+    int use_smem, long long smem_bytes, void* stream) {
+  if (n <= 0) return 0;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long want = (n + kThreads - 1) / kThreads;
+  long long cap = (long long)sms * 16;
+  const int blocks = (int)(want < cap ? want : cap);
+  Preds g{lo, hi, catw, cls, wvec, flags};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sm = use_smem != 0;
+  const size_t sb = (size_t)smem_bytes;
+  cudaError_t err;
+  if (K <= 8) {
+    err = launch<8>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
+                    min_odds, scratch, out);
+  } else if (K <= 32) {
+    err = launch<32>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
+                     min_odds, scratch, out);
+  } else {
+    err = launch<0>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
+                    min_odds, scratch, out);
+  }
+  return (int)err;
+}

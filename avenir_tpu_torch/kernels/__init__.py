@@ -1,0 +1,11 @@
+"""Hand-written CUDA kernels for Hopper and their plain PyTorch versions.
+
+* :mod:`.dispatch` — kernel for CUDA tensors, plain version for CPU ones;
+* :mod:`.build`    — nvcc build of ``csrc/*.cu`` into ctypes libraries, at
+  first use, under ``build/avenir_tpu_torch/``;
+* :mod:`.vote`     — the forest ensemble vote (replaces the Pallas
+  ``ops/pallas/vote.py`` ``ensemble_vote``).
+
+Nothing here imports ``ctypes`` libraries or runs ``nvcc`` at import time:
+the CPU tests import every module on a machine with neither.
+"""

@@ -1,0 +1,274 @@
+"""The forest ensemble vote: CUDA kernel wrapper and its plain PyTorch version.
+
+Replaces the TPU kernel ``avenir_tpu/ops/pallas/vote.py`` ``ensemble_vote``
+(body ``models/forest.py`` ``_ensemble_vote_body``).  Inputs keep the JAX
+package's stacked layout (``EnsembleModel.stacked_host``):
+
+    vals (n,F) f32, codes (n,F) i32, lo/hi (T,P,F) f32, num_r (T,P,F) bool,
+    cat_m (T,P,F,C) bool, cat_r (T,P,F) bool, cls_oh (T,P,K) f32,
+    wvec (T,) f32, min_odds f32  ->  (n,) int32 vote index (K = veto)
+
+:func:`prepare_vote_model` puts a stacked forest on a device once per model
+load and, for a CUDA device, also reduces it to the kernel's form: per-path
+class indices (T,P) int32, one flag byte per predicate slot and the
+categorical masks packed into 32-bit words.  :func:`ensemble_vote` launches
+``csrc/vote.cu`` for CUDA tensors and runs :func:`ensemble_vote_torch` for
+CPU tensors (``kernels/dispatch.py``); ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from dataclasses import dataclass
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .dispatch import BACKEND_CUDA, resolve_backend
+
+# kernel launches since the last reset (a plain integer; chip_smoke.py
+# zeroes it around the main path and reads it back)
+launches = 0
+
+# predicate tensors are staged in shared memory up to this size per block
+SMEM_LIMIT = 48 * 1024
+# K above this keeps the per-row tally in a global scratch buffer
+LOCAL_TALLY_MAX_K = 32
+# element budget of one row chunk of the plain version's (n,T,P,F) masks
+_TORCH_CHUNK_ELEMS = 1 << 27
+
+_NUM_FLAG = 1
+_CAT_FLAG = 2
+
+
+@dataclass
+class VoteModel:
+    """A stacked forest resident on ``device``.  The first seven tensors are
+    the reference layout (what the plain version reads); ``flags``, ``catw``
+    and ``cls`` are the kernel's form, present on CUDA devices only."""
+    lo: torch.Tensor
+    hi: torch.Tensor
+    num_r: torch.Tensor
+    cat_m: torch.Tensor
+    cat_r: torch.Tensor
+    cls_oh: torch.Tensor
+    wvec: torch.Tensor
+    flags: Optional[torch.Tensor] = None
+    catw: Optional[torch.Tensor] = None
+    cls: Optional[torch.Tensor] = None
+
+    @property
+    def device(self) -> torch.device:
+        return self.lo.device
+
+    @property
+    def shape(self):
+        """(T, P, F, C, K)."""
+        T, P, F, C = self.cat_m.shape
+        return T, P, F, C, self.cls_oh.shape[2]
+
+    def stacked(self):
+        return (self.lo, self.hi, self.num_r, self.cat_m, self.cat_r,
+                self.cls_oh, self.wvec)
+
+    def smem_bytes(self) -> int:
+        """Bytes the kernel stages per block: lo, hi, flags, mask words,
+        class indices and weights."""
+        T, P, F, C, _ = self.shape
+        W = (C + 31) // 32
+        return T * P * F * (4 + 4 + 1 + 4 * W) + T * P * 4 + T * 4
+
+
+def prepare_vote_model(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec,
+                       device) -> VoteModel:
+    """Host stacked arrays (numpy, ``stacked_host`` layout) + member weights
+    -> a :class:`VoteModel` on ``device``.  Raises on a layout the vote does
+    not take, including a ``cls_oh`` row that is neither one-hot nor zero."""
+    lo = np.ascontiguousarray(lo, np.float32)
+    hi = np.ascontiguousarray(hi, np.float32)
+    num_r = np.ascontiguousarray(num_r, bool)
+    cat_m = np.ascontiguousarray(cat_m, bool)
+    cat_r = np.ascontiguousarray(cat_r, bool)
+    cls_oh = np.ascontiguousarray(cls_oh, np.float32)
+    wvec = np.ascontiguousarray(wvec, np.float32)
+    if lo.ndim != 3 or cat_m.ndim != 4 or cls_oh.ndim != 3:
+        raise ValueError("stacked forest needs lo (T,P,F), cat_m (T,P,F,C) "
+                         "and cls_oh (T,P,K)")
+    T, P, F = lo.shape
+    C, K = cat_m.shape[3], cls_oh.shape[2]
+    for name, a, shp in (("hi", hi, (T, P, F)), ("num_r", num_r, (T, P, F)),
+                         ("cat_m", cat_m, (T, P, F, C)),
+                         ("cat_r", cat_r, (T, P, F)),
+                         ("cls_oh", cls_oh, (T, P, K)), ("wvec", wvec, (T,))):
+        if a.shape != shp:
+            raise ValueError(f"stacked {name} has shape {a.shape}, "
+                             f"expected {shp}")
+    if C < 1 or K < 1 or P < 1:
+        raise ValueError(f"stacked forest needs P, C, K >= 1 "
+                         f"(got P={P}, C={C}, K={K})")
+    row_sum = cls_oh.sum(axis=2)
+    if not (np.isin(cls_oh, (0.0, 1.0)).all() and np.isin(row_sum, (0, 1)).all()):
+        raise ValueError("cls_oh rows must be one-hot or all zero")
+    dev = torch.device(device)
+
+    def put(a):
+        return torch.from_numpy(a).to(dev)
+    model = VoteModel(put(lo), put(hi), put(num_r), put(cat_m), put(cat_r),
+                      put(cls_oh), put(wvec))
+    if dev.type == "cuda":
+        flags, catw, cls = kernel_form(num_r, cat_m, cat_r, cls_oh)
+        model.flags, model.catw, model.cls = put(flags), put(catw), put(cls)
+    return model
+
+
+def kernel_form(num_r, cat_m, cat_r, cls_oh):
+    """The kernel's view of a stacked forest (host numpy): one flag byte per
+    predicate slot (bit 0 numeric restricted, bit 1 categorical
+    restricted), the (T,P,F,C) masks packed into ceil(C/32) 32-bit words
+    (bit c of word c // 32, stored as int32), and each path's class index,
+    -1 for a path that votes nothing."""
+    T, P, F, C = cat_m.shape
+    flags = (num_r.astype(np.uint8) * _NUM_FLAG
+             | cat_r.astype(np.uint8) * _CAT_FLAG)
+    W = (C + 31) // 32
+    bits = np.zeros((T, P, F, W * 32), bool)
+    bits[..., :C] = cat_m
+    words = (bits.reshape(T, P, F, W, 32).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(axis=4)
+    catw = words.astype(np.uint32).view(np.int32)
+    cls = np.where(cls_oh.sum(axis=2) > 0, cls_oh.argmax(axis=2),
+                   -1).astype(np.int32)
+    return flags, catw, cls
+
+
+# --------------------------------------------------------------------------
+# plain PyTorch version (mirrors _member_votes_body + _vote_finalize)
+# --------------------------------------------------------------------------
+
+def first_match_torch(vals, codes, lo, hi, num_r, cat_m, cat_r):
+    """(n, T) int64 index of each tree's first matching path (0 when none
+    matches, as the reference's argmax over an all-false row)."""
+    n = vals.shape[0]
+    T, P, F, C = cat_m.shape
+    if n == 0:
+        return torch.zeros((0, T), dtype=torch.int64, device=vals.device)
+    per_row = max(T * P * F, 1)
+    step = max(1, _TORCH_CHUNK_ELEMS // per_row)
+    feat = torch.arange(F, device=vals.device)[None, :]
+    by_code = cat_m.permute(2, 3, 0, 1)                  # (F, C, T, P)
+    out = []
+    for s in range(0, n, step):
+        v = vals[s:s + step].to(torch.float32)
+        c = codes[s:s + step]
+        x = v[:, None, None, :]
+        num_ok = ((x > lo) & (x <= hi)) | ~num_r         # (n, T, P, F)
+        safe = c.clamp(0, C - 1).long()
+        gathered = by_code[feat, safe].permute(0, 2, 3, 1)   # (n, T, P, F)
+        cat_ok = (gathered & (c >= 0)[:, None, None, :]) | ~cat_r
+        ok = (num_ok & cat_ok).all(dim=3)                # (n, T, P)
+        out.append(ok.to(torch.uint8).argmax(dim=2))
+    return torch.cat(out)
+
+
+def member_votes_torch(vals, codes, lo, hi, num_r, cat_m, cat_r, cls_oh,
+                       wvec):
+    """(n, K) float32 weighted vote tallies."""
+    T = lo.shape[0]
+    first = first_match_torch(vals, codes, lo, hi, num_r, cat_m, cat_r)
+    sel = cls_oh[torch.arange(T, device=cls_oh.device)[None, :], first]
+    return (sel * wvec[None, :, None]).sum(dim=1)
+
+
+def vote_finalize_torch(votes, min_odds):
+    """(n, K) tallies -> (n,) int32: first-max argmax, index K on a veto."""
+    K = votes.shape[1]
+    mo = torch.tensor(min_odds, dtype=torch.float32, device=votes.device)
+    best = votes.argmax(dim=1)
+    top = votes.amax(dim=1)
+    is_best = torch.nn.functional.one_hot(best, K).bool()
+    second = votes.masked_fill(is_best, float("-inf")).amax(dim=1)
+    veto = (mo > 1.0) & (top / second.clamp_min(1e-12) <= mo)
+    return torch.where(veto, K, best).to(torch.int32)
+
+
+def ensemble_vote_torch(vals, codes, lo, hi, num_r, cat_m, cat_r, cls_oh,
+                        wvec, min_odds):
+    """The plain version: composed torch ops, the CPU path and the oracle
+    the kernel is held against on the card."""
+    if vals.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=vals.device)
+    return vote_finalize_torch(
+        member_votes_torch(vals, codes, lo, hi, num_r, cat_m, cat_r, cls_oh,
+                           wvec), min_odds)
+
+
+# --------------------------------------------------------------------------
+# the wrapper
+# --------------------------------------------------------------------------
+
+_entry = None
+
+
+def _lib():
+    """The kernel's C entry point, typed (built and loaded on first use)."""
+    global _entry
+    if _entry is None:
+        from .build import load
+        fn = load("vote").avenir_ensemble_vote
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, ctypes.c_longlong, i, p, p, p, p, p, p, i, i, i,
+                       i, i, ctypes.c_float, p, p, i, ctypes.c_longlong, p]
+        fn.restype = ctypes.c_int
+        _entry = fn
+    return _entry
+
+
+def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
+    global launches
+    T, P, F, C, K = model.shape
+    n = vals.shape[0]
+    for name, t, dtype in (("vals", vals, torch.float32),
+                           ("codes", codes, torch.int32)):
+        if t.dtype != dtype or t.dim() != 2 or t.shape != (n, F) \
+                or not t.is_contiguous():
+            raise ValueError(f"ensemble_vote: {name} must be a contiguous "
+                             f"({n}, {F}) {dtype} tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != model.device:
+            raise ValueError(f"ensemble_vote: {name} on {t.device}, model "
+                             f"on {model.device}")
+    if model.cls is None:
+        raise ValueError("ensemble_vote: model was not prepared for a CUDA "
+                         "device")
+    out = torch.empty((n,), dtype=torch.int32, device=vals.device)
+    if n == 0:
+        return out
+    scratch = None
+    if K > LOCAL_TALLY_MAX_K:
+        scratch = torch.empty((n, K), dtype=torch.float32, device=vals.device)
+    smem = model.smem_bytes()
+    use_smem = smem <= SMEM_LIMIT
+    stream = torch.cuda.current_stream(vals.device).cuda_stream
+    err = _lib()(vals.data_ptr(), codes.data_ptr(), n, F,
+                 model.lo.data_ptr(), model.hi.data_ptr(),
+                 model.flags.data_ptr(), model.catw.data_ptr(),
+                 model.cls.data_ptr(), model.wvec.data_ptr(),
+                 T, P, C, (C + 31) // 32, K, float(min_odds),
+                 scratch.data_ptr() if scratch is not None else None,
+                 out.data_ptr(), int(use_smem), smem if use_smem else 0,
+                 stream)
+    if err != 0:
+        raise RuntimeError(f"ensemble_vote kernel launch failed: CUDA error "
+                           f"{err}")
+    launches += 1
+    return out
+
+
+def ensemble_vote(vals: torch.Tensor, codes: torch.Tensor, model: VoteModel,
+                  min_odds: float) -> torch.Tensor:
+    """(n,) int32 vote indices.  CUDA tensors launch ``csrc/vote.cu``; CPU
+    tensors run :func:`ensemble_vote_torch`."""
+    if resolve_backend(vals.device) == BACKEND_CUDA:
+        return _launch(vals, codes, model, min_odds)
+    return ensemble_vote_torch(vals, codes, *model.stacked(), min_odds)

@@ -1,0 +1,193 @@
+"""Warm, shape-bucketed forest predictors: port of
+``avenir_tpu/serving/predictor.py`` (the ``Predictor`` base and the
+single-device ``ForestPredictor``).
+
+Every ``Predictor`` pads incoming micro-batches up to a fixed bucket size
+with copies of the batch's last row (per-row prediction is independent, so
+pad rows cannot perturb real rows; results are sliced back).  PyTorch runs
+eagerly, so the buckets bound the set of batch shapes the kernels see
+rather than a compile cache; ``warm()`` still runs one batch per bucket
+at model load, which also builds the CUDA kernels off the request path.
+
+A ``ForestPredictor`` places the stacked member tensors on its device once
+per model and answers exactly what the offline ``modelPredictor`` job
+would emit for the same records.  ``None`` (min-odds veto) maps to the
+service's ``ambiguous_label``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+from ..core.schema import FeatureSchema
+from ..core.table import ColumnarTable, encode_rows
+from ..kernels.dispatch import note_backend
+from ..runtime import resolve_device
+from ..utils.tracing import fetch
+from .registry import FOREST, LoadedModel
+
+DEFAULT_BUCKETS = (1, 8, 64, 512)
+AMBIGUOUS = "ambiguous"   # the ensemble's min-odds veto, as a wire label
+
+
+class Predictor:
+    """Base: tokenized-row requests -> class-label strings, bucketed."""
+
+    def __init__(self, schema: FeatureSchema,
+                 buckets: Sequence[int] = DEFAULT_BUCKETS,
+                 delim: str = ","):
+        self.schema = schema
+        self.buckets = tuple(sorted({int(b) for b in buckets}))
+        if not self.buckets or self.buckets[0] < 1:
+            raise ValueError(f"buckets must be positive ints, got {buckets}")
+        self.delim = delim
+
+    # ---- bucketing ----
+    def bucket_size(self, n: int) -> int:
+        """Smallest bucket >= n; requests beyond the largest bucket are
+        chunked by the caller."""
+        for b in self.buckets:
+            if n <= b:
+                return b
+        return self.buckets[-1]
+
+    def dummy_row(self) -> List[str]:
+        """One schema-valid record (used to warm the buckets)."""
+        row = [""] * self.schema.num_columns
+        for f in self.schema.fields:
+            if f.is_categorical:
+                row[f.ordinal] = (f.cardinality or [""])[0]
+            elif f.is_numeric:
+                lo = f.min if f.min is not None else 0
+                row[f.ordinal] = str(int(lo)) if f.is_integer \
+                    else repr(float(lo))
+            else:
+                row[f.ordinal] = "x"
+        return row
+
+    def warm(self) -> "Predictor":
+        """One dummy batch per bucket size through the full predict path
+        before traffic arrives."""
+        d = self.dummy_row()
+        for b in self.buckets:
+            self.predict_rows([list(d)] * b)
+        return self
+
+    # ---- request entries ----
+    def _bucketed_tables(self, rows: List[List[str]]):
+        """Yield (table, n_valid) per top-bucket chunk: rows are split at
+        the largest bucket, each chunk padded up to its bucket size with
+        copies of its last row."""
+        top = self.buckets[-1]
+        for s in range(0, len(rows), top):
+            chunk = rows[s:s + top]
+            n = len(chunk)
+            b = self.bucket_size(n)
+            yield encode_rows(chunk + [chunk[-1]] * (b - n),
+                              self.schema), n
+
+    def prepare_rows(self, rows: List[List[str]]):
+        """The HOST half of predict_rows: tokenized records -> encoded,
+        bucket-padded tables.  Hand the result to :meth:`predict_prepared`
+        on the SAME predictor instance."""
+        return list(self._bucketed_tables(rows)) if rows else []
+
+    def predict_prepared(self, prepared) -> List[Optional[str]]:
+        """The DEVICE half: predict the tables from :meth:`prepare_rows`."""
+        out: List[Optional[str]] = []
+        for table, n in prepared:
+            out.extend(self._predict_table(table)[:n])
+        return out
+
+    def predict_rows(self, rows: List[List[str]]) -> List[Optional[str]]:
+        """Predict a micro-batch of tokenized records."""
+        if not rows:
+            return []
+        return self.predict_prepared(self.prepare_rows(rows))
+
+    def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
+        raise NotImplementedError
+
+
+class ForestPredictor(Predictor):
+    """Decision forest serving through the batch path's own vote kernel, so
+    responses are exactly what the offline modelPredictor job emits for the
+    same records.  Single-tree forests serve through the per-tree path."""
+
+    def __init__(self, path_lists, schema: FeatureSchema,
+                 weights: Optional[Sequence[float]] = None,
+                 min_odds_ratio: float = 1.0, device=None, **kw):
+        super().__init__(schema, **kw)
+        from ..models.forest import EnsembleModel
+        from ..models.tree import DecisionTreeModel
+        self.device = resolve_device(device)
+        self.models = [DecisionTreeModel(pl, schema, device=self.device)
+                       for pl in path_lists]
+        self.single = len(self.models) == 1
+        self.ensemble = None if self.single else EnsembleModel(
+            self.models, weights=weights, min_odds_ratio=min_odds_ratio,
+            require_odd=False, device=self.device)
+
+    def dispatch_prepared(self, prepared):
+        """The ASYNC half of predict_prepared: host prep, H2D and the vote
+        kernel's launch per bucket chunk, without waiting for the result
+        (CUDA launches return at once), so a continuous serving loop can
+        encode the next batch during this one's device time.  Chunks off
+        the device path (host vote, single tree) compute synchronously here
+        and ride along resolved."""
+        from ..models.tree import FeatureCache
+        staged = []
+        for table, n in prepared:
+            if self.single:
+                staged.append(
+                    (False, list(self.models[0].predict(table)[0]), n))
+                continue
+            # same device gate and label decode as the batch path; the
+            # cache rides into the host vote so a failed gate does not
+            # rebuild the feature arrays
+            cache = FeatureCache()
+            dev = self.ensemble.device_inputs(table, cache)
+            if dev is not None:
+                note_backend("serve.predict", self.ensemble._vote_backend)
+                staged.append((True, self.ensemble.vote_device(*dev), n))
+            else:
+                staged.append(
+                    (False, self.ensemble._predict_host(table, cache), n))
+        return staged
+
+    def readback_dispatched(self, staged) -> List[Optional[str]]:
+        """The BLOCKING half: read each staged device result back and decode
+        labels (host-path chunks are already resolved)."""
+        out: List[Optional[str]] = []
+        for is_dev, v, n in staged:
+            if is_dev:
+                out.extend(list(self.ensemble._lut[fetch(v)])[:n])
+            else:
+                out.extend(list(v)[:n])
+        return out
+
+    def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
+        return self.readback_dispatched(
+            self.dispatch_prepared([(table, table.n_rows)]))
+
+
+def make_predictor(loaded: LoadedModel,
+                   schema: Optional[FeatureSchema] = None,
+                   buckets: Sequence[int] = DEFAULT_BUCKETS,
+                   delim: str = ",", device=None) -> Predictor:
+    """Registry artifact -> a Predictor, using the artifact's embedded
+    schema unless one is passed explicitly.  Forests only so far."""
+    schema = schema or loaded.schema
+    if schema is None:
+        raise ValueError(
+            f"model {loaded.name!r} v{loaded.version} has no embedded "
+            "schema; pass schema= to make_predictor")
+    if loaded.kind != FOREST:
+        raise NotImplementedError(
+            f"serving model kind {loaded.kind!r} is not ported to "
+            f"avenir_tpu_torch yet (ported: {FOREST!r})")
+    p = loaded.params
+    return ForestPredictor(
+        loaded.model, schema, weights=p.get("weights"),
+        min_odds_ratio=float(p.get("min_odds_ratio", 1.0)),
+        device=device, buckets=buckets, delim=delim)

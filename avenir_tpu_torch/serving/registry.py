@@ -1,0 +1,186 @@
+"""Model registry, read side: port of ``avenir_tpu/serving/registry.py`` for
+the ``forest`` kind.
+
+It reads the versions the JAX package's ``ModelRegistry.publish`` writes:
+
+    <base_dir>/<name>/v_000001/meta.json     # kind, class labels, dtypes,
+                                             # params, schema, JSON payload
+    <base_dir>/<name>/v_000001/arrays.npz    # numeric payload (pinned dtypes)
+    <base_dir>/<name>/serving.json           # optional serving pin
+
+``latest_version`` skips torn version directories with a warning, and
+``serving_version`` honours a pin whose target is intact.  Publishing,
+deltas, sidecars and retention are not ported yet, nor are the other
+model kinds.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import re
+import warnings
+from dataclasses import dataclass
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+
+from ..core.artifacts import ArtifactStore
+from ..core.schema import FeatureSchema
+
+FOREST = "forest"
+BAYES = "bayes"
+LOGISTIC = "logistic"
+MLP = "mlp"
+KINDS = (FOREST, BAYES, LOGISTIC, MLP)
+
+META_FILE = "meta.json"
+ARRAYS_FILE = "arrays.npz"
+PIN_FILE = "serving.json"
+
+_VERSION_RE = re.compile(r"^v_(\d{6})$")
+
+
+@dataclass
+class LoadedModel:
+    """What :meth:`ModelRegistry.load` returns: the reconstructed model
+    object plus everything needed to build a serving Predictor around it."""
+    name: str
+    version: int
+    kind: str
+    model: Any                       # kind-specific (see _decode)
+    meta: Dict[str, Any]
+    schema: Optional[FeatureSchema]  # from the artifact, when saved with one
+    base_dir: Optional[str] = None   # registry root this was loaded from
+
+    @property
+    def params(self) -> Dict[str, Any]:
+        return self.meta.get("params", {})
+
+
+def _decode(kind: str, meta: Dict[str, Any]) -> Any:
+    if kind == FOREST:
+        from ..models.tree import DecisionPathList
+        return [DecisionPathList.from_json(json.dumps(t))
+                for t in meta["model_json"]["trees"]]
+    raise NotImplementedError(
+        f"model kind {kind!r} is not ported to avenir_tpu_torch yet "
+        f"(ported: {FOREST!r})")
+
+
+class ModelRegistry:
+    """Versioned model store over an ArtifactStore base directory."""
+
+    def __init__(self, base_dir: str):
+        self.store = ArtifactStore(base_dir)
+        self.base_dir = self.store.base_dir
+
+    def version_dir(self, name: str, version: int) -> str:
+        return self.store.path(name, f"v_{version:06d}")
+
+    def versions(self, name: str) -> List[int]:
+        """All committed (renamed-into-place) version numbers, ascending.
+        ``.tmp`` publishes in flight (or abandoned) are not versions."""
+        d = self.store.path(name)
+        if not os.path.isdir(d):
+            return []
+        out = []
+        for entry in os.listdir(d):
+            m = _VERSION_RE.match(entry)
+            if m:
+                out.append(int(m.group(1)))
+        return sorted(out)
+
+    def is_intact(self, name: str, version: int) -> bool:
+        """True when the version's meta.json parses, declares a known kind,
+        and every file in its manifest probes intact (npz zip directory
+        opens, json parses, anything else exists non-empty)."""
+        d = self.version_dir(name, version)
+        try:
+            with open(os.path.join(d, META_FILE)) as fh:
+                meta = json.load(fh)
+            if meta.get("kind") not in KINDS:
+                return False
+            for fname in meta.get("files") or [ARRAYS_FILE]:
+                path = os.path.join(d, fname)
+                if fname.endswith(".npz"):
+                    with np.load(path) as z:
+                        z.files
+                elif fname.endswith(".json"):
+                    with open(path) as fh:
+                        json.load(fh)
+                elif not (os.path.isfile(path)
+                          and os.path.getsize(path) > 0):
+                    return False
+            return True
+        except Exception:
+            return False
+
+    def latest_version(self, name: str) -> Optional[int]:
+        """Newest INTACT version — a torn newest directory is skipped with
+        a warning so a reload never serves a half-written model."""
+        for v in reversed(self.versions(name)):
+            if self.is_intact(name, v):
+                return v
+            warnings.warn(
+                f"model {name!r} version {v} in {self.base_dir!r} is torn "
+                f"or unreadable; skipping it for serving", RuntimeWarning)
+        return None
+
+    def pinned_version(self, name: str) -> Optional[int]:
+        """The pinned version number, or None (no pin / unreadable pin — an
+        unreadable pin file warns and reads as absent)."""
+        try:
+            with open(self.store.path(name, PIN_FILE)) as fh:
+                return int(json.load(fh)["version"])
+        except FileNotFoundError:
+            return None
+        except Exception as exc:
+            warnings.warn(
+                f"model {name!r} serving pin in {self.base_dir!r} is "
+                f"unreadable ({type(exc).__name__}: {exc}); falling back "
+                f"to newest intact version", RuntimeWarning)
+            return None
+
+    def serving_version(self, name: str) -> Optional[int]:
+        """THE version the serving tier should run: the pinned version when
+        a pin exists and its target is intact, otherwise the newest intact
+        version."""
+        pin = self.pinned_version(name)
+        if pin is not None:
+            if self.is_intact(name, pin):
+                return pin
+            warnings.warn(
+                f"model {name!r} pinned version {pin} in "
+                f"{self.base_dir!r} is torn or missing; serving falls "
+                f"back to the newest intact version", RuntimeWarning)
+        return self.latest_version(name)
+
+    def load(self, name: str, version: Optional[int] = None,
+             schema: Optional[FeatureSchema] = None) -> LoadedModel:
+        """Reconstruct a model (+ its schema when the artifact carries one).
+        Default version: the newest intact one.  The artifact's dtype pins
+        are enforced — a payload whose arrays do not match the dtypes
+        recorded at publish time fails loudly."""
+        if version is None:
+            version = self.latest_version(name)
+            if version is None:
+                raise FileNotFoundError(
+                    f"no intact versions of model {name!r} in "
+                    f"{self.base_dir!r}")
+        d = self.version_dir(name, version)
+        with open(os.path.join(d, META_FILE)) as fh:
+            meta = json.load(fh)
+        with np.load(os.path.join(d, ARRAYS_FILE)) as z:
+            actual = {k: str(z[k].dtype) for k in z.files}
+        declared = meta.get("dtypes", {})
+        if declared != actual:
+            raise ValueError(
+                f"model {name!r} v{version}: array dtypes {actual} do not "
+                f"match the artifact's declared {declared}")
+        if schema is None and meta.get("schema") is not None:
+            schema = FeatureSchema.from_dict(meta["schema"])
+        kind = meta["kind"]
+        return LoadedModel(name=name, version=version, kind=kind,
+                           model=_decode(kind, meta), meta=meta,
+                           schema=schema, base_dir=self.base_dir)

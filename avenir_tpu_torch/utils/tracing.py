@@ -1,0 +1,180 @@
+"""Tracing utilities: the port's copy of what forest serving calls in
+``avenir_tpu/utils/tracing.py``.
+
+- :class:`StepTimer` — named wall-clock step accounting that exports into
+  the job Counters channel (millisecond totals/counts; percentile samples
+  for serving latencies).
+- :class:`TransferLedger` — host<->device traffic and launch accounting
+  recorded at the instrumented sites: H2D/D2H bytes, tagged dispatches,
+  and which kernel form actually ran at each hot site
+  (``KernelBackends`` group, keys ``<site>.<backend>`` with backend in
+  ``cuda | torch | host``), so a fallback never passes for a kernel result.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import threading
+import time
+from collections import defaultdict, deque
+from typing import Dict, Iterator, List, Optional
+
+import numpy as np
+
+
+class TransferLedger:
+    """Measured link-traffic ledger for the current scope.  Recording
+    helpers write into EVERY active ledger (a job-level one from cli.run
+    and a caller's own can nest); the stack is global, not thread-local,
+    so the serving loop's worker thread records into its spawner's scope."""
+
+    __slots__ = ("h2d_bytes", "d2h_bytes", "h2d_transfers", "d2h_transfers",
+                 "dispatches", "dispatch_sites", "kernel_backends", "_lock")
+
+    def __init__(self):
+        self.h2d_bytes = 0
+        self.d2h_bytes = 0
+        self.h2d_transfers = 0
+        self.d2h_transfers = 0
+        self.dispatches = 0
+        self.dispatch_sites: Dict[str, int] = defaultdict(int)
+        self.kernel_backends: Dict[str, int] = defaultdict(int)
+        self._lock = threading.Lock()
+
+    def record_h2d(self, nbytes: int, transfers: int = 1) -> None:
+        with self._lock:
+            self.h2d_bytes += int(nbytes)
+            self.h2d_transfers += int(transfers)
+
+    def record_d2h(self, nbytes: int, transfers: int = 1) -> None:
+        with self._lock:
+            self.d2h_bytes += int(nbytes)
+            self.d2h_transfers += int(transfers)
+
+    def record_dispatch(self, n: int = 1, site: Optional[str] = None) -> None:
+        with self._lock:
+            self.dispatches += int(n)
+            if site:
+                self.dispatch_sites[site] += int(n)
+
+    def record_kernel_backend(self, site: str, backend: str,
+                              n: int = 1) -> None:
+        with self._lock:
+            self.kernel_backends[f"{site}.{backend}"] += int(n)
+
+    def site_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.dispatch_sites)
+
+    def backend_snapshot(self) -> Dict[str, int]:
+        """Per-site executed-backend counts, keys ``<site>.<backend>``."""
+        with self._lock:
+            return dict(self.kernel_backends)
+
+    def export(self, counters, group: str = "Transfers") -> None:
+        """Into the job Counters channel, Hadoop-dump style."""
+        counters.update_group(group, {
+            "H2DBytes": self.h2d_bytes, "D2HBytes": self.d2h_bytes,
+            "H2DTransfers": self.h2d_transfers,
+            "D2HTransfers": self.d2h_transfers,
+            "Dispatches": self.dispatches})
+        if self.dispatch_sites:
+            counters.update_group("Dispatches",
+                                  dict(sorted(self.dispatch_sites.items())))
+        if self.kernel_backends:
+            counters.update_group("KernelBackends",
+                                  dict(sorted(self.kernel_backends.items())))
+
+
+_ledgers: List[TransferLedger] = []
+_ledgers_lock = threading.Lock()
+
+
+@contextlib.contextmanager
+def transfer_ledger(ledger: Optional[TransferLedger] = None
+                    ) -> Iterator[TransferLedger]:
+    """Activate a TransferLedger for the dynamic scope (fresh one by
+    default); nests — inner scopes record into outer ledgers too."""
+    led = ledger if ledger is not None else TransferLedger()
+    with _ledgers_lock:
+        _ledgers.append(led)
+    try:
+        yield led
+    finally:
+        with _ledgers_lock:
+            _ledgers.remove(led)
+
+
+def note_h2d(nbytes: int, transfers: int = 1) -> None:
+    for led in list(_ledgers):
+        led.record_h2d(nbytes, transfers)
+
+
+def note_d2h(nbytes: int, transfers: int = 1) -> None:
+    for led in list(_ledgers):
+        led.record_d2h(nbytes, transfers)
+
+
+def note_dispatch(n: int = 1, site: Optional[str] = None) -> None:
+    for led in list(_ledgers):
+        led.record_dispatch(n, site=site)
+
+
+def note_kernel_backend(site: str, backend: str, n: int = 1) -> None:
+    for led in list(_ledgers):
+        led.record_kernel_backend(site, backend, n)
+
+
+def fetch(tensor) -> np.ndarray:
+    """Device tensor -> host numpy with D2H accounting: the one way the
+    instrumented hot paths read a result back (it synchronises)."""
+    note_d2h(tensor.element_size() * tensor.nelement())
+    return tensor.cpu().numpy()
+
+
+class StepTimer:
+    """Accumulate wall time per named step; ``keep_samples > 0`` also keeps
+    a bounded window of per-call durations so serving percentiles
+    (p50/p95/p99, exported as integer MICROseconds) are observable."""
+
+    def __init__(self, keep_samples: int = 0):
+        self.totals: Dict[str, float] = defaultdict(float)
+        self.calls: Dict[str, int] = defaultdict(int)
+        self.keep_samples = keep_samples
+        self.samples: Dict[str, deque] = {}
+
+    @contextlib.contextmanager
+    def step(self, name: str) -> Iterator[None]:
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.record(name, time.perf_counter() - t0)
+
+    def record(self, name: str, seconds: float) -> None:
+        """Account one completed step of ``seconds`` wall time."""
+        self.totals[name] += seconds
+        self.calls[name] += 1
+        if self.keep_samples > 0:
+            q = self.samples.get(name)
+            if q is None:
+                q = self.samples[name] = deque(maxlen=self.keep_samples)
+            q.append(seconds)
+
+    def percentile_ms(self, name: str, q: float) -> float:
+        s = self.samples.get(name)
+        if not s:
+            return 0.0
+        return float(np.percentile(np.asarray(s), q)) * 1000.0
+
+    def export(self, counters, group: str = "Profiling") -> None:
+        """Every step exports ``<name>.timeMs`` and ``<name>.calls``; steps
+        with samples also ``<name>.p50Us/.p95Us/.p99Us``."""
+        for name, total in sorted(self.totals.items()):
+            counters.set(group, f"{name}.timeMs", int(round(total * 1000)))
+            counters.set(group, f"{name}.calls", self.calls[name])
+            if self.samples.get(name):
+                for q in (50, 95, 99):
+                    counters.set(
+                        group, f"{name}.p{q}Us",
+                        int(round(self.percentile_ms(name, q) * 1000)))

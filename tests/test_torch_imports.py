@@ -1,0 +1,43 @@
+"""The port imports no JAX and nothing of the JAX package: every module of
+``avenir_tpu_torch`` and ``chip_smoke.py`` import in a fresh interpreter in
+which ``jax``, ``jaxlib`` and the top-level ``avenir_tpu`` package (exact
+name — ``avenir_tpu_torch`` shares its prefix) cannot be imported."""
+
+import os
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, importlib.abc, pkgutil, sys
+BLOCKED = {"jax", "jaxlib", "avenir_tpu"}
+
+class Block(importlib.abc.MetaPathFinder):
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError(f"blocked import of {name}")
+        return None
+
+sys.meta_path.insert(0, Block())
+sys.path.insert(0, sys.argv[1])
+import avenir_tpu_torch
+names = ["avenir_tpu_torch"] + [
+    m.name for m in pkgutil.walk_packages(avenir_tpu_torch.__path__,
+                                          "avenir_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+importlib.import_module("chip_smoke")
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
+assert not leaked, leaked
+print(len(names))
+"""
+
+
+def test_port_imports_without_jax_or_avenir_tpu():
+    res = subprocess.run([sys.executable, "-I", "-c", _PROBE, ROOT],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    # runtime, weights, core x6, utils x2, kernels x4, models x3,
+    # serving x4, cli x4 and the package itself
+    assert int(res.stdout.strip()) >= 20
