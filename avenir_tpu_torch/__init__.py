@@ -12,5 +12,8 @@ version serves tensors that lie on the CPU.
 
 Ported so far: random-forest serving — ``modelPredictor`` and the
 in-process ``predictionService`` over a published forest, with the
-ensemble vote as a CUDA kernel (``kernels/vote.py``, ``csrc/vote.cu``).
+ensemble vote as a CUDA kernel (``kernels/vote.py``, ``csrc/vote.cu``) —
+and random-forest training — ``randomForestBuilder`` with the registry
+publish and ``decisionTreeBuilder``, with the level histogram as a CUDA
+kernel (``kernels/histogram.py``, ``csrc/histogram.cu``).
 """

@@ -3,8 +3,11 @@ out`` entry points, ported job by job from ``avenir_tpu/cli/jobs.py``.
 
 Every reference job class name (and a short camelCase alias) maps to a
 Python job function ``job(config, in_path, out_path) -> Counters``.  A job
-name that is not ported yet raises :class:`JobNotPorted`; nothing here
-dispatches to the JAX package.
+name that is not ported yet raises :class:`JobNotPorted`, and so does a
+ported job given a key of a tier that is not; nothing here dispatches to
+the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
+(``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
+(here, monolithic training and the registry publish).
 """
 
 from __future__ import annotations
@@ -105,4 +108,109 @@ def model_predictor_job(cfg: Config, in_path: str, out_path: str) -> Counters:
         min_odds_ratio=cfg.get_float("mop.min.odds.ratio", 1.0),
         out_delim=cfg.field_delim_out, counters=counters)
     artifacts.write_text_output(out_path, lines, role="m")
+    return counters
+
+
+# --------------------------------------------------------------------------
+# org.avenir.tree
+# --------------------------------------------------------------------------
+
+# training keys whose tier is not ported: set true, each is refused by name
+# (streaming ingest and its resume, the monitor's baseline sidecar, the
+# int8 serving sidecar)
+_UNPORTED_FOREST_KEYS = ("dtb.streaming.ingest", "dtb.streaming.resume",
+                         "dtb.baseline.publish", "dtb.model.quantize")
+
+
+def _refuse_unported(cfg: Config, job: str, true_keys=()) -> None:
+    """Raise :class:`JobNotPorted` naming every key of an unported tier:
+    ``true_keys`` set true, and ``badrecords.policy`` other than ``fail``
+    (the port's CSV reader has no skip/quarantine policy)."""
+    keys = [f"{k}=true" for k in true_keys if cfg.get_boolean(k, False)]
+    policy = cfg.get("badrecords.policy", "fail")
+    if policy != "fail":
+        keys.append(f"badrecords.policy={policy}")
+    if keys:
+        raise JobNotPorted(f"{job} keys {keys} belong to tiers not ported "
+                           f"to avenir_tpu_torch yet")
+
+
+def _tree_params(cfg: Config):
+    """Map the dtb.* keys (resource/detr.properties, rafo.properties) onto
+    TreeParams."""
+    from ..models.tree import TreeParams
+    # defaults match the reference job's (DecisionTreeBuilder.java:169,179,
+    # 434,442,448): giniIndex / notUsedYet / best / minInfoGain / withReplace
+    return TreeParams(
+        split_algorithm=cfg.get("dtb.split.algorithm", "giniIndex"),
+        attr_select_strategy=cfg.get("dtb.split.attribute.selection.strategy",
+                                     "notUsedYet"),
+        random_split_set_size=cfg.get_int("dtb.random.split.set.size", 3),
+        split_select_strategy=cfg.get("dtb.split.select.strategy", "best"),
+        top_split_count=cfg.get_int("dtb.top.split.count", 3),
+        stopping_strategy=cfg.get("dtb.path.stopping.strategy", "minInfoGain"),
+        max_depth=cfg.get_int("dtb.max.depth.limit", 3),
+        min_info_gain=cfg.get_float("dtb.min.info.gain.limit", -1.0),
+        min_population=cfg.get_int("dtb.min.population.limit", -1),
+        sub_sampling=cfg.get("dtb.sub.sampling.strategy", "withReplace"),
+        sub_sampling_rate=cfg.get_float("dtb.sub.sampling.rate", 100.0),
+        seed=cfg.get_int("dtb.random.seed"),
+    )
+
+
+@register("org.avenir.tree.DecisionTreeBuilder", "decisionTreeBuilder")
+def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
+    """One level of tree growth per invocation — the reference job contract
+    (tree/DecisionTreeBuilder.java, driven by resource/detr.sh's rotation of
+    dtb.decision.file.path.out -> .in between runs).  Records are routed by
+    re-evaluating the decision paths, so the output dir just carries the
+    input records forward for script compatibility."""
+    from ..models import tree as T
+    _refuse_unported(cfg, "decisionTreeBuilder")
+    counters = Counters()
+    schema = _schema_path(cfg, "dtb.feature.schema.file.path")
+    table = load_csv(in_path, schema, cfg.field_delim_regex, keep_raw=True)
+    builder = T.TreeBuilder(table, _tree_params(cfg))
+    dec_in = cfg.get("dtb.decision.file.path.in")
+    dpl = None
+    if dec_in:
+        with open(dec_in) as fh:
+            dpl = T.DecisionPathList.from_json(fh.read())
+    new_dpl = builder.build_one_level(table, dpl)
+    with open(cfg.must_get("dtb.decision.file.path.out"), "w") as fh:
+        fh.write(new_dpl.to_json())
+    if out_path:
+        artifacts.write_text_output(
+            out_path, (cfg.field_delim_out.join(r) for r in table.raw_rows))
+    counters.increment("Decision tree", "Paths", len(new_dpl.decision_paths))
+    return counters
+
+
+@register("org.avenir.tree.RandomForestBuilder", "randomForestBuilder")
+def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
+    """Full in-process random forest: the rafo.sh per-tree rerun loop
+    (resource/rafo.sh:34-43) collapsed into one job.  Writes one
+    decision-path JSON per tree into the output dir (tree_<i>.json) and,
+    with ``dtb.model.registry.dir``, publishes the forest as the next
+    version of ``dtb.model.name`` (default ``forest``) in that registry."""
+    from ..models.forest import ForestParams, build_forest
+    _refuse_unported(cfg, "randomForestBuilder", _UNPORTED_FOREST_KEYS)
+    counters = Counters()
+    schema = _schema_path(cfg, "dtb.feature.schema.file.path")
+    params = ForestParams(tree=_tree_params(cfg),
+                          num_trees=cfg.get_int("dtb.num.trees", 5),
+                          seed=cfg.get_int("dtb.random.seed", 0))
+    table = load_csv(in_path, schema, cfg.field_delim_regex)
+    models = build_forest(table, params)
+    os.makedirs(out_path, exist_ok=True)
+    for i, dpl in enumerate(models):
+        with open(os.path.join(out_path, f"tree_{i}.json"), "w") as fh:
+            fh.write(dpl.to_json())
+    reg_dir = cfg.get("dtb.model.registry.dir")
+    if reg_dir:
+        from ..serving.registry import ModelRegistry
+        version = ModelRegistry(reg_dir).publish(
+            cfg.get("dtb.model.name", "forest"), models, schema=schema)
+        counters.set("Random forest", "RegistryVersion", version)
+    counters.increment("Random forest", "Trees", len(models))
     return counters

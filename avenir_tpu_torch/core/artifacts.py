@@ -9,14 +9,18 @@ or shared filesystem:
   * text outputs are written Hadoop-style as ``<dir>/part-r-00000`` so driver
     scripts that expect that layout keep working
     (cf. resource/cust_churn_bayesian_prediction.txt:60 model path)
+  * JSON artifacts (registry ``meta.json``) are written by ``write_json``
+    with the JAX package's formatting (``json.dump``, indent 2), so the
+    bytes match
   * an ``ArtifactStore`` wraps a base directory with namespaced paths
 """
 
 from __future__ import annotations
 
 import glob
+import json
 import os
-from typing import Iterable, List
+from typing import Any, Iterable, List
 
 from .faults import with_retry
 
@@ -59,6 +63,20 @@ def read_text_input(path: str) -> List[str]:
                 if line:
                     lines.append(line)
     return lines
+
+
+def write_json(path: str, obj: Any) -> str:
+    """``json.dump(obj, indent=2)`` to ``path`` (parents created), retried
+    on transient faults."""
+    parent = os.path.dirname(path)
+    if parent:
+        os.makedirs(parent, exist_ok=True)
+
+    def write():
+        with open(path, "w") as fh:
+            json.dump(obj, fh, indent=2)
+    with_retry(write, what=f"artifact write {path}")
+    return path
 
 
 class ArtifactStore:

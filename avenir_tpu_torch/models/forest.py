@@ -1,24 +1,37 @@
-"""Random-forest prediction: port of the predict half of
-``avenir_tpu/models/forest.py``.
+"""Random forest: port of ``avenir_tpu/models/forest.py``, both halves.
 
+Training (the rafo.sh per-tree rerun loop, in-process):
+  * ``ForestParams`` / ``build_forest`` — num_trees trees, each with its
+    own bootstrap weights and RNG streams (tree t is seeded
+    ``seed + 1000*(t+1)``), grown from one encoding of the data;
+  * ``ForestBuilder`` — all trees advance one level together: the (n, T)
+    node ids are re-tagged on the device with the previous level's
+    winners, one level-histogram kernel launch a row chunk counts the
+    stacked (T, N, S, B, C) histogram (``kernels/histogram.py``, replacing
+    the Pallas ``ops/pallas/histogram.py`` ``forest_level_counts``), the
+    chunks accumulate in int32 on the device, and the host fetches the
+    stacked counts once a level — never once a tree.
+
+Prediction:
   * ``EnsembleModel``   == model/EnsemblePredictiveModel.java:69-113 —
     weighted majority vote, min-odds-ratio veto (ambiguous -> None);
   * ``model_predictor`` == model/ModelPredictor.java:46-82 — output modes
     withRecord / withKId / withActualClassAttr, optional error counting.
 
-Device path: all members' predicate tensors are stacked (padded to the
-widest member, plus one always-match fallback sentinel path each) and the
-whole vote is one launch of the ensemble-vote kernel per batch
-(``kernels/vote.py``).  Ensembles the stacked form rejects — a degenerate
-member, bounds that are not float32-exact, non-integer weights — vote on
-the host in float64 (``_predict_host``); that is the reference's own
-semantics for them, not a fallback, and every run of it is recorded as
-``ensemble.vote.host`` in the KernelBackends ledger.  Training forests is
-not ported yet.
+Device path of the vote: all members' predicate tensors are stacked
+(padded to the widest member, plus one always-match fallback sentinel path
+each) and the whole vote is one launch of the ensemble-vote kernel per
+batch (``kernels/vote.py``).  Ensembles the stacked form rejects — a
+degenerate member, bounds that are not float32-exact, non-integer weights —
+vote on the host in float64 (``_predict_host``); that is the reference's
+own semantics for them, not a fallback, and every run of it is recorded as
+``ensemble.vote.host`` in the KernelBackends ledger.  Streaming training
+(``build_forest_from_stream``) is not ported yet.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass, field as dc_field, replace
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -30,8 +43,11 @@ from ..core.table import ColumnarTable
 from ..kernels.dispatch import note_backend, resolve_backend
 from ..kernels.vote import ensemble_vote, prepare_vote_model
 from ..runtime import resolve_device
-from ..utils.tracing import fetch, note_dispatch
-from .tree import DecisionPathList, DecisionTreeModel, FeatureCache
+from ..utils.tracing import fetch, layer, note_dispatch
+from .tree import (DecisionPath, DecisionPathList, DecisionTreeModel,
+                   FeatureCache, Predicate, TreeBuilder, TreeParams,
+                   count_level, level_chunk, sampling_weights,
+                   weights_to_device)
 
 
 class EnsembleModel:
@@ -231,3 +247,160 @@ def model_predictor(table: ColumnarTable, schema: FeatureSchema,
             counters.increment("Prediction", "Error count", errors)
             counters.increment("Prediction", "Total count", table.n_rows)
     return lines
+
+
+# --------------------------------------------------------------------------
+# training
+# --------------------------------------------------------------------------
+
+@dataclass
+class ForestParams:
+    tree: TreeParams = dc_field(default_factory=lambda: TreeParams(
+        attr_select_strategy="randomNotUsedYet",
+        split_select_strategy="randomAmongTop",
+        sub_sampling="withReplace", sub_sampling_rate=90.0))
+    num_trees: int = 5
+    seed: int = 0
+
+
+class ForestBuilder:
+    """All trees advance one level per level-histogram pass.
+
+    Equivalent to the sequential per-tree loop — each tree keeps its own
+    bootstrap weights and RNG streams, so the models are those of
+    ``build_forest(..., batched=False)`` — but the level histogram runs
+    once for the whole forest over (n, T) node and weight arrays, and
+    records are re-tagged for all trees by one reassign a level."""
+
+    def __init__(self, table: ColumnarTable, params: ForestParams,
+                 device=None, profile=None):
+        """``profile`` (a ``utils.tracing.LayerProfile``) times the layers
+        of each level."""
+        self.params = params
+        self.profile = profile
+        self.base = TreeBuilder(table, replace(params.tree, seed=params.seed),
+                                device, profile=profile)
+        self.tree_builders = [
+            self.base.with_params(
+                replace(params.tree, seed=params.seed + 1000 * (t + 1)))
+            for t in range(params.num_trees)]
+        self._w_max = 1.0
+
+    def _level_counts(self, node_ids, weights, n_nodes: int) -> np.ndarray:
+        """One level for the whole forest: (T, N, S, B, C) float64 counts,
+        row-chunked launches accumulated in int32 on the device, one host
+        transfer of the stacked counts."""
+        base = self.base
+        T = len(self.tree_builders)
+        S, B, C = base.split_set.n_splits, base.split_set.max_branches, base.C
+        chunk = level_chunk(n_nodes, T, S, B, C, self._w_max)
+        return count_level(node_ids, base.branches, base.cls_codes, weights,
+                           n_nodes, B, C, chunk, "forest.level",
+                           self.profile)
+
+    def _level_fused(self, node_ids, weights, sel_split: np.ndarray,
+                     child_table: np.ndarray, n_new: int):
+        """Advance the forest one level: reassign with the previous level's
+        winners (in place on node_ids), then histogram the new frontier.
+        Returns the counts as a float64 host array."""
+        base = self.base
+        dev = base.device
+        note_dispatch(site="tree.reassign")
+        with layer(self.profile, "reassign"):
+            TreeBuilder._reassign(node_ids, base.branches,
+                                  torch.from_numpy(sel_split).to(dev),
+                                  torch.from_numpy(child_table).to(dev))
+        return self._level_counts(node_ids, weights, n_new)
+
+    def build_all(self) -> List[DecisionPathList]:
+        base, builders = self.base, self.tree_builders
+        p = self.params.tree
+        T, n = len(builders), base.n_padded
+        with layer(self.profile, "weights_h2d"):
+            w_cols = [base._expand_weights(
+                sampling_weights(base.n_rows, b.params, b.rng))
+                for b in builders]
+            # per-record weight cap feeds the exactness bound in level_chunk
+            self._w_max = max((float(c.max()) for c in w_cols if c.size),
+                              default=1.0)
+            weights = weights_to_device(np.stack(w_cols, axis=1),
+                                        self._w_max, base.device)
+        node_ids = torch.zeros((n, T), dtype=torch.int32, device=base.device)
+        B = base.split_set.max_branches
+
+        # the root histogram (every record at node 0) IS the level-0
+        # frontier histogram, so one pass serves both
+        base._next_level()
+        counts = self._level_counts(node_ids, weights, 1)
+        leaves = [[b._root_state(counts[t, 0])] for t, b in enumerate(builders)]
+        finals: List[List[DecisionPath]] = [[] for _ in range(T)]
+        roots = [l[0] for l in leaves]
+        sel_split = child_table = None
+
+        levels = p.max_depth if p.stopping_strategy == "maxDepth" else 64
+        for _level in range(levels):
+            active = [[l for l in leaves[t] if not l.stopped] for t in range(T)]
+            n_nodes = max((len(a) for a in active), default=0)
+            if n_nodes == 0:
+                break
+            if _level > 0:
+                base._next_level()
+                counts = self._level_fused(node_ids, weights, sel_split,
+                                           child_table, n_nodes)
+            with layer(self.profile, "split_choice"):
+                sel_split = np.full((T, n_nodes), -1, dtype=np.int32)
+                child_table = np.full((T, n_nodes, B), -1, dtype=np.int32)
+                for t, b in enumerate(builders):
+                    if not active[t]:
+                        leaves[t] = []
+                        continue
+                    new_l, stopped, sel, ctab = b._choose_splits(
+                        active[t], counts[t, :len(active[t])])
+                    finals[t].extend(stopped)
+                    leaves[t] = new_l
+                    sel_split[t, :len(sel)] = sel
+                    child_table[t, :ctab.shape[0]] = ctab
+            if not any(leaves):
+                break
+
+        out: List[DecisionPathList] = []
+        for t in range(T):
+            paths = list(finals[t])
+            for leaf in leaves[t]:
+                paths.append(DecisionPath(
+                    predicates=leaf.predicates,
+                    population=int(round(leaf.population)),
+                    info_content=leaf.info_content, stopped=True,
+                    class_val_pr=leaf.class_val_pr))
+            if not paths:
+                r = roots[t]
+                paths.append(DecisionPath(
+                    predicates=[Predicate.root()],
+                    population=int(round(r.population)),
+                    info_content=r.info_content, stopped=True,
+                    class_val_pr=r.class_val_pr))
+            out.append(DecisionPathList(decision_paths=paths))
+        return out
+
+
+def build_forest(table: ColumnarTable, params: ForestParams, device=None,
+                 batched: bool = True,
+                 profile=None) -> List[DecisionPathList]:
+    """Train num_trees trees, each with an independent bootstrap + RNG
+    (the rafo.sh per-tree rerun loop, in-process), on ``device`` (default:
+    the process device, ``cuda`` unless asked otherwise).  ``batched=True``
+    (the default) advances all trees level by level through one shared
+    histogram; ``batched=False`` is the sequential per-tree loop, whose
+    counts take the single-tree semantics of the reference for rows of
+    unknown class (``TreeBuilder.level_counts``)."""
+    device = resolve_device(device)
+    if batched:
+        return ForestBuilder(table, params, device, profile=profile).build_all()
+    models: List[DecisionPathList] = []
+    # data is encoded and branch codes computed once; each tree shares them
+    base_builder = TreeBuilder(table, replace(params.tree, seed=params.seed),
+                               device, profile=profile)
+    for t in range(params.num_trees):
+        tree_params = replace(params.tree, seed=params.seed + 1000 * (t + 1))
+        models.append(base_builder.with_params(tree_params).build())
+    return models

@@ -1,5 +1,6 @@
-"""Decision tree, the predict half: port of ``avenir_tpu/models/tree.py``.
+"""Decision tree: port of ``avenir_tpu/models/tree.py``, both halves.
 
+Predict half:
   * ``Predicate`` / ``DecisionPath`` / ``DecisionPathList`` — the model
     artifact, round-tripped through the reference's exact Jackson JSON
     (tree/DecisionPathList.java; bytes identical to the JAX package's);
@@ -13,22 +14,42 @@ Single-tree forests serve through this per-tree path.  It has no TPU
 kernel in the reference, so its device form is plain torch
 (:func:`_match_paths_torch`); the float64 numpy twin
 (:func:`_match_paths_np`) runs when the data does not round-trip float32
-exactly.  Building trees (the ``TreeBuilder``) is not ported yet.
+exactly.
+
+Builder half (level-synchronous growth, tree/DecisionTreeBuilder.java):
+  * candidate splits from the schema knobs (``generate_candidate_splits``)
+    and their branch evaluator ``SplitSet`` — every record's branch under
+    every split, computed once on the device;
+  * ``TreeBuilder`` — per level, the (node, split, branch, class) weighted
+    histogram of the frontier through the level-histogram kernel
+    (``kernels/histogram.py``, one tree = T of 1), the host epilogue that
+    picks each node's split in float64 numpy, and the on-device reassign of
+    records to child nodes (torch gathers; the reference's is XLA, not
+    Pallas).  The host epilogue and every random draw follow the JAX
+    package's code and call order, so the trees are byte-identical.
+
+On one device nothing is padded: ``n_padded == n_rows``.  Streaming
+ingest (``from_stream``), cross-process count reduction and checkpoints
+are not ported yet.
 """
 
 from __future__ import annotations
 
+import itertools
 import json
+import random as pyrandom
 from dataclasses import dataclass, field as dc_field
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.schema import FeatureSchema
+from ..core.schema import FeatureField, FeatureSchema
 from ..core.table import ColumnarTable
+from ..kernels.dispatch import note_backend, resolve_backend
+from ..kernels.histogram import forest_level_counts
 from ..runtime import resolve_device
-from ..utils.tracing import note_h2d
+from ..utils.tracing import fetch, layer, note_dispatch, note_h2d
 
 ROOT_PATH = "$root"
 PRED_DELIM = ";"           # dtb.dec.path.delim default
@@ -49,7 +70,37 @@ class Predicate:
     categorical_values: Optional[List[str]] = None
     other_bound_int: Optional[int] = None
     other_bound_dbl: Optional[float] = None
+    is_int: bool = True
     pred_str: str = ""
+
+    @classmethod
+    def root(cls) -> "Predicate":
+        return cls(attribute=0, operator=None, pred_str=ROOT_PATH)
+
+    @classmethod
+    def num(cls, attr: int, op: str, value, other=None,
+            is_int=True) -> "Predicate":
+        p = cls(attribute=attr, operator=op, is_int=is_int)
+        if is_int:
+            p.value_int = int(value)
+            p.other_bound_int = None if other is None else int(other)
+            s = f"{attr} {op} {int(value)}"
+            if other is not None:
+                s += f" {int(other)}"
+        else:
+            p.value_dbl = float(value)
+            p.other_bound_dbl = None if other is None else float(other)
+            s = f"{attr} {op} {p.value_dbl}"
+            if other is not None:
+                s += f" {p.other_bound_dbl}"
+        p.pred_str = s
+        return p
+
+    @classmethod
+    def cat(cls, attr: int, values: Sequence[str]) -> "Predicate":
+        vals = list(values)
+        return cls(attribute=attr, operator="in", categorical_values=vals,
+                   pred_str=f"{attr} in {':'.join(vals)}")
 
     def to_dict(self) -> Dict[str, Any]:
         """Jackson field layout of DecisionPathList.DecisionPathPredicate."""
@@ -399,6 +450,40 @@ class PathMatrix:
         return (torch.cat(out_cls).cpu().numpy(),
                 torch.cat(out_prob).cpu().numpy())
 
+    def match_index(self, table: ColumnarTable, chunk: int = 1 << 20,
+                    use_device: bool = True, device=None) -> np.ndarray:
+        """(n,) int32 index of the FIRST matching path per record, -1 when
+        none matches — the record router of the per-level job.  Same
+        f32-exactness gate as predict_codes; ``use_device=False`` forces
+        the numpy twin (the per-level job's path set changes every call,
+        and the host routes at once)."""
+        vals, codes = self.feature_arrays(table)
+        n = table.n_rows
+        if n == 0 or self.n_paths == 0:
+            return np.full((n,), -1, dtype=np.int32)
+        chunk = self._row_chunk(chunk)
+        out = []
+        if use_device and self._f32_safe(vals):
+            dev = resolve_device(device)
+            lo, hi, num_r, cat_m, cat_r, _, _ = self._device_consts(dev)
+            for s in range(0, n, chunk):
+                ok = _match_ok_torch(
+                    torch.from_numpy(vals[s:s + chunk].astype(np.float32)
+                                     ).to(dev),
+                    torch.from_numpy(codes[s:s + chunk]).to(dev),
+                    lo, hi, num_r, cat_m, cat_r)
+                idx = torch.where(ok.any(dim=1),
+                                  ok.to(torch.uint8).argmax(dim=1), -1)
+                out.append(idx.to(torch.int32).cpu().numpy())
+        else:
+            for s in range(0, n, chunk):
+                ok = _match_ok_np(vals[s:s + chunk], codes[s:s + chunk],
+                                  self.lo, self.hi, self.num_restricted,
+                                  self.cat_mask, self.cat_restricted)
+                out.append(np.where(ok.any(axis=1), np.argmax(ok, axis=1),
+                                    -1).astype(np.int32))
+        return np.concatenate(out)
+
 
 class DecisionTreeModel:
     """Vectorized evaluator: the path list is compiled once into a
@@ -423,3 +508,680 @@ class DecisionTreeModel:
             return [""] * table.n_rows, np.zeros((table.n_rows,))
         lut = np.array(self.matrix.classes, dtype=object)
         return list(lut[cls_idx]), prob.astype(np.float64)
+
+
+# --------------------------------------------------------------------------
+# candidate split generation (host, from schema — static shapes)
+# --------------------------------------------------------------------------
+
+@dataclass
+class CandidateSplit:
+    attr: int
+    predicates: List[Predicate]        # branch order
+    thresholds: Optional[List[float]] = None     # numeric
+    groups: Optional[List[List[str]]] = None     # categorical
+
+    @property
+    def n_branches(self) -> int:
+        return len(self.predicates)
+
+
+def _set_partitions(items: List[str], n_groups: int):
+    """All partitions of items into exactly n_groups non-empty groups
+    (restricted-growth enumeration; same partition set as
+    SplitManager.createCategoricalPartitions, canonical order)."""
+    n = len(items)
+    if n_groups > n or n_groups < 1:
+        return
+
+    def rec(i, groups):
+        if i == n:
+            if len(groups) == n_groups:
+                yield [list(g) for g in groups]
+            return
+        remaining = n - i - 1  # items left after placing items[i]
+        # join an existing group (still need n_groups-len(groups) new groups)
+        if remaining >= n_groups - len(groups):
+            for g in groups:
+                g.append(items[i])
+                yield from rec(i + 1, groups)
+                g.pop()
+        # open a new group
+        if len(groups) < n_groups and remaining >= n_groups - len(groups) - 1:
+            groups.append([items[i]])
+            yield from rec(i + 1, groups)
+            groups.pop()
+
+    yield from rec(0, [])
+
+
+def _numeric_threshold_sets(field: FeatureField) -> List[List[float]]:
+    """All increasing threshold tuples on the scan grid with 1..maxSplit-1
+    points (SplitManager.createIntPartitions :292-330)."""
+    lo, hi = float(field.min), float(field.max)
+    interval = float(field.split_scan_interval or 0)
+    if interval <= 0 or int((hi - lo) / interval) == 0:
+        interval = (hi - lo) / 2
+    points = []
+    p = lo + interval
+    while p < hi:
+        points.append(int(p) if field.is_integer else p)
+        p += interval
+    max_split = field.max_split or 2
+    out: List[List[float]] = []
+    max_len = max(1, max_split - 1)
+    for k in range(1, max_len + 1):
+        for combo in itertools.combinations(points, k):
+            out.append(list(combo))
+    return out
+
+
+def _numeric_split_predicates(field: FeatureField, thresholds: List[float]
+                              ) -> List[Predicate]:
+    attr = field.ordinal
+    is_int = field.is_integer
+    preds = []
+    for i, t in enumerate(thresholds):
+        if i == 0:
+            preds.append(Predicate.num(attr, "le", t, is_int=is_int))
+        else:
+            preds.append(Predicate.num(attr, "le", t, thresholds[i - 1],
+                                       is_int=is_int))
+    preds.append(Predicate.num(attr, "gt", thresholds[-1], is_int=is_int))
+    return preds
+
+
+def generate_candidate_splits(schema: FeatureSchema,
+                              attrs: Optional[Sequence[int]] = None
+                              ) -> List[CandidateSplit]:
+    """All candidate splits for the given attrs (default: all feature attrs)."""
+    out: List[CandidateSplit] = []
+    fields = [schema.find_field_by_ordinal(a) for a in attrs] \
+        if attrs is not None else schema.feature_fields
+    for f in fields:
+        if f.is_categorical:
+            card = [str(c) for c in (f.cardinality or [])]
+            max_split = f.max_split or 2
+            for g in range(2, max_split + 1):
+                for groups in _set_partitions(card, g):
+                    preds = [Predicate.cat(f.ordinal, grp) for grp in groups]
+                    out.append(CandidateSplit(attr=f.ordinal, predicates=preds,
+                                              groups=groups))
+        elif f.is_numeric:
+            for thresholds in _numeric_threshold_sets(f):
+                preds = _numeric_split_predicates(f, thresholds)
+                out.append(CandidateSplit(
+                    attr=f.ordinal, predicates=preds,
+                    thresholds=[float(t) for t in thresholds]))
+    return out
+
+
+# rows per chunk of the branch evaluator's (rows, S, Tmax) compare
+_BRANCH_CHUNK_ELEMS = 1 << 26
+
+
+class SplitSet:
+    """Branch evaluator for a fixed list of candidate splits.
+
+    Precomputes (host, once):
+      * thresholds  (S, Tmax) float32, +inf padded  — numeric branch =
+        sum(x > t), giving branch i == t_{i-1} < x <= t_i
+      * cat_table   (S, CardMax) int32              — categorical branch =
+        table[split, value_code]
+      * attr column index per split into the stacked feature matrix
+
+    ``branch_codes`` then evaluates all splits for all records on the
+    device — the replacement for the reference's per-record predicate loop
+    (DecisionTreeBuilder.java:323-357).
+    """
+
+    def __init__(self, splits: List[CandidateSplit], schema: FeatureSchema):
+        self.splits = splits
+        self.schema = schema
+        feat_fields = schema.feature_fields
+        self.feat_ordinals = [f.ordinal for f in feat_fields]
+        col_of = {o: i for i, o in enumerate(self.feat_ordinals)}
+        S = len(splits)
+        tmax = max([len(s.thresholds) for s in splits if s.thresholds] + [1])
+        cmax = max([len(f.cardinality or []) for f in feat_fields
+                    if f.is_categorical] + [1])
+        self.max_branches = max((s.n_branches for s in splits), default=2)
+        thr = np.full((S, tmax), np.inf, dtype=np.float32)
+        cat_tab = np.zeros((S, cmax), dtype=np.int32)
+        is_cat = np.zeros((S,), dtype=bool)
+        attr_col = np.zeros((S,), dtype=np.int32)
+        for si, s in enumerate(splits):
+            attr_col[si] = col_of[s.attr]
+            f = schema.find_field_by_ordinal(s.attr)
+            if s.groups is not None:
+                is_cat[si] = True
+                for gi, grp in enumerate(s.groups):
+                    for v in grp:
+                        cat_tab[si, f.cat_code(v)] = gi
+            else:
+                thr[si, :len(s.thresholds)] = s.thresholds
+        self.thresholds = thr
+        self.cat_table = cat_tab
+        self.is_cat = is_cat
+        self.attr_col = attr_col
+        self.n_splits = S
+
+    def feature_matrix(self, table: ColumnarTable) -> np.ndarray:
+        """(n, F) feature values (categorical as codes): int16 when every
+        value is integral and in range (the device cast to float32 is
+        lossless, and the upload is half the bytes), else float32."""
+        cols = [table.columns[o] for o in self.feat_ordinals]
+        if not cols:
+            return np.zeros((table.n_rows, 0), np.float32)
+
+        def narrow_ok(c):
+            if c.size == 0:
+                return True
+            if np.issubdtype(c.dtype, np.integer):
+                return bool(c.min() > -(1 << 15) and c.max() < (1 << 15))
+            # float column: integral AND in range, checked per column so
+            # the first fractional column bails out instead of scanning
+            # a full stacked (n, F) f64 matrix
+            return bool(np.all((c == np.trunc(c)) &
+                               (np.abs(c) < float(1 << 15))))
+
+        if all(narrow_ok(c) for c in cols):
+            return np.stack([c.astype(np.int16) for c in cols], axis=1)
+        return np.stack([c.astype(np.float32) for c in cols], axis=1)
+
+    def branch_codes(self, X: torch.Tensor) -> torch.Tensor:
+        """(n, S) int32 branch index of every record under every split, on
+        X's device, over row chunks of :func:`_branch_codes_body`."""
+        note_dispatch(site="ingest.encode")
+        dev = X.device
+        consts = [torch.from_numpy(a).to(dev) for a in (
+            self.attr_col.astype(np.int64), self.thresholds, self.cat_table,
+            self.is_cat)]
+        n = X.shape[0]
+        out = torch.empty((n, self.n_splits), dtype=torch.int32, device=dev)
+        step = max(1, _BRANCH_CHUNK_ELEMS
+                   // max(self.n_splits * self.thresholds.shape[1], 1))
+        for s in range(0, n, step):
+            out[s:s + step] = _branch_codes_body(X[s:s + step], *consts)
+        return out
+
+
+def _branch_codes_body(X, attr_col, thresholds, cat_table, is_cat):
+    """The branch evaluator (``tree._branch_codes_body`` in torch).  X may
+    be int16 (``feature_matrix``'s narrow form); the compares run in
+    float32, as the reference's do — float64 would move rows across a
+    threshold.  A categorical code takes ``clip(code, 0, cmax-1)``, so an
+    unknown category (-1) takes category 0's branch."""
+    vals = X.to(torch.float32)[:, attr_col]                   # (n, S)
+    num_branch = (vals[:, :, None] > thresholds[None]
+                  ).sum(dim=2).to(torch.int32)                # (n, S)
+    codes = vals.to(torch.int32)
+    safe = codes.clamp(0, cat_table.shape[1] - 1).long()
+    cat_branch = cat_table[
+        torch.arange(thresholds.shape[0], device=X.device)[None, :],
+        safe]                                                 # (n, S)
+    return torch.where(is_cat[None, :], cat_branch, num_branch)
+
+
+# --------------------------------------------------------------------------
+# builder
+# --------------------------------------------------------------------------
+
+@dataclass
+class TreeParams:
+    """The dtb.* knobs (resource/detr.properties / rafo.properties)."""
+    split_algorithm: str = "entropy"            # entropy | giniIndex
+    attr_select_strategy: str = "notUsedYet"    # all|notUsedYet|randomAll|randomNotUsedYet
+    random_split_set_size: int = 3              # dtb.random.split.set.size
+    split_select_strategy: str = "best"         # best | randomAmongTop
+    top_split_count: int = 3                    # dtb.top.split.count
+    stopping_strategy: str = "maxDepth"         # maxDepth|minPopulation|minInfoGain
+    max_depth: int = 3
+    min_info_gain: float = -1.0
+    min_population: int = -1
+    sub_sampling: str = "none"                  # none|withReplace|withoutReplace
+    sub_sampling_rate: float = 100.0            # percent
+    seed: Optional[int] = None
+
+    def should_stop(self, population: float, info_content: float,
+                    parent_info: float, depth: int) -> bool:
+        """DecisionPathStoppingStrategy.shouldStop :57-69."""
+        if self.stopping_strategy == "minPopulation":
+            return population < self.min_population
+        if self.stopping_strategy == "minInfoGain":
+            return (parent_info - info_content) < self.min_info_gain
+        if self.stopping_strategy == "maxDepth":
+            return depth >= self.max_depth
+        raise ValueError(f"invalid stopping strategy {self.stopping_strategy}")
+
+
+def _info(counts: np.ndarray, algo: str, axis=-1) -> np.ndarray:
+    """entropy (log2) or gini of count vectors along axis
+    (util/InfoContentStat.java:71-95)."""
+    total = counts.sum(axis=axis, keepdims=True)
+    p = counts / np.maximum(total, 1e-12)
+    if algo == "entropy":
+        with np.errstate(divide="ignore", invalid="ignore"):
+            logp = np.where(p > 0, np.log2(np.maximum(p, 1e-300)), 0.0)
+        return -(p * logp).sum(axis=axis)
+    # giniIndex
+    return 1.0 - (p * p).sum(axis=axis)
+
+
+class _LeafState:
+    __slots__ = ("predicates", "depth", "info_content", "population",
+                 "class_val_pr", "used_attrs", "stopped")
+
+    def __init__(self, predicates, depth, info_content, population,
+                 class_val_pr, used_attrs, stopped):
+        self.predicates = predicates
+        self.depth = depth
+        self.info_content = info_content
+        self.population = population
+        self.class_val_pr = class_val_pr
+        self.used_attrs = used_attrs
+        self.stopped = stopped
+
+
+def sampling_weights(n: int, params: TreeParams,
+                     rng: np.random.Generator) -> Optional[np.ndarray]:
+    """First-iteration sub-sampling as per-record weights
+    (DecisionTreeBuilder rootMapHelper :208-244): withReplace -> bootstrap
+    multinomial counts at rate% of n; withoutReplace -> Bernoulli(rate%);
+    none -> None."""
+    if params.sub_sampling == "withReplace":
+        m = int(n * params.sub_sampling_rate / 100.0)
+        # uniform multinomial == histogram of m uniform draws
+        counts = np.bincount(rng.integers(0, n, size=m), minlength=n)
+        return counts.astype(np.float32)
+    if params.sub_sampling == "withoutReplace":
+        keep = rng.random(n) < (params.sub_sampling_rate / 100.0)
+        return keep.astype(np.float32)
+    return None
+
+
+def level_chunk(n_nodes: int, n_trees: int, S: int, B: int, C: int,
+                w_max: float, mem_elems: int = 128 << 20) -> int:
+    """Rows per level-histogram launch, bounded by (a) the plain version's
+    one-hot operands — (chunk, T, N) node one-hot + (chunk, C, S, B) class
+    x branch one-hot — staying under ``mem_elems`` f32 elements, and (b)
+    exactness: per-cell f32 partial sums stay exact integers while the
+    chunk's weight mass is < 2^24 (weights are integral: bootstrap counts
+    / Bernoulli keeps / ones)."""
+    per_row = max(n_trees * max(n_nodes, 1) + C * S * B, 1)
+    mem_chunk = max(mem_elems // per_row, 1)
+    exact_chunk = max(int(((1 << 24) - 1) / max(w_max, 1.0)), 1)
+    return max(1024, min(mem_chunk, exact_chunk))
+
+
+def weights_to_device(w: np.ndarray, w_max: float, device) -> torch.Tensor:
+    """(n, T) integral per-record weights -> the level histogram's weight
+    tensor on ``device``: uint8 while ``w_max < 256`` (bootstrap counts
+    are small), else float32.  Both hold the integers exactly."""
+    wire = np.uint8 if w_max < 256 else np.float32
+    host = np.ascontiguousarray(w.astype(wire))
+    note_h2d(host.nbytes)
+    return torch.from_numpy(host).to(device)
+
+
+def count_level(node_ids: torch.Tensor, branches: torch.Tensor,
+                cls: torch.Tensor, weights: torch.Tensor, n_nodes: int,
+                B: int, C: int, chunk: int, site: str,
+                profile=None) -> np.ndarray:
+    """One level's (T, N, S, B, C) counts as float64 on the host.  The level
+    histogram runs over row chunks of at most ``chunk`` rows (its exact
+    float32 range, see :func:`level_chunk`); each chunk's counts convert to
+    int32 and accumulate on the device (exact to 2^31 a cell), so chunk
+    boundaries cannot change a count, and the host fetches the stacked
+    counts once.  Every launch records ``site`` in the Dispatches and
+    KernelBackends ledgers."""
+    n, T = node_ids.shape
+    S = branches.shape[1]
+    backend = resolve_backend(node_ids.device)
+    acc = None
+    for start in range(0, n, chunk):
+        end = min(start + chunk, n)
+        # count + accumulate when chunked, as the reference records it
+        note_dispatch(1 if n <= chunk else 2, site=site)
+        note_backend(site, backend)
+        with layer(profile, "b1"):
+            c = forest_level_counts(node_ids[start:end], branches[start:end],
+                                    cls[start:end], weights[start:end],
+                                    n_nodes, B, C)
+        with layer(profile, "accumulate"):
+            c = c.to(torch.int32)
+            acc = c if acc is None else acc.add_(c)
+    if acc is None:
+        return np.zeros((T, n_nodes, S, B, C), np.float64)
+    with layer(profile, "counts_d2h"):
+        host = fetch(acc)
+    return host.astype(np.float64)
+
+
+# rows per chunk of the reassign's (rows, T) index intermediates
+_REASSIGN_CHUNK = 1 << 20
+
+
+class TreeBuilder:
+    """Level-synchronous tree growth on one device.
+
+    One instance holds the device-resident branch codes and class codes;
+    ``build()`` runs the whole iterative loop (the reference's shell-script
+    rotation detr.sh:35-41 collapsed into Python), ``build_one_level()``
+    runs a single level for the per-level job.  ``profile`` (a
+    ``utils.tracing.LayerProfile``) times the layers of each level."""
+
+    def __init__(self, table: ColumnarTable, params: TreeParams,
+                 device=None, profile=None):
+        self.device = resolve_device(device)
+        self.params = params
+        self.profile = profile
+        self.schema = table.schema
+        self.class_field = self.schema.class_attr_field
+        self.class_values = list(self.class_field.cardinality or [])
+        self.C = len(self.class_values)
+        self.splits = generate_candidate_splits(self.schema)
+        self.split_set = SplitSet(self.splits, self.schema)
+        self.rng = np.random.default_rng(params.seed)
+        self.pyrng = pyrandom.Random(params.seed)
+        # one device: no pad rows, every row is valid
+        self.n_rows = self.n_padded = table.n_rows
+        cls_np = np.ascontiguousarray(
+            table.columns[self.class_field.ordinal].astype(np.int32))
+        with layer(profile, "branch_codes"):
+            X = self.split_set.feature_matrix(table)
+            note_h2d(X.nbytes + cls_np.nbytes, transfers=2)
+            self.cls_codes = torch.from_numpy(cls_np).to(self.device)
+            # branch codes computed once; (n, S) int32 on the device.  The
+            # feature matrix is not kept: every level reads branch codes
+            self.branches = self.split_set.branch_codes(
+                torch.from_numpy(X).to(self.device))
+        self._w_max = 1.0
+        # splits grouped by attr for selection strategies
+        self.splits_by_attr: Dict[int, List[int]] = {}
+        for i, s in enumerate(self.splits):
+            self.splits_by_attr.setdefault(s.attr, []).append(i)
+
+    def _expand_weights(self, w: Optional[np.ndarray]) -> np.ndarray:
+        """Per-record float32 weights over the rows (ones when not
+        sub-sampling)."""
+        if w is None:
+            return np.ones((self.n_rows,), dtype=np.float32)
+        return w.astype(np.float32)
+
+    def with_params(self, params: TreeParams) -> "TreeBuilder":
+        """Shallow copy sharing the device-resident encoded data, with fresh
+        params/RNG — one bootstrap tree of a forest."""
+        b = TreeBuilder.__new__(TreeBuilder)
+        b.__dict__.update(self.__dict__)
+        b.params = params
+        b.rng = np.random.default_rng(params.seed)
+        b.pyrng = pyrandom.Random(params.seed)
+        return b
+
+    @staticmethod
+    def _reassign(node_ids: torch.Tensor, branches: torch.Tensor,
+                  sel_split: torch.Tensor, child_table: torch.Tensor
+                  ) -> torch.Tensor:
+        """Re-tag records for every tree (the reducer's re-tagging
+        :764-765, as device gathers): node_ids (n, T), sel_split (T, Np),
+        child_table (T, Np, B).  A record at an active node whose split was
+        chosen moves to ``child_table[t, node, its branch under that
+        split]``; one at a node that stopped (split -1) becomes -2; an
+        inactive one (< 0) keeps its id.  Updates node_ids IN PLACE, over
+        row chunks, and returns it."""
+        n, T = node_ids.shape
+        S, Bc = branches.shape[1], child_table.shape[2]
+        tree = torch.arange(T, device=node_ids.device)[None, :]
+        for s in range(0, n, _REASSIGN_CHUNK):
+            nid = node_ids[s:s + _REASSIGN_CHUNK]
+            active = nid >= 0
+            node = torch.where(active, nid, 0).long()
+            sel = sel_split[tree, node]                              # (c, T)
+            br = branches[s:s + _REASSIGN_CHUNK].gather(
+                1, sel.clamp(0, S - 1).long())
+            new = child_table[tree, node, br.clamp(0, Bc - 1).long()]
+            nid.copy_(torch.where(active & (sel >= 0), new,
+                                  torch.where(active, -2, nid)))
+        return node_ids
+
+    # ---- level counts ----
+    def level_counts(self, node_ids: torch.Tensor, weights: torch.Tensor,
+                     n_nodes: int, chunk: Optional[int] = None) -> np.ndarray:
+        """(N, S, B, C) float64 counts of one level: the level histogram
+        with T = 1 over node_ids (n, 1) and weights (n, 1).
+
+        The reference's single-tree kernel (``make_level_count_kernel``,
+        avenir_tpu/models/tree.py:576) indexes a row at ``node*C + cls``,
+        so a row of unknown class (-1) at node k >= 1 is counted in node
+        k-1's last class and dropped at node 0, where the forest's count
+        drops it at every node.  The fold below rewrites (node, cls) to
+        ``(nc // C, nc % C)`` with ``nc = node*C + cls`` and drops rows with
+        ``nc < 0``: exactly that index arithmetic, and the identity for
+        valid classes."""
+        S, B, C = self.split_set.n_splits, self.split_set.max_branches, self.C
+        if chunk is None:
+            chunk = level_chunk(n_nodes, 1, S, B, C, self._w_max)
+        nc = node_ids[:, 0].long() * C + self.cls_codes.long()
+        keep = (node_ids[:, 0] >= 0) & (nc >= 0)
+        node_ids = torch.where(keep, torch.div(nc, C, rounding_mode="floor"),
+                               -1).to(torch.int32)[:, None].contiguous()
+        cls = torch.remainder(nc, C).to(torch.int32)
+        return count_level(node_ids, self.branches, cls, weights, n_nodes, B,
+                           C, chunk, "tree.level", self.profile)[0]
+
+    # ---- attribute selection (DecisionTreeBuilder.getSplitAttributes :365-381)
+    def _allowed_attrs(self, leaf: _LeafState) -> List[int]:
+        strategy = self.params.attr_select_strategy
+        all_attrs = list(self.splits_by_attr.keys())
+        if strategy == "all":
+            return all_attrs
+        if strategy == "notUsedYet":
+            return [a for a in all_attrs if a not in leaf.used_attrs] or all_attrs
+        if strategy == "randomAll":
+            k = min(self.params.random_split_set_size, len(all_attrs))
+            return self.pyrng.sample(all_attrs, k)
+        if strategy == "randomNotUsedYet":
+            cand = [a for a in all_attrs if a not in leaf.used_attrs] or all_attrs
+            k = min(self.params.random_split_set_size, len(cand))
+            return self.pyrng.sample(cand, k)
+        raise ValueError(f"invalid attr selection strategy {strategy}")
+
+    def _next_level(self) -> None:
+        if self.profile is not None:
+            self.profile.next_level()
+
+    # ---- the full build loop ----
+    def build(self) -> DecisionPathList:
+        p = self.params
+        with layer(self.profile, "weights_h2d"):
+            w = self._expand_weights(sampling_weights(self.n_rows, p,
+                                                      self.rng))
+            self._w_max = float(w.max()) if w.size else 1.0
+            weights = weights_to_device(w[:, None], self._w_max, self.device)
+
+        # root pass (generateRoot :478-494)
+        node_ids = torch.zeros((self.n_padded, 1), dtype=torch.int32,
+                               device=self.device)
+        self._next_level()
+        counts = self.level_counts(node_ids, weights, 1)
+        with layer(self.profile, "split_choice"):
+            root = self._root_state(counts[0])
+        root_pop, root_info, root_pr = \
+            root.population, root.info_content, root.class_val_pr
+        leaves = [root]
+        final_paths: List[DecisionPath] = []
+
+        levels = p.max_depth if p.stopping_strategy == "maxDepth" else 64
+        for _level in range(levels):
+            active = [l for l in leaves if not l.stopped]
+            if not active:
+                break
+            self._next_level()
+            leaves, stopped_paths, node_ids = self._grow(active, node_ids,
+                                                         weights)
+            final_paths.extend(stopped_paths)
+            if not leaves:
+                break
+
+        # any leaves still active at the end become stopped paths
+        for leaf in leaves:
+            final_paths.append(DecisionPath(
+                predicates=leaf.predicates,
+                population=int(round(leaf.population)),
+                info_content=leaf.info_content, stopped=True,
+                class_val_pr=leaf.class_val_pr))
+        if not final_paths:
+            final_paths.append(DecisionPath(
+                predicates=[Predicate.root()], population=int(round(root_pop)),
+                info_content=root_info, stopped=True, class_val_pr=root_pr))
+        return DecisionPathList(decision_paths=final_paths)
+
+    def _root_state(self, counts0: np.ndarray) -> _LeafState:
+        """Root leaf from a (S, B, C) root-level count block
+        (generateRoot :478-494; every split partitions the full population,
+        so averaging over splits recovers the root class histogram)."""
+        root_class = counts0.sum(axis=(0, 1)) / max(self.split_set.n_splits, 1)
+        pop = float(root_class.sum())
+        info = float(_info(root_class[None], self.params.split_algorithm)[0])
+        pr = {cv: float(root_class[i] / max(pop, 1e-12))
+              for i, cv in enumerate(self.class_values)}
+        return _LeafState([Predicate.root()], 0, info, pop, pr, set(), False)
+
+    def _grow(self, active: List[_LeafState], node_ids, weights):
+        """One level of frontier expansion (the expandTree epilogue
+        :499-616): compute counts, choose per-node winning split, derive
+        children + stopping, reassign records on the device.
+        Returns (new_active_leaves, newly_stopped_DecisionPaths, node_ids)."""
+        counts = self.level_counts(node_ids, weights, len(active))
+        with layer(self.profile, "split_choice"):
+            new_leaves, stopped_paths, sel_split, child_table = \
+                self._choose_splits(active, counts)
+        note_dispatch(site="tree.reassign")
+        with layer(self.profile, "reassign"):
+            self._reassign(node_ids, self.branches,
+                           torch.from_numpy(sel_split[None]).to(self.device),
+                           torch.from_numpy(child_table[None]).to(self.device))
+        return new_leaves, stopped_paths, node_ids
+
+    def _choose_splits(self, active: List[_LeafState], counts: np.ndarray):
+        """Host epilogue of one level: per active node pick the winning split
+        from its (S, B, C) counts, derive children + stopping.  Shared by the
+        single-tree path and ForestBuilder (which batches the count kernel
+        across trees and calls this once per tree).
+        Returns (new_leaves, stopped_paths, sel_split (N,), child_table (N,B))."""
+        p = self.params
+        n_nodes = len(active)
+        sel_split = np.full((n_nodes,), -1, dtype=np.int32)
+        child_table = np.full((n_nodes, self.split_set.max_branches), -1,
+                              dtype=np.int32)
+        new_leaves: List[_LeafState] = []
+        stopped_paths: List[DecisionPath] = []
+        for ni, leaf in enumerate(active):
+            attrs = self._allowed_attrs(leaf)
+            cand_splits = [si for a in attrs for si in self.splits_by_attr[a]]
+            if not cand_splits:
+                leaf.stopped = True
+                stopped_paths.append(DecisionPath(
+                    predicates=leaf.predicates,
+                    population=int(round(leaf.population)),
+                    info_content=leaf.info_content, stopped=True,
+                    class_val_pr=leaf.class_val_pr))
+                continue
+            node_counts = counts[ni]                       # (S, B, C)
+            br_tot = node_counts.sum(axis=2)               # (S, B)
+            info = _info(node_counts, p.split_algorithm)   # (S, B)
+            tot = br_tot.sum(axis=1)                       # (S,)
+            weighted = (info * br_tot).sum(axis=1) / np.maximum(tot, 1e-12)
+            order = sorted(cand_splits, key=lambda si: weighted[si])
+            if p.split_select_strategy == "randomAmongTop":
+                top = order[:max(1, p.top_split_count)]
+                chosen = self.pyrng.choice(top)
+            else:
+                chosen = order[0]
+            sel_split[ni] = chosen
+            split = self.splits[chosen]
+            # children: only branches that received records (the reducer only
+            # sees keys that were emitted)
+            for b in range(split.n_branches):
+                pop = float(br_tot[chosen, b])
+                if pop <= 0:
+                    continue
+                cdist = node_counts[chosen, b]
+                cinfo = float(_info(cdist[None], p.split_algorithm)[0])
+                cpr = {cv: float(cdist[i] / pop)
+                       for i, cv in enumerate(self.class_values)}
+                preds = leaf.predicates + [split.predicates[b]]
+                stopped = p.should_stop(pop, cinfo, leaf.info_content,
+                                        len(preds) - 1)
+                child = _LeafState(preds, leaf.depth + 1, cinfo, pop, cpr,
+                                   leaf.used_attrs | {split.attr}, stopped)
+                if stopped:
+                    stopped_paths.append(DecisionPath(
+                        predicates=preds, population=int(round(pop)),
+                        info_content=cinfo, stopped=True, class_val_pr=cpr))
+                else:
+                    child_table[ni, b] = len(new_leaves)
+                    new_leaves.append(child)
+        return new_leaves, stopped_paths, sel_split, child_table
+
+    # ---- per-level job mode (detr.sh rotation contract) ----
+    @staticmethod
+    def _leaf_from_path(path: DecisionPath) -> _LeafState:
+        used = {pr.attribute for pr in path.predicates
+                if pr.operator is not None}
+        return _LeafState(path.predicates, len(path.predicates) - 1,
+                          path.info_content, path.population,
+                          path.class_val_pr, used, path.stopped)
+
+    def assign_node_ids(self, table: ColumnarTable,
+                        active: List[_LeafState]) -> np.ndarray:
+        """Route records to active leaves by evaluating predicate chains
+        (what the reference gets for free from its re-tagged record files):
+        the leaf paths compile to a PathMatrix and every record routes in
+        one first-match pass; leaves partition the frontier, so first match
+        is the leaf's."""
+        dpl = DecisionPathList([
+            DecisionPath(predicates=l.predicates, population=0,
+                         info_content=0.0, stopped=False, class_val_pr={})
+            for l in active])
+        # numpy twin: the frontier changes every level, and the host does
+        # this routing at once
+        return PathMatrix(dpl, self.schema).match_index(table,
+                                                        use_device=False)
+
+    def build_one_level(self, table: ColumnarTable,
+                        dpl: Optional[DecisionPathList]) -> DecisionPathList:
+        """One invocation of the reference DecisionTreeBuilder job: iteration 0
+        (dpl None) writes the root path; otherwise expands every non-stopped
+        path one level.  Stopped paths are carried forward so the output file
+        is always a complete tree."""
+        self._w_max = 1.0
+        weights = weights_to_device(np.ones((self.n_padded, 1), np.float32),
+                                    1.0, self.device)
+        if dpl is None or not dpl.decision_paths:
+            node_ids = torch.zeros((self.n_padded, 1), dtype=torch.int32,
+                                   device=self.device)
+            counts = self.level_counts(node_ids, weights, 1)
+            root = self._root_state(counts[0])
+            return DecisionPathList([DecisionPath(
+                predicates=[Predicate.root()],
+                population=int(round(root.population)),
+                info_content=root.info_content, stopped=False,
+                class_val_pr=root.class_val_pr)])
+        carried = [p for p in dpl.decision_paths if p.stopped]
+        active = [self._leaf_from_path(p) for p in dpl.decision_paths
+                  if not p.stopped]
+        if not active:
+            return dpl
+        ids = np.ascontiguousarray(self.assign_node_ids(table, active)[:, None])
+        note_h2d(ids.nbytes)
+        node_ids = torch.from_numpy(ids).to(self.device)
+        new_leaves, stopped_paths, _ = self._grow(active, node_ids, weights)
+        paths = carried + stopped_paths + [
+            DecisionPath(predicates=l.predicates,
+                         population=int(round(l.population)),
+                         info_content=l.info_content, stopped=False,
+                         class_val_pr=l.class_val_pr)
+            for l in new_leaves]
+        return DecisionPathList(paths)

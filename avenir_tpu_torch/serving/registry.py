@@ -1,31 +1,36 @@
-"""Model registry, read side: port of ``avenir_tpu/serving/registry.py`` for
-the ``forest`` kind.
+"""Model registry: port of ``avenir_tpu/serving/registry.py`` for the
+``forest`` kind — reading versions and publishing them.
 
-It reads the versions the JAX package's ``ModelRegistry.publish`` writes:
+It reads the versions the JAX package's ``ModelRegistry.publish`` writes,
+and ``publish`` writes them byte for byte as that one does:
 
     <base_dir>/<name>/v_000001/meta.json     # kind, class labels, dtypes,
                                              # params, schema, JSON payload
     <base_dir>/<name>/v_000001/arrays.npz    # numeric payload (pinned dtypes)
     <base_dir>/<name>/serving.json           # optional serving pin
 
+Publish writes the version as ``v_NNNNNN.tmp.<pid>`` and renames it into
+place, so a reader sees the previous latest or the complete new version.
 ``latest_version`` skips torn version directories with a warning, and
-``serving_version`` honours a pin whose target is intact.  Publishing,
-deltas, sidecars and retention are not ported yet, nor are the other
-model kinds.
+``serving_version`` honours a pin whose target is intact.  Deltas,
+sidecars, pins, retention and the other model kinds are not ported yet.
 """
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
 import re
+import shutil
 import warnings
 from dataclasses import dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.artifacts import ArtifactStore
+from ..core.artifacts import ArtifactStore, write_json
+from ..core.faults import with_retry
 from ..core.schema import FeatureSchema
 
 FOREST = "forest"
@@ -37,6 +42,7 @@ KINDS = (FOREST, BAYES, LOGISTIC, MLP)
 META_FILE = "meta.json"
 ARRAYS_FILE = "arrays.npz"
 PIN_FILE = "serving.json"
+FORMAT_VERSION = 1
 
 _VERSION_RE = re.compile(r"^v_(\d{6})$")
 
@@ -56,6 +62,32 @@ class LoadedModel:
     @property
     def params(self) -> Dict[str, Any]:
         return self.meta.get("params", {})
+
+
+def _tree_shas(trees_json: List[Any]) -> List[str]:
+    """Per-tree content shas over the canonical (sorted-key, no-space)
+    JSON form — the identity the JAX package's delta chain is keyed on."""
+    return [hashlib.sha256(
+        json.dumps(t, sort_keys=True,
+                   separators=(",", ":")).encode()).hexdigest()
+        for t in trees_json]
+
+
+def _encode_forest(model: Any, schema: Optional[FeatureSchema]
+                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any],
+                              Optional[List[str]]]:
+    """A forest (a ``DecisionPathList`` or a list of them) -> (arrays,
+    model_json, class_values); a forest's arrays are empty."""
+    from ..models.tree import DecisionPathList
+    trees = [model] if isinstance(model, DecisionPathList) else list(model)
+    if not trees or not all(isinstance(t, DecisionPathList) for t in trees):
+        raise NotImplementedError(
+            f"publishing {type(model).__name__} is not ported to "
+            f"avenir_tpu_torch yet (ported: {FOREST!r}, a list of "
+            f"DecisionPathList)")
+    model_json = {"trees": [json.loads(t.to_json()) for t in trees]}
+    cls = list(schema.class_attr_field.cardinality or []) if schema else None
+    return {}, model_json, cls
 
 
 def _decode(kind: str, meta: Dict[str, Any]) -> Any:
@@ -184,3 +216,41 @@ class ModelRegistry:
         return LoadedModel(name=name, version=version, kind=kind,
                            model=_decode(kind, meta), meta=meta,
                            schema=schema, base_dir=self.base_dir)
+
+    def publish(self, name: str, model: Any, *,
+                schema: Optional[FeatureSchema] = None) -> int:
+        """Write the model (a forest: a list of ``DecisionPathList``) as
+        the next version and atomically commit it; returns the version
+        number.  ``meta.json`` and the (empty, for a forest)
+        ``arrays.npz`` are byte-identical to what the JAX package's
+        ``publish`` writes for the same trees, so either package loads
+        the version."""
+        arrays, model_json, class_values = _encode_forest(model, schema)
+        versions = self.versions(name)
+        version = (versions[-1] + 1) if versions else 1
+        final = self.version_dir(name, version)
+        # single publisher per model name is the contract; the pid suffix
+        # keeps an abandoned .tmp of a dead publisher out of the way
+        tmp = final + f".tmp.{os.getpid()}"
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        meta = {
+            "format_version": FORMAT_VERSION,
+            "name": name,
+            "version": version,
+            "kind": FOREST,
+            "class_values": class_values,
+            "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
+            "params": {},
+            "model_json": model_json,
+            "schema": schema.to_dict() if schema is not None else None,
+            # manifest of payload files the intactness probe covers
+            "files": [ARRAYS_FILE],
+        }
+        meta["tree_shas"] = _tree_shas(model_json["trees"])
+        with_retry(lambda: np.savez(os.path.join(tmp, ARRAYS_FILE), **arrays),
+                   what=f"registry publish {name} v{version}")
+        write_json(os.path.join(tmp, META_FILE), meta)
+        os.replace(tmp, final)
+        return version

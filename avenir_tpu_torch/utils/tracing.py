@@ -1,14 +1,17 @@
-"""Tracing utilities: the port's copy of what forest serving calls in
-``avenir_tpu/utils/tracing.py``.
+"""Tracing utilities: the port's copy of what forest serving and training
+call in ``avenir_tpu/utils/tracing.py``.
 
 - :class:`StepTimer` — named wall-clock step accounting that exports into
   the job Counters channel (millisecond totals/counts; percentile samples
   for serving latencies).
 - :class:`TransferLedger` — host<->device traffic and launch accounting
-  recorded at the instrumented sites: H2D/D2H bytes, tagged dispatches,
-  and which kernel form actually ran at each hot site
+  recorded at the instrumented sites: H2D/D2H bytes, tagged dispatches
+  (``Dispatches`` group; training sites ``forest.level``, ``tree.level``,
+  ``tree.reassign``), and which kernel form actually ran at each hot site
   (``KernelBackends`` group, keys ``<site>.<backend>`` with backend in
   ``cuda | torch | host``), so a fallback never passes for a kernel result.
+- :class:`LayerProfile` — per-level wall time of the training layers,
+  taken only when a caller passes one to a builder.
 """
 
 from __future__ import annotations
@@ -130,6 +133,50 @@ def fetch(tensor) -> np.ndarray:
     instrumented hot paths read a result back (it synchronises)."""
     note_d2h(tensor.element_size() * tensor.nelement())
     return tensor.cpu().numpy()
+
+
+class LayerProfile:
+    """Wall time of the training path's layers, per tree level: the
+    builders wrap each layer (reassign, level histogram, int32 accumulate,
+    counts D2H, host split choice, ...) in :func:`layer`.  Each layer
+    synchronizes the device before and after, so its time is its own and
+    not the queue's; that serializes host and device, so a profiled build
+    runs slower than an unprofiled one.  Layers outside any level (branch
+    codes, weights H2D) land in ``setup``."""
+
+    def __init__(self, device=None):
+        import torch
+        self._sync = (torch.cuda.synchronize
+                      if torch.device(device or "cpu").type == "cuda"
+                      else (lambda: None))
+        self.setup: Dict[str, float] = defaultdict(float)
+        self.levels: List[Dict[str, float]] = []
+
+    def next_level(self) -> None:
+        self.levels.append(defaultdict(float))
+
+    @contextlib.contextmanager
+    def layer(self, name: str) -> Iterator[None]:
+        self._sync()
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self._sync()
+            dest = self.levels[-1] if self.levels else self.setup
+            dest[name] += time.perf_counter() - t0
+
+    def median_ms(self) -> Dict[str, float]:
+        """Per layer, the median over levels of its milliseconds a level."""
+        names = sorted({k for lv in self.levels for k in lv})
+        return {k: float(np.median([lv.get(k, 0.0) for lv in self.levels]))
+                * 1e3 for k in names}
+
+
+def layer(profile: Optional[LayerProfile], name: str):
+    """``profile.layer(name)``, or a no-op context when not profiling."""
+    return profile.layer(name) if profile is not None \
+        else contextlib.nullcontext()
 
 
 class StepTimer:

@@ -11,7 +11,8 @@ order — any failure exits non-zero before the result line:
   1. device   require torch.cuda.is_available(); print the card's name and
               power limit (nvidia-smi)
   2. build    build every CUDA kernel from csrc/ (one nvcc per source, all
-              started together) into build/avenir_tpu_torch/
+              started together: vote.cu and histogram.cu) into
+              build/avenir_tpu_torch/
   3. kernel   the ensemble-vote kernel against its plain PyTorch version on
               the card: random stacked forests (NaNs, negative and
               out-of-range codes, negative integer weights, ties, min_odds
@@ -37,6 +38,40 @@ order — any failure exits non-zero before the result line:
               on this data over 33.5 T tests/s (one per float32 lane per
               clock).  No single PyTorch call computes the vote, so
               library_ms is null
+  7. b1       the level-histogram kernel against its plain PyTorch version
+              on the card: seeded inputs with node ids -1 and -2 (and >= N),
+              classes of -1, zero weights, bootstrap-drawn uint8 weights and
+              float32 integer weights (a launch's weight mass below 2^24),
+              at the rafo forest's level shape (T=9, N=1 and 8, S=19, B=2,
+              C=2), the bench forest's (T=16, N=8) and a wide one whose
+              accumulator does not fit in shared memory (T=64, N=128, S=64,
+              B=4, C=4), each at n = 1, 7 and 1000, plus rafo at 1,000,000
+              rows, bench at 8,000,000 and wide at 262,144; the float32
+              counts must be EXACTLY equal
+  8. train    the training main path, launch counts zeroed before and read
+              after: the port's randomForestBuilder CLI over the golden rf
+              data (3 trees) and three decisionTreeBuilder levels over the
+              golden dt data must reproduce tests/golden/fixtures/rf and dt
+              byte for byte; randomForestBuilder over call_hangup_gen(5000,
+              17) with rafo.properties and a registry must reproduce the
+              rafo9 trees and the committed meta.json, and
+              predictionService serving that freshly trained registry must
+              reproduce served.csv.  The histogram kernel must have
+              launched, and the ledger must show forest.level.cuda and
+              tree.level.cuda and no torch form
+  9. scale    a 1,000,000-row table in call_hangup.json's schema, drawn
+              with numpy: the rafo forest trained on the card and, with
+              device="cpu", through the plain version must give identical
+              trees; prints the card's wall time and the median per-level
+              layer times
+ 10. b1 times median CUDA-event times of the histogram kernel and its plain
+              version at rafo 1,000,000 rows (N=8, the reported numbers; and
+              N=1, the root level) and bench 8,000,000 rows (N=8), and the
+              bound: the larger of the bytes moved over 3.35 TB/s and the
+              active (row, tree, split) adds over 33.5 T adds/s (the
+              float32 add rate used for the vote).  No single PyTorch call computes the histogram
+              (building the flattened index is part of the work), so
+              library_ms is null
 
 The line before the last is one JSON object with the kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -55,6 +90,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, "build", "chip_smoke")
 RES = os.path.join(ROOT, "resource")
 RF_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "rf")
+DT_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "dt")
 RAFO9 = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -65,6 +101,15 @@ TESTS_PER_S = 67e12 / 2
 RAFO_SHAPE = (9, 17, 4, 4, 3)    # T, P, F, C, K
 WIDE_SHAPE = (64, 257, 16, 16, 8)
 ROW_COUNTS = (1, 7, 513, 1_000_000)
+# level-histogram shapes (T, N, S, B, C) and the row counts each is held
+# at against its plain version
+B1_SHAPES = {"rafo": (9, 8, 19, 2, 2), "rafo_root": (9, 1, 19, 2, 2),
+             "bench": (16, 8, 19, 2, 2), "wide": (64, 128, 64, 4, 4)}
+B1_BIG_ROWS = {"rafo": 1_000_000, "rafo_root": 1_000_000,
+               "bench": 8_000_000, "wide": 262_144}
+# call_hangup_gen's generative model (resource/gen/call_hangup_gen.py)
+REASON_P = (0.35, 0.2, 0.25, 0.2)
+PATIENCE = (500.0, 900.0, 420.0, 380.0)
 
 
 def fail(msg):
@@ -225,6 +270,82 @@ def serving_layers(path_lists, fs, requests, dev, reps=30):
                   (("encode", enc), ("dispatch", disp), ("readback", back))}
         out[b]["kernel"] = round(kernel, 4)
     return out
+
+
+def level_inputs(rng, shape, n, edges=True):
+    """Seeded level-histogram inputs: node ids (n,T) in [0,N) — with
+    ``edges``, also -1, -2 and N —, branch codes (n,S) in [0,B), classes
+    (n,) in [0,C) (with ``edges`` some -1), and per-tree bootstrap weights
+    (bincount of 0.9n uniform draws, so zero weights occur and a tree's
+    mass is 0.9n < 2^24)."""
+    T, N, S, B, C = shape
+    lo = -2 if edges else 0
+    hi = N + 1 if edges else N
+    nid = rng.integers(lo, hi, (n, T), dtype=np.int32)
+    br = rng.integers(0, B, (n, S), dtype=np.int32)
+    cls = rng.integers(-1 if edges else 0, C, (n,), dtype=np.int32)
+    w = np.empty((n, T), np.uint8)
+    for t in range(T):
+        draws = rng.integers(0, n, int(0.9 * n)) if n > 1 else \
+            rng.integers(0, 2, n)
+        w[:, t] = np.bincount(draws, minlength=n)[:n]
+    return nid, br, cls, w
+
+
+def b1_bound(nid, br, cls, w, shape):
+    """The least time the card could take for one level histogram: each
+    input read once and the counts written once at 3.35 TB/s, or the
+    active (row, tree, split) adds these inputs need at the float32 add
+    rate — the larger of the two."""
+    import torch
+    T, N, S, B, C = shape
+    nbytes = sum(t.nbytes for t in (nid, br, cls, w)) + T * N * S * B * C * 4
+    trees = ((nid >= 0) & (nid < N) & (w != 0)).sum(dim=1, dtype=torch.int64)
+    splits = ((br >= 0) & (br < B)).sum(dim=1, dtype=torch.int64)
+    row_ok = (cls >= 0) & (cls < C)
+    adds = int((trees * splits * row_ok).sum().item())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    adds_ms = adds / TESTS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, adds_ms), "bytes": nbytes,
+            "bytes_ms": bytes_ms, "adds": adds, "adds_ms": adds_ms,
+            "bound_by": "bytes" if bytes_ms >= adds_ms else "operations"}
+
+
+def time_b1(rng, shape, n, dev):
+    """Kernel and plain-version median ms at one level shape, in turns
+    kernel, plain, kernel, on a level with every row active (bootstrap
+    weights, so about 41% of the (row, tree) pairs weigh 0)."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    host = level_inputs(rng, shape, n, edges=False)
+    nid, br, cls, w = (torch.from_numpy(a).to(dev) for a in host)
+    N, B, C = shape[1], shape[3], shape[4]
+    res = {"ms": cuda_ms(lambda: histogram.forest_level_counts(
+        nid, br, cls, w, N, B, C), 20)}
+    res["plain_ms"] = cuda_ms(lambda: histogram.forest_level_counts_torch(
+        nid, br, cls, w, N, B, C), 5)
+    res["ms_again"] = cuda_ms(lambda: histogram.forest_level_counts(
+        nid, br, cls, w, N, B, C), 20)
+    res.update(b1_bound(nid, br, cls, w, shape))
+    return res
+
+
+def hangup_table(rng, n, fs):
+    """n rows in call_hangup.json's schema drawn vectorised from
+    call_hangup_gen's model (call-reason mix, exponential queue time,
+    Poisson transfers and prior calls, logistic hang-up)."""
+    from avenir_tpu_torch.core.table import ColumnarTable
+    reason = rng.choice(4, n, p=REASON_P)
+    queue = np.clip(rng.exponential(420, n), 0, 1800).astype(np.int64)
+    transfers = np.clip(rng.poisson(0.7, n), 0, 4)
+    prior = np.clip(rng.poisson(1.0, n), 0, 9)
+    annoy = queue / np.asarray(PATIENCE)[reason] + 0.5 * transfers \
+        + 0.3 * prior
+    hung = rng.random(n) < 1.0 / (1.0 + np.exp(-3.5 * (annoy - 1.1)))
+    return ColumnarTable(schema=fs, n_rows=n, columns={
+        1: reason.astype(np.int32), 2: queue.astype(np.float64),
+        3: transfers.astype(np.float64), 4: prior.astype(np.float64),
+        5: hung.astype(np.int32)})
 
 
 def run_cli(args):
@@ -390,6 +511,154 @@ def main():
         print(f"served batch of {b} rows (rafo9), median ms per layer: "
               f"{layers}", flush=True)
 
+    phase("7 histogram kernel vs plain version")
+    from avenir_tpu_torch.kernels import histogram
+    b1_err = 0.0
+    for name, shape in B1_SHAPES.items():
+        T, N, S, B, C = shape
+        for n in (1, 7, 1000, B1_BIG_ROWS[name]):
+            host = level_inputs(rng, shape, n)
+            nid, br, cls, w8 = (torch.from_numpy(a).to(dev) for a in host)
+            for w in (w8, w8.to(torch.float32)):
+                got = histogram.forest_level_counts(nid, br, cls, w, N, B, C)
+                want = histogram.forest_level_counts_torch(nid, br, cls, w,
+                                                           N, B, C)
+                torch.cuda.synchronize()
+                if got.shape != (T, N, S, B, C) or got.dtype != torch.float32:
+                    fail(f"histogram output {tuple(got.shape)} {got.dtype}")
+                err = float((got - want).abs().max().item())
+                b1_err = max(b1_err, err)
+                if err or not torch.equal(got, want):
+                    bad = int((got != want).sum().item())
+                    fail(f"histogram kernel != plain version at {name} "
+                         f"{shape}, n={n}, weights {w.dtype}: {bad} cells "
+                         f"differ")
+            print(f"{name} T,N,S,B,C={shape} n={n}: exact for uint8 and "
+                  f"float32 weights (smem="
+                  f"{T * N * S * B * C * 4 <= histogram.SMEM_LIMIT}, "
+                  f"total={float(want.double().sum().item()):.0f})", flush=True)
+            del nid, br, cls, w8, w, got, want
+
+    # ---- the training main path: counts zeroed just before, read after ----
+    from avenir_tpu_torch.core.config import load_config
+    vote.launches = 0
+    histogram.launches = 0
+    with transfer_ledger() as train_ledger:
+        phase("8 training main path")
+        rf_model = os.path.join(WORK, "rf_model")
+        run_cli(["org.avenir.tree.RandomForestBuilder", f"-Dconf.path={props}",
+                 f"-Ddtb.feature.schema.file.path={schema}",
+                 "-Ddtb.num.trees=3", train, rf_model])
+        for i in range(3):
+            same_bytes(os.path.join(rf_model, f"tree_{i}.json"),
+                       os.path.join(RF_GOLDEN, f"tree_{i}.json"),
+                       f"golden rf randomForestBuilder tree {i}")
+        dt_train = os.path.join(WORK, "dt_train.csv")
+        with open(dt_train, "w") as fh:
+            fh.write("\n".join(generate(400, 12)))
+        dec_in = None
+        for level in range(1, 4):
+            args = ["org.avenir.tree.DecisionTreeBuilder",
+                    f"-Dconf.path={os.path.join(RES, 'detr.properties')}",
+                    f"-Ddtb.feature.schema.file.path={schema}",
+                    f"-Ddtb.decision.file.path.out={WORK}/dec_out.json"]
+            if dec_in:
+                args.append(f"-Ddtb.decision.file.path.in={dec_in}")
+            run_cli(args + [dt_train, os.path.join(WORK, f"dt_level_{level}")])
+            dec_in = os.path.join(WORK, "dec_in.json")
+            os.replace(os.path.join(WORK, "dec_out.json"), dec_in)
+        same_bytes(dec_in, os.path.join(DT_GOLDEN, "decision_paths.json"),
+                   "golden dt decisionTreeBuilder x3")
+        r9_train = os.path.join(WORK, "rafo9_train.csv")
+        with open(r9_train, "w") as fh:
+            fh.write("\n".join(generate(5000, 17)))
+        r9_model = os.path.join(WORK, "rafo9_model")
+        trained_reg = os.path.join(WORK, "trained_registry")
+        t0 = time.perf_counter()
+        run_cli(["org.avenir.tree.RandomForestBuilder", f"-Dconf.path={props}",
+                 f"-Ddtb.feature.schema.file.path={schema}",
+                 f"-Ddtb.model.registry.dir={trained_reg}",
+                 "-Ddtb.model.name=rafo9", r9_train, r9_model])
+        train_s = time.perf_counter() - t0
+        for i in range(9):
+            same_bytes(os.path.join(r9_model, f"tree_{i}.json"),
+                       os.path.join(RAFO9, f"tree_{i}.json"),
+                       f"rafo9 randomForestBuilder tree {i}")
+        same_bytes(os.path.join(trained_reg, "rafo9", "v_000001", "meta.json"),
+                   os.path.join(RAFO9, "registry", "rafo9", "v_000001",
+                                "meta.json"), "rafo9 published meta.json")
+        served_t = os.path.join(WORK, "rafo9_served_trained")
+        run_cli(["org.avenir.serving.PredictionService",
+                 f"-Dconf.path={props}",
+                 f"-Dps.model.registry.dir={trained_reg}",
+                 "-Dps.model.name=rafo9", "-Dps.transport=inprocess",
+                 requests, served_t])
+        same_bytes(os.path.join(served_t, "part-m-00000"),
+                   os.path.join(RAFO9, "served.csv"),
+                   "predictionService from the freshly trained registry")
+    b1_launches = histogram.launches
+    train_backends = train_ledger.backend_snapshot()
+    with open(r9_model + ".counters.json") as fh:
+        rc = json.load(fh)
+    print(f"training main path: forest_level_counts launches={b1_launches}, "
+          f"ensemble_vote launches={vote.launches}; "
+          f"KernelBackends={train_backends}; rafo9 randomForestBuilder "
+          f"{train_s:.2f} s wall, Dispatches={rc.get('Dispatches')}",
+          flush=True)
+    if b1_launches <= 0:
+        fail("the training main path never launched the histogram kernel")
+    for site in ("forest.level.cuda", "tree.level.cuda"):
+        if not train_backends.get(site):
+            fail(f"training ledger shows no {site}")
+    wrong = [k for k in train_backends if k.endswith((".torch", ".host"))]
+    if wrong:
+        fail(f"ledger shows non-kernel forms on the training path: {wrong}")
+
+    phase("9 scale: rafo forest on 1,000,000 rows")
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.models.forest import ForestParams, build_forest
+    from avenir_tpu_torch.utils.tracing import LayerProfile
+    cfg = load_config(props)
+    fparams = ForestParams(tree=_tree_params(cfg),
+                           num_trees=cfg.get_int("dtb.num.trees"),
+                           seed=cfg.get_int("dtb.random.seed"))
+    big = hangup_table(np.random.default_rng(20261017), 1_000_000, fs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    gpu_trees = build_forest(big, fparams, device=dev)
+    torch.cuda.synchronize()
+    gpu_s = time.perf_counter() - t0
+    prof = LayerProfile(dev)
+    t0 = time.perf_counter()
+    prof_trees = build_forest(big, fparams, device=dev, profile=prof)
+    prof_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cpu_trees = build_forest(big, fparams, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    gpu_json = [t.to_json() for t in gpu_trees]
+    if gpu_json != [t.to_json() for t in cpu_trees] or \
+            gpu_json != [t.to_json() for t in prof_trees]:
+        fail("1M-row rafo forest: card and CPU trees differ")
+    print(f"1M-row rafo forest (9 trees, depth 4): identical trees on the "
+          f"card and the CPU; card wall {gpu_s:.3f} s (profiled run "
+          f"{prof_s:.3f} s), CPU plain-version wall {cpu_s:.2f} s; "
+          f"{len(prof.levels)} levels", flush=True)
+    print(f"  setup ms: {json.dumps({k: v * 1e3 for k, v in prof.setup.items()})}",
+          flush=True)
+    print(f"  median ms per level: {json.dumps(prof.median_ms())}",
+          flush=True)
+
+    phase("10 histogram kernel times")
+    rafo_t = time_b1(rng, B1_SHAPES["rafo"], 1_000_000, dev)
+    print(f"rafo {B1_SHAPES['rafo']} n=1,000,000: {rafo_t}", flush=True)
+    root_t = time_b1(rng, B1_SHAPES["rafo_root"], 1_000_000, dev)
+    print(f"rafo root level {B1_SHAPES['rafo_root']} n=1,000,000: {root_t}",
+          flush=True)
+    bench_t = time_b1(rng, B1_SHAPES["bench"], 8_000_000, dev)
+    print(f"bench {B1_SHAPES['bench']} n=8,000,000: {bench_t}", flush=True)
+    print("no single PyTorch call computes the histogram: library_ms is null",
+          flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ensemble_vote", "route": "cuda",
@@ -398,6 +667,13 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": rafo9["ms"], "plain_ms": rafo9["plain_ms"],
         "bound_ms": rafo9["bound_ms"], "bound_by": rafo9["bound_by"],
+        "library_ms": None}, {
+        "name": "forest_level_counts", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/histogram.cu",
+        "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
+        "launches": b1_launches, "max_abs_err": b1_err,
+        "ms": rafo_t["ms"], "plain_ms": rafo_t["plain_ms"],
+        "bound_ms": rafo_t["bound_ms"], "bound_by": rafo_t["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
