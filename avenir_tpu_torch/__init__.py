@@ -13,7 +13,11 @@ version serves tensors that lie on the CPU.
 Ported so far: random-forest serving — ``modelPredictor`` and the
 in-process ``predictionService`` over a published forest, with the
 ensemble vote as a CUDA kernel (``kernels/vote.py``, ``csrc/vote.cu``) —
-and random-forest training — ``randomForestBuilder`` with the registry
+random-forest training — ``randomForestBuilder`` with the registry
 publish and ``decisionTreeBuilder``, with the level histogram as a CUDA
-kernel (``kernels/histogram.py``, ``csrc/histogram.cu``).
+kernel (``kernels/histogram.py``, ``csrc/histogram.cu``) — and the
+version's two sidecars with the int8 serve: the monitor baseline
+(``monitor/baseline.py``, with the bin counts as a CUDA kernel,
+``csrc/bin_counts.cu``) and the int8 forest (``serving/quantized.py``,
+served by the int8 form of the vote kernel in ``csrc/vote.cu``).
 """

@@ -7,7 +7,8 @@ name that is not ported yet raises :class:`JobNotPorted`, and so does a
 ported job given a key of a tier that is not; nothing here dispatches to
 the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
-(here, monolithic training and the registry publish).
+(here, monolithic training, the registry publish and its baseline and
+int8 sidecars).
 """
 
 from __future__ import annotations
@@ -116,10 +117,8 @@ def model_predictor_job(cfg: Config, in_path: str, out_path: str) -> Counters:
 # --------------------------------------------------------------------------
 
 # training keys whose tier is not ported: set true, each is refused by name
-# (streaming ingest and its resume, the monitor's baseline sidecar, the
-# int8 serving sidecar)
-_UNPORTED_FOREST_KEYS = ("dtb.streaming.ingest", "dtb.streaming.resume",
-                         "dtb.baseline.publish", "dtb.model.quantize")
+# (streaming ingest and its resume)
+_UNPORTED_FOREST_KEYS = ("dtb.streaming.ingest", "dtb.streaming.resume")
 
 
 def _refuse_unported(cfg: Config, job: str, true_keys=()) -> None:
@@ -192,7 +191,16 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     (resource/rafo.sh:34-43) collapsed into one job.  Writes one
     decision-path JSON per tree into the output dir (tree_<i>.json) and,
     with ``dtb.model.registry.dir``, publishes the forest as the next
-    version of ``dtb.model.name`` (default ``forest``) in that registry."""
+    version of ``dtb.model.name`` (default ``forest``) in that registry.
+
+    Two sidecars ride the published version (both need the registry):
+    ``dtb.baseline.publish=true`` profiles the training table into the
+    drift monitor's baseline (``dtb.baseline.bins``, default 32), and
+    ``dtb.model.quantize=true`` attaches the int8 serving sidecar after
+    holding the quantized vote to ``dtb.model.quantize.budget`` (default
+    0.01 prediction-mismatch fraction against the float ensemble) on the
+    training table; an over-budget quantization refuses to publish.
+    ``predictionService`` selects that sidecar with ``ps.quantized``."""
     from ..models.forest import ForestParams, build_forest
     _refuse_unported(cfg, "randomForestBuilder", _UNPORTED_FOREST_KEYS)
     counters = Counters()
@@ -200,17 +208,47 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     params = ForestParams(tree=_tree_params(cfg),
                           num_trees=cfg.get_int("dtb.num.trees", 5),
                           seed=cfg.get_int("dtb.random.seed", 0))
+    reg_dir = cfg.get("dtb.model.registry.dir")
+    baseline_builder = None
+    if cfg.get_boolean("dtb.baseline.publish", False):
+        if not reg_dir:
+            raise ValueError("dtb.baseline.publish needs "
+                             "dtb.model.registry.dir (baselines ride "
+                             "registry versions as sidecars)")
+        from ..monitor.baseline import BaselineBuilder
+        baseline_builder = BaselineBuilder(
+            schema, n_bins=cfg.get_int("dtb.baseline.bins", 32))
+    quantize = cfg.get_boolean("dtb.model.quantize", False)
+    if quantize and not reg_dir:
+        raise ValueError("dtb.model.quantize needs dtb.model.registry.dir "
+                         "(the int8 sidecar rides the registry version)")
     table = load_csv(in_path, schema, cfg.field_delim_regex)
+    if baseline_builder is not None:
+        baseline_builder.update(table)
     models = build_forest(table, params)
     os.makedirs(out_path, exist_ok=True)
     for i, dpl in enumerate(models):
         with open(os.path.join(out_path, f"tree_{i}.json"), "w") as fh:
             fh.write(dpl.to_json())
-    reg_dir = cfg.get("dtb.model.registry.dir")
     if reg_dir:
         from ..serving.registry import ModelRegistry
-        version = ModelRegistry(reg_dir).publish(
-            cfg.get("dtb.model.name", "forest"), models, schema=schema)
+        registry = ModelRegistry(reg_dir)
+        model_name = cfg.get("dtb.model.name", "forest")
+        version = registry.publish(model_name, models, schema=schema)
         counters.set("Random forest", "RegistryVersion", version)
+        if baseline_builder is not None:
+            from ..monitor.baseline import publish_baseline
+            baseline = baseline_builder.finalize()
+            publish_baseline(registry, model_name, version, baseline)
+            counters.set("Random forest", "BaselineRows", baseline.n_rows)
+        if quantize:
+            from ..serving.quantized import publish_quantized
+            info = publish_quantized(
+                registry, model_name, version, models, schema, table,
+                budget=cfg.get_float("dtb.model.quantize.budget", 0.01))
+            counters.set("Random forest", "QuantizedSampleRows",
+                         int(info["n_sample"]))
+            counters.set("Random forest", "QuantizedMismatchPerMillion",
+                         int(round(info["mismatch"] * 1e6)))
     counters.increment("Random forest", "Trees", len(models))
     return counters

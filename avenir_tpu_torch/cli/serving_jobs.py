@@ -18,9 +18,12 @@ coalescing policy.  Config keys (``ps.`` namespace, as in the reference):
   ps.warm.start             warm all buckets at load (default true)
   ps.latency.window         latency sample window (default 8192)
   ps.transport              inprocess (the only transport ported so far)
+  ps.quantized              serve the version's int8-quantized forest
+                            sidecar (default false; a version without an
+                            intact sidecar warns and serves float)
 
-Keys of the unported serving tiers (RESP wire, fleets, brokers, routers,
-the int8 quantized forest) are refused by name rather than ignored.
+Keys of the unported serving tiers (RESP wire, fleets, brokers, routers)
+are refused by name rather than ignored.
 
 The input file holds one record per line; the output is one
 ``<requestId><delim><predictedClass>`` line per request, requestId = 0-based
@@ -54,8 +57,6 @@ def prediction_service(cfg: Config, in_path: str, out_path: str) -> Counters:
                            f"is not ported to avenir_tpu_torch yet "
                            f"(ported: inprocess)")
     unported = [k for k in _UNPORTED_KEYS if k in cfg]
-    if cfg.get_boolean("ps.quantized", False):
-        unported.append("ps.quantized")
     if unported:
         raise JobNotPorted(f"predictionService keys {unported} belong to "
                            f"serving tiers not ported to avenir_tpu_torch "
@@ -76,6 +77,7 @@ def prediction_service(cfg: Config, in_path: str, out_path: str) -> Counters:
                                      list(DEFAULT_BUCKETS)))
     warm = cfg.get_boolean("ps.warm.start", True)
     version = cfg.get_int("ps.model.version", 0)
+    quantized = cfg.get_boolean("ps.quantized", False)
     # tokenize with the INPUT delimiter (field.delim.regex, like every
     # other job); the service delimiter is field.delim.out
     split = _splitter(cfg.field_delim_regex)
@@ -87,12 +89,14 @@ def prediction_service(cfg: Config, in_path: str, out_path: str) -> Counters:
         # pinned serving: build the predictor for that exact version
         loaded = registry.load(name, version, schema=schema)
         svc = PredictionService(
-            make_predictor(loaded, schema=schema, buckets=buckets, delim=od),
+            make_predictor(loaded, schema=schema, buckets=buckets, delim=od,
+                           quantized=quantized),
             **common)
         svc.version = version
     else:
         svc = PredictionService(registry=registry, model_name=name,
-                                schema=schema, buckets=buckets, **common)
+                                schema=schema, buckets=buckets,
+                                quantized=quantized, **common)
     counters.set("Serving", "ModelVersion", svc.version or 0)
     svc.start()
     futures = [svc.submit(row) for row in rows]

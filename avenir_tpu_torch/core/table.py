@@ -1,7 +1,8 @@
 """Columnar dataset: CSV text -> encoded numpy arrays.
 
-The port's copy of ``avenir_tpu/core/table.py``, trimmed to what forest
-serving reads: a dataset is a struct of columns, each encoded once on load:
+The port's copy of ``avenir_tpu/core/table.py``, trimmed to what the forest
+and the monitor baseline read: a dataset is a struct of columns, each
+encoded once on load:
 
   * categorical columns  -> int32 vocabulary codes (schema cardinality order;
     unknown values -> -1)
@@ -33,6 +34,17 @@ class ColumnarTable:
     str_columns: Dict[int, List[str]] = dc_field(default_factory=dict)
     # raw tokenized rows, kept only when the caller needs record echo in outputs
     raw_rows: Optional[List[List[str]]] = None
+
+    def binned_codes(self, ordinal: int) -> np.ndarray:
+        """int32 bin codes in [0, num_bins) for a binned field (categorical code
+        or value // bucketWidth - bin_offset)."""
+        f = self.schema.find_field_by_ordinal(ordinal)
+        col = self.columns[ordinal]
+        if f.is_categorical:
+            return col.astype(np.int32)
+        if f.bucket_width is None:
+            raise ValueError(f"field {ordinal} has no finite bin alphabet")
+        return (col // f.bucket_width).astype(np.int32) - f.bin_offset
 
 
 def _make_splitter(delim_regex: str):

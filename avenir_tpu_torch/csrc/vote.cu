@@ -1,10 +1,15 @@
-// Forest ensemble vote on Hopper (sm_90a).
+// Forest ensemble vote on Hopper (sm_90a), float and int8.
 //
-// Replaces the TPU kernel ops/pallas/vote.py:119 `ensemble_vote` (body
-// models/forest.py `_ensemble_vote_body` = `_member_votes_body` +
-// `_vote_finalize`).  For every row: per tree, the first of P stacked
-// paths whose predicates all hold; add the tree's weight to that path's
-// class; then the first-max argmax with the min-odds veto (index K).
+// Replaces two TPU kernels with one template over the value type:
+//   ops/pallas/vote.py:119 `ensemble_vote` (body models/forest.py
+//     `_ensemble_vote_body` = `_member_votes_body` + `_vote_finalize`):
+//     float32 values and thresholds, int32 codes (`avenir_ensemble_vote`);
+//   ops/pallas/vote.py:129 `quantized_vote` (body serving/quantized.py
+//     `_quantized_vote_body`): int8-binned values and thresholds compared
+//     as int32, int8 codes (`avenir_quantized_vote`).
+// For every row: per tree, the first of P stacked paths whose predicates
+// all hold; add the tree's weight to that path's class; then the first-max
+// argmax with the min-odds veto (index K).
 //
 // Predicate semantics (avenir_tpu/models/tree.py `_match_ok`):
 //   numeric      lo < v <= hi, tested only where the num flag is set, so a
@@ -13,6 +18,10 @@
 //                the cat flag is set (codes >= C take the last mask bit,
 //                as the reference's clip does);
 //   pad paths    lo = +inf with the num flag set: they never match.
+// The int8 form keeps these through its grid's sentinels: a NaN or -inf
+// value is -128, which no restricted interval admits (v > lo fails even
+// against lo = -128); +inf clips to 127; a pad path has lo = 127, which no
+// int8 value exceeds.
 // A tree whose P paths all fail votes with path 0, as the reference's
 // argmax over an all-false row does.  Stacked forests end every tree with
 // an always-match sentinel, so that case only arises for hand-made inputs.
@@ -24,12 +33,14 @@
 // float32 division: build without --use_fast_math.
 //
 // What bounds it on the H100: each row reads its F values and F codes and
-// writes one int32 — about (8F + 4) bytes a row, 36 B at the published
-// forest's F = 4 — against at most T*P*F predicate tests a row, fewer with
-// the early exits (36 MB, ~11 us of HBM traffic at 3.35 TB/s for a million
-// rows).  The predicate tensors are a few KB and are read from shared memory
-// when they fit in 48 KB, from global memory (through L1/L2) when they do
-// not, so a wide forest still runs.
+// writes one int32 — (8F + 4) bytes a row in float, 36 B at the published
+// forest's F = 4, and (2F + 4) bytes in int8, 12 B — against at most T*P*F
+// predicate tests a row, fewer with the early exits (36 MB and 12 MB, ~11
+// and ~3.6 us of HBM traffic at 3.35 TB/s for a million rows).  The
+// predicate tensors are a few KB (thresholds take 4 bytes a slot in float,
+// 1 in int8) and are read from shared memory when they fit in 48 KB, from
+// global memory (through L1/L2) when they do not, so a wide forest still
+// runs.
 //
 // Design (simple and right first): one thread per row, grid-stride over
 // rows; each thread walks trees and paths with early exits and keeps its
@@ -42,6 +53,7 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
@@ -49,35 +61,38 @@ constexpr int kThreads = 256;
 constexpr unsigned char kNumFlag = 1;
 constexpr unsigned char kCatFlag = 2;
 
+template <typename V>
 struct Preds {
-  const float* lo;            // (T,P,F)
-  const float* hi;            // (T,P,F)
+  const V* lo;                // (T,P,F)
+  const V* hi;                // (T,P,F)
   const unsigned int* catw;   // (T,P,F,W) allowed-code bitmask words
   const int* cls;             // (T,P) class index, -1 = votes nothing
   const float* w;             // (T,)
   const unsigned char* flags; // (T,P,F) kNumFlag | kCatFlag
 };
 
+// V: value/threshold type (float or int8_t), CT: code type (int or int8_t).
 // KMAX > 0: the tally lives in a per-thread array of KMAX floats;
 // KMAX == 0: in scratch[row*K .. row*K+K).  SMEM: predicates staged into
-// dynamic shared memory by every block before its rows.
-template <int KMAX, bool SMEM>
-__global__ void vote_kernel(const float* __restrict__ vals,
-                            const int* __restrict__ codes, long long n,
-                            int F, Preds g, int T, int P, int C, int W,
+// dynamic shared memory by every block before its rows, 4-byte words first
+// (mask words, class indices, weights), then lo, hi and the flag bytes.
+template <typename V, typename CT, int KMAX, bool SMEM>
+__global__ void vote_kernel(const V* __restrict__ vals,
+                            const CT* __restrict__ codes, long long n,
+                            int F, Preds<V> g, int T, int P, int C, int W,
                             int K, float min_odds,
                             float* __restrict__ scratch,
                             int* __restrict__ out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  Preds p = g;
+  Preds<V> p = g;
   if (SMEM) {
     const int tpf = T * P * F;
-    float* s_lo = reinterpret_cast<float*>(smem);
-    float* s_hi = s_lo + tpf;
-    unsigned int* s_cw = reinterpret_cast<unsigned int*>(s_hi + tpf);
+    unsigned int* s_cw = reinterpret_cast<unsigned int*>(smem);
     int* s_cls = reinterpret_cast<int*>(s_cw + (long long)tpf * W);
     float* s_w = reinterpret_cast<float*>(s_cls + T * P);
-    unsigned char* s_fl = reinterpret_cast<unsigned char*>(s_w + T);
+    V* s_lo = reinterpret_cast<V*>(s_w + T);
+    V* s_hi = s_lo + tpf;
+    unsigned char* s_fl = reinterpret_cast<unsigned char*>(s_hi + tpf);
     for (int i = threadIdx.x; i < tpf; i += blockDim.x) {
       s_lo[i] = g.lo[i];
       s_hi[i] = g.hi[i];
@@ -87,7 +102,7 @@ __global__ void vote_kernel(const float* __restrict__ vals,
     for (int i = threadIdx.x; i < T * P; i += blockDim.x) s_cls[i] = g.cls[i];
     for (int i = threadIdx.x; i < T; i += blockDim.x) s_w[i] = g.w[i];
     __syncthreads();
-    p = Preds{s_lo, s_hi, s_cw, s_cls, s_w, s_fl};
+    p = Preds<V>{s_lo, s_hi, s_cw, s_cls, s_w, s_fl};
   }
 
   float local[KMAX > 0 ? KMAX : 1];
@@ -96,8 +111,8 @@ __global__ void vote_kernel(const float* __restrict__ vals,
        row < n; row += stride) {
     float* tally = KMAX > 0 ? local : scratch + row * K;
     for (int k = 0; k < K; ++k) tally[k] = 0.0f;
-    const float* v = vals + row * F;
-    const int* c = codes + row * F;
+    const V* v = vals + row * F;
+    const CT* c = codes + row * F;
     for (int t = 0; t < T; ++t) {
       int hit = 0;  // no match -> path 0, as argmax of an all-false row
       for (int q = 0; q < P; ++q) {
@@ -106,7 +121,8 @@ __global__ void vote_kernel(const float* __restrict__ vals,
         for (int f = 0; f < F && ok; ++f) {
           const unsigned char fl = p.flags[base + f];
           if (fl & kNumFlag) {
-            const float x = v[f];
+            // int8 operands promote to int: the reference's int32 compare
+            const V x = v[f];
             ok = (x > p.lo[base + f]) && (x <= p.hi[base + f]);
           }
           if (ok && (fl & kCatFlag)) {
@@ -144,19 +160,51 @@ __global__ void vote_kernel(const float* __restrict__ vals,
   }
 }
 
-template <int KMAX>
+template <typename V, typename CT, int KMAX>
 cudaError_t launch(bool use_smem, size_t smem_bytes, int blocks,
-                   cudaStream_t stream, const float* vals, const int* codes,
-                   long long n, int F, Preds g, int T, int P, int C, int W,
+                   cudaStream_t stream, const V* vals, const CT* codes,
+                   long long n, int F, Preds<V> g, int T, int P, int C, int W,
                    int K, float min_odds, float* scratch, int* out) {
   if (use_smem) {
-    vote_kernel<KMAX, true><<<blocks, kThreads, smem_bytes, stream>>>(
+    vote_kernel<V, CT, KMAX, true><<<blocks, kThreads, smem_bytes, stream>>>(
         vals, codes, n, F, g, T, P, C, W, K, min_odds, scratch, out);
   } else {
-    vote_kernel<KMAX, false><<<blocks, kThreads, 0, stream>>>(
+    vote_kernel<V, CT, KMAX, false><<<blocks, kThreads, 0, stream>>>(
         vals, codes, n, F, g, T, P, C, W, K, min_odds, scratch, out);
   }
   return cudaGetLastError();
+}
+
+template <typename V, typename CT>
+int run_vote(const V* vals, const CT* codes, long long n, int F, const V* lo,
+             const V* hi, const unsigned char* flags,
+             const unsigned int* catw, const int* cls, const float* wvec,
+             int T, int P, int C, int W, int K, float min_odds,
+             float* scratch, int* out, int use_smem, long long smem_bytes,
+             void* stream) {
+  if (n <= 0) return 0;
+  int dev = 0, sms = 132;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  long long want = (n + kThreads - 1) / kThreads;
+  long long cap = (long long)sms * 16;
+  const int blocks = (int)(want < cap ? want : cap);
+  Preds<V> g{lo, hi, catw, cls, wvec, flags};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool sm = use_smem != 0;
+  const size_t sb = (size_t)smem_bytes;
+  cudaError_t err;
+  if (K <= 8) {
+    err = launch<V, CT, 8>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C,
+                           W, K, min_odds, scratch, out);
+  } else if (K <= 32) {
+    err = launch<V, CT, 32>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C,
+                            W, K, min_odds, scratch, out);
+  } else {
+    err = launch<V, CT, 0>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C,
+                           W, K, min_odds, scratch, out);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -171,27 +219,19 @@ extern "C" int avenir_ensemble_vote(
     const unsigned int* catw, const int* cls, const float* wvec, int T,
     int P, int C, int W, int K, float min_odds, float* scratch, int* out,
     int use_smem, long long smem_bytes, void* stream) {
-  if (n <= 0) return 0;
-  int dev = 0, sms = 132;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long want = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)sms * 16;
-  const int blocks = (int)(want < cap ? want : cap);
-  Preds g{lo, hi, catw, cls, wvec, flags};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const bool sm = use_smem != 0;
-  const size_t sb = (size_t)smem_bytes;
-  cudaError_t err;
-  if (K <= 8) {
-    err = launch<8>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
-                    min_odds, scratch, out);
-  } else if (K <= 32) {
-    err = launch<32>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
-                     min_odds, scratch, out);
-  } else {
-    err = launch<0>(sm, sb, blocks, s, vals, codes, n, F, g, T, P, C, W, K,
-                    min_odds, scratch, out);
-  }
-  return (int)err;
+  return run_vote<float, int>(vals, codes, n, F, lo, hi, flags, catw, cls,
+                              wvec, T, P, C, W, K, min_odds, scratch, out,
+                              use_smem, smem_bytes, stream);
+}
+
+// The int8 form: the same arguments with int8 values, codes and thresholds.
+extern "C" int avenir_quantized_vote(
+    const int8_t* qvals, const int8_t* qcodes, long long n, int F,
+    const int8_t* q_lo, const int8_t* q_hi, const unsigned char* flags,
+    const unsigned int* catw, const int* cls, const float* wvec, int T,
+    int P, int C, int W, int K, float min_odds, float* scratch, int* out,
+    int use_smem, long long smem_bytes, void* stream) {
+  return run_vote<int8_t, int8_t>(qvals, qcodes, n, F, q_lo, q_hi, flags,
+                                  catw, cls, wvec, T, P, C, W, K, min_odds,
+                                  scratch, out, use_smem, smem_bytes, stream);
 }

@@ -30,7 +30,8 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "avenir_tpu_torch"
 
 # kernel library name -> source file under csrc/
-SOURCES: Dict[str, str] = {"vote": "vote.cu", "histogram": "histogram.cu"}
+SOURCES: Dict[str, str] = {"vote": "vote.cu", "histogram": "histogram.cu",
+                           "bin_counts": "bin_counts.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

@@ -1,5 +1,5 @@
-"""The forest level histogram: CUDA kernel wrapper and its plain PyTorch
-version.
+"""The forest level histogram and the monitor bin counts: CUDA kernel
+wrappers and their plain PyTorch versions.
 
 Replaces the TPU kernel ``avenir_tpu/ops/pallas/histogram.py``
 ``forest_level_counts`` (per-tile body ``models/forest.py`` ``_count_body``).
@@ -18,6 +18,16 @@ in any summation order: the kernel and the plain version agree bit for bit.
 :func:`forest_level_counts` launches ``csrc/histogram.cu`` for CUDA tensors
 and runs :func:`forest_level_counts_torch` for CPU tensors
 (``kernels/dispatch.py``); ``launches`` counts kernel launches.
+
+:func:`bin_counts` replaces the TPU kernel ``avenir_tpu/ops/pallas/histogram.py``
+``bin_counts`` (XLA twin ``ops/histogram.py`` ``feature_bin_counts``), the
+drift monitor's counting primitive:
+
+    codes (n,R) int32, mask (n,) bool or None  ->  counts (R,B) float32
+
+A code outside [0, B) drops and a masked-out row adds nothing.  CUDA tensors
+launch ``csrc/bin_counts.cu``, CPU tensors run :func:`bin_counts_torch`;
+``bin_counts_launches`` counts its kernel launches.
 """
 
 from __future__ import annotations
@@ -28,9 +38,11 @@ import torch
 
 from .dispatch import BACKEND_CUDA, resolve_backend
 
-# kernel launches since the last reset (a plain integer; chip_smoke.py
-# zeroes it around the main path and reads it back)
+# kernel launches since the last reset (plain integers; chip_smoke.py
+# zeroes them around the main path and reads them back): the level
+# histogram's and the bin counts'
 launches = 0
+bin_counts_launches = 0
 
 # the per-block accumulator lives in shared memory up to this size (the
 # H100 gives a block up to 227 KB; the launch raises the 48 KB default);
@@ -40,6 +52,14 @@ SMEM_LIMIT = 200 * 1024
 _TORCH_CHUNK_ELEMS = 1 << 26
 
 _WEIGHT_DTYPES = {torch.uint8: 0, torch.float32: 1}
+
+# rows one bin-counts launch takes: no count of its result exceeds 2^24, so
+# the float32 result is exact; longer inputs add launch results in float32,
+# as the reference's float32 sum does
+BIN_ROWS_MAX = 1 << 24
+# the bin-counts accumulator lives in shared memory up to this size (no
+# attribute raise needed); wider ones add straight into global memory
+BIN_SMEM_LIMIT = 48 * 1024
 
 
 # --------------------------------------------------------------------------
@@ -166,3 +186,92 @@ def forest_level_counts(node_ids: torch.Tensor, branches: torch.Tensor,
         return _launch(node_ids, branches, cls, weights, n_nodes, B, C)
     return forest_level_counts_torch(node_ids, branches, cls, weights,
                                      n_nodes, B, C)
+
+
+# --------------------------------------------------------------------------
+# monitor bin counts (B4)
+# --------------------------------------------------------------------------
+
+def bin_counts_torch(codes: torch.Tensor, num_bins: int,
+                     mask: torch.Tensor = None) -> torch.Tensor:
+    """The plain version: ``feature_bin_counts`` as one ``bincount`` over
+    the flat ``r*B + code`` index of the valid, unmasked codes, in int64,
+    then float32.  The CPU path and the oracle the kernel is held against
+    on the card."""
+    n, R = codes.shape
+    B = int(num_bins)
+    valid = (codes >= 0) & (codes < B)
+    if mask is not None:
+        valid &= mask[:, None]
+    flat = codes.long() + B * torch.arange(R, device=codes.device)[None, :]
+    counts = torch.bincount(flat[valid], minlength=R * B)
+    return counts.to(torch.float32).reshape(R, B)
+
+
+_bins_entry = None
+
+
+def _bins_lib():
+    """The bin-counts kernel's C entry point, typed (built on first use)."""
+    global _bins_entry
+    if _bins_entry is None:
+        from .build import load
+        fn = load("bin_counts").avenir_bin_counts
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, ctypes.c_longlong, i, i, p, p, i, p]
+        fn.restype = ctypes.c_int
+        _bins_entry = fn
+    return _bins_entry
+
+
+def _launch_bins(codes, B, mask) -> torch.Tensor:
+    global bin_counts_launches
+    n, R = codes.shape
+    out = torch.zeros((R, B), dtype=torch.float32, device=codes.device)
+    if n == 0 or R == 0:
+        return out
+    acc = torch.zeros((R, B), dtype=torch.int32, device=codes.device)
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    err = _bins_lib()(codes.data_ptr(),
+                      mask.data_ptr() if mask is not None else None, n, R, B,
+                      acc.data_ptr(), out.data_ptr(),
+                      int(R * B * 4 <= BIN_SMEM_LIMIT), stream)
+    if err != 0:
+        raise RuntimeError(f"bin_counts kernel launch failed: CUDA error "
+                           f"{err}")
+    bin_counts_launches += 1
+    return out
+
+
+def bin_counts(codes: torch.Tensor, num_bins: int,
+               mask: torch.Tensor = None) -> torch.Tensor:
+    """(R, B) float32 counts of the (n, R) int32 ``codes``; ``mask`` (n,)
+    bool keeps the rows it marks.  CUDA tensors launch
+    ``csrc/bin_counts.cu`` (one launch per ``BIN_ROWS_MAX`` rows; n = 0
+    returns zeros without a launch); CPU tensors run
+    :func:`bin_counts_torch` over the same row chunks."""
+    B = int(num_bins)
+    if codes.dim() != 2 or codes.dtype != torch.int32 \
+            or not codes.is_contiguous():
+        raise ValueError(f"bin_counts: codes must be a contiguous (n, R) "
+                         f"int32 tensor, got {tuple(codes.shape)} "
+                         f"{codes.dtype}")
+    n, R = codes.shape
+    if mask is not None and (mask.dtype != torch.bool
+                             or tuple(mask.shape) != (n,)
+                             or mask.device != codes.device
+                             or not mask.is_contiguous()):
+        raise ValueError(f"bin_counts: mask must be a contiguous ({n},) "
+                         f"bool tensor on {codes.device}, got "
+                         f"{tuple(mask.shape)} {mask.dtype} on {mask.device}")
+    if B < 1 or R * B >= 1 << 31:
+        raise ValueError(f"bin_counts needs 1 <= num_bins and R*B < 2^31 "
+                         f"(got R={R}, B={B})")
+    form = _launch_bins if resolve_backend(codes.device) == BACKEND_CUDA \
+        else bin_counts_torch
+    out = None
+    for s in range(0, max(n, 1), BIN_ROWS_MAX):
+        part = form(codes[s:s + BIN_ROWS_MAX], B,
+                    None if mask is None else mask[s:s + BIN_ROWS_MAX])
+        out = part if out is None else out + part
+    return out

@@ -1,19 +1,26 @@
-"""The forest ensemble vote: CUDA kernel wrapper and its plain PyTorch version.
+"""The forest ensemble vote, float and int8: CUDA kernel wrappers and their
+plain PyTorch versions.
 
-Replaces the TPU kernel ``avenir_tpu/ops/pallas/vote.py`` ``ensemble_vote``
-(body ``models/forest.py`` ``_ensemble_vote_body``).  Inputs keep the JAX
-package's stacked layout (``EnsembleModel.stacked_host``):
+Replaces the TPU kernels ``avenir_tpu/ops/pallas/vote.py`` ``ensemble_vote``
+(body ``models/forest.py`` ``_ensemble_vote_body``) and ``quantized_vote``
+(body ``serving/quantized.py`` ``_quantized_vote_body``).  Inputs keep the
+JAX package's stacked layout (``EnsembleModel.stacked_host``):
 
     vals (n,F) f32, codes (n,F) i32, lo/hi (T,P,F) f32, num_r (T,P,F) bool,
     cat_m (T,P,F,C) bool, cat_r (T,P,F) bool, cls_oh (T,P,K) f32,
     wvec (T,) f32, min_odds f32  ->  (n,) int32 vote index (K = veto)
 
-:func:`prepare_vote_model` puts a stacked forest on a device once per model
-load and, for a CUDA device, also reduces it to the kernel's form: per-path
-class indices (T,P) int32, one flag byte per predicate slot and the
-categorical masks packed into 32-bit words.  :func:`ensemble_vote` launches
-``csrc/vote.cu`` for CUDA tensors and runs :func:`ensemble_vote_torch` for
-CPU tensors (``kernels/dispatch.py``); ``launches`` counts kernel launches.
+and, for the int8 form, qvals/qcodes (n,F) int8, q_lo/q_hi (T,P,F) int8 and
+cls_oh (T,P,K) uint8, compared as int32.
+
+:func:`prepare_vote_model` (float) and :func:`prepare_quantized_vote_model`
+(int8) put a stacked forest on a device once per model load and, for a CUDA
+device, also reduce it to the kernel's form: per-path class indices (T,P)
+int32, one flag byte per predicate slot and the categorical masks packed
+into 32-bit words.  :func:`ensemble_vote` and :func:`quantized_vote` launch
+``csrc/vote.cu`` for CUDA tensors and run :func:`ensemble_vote_torch` /
+:func:`quantized_vote_torch` for CPU tensors (``kernels/dispatch.py``);
+``launches`` and ``quantized_launches`` count their kernel launches.
 """
 
 from __future__ import annotations
@@ -27,9 +34,11 @@ import torch
 
 from .dispatch import BACKEND_CUDA, resolve_backend
 
-# kernel launches since the last reset (a plain integer; chip_smoke.py
-# zeroes it around the main path and reads it back)
+# kernel launches since the last reset (plain integers; chip_smoke.py
+# zeroes them around the main path and reads them back): the float vote's
+# and the int8 vote's
 launches = 0
+quantized_launches = 0
 
 # predicate tensors are staged in shared memory up to this size per block
 SMEM_LIMIT = 48 * 1024
@@ -45,8 +54,10 @@ _CAT_FLAG = 2
 @dataclass
 class VoteModel:
     """A stacked forest resident on ``device``.  The first seven tensors are
-    the reference layout (what the plain version reads); ``flags``, ``catw``
-    and ``cls`` are the kernel's form, present on CUDA devices only."""
+    the reference layout (what the plain version reads; ``lo``/``hi`` are
+    float32, or int8 for the quantized form, and ``cls_oh`` is float32 in
+    both); ``flags``, ``catw`` and ``cls`` are the kernel's form, present on
+    CUDA devices only."""
     lo: torch.Tensor
     hi: torch.Tensor
     num_r: torch.Tensor
@@ -72,12 +83,18 @@ class VoteModel:
         return (self.lo, self.hi, self.num_r, self.cat_m, self.cat_r,
                 self.cls_oh, self.wvec)
 
+    @property
+    def quantized(self) -> bool:
+        return self.lo.dtype == torch.int8
+
     def smem_bytes(self) -> int:
-        """Bytes the kernel stages per block: lo, hi, flags, mask words,
-        class indices and weights."""
+        """Bytes the kernel stages per block: lo and hi (4 bytes a slot in
+        float32, 1 in int8), flags, mask words, class indices and
+        weights."""
         T, P, F, C, _ = self.shape
         W = (C + 31) // 32
-        return T * P * F * (4 + 4 + 1 + 4 * W) + T * P * 4 + T * 4
+        th = self.lo.element_size()
+        return T * P * F * (2 * th + 1 + 4 * W) + T * P * 4 + T * 4
 
 
 def prepare_vote_model(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec,
@@ -85,8 +102,26 @@ def prepare_vote_model(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec,
     """Host stacked arrays (numpy, ``stacked_host`` layout) + member weights
     -> a :class:`VoteModel` on ``device``.  Raises on a layout the vote does
     not take, including a ``cls_oh`` row that is neither one-hot nor zero."""
-    lo = np.ascontiguousarray(lo, np.float32)
-    hi = np.ascontiguousarray(hi, np.float32)
+    return _prepare(np.ascontiguousarray(lo, np.float32),
+                    np.ascontiguousarray(hi, np.float32), num_r, cat_m, cat_r,
+                    cls_oh, wvec, device)
+
+
+def prepare_quantized_vote_model(q_lo, q_hi, num_r, cat_m, cat_r, cls_oh,
+                                 wvec, device) -> VoteModel:
+    """The int8 form (``QuantizedForest`` arrays: int8 thresholds, uint8
+    leaf votes) -> a :class:`VoteModel` on ``device`` whose ``lo``/``hi``
+    stay int8; the leaf votes are cast to float32 before the checks and
+    the kernel form, as the reference casts them for its tally."""
+    q_lo, q_hi = np.asarray(q_lo), np.asarray(q_hi)
+    if q_lo.dtype != np.int8 or q_hi.dtype != np.int8:
+        raise ValueError(f"quantized forest needs int8 q_lo/q_hi, got "
+                         f"{q_lo.dtype}/{q_hi.dtype}")
+    return _prepare(np.ascontiguousarray(q_lo), np.ascontiguousarray(q_hi),
+                    num_r, cat_m, cat_r, cls_oh, wvec, device)
+
+
+def _prepare(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec, device) -> VoteModel:
     num_r = np.ascontiguousarray(num_r, bool)
     cat_m = np.ascontiguousarray(cat_m, bool)
     cat_r = np.ascontiguousarray(cat_r, bool)
@@ -148,7 +183,8 @@ def kernel_form(num_r, cat_m, cat_r, cls_oh):
 
 def first_match_torch(vals, codes, lo, hi, num_r, cat_m, cat_r):
     """(n, T) int64 index of each tree's first matching path (0 when none
-    matches, as the reference's argmax over an all-false row)."""
+    matches, as the reference's argmax over an all-false row).  Values are
+    compared in the thresholds' type."""
     n = vals.shape[0]
     T, P, F, C = cat_m.shape
     if n == 0:
@@ -159,7 +195,7 @@ def first_match_torch(vals, codes, lo, hi, num_r, cat_m, cat_r):
     by_code = cat_m.permute(2, 3, 0, 1)                  # (F, C, T, P)
     out = []
     for s in range(0, n, step):
-        v = vals[s:s + step].to(torch.float32)
+        v = vals[s:s + step].to(lo.dtype)
         c = codes[s:s + step]
         x = v[:, None, None, :]
         num_ok = ((x > lo) & (x <= hi)) | ~num_r         # (n, T, P, F)
@@ -203,44 +239,64 @@ def ensemble_vote_torch(vals, codes, lo, hi, num_r, cat_m, cat_r, cls_oh,
                            wvec), min_odds)
 
 
+def quantized_vote_torch(qvals, qcodes, q_lo, q_hi, num_r, cat_m, cat_r,
+                         cls_oh, wvec, min_odds):
+    """The plain version of the int8 vote (``_quantized_vote_body``): the
+    float vote's structure over int32-upcast operands, leaf votes as
+    float32."""
+    if qvals.shape[0] == 0:
+        return torch.zeros((0,), dtype=torch.int32, device=qvals.device)
+    i32 = torch.int32
+    return vote_finalize_torch(
+        member_votes_torch(qvals, qcodes, q_lo.to(i32), q_hi.to(i32), num_r,
+                           cat_m, cat_r, cls_oh.to(torch.float32), wvec),
+        min_odds)
+
+
 # --------------------------------------------------------------------------
-# the wrapper
+# the wrappers
 # --------------------------------------------------------------------------
 
-_entry = None
+# value dtype -> (C entry point, code dtype, wrapper name)
+_FORMS = {torch.float32: ("avenir_ensemble_vote", torch.int32,
+                          "ensemble_vote"),
+          torch.int8: ("avenir_quantized_vote", torch.int8,
+                       "quantized_vote")}
+_entries = {}
 
 
-def _lib():
-    """The kernel's C entry point, typed (built and loaded on first use)."""
-    global _entry
-    if _entry is None:
+def _lib(entry: str):
+    """A kernel's C entry point, typed (built and loaded on first use)."""
+    fn = _entries.get(entry)
+    if fn is None:
         from .build import load
-        fn = load("vote").avenir_ensemble_vote
+        fn = getattr(load("vote"), entry)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p, p, ctypes.c_longlong, i, p, p, p, p, p, p, i, i, i,
                        i, i, ctypes.c_float, p, p, i, ctypes.c_longlong, p]
         fn.restype = ctypes.c_int
-        _entry = fn
-    return _entry
+        _entries[entry] = fn
+    return fn
 
 
 def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
-    global launches
+    global launches, quantized_launches
     T, P, F, C, K = model.shape
     n = vals.shape[0]
-    for name, t, dtype in (("vals", vals, torch.float32),
-                           ("codes", codes, torch.int32)):
+    entry, code_dtype, what = _FORMS[model.lo.dtype]
+    for name, t, dtype in (("vals", vals, model.lo.dtype),
+                           ("codes", codes, code_dtype)):
         if t.dtype != dtype or t.dim() != 2 or t.shape != (n, F) \
                 or not t.is_contiguous():
-            raise ValueError(f"ensemble_vote: {name} must be a contiguous "
+            raise ValueError(f"{what}: {name} must be a contiguous "
                              f"({n}, {F}) {dtype} tensor, got "
                              f"{tuple(t.shape)} {t.dtype}")
         if t.device != model.device:
-            raise ValueError(f"ensemble_vote: {name} on {t.device}, model "
+            raise ValueError(f"{what}: {name} on {t.device}, model "
                              f"on {model.device}")
     if model.cls is None:
-        raise ValueError("ensemble_vote: model was not prepared for a CUDA "
-                         "device")
+        raise ValueError(f"{what}: model was not prepared for a CUDA "
+                         f"device")
     out = torch.empty((n,), dtype=torch.int32, device=vals.device)
     if n == 0:
         return out
@@ -250,18 +306,20 @@ def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
     smem = model.smem_bytes()
     use_smem = smem <= SMEM_LIMIT
     stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = _lib()(vals.data_ptr(), codes.data_ptr(), n, F,
-                 model.lo.data_ptr(), model.hi.data_ptr(),
-                 model.flags.data_ptr(), model.catw.data_ptr(),
-                 model.cls.data_ptr(), model.wvec.data_ptr(),
-                 T, P, C, (C + 31) // 32, K, float(min_odds),
-                 scratch.data_ptr() if scratch is not None else None,
-                 out.data_ptr(), int(use_smem), smem if use_smem else 0,
-                 stream)
+    err = _lib(entry)(vals.data_ptr(), codes.data_ptr(), n, F,
+                      model.lo.data_ptr(), model.hi.data_ptr(),
+                      model.flags.data_ptr(), model.catw.data_ptr(),
+                      model.cls.data_ptr(), model.wvec.data_ptr(),
+                      T, P, C, (C + 31) // 32, K, float(min_odds),
+                      scratch.data_ptr() if scratch is not None else None,
+                      out.data_ptr(), int(use_smem), smem if use_smem else 0,
+                      stream)
     if err != 0:
-        raise RuntimeError(f"ensemble_vote kernel launch failed: CUDA error "
-                           f"{err}")
-    launches += 1
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
+    if model.quantized:
+        quantized_launches += 1
+    else:
+        launches += 1
     return out
 
 
@@ -269,6 +327,22 @@ def ensemble_vote(vals: torch.Tensor, codes: torch.Tensor, model: VoteModel,
                   min_odds: float) -> torch.Tensor:
     """(n,) int32 vote indices.  CUDA tensors launch ``csrc/vote.cu``; CPU
     tensors run :func:`ensemble_vote_torch`."""
+    if model.quantized:
+        raise ValueError("ensemble_vote: model is the int8 form; use "
+                         "quantized_vote")
     if resolve_backend(vals.device) == BACKEND_CUDA:
         return _launch(vals, codes, model, min_odds)
     return ensemble_vote_torch(vals, codes, *model.stacked(), min_odds)
+
+
+def quantized_vote(qvals: torch.Tensor, qcodes: torch.Tensor,
+                   model: VoteModel, min_odds: float) -> torch.Tensor:
+    """(n,) int32 vote indices of int8 request rows against an int8
+    :class:`VoteModel`.  CUDA tensors launch ``csrc/vote.cu``'s int8 form;
+    CPU tensors run :func:`quantized_vote_torch`."""
+    if not model.quantized:
+        raise ValueError("quantized_vote: model is the float form; use "
+                         "ensemble_vote")
+    if resolve_backend(qvals.device) == BACKEND_CUDA:
+        return _launch(qvals, qcodes, model, min_odds)
+    return quantized_vote_torch(qvals, qcodes, *model.stacked(), min_odds)

@@ -1,7 +1,7 @@
-"""Online prediction serving (port of ``avenir_tpu/serving``): the registry's
-read side for forests, warm bucketed predictors, and the micro-batched
-in-process serving loop.
+"""Online prediction serving (port of ``avenir_tpu/serving``): the forest
+registry (publish, read, sidecars), warm bucketed predictors (float and
+int8), and the micro-batched in-process serving loop.
 
-Publishing, deltas, the wire transports, fleets and routers are not ported
-yet; import the submodules directly.
+Deltas, the wire transports, fleets and routers are not ported yet; import
+the submodules directly.
 """

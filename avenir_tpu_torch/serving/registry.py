@@ -7,13 +7,18 @@ and ``publish`` writes them byte for byte as that one does:
     <base_dir>/<name>/v_000001/meta.json     # kind, class labels, dtypes,
                                              # params, schema, JSON payload
     <base_dir>/<name>/v_000001/arrays.npz    # numeric payload (pinned dtypes)
+    <base_dir>/<name>/v_000001/<sidecar>      # files add_sidecar attaches
+                                             # (baseline.*, quantized.*)
     <base_dir>/<name>/serving.json           # optional serving pin
 
 Publish writes the version as ``v_NNNNNN.tmp.<pid>`` and renames it into
 place, so a reader sees the previous latest or the complete new version.
-``latest_version`` skips torn version directories with a warning, and
-``serving_version`` honours a pin whose target is intact.  Deltas,
-sidecars, pins, retention and the other model kinds are not ported yet.
+``add_sidecar`` attaches files to a committed version (each written
+tmp-then-rename, the ``meta.json`` manifest rewritten last), and the
+intactness probe covers every file the manifest lists.  ``latest_version``
+skips torn version directories with a warning, and ``serving_version``
+honours a pin whose target is intact.  Deltas, writing pins, retention and
+the other model kinds are not ported yet.
 """
 
 from __future__ import annotations
@@ -254,3 +259,52 @@ class ModelRegistry:
         write_json(os.path.join(tmp, META_FILE), meta)
         os.replace(tmp, final)
         return version
+
+    # ---- sidecars ----
+    def add_sidecar(self, name: str, version: int,
+                    files: Dict[str, bytes]) -> None:
+        """Attach extra payload files to a COMMITTED version and extend its
+        meta.json manifest, crash-safely: every sidecar file writes
+        ``<file>.tmp.<pid>`` and renames into place BEFORE the manifest
+        update (itself tmp-then-rename), so a crash at any point leaves the
+        version either intact-without-sidecar or intact-with.  The manifest
+        is rewritten as the JAX package rewrites it (``json.dump``, indent
+        2), so a version with sidecars keeps byte-identical ``meta.json``."""
+        if not files:
+            return
+        d = self.version_dir(name, version)
+        meta_path = os.path.join(d, META_FILE)
+        with open(meta_path) as fh:
+            meta = json.load(fh)
+        reserved = {META_FILE, ARRAYS_FILE}
+        for fname, payload in files.items():
+            if os.path.basename(fname) != fname or fname in reserved:
+                raise ValueError(f"bad sidecar file name {fname!r}")
+            final = os.path.join(d, fname)
+            tmp = final + f".tmp.{os.getpid()}"
+
+            def write(tmp=tmp, final=final, payload=payload):
+                with open(tmp, "wb") as fh:
+                    fh.write(payload)
+                os.replace(tmp, final)
+            with_retry(write,
+                       what=f"sidecar write {name} v{version} {fname}")
+        manifest = list(meta.get("files") or [ARRAYS_FILE])
+        manifest.extend(f for f in files if f not in manifest)
+        meta["files"] = manifest
+        tmp_meta = meta_path + f".tmp.{os.getpid()}"
+        with open(tmp_meta, "w") as fh:
+            json.dump(meta, fh, indent=2)
+        os.replace(tmp_meta, meta_path)
+
+    def read_sidecar(self, name: str, version: int, fname: str) -> bytes:
+        """Read one sidecar payload; FileNotFoundError when the version does
+        not carry it (not listed in the manifest)."""
+        d = self.version_dir(name, version)
+        with open(os.path.join(d, META_FILE)) as fh:
+            meta = json.load(fh)
+        if fname not in (meta.get("files") or []):
+            raise FileNotFoundError(
+                f"model {name!r} v{version} has no sidecar {fname!r}")
+        with open(os.path.join(d, fname), "rb") as fh:
+            return fh.read()

@@ -87,7 +87,8 @@ class PredictionService:
 
     Construct either around a ready ``predictor`` or around a ``registry`` +
     ``model_name`` (which enables :meth:`refresh` hot-swap to the
-    registry's serving version)."""
+    registry's serving version; ``quantized`` serves each loaded version's
+    int8 sidecar)."""
 
     def __init__(self, predictor: Optional[Predictor] = None, *,
                  registry: Optional[ModelRegistry] = None,
@@ -101,7 +102,8 @@ class PredictionService:
                  delim: str = ",",
                  ambiguous_label: str = AMBIGUOUS,
                  busy_label: str = "busy",
-                 device=None):
+                 device=None,
+                 quantized: bool = False):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
         self.registry = registry
@@ -109,6 +111,10 @@ class PredictionService:
         self._schema = schema
         self._buckets = tuple(buckets)
         self._device = device
+        # ps.quantized: registry loads (the first and every hot-swap) serve
+        # the version's int8 sidecar; a version without one warns and
+        # serves float
+        self._quantized = bool(quantized)
         self.policy = policy or BatchPolicy()
         self.counters = counters if counters is not None else Counters()
         self.timer = timer if timer is not None else \
@@ -143,7 +149,8 @@ class PredictionService:
         loaded = self.registry.load(self.model_name, latest)
         pred = make_predictor(loaded, schema=self._schema,
                               buckets=self._buckets, delim=self.delim,
-                              device=self._device)
+                              device=self._device,
+                              quantized=self._quantized)
         if self._warm:
             pred.warm()
         self.version = latest
@@ -162,7 +169,8 @@ class PredictionService:
         loaded = self.registry.load(self.model_name, latest)
         pred = make_predictor(loaded, schema=self._schema,
                               buckets=self._buckets, delim=self.delim,
-                              device=self._device)
+                              device=self._device,
+                              quantized=self._quantized)
         if self._warm:
             pred.warm()
         with self._swap_lock:

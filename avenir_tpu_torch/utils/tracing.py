@@ -7,9 +7,11 @@ call in ``avenir_tpu/utils/tracing.py``.
 - :class:`TransferLedger` — host<->device traffic and launch accounting
   recorded at the instrumented sites: H2D/D2H bytes, tagged dispatches
   (``Dispatches`` group; training sites ``forest.level``, ``tree.level``,
-  ``tree.reassign``), and which kernel form actually ran at each hot site
+  ``tree.reassign``, ``baseline.absorb``; serving sites ``ensemble.vote``,
+  ``quantized.vote``), and which kernel form actually ran at each hot site
   (``KernelBackends`` group, keys ``<site>.<backend>`` with backend in
-  ``cuda | torch | host``), so a fallback never passes for a kernel result.
+  ``cuda | torch | host``, and ``serve.predict.quantized`` for the int8
+  serve), so a fallback never passes for a kernel result.
 - :class:`LayerProfile` — per-level wall time of the training layers,
   taken only when a caller passes one to a builder.
 """

@@ -8,6 +8,13 @@ A forest's "weights" are its trees.  The JAX package stores them as
 returns, plus the member weight vector ``wvec``.  Both forms load here:
 the JSON into the port's ``DecisionPathList`` objects, the arrays into a
 ``VoteModel`` on the chosen device in the layout the vote kernel takes.
+
+A published version's sidecars carry more: the int8 forest
+(``QuantizedForest``: quantized thresholds, the grid, the class order) and
+the monitor baseline (``Baseline``: row specs, counts, quantiles).  Their
+fields — numpy arrays and plain metadata, the same in both packages — load
+here into the port's objects (:func:`quantized_from_arrays`,
+:func:`baseline_from_arrays`).
 """
 
 from __future__ import annotations
@@ -15,13 +22,15 @@ from __future__ import annotations
 import json
 import os
 import re
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
 from .kernels.vote import VoteModel, prepare_vote_model
 from .models.tree import DecisionPathList
+from .monitor.baseline import QUANTILE_QS, Baseline, RowSpec
 from .runtime import resolve_device
+from .serving.quantized import DEFAULT_BUDGET, QuantizedForest
 
 _TREE_FILE = re.compile(r"tree_(\d+)\.json")
 
@@ -80,3 +89,35 @@ def vote_model_from_stacked(stacked, weights: Optional[Sequence[float]] = None,
     else:
         raise ValueError(f"expected 6 or 7 stacked arrays, got {len(arrays)}")
     return prepare_vote_model(*arrays, wvec, resolve_device(device))
+
+
+def quantized_from_arrays(q_lo, q_hi, num_r, cat_m, cat_r, cls_oh, wvec,
+                          scale, fmin, classes: Sequence[str],
+                          min_odds: float = 1.0,
+                          budget: float = DEFAULT_BUDGET,
+                          mismatch: float = 0.0) -> QuantizedForest:
+    """The JAX package's ``QuantizedForest`` fields (its dataclass fields,
+    by name) -> the port's, with the sidecar's dtypes pinned: int8
+    thresholds, bool masks, uint8 leaf votes, float32 weights, float64
+    grid."""
+    return QuantizedForest(
+        q_lo=np.asarray(q_lo, np.int8), q_hi=np.asarray(q_hi, np.int8),
+        num_r=np.asarray(num_r, bool), cat_m=np.asarray(cat_m, bool),
+        cat_r=np.asarray(cat_r, bool), cls_oh=np.asarray(cls_oh, np.uint8),
+        wvec=np.asarray(wvec, np.float32), scale=np.asarray(scale, np.float64),
+        fmin=np.asarray(fmin, np.float64), classes=list(classes),
+        min_odds=float(min_odds), budget=float(budget),
+        mismatch=float(mismatch))
+
+
+def baseline_from_arrays(rows: Sequence[Dict], counts, n_rows: int,
+                         quantile_qs: Sequence[float] = QUANTILE_QS,
+                         quantiles=None) -> Baseline:
+    """The JAX package's ``Baseline`` fields -> the port's: ``rows`` are
+    the row specs as dicts (``RowSpec.to_dict``, the ``baseline.json``
+    form), ``counts`` (R, B_max) and ``quantiles`` (R, Q) float64."""
+    return Baseline(specs=[RowSpec.from_dict(d) for d in rows],
+                    counts=np.asarray(counts, np.float64),
+                    n_rows=int(n_rows), quantile_qs=tuple(quantile_qs),
+                    quantiles=None if quantiles is None
+                    else np.asarray(quantiles, np.float64))

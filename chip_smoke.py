@@ -11,8 +11,8 @@ order — any failure exits non-zero before the result line:
   1. device   require torch.cuda.is_available(); print the card's name and
               power limit (nvidia-smi)
   2. build    build every CUDA kernel from csrc/ (one nvcc per source, all
-              started together: vote.cu and histogram.cu) into
-              build/avenir_tpu_torch/
+              started together: vote.cu, histogram.cu and bin_counts.cu)
+              into build/avenir_tpu_torch/
   3. kernel   the ensemble-vote kernel against its plain PyTorch version on
               the card: random stacked forests (NaNs, negative and
               out-of-range codes, negative integer weights, ties, min_odds
@@ -72,6 +72,37 @@ order — any failure exits non-zero before the result line:
               float32 add rate used for the vote).  No single PyTorch call computes the histogram
               (building the flattened index is part of the work), so
               library_ms is null
+ 11. b3       the int8 vote kernel against its plain PyTorch version on the
+              card: random int8 forests (thresholds and values with the
+              -128 / 127 sentinels, pad paths q_lo = 127, codes of -1 and
+              >= C) at the published shape and the wide one (predicates
+              from global memory), n = 1, 7, 513 and 1,000,000, min_odds
+              1.0 and 1.5; the votes must be EXACTLY equal
+ 12. b4       the bin-counts kernel against its plain PyTorch version: the
+              rafo baseline (R=5, B=7), the default 32-bin shape (R=33,
+              B=33) and a wide one whose accumulator does not fit in
+              shared memory (R=64, B=256), codes in [-2, B+2), n = 1, 7,
+              1000 and 1,000,000, mask None and partial; the float32
+              counts must be EXACTLY equal
+ 13. sidecars the sidecar main path, launch counts zeroed before and read
+              after: randomForestBuilder with dtb.model.quantize=true and
+              dtb.baseline.publish=true over call_hangup_gen(5000, 17) must
+              reproduce the rafo9 trees and the rafo9q fixture's meta.json,
+              baseline.json and quantized.json bytes, its npz arrays and
+              its counters (B2, B3 and B4 must each have launched by then);
+              predictionService -Dps.quantized=true over the rafo9 requests
+              must reproduce served_quantized.csv.  The ledger must show
+              quantized.vote.cuda and baseline.absorb.cuda and no torch or
+              host form
+ 14. b3/b4 times  median CUDA-event times of each kernel and its plain
+              version: B3 on the published int8 rafo9 forest over its
+              requests quantized and tiled to 1,000,000 rows, B4 at (R=5,
+              B=7) over the monitor codes of 1,000,000 hangup rows; bounds
+              as in phases 6 and 10.  No single PyTorch call computes
+              either (B4: torch.bincount needs the flat r*B + code index
+              and the validity mask built first, which is the work; its
+              time over a prebuilt index is printed as context), so
+              library_ms is null
 
 The line before the last is one JSON object with the kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -92,6 +123,7 @@ RES = os.path.join(ROOT, "resource")
 RF_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "rf")
 DT_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "dt")
 RAFO9 = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9")
+RAFO9Q = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9q")
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 # H100 SXM float32 outside the tensor cores is 67 TFLOP/s counting a fused
@@ -107,6 +139,9 @@ B1_SHAPES = {"rafo": (9, 8, 19, 2, 2), "rafo_root": (9, 1, 19, 2, 2),
              "bench": (16, 8, 19, 2, 2), "wide": (64, 128, 64, 4, 4)}
 B1_BIG_ROWS = {"rafo": 1_000_000, "rafo_root": 1_000_000,
                "bench": 8_000_000, "wide": 262_144}
+# bin-counts shapes (R, B) held against the plain version
+B4_SHAPES = {"rafo": (5, 7), "default": (33, 33), "wide": (64, 256)}
+B4_ROWS = (1, 7, 1000, 1_000_000)
 # call_hangup_gen's generative model (resource/gen/call_hangup_gen.py)
 REASON_P = (0.35, 0.2, 0.25, 0.2)
 PATIENCE = (500.0, 900.0, 420.0, 380.0)
@@ -150,6 +185,24 @@ def random_forest_inputs(rng, shape, n):
     vals[rng.random((n, F)) < 0.05] = np.nan
     codes = rng.integers(-2, C + 3, (n, F)).astype(np.int32)
     return (lo, hi, num_r, cat_m, cat_r, cls_oh, wvec), vals, codes
+
+
+def random_quantized_inputs(rng, shape, n):
+    """A random int8 forest in QuantizedForest's layout and n int8 request
+    rows: random_forest_inputs' forest with its thresholds on the int8 grid
+    (-inf -> -128, +inf -> 127, so pad paths get q_lo = 127), values with
+    the -128 (NaN) and 127 (+inf) sentinels, codes of -1 and >= C."""
+    (lo, hi, num_r, cat_m, cat_r, cls_oh, wvec), vals, codes = \
+        random_forest_inputs(rng, shape, n)
+
+    def grid(a):
+        return np.where(np.isneginf(a), -128,
+                        np.where(np.isposinf(a), 127, a)).astype(np.int8)
+    qv = np.where(np.isnan(vals), -128, vals).astype(np.int8)
+    qv[rng.random(qv.shape) < 0.03] = 127
+    qc = np.clip(codes, -1, 127).astype(np.int8)
+    return (grid(lo), grid(hi), num_r, cat_m, cat_r,
+            cls_oh.astype(np.uint8), wvec), qv, qc
 
 
 def cuda_ms(fn, reps):
@@ -209,19 +262,24 @@ def time_vote(model, vals, codes, plain):
     uploaded to the card, in turns kernel, plain, kernel; and the bound:
     each input read once and the output written once at the HBM rate, or
     the predicate tests this data makes the scan run at the test rate —
-    the larger of the two."""
+    the larger of the two.  The float or the int8 vote, as ``model`` is."""
     import torch
     from avenir_tpu_torch.kernels import vote
     dev = model.device
-    v = torch.from_numpy(np.ascontiguousarray(vals, np.float32)).to(dev)
-    c = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(dev)
+    if model.quantized:
+        kernel, plain_fn = vote.quantized_vote, vote.quantized_vote_torch
+        vdt, cdt = np.int8, np.int8
+    else:
+        kernel, plain_fn = vote.ensemble_vote, vote.ensemble_vote_torch
+        vdt, cdt = np.float32, np.int32
+    v = torch.from_numpy(np.ascontiguousarray(vals, vdt)).to(dev)
+    c = torch.from_numpy(np.ascontiguousarray(codes, cdt)).to(dev)
     n, F = v.shape
-    res = {"ms": cuda_ms(lambda: vote.ensemble_vote(v, c, model, 1.5), 50)}
+    res = {"ms": cuda_ms(lambda: kernel(v, c, model, 1.5), 50)}
     if plain:
-        res["plain_ms"] = cuda_ms(lambda: vote.ensemble_vote_torch(
+        res["plain_ms"] = cuda_ms(lambda: plain_fn(
             v, c, *model.stacked(), 1.5), 10)
-        res["ms_again"] = cuda_ms(
-            lambda: vote.ensemble_vote(v, c, model, 1.5), 50)
+        res["ms_again"] = cuda_ms(lambda: kernel(v, c, model, 1.5), 50)
     kernel_form = (model.lo, model.hi, model.flags, model.catw, model.cls,
                    model.wvec)
     nbytes = v.nbytes + c.nbytes + n * 4 + sum(t.nbytes for t in kernel_form)
@@ -330,6 +388,32 @@ def time_b1(rng, shape, n, dev):
     return res
 
 
+def time_b4(codes, B, dev):
+    """Bin-counts kernel and plain-version median ms on (n, R) codes, in
+    turns kernel, plain, kernel; torch.bincount over a prebuilt flat index
+    as context; and the bound: the codes read once and the counts written
+    once at 3.35 TB/s, or one add per valid code at the float32 add rate —
+    the larger of the two."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    c = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(dev)
+    n, R = c.shape
+    res = {"ms": cuda_ms(lambda: histogram.bin_counts(c, B), 50)}
+    res["plain_ms"] = cuda_ms(lambda: histogram.bin_counts_torch(c, B), 10)
+    res["ms_again"] = cuda_ms(lambda: histogram.bin_counts(c, B), 50)
+    flat = (c.long() + B * torch.arange(R, device=dev)[None, :]).reshape(-1)
+    res["bincount_prebuilt_ms"] = cuda_ms(
+        lambda: torch.bincount(flat, minlength=R * B), 20)
+    nbytes = c.nbytes + R * B * 4
+    adds = int(((c >= 0) & (c < B)).sum().item())
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    adds_ms = adds / TESTS_PER_S * 1e3
+    res.update(bound_ms=max(bytes_ms, adds_ms), bytes=nbytes,
+               bytes_ms=bytes_ms, adds=adds, adds_ms=adds_ms,
+               bound_by="bytes" if bytes_ms >= adds_ms else "operations")
+    return res
+
+
 def hangup_table(rng, n, fs):
     """n rows in call_hangup.json's schema drawn vectorised from
     call_hangup_gen's model (call-reason mix, exponential queue time,
@@ -360,6 +444,20 @@ def same_bytes(got, want, what):
         if a.read() != b.read():
             fail(f"{what}: {got} differs from {want}")
     print(f"{what}: byte-identical to {os.path.relpath(want, ROOT)}",
+          flush=True)
+
+
+def same_arrays(got, want, what):
+    """Two .npz files hold the same arrays with the same dtypes (their
+    bytes differ: np.savez stamps the write time into each zip entry)."""
+    with np.load(got) as a, np.load(want) as b:
+        if sorted(a.files) != sorted(b.files):
+            fail(f"{what}: arrays {sorted(a.files)} != {sorted(b.files)}")
+        for k in a.files:
+            if a[k].dtype != b[k].dtype or a[k].shape != b[k].shape or \
+                    not np.array_equal(a[k], b[k], equal_nan=True):
+                fail(f"{what}: array {k!r} of {got} differs from {want}")
+    print(f"{what}: arrays equal to {os.path.relpath(want, ROOT)}",
           flush=True)
 
 
@@ -659,6 +757,160 @@ def main():
     print("no single PyTorch call computes the histogram: library_ms is null",
           flush=True)
 
+    phase("11 int8 vote kernel vs plain version")
+    b3_err = 0
+    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+        for n in ROW_COUNTS:
+            stacked, qv, qc = random_quantized_inputs(rng, shape, n)
+            model = vote.prepare_quantized_vote_model(*stacked, dev)
+            d_qv = torch.from_numpy(qv).to(dev)
+            d_qc = torch.from_numpy(qc).to(dev)
+            for min_odds in (1.0, 1.5):
+                got = vote.quantized_vote(d_qv, d_qc, model, min_odds)
+                want = vote.quantized_vote_torch(d_qv, d_qc,
+                                                 *model.stacked(), min_odds)
+                torch.cuda.synchronize()
+                if got.shape != (n,) or got.dtype != torch.int32:
+                    fail(f"int8 vote output {tuple(got.shape)} {got.dtype}")
+                err = int((got.long() - want.long()).abs().max().item())
+                b3_err = max(b3_err, err)
+                if err:
+                    bad = int((got != want).sum().item())
+                    fail(f"int8 vote kernel != plain version at shape "
+                         f"{shape}, n={n}, min_odds={min_odds}: {bad} rows "
+                         f"differ")
+            print(f"int8 shape T,P,F,C,K={shape} n={n}: exact "
+                  f"(smem={model.smem_bytes() <= vote.SMEM_LIMIT}, "
+                  f"smem_bytes={model.smem_bytes()}, "
+                  f"vetoes={int((got == shape[4]).sum().item())})",
+                  flush=True)
+            del d_qv, d_qc, got, want
+
+    phase("12 bin-counts kernel vs plain version")
+    b4_err = 0.0
+    for name, (R, B) in B4_SHAPES.items():
+        for n in B4_ROWS:
+            b4_codes = torch.from_numpy(rng.integers(
+                -2, B + 2, (n, R), dtype=np.int32)).to(dev)
+            part = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+            for mask in (None, part):
+                got = histogram.bin_counts(b4_codes, B, mask)
+                want = histogram.bin_counts_torch(b4_codes, B, mask)
+                torch.cuda.synchronize()
+                if got.shape != (R, B) or got.dtype != torch.float32:
+                    fail(f"bin counts output {tuple(got.shape)} {got.dtype}")
+                err = float((got - want).abs().max().item())
+                b4_err = max(b4_err, err)
+                if err or not torch.equal(got, want):
+                    fail(f"bin-counts kernel != plain version at {name} "
+                         f"R={R} B={B}, n={n}, mask "
+                         f"{'partial' if mask is not None else 'None'}")
+            print(f"{name} R,B=({R},{B}) n={n}: exact with mask None and "
+                  f"partial (smem={R * B * 4 <= histogram.BIN_SMEM_LIMIT}, "
+                  f"total={float(want.sum().item()):.0f})", flush=True)
+
+    # ---- the sidecar main path: counts zeroed just before, read after ----
+    vote.launches = vote.quantized_launches = 0
+    histogram.launches = histogram.bin_counts_launches = 0
+    with transfer_ledger() as side_ledger:
+        phase("13 sidecar main path")
+        q_model = os.path.join(WORK, "rafo9q_model")
+        q_reg = os.path.join(WORK, "rafo9q_registry")
+        t0 = time.perf_counter()
+        run_cli(["org.avenir.tree.RandomForestBuilder", f"-Dconf.path={props}",
+                 f"-Ddtb.feature.schema.file.path={schema}",
+                 f"-Ddtb.model.registry.dir={q_reg}",
+                 "-Ddtb.model.name=rafo9", "-Ddtb.model.quantize=true",
+                 "-Ddtb.baseline.publish=true", r9_train, q_model])
+        q_train_s = time.perf_counter() - t0
+        publish_launches = {"ensemble_vote": vote.launches,
+                            "quantized_vote": vote.quantized_launches,
+                            "bin_counts": histogram.bin_counts_launches}
+        for i in range(9):
+            same_bytes(os.path.join(q_model, f"tree_{i}.json"),
+                       os.path.join(RAFO9, f"tree_{i}.json"),
+                       f"rafo9q randomForestBuilder tree {i}")
+        version = os.path.join("rafo9", "v_000001")
+        for f in ("meta.json", "baseline.json", "quantized.json"):
+            same_bytes(os.path.join(q_reg, version, f),
+                       os.path.join(RAFO9Q, "registry", version, f),
+                       f"rafo9q published {f}")
+        for f in ("arrays.npz", "baseline.npz", "quantized.npz"):
+            same_arrays(os.path.join(q_reg, version, f),
+                        os.path.join(RAFO9Q, "registry", version, f),
+                        f"rafo9q published {f}")
+        with open(q_model + ".counters.json") as fh:
+            q_counters = json.load(fh)
+        with open(os.path.join(RAFO9Q, "train_counters.json")) as fh:
+            want_counters = json.load(fh)
+        if q_counters["Random forest"] != want_counters:
+            fail(f"rafo9q counters {q_counters['Random forest']} != "
+                 f"{want_counters}")
+        print(f"rafo9q counters equal the fixture's: "
+              f"{q_counters['Random forest']}", flush=True)
+        served_q = os.path.join(WORK, "rafo9q_served")
+        t0 = time.perf_counter()
+        run_cli(["org.avenir.serving.PredictionService",
+                 f"-Dconf.path={props}", f"-Dps.model.registry.dir={q_reg}",
+                 "-Dps.model.name=rafo9", "-Dps.transport=inprocess",
+                 "-Dps.quantized=true", requests, served_q])
+        q_serve_s = time.perf_counter() - t0
+        same_bytes(os.path.join(served_q, "part-m-00000"),
+                   os.path.join(RAFO9Q, "served_quantized.csv"),
+                   "rafo9q predictionService -Dps.quantized=true")
+    b3_launches = vote.quantized_launches
+    b4_launches = histogram.bin_counts_launches
+    side_backends = side_ledger.backend_snapshot()
+    with open(served_q + ".counters.json") as fh:
+        sq = json.load(fh)
+    print(f"sidecar main path: launches in the publish {publish_launches}, "
+          f"quantized_vote launches in all={b3_launches}, bin_counts "
+          f"launches={b4_launches}; KernelBackends={side_backends}; "
+          f"randomForestBuilder {q_train_s:.2f} s wall; predictionService "
+          f"{sq['Serving']['Requests']} requests in "
+          f"{sq['Serving']['Batches']} batches, "
+          f"{sq['Dispatches']['quantized.vote']} int8 vote launches, "
+          f"H2D {sq['Transfers']['H2DBytes']} bytes, wall {q_serve_s:.2f} s",
+          flush=True)
+    for k, v in publish_launches.items():
+        if v <= 0:
+            fail(f"the sidecar publish never launched {k}")
+    for site in ("quantized.vote.cuda", "baseline.absorb.cuda"):
+        if not side_backends.get(site):
+            fail(f"sidecar ledger shows no {site}")
+    wrong = [k for k in side_backends if k.endswith((".torch", ".host"))]
+    if wrong:
+        fail(f"ledger shows non-kernel forms on the sidecar path: {wrong}")
+
+    phase("14 int8 vote and bin-counts kernel times")
+    from avenir_tpu_torch.monitor.baseline import (encode_monitor_codes,
+                                                   monitor_specs)
+    from avenir_tpu_torch.serving.quantized import load_quantized
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    qf = load_quantized(ModelRegistry(q_reg), "rafo9", 1)
+    if qf is None:
+        fail("the published rafo9 version has no int8 sidecar")
+    # the rafo9 requests (phase 6's feature arrays) quantized, tiled to 1M
+    req_vals, req_codes = ens.models[0].matrix.feature_arrays(
+        load_csv(requests, fs))
+    qv, qc = qf.quantize_rows(req_vals, req_codes)
+    n = 1_000_000
+    reps = -(-n // len(qv))
+    b3 = time_vote(qf.prepare(dev).model, np.tile(qv, (reps, 1))[:n],
+                   np.tile(qc, (reps, 1))[:n], plain=True)
+    print(f"int8 rafo9 forest {qf.q_lo.shape} (T,P,F), n={n}: {b3}",
+          flush=True)
+    specs = monitor_specs(fs)
+    mon_codes = encode_monitor_codes(
+        hangup_table(np.random.default_rng(20261018), 1_000_000, fs), specs)
+    b4_B = max(s.n_bins for s in specs)
+    b4 = time_b4(mon_codes, b4_B, dev)
+    print(f"bin counts R,B=({len(specs)},{b4_B}) n=1,000,000 (hangup "
+          f"monitor codes): {b4}", flush=True)
+    print("no single PyTorch call computes the int8 vote or the bin counts "
+          "(torch.bincount needs the flat index and validity mask built "
+          "first): library_ms is null", flush=True)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ensemble_vote", "route": "cuda",
@@ -674,6 +926,20 @@ def main():
         "launches": b1_launches, "max_abs_err": b1_err,
         "ms": rafo_t["ms"], "plain_ms": rafo_t["plain_ms"],
         "bound_ms": rafo_t["bound_ms"], "bound_by": rafo_t["bound_by"],
+        "library_ms": None}, {
+        "name": "quantized_vote", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/vote.cu",
+        "replaces": "avenir_tpu/ops/pallas/vote.py:129",
+        "launches": b3_launches, "max_abs_err": b3_err,
+        "ms": b3["ms"], "plain_ms": b3["plain_ms"],
+        "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
+        "library_ms": None}, {
+        "name": "bin_counts", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/bin_counts.cu",
+        "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
+        "launches": b4_launches, "max_abs_err": b4_err,
+        "ms": b4["ms"], "plain_ms": b4["plain_ms"],
+        "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

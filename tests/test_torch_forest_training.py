@@ -7,7 +7,7 @@ sub-sampling, impurity, attribute- and split-selection and stopping
 strategy, chunked or not; the training CLI reproduces the golden ``rf`` and
 ``dt`` fixtures and the rafo9 forest; a version the port publishes is
 byte-identical to the JAX package's and loads in both; keys of unported
-training tiers refuse by name."""
+training tiers refuse by name, and the sidecar keys without a registry."""
 
 import json
 import os
@@ -414,8 +414,15 @@ def test_port_publish_is_byte_identical_and_loads_in_both(tmp_path):
     "dtb.baseline.publish=true", "dtb.model.quantize=true",
     "badrecords.policy=skip"])
 def test_unported_training_keys_refuse_by_name(tmp_path, key):
+    """Keys of unported tiers raise JobNotPorted naming them; the sidecar
+    keys are ported, and without a registry to ride they raise a
+    ValueError naming the key and the registry key it needs."""
     train = _gen(50, 1, tmp_path / "train.csv")
-    with pytest.raises(JobNotPorted, match=key.replace(".", r"\.")):
+    sidecar = key.startswith(("dtb.baseline", "dtb.model.quantize"))
+    want = (ValueError, key.split("=")[0].replace(".", r"\.")
+            + r" needs dtb\.model\.registry\.dir") if sidecar \
+        else (JobNotPorted, key.replace(".", r"\."))
+    with pytest.raises(want[0], match=want[1]):
         port_run.main(["randomForestBuilder", f"-Dconf.path={RAFO_PROPS}",
                        f"-Ddtb.feature.schema.file.path={SCHEMA}",
                        f"-D{key}", "-Dplatform=cpu", train,

@@ -25,6 +25,10 @@ import avenir_tpu_torch
 names = ["avenir_tpu_torch"] + [
     m.name for m in pkgutil.walk_packages(avenir_tpu_torch.__path__,
                                           "avenir_tpu_torch.")]
+for name in ("avenir_tpu_torch.monitor.baseline",
+             "avenir_tpu_torch.stats.histogram",
+             "avenir_tpu_torch.serving.quantized"):
+    assert name in names, name
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
@@ -39,5 +43,5 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x6, utils x2, kernels x5, models x3,
-    # serving x4, cli x4 and the package itself
-    assert int(res.stdout.strip()) >= 21
+    # serving x5, monitor x2, stats x2, cli x4 and the package itself
+    assert int(res.stdout.strip()) >= 26

@@ -115,8 +115,10 @@ def test_unported_jobs_and_serving_tiers_refuse_by_name(registry, tmp_path):
                        "-Dplatform=cpu", "in.csv", str(tmp_path / "o")])
     req = tmp_path / "req.csv"
     req.write_text("\n".join(",".join(r) for r in _rows(3)) + "\n")
+    # ps.quantized is ported: beside an unported key, that key still
+    # refuses by name
     for extra in (["-Dps.transport=resp"], ["-Dps.workers=2"],
-                  ["-Dps.quantized=true"]):
+                  ["-Dps.quantized=true", "-Dps.workers=2"]):
         with pytest.raises(JobNotPorted, match="not ported"):
             port_run.main(["predictionService", f"-Dps.model.registry.dir="
                            f"{registry}", "-Dps.model.name=m",
