@@ -8,7 +8,8 @@ ported job given a key of a tier that is not; nothing here dispatches to
 the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
 (here, monolithic training, the registry publish and its baseline and
-int8 sidecars).
+int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
+``knnPipeline`` (``knn_jobs.py``).
 """
 
 from __future__ import annotations

@@ -1,0 +1,363 @@
+"""The KNN jobs of the port (``resource/knn.sh``: the sifarish distance job,
+then avenir's NearestNeighbor), from ``avenir_tpu/cli/jobs.py``:
+
+* ``sameTypeSimilarity`` — all-pairs record distance lines
+  ``trainId,testId,dist[,trainClass,testClass]``;
+* ``nearestNeighbor`` — groups those lines per test row and classifies or
+  regresses;
+* ``knnPipeline`` — the fused in-process flow: distance + top-k on the
+  device (kernel B5), then the vote.
+
+Single process: ``nen.train.shard=true`` (the multi-host train split) is
+not ported and raises :class:`JobNotPorted`.
+"""
+
+from __future__ import annotations
+
+import glob
+import os
+from typing import Dict, List
+
+import numpy as np
+
+from ..core import artifacts
+from ..core.config import Config
+from ..core.metrics import ConfusionMatrix, Counters
+from ..core.schema import FeatureSchema
+from ..core.table import load_csv_text
+from .jobs import JobNotPorted, _schema_path, _splitter, register
+
+
+def _load_train_test(in_path: str, prefix: str, schema: FeatureSchema,
+                     delim: str):
+    """Split a similarity-job input into (train, test, intra_set): files in
+    a dir starting with ``prefix`` are the train/base set, the rest test; a
+    single file (or a dir with only one kind) is intra-set."""
+    intra_set = False
+    if os.path.isdir(in_path):
+        files = sorted(p for p in glob.glob(os.path.join(in_path, "*"))
+                       if os.path.isfile(p))
+        base = [p for p in files if os.path.basename(p).startswith(prefix)]
+        other = [p for p in files
+                 if not os.path.basename(p).startswith(prefix)]
+        if not base or not other:
+            base = other = files
+            intra_set = True
+    else:
+        base = other = [in_path]
+        intra_set = True
+
+    def load_many(paths):
+        lines = []
+        for p in paths:
+            lines.extend(artifacts.read_text_input(p))
+        return load_csv_text("\n".join(lines), schema, delim)
+
+    train = load_many(base)
+    test = train if intra_set else load_many(other)
+    return train, test, intra_set
+
+
+@register("org.sifarish.feature.SameTypeSimilarity", "sameTypeSimilarity",
+          "recordSimilarity")
+def same_type_similarity(cfg: Config, in_path: str, out_path: str
+                         ) -> Counters:
+    """All-pairs record distance (the external sifarish job of
+    resource/knn.sh:47).  Inter-set mode: files of the input dir starting
+    with ``sts.base.set.split.prefix`` are the train/base set, the rest
+    test.  Output lines ``trainId,testId,distance,trainClass[,testClass]``
+    with the distance scaled by ``sts.distance.scale`` (default 1000);
+    intra-set mode emits each unordered pair once (i < j)."""
+    from ..ops.distance import DistanceComputer
+    counters = Counters()
+    schema = _schema_path(cfg, "sts.same.schema.file.path")
+    delim = cfg.field_delim_regex
+    prefix = cfg.get("sts.base.set.split.prefix", "tr")
+    scale = cfg.get_int("sts.distance.scale", 1000)
+    metric = cfg.get("sts.distance.metric", "euclidean")
+    train, test, intra_set = _load_train_test(in_path, prefix, schema, delim)
+    comp = DistanceComputer(schema, metric=metric, scale=scale)
+    dmat = comp.pairwise(test, train)
+    id_ord = schema.id_fields[0].ordinal if schema.id_fields else 0
+    train_ids = train.str_columns.get(id_ord,
+                                      [str(i) for i in range(train.n_rows)])
+    test_ids = test.str_columns.get(id_ord,
+                                    [str(i) for i in range(test.n_rows)])
+    # class columns are optional: pure similarity mode has no class notion
+    try:
+        cvals = schema.class_attr_field.cardinality or []
+        train_cls = [cvals[c] if c >= 0 else "?" for c in train.class_codes()]
+        test_cls = [cvals[c] if c >= 0 else "?" for c in test.class_codes()]
+    except ValueError:
+        train_cls = test_cls = None
+    od = cfg.field_delim_out
+    lines = []
+    for ti in range(test.n_rows):
+        for ri in range(ti + 1 if intra_set else 0, train.n_rows):
+            parts = [train_ids[ri], test_ids[ti], str(int(dmat[ti, ri]))]
+            if train_cls is not None:
+                parts.append(train_cls[ri])
+                parts.append(test_cls[ti])
+            lines.append(od.join(parts))
+    artifacts.write_text_output(out_path, lines)
+    counters.increment("Similarity", "Pairs", len(lines))
+    return counters
+
+
+def _knn_params(cfg: Config):
+    from ..models.knn import KnnParams
+    params = KnnParams(
+        top_match_count=cfg.get_int("nen.top.match.count", 10),
+        kernel_function=cfg.get("nen.kernel.function", "none"),
+        kernel_param=cfg.get_int("nen.kernel.param", -1),
+        # the reference uses BOTH spellings: the mapper reads
+        # nen.class.condition.weighted (NearestNeighbor.java:120), the
+        # reducer the typo'd nen.class.condtion.weighted (:239)
+        class_cond_weighted=cfg.get_boolean("nen.class.condtion.weighted",
+                                            False)
+        or cfg.get_boolean("nen.class.condition.weighted", False),
+        inverse_distance_weighted=cfg.get_boolean(
+            "nen.inverse.distance.weighted", False),
+        decision_threshold=cfg.get_float("nen.decision.threshold", -1.0),
+        use_cost_based_classifier=cfg.get_boolean(
+            "nen.use.cost.based.classifier", False),
+        prediction_mode=cfg.get("nen.prediction.mode", "classification"),
+        regression_method=cfg.get("nen.regression.method", "average"),
+    )
+    cav = cfg.get_list("nen.class.attribute.values")
+    if cav:
+        params.pos_class, params.neg_class = cav[0], cav[1]
+    if params.use_cost_based_classifier:
+        costs = cfg.must_get_list("nen.misclassification.cost")
+        params.false_pos_cost = int(costs[0])
+        params.false_neg_cost = int(costs[1])
+    return params
+
+
+@register("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess")
+def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
+    """The whole knn.sh pipeline fused in process: distance + running top-k
+    on the device (``DistanceComputer.pairwise_topk``, kernel B5) feeding
+    the Neighborhood vote; the all-pairs CSV between the two jobs never
+    exists.  Input like sameTypeSimilarity; inter-set output and
+    validation counters match nearestNeighbor's.  Intra-set input gives
+    every row its k nearest among ALL other rows (leave-one-out: k + 1
+    neighbors, then the self-match dropped).  Class-conditional weighting
+    and regression need the file flow's layout and are refused."""
+    from ..models import knn as K
+    from ..ops.distance import DistanceComputer
+    counters = Counters()
+    params = _knn_params(cfg)
+    if params.class_cond_weighted:
+        raise ValueError(
+            "knnPipeline has no Bayesian posterior join; run the file "
+            "pipeline (sameTypeSimilarity -> featureCondProbJoiner -> "
+            "nearestNeighbor) for class-conditional weighting")
+    if params.prediction_mode == "regression":
+        raise ValueError(
+            "knnPipeline is classification-only; KNN regression needs the "
+            "nearestNeighbor file layout's target columns")
+    if cfg.get_boolean("nen.train.shard", False):
+        raise JobNotPorted("knnPipeline nen.train.shard=true (the multi-host "
+                           "train split) is not ported to avenir_tpu_torch "
+                           "yet")
+    schema = _schema_path(cfg, "sts.same.schema.file.path")
+    delim = cfg.field_delim_regex
+    od = cfg.field_delim_out
+    prefix = cfg.get("sts.base.set.split.prefix", "tr")
+    scale = cfg.get_int("sts.distance.scale", 1000)
+    metric = cfg.get("sts.distance.metric", "euclidean")
+    validation = cfg.get_boolean("nen.validation.mode", True)
+    output_class_distr = cfg.get_boolean("nen.output.class.distr", False)
+
+    train, test, intra_set = _load_train_test(in_path, prefix, schema, delim)
+    comp = DistanceComputer(schema, metric=metric, scale=scale)
+    k = min(params.top_match_count, train.n_rows - (1 if intra_set else 0))
+    nd, idx = comp.pairwise_topk(test, train, k + 1 if intra_set else k)
+    if intra_set:
+        # drop the self-match (train index == test row), keeping the order
+        self_col = np.arange(test.n_rows)[:, None]
+        keep = np.argsort(idx == self_col, axis=1, kind="stable")[:, :k]
+        nd = np.take_along_axis(nd, keep, axis=1)
+        idx = np.take_along_axis(idx, keep, axis=1)
+
+    cardinality = list(schema.class_attr_field.cardinality or [])
+    # vote over SORTED class values like nearestNeighbor (which sorts the
+    # classes it observes); train rows with labels outside the cardinality
+    # (code -1) vote as "?", their own class
+    train_codes = train.class_codes()
+    unknown = bool((train_codes < 0).any())
+    class_values = sorted(set(cardinality) | ({"?"} if unknown else set()))
+    if cardinality:
+        remap = np.array([class_values.index(c) for c in cardinality],
+                         dtype=np.int32)
+        mapped = np.where(
+            train_codes >= 0, remap[np.clip(train_codes, 0, None)],
+            class_values.index("?") if unknown else 0).astype(np.int32)
+    else:  # no cardinality: every label is unknown, all votes are "?"
+        mapped = np.zeros_like(train_codes)
+    res = K.classify_topk(nd, mapped[idx], class_values, params)
+
+    id_ord = schema.id_fields[0].ordinal if schema.id_fields else 0
+    test_ids = test.str_columns.get(id_ord,
+                                    [str(i) for i in range(test.n_rows)])
+    actual = None
+    cm = None
+    if validation:
+        actual = [cardinality[c] if c >= 0 else "?"
+                  for c in test.class_codes()]
+        # (neg, pos) like nearestNeighbor: schema cardinality first
+        # (NearestNeighbor.java:287-292), then nen.class.attribute.values,
+        # then a degenerate-cardinality fallback
+        if len(cardinality) >= 2:
+            neg, pos = cardinality[0], cardinality[1]
+        elif params.pos_class:
+            neg, pos = params.neg_class, params.pos_class
+        else:
+            cvs = class_values if len(class_values) >= 2 else class_values * 2
+            neg, pos = cvs[0], cvs[1]
+        cm = ConfusionMatrix(neg, pos)
+    out_lines = []
+    for i in range(test.n_rows):
+        parts = [test_ids[i]]
+        if output_class_distr:
+            for ci, cv in enumerate(class_values):
+                parts.append(cv)
+                parts.append(str(res.class_distr[i][ci]))
+        if validation:
+            parts.append(actual[i])
+            cm.report(res.pred_class[i], actual[i])
+        parts.append(res.pred_class[i])
+        out_lines.append(od.join(parts))
+    if cm is not None:
+        cm.export(counters)
+    counters.increment("Neighborhood", "Test records", test.n_rows)
+    artifacts.write_text_output(out_path, out_lines)
+    return counters
+
+
+@register("org.avenir.knn.NearestNeighbor", "nearestNeighbor",
+          "knnClassifier")
+def nearest_neighbor(cfg: Config, in_path: str, out_path: str) -> Counters:
+    """KNN classification/regression over precomputed neighbor lines
+    (knn/NearestNeighbor.java; the knn.sh 'knnClassifier' step).
+
+    Input layout (TopMatchesMapper :130-183):
+      normal:            trainId,testId,distance,trainClass[,testClassActual]
+      classCondWeighted: testId,testClassActual,trainId,distance,trainClass,postProb
+    Output: testId[,classDistr...][,actualClass],predicted, with the
+    Validation counters in validation mode."""
+    from ..models import knn as K
+    counters = Counters()
+    params = _knn_params(cfg)
+    validation = cfg.get_boolean("nen.validation.mode", True)
+    output_class_distr = cfg.get_boolean("nen.output.class.distr", False)
+    od = cfg.field_delim_out
+    lines_in = artifacts.read_text_input(in_path)
+    is_linreg = (params.prediction_mode == "regression" and
+                 params.regression_method == "linearRegression")
+
+    # group neighbor candidates per test entity (TopMatchesMapper layouts)
+    split_line = _splitter(cfg.field_delim_regex)
+    groups: Dict[str, Dict] = {}
+    for line in lines_in:
+        it = split_line(line)
+        train_regr = test_regr = 0.0
+        if params.class_cond_weighted:
+            test_id, actual = it[0], it[1]
+            dist, tclass, fpp = int(it[3]), it[4], float(it[5])
+        else:
+            test_id, dist, tclass = it[1], int(it[2]), it[3]
+            idx = 4
+            actual = ""
+            if validation:
+                actual = it[idx]
+                idx += 1
+            if is_linreg:
+                train_regr, test_regr = float(it[idx]), float(it[idx + 1])
+            fpp = -1.0
+        g = groups.setdefault(test_id, {"actual": actual, "d": [], "c": [],
+                                        "fpp": [], "trv": [],
+                                        "tev": test_regr})
+        g["d"].append(dist)
+        g["c"].append(tclass)
+        g["fpp"].append(fpp)
+        g["trv"].append(train_regr)
+
+    if not groups:
+        artifacts.write_text_output(out_path, [])
+        return counters
+
+    class_values = sorted({c for g in groups.values() for c in g["c"]})
+    cls_code = {c: i for i, c in enumerate(class_values)}
+    test_ids = sorted(groups.keys())
+    max_n = max(len(groups[t]["d"]) for t in test_ids)
+    dmat = np.full((len(test_ids), max_n), K.PAD_DISTANCE, dtype=np.int64)
+    cmat = np.zeros((len(test_ids), max_n), dtype=np.int32)
+    fmat = np.full((len(test_ids), max_n), -1.0, dtype=np.float32)
+    for i, t in enumerate(test_ids):
+        g = groups[t]
+        m = len(g["d"])
+        dmat[i, :m] = g["d"]
+        cmat[i, :m] = [cls_code[c] for c in g["c"]]
+        fmat[i, :m] = g["fpp"]
+
+    if params.prediction_mode == "regression":
+        vals = np.array([[float(class_values[c]) for c in row]
+                         for row in cmat])
+        if is_linreg:
+            nin = np.zeros_like(dmat, dtype=np.float64)
+            x0 = np.zeros((len(test_ids),))
+            for i, t in enumerate(test_ids):
+                m = len(groups[t]["trv"])
+                nin[i, :m] = groups[t]["trv"]
+                x0[i] = groups[t]["tev"]
+            pred_vals = K.regress_grouped(dmat, vals, params,
+                                          regr_input=x0, neighbor_input=nin)
+        else:
+            pred_vals = K.regress_grouped(dmat, vals, params)
+        out_lines = []
+        for i, t in enumerate(test_ids):
+            parts = [t]
+            if validation:
+                parts.append(groups[t]["actual"])
+            parts.append(str(int(pred_vals[i])))
+            out_lines.append(od.join(parts))
+        artifacts.write_text_output(out_path, out_lines)
+        return counters
+
+    res = K.classify_grouped(dmat, cmat, class_values, params, fmat)
+    cm = None
+    if validation:
+        # the reference builds the matrix from the schema's class
+        # cardinality: ConfusionMatrix(cardinality[0], cardinality[1]) =
+        # (neg, pos) (NearestNeighbor.java:287-292)
+        if "nen.feature.schema.file.path" in cfg:
+            card = _schema_path(cfg, "nen.feature.schema.file.path") \
+                .class_attr_field.cardinality
+            neg, pos = card[0], card[1]
+        elif params.pos_class:
+            neg, pos = params.neg_class, params.pos_class
+        else:
+            cvs = class_values if len(class_values) >= 2 else class_values * 2
+            neg, pos = cvs[0], cvs[1]
+        cm = ConfusionMatrix(neg, pos)
+    out_lines: List[str] = []
+    for i, t in enumerate(test_ids):
+        parts = [t]
+        if output_class_distr:
+            distr = res.weighted_class_distr[i] if params.class_cond_weighted \
+                else res.class_distr[i]
+            for ci, cv in enumerate(class_values):
+                parts.append(cv)
+                parts.append(str(distr[ci]))
+        if validation:
+            parts.append(groups[t]["actual"])
+        parts.append(res.pred_class[i])
+        out_lines.append(od.join(parts))
+        if cm is not None:
+            cm.report(res.pred_class[i], groups[t]["actual"])
+    if cm is not None:
+        cm.export(counters)
+    artifacts.write_text_output(out_path, out_lines)
+    return counters

@@ -4,7 +4,8 @@ The reference uses Hadoop Counters / Spark accumulators as its metrics channel
 (SURVEY.md §5; bayesian/BayesianPredictor.java:170-180).  Here metrics are
 plain dicts of integers accumulated host-side and rendered the same way Hadoop
 prints counter groups.  A copy of ``avenir_tpu/core/metrics.py``'s
-``Counters``: the port imports nothing of the JAX package.
+``Counters``, ``ConfusionMatrix`` and ``CostBasedArbitrator``: the port
+imports nothing of the JAX package.
 """
 
 from __future__ import annotations
@@ -81,3 +82,76 @@ class Counters:
         identical bytes (diffable artifacts)."""
         return json.dumps(self.as_dict(), sort_keys=True,
                           separators=(",", ":"))
+
+
+class ConfusionMatrix:
+    """Binary confusion matrix with the reference's integer-percent metrics
+    (util/ConfusionMatrix.java:30-75).  Constructor arg order is
+    (negClass, posClass), as in the reference."""
+
+    def __init__(self, neg_class: str, pos_class: str):
+        self.neg_class = neg_class
+        self.pos_class = pos_class
+        self.true_pos = 0
+        self.false_pos = 0
+        self.true_neg = 0
+        self.false_neg = 0
+
+    def report(self, pred_class: str, actual_class: str) -> None:
+        if pred_class == self.pos_class:
+            if actual_class == self.pos_class:
+                self.true_pos += 1
+            else:
+                self.false_pos += 1
+        else:
+            if actual_class == self.neg_class:
+                self.true_neg += 1
+            else:
+                self.false_neg += 1
+
+    # integer-percent metrics, matching reference integer division (plus a
+    # zero-denominator guard the reference lacks)
+    def recall(self) -> int:
+        denom = self.true_pos + self.false_neg
+        return (100 * self.true_pos) // denom if denom else 0
+
+    def precision(self) -> int:
+        denom = self.true_pos + self.false_pos
+        return (100 * self.true_pos) // denom if denom else 0
+
+    def accuracy(self) -> int:
+        total = self.true_pos + self.true_neg + self.false_pos + self.false_neg
+        return (100 * (self.true_pos + self.true_neg)) // total if total else 0
+
+    def export(self, counters: Counters, group: str = "Validation") -> None:
+        """Export with the reference's counter names (including its
+        'TrueNagative' typo, bayesian/BayesianPredictor.java:174)."""
+        counters.increment(group, "TruePositive", self.true_pos)
+        counters.increment(group, "FalseNegative", self.false_neg)
+        counters.increment(group, "TrueNagative", self.true_neg)
+        counters.increment(group, "FalsePositive", self.false_pos)
+        counters.increment(group, "Accuracy", self.accuracy())
+        counters.increment(group, "Recall", self.recall())
+        counters.increment(group, "Precision", self.precision())
+
+
+class CostBasedArbitrator:
+    """Misclassification-cost arbitration (util/CostBasedArbitrator.java:25-65).
+    Probabilities are integer percents, as in the reference."""
+
+    def __init__(self, neg_class: str, pos_class: str,
+                 false_neg_cost: int, false_pos_cost: int):
+        self.neg_class = neg_class
+        self.pos_class = pos_class
+        self.false_neg_cost = false_neg_cost
+        self.false_pos_cost = false_pos_cost
+
+    def arbitrate(self, pos_prob: int, neg_prob: int) -> str:
+        neg_cost = self.false_neg_cost * pos_prob + neg_prob
+        pos_cost = self.false_pos_cost * neg_prob + pos_prob
+        return self.pos_class if pos_cost < neg_cost else self.neg_class
+
+    def classify(self, pos_prob: int) -> str:
+        threshold = (self.false_pos_cost * 100) // (self.false_pos_cost
+                                                    + self.false_neg_cost)
+        return self.pos_class if pos_prob > threshold else self.neg_class

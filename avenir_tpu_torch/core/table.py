@@ -1,7 +1,7 @@
 """Columnar dataset: CSV text -> encoded numpy arrays.
 
-The port's copy of ``avenir_tpu/core/table.py``, trimmed to what the forest
-and the monitor baseline read: a dataset is a struct of columns, each
+The port's copy of ``avenir_tpu/core/table.py``, trimmed to what the forest,
+the monitor baseline and KNN read: a dataset is a struct of columns, each
 encoded once on load:
 
   * categorical columns  -> int32 vocabulary codes (schema cardinality order;
@@ -34,6 +34,19 @@ class ColumnarTable:
     str_columns: Dict[int, List[str]] = dc_field(default_factory=dict)
     # raw tokenized rows, kept only when the caller needs record echo in outputs
     raw_rows: Optional[List[List[str]]] = None
+
+    def class_codes(self) -> np.ndarray:
+        return self.columns[self.schema.class_attr_field.ordinal]
+
+    def take_rows(self, lo: int, hi: int) -> "ColumnarTable":
+        """Contiguous row slice [lo, hi) as a new table: encoded columns
+        are numpy views, string columns materialize the slice."""
+        return ColumnarTable(
+            schema=self.schema, n_rows=hi - lo,
+            columns={k: v[lo:hi] for k, v in self.columns.items()},
+            str_columns={k: v[lo:hi] for k, v in self.str_columns.items()},
+            raw_rows=self.raw_rows[lo:hi] if self.raw_rows is not None
+            else None)
 
     def binned_codes(self, ordinal: int) -> np.ndarray:
         """int32 bin codes in [0, num_bins) for a binned field (categorical code
@@ -101,5 +114,11 @@ def load_csv(source: Union[str, io.TextIOBase], schema: FeatureSchema,
             text = fh.read()
     else:
         text = source.read()
+    return load_csv_text(text, schema, delim_regex, keep_raw=keep_raw)
+
+
+def load_csv_text(text: str, schema: FeatureSchema, delim_regex: str = ",",
+                  keep_raw: bool = False) -> ColumnarTable:
+    """CSV text (one record a line; blank lines skipped) -> ColumnarTable."""
     return encode_rows(_tokenize(text, delim_regex), schema,
                        keep_raw=keep_raw)

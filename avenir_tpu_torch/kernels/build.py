@@ -10,7 +10,8 @@ process per source, started at once).  A failed build raises with the
 compiler's output; nothing falls back to a plain version.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and no ``--use_fast_math`` — the
-vote's veto divides and must round as IEEE float32 division does.
+vote's veto divides and the KNN distance divides and takes square roots,
+each of which must round as IEEE float32 does.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "avenir_tpu_torch"
 
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {"vote": "vote.cu", "histogram": "histogram.cu",
-                           "bin_counts": "bin_counts.cu"}
+                           "bin_counts": "bin_counts.cu", "topk": "topk.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

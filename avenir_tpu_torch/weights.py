@@ -15,6 +15,11 @@ the monitor baseline (``Baseline``: row specs, counts, quantiles).  Their
 fields — numpy arrays and plain metadata, the same in both packages — load
 here into the port's objects (:func:`quantized_from_arrays`,
 :func:`baseline_from_arrays`).
+
+For KNN the model is the encoded train set: the JAX package's
+``DistanceComputer.encode`` arrays (numeric float32, one-hot int8) prime a
+port :class:`~avenir_tpu_torch.ops.distance.DistanceComputer`
+(:func:`knn_train_from_arrays`).
 """
 
 from __future__ import annotations
@@ -26,9 +31,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .core.table import ColumnarTable
 from .kernels.vote import VoteModel, prepare_vote_model
 from .models.tree import DecisionPathList
 from .monitor.baseline import QUANTILE_QS, Baseline, RowSpec
+from .ops.distance import DistanceComputer
 from .runtime import resolve_device
 from .serving.quantized import DEFAULT_BUDGET, QuantizedForest
 
@@ -121,3 +128,23 @@ def baseline_from_arrays(rows: Sequence[Dict], counts, n_rows: int,
                     n_rows=int(n_rows), quantile_qs=tuple(quantile_qs),
                     quantiles=None if quantiles is None
                     else np.asarray(quantiles, np.float64))
+
+
+def knn_train_from_arrays(comp: DistanceComputer, train: ColumnarTable,
+                          num, oh):
+    """Prime ``comp`` with the JAX package's encoding of ``train`` —
+    ``DistanceComputer.encode``'s (numeric (n, Fn) float32, one-hot
+    (n, sum_card) int8) arrays — and return the train side's device
+    tensors (rn, roh) on ``comp.device``.  Later ``pairwise`` /
+    ``pairwise_topk`` calls with ``train`` use these arrays."""
+    num = np.asarray(num)
+    oh = np.asarray(oh)
+    want = ((train.n_rows, len(comp.num_fields)), (train.n_rows,
+                                                   sum(comp.cards)))
+    if num.shape != want[0] or oh.shape != want[1] \
+            or num.dtype != np.float32 or oh.dtype != np.int8:
+        raise ValueError(f"knn train arrays must be float32 {want[0]} and "
+                         f"int8 {want[1]}, got {num.dtype} {num.shape} and "
+                         f"{oh.dtype} {oh.shape}")
+    comp.prime_train(train, num, oh)
+    return comp.train_device()

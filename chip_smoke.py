@@ -11,7 +11,8 @@ order — any failure exits non-zero before the result line:
   1. device   require torch.cuda.is_available(); print the card's name and
               power limit (nvidia-smi)
   2. build    build every CUDA kernel from csrc/ (one nvcc per source, all
-              started together: vote.cu, histogram.cu and bin_counts.cu)
+              started together: vote.cu, histogram.cu, bin_counts.cu and
+              topk.cu)
               into build/avenir_tpu_torch/
   3. kernel   the ensemble-vote kernel against its plain PyTorch version on
               the card: random stacked forests (NaNs, negative and
@@ -103,6 +104,41 @@ order — any failure exits non-zero before the result line:
               and the validity mask built first, which is the work; its
               time over a prebuilt index is printed as context), so
               library_ms is null
+ 15. b5       the KNN distance + top-k kernel against its plain PyTorch
+              version on the card: seeded rows in the e-learning (Fn=4,
+              Fc=0), bench (Fn=2, Fc=7), all-categorical (Fn=0, Fc=10)
+              and a wide schema (Fn=16, Fc=64: test rows read from global
+              memory), the second half of the train rows duplicating the
+              first (ties), both metrics, k = 1, 7, 10, 64 and 100 (above
+              the largest register list: the list in global memory), each
+              clamped to the train count, at n_test = 1, 7, 513 x n_train
+              = 5, 1000, 200,000; distances and indices must be EXACTLY
+              equal (at 200,000 train rows against the prefix of the
+              plain version's k = 100 answer, the k smallest pairs being
+              the first k of the 100 smallest)
+ 16. knn      the KNN main path, launch counts zeroed before and read
+              after: the port's sameTypeSimilarity + nearestNeighbor CLI
+              over the golden knn data must reproduce
+              tests/golden/fixtures/knn dist.csv and pred.csv byte for
+              byte, and knnPipeline over tests/torch_fixtures/elearn_knn
+              (inter- and intra-set, euclidean and manhattan) its four
+              outputs and job counters.  B5 must have launched, and the
+              ledger must show knn.topk.cuda and no torch or host form
+ 17. scale    knnPipeline's pairwise_topk at 20,000 test x 200,000 train
+              rows drawn with numpy from elearn_gen's model, k = 10: the
+              kernel's (d, i) must equal the plain version's on the card;
+              prints the wall time and the layer times (encode, H2D,
+              kernel, readback, classify)
+ 18. b5 times median CUDA-event times of the kernel (its three test-chunk
+              launches, as pairwise_topk makes them) and the plain version
+              at that shape, euclidean (the reported numbers) and
+              manhattan, and the bound: the larger of the bytes moved over
+              3.35 TB/s and the pair operations (Fn FMAs + 9 for
+              euclidean, 3 Fn + 6 for manhattan, 2 per one-hot word) over
+              33.5 T/s.  No single PyTorch call computes the floored mixed
+              distance with the lexicographic top-k, so library_ms is
+              null; torch.cdist + torch.topk on the numeric part is timed
+              as context
 
 The line before the last is one JSON object with the kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -142,6 +178,16 @@ B1_BIG_ROWS = {"rafo": 1_000_000, "rafo_root": 1_000_000,
 # bin-counts shapes (R, B) held against the plain version
 B4_SHAPES = {"rafo": (5, 7), "default": (33, 33), "wide": (64, 256)}
 B4_ROWS = (1, 7, 1000, 1_000_000)
+KNN_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "knn")
+ELEARN_KNN = os.path.join(ROOT, "tests", "torch_fixtures", "elearn_knn")
+# B5 schemas: numeric width Fn and categorical cardinalities (one-hot width
+# Fc = their sum); the wide one's rows exceed the kernel's register path
+B5_SCHEMAS = {"elearn": (4, ()), "bench": (2, (3, 4)),
+              "allcat": (0, (3, 5, 2)), "wide": (16, (16, 16, 16, 16))}
+B5_KS = (1, 7, 10, 64, 100)
+B5_TEST_ROWS = (1, 7, 513)
+B5_TRAIN_ROWS = (5, 1000, 200_000)
+KNN_SCALE = (20_000, 200_000, 10)         # test rows, train rows, k
 # call_hangup_gen's generative model (resource/gen/call_hangup_gen.py)
 REASON_P = (0.35, 0.2, 0.25, 0.2)
 PATIENCE = (500.0, 900.0, 420.0, 380.0)
@@ -432,6 +478,72 @@ def hangup_table(rng, n, fs):
         5: hung.astype(np.int32)})
 
 
+def b5_inputs(rng, name, n, dup=False):
+    """n seeded rows of B5 schema ``name``: numeric features in [0, 3)
+    float32 (the e-learning schema: elearn_gen's model over its ranges) and
+    one one-hot block per categorical field, some rows unknown (an empty
+    block); with ``dup`` the second half repeats the first (ties)."""
+    Fn, cards = B5_SCHEMAS[name]
+    if name == "elearn":         # DistanceComputer.encode's ranges
+        num = (elearn_columns(rng, n)[:, :4]
+               / np.array([1.0, 1.0, 49.0, 20.0])).astype(np.float32)
+    else:
+        num = (rng.random((n, Fn)) * 3).astype(np.float32)
+    oh = np.zeros((n, sum(cards)), np.int8)
+    off = 0
+    for card in cards:
+        code = rng.integers(-1, card, n)
+        hit = code >= 0
+        oh[np.nonzero(hit)[0], off + code[hit]] = 1
+        off += card
+    if dup:
+        h = n // 2
+        num[h:2 * h] = num[:h]
+        oh[h:2 * h] = oh[:h]
+    return num, oh
+
+
+def elearn_columns(rng, n):
+    """(n, 5) float64 rows of elearn_gen's model, vectorised: video hours,
+    quiz score (to elearn_gen's printed precision), forum posts,
+    assignments done, and the outcome code (0 fail, 1 pass)."""
+    dil = rng.beta(2.2, 2.2, n)
+    video = np.round(np.maximum(0.0, rng.normal(18 * dil, 3.0)), 2)
+    quiz = np.round(np.clip(rng.normal(35 + 60 * dil, 8.0), 0, 100), 1)
+    posts = np.clip(rng.poisson(8 * dil), 0, 49)
+    assign = np.clip(rng.binomial(20, 0.3 + 0.65 * dil), 0, 20)
+    p_pass = 1.0 / (1.0 + np.exp(-(quiz / 10.0 + assign / 4.0 - 8.5)))
+    passed = rng.random(n) < p_pass
+    return np.stack([video, quiz, posts, assign, passed], axis=1)
+
+
+def elearn_table(rng, n, fs):
+    """n rows in elearn.json's schema drawn from elearn_gen's model."""
+    from avenir_tpu_torch.core.table import ColumnarTable
+    cols = elearn_columns(rng, n)
+    return ColumnarTable(schema=fs, n_rows=n, columns={
+        1: cols[:, 0], 2: cols[:, 1], 3: cols[:, 2], 4: cols[:, 3],
+        5: cols[:, 4].astype(np.int32)})
+
+
+def b5_bound(nt, nr, Fn, Fc, k, metric):
+    """The least time the card could take for one top-k scan: the test and
+    train rows read once and the (nt, k) results written once at 3.35
+    TB/s, or the pair operations at the float32 rate (Fn FMAs plus 9 ops
+    for euclidean; a subtract, absolute value and add per feature plus 6
+    for manhattan; an AND and a popcount per 32-bit one-hot word) — the
+    larger of the two."""
+    words = -(-Fc // 32)
+    per_pair = (Fn + 9 if metric == "euclidean" else 3 * Fn + 6) + 2 * words
+    ops = float(nt) * nr * per_pair
+    nbytes = (nt + nr) * (4 * Fn + Fc) + nt * k * 8
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / TESTS_PER_S * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes,
+            "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
 def run_cli(args):
     from avenir_tpu_torch.cli import run as cli_run
     rc = cli_run.main(args)
@@ -459,6 +571,232 @@ def same_arrays(got, want, what):
                 fail(f"{what}: array {k!r} of {got} differs from {want}")
     print(f"{what}: arrays equal to {os.path.relpath(want, ROOT)}",
           flush=True)
+
+
+def knn_phases(dev, rng):
+    """Phases 15-18: B5 against its plain version, the KNN main path, the
+    20k x 200k scale run and B5's times.  Returns (max_abs_err, launches on
+    the main path, {metric: times})."""
+    import torch
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    if RES not in sys.path:
+        sys.path.insert(0, RES)
+
+    phase("15 B5 top-k kernel vs plain version")
+    from avenir_tpu_torch.kernels import topk
+    b5_err = 0.0
+    for name, (Fn, cards) in B5_SCHEMAS.items():
+        n_cat = float(len(cards))
+        denom = float(max(Fn + len(cards), 1))
+        for n_train in B5_TRAIN_ROWS:
+            rn, roh = (torch.from_numpy(a).to(dev) for a in
+                       b5_inputs(rng, name, n_train, dup=True))
+            for n_test in B5_TEST_ROWS:
+                tn, toh = (torch.from_numpy(a).to(dev) for a in
+                           b5_inputs(rng, name, n_test))
+                ks = sorted({min(k, n_train) for k in B5_KS})
+                for metric in ("euclidean", "manhattan"):
+                    big = n_train > 1000
+                    if big:
+                        want_all = topk.topk_scan_torch(
+                            tn, toh, rn, roh, ks[-1], metric, n_cat, denom,
+                            1000.0)
+                    for k in ks:
+                        got = topk.topk_scan(tn, toh, rn, roh, k, metric,
+                                             n_cat, denom, 1000.0)
+                        want = tuple(w[:, :k] for w in want_all) if big \
+                            else topk.topk_scan_torch(
+                                tn, toh, rn, roh, k, metric, n_cat, denom,
+                                1000.0)
+                        torch.cuda.synchronize()
+                        if got[0].shape != (n_test, k) or \
+                                got[1].dtype != torch.int32:
+                            fail(f"topk output {tuple(got[0].shape)} "
+                                 f"{got[1].dtype}")
+                        err = float((got[0] - want[0]).abs().max().item())
+                        b5_err = max(b5_err, err)
+                        if not (torch.equal(got[0], want[0])
+                                and torch.equal(got[1], want[1])):
+                            fail(f"topk kernel != plain version at {name} "
+                                 f"{metric} n_test={n_test} "
+                                 f"n_train={n_train} k={k}: "
+                                 f"{int((got[0] != want[0]).sum().item())} "
+                                 f"distances and "
+                                 f"{int((got[1] != want[1]).sum().item())} "
+                                 f"indices differ")
+                print(f"{name} (Fn={Fn}, Fc={sum(cards)}) n_test={n_test} "
+                      f"n_train={n_train} k={ks}: exact for both metrics "
+                      f"(register rows="
+                      f"{topk.register_rows(Fn, sum(cards))}, lists "
+                      f"{[topk.list_size(k) or 'global' for k in ks]})",
+                      flush=True)
+            del rn, roh, tn, toh
+
+    # ---- the KNN main path: counts zeroed just before, read just after ----
+    from avenir_tpu_torch.cli.jobs import resolve
+    knn_props = os.path.join(RES, "knn.properties")
+    elearn_schema = os.path.join(RES, "elearn.json")
+    topk.launches = 0
+    with transfer_ledger() as knn_ledger:
+        phase("16 knn main path")
+        from gen.elearn_gen import generate as elearn_generate
+        knn_data = os.path.join(WORK, "knn_data")
+        os.makedirs(knn_data, exist_ok=True)
+        rows = elearn_generate(130, 14)
+        with open(os.path.join(knn_data, "tr_part"), "w") as fh:
+            fh.write("\n".join(rows[:100]))
+        with open(os.path.join(knn_data, "test_part"), "w") as fh:
+            fh.write("\n".join(rows[100:]))
+        run_cli(["org.sifarish.feature.SameTypeSimilarity",
+                 f"-Dconf.path={knn_props}",
+                 f"-Dsts.same.schema.file.path={elearn_schema}",
+                 knn_data, os.path.join(WORK, "knn_dist")])
+        same_bytes(os.path.join(WORK, "knn_dist", "part-r-00000"),
+                   os.path.join(KNN_GOLDEN, "dist.csv"),
+                   "golden knn sameTypeSimilarity")
+        run_cli(["org.avenir.knn.NearestNeighbor", f"-Dconf.path={knn_props}",
+                 os.path.join(WORK, "knn_dist"),
+                 os.path.join(WORK, "knn_pred")])
+        same_bytes(os.path.join(WORK, "knn_pred", "part-r-00000"),
+                   os.path.join(KNN_GOLDEN, "pred.csv"),
+                   "golden knn nearestNeighbor")
+        with open(os.path.join(ELEARN_KNN, "counters.json")) as fh:
+            knn_counters = json.load(fh)
+        fixture_data = os.path.join(ELEARN_KNN, "data")
+        knn_wall = {}
+        for mode in ("inter", "intra"):
+            for metric in ("euclidean", "manhattan"):
+                run = f"{mode}_{metric}"
+                src = fixture_data if mode == "inter" else \
+                    os.path.join(fixture_data, "tr_part")
+                out = os.path.join(WORK, f"knn_{run}")
+                t0 = time.perf_counter()
+                run_cli(["org.avenir.knn.KnnPipeline",
+                         f"-Dconf.path={knn_props}",
+                         f"-Dsts.same.schema.file.path={elearn_schema}",
+                         f"-Dsts.distance.metric={metric}", src, out])
+                knn_wall[run] = round(time.perf_counter() - t0, 4)
+                same_bytes(os.path.join(out, "part-r-00000"),
+                           os.path.join(ELEARN_KNN, f"{run}.csv"),
+                           f"elearn_knn knnPipeline {run}")
+                with open(out + ".counters.json") as fh:
+                    got = json.load(fh)
+                got = {g: got[g] for g in knn_counters[run]}
+                if got != knn_counters[run]:
+                    fail(f"knnPipeline {run} counters {got} != "
+                         f"{knn_counters[run]}")
+    b5_launches = topk.launches
+    knn_backends = knn_ledger.backend_snapshot()
+    print(f"knn main path: topk_scan launches={b5_launches}; "
+          f"KernelBackends={knn_backends}; knnPipeline wall s {knn_wall}; "
+          f"counters equal the fixture's", flush=True)
+    if b5_launches <= 0:
+        fail("the KNN main path never launched the top-k kernel")
+    if not knn_backends.get("knn.topk.cuda"):
+        fail("knn ledger shows no knn.topk.cuda")
+    wrong = [k for k in knn_backends if k.endswith((".torch", ".host"))]
+    if wrong:
+        fail(f"ledger shows non-kernel forms on the KNN path: {wrong}")
+    if resolve("knnInProcess") is not resolve("org.avenir.knn.KnnPipeline"):
+        fail("knnPipeline aliases resolve to different jobs")
+
+    phase("17 scale: knnPipeline top-k at 20,000 x 200,000 rows")
+    from avenir_tpu_torch.models.knn import KnnParams, classify_topk
+    from avenir_tpu_torch.ops.distance import DistanceComputer
+    from avenir_tpu_torch.utils.tracing import fetch
+    n_test, n_train, k = KNN_SCALE
+    efs = FeatureSchema.load(elearn_schema)
+    knn_rng = np.random.default_rng(20261019)
+    test_t = elearn_table(knn_rng, n_test, efs)
+    train_t = elearn_table(knn_rng, n_train, efs)
+    comp = DistanceComputer(efs, metric="euclidean", scale=1000, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    nd, nidx = comp.pairwise_topk(test_t, train_t, k)
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    nd2, nidx2 = comp.pairwise_topk(test_t, train_t, k)
+    warm_s = time.perf_counter() - t0
+    # the same work layer by layer, synchronised between layers
+    layers = {}
+    t0 = time.perf_counter()
+    tn_h, toh_h = comp.encode(test_t)
+    rn_h, roh_h = comp.encode(train_t)
+    layers["encode"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rn_d, roh_d = (torch.from_numpy(a).to(dev) for a in (rn_h, roh_h))
+    chunks = [(torch.from_numpy(tn_h[s:s + 8192]).to(dev),
+               torch.from_numpy(toh_h[s:s + 8192]).to(dev))
+              for s in range(0, n_test, 8192)]
+    torch.cuda.synchronize()
+    layers["h2d"] = time.perf_counter() - t0
+    consts = (comp._n_cat, comp._denom, comp._fscale)
+
+    def chunked(metric):
+        outs = [topk.topk_scan(tc, oc, rn_d, roh_d, k, metric, *consts)
+                for tc, oc in chunks]
+        return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+    t0 = time.perf_counter()
+    kd, ki = chunked("euclidean")
+    torch.cuda.synchronize()
+    layers["kernel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    kd_h, ki_h = fetch(kd).astype(np.int32), fetch(ki)
+    layers["readback"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    codes = train_t.class_codes()
+    res = classify_topk(kd_h, codes[ki_h], ["fail", "pass"],
+                        KnnParams(top_match_count=k))
+    layers["classify"] = time.perf_counter() - t0
+    tn_d = torch.from_numpy(tn_h).to(dev)
+    toh_d = torch.from_numpy(toh_h).to(dev)
+    t0 = time.perf_counter()
+    pd, pi = topk.topk_scan_torch(tn_d, toh_d, rn_d, roh_d, k, "euclidean",
+                                  *consts)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    if not (np.array_equal(nd, fetch(pd).astype(np.int32))
+            and np.array_equal(nidx, fetch(pi))
+            and torch.equal(kd, pd) and torch.equal(ki, pi)
+            and np.array_equal(nd, nd2) and np.array_equal(nidx, nidx2)):
+        fail("20k x 200k top-k: the kernel's (d, i) differ from the plain "
+             "version's")
+    if len(res.pred_class) != n_test or not np.isfinite(kd_h).all():
+        fail("20k x 200k top-k: bad classify output")
+    print(f"{n_test} x {n_train} elearn rows, k={k}: kernel (d, i) equal to "
+          f"the plain version's; pairwise_topk wall {cold_s:.4f} s cold "
+          f"(train encode + upload), {warm_s:.4f} s warm; plain version "
+          f"{plain_s:.3f} s; test rows/s warm {n_test / warm_s:.1f}",
+          flush=True)
+    print(f"  layer ms: {json.dumps({a: b * 1e3 for a, b in layers.items()})}",
+          flush=True)
+
+    phase("18 B5 top-k kernel times")
+    b5_t = {}
+    for metric in ("euclidean", "manhattan"):
+        res_t = {"ms": cuda_ms(lambda: chunked(metric), 5)}
+        res_t["plain_ms"] = cuda_ms(lambda: topk.topk_scan_torch(
+            tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 2)
+        res_t["ms_again"] = cuda_ms(lambda: chunked(metric), 5)
+        res_t["one_launch_ms"] = cuda_ms(lambda: topk.topk_scan(
+            tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 3)
+        res_t.update(b5_bound(n_test, n_train, tn_h.shape[1],
+                              toh_h.shape[1], k, metric))
+        b5_t[metric] = res_t
+        print(f"{metric} {n_test} x {n_train} k={k} ({len(chunks)} "
+              f"test-chunk launches): {res_t}", flush=True)
+    tn_f, rn_f = tn_d.contiguous(), rn_d.contiguous()
+    cdist_ms = cuda_ms(lambda: torch.topk(torch.cdist(tn_f, rn_f), k, dim=1,
+                                          largest=False), 3)
+    print(f"context: torch.cdist + torch.topk on the numeric part at that "
+          f"shape (a {n_test * n_train * 4 / 1e9:.0f} GB distance matrix, "
+          f"another order and no floor): {cdist_ms:.3f} ms; no single "
+          f"PyTorch call computes the floored mixed distance with the "
+          f"lexicographic top-k: library_ms is null", flush=True)
+    del tn_d, toh_d, rn_d, roh_d, chunks, kd, ki, pd, pi
+
+    return b5_err, b5_launches, b5_t
 
 
 def main():
@@ -911,6 +1249,8 @@ def main():
           "(torch.bincount needs the flat index and validity mask built "
           "first): library_ms is null", flush=True)
 
+    b5_err, b5_launches, b5_t = knn_phases(dev, rng)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ensemble_vote", "route": "cuda",
@@ -940,6 +1280,15 @@ def main():
         "launches": b4_launches, "max_abs_err": b4_err,
         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+        "library_ms": None}, {
+        "name": "topk_scan", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/topk.cu",
+        "replaces": "avenir_tpu/ops/pallas/topk.py:39",
+        "launches": b5_launches, "max_abs_err": b5_err,
+        "ms": b5_t["euclidean"]["ms"],
+        "plain_ms": b5_t["euclidean"]["plain_ms"],
+        "bound_ms": b5_t["euclidean"]["bound_ms"],
+        "bound_by": b5_t["euclidean"]["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -27,7 +27,11 @@ names = ["avenir_tpu_torch"] + [
                                           "avenir_tpu_torch.")]
 for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.stats.histogram",
-             "avenir_tpu_torch.serving.quantized"):
+             "avenir_tpu_torch.serving.quantized",
+             "avenir_tpu_torch.ops.distance",
+             "avenir_tpu_torch.kernels.topk",
+             "avenir_tpu_torch.models.knn",
+             "avenir_tpu_torch.cli.knn_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -42,6 +46,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
     res = subprocess.run([sys.executable, "-I", "-c", _PROBE, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # runtime, weights, core x6, utils x2, kernels x5, models x3,
-    # serving x5, monitor x2, stats x2, cli x4 and the package itself
-    assert int(res.stdout.strip()) >= 26
+    # runtime, weights, core x6, utils x2, kernels x6, models x4,
+    # serving x5, monitor x2, stats x2, ops x2, cli x5 and the package
+    assert int(res.stdout.strip()) >= 32
