@@ -19,5 +19,10 @@ kernel (``kernels/histogram.py``, ``csrc/histogram.cu``) — and the
 version's two sidecars with the int8 serve: the monitor baseline
 (``monitor/baseline.py``, with the bin counts as a CUDA kernel,
 ``csrc/bin_counts.cu``) and the int8 forest (``serving/quantized.py``,
-served by the int8 form of the vote kernel in ``csrc/vote.cu``).
+served by the int8 form of the vote kernel in ``csrc/vote.cu``) — KNN
+(``ops/distance.py``, ``models/knn.py``, the ``knnPipeline`` flow, with the
+distance + top-k scan as a CUDA kernel, ``csrc/topk.cu``) — and one process
+over several devices (``parallel/``): the tree-sharded serving vote
+(``serve_mesh``) and the train-sharded KNN top-k, with the partial-vote,
+merge-finalize and top-k merge kernels.
 """

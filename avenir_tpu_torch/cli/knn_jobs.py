@@ -6,7 +6,9 @@ then avenir's NearestNeighbor), from ``avenir_tpu/cli/jobs.py``:
 * ``nearestNeighbor`` — groups those lines per test row and classifies or
   regresses;
 * ``knnPipeline`` — the fused in-process flow: distance + top-k on the
-  device (kernel B5), then the vote.
+  device (kernel B5), then the vote.  Under a runtime context of several
+  devices (``-Dplatform=cuda`` on a host with several GPUs, or a mesh the
+  caller installed) the train rows shard over them (kernel B7).
 
 Single process: ``nen.train.shard=true`` (the multi-host train split) is
 not ported and raises :class:`JobNotPorted`.
@@ -137,7 +139,8 @@ def _knn_params(cfg: Config):
 @register("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess")
 def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
     """The whole knn.sh pipeline fused in process: distance + running top-k
-    on the device (``DistanceComputer.pairwise_topk``, kernel B5) feeding
+    on the device (``DistanceComputer.pairwise_topk``, kernel B5; sharded
+    over the runtime context's devices when it has several) feeding
     the Neighborhood vote; the all-pairs CSV between the two jobs never
     exists.  Input like sameTypeSimilarity; inter-set output and
     validation counters match nearestNeighbor's.  Intra-set input gives

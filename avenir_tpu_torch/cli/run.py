@@ -5,7 +5,10 @@ driver lines, like ``avenir_tpu/cli/run.py``.
         -Dconf.path=rafo.properties <inPath> <outPath>
 
 Jobs run on the GPU (``cuda``) unless ``-Dplatform=cpu`` asks for the CPU;
-the kernels run on the GPU, their plain versions on the CPU.  Prints a
+the kernels run on the GPU, their plain versions on the CPU.  The same
+device decides the job's runtime context (``parallel.mesh``): every
+visible GPU for cuda, the CPU for cpu, unless the caller installed one
+with ``set_runtime_context``.  Prints a
 Hadoop-style counter dump and writes it as ``<outPath>.counters.json``.
 A job that is not ported yet raises ``JobNotPorted``.
 """

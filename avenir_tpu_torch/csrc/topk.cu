@@ -39,6 +39,11 @@
 // e-learning rows (Fn = 4) is 4e9 pairs, about 1.6 ms at 33.5 T float32
 // instructions/s.
 //
+// The train-sharded form (kernel B7, replacing ops/pallas/topk.py:128
+// `topk_scan_sharded`) runs this scan once per shard of the train rows and
+// merges the shards' lists with `avenir_topk_merge` below: one thread per
+// test row walks S ascending lists with one cursor each and keeps k slots.
+//
 // Design (simple and right first): the block's test rows sit in registers
 // (numeric features up to 8, one-hot words up to 2; wider rows are read from
 // global memory); the block walks the train rows in tiles staged in shared
@@ -301,7 +306,81 @@ bool register_rows(int Fn, int Fc) {
   return Fn <= kRegFn && (Fc + 31) / 32 <= kRegWords;
 }
 
+// The shards' (nt, k) lists, by value (a kernel parameter): distances,
+// local train indices (-1 = dead slot) and each shard's first global row;
+// at most parallel/mesh.py MAX_SHARDS shards, as a DeviceMesh holds.
+constexpr int kMaxShards = 64;
+struct ShardLists {
+  const float* d[kMaxShards];
+  const int* i[kMaxShards];
+  int base[kMaxShards];
+};
+
+// Merge S lists, each ascending by (d, local index) with its dead slots
+// last, into the row's k smallest (d, global index) pairs.  Shards are
+// ascending contiguous train ranges, so on equal d the lower shard holds the
+// lower global index: taking the first shard whose head is strictly
+// smallest keeps the lexicographic order with no index compare.  A slot
+// nothing fills, or whose distance is +inf, is (+inf, -1).
+__global__ void topk_merge_kernel(ShardLists L, int S, int nt, int k,
+                                  float* __restrict__ od,
+                                  int* __restrict__ oi) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= nt) return;
+  int cur[kMaxShards];
+  for (int s = 0; s < S; ++s) cur[s] = 0;
+  const long long off = (long long)row * k;
+  for (int j = 0; j < k; ++j) {
+    int best = -1;
+    float bd = INFINITY;
+    int bi = -1;
+    for (int s = 0; s < S; ++s) {
+      if (cur[s] >= k) continue;
+      const int li = L.i[s][off + cur[s]];
+      if (li < 0) continue;
+      const float d = L.d[s][off + cur[s]];
+      if (best < 0 || d < bd) {
+        best = s;
+        bd = d;
+        bi = li;
+      }
+    }
+    if (best < 0) {
+      od[off + j] = INFINITY;
+      oi[off + j] = -1;
+    } else {
+      od[off + j] = bd;
+      oi[off + j] = isinf(bd) ? -1 : bi + L.base[best];
+      ++cur[best];
+    }
+  }
+}
+
 }  // namespace
+
+// The merge of the train-sharded scan.  `d` and `i` are host arrays of S
+// device pointers to each shard's (nt, k) float32 distances and int32 local
+// indices (a shard's `avenir_topk_scan` output, gathered onto the current
+// device), `base` the S shards' first global train rows, 1 <= S <= 64.
+// Outputs od (nt, k) float32, oi (nt, k) int32.  Launch on `stream`;
+// returns cudaGetLastError() (0 = ok).
+extern "C" int avenir_topk_merge(const float* const* d, const int* const* i,
+                                 const int* base, int S, int nt, int k,
+                                 float* od, int* oi, void* stream) {
+  if (S < 1 || S > kMaxShards || k < 1) return (int)cudaErrorInvalidValue;
+  if (nt <= 0) return 0;
+  ShardLists L{};
+  for (int s = 0; s < S; ++s) {
+    L.d[s] = d[s];
+    L.i[s] = i[s];
+    L.base[s] = base[s];
+  }
+  const int threads = 128;
+  topk_merge_kernel<<<(nt + threads - 1) / threads, threads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(L, S, nt, k, od,
+                                                           oi);
+  return (int)cudaGetLastError();
+}
 
 // Launch on `stream`; returns cudaGetLastError() after the launches (0 = ok).
 // tn (nt, Fn) float32, toh (nt, Fc) int8 0/1, rn (nr, Fn) float32, roh

@@ -162,11 +162,13 @@ def _launch(node_ids, branches, cls, weights, n_nodes, B, C) -> torch.Tensor:
         return out
     smem = T * N * S * B * C * 4
     use_smem = smem <= SMEM_LIMIT
-    stream = torch.cuda.current_stream(node_ids.device).cuda_stream
-    err = _lib()(node_ids.data_ptr(), branches.data_ptr(), cls.data_ptr(),
-                 weights.data_ptr(), _WEIGHT_DTYPES[weights.dtype], n, T, N,
-                 S, B, C, out.data_ptr(), int(use_smem),
-                 smem if use_smem else 0, stream)
+    with torch.cuda.device(node_ids.device):
+        stream = torch.cuda.current_stream(node_ids.device).cuda_stream
+        err = _lib()(node_ids.data_ptr(), branches.data_ptr(),
+                     cls.data_ptr(), weights.data_ptr(),
+                     _WEIGHT_DTYPES[weights.dtype], n, T, N, S, B, C,
+                     out.data_ptr(), int(use_smem), smem if use_smem else 0,
+                     stream)
     if err != 0:
         raise RuntimeError(f"forest_level_counts kernel launch failed: CUDA "
                            f"error {err}")
@@ -231,11 +233,12 @@ def _launch_bins(codes, B, mask) -> torch.Tensor:
     if n == 0 or R == 0:
         return out
     acc = torch.zeros((R, B), dtype=torch.int32, device=codes.device)
-    stream = torch.cuda.current_stream(codes.device).cuda_stream
-    err = _bins_lib()(codes.data_ptr(),
-                      mask.data_ptr() if mask is not None else None, n, R, B,
-                      acc.data_ptr(), out.data_ptr(),
-                      int(R * B * 4 <= BIN_SMEM_LIMIT), stream)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = _bins_lib()(codes.data_ptr(),
+                          mask.data_ptr() if mask is not None else None, n,
+                          R, B, acc.data_ptr(), out.data_ptr(),
+                          int(R * B * 4 <= BIN_SMEM_LIMIT), stream)
     if err != 0:
         raise RuntimeError(f"bin_counts kernel launch failed: CUDA error "
                            f"{err}")

@@ -16,21 +16,37 @@ past it would stay (+inf, -1).
 :func:`topk_scan` launches ``csrc/topk.cu`` for CUDA tensors and runs
 :func:`topk_scan_torch` for CPU tensors (``kernels/dispatch.py``);
 ``launches`` counts kernel launches.
+
+:func:`topk_scan_sharded` replaces the TPU kernel
+``avenir_tpu/ops/pallas/topk.py`` ``topk_scan_sharded`` (B7): the train
+rows cut into contiguous shards over a :class:`..parallel.mesh.DeviceMesh`,
+one B5 scan per non-empty shard on its device, the shards' lists gathered
+onto the mesh's first device, and one merge (:func:`topk_merge`, kernel
+``avenir_topk_merge`` in ``csrc/topk.cu``, plain version
+:func:`topk_merge_torch`; ``merge_launches`` counts its launches).  No
+shard ever holds a pad row, so the result equals the single-device scan
+bit for bit — which the JAX package's form, padding the train axis with
+zero rows before its per-shard top-k, does not always give (ROADMAP
+queue C).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
 from ..ops.distance import euclid_topk, manhattan, row_norms
 from .dispatch import BACKEND_CUDA, resolve_backend
 
-# kernel launches since the last reset (a plain integer; chip_smoke.py
-# zeroes it around the main path and reads it back)
+# kernel launches since the last reset (plain integers; chip_smoke.py
+# zeroes them around the main path and reads them back): the scan's and
+# the sharded form's merge
 launches = 0
+merge_launches = 0
+
+_INT32_MAX = 2 ** 31 - 1
 
 METRICS = {"euclidean": 0, "manhattan": 1}
 # (test row, train row) pairs one tile of the plain version holds
@@ -143,11 +159,12 @@ def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale):
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = _lib()(tn.data_ptr(), ptr(toh), rn.data_ptr(), ptr(roh), nt, nr,
-                 Fn, Fc, k, METRICS[metric], n_cat, denom, fscale,
-                 ptr(twords), ptr(rwords), ptr(rnorm), od.data_ptr(),
-                 oi.data_ptr(), stream)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib()(tn.data_ptr(), ptr(toh), rn.data_ptr(), ptr(roh), nt,
+                     nr, Fn, Fc, k, METRICS[metric], n_cat, denom, fscale,
+                     ptr(twords), ptr(rwords), ptr(rnorm), od.data_ptr(),
+                     oi.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"topk_scan kernel launch failed: CUDA error "
                            f"{err}")
@@ -169,3 +186,148 @@ def topk_scan(tn: torch.Tensor, toh: torch.Tensor, rn: torch.Tensor,
                        float(denom), float(fscale))
     return topk_scan_torch(tn, toh, rn, roh, int(k), metric, float(n_cat),
                            float(denom), float(fscale))
+
+
+# --------------------------------------------------------------------------
+# the train-sharded form (B7): per-shard scans, one gather, one merge
+# --------------------------------------------------------------------------
+
+def topk_merge_torch(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
+                     bases: Sequence[int], k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the merge: each shard's local indices lifted
+    by its base, dead slots (index < 0) made (+inf, INT32_MAX), the shards
+    concatenated in order, a stable sort by distance, the first k kept and
+    +inf distances given index -1.  Shards are ascending contiguous train
+    ranges and each list is ascending by (d, local index), so the stable
+    sort orders by (d, global index)."""
+    cand_d, cand_i = [], []
+    for d, i, base in zip(ds, is_, bases):
+        dead = i < 0
+        cand_d.append(torch.where(dead, float("inf"), d))
+        cand_i.append(torch.where(dead, _INT32_MAX, i + int(base)))
+    cd, ci = torch.cat(cand_d, dim=1), torch.cat(cand_i, dim=1)
+    sd, order = torch.sort(cd, dim=1, stable=True)
+    bd = sd[:, :k].contiguous()
+    bi = torch.gather(ci, 1, order[:, :k])
+    return bd, torch.where(torch.isinf(bd), -1, bi).to(torch.int32)
+
+
+_merge_entry = None
+
+
+def _merge_lib():
+    """The merge's C entry point, typed (built and loaded on first use)."""
+    global _merge_entry
+    if _merge_entry is None:
+        from .build import load
+        fn = load("topk").avenir_topk_merge
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, p, i, i, i, p, p, p]
+        fn.restype = ctypes.c_int
+        _merge_entry = fn
+    return _merge_entry
+
+
+def _launch_merge(ds, is_, bases, k):
+    global merge_launches
+    nt = ds[0].shape[0]
+    dev = ds[0].device
+    od = torch.empty((nt, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((nt, k), dtype=torch.int32, device=dev)
+    if nt == 0:
+        return od, oi
+    S = len(ds)
+    d_ptrs = (ctypes.c_void_p * S)(*[t.data_ptr() for t in ds])
+    i_ptrs = (ctypes.c_void_p * S)(*[t.data_ptr() for t in is_])
+    base_arr = (ctypes.c_int * S)(*[int(b) for b in bases])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _merge_lib()(d_ptrs, i_ptrs, base_arr, S, nt, k,
+                           od.data_ptr(), oi.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"topk_merge kernel launch failed: CUDA error "
+                           f"{err}")
+    merge_launches += 1
+    return od, oi
+
+
+def topk_merge(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
+               bases: Sequence[int], k: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k smallest (distance, global train index) pairs of each test
+    row over S shards' (nt, k) lists, all on one device: ``ds`` float32,
+    ``is_`` int32 local indices (< 0: dead slot), ``bases`` each shard's
+    first global row, ascending.  CUDA tensors launch ``csrc/topk.cu``'s
+    merge (at most ``parallel.mesh.MAX_SHARDS`` shards, k >= 1); CPU
+    tensors run :func:`topk_merge_torch`."""
+    ds, is_, bases = list(ds), list(is_), [int(b) for b in bases]
+    if not ds or not (len(ds) == len(is_) == len(bases)):
+        raise ValueError("topk_merge needs one (d, i, base) per shard")
+    nt = ds[0].shape[0]
+    dev = ds[0].device
+    for s, (d, i) in enumerate(zip(ds, is_)):
+        if tuple(d.shape) != (nt, k) or tuple(i.shape) != (nt, k) \
+                or d.dtype != torch.float32 or i.dtype != torch.int32 \
+                or d.device != dev or i.device != dev \
+                or not (d.is_contiguous() and i.is_contiguous()):
+            raise ValueError(
+                f"topk_merge: shard {s}'s lists are {tuple(d.shape)} "
+                f"{d.dtype} / {tuple(i.shape)} {i.dtype} on {d.device}; "
+                f"each must be a contiguous ({nt}, {k}) float32 / int32 "
+                f"pair on {dev}")
+    if any(b2 < b1 for b1, b2 in zip(bases, bases[1:])):
+        raise ValueError(f"topk_merge: shard bases {bases} must ascend")
+    if k == 0:
+        return (torch.empty((nt, 0), dtype=torch.float32, device=dev),
+                torch.empty((nt, 0), dtype=torch.int32, device=dev))
+    if resolve_backend(dev) == BACKEND_CUDA:
+        return _launch_merge(ds, is_, bases, k)
+    return topk_merge_torch(ds, is_, bases, k)
+
+
+def shard_ranges(n: int, S: int) -> List[Tuple[int, int]]:
+    """``S`` contiguous [start, stop) ranges of ``n`` rows, ceil(n/S) rows
+    each, the last shorter and any past the end empty: no pad rows."""
+    step = -(-n // S) if n else 0
+    return [(min(s * step, n), min((s + 1) * step, n)) for s in range(S)]
+
+
+def topk_scan_sharded(tn: torch.Tensor, toh: torch.Tensor,
+                      shards: Sequence[Tuple[torch.Tensor, torch.Tensor]],
+                      k: int, metric: str, n_cat: float, denom: float,
+                      fscale: float, mesh) -> Tuple[torch.Tensor,
+                                                    torch.Tensor]:
+    """:func:`topk_scan` with the train rows sharded over ``mesh``:
+    ``shards[s]`` is (rn, roh) of shard s's contiguous train range, on
+    ``mesh.devices[s]``, in ascending row order.  The test rows (on the
+    merge device, ``mesh.devices[0]``) go to each shard's device; every
+    non-empty shard runs one B5 scan with the caller's k (already clamped
+    to the train count: a shard shorter than k fills its tail with dead
+    (+inf, -1) slots; an empty shard launches nothing and contributes only
+    dead slots); one gather brings the lists to the merge device; one
+    merge picks the k smallest (d, global i).  Equal, bit for bit, to the
+    single-device scan of the whole train set."""
+    if len(shards) != mesh.size:
+        raise ValueError(f"topk_scan_sharded: {len(shards)} shards for a "
+                         f"mesh of {mesh.size} devices")
+    from ..parallel.collectives import gather_to
+    merge_dev = mesh.devices[0]
+    if tn.device != merge_dev:
+        raise ValueError(f"topk_scan_sharded: test rows on {tn.device}, "
+                         f"the merge device is {merge_dev}")
+    ds, is_, bases = [], [], []
+    base = 0
+    for (rn, roh), dev in zip(shards, mesh.devices):
+        if rn.device != dev:
+            raise ValueError(f"topk_scan_sharded: a shard on {rn.device}, "
+                             f"its mesh device is {dev}")
+        d, i = topk_scan(tn.to(dev), toh.to(dev), rn, roh, k, metric, n_cat,
+                         denom, fscale)
+        ds.append(d)
+        is_.append(i)
+        bases.append(base)
+        base += rn.shape[0]
+    gathered = gather_to(ds + is_, merge_dev)
+    S = len(ds)
+    return topk_merge(gathered[:S], gathered[S:], bases, k)

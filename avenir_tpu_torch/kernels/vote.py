@@ -21,6 +21,16 @@ into 32-bit words.  :func:`ensemble_vote` and :func:`quantized_vote` launch
 ``csrc/vote.cu`` for CUDA tensors and run :func:`ensemble_vote_torch` /
 :func:`quantized_vote_torch` for CPU tensors (``kernels/dispatch.py``);
 ``launches`` and ``quantized_launches`` count their kernel launches.
+
+The tree-sharded serve (``serving/predictor.py`` with ``serve_mesh``) splits
+the float vote in two, as the JAX package's sharded core does:
+:func:`ensemble_partial_votes` replaces the TPU kernel
+``avenir_tpu/ops/pallas/vote.py`` ``ensemble_partial_votes`` — one tree
+shard's (n, K) float32 tallies, plain version :func:`member_votes_torch` —
+and :func:`vote_merge_finalize` replaces its ``psum`` + ``_vote_finalize``
+(``serving/predictor.py:437-438``) — the shards' tallies summed in shard
+order, then the finalize, plain version :func:`vote_merge_finalize_torch`.
+``partial_launches`` and ``finalize_launches`` count their launches.
 """
 
 from __future__ import annotations
@@ -39,6 +49,9 @@ from .dispatch import BACKEND_CUDA, resolve_backend
 # and the int8 vote's
 launches = 0
 quantized_launches = 0
+# the sharded form's: per-shard partial tallies and the merge-finalize
+partial_launches = 0
+finalize_launches = 0
 
 # predicate tensors are staged in shared memory up to this size per block
 SMEM_LIMIT = 48 * 1024
@@ -157,6 +170,29 @@ def _prepare(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec, device) -> VoteModel:
     return model
 
 
+# the pad member's value of each stacked array (lo, hi, num_r, cat_m, cat_r,
+# cls_oh, wvec): never matches, votes no class, weighs nothing
+_PAD_MEMBER = (np.inf, -np.inf, True, False, False, 0.0, 0.0)
+
+
+def shard_stacked_arrays(arrays, S: int):
+    """The seven host stacked arrays (``stacked_host`` + wvec) padded along
+    T to a multiple of ``S`` with zero-weight members that never match (lo
+    = +inf, hi = -inf, every numeric slot restricted, no categorical
+    restriction, no class, weight 0 — as the JAX package's sharded core
+    pads them), then cut into ``S`` contiguous tree slices."""
+    arrays = [np.asarray(a) for a in arrays]
+    T = arrays[0].shape[0]
+    pad = (-T) % S
+    if pad:
+        arrays = [np.concatenate([a, np.full((pad,) + a.shape[1:], f,
+                                             a.dtype)])
+                  for a, f in zip(arrays, _PAD_MEMBER)]
+    step = (T + pad) // S
+    return [tuple(a[s * step:(s + 1) * step] for a in arrays)
+            for s in range(S)]
+
+
 def kernel_form(num_r, cat_m, cat_r, cls_oh):
     """The kernel's view of a stacked forest (host numpy): one flag byte per
     predicate slot (bit 0 numeric restricted, bit 1 categorical
@@ -228,6 +264,15 @@ def vote_finalize_torch(votes, min_odds):
     return torch.where(veto, K, best).to(torch.int32)
 
 
+def vote_merge_finalize_torch(partials, min_odds):
+    """The plain version of the merge: the shards' (n, K) tallies summed in
+    shard order, then :func:`vote_finalize_torch`."""
+    votes = partials[0]
+    for p in partials[1:]:
+        votes = votes + p
+    return vote_finalize_torch(votes, min_odds)
+
+
 def ensemble_vote_torch(vals, codes, lo, hi, num_r, cat_m, cat_r, cls_oh,
                         wvec, min_odds):
     """The plain version: composed torch ops, the CPU path and the oracle
@@ -262,6 +307,18 @@ _FORMS = {torch.float32: ("avenir_ensemble_vote", torch.int32,
                           "ensemble_vote"),
           torch.int8: ("avenir_quantized_vote", torch.int8,
                        "quantized_vote")}
+_p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
+    ctypes.c_float
+_VOTE_ARGS = [_p, _p, _ll, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
+              _f, _p, _p, _i, _ll, _p]
+# C entry point -> its argument types
+_ARGTYPES = {
+    "avenir_ensemble_vote": _VOTE_ARGS,
+    "avenir_quantized_vote": _VOTE_ARGS,
+    "avenir_ensemble_partial_votes": [_p, _p, _ll, _i, _p, _p, _p, _p, _p,
+                                      _p, _i, _i, _i, _i, _i, _p, _i, _ll,
+                                      _p],
+    "avenir_vote_merge_finalize": [_p, _i, _ll, _i, _f, _p, _p, _p]}
 _entries = {}
 
 
@@ -271,19 +328,18 @@ def _lib(entry: str):
     if fn is None:
         from .build import load
         fn = getattr(load("vote"), entry)
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, ctypes.c_longlong, i, p, p, p, p, p, p, i, i, i,
-                       i, i, ctypes.c_float, p, p, i, ctypes.c_longlong, p]
+        fn.argtypes = _ARGTYPES[entry]
         fn.restype = ctypes.c_int
         _entries[entry] = fn
     return fn
 
 
-def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
-    global launches, quantized_launches
-    T, P, F, C, K = model.shape
+def _check_rows(vals, codes, model: VoteModel, what: str, code_dtype):
+    """Request rows the kernel takes: contiguous (n, F) tensors of the
+    model's value type and ``code_dtype``, on the model's device, and a
+    model prepared for a CUDA device."""
+    F = model.shape[2]
     n = vals.shape[0]
-    entry, code_dtype, what = _FORMS[model.lo.dtype]
     for name, t, dtype in (("vals", vals, model.lo.dtype),
                            ("codes", codes, code_dtype)):
         if t.dtype != dtype or t.dim() != 2 or t.shape != (n, F) \
@@ -297,23 +353,42 @@ def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
     if model.cls is None:
         raise ValueError(f"{what}: model was not prepared for a CUDA "
                          f"device")
+
+
+def _model_args(model: VoteModel):
+    """The predicate arguments every vote entry takes, after the rows:
+    lo, hi, flags, mask words, classes, weights, T, P, C, W, K."""
+    T, P, F, C, K = model.shape
+    return (model.lo.data_ptr(), model.hi.data_ptr(), model.flags.data_ptr(),
+            model.catw.data_ptr(), model.cls.data_ptr(),
+            model.wvec.data_ptr(), T, P, C, (C + 31) // 32, K)
+
+
+def _smem_args(model: VoteModel):
+    """(use_smem, smem_bytes) for a launch over ``model``."""
+    smem = model.smem_bytes()
+    return (1, smem) if smem <= SMEM_LIMIT else (0, 0)
+
+
+def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
+    global launches, quantized_launches
+    K = model.shape[4]
+    n = vals.shape[0]
+    entry, code_dtype, what = _FORMS[model.lo.dtype]
+    _check_rows(vals, codes, model, what, code_dtype)
     out = torch.empty((n,), dtype=torch.int32, device=vals.device)
     if n == 0:
         return out
     scratch = None
     if K > LOCAL_TALLY_MAX_K:
         scratch = torch.empty((n, K), dtype=torch.float32, device=vals.device)
-    smem = model.smem_bytes()
-    use_smem = smem <= SMEM_LIMIT
-    stream = torch.cuda.current_stream(vals.device).cuda_stream
-    err = _lib(entry)(vals.data_ptr(), codes.data_ptr(), n, F,
-                      model.lo.data_ptr(), model.hi.data_ptr(),
-                      model.flags.data_ptr(), model.catw.data_ptr(),
-                      model.cls.data_ptr(), model.wvec.data_ptr(),
-                      T, P, C, (C + 31) // 32, K, float(min_odds),
-                      scratch.data_ptr() if scratch is not None else None,
-                      out.data_ptr(), int(use_smem), smem if use_smem else 0,
-                      stream)
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = _lib(entry)(vals.data_ptr(), codes.data_ptr(), n,
+                          model.shape[2], *_model_args(model),
+                          float(min_odds),
+                          scratch.data_ptr() if scratch is not None else None,
+                          out.data_ptr(), *_smem_args(model), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
     if model.quantized:
@@ -346,3 +421,92 @@ def quantized_vote(qvals: torch.Tensor, qcodes: torch.Tensor,
     if resolve_backend(qvals.device) == BACKEND_CUDA:
         return _launch(qvals, qcodes, model, min_odds)
     return quantized_vote_torch(qvals, qcodes, *model.stacked(), min_odds)
+
+
+# --------------------------------------------------------------------------
+# the tree-sharded form: per-shard partial tallies, then one merge-finalize
+# --------------------------------------------------------------------------
+
+def _launch_partial(vals, codes, model: VoteModel) -> torch.Tensor:
+    global partial_launches
+    K = model.shape[4]
+    n = vals.shape[0]
+    _check_rows(vals, codes, model, "ensemble_partial_votes", torch.int32)
+    out = torch.empty((n, K), dtype=torch.float32, device=vals.device)
+    if n == 0:
+        return out
+    with torch.cuda.device(vals.device):
+        stream = torch.cuda.current_stream(vals.device).cuda_stream
+        err = _lib("avenir_ensemble_partial_votes")(
+            vals.data_ptr(), codes.data_ptr(), n, model.shape[2],
+            *_model_args(model), out.data_ptr(), *_smem_args(model), stream)
+    if err != 0:
+        raise RuntimeError(f"ensemble_partial_votes kernel launch failed: "
+                           f"CUDA error {err}")
+    partial_launches += 1
+    return out
+
+
+def ensemble_partial_votes(vals: torch.Tensor, codes: torch.Tensor,
+                           model: VoteModel) -> torch.Tensor:
+    """(n, K) float32 vote tallies of the request rows over the members in
+    ``model`` (one tree shard; float form only).  CUDA tensors launch
+    ``csrc/vote.cu``'s partial form; CPU tensors run
+    :func:`member_votes_torch`."""
+    if model.quantized:
+        raise ValueError("ensemble_partial_votes takes the float form; the "
+                         "int8 serve is not sharded")
+    if resolve_backend(vals.device) == BACKEND_CUDA:
+        return _launch_partial(vals, codes, model)
+    return member_votes_torch(vals, codes, *model.stacked())
+
+
+def _launch_merge(partials, min_odds: float) -> torch.Tensor:
+    global finalize_launches
+    n, K = partials[0].shape
+    dev = partials[0].device
+    out = torch.empty((n,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    scratch = None
+    if K > LOCAL_TALLY_MAX_K:
+        scratch = torch.empty((n, K), dtype=torch.float32, device=dev)
+    ptrs = (ctypes.c_void_p * len(partials))(*[p.data_ptr()
+                                               for p in partials])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib("avenir_vote_merge_finalize")(
+            ptrs, len(partials), n, K, float(min_odds),
+            scratch.data_ptr() if scratch is not None else None,
+            out.data_ptr(), stream)
+    if err != 0:
+        raise RuntimeError(f"vote_merge_finalize kernel launch failed: CUDA "
+                           f"error {err}")
+    finalize_launches += 1
+    return out
+
+
+def vote_merge_finalize(partials, min_odds: float) -> torch.Tensor:
+    """(n,) int32 vote indices from S shards' (n, K) float32 tallies, all on
+    one device (the merge device): summed in shard order, then finalized.
+    CUDA tensors launch ``csrc/vote.cu``'s merge (at most
+    ``parallel.mesh.MAX_SHARDS`` shards); CPU tensors run
+    :func:`vote_merge_finalize_torch`."""
+    partials = list(partials)
+    if not partials:
+        raise ValueError("vote_merge_finalize needs at least one shard")
+    first = partials[0]
+    if first.dim() != 2 or first.shape[1] < 1:
+        raise ValueError(f"vote_merge_finalize: tallies must be (n, K) with "
+                         f"K >= 1, got {tuple(first.shape)}")
+    for q, t in enumerate(partials):
+        if t.shape != first.shape or t.dtype != torch.float32 \
+                or t.device != first.device or not t.is_contiguous():
+            raise ValueError(
+                f"vote_merge_finalize: shard {q}'s tally is "
+                f"{tuple(t.shape)} {t.dtype} on {t.device}; every shard's "
+                f"must be a contiguous {tuple(first.shape)} float32 tensor "
+                f"on {first.device}")
+    if resolve_backend(first.device) == BACKEND_CUDA:
+        return _launch_merge(partials, min_odds)
+    return vote_merge_finalize_torch(partials, min_odds)

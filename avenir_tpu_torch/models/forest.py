@@ -27,6 +27,12 @@ vote on the host in float64 (``_predict_host``); that is the reference's
 own semantics for them, not a fallback, and every run of it is recorded as
 ``ensemble.vote.host`` in the KernelBackends ledger.  Streaming training
 (``build_forest_from_stream``) is not ported yet.
+
+Tree-sharded vote (``EnsembleModel.shard_stacked``, the JAX package's
+sharded serving core, ``serving/predictor.py:398-438``): the stacked
+members split into one contiguous tree slice per device of a mesh; each
+batch runs one partial-tally launch per shard and one merge-finalize on
+the mesh's first device (``kernels/vote.py``).
 """
 
 from __future__ import annotations
@@ -41,7 +47,9 @@ from ..core.metrics import Counters
 from ..core.schema import FeatureSchema
 from ..core.table import ColumnarTable
 from ..kernels.dispatch import note_backend, resolve_backend
-from ..kernels.vote import ensemble_vote, prepare_vote_model
+from ..kernels.vote import (ensemble_partial_votes, ensemble_vote,
+                            prepare_vote_model, shard_stacked_arrays,
+                            vote_merge_finalize)
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, layer, note_dispatch
 from .tree import (DecisionPath, DecisionPathList, DecisionTreeModel,
@@ -78,8 +86,9 @@ class EnsembleModel:
         self._lut = np.concatenate([self._cls_arr.astype(object), [None]])
         self._vote_backend = resolve_backend(self.device)
         # stack=False skips device placement (callers that only need the
-        # stacked layout)
+        # stacked layout, or shard_stacked)
         self._stacked = self._stack_members() if stack else None
+        self._sharded = None
 
     def stacked_host(self):
         """The HOST (numpy) form of the stacked member tensors
@@ -133,13 +142,37 @@ class EnsembleModel:
         return prepare_vote_model(*host, np.asarray(self.weights, np.float32),
                                   self.device)
 
+    def shard_stacked(self, mesh):
+        """Place the stacked members over ``mesh`` (a
+        ``parallel.mesh.DeviceMesh``) for :meth:`vote_device`: T padded up
+        to a multiple of S with zero-weight members that never match, split
+        into S contiguous tree slices
+        (``kernels.vote.shard_stacked_arrays``), each prepared on its
+        shard's device.  The batch rows and
+        the merge live on ``mesh.devices[0]``, which must be this model's
+        device.  Raises when the ensemble has no stacked form."""
+        host = self.stacked_host()
+        if host is None:
+            raise ValueError("shard_stacked: the ensemble has no stacked "
+                             "form (degenerate member, bounds that are not "
+                             "float32-exact, or non-integer weights)")
+        if torch.device(mesh.devices[0]) != torch.device(self.device):
+            raise ValueError(f"shard_stacked: the mesh merges on "
+                             f"{mesh.devices[0]}, the model is on "
+                             f"{self.device}")
+        slices = shard_stacked_arrays(
+            (*host, np.asarray(self.weights, np.float32)), mesh.size)
+        self._sharded = [prepare_vote_model(*arrays, dev)
+                         for arrays, dev in zip(slices, mesh.devices)]
+
     def device_inputs(self, table: ColumnarTable, cache=None):
         """The single gate for the device vote: (d_vals, d_codes) when this
-        table can take it — members stacked, rows present, and features
-        f32-exact — else None (host vote).  Shared by predict() and the
-        serving layer so the two paths can never disagree on WHEN the
-        kernel applies."""
-        if self._stacked is None or table.n_rows == 0:
+        table can take it — members stacked (on one device or sharded),
+        rows present, and features f32-exact — else None (host vote).
+        Shared by predict() and the serving layer so the two paths can
+        never disagree on WHEN the kernel applies."""
+        if (self._stacked is None and self._sharded is None) \
+                or table.n_rows == 0:
             return None
         cache = cache if cache is not None else FeatureCache()
         m0 = self.models[0].matrix
@@ -160,7 +193,19 @@ class EnsembleModel:
     def vote_device(self, d_vals, d_codes) -> torch.Tensor:
         """(n,) int32 vote indices on the device: ONE kernel launch for the
         whole batch (the kernel keeps no (n,T,P) intermediate, so there is
-        nothing to chunk)."""
+        nothing to chunk).  Sharded (:meth:`shard_stacked`): the rows go to
+        every shard's device, one partial-tally launch a shard, one gather
+        of the (n, K) tallies onto this model's device, one
+        merge-finalize launch, recorded as one ``serve.shard_merge``."""
+        if self._sharded is not None:
+            from ..parallel.collectives import gather_to
+            note_dispatch(site="serve.shard_merge")
+            note_backend("serve.shard_merge", self._vote_backend)
+            parts = [ensemble_partial_votes(d_vals.to(m.device),
+                                            d_codes.to(m.device), m)
+                     for m in self._sharded]
+            return vote_merge_finalize(gather_to(parts, self.device),
+                                       self.min_odds_ratio)
         note_dispatch(site="ensemble.vote")
         note_backend("ensemble.vote", self._vote_backend)
         return ensemble_vote(d_vals, d_codes, self._stacked,

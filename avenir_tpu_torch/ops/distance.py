@@ -34,7 +34,9 @@ give the same bits on the CPU and on a GPU, where kernel B5
 :class:`DistanceComputer` encodes tables (host numpy, as the JAX package
 does), caches the encoded train side and its device upload, and runs
 ``pairwise`` (torch ops on the device) and ``pairwise_topk`` (kernel B5, one
-launch per test chunk).
+launch per test chunk).  Over a mesh of several devices ``pairwise_topk``
+shards the train rows (kernel B7, ``kernels/topk.py``
+``topk_scan_sharded``), as the JAX package does on a one-process mesh.
 """
 
 from __future__ import annotations
@@ -168,19 +170,34 @@ def manhattan(tn, toh, rn, roh, n_cat: float, denom: float, fscale: float
 
 class DistanceComputer:
     """Per-attribute normalisation and the categorical one-hot layout of a
-    schema; all-pairs int distances on ``device`` (default: the process
-    device, ``cuda`` unless asked otherwise).
+    schema; all-pairs int distances on ``device``.
 
-    The train-side encode AND its device upload are cached (one slot,
+    Placement: ``device=`` pins one device.  ``mesh=`` (a
+    ``parallel.mesh.DeviceMesh``) shards ``pairwise_topk``'s train rows
+    over the mesh's devices and merges on its first, which is then
+    ``device``.  With neither, the computer takes the runtime context's
+    mesh (``parallel.mesh.runtime_context``) when that has several
+    devices, else the process device (``cuda`` unless asked otherwise).
+
+    The train-side encode AND its device uploads are cached (one slot,
     keyed by the train table through a weakref): the KNN pipeline hits
     the same train set with every test chunk."""
 
     def __init__(self, schema: FeatureSchema, metric: str = "euclidean",
-                 scale: int = 1000, device=None):
+                 scale: int = 1000, device=None, mesh=None):
+        if mesh is not None and device is not None:
+            raise ValueError("mesh and device are mutually exclusive "
+                             "placements")
+        if mesh is None and device is None:
+            from ..parallel.mesh import runtime_context
+            mesh = runtime_context().mesh
         self.schema = schema
         self.metric = metric
         self.scale = scale
-        self.device = resolve_device(device)
+        # a 1-device mesh is the single-device computer
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self.num_fields = [f for f in schema.feature_fields if f.is_numeric]
         self.cat_fields = [f for f in schema.feature_fields
                            if f.is_categorical]
@@ -246,8 +263,27 @@ class DistanceComputer:
                                              self._upload(roh))
         return hit
 
-    def _upload(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+    def train_shards(self) -> List[Tuple[torch.Tensor, torch.Tensor]]:
+        """The cached train arrays cut into the mesh's contiguous ranges
+        (``kernels.topk.shard_ranges``: ceil(n/S) rows each, no pad rows),
+        each uploaded once to its shard's device and recorded in the
+        ledger."""
+        from ..kernels.topk import shard_ranges
+        hit = self._train_dev.get("shards")
+        if hit is None:
+            rn, roh = self._train_host
+            hit = []
+            for (a, b), dev in zip(shard_ranges(rn.shape[0], self.mesh.size),
+                                   self.mesh.devices):
+                note_h2d(rn[a:b].nbytes + roh[a:b].nbytes, transfers=2)
+                hit.append((self._upload(rn[a:b], dev),
+                            self._upload(roh[a:b], dev)))
+            self._train_dev["shards"] = hit
+        return hit
+
+    def _upload(self, a: np.ndarray, device=None) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(
+            self.device if device is None else device)
 
     def _check_metric(self) -> None:
         if self.metric not in ("euclidean", "manhattan"):
@@ -279,18 +315,21 @@ class DistanceComputer:
         matrix never exists.  One B5 launch per ``test_chunk`` test rows
         (``kernels/topk.py``; the plain version on the CPU) against the
         cached flat train arrays; the chunks' results stay on the device
-        and read back in one transfer per output.
+        and read back in one transfer per output.  Over a mesh, each chunk
+        runs one B5 launch per non-empty train shard and one merge
+        (``topk_scan_sharded``) instead.
 
         Returns (distances (n_test, k) int32, train indices (n_test, k)
         int32), rows nearest-first, ties to the lowest train index, with
         ``k`` clamped to ``n_train``.
 
         Ledger shape: each test chunk costs 2 H2D transfers and 1
-        ``knn.topk`` dispatch; several chunks add 1 concat dispatch; the
-        call reads back 2 D2H transfers; the train side uploads (2 H2D)
-        once per train table."""
+        ``knn.topk`` dispatch (over a mesh also 1 ``knn.shard_merge``
+        dispatch and 1 gather); several chunks add 1 concat dispatch; the
+        call reads back 2 D2H transfers; the train side uploads (2 H2D,
+        over a mesh 2 a shard) once per train table."""
         from ..kernels.dispatch import note_backend, resolve_backend
-        from ..kernels.topk import topk_scan
+        from ..kernels.topk import topk_scan, topk_scan_sharded
         tn, toh = self.encode(test)
         rn, roh = self._encode_train(train)
         n_test, n_train = tn.shape[0], rn.shape[0]
@@ -299,7 +338,10 @@ class DistanceComputer:
             return (np.zeros((n_test, k), np.int32),
                     np.zeros((n_test, k), np.int32))
         self._check_metric()
-        rn_d, roh_d = self.train_device()
+        if self.mesh is not None:
+            shards = self.train_shards()
+        else:
+            rn_d, roh_d = self.train_device()
         backend = resolve_backend(self.device)
         out_d: List[torch.Tensor] = []
         out_i: List[torch.Tensor] = []
@@ -309,9 +351,13 @@ class DistanceComputer:
             tn_c, toh_c = self._upload(tn[ts:te]), self._upload(toh[ts:te])
             note_dispatch(site="knn.topk")
             note_backend("knn.topk", backend)
-            best_d, best_i = topk_scan(tn_c, toh_c, rn_d, roh_d, k,
-                                       self.metric, self._n_cat, self._denom,
-                                       self._fscale)
+            consts = (k, self.metric, self._n_cat, self._denom, self._fscale)
+            if self.mesh is not None:
+                note_dispatch(site="knn.shard_merge")
+                best_d, best_i = topk_scan_sharded(tn_c, toh_c, shards,
+                                                   *consts, self.mesh)
+            else:
+                best_d, best_i = topk_scan(tn_c, toh_c, rn_d, roh_d, *consts)
             out_d.append(best_d)
             out_i.append(best_i)
         if len(out_d) == 1:

@@ -14,7 +14,10 @@ per model and answers exactly what the offline ``modelPredictor`` job
 would emit for the same records.  ``None`` (min-odds veto) maps to the
 service's ``ambiguous_label``.  Given a version's int8 sidecar
 (``serving/quantized.py``, the ``ps.quantized`` knob) it serves the
-quantized vote instead, over about 4x fewer request bytes.
+quantized vote instead, over about 4x fewer request bytes.  Given
+``serve_mesh`` it shards the members over the trees of a device mesh
+(forests too big for one device's memory) and merges each batch's
+tallies on the mesh's first device.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from ..core.schema import FeatureSchema
 from ..core.table import ColumnarTable, encode_rows
 from ..kernels.dispatch import note_backend
 from ..runtime import resolve_device
-from ..utils.tracing import fetch
+from ..utils.tracing import fetch, note_dispatch
 from .registry import FOREST, LoadedModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
@@ -120,22 +123,53 @@ class ForestPredictor(Predictor):
     ``quantized`` (a ``QuantizedForest``) serves the int8 vote instead; it
     warns and serves the float model when the forest is a single tree, has
     no stacked device form, or the sidecar's class order is not the
-    ensemble's."""
+    ensemble's.
+
+    ``serve_mesh`` shards the stacked members over the tree axis of a
+    device mesh instead of placing them on one device: ``True`` = every
+    visible device, an int = the first n, a ``parallel.mesh.DeviceMesh``
+    as given; a 1-device result is the plain single-device predictor on
+    that device.  Each batch copies its feature arrays to every shard's
+    device, runs one partial-tally launch a shard and one merge-finalize
+    on the mesh's first device (``EnsembleModel.shard_stacked``), and
+    answers bit for bit what the single-device vote answers.  A forest
+    with no stacked form warns and serves the host vote on the first
+    device; the int8 serve stays unsharded, on that device, as in the JAX
+    package.  ``serve_mesh`` and ``device`` are exclusive."""
 
     def __init__(self, path_lists, schema: FeatureSchema,
                  weights: Optional[Sequence[float]] = None,
                  min_odds_ratio: float = 1.0, quantized=None, device=None,
-                 **kw):
+                 serve_mesh=None, **kw):
         super().__init__(schema, **kw)
         from ..models.forest import EnsembleModel
         from ..models.tree import DecisionTreeModel
-        self.device = resolve_device(device)
+        if serve_mesh is not None and device is not None:
+            raise ValueError("serve_mesh and device are mutually exclusive "
+                             "placements")
+        mesh = self._resolve_serve_mesh(serve_mesh)
+        self.device = resolve_device(device if mesh is None
+                                     else mesh.devices[0])
         self.models = [DecisionTreeModel(pl, schema, device=self.device)
                        for pl in path_lists]
         self.single = len(self.models) == 1
-        self.ensemble = None if self.single else EnsembleModel(
-            self.models, weights=weights, min_odds_ratio=min_odds_ratio,
-            require_odd=False, device=self.device)
+        self.serve_mesh = None
+        if self.single:
+            self.ensemble = None
+        else:
+            sharded = mesh is not None and mesh.size > 1
+            self.ensemble = EnsembleModel(
+                self.models, weights=weights, min_odds_ratio=min_odds_ratio,
+                require_odd=False, stack=not sharded, device=self.device)
+            if sharded and self.ensemble.stacked_host() is None:
+                warnings.warn(
+                    "serve_mesh: ensemble has no stacked device form "
+                    "(degenerate member, bounds that are not float32-exact "
+                    "or non-integer weights); serving the host vote on "
+                    f"{self.device}", RuntimeWarning)
+            elif sharded:
+                self.ensemble.shard_stacked(mesh)
+                self.serve_mesh = mesh
         self.quantized = None
         self._qvote = None
         if quantized is None:
@@ -145,7 +179,8 @@ class ForestPredictor(Predictor):
                 "ps.quantized: single-tree forests serve through the "
                 "per-tree predict path; quantized sidecar ignored, serving "
                 "the float model", RuntimeWarning)
-        elif self.ensemble._stacked is None:
+        elif self.ensemble._stacked is None and \
+                self.ensemble._sharded is None:
             warnings.warn(
                 "ps.quantized: ensemble has no stacked device form; "
                 "serving the float host path", RuntimeWarning)
@@ -156,6 +191,20 @@ class ForestPredictor(Predictor):
         else:
             self.quantized = quantized
             self._qvote = quantized.prepare(self.device)
+
+    @staticmethod
+    def _resolve_serve_mesh(serve_mesh):
+        """``serve_mesh`` -> a tree-axis ``DeviceMesh`` or None: ``True``
+        = every visible device, an int = the first n, a ``DeviceMesh`` as
+        given (any axis name)."""
+        if serve_mesh is None or serve_mesh is False:
+            return None
+        from ..parallel.mesh import DeviceMesh, tree_mesh
+        if isinstance(serve_mesh, DeviceMesh):
+            return serve_mesh
+        if serve_mesh is True:
+            return tree_mesh()
+        return tree_mesh(int(serve_mesh))
 
     def dispatch_prepared(self, prepared):
         """The ASYNC half of predict_prepared: host prep, H2D and the vote
@@ -187,6 +236,10 @@ class ForestPredictor(Predictor):
             dev = self.ensemble.device_inputs(table, cache)
             if dev is not None:
                 note_backend("serve.predict", self.ensemble._vote_backend)
+                if self.serve_mesh is not None:
+                    # one sharded batch, pinned in the ledger as in the JAX
+                    # package (vote_device records its merge)
+                    note_dispatch(site="serve.predict")
                 staged.append((True, self.ensemble.vote_device(*dev), n))
             else:
                 staged.append(
@@ -213,13 +266,14 @@ def make_predictor(loaded: LoadedModel,
                    schema: Optional[FeatureSchema] = None,
                    buckets: Sequence[int] = DEFAULT_BUCKETS,
                    delim: str = ",", device=None,
-                   quantized: bool = False) -> Predictor:
+                   quantized: bool = False, serve_mesh=None) -> Predictor:
     """Registry artifact -> a Predictor, using the artifact's embedded
     schema unless one is passed explicitly.  Forests only so far.
 
     ``quantized=True`` (the ``ps.quantized`` knob) loads the version's int8
     sidecar and serves the budget-pinned quantized vote; a version without
-    an intact sidecar warns and serves the float model."""
+    an intact sidecar warns and serves the float model.  ``serve_mesh``
+    shards the vote over a device mesh (``ForestPredictor``)."""
     schema = schema or loaded.schema
     if schema is None:
         raise ValueError(
@@ -244,4 +298,4 @@ def make_predictor(loaded: LoadedModel,
     return ForestPredictor(
         loaded.model, schema, weights=p.get("weights"),
         min_odds_ratio=float(p.get("min_odds_ratio", 1.0)), quantized=qf,
-        device=device, buckets=buckets, delim=delim)
+        device=device, serve_mesh=serve_mesh, buckets=buckets, delim=delim)

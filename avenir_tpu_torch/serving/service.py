@@ -88,7 +88,8 @@ class PredictionService:
     Construct either around a ready ``predictor`` or around a ``registry`` +
     ``model_name`` (which enables :meth:`refresh` hot-swap to the
     registry's serving version; ``quantized`` serves each loaded version's
-    int8 sidecar)."""
+    int8 sidecar, ``serve_mesh`` shards each loaded version's vote over a
+    device mesh)."""
 
     def __init__(self, predictor: Optional[Predictor] = None, *,
                  registry: Optional[ModelRegistry] = None,
@@ -103,14 +104,19 @@ class PredictionService:
                  ambiguous_label: str = AMBIGUOUS,
                  busy_label: str = "busy",
                  device=None,
-                 quantized: bool = False):
+                 quantized: bool = False,
+                 serve_mesh=None):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
         self.registry = registry
         self.model_name = model_name
         self._schema = schema
         self._buckets = tuple(buckets)
+        # placement of registry-built predictors: ``device`` pins one
+        # device, ``serve_mesh`` shards the vote over a device mesh
+        # (ForestPredictor); exclusive
         self._device = device
+        self._serve_mesh = serve_mesh
         # ps.quantized: registry loads (the first and every hot-swap) serve
         # the version's int8 sidecar; a version without one warns and
         # serves float
@@ -150,7 +156,8 @@ class PredictionService:
         pred = make_predictor(loaded, schema=self._schema,
                               buckets=self._buckets, delim=self.delim,
                               device=self._device,
-                              quantized=self._quantized)
+                              quantized=self._quantized,
+                              serve_mesh=self._serve_mesh)
         if self._warm:
             pred.warm()
         self.version = latest
@@ -170,7 +177,8 @@ class PredictionService:
         pred = make_predictor(loaded, schema=self._schema,
                               buckets=self._buckets, delim=self.delim,
                               device=self._device,
-                              quantized=self._quantized)
+                              quantized=self._quantized,
+                              serve_mesh=self._serve_mesh)
         if self._warm:
             pred.warm()
         with self._swap_lock:

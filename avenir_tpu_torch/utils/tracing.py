@@ -8,10 +8,15 @@ call in ``avenir_tpu/utils/tracing.py``.
   recorded at the instrumented sites: H2D/D2H bytes, tagged dispatches
   (``Dispatches`` group; training sites ``forest.level``, ``tree.level``,
   ``tree.reassign``, ``baseline.absorb``; serving sites ``ensemble.vote``,
-  ``quantized.vote``), and which kernel form actually ran at each hot site
-  (``KernelBackends`` group, keys ``<site>.<backend>`` with backend in
-  ``cuda | torch | host``, and ``serve.predict.quantized`` for the int8
-  serve), so a fallback never passes for a kernel result.
+  ``quantized.vote``, ``knn.topk``; the sharded paths add one
+  ``serve.predict`` + one ``serve.shard_merge`` a served batch and one
+  ``knn.topk`` + one ``knn.shard_merge`` a KNN test chunk), which kernel
+  form actually ran at each hot site (``KernelBackends`` group, keys
+  ``<site>.<backend>`` with backend in ``cuda | torch | host``, and
+  ``serve.predict.quantized`` for the int8 serve), so a fallback never
+  passes for a kernel result, and the in-process merges of a mesh's shards
+  (``Collectives`` group: ``Gathers`` and the ``GatherBytes`` copied onto
+  the merge device, exported when a run made any).
 - :class:`LayerProfile` — per-level wall time of the training layers,
   taken only when a caller passes one to a builder.
 """
@@ -34,7 +39,8 @@ class TransferLedger:
     so the serving loop's worker thread records into its spawner's scope."""
 
     __slots__ = ("h2d_bytes", "d2h_bytes", "h2d_transfers", "d2h_transfers",
-                 "dispatches", "dispatch_sites", "kernel_backends", "_lock")
+                 "dispatches", "dispatch_sites", "kernel_backends", "gathers",
+                 "gather_bytes", "_lock")
 
     def __init__(self):
         self.h2d_bytes = 0
@@ -44,6 +50,8 @@ class TransferLedger:
         self.dispatches = 0
         self.dispatch_sites: Dict[str, int] = defaultdict(int)
         self.kernel_backends: Dict[str, int] = defaultdict(int)
+        self.gathers = 0
+        self.gather_bytes = 0
         self._lock = threading.Lock()
 
     def record_h2d(self, nbytes: int, transfers: int = 1) -> None:
@@ -67,6 +75,13 @@ class TransferLedger:
         with self._lock:
             self.kernel_backends[f"{site}.{backend}"] += int(n)
 
+    def record_gather(self, nbytes: int, n: int = 1) -> None:
+        """One in-process merge of a mesh's shards: ``nbytes`` copied from
+        the other shards' devices onto the merge device."""
+        with self._lock:
+            self.gathers += int(n)
+            self.gather_bytes += int(nbytes)
+
     def site_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.dispatch_sites)
@@ -83,6 +98,9 @@ class TransferLedger:
             "H2DTransfers": self.h2d_transfers,
             "D2HTransfers": self.d2h_transfers,
             "Dispatches": self.dispatches})
+        if self.gathers:
+            counters.update_group("Collectives", {
+                "Gathers": self.gathers, "GatherBytes": self.gather_bytes})
         if self.dispatch_sites:
             counters.update_group("Dispatches",
                                   dict(sorted(self.dispatch_sites.items())))
@@ -128,6 +146,11 @@ def note_dispatch(n: int = 1, site: Optional[str] = None) -> None:
 def note_kernel_backend(site: str, backend: str, n: int = 1) -> None:
     for led in list(_ledgers):
         led.record_kernel_backend(site, backend, n)
+
+
+def note_gather(nbytes: int, n: int = 1) -> None:
+    for led in list(_ledgers):
+        led.record_gather(nbytes, n)
 
 
 def fetch(tensor) -> np.ndarray:

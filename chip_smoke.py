@@ -139,6 +139,49 @@ order — any failure exits non-zero before the result line:
               distance with the lexicographic top-k, so library_ms is
               null; torch.cdist + torch.topk on the numeric part is timed
               as context
+ 19. b6       the partial-vote kernel (one tree shard's (n, K) float32
+              tallies) against member_votes_torch, tallies EXACTLY equal,
+              at the published and the wide shape of phase 3, over the
+              tree slices of S = 1, 2, 3 and 4 shards (zero-weight pad
+              members as the sharded serve makes them), n = 1, 7, 513 and
+              1,000,000 (the wide shape's plain tallies at 1M rows from one
+              plain first-match pass); then the merge-finalize kernel
+              against its plain version on those partials, min_odds 1.0
+              and 1.5, and against B2 on the same rows: equal votes
+ 20. b7       the top-k merge kernel against topk_merge_torch, exactly:
+              S = 1, 2, 3, 4, 8, k = 1, 7, 10, 64, 100, nt = 1, 7, 513,
+              20,000, lists from B5 over shards shorter than k, empty
+              shards and rows repeated across shards (ties); then
+              topk_scan_sharded over cuda x 2/3/4/8 against single-device
+              B5 at phase 15's schemas (n_train 5 and 1000), and at the pad
+              probe (10 train rows over 4 shards, k = 2: d [[1, 2]], i
+              [[0, 9]])
+ 21. sharded  the tree-sharded serving main path, launch counts zeroed
+     serve    before and read after: PredictionService over a copy of the
+              rafo9 registry and make_predictor over its requests, with
+              serve_mesh of 2, 3 and 4 shards (cuda:0 repeated), must
+              reproduce served.csv and pred.csv byte for byte; partial
+              launches = S x batches, finalize launches = batches, no B2
+              launch, serve.shard_merge = serve.predict in the ledger and
+              only .cuda forms
+ 22. sharded  the train-sharded KNN main path, launch counts zeroed before
+     knn      and read after: knnPipeline over the elearn_knn fixture
+              under a runtime context of cuda:0 x 4 must reproduce its four
+              outputs and counters, with at most 4 B5 launches and one
+              merge a chunk and only knn.topk.cuda in the ledger; then the
+              20,000 x 200,000 top-k over 4 train shards must equal phase
+              17's (d, i).  With several GPUs, B6 and the merge-finalize
+              (each tree slice on its own card) and phases 21-22 run again
+              over distinct devices; with one, a line says they were skipped
+ 23. times    median CUDA-event times of the partial-vote kernel (4 tree
+              slices of the rafo9 forest over its requests tiled to
+              1,000,000 rows), the merge-finalize (4 x (1M, 3) tallies)
+              and the top-k merge (4 x (20,000, 10) lists), each beside its
+              plain version and its bound (the bytes moved over 3.35 TB/s,
+              or the operations over 33.5 T/s, the larger); torch.sort
+              over the concatenated lists as context; the sharded
+              pairwise_topk wall beside the single-device one.  No single
+              PyTorch call computes any of the three: library_ms is null
 
 The line before the last is one JSON object with the kernel numbers; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -188,6 +231,9 @@ B5_KS = (1, 7, 10, 64, 100)
 B5_TEST_ROWS = (1, 7, 513)
 B5_TRAIN_ROWS = (5, 1000, 200_000)
 KNN_SCALE = (20_000, 200_000, 10)         # test rows, train rows, k
+# phase 19 runs the plain partial tallies slice by slice up to this many
+# (row, predicate slot) pairs, and from one shared first-match pass above
+B6_DIRECT_PAIRS = 1e10
 # call_hangup_gen's generative model (resource/gen/call_hangup_gen.py)
 REASON_P = (0.35, 0.2, 0.25, 0.2)
 PATIENCE = (500.0, 900.0, 420.0, 380.0)
@@ -796,7 +842,449 @@ def knn_phases(dev, rng):
           f"lexicographic top-k: library_ms is null", flush=True)
     del tn_d, toh_d, rn_d, roh_d, chunks, kd, ki, pd, pi
 
-    return b5_err, b5_launches, b5_t
+    return b5_err, b5_launches, b5_t, (efs, test_t, train_t, nd, nidx,
+                                       warm_s)
+
+
+def mesh_of(devices, S):
+    """A mesh of S shards over ``devices``, round robin (one device
+    repeated S times on a one-card machine)."""
+    from avenir_tpu_torch.parallel.mesh import DeviceMesh
+    return DeviceMesh([devices[s % len(devices)] for s in range(S)])
+
+
+def b6_phase(dev, rng):
+    """Phase 19: B6 and the merge-finalize against their plain versions.
+    Returns the largest tally difference seen (0.0 when exact)."""
+    import torch
+    from avenir_tpu_torch.kernels import vote
+    phase("19 B6 partial-vote and merge-finalize kernels vs plain versions")
+    err = 0.0
+    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+        T, P, F, C, K = shape
+        for n in ROW_COUNTS:
+            stacked, vals, codes = random_forest_inputs(rng, shape, n)
+            v = torch.from_numpy(vals).to(dev)
+            c = torch.from_numpy(codes).to(dev)
+            whole = vote.prepare_vote_model(*stacked, dev)
+            # above B6_DIRECT_PAIRS (row, predicate slot) pairs the plain
+            # tallies come from one plain first-match pass over the whole
+            # forest, each slice's the weighted one-hot of its trees'
+            # matches summed (a tree's first match does not depend on the
+            # other trees)
+            shared = n * T * P * F > B6_DIRECT_PAIRS
+            if shared:
+                first = vote.first_match_torch(v, c, *whole.stacked()[:5])
+                voted = whole.cls_oh[torch.arange(T, device=dev)[None, :],
+                                     first] * whole.wvec[None, :, None]
+                del first
+            vetoes = 0
+            for S in (1, 2, 3, 4):
+                slices = vote.shard_stacked_arrays(stacked, S)
+                models = [vote.prepare_vote_model(*a, dev) for a in slices]
+                parts = [vote.ensemble_partial_votes(v, c, m) for m in models]
+                step = models[0].shape[0]
+                if shared:
+                    want = [voted[:, s * step:min((s + 1) * step, T)].sum(1)
+                            if s * step < T else
+                            torch.zeros((n, K), device=dev)
+                            for s in range(S)]
+                else:
+                    want = [vote.member_votes_torch(v, c, *m.stacked())
+                            for m in models]
+                torch.cuda.synchronize()
+                for s, (got, w) in enumerate(zip(parts, want)):
+                    if got.shape != (n, K) or got.dtype != torch.float32:
+                        fail(f"partial votes output {tuple(got.shape)} "
+                             f"{got.dtype}")
+                    if n:
+                        err = max(err, float((got - w).abs().max().item()))
+                    if not torch.equal(got, w):
+                        fail(f"partial-vote kernel != plain version at shape "
+                             f"{shape}, n={n}, S={S}, shard {s}: "
+                             f"{int((got != w).sum().item())} tallies differ")
+                for mo in (1.0, 1.5):
+                    merged = vote.vote_merge_finalize(parts, mo)
+                    plain = vote.vote_merge_finalize_torch(parts, mo) if n \
+                        else merged
+                    b2 = vote.ensemble_vote(v, c, whole, mo)
+                    torch.cuda.synchronize()
+                    if merged.shape != (n,) or merged.dtype != torch.int32:
+                        fail(f"merge-finalize output {tuple(merged.shape)} "
+                             f"{merged.dtype}")
+                    if not (torch.equal(merged, plain)
+                            and torch.equal(merged, b2)):
+                        fail(f"merge-finalize at shape {shape}, n={n}, S={S}, "
+                             f"min_odds={mo}: "
+                             f"{int((merged != plain).sum().item())} rows "
+                             f"differ from the plain version, "
+                             f"{int((merged != b2).sum().item())} from B2")
+                    vetoes = int((merged == K).sum().item())
+            if shared:
+                del voted
+            print(f"shape T,P,F,C,K={shape} n={n} S=1..4: partial tallies "
+                  f"and merged votes exact (plain tallies "
+                  f"{'from one first-match pass' if shared else 'direct'}; "
+                  f"merged = B2; vetoes at 1.5: {vetoes})", flush=True)
+    return err
+
+
+def b7_phase(dev, rng):
+    """Phase 20: the B7 merge against its plain version, then the sharded
+    scan against single-device B5.  Returns the largest distance
+    difference seen (0.0 when exact)."""
+    import torch
+    from avenir_tpu_torch.kernels import topk
+    phase("20 B7 top-k merge kernel vs plain version; sharded scan vs B5")
+    err = 0.0
+    pool = rng.integers(0, 4, (48, 2)).astype(np.float32)   # ties
+    for S in (1, 2, 3, 4, 8):
+        for k in B5_KS:
+            # shards shorter and longer than k, one empty when S > 1; rows
+            # drawn from a small pool, so equal rows sit in several shards
+            sizes = rng.integers(0, 2 * k + 2, S)
+            if S > 1:
+                sizes[rng.integers(S)] = 0
+            if sizes.sum() < k:
+                sizes[0] += k
+            shards = [torch.from_numpy(pool[rng.integers(0, 48, n_s)]).to(dev)
+                      for n_s in sizes]
+            bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+            for nt in (1, 7, 513, 20_000):
+                tn = torch.from_numpy(
+                    (rng.random((nt, 2)) * 4).astype(np.float32)).to(dev)
+                toh = torch.zeros((nt, 0), dtype=torch.int8, device=dev)
+                lists = [topk.topk_scan(
+                    tn, toh, rn, torch.zeros((rn.shape[0], 0),
+                                             dtype=torch.int8, device=dev),
+                    k, "euclidean", 0.0, 2.0, 1000.0) for rn in shards]
+                ds, is_ = [d for d, _ in lists], [i for _, i in lists]
+                got = topk.topk_merge(ds, is_, bases, k)
+                want = topk.topk_merge_torch(ds, is_, bases, k)
+                torch.cuda.synchronize()
+                live = torch.isfinite(want[0])
+                if live.any():
+                    err = max(err, float((got[0][live] - want[0][live])
+                                         .abs().max().item()))
+                if not (torch.equal(got[0], want[0])
+                        and torch.equal(got[1], want[1])):
+                    fail(f"top-k merge kernel != plain version at S={S}, "
+                         f"k={k}, nt={nt}, shard rows {sizes.tolist()}")
+            print(f"merge S={S} k={k} shard rows {sizes.tolist()}: exact at "
+                  f"nt = 1, 7, 513, 20000", flush=True)
+    for name, (Fn, cards) in B5_SCHEMAS.items():
+        n_cat, denom = float(len(cards)), float(max(Fn + len(cards), 1))
+        for n_train in (5, 1000):
+            rn, roh = (torch.from_numpy(a).to(dev) for a in
+                       b5_inputs(rng, name, n_train, dup=True))
+            tn, toh = (torch.from_numpy(a).to(dev) for a in
+                       b5_inputs(rng, name, 513))
+            ks = sorted({min(k, n_train) for k in B5_KS})
+            for metric in ("euclidean", "manhattan"):
+                for k in ks:
+                    want = topk.topk_scan(tn, toh, rn, roh, k, metric, n_cat,
+                                          denom, 1000.0)
+                    for S in (2, 3, 4, 8):
+                        shards = [(rn[a:b], roh[a:b]) for a, b in
+                                  topk.shard_ranges(n_train, S)]
+                        got = topk.topk_scan_sharded(
+                            tn, toh, shards, k, metric, n_cat, denom, 1000.0,
+                            mesh_of([dev], S))
+                        if not (torch.equal(got[0], want[0])
+                                and torch.equal(got[1], want[1])):
+                            fail(f"sharded scan != B5 at {name} {metric} "
+                                 f"n_train={n_train} k={k} S={S}")
+            print(f"{name} n_train={n_train} n_test=513 k={ks}: sharded scan "
+                  f"over cuda x 2/3/4/8 == single-device B5, both metrics",
+                  flush=True)
+    # the pad probe: a shard must never hold a pad row
+    tn = torch.zeros((1, 2), device=dev)
+    rn = torch.full((10, 2), 5.0, device=dev)
+    rn[0] = torch.tensor([1.0, 0.0])
+    rn[9] = torch.tensor([2.0, 0.0])
+    toh = torch.zeros((1, 0), dtype=torch.int8, device=dev)
+    roh = torch.zeros((10, 0), dtype=torch.int8, device=dev)
+    single = topk.topk_scan(tn, toh, rn, roh, 2, "euclidean", 0.0, 1.0, 1.0)
+    sharded = topk.topk_scan_sharded(
+        tn, toh, [(rn[a:b], roh[a:b]) for a, b in topk.shard_ranges(10, 4)],
+        2, "euclidean", 0.0, 1.0, 1.0, mesh_of([dev], 4))
+    if single[0].tolist() != [[1.0, 2.0]] or single[1].tolist() != [[0, 9]] \
+            or not (torch.equal(sharded[0], single[0])
+                    and torch.equal(sharded[1], single[1])):
+        fail(f"pad probe: single {single}, sharded {sharded}")
+    print("pad probe (10 train rows over 4 shards, k=2): sharded == single "
+          "== d [[1, 2]], i [[0, 9]]", flush=True)
+    return err
+
+
+def sharded_serving(devices, label):
+    """Phase 21: PredictionService and make_predictor over copies of the
+    rafo9 registry with serve_mesh of 2, 3 and 4 shards.  Counts zeroed
+    just before, read just after.  Returns the partial and finalize
+    launches."""
+    from avenir_tpu_torch.kernels import vote
+    from avenir_tpu_torch.serving.predictor import make_predictor
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    from avenir_tpu_torch.serving.service import PredictionService
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        rows = [line.split(",") for line in fh.read().splitlines()]
+    with open(os.path.join(RAFO9, "served.csv")) as fh:
+        served_want = fh.read()
+    with open(os.path.join(RAFO9, "pred.csv")) as fh:
+        pred_want = fh.read()
+    want_partial = want_final = 0
+    walls = {}
+    vote.launches = vote.partial_launches = vote.finalize_launches = 0
+    with transfer_ledger() as led:
+        for S in (2, 3, 4):
+            mesh = mesh_of(devices, S)
+            reg = os.path.join(WORK, f"sharded_registry_{label}_{S}")
+            shutil.copytree(os.path.join(RAFO9, "registry"), reg)
+            with transfer_ledger() as one:
+                t0 = time.perf_counter()
+                svc = PredictionService(registry=ModelRegistry(reg),
+                                        model_name="rafo9", serve_mesh=mesh)
+                svc.start()
+                futures = [svc.submit(r) for r in rows]
+                served = [f.result(timeout=120) for f in futures]
+                svc.stop()
+                walls[S] = round(time.perf_counter() - t0, 4)
+                labels = make_predictor(ModelRegistry(reg).load("rafo9"),
+                                        serve_mesh=mesh).predict_rows(rows)
+            if "".join(f"{i},{r}\n" for i, r in enumerate(served)) \
+                    != served_want:
+                fail(f"serve_mesh of {S} ({label}): served replies differ "
+                     f"from rafo9/served.csv")
+            if "".join(",".join(r) + f",{lab}\n"
+                       for r, lab in zip(rows, labels)) != pred_want:
+                fail(f"serve_mesh of {S} ({label}): make_predictor labels "
+                     f"differ from rafo9/pred.csv")
+            batches = one.site_snapshot().get("serve.predict", 0)
+            want_partial += S * batches
+            want_final += batches
+            print(f"serve_mesh {[str(d) for d in mesh.devices]}: served.csv "
+                  f"and pred.csv byte-identical; {batches} sharded batches "
+                  f"(incl. warm-up), service wall {walls[S]} s", flush=True)
+    got = (vote.partial_launches, vote.finalize_launches, vote.launches)
+    sites, backends = led.site_snapshot(), led.backend_snapshot()
+    print(f"sharded serving main path ({label}): partial launches={got[0]}, "
+          f"finalize launches={got[1]}, ensemble_vote launches={got[2]}; "
+          f"Dispatches={sites}; KernelBackends={backends}; gathers="
+          f"{led.gathers} ({led.gather_bytes} bytes)", flush=True)
+    if got != (want_partial, want_final, 0) or want_final <= 0:
+        fail(f"sharded serving launches {got} != (S x batches "
+             f"{want_partial}, batches {want_final}, no B2)")
+    if sites.get("serve.shard_merge") != sites.get("serve.predict") \
+            or "ensemble.vote" in sites:
+        fail(f"sharded serving ledger sites {sites}")
+    if not backends.get("serve.predict.cuda") or \
+            any(not k.endswith(".cuda") for k in backends):
+        fail(f"sharded serving ledger shows non-kernel forms: {backends}")
+    return got[0], got[1]
+
+
+def sharded_knn(devices, label, scale):
+    """Phase 22: knnPipeline over the elearn_knn fixture under a runtime
+    context of 4 shards, then 20,000 x 200,000 rows sharded 4 ways against
+    phase 17's single-device answer.  Counts zeroed just before the
+    pipeline, read just after.  Returns (B5 launches, merge launches, warm
+    wall s)."""
+    from avenir_tpu_torch.kernels import topk
+    from avenir_tpu_torch.ops.distance import DistanceComputer
+    from avenir_tpu_torch.parallel.mesh import MeshContext, set_runtime_context
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    efs, test_t, train_t, nd, nidx, _ = scale
+    mesh = mesh_of(devices, 4)
+    knn_props = os.path.join(RES, "knn.properties")
+    with open(os.path.join(ELEARN_KNN, "counters.json")) as fh:
+        knn_counters = json.load(fh)
+    data = os.path.join(ELEARN_KNN, "data")
+    topk.launches = topk.merge_launches = 0
+    set_runtime_context(MeshContext(mesh))
+    try:
+        with transfer_ledger() as led:
+            for mode in ("inter", "intra"):
+                for metric in ("euclidean", "manhattan"):
+                    run = f"{mode}_{metric}"
+                    out = os.path.join(WORK, f"knn_sharded_{label}_{run}")
+                    run_cli(["org.avenir.knn.KnnPipeline",
+                             f"-Dconf.path={knn_props}",
+                             f"-Dsts.same.schema.file.path="
+                             f"{os.path.join(RES, 'elearn.json')}",
+                             f"-Dsts.distance.metric={metric}",
+                             data if mode == "inter"
+                             else os.path.join(data, "tr_part"), out])
+                    same_bytes(os.path.join(out, "part-r-00000"),
+                               os.path.join(ELEARN_KNN, f"{run}.csv"),
+                               f"knnPipeline {run} over 4 shards ({label})")
+                    with open(out + ".counters.json") as fh:
+                        got = json.load(fh)
+                    if {g: got[g] for g in knn_counters[run]} \
+                            != knn_counters[run]:
+                        fail(f"sharded knnPipeline {run} counters differ")
+    finally:
+        set_runtime_context(None)
+    b5, merges = topk.launches, topk.merge_launches
+    sites, backends = led.site_snapshot(), led.backend_snapshot()
+    chunks = sites.get("knn.topk", 0)
+    print(f"sharded knn main path ({label}, {[str(d) for d in mesh.devices]})"
+          f": topk_scan launches={b5}, topk_merge launches={merges}, "
+          f"chunks={chunks}; Dispatches={sites}; KernelBackends={backends}; "
+          f"gathers={led.gathers} ({led.gather_bytes} bytes)", flush=True)
+    if chunks <= 0 or b5 <= 0 or b5 > 4 * chunks or merges != chunks \
+            or sites.get("knn.shard_merge") != chunks:
+        fail(f"sharded knn launches: B5 {b5}, merge {merges}, chunks "
+             f"{chunks}, sites {sites}")
+    if set(backends) != {"knn.topk.cuda"}:
+        fail(f"sharded knn ledger shows {backends}, not only knn.topk.cuda")
+    comp = DistanceComputer(efs, metric="euclidean", scale=1000, mesh=mesh)
+    t0 = time.perf_counter()
+    d4, i4 = comp.pairwise_topk(test_t, train_t, KNN_SCALE[2])
+    cold_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    d4w, i4w = comp.pairwise_topk(test_t, train_t, KNN_SCALE[2])
+    warm_s = time.perf_counter() - t0
+    if not (np.array_equal(d4, nd) and np.array_equal(i4, nidx)
+            and np.array_equal(d4w, nd) and np.array_equal(i4w, nidx)):
+        fail(f"20k x 200k sharded 4 ways ({label}): (d, i) differ from the "
+             f"single-device answer")
+    print(f"20000 x 200000 elearn rows, k=10, train sharded 4 ways "
+          f"({label}): (d, i) equal to phase 17's; pairwise_topk wall "
+          f"{cold_s:.4f} s cold, {warm_s:.4f} s warm", flush=True)
+    return b5, merges, warm_s, comp
+
+
+def sharded_times(dev, ens, requests, fs, comp, scale, knn_warm_4):
+    """Phase 23: median CUDA-event times of the partial-vote kernel (4 tree
+    slices of the rafo9 forest over its requests tiled to 1M rows), the
+    merge-finalize (4 shards, 1M rows) and the top-k merge (4 shards,
+    20,000 test rows, k = 10), each beside its plain version and its bytes
+    bound; the sharded pairwise_topk wall beside the single-device one."""
+    import torch
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.kernels import topk, vote
+    phase("23 B6 / merge-finalize / B7 merge times")
+    n, S = 1_000_000, 4
+    vals, codes = ens.models[0].matrix.feature_arrays(load_csv(requests, fs))
+    reps = -(-n // len(vals))
+    v = torch.from_numpy(np.ascontiguousarray(
+        np.tile(vals, (reps, 1))[:n], np.float32)).to(dev)
+    c = torch.from_numpy(np.ascontiguousarray(
+        np.tile(codes, (reps, 1))[:n], np.int32)).to(dev)
+    slices = vote.shard_stacked_arrays(
+        (*ens.stacked_host(), np.asarray(ens.weights, np.float32)), S)
+    models = [vote.prepare_vote_model(*a, dev) for a in slices]
+    K = models[0].shape[4]
+    b6 = {"ms": cuda_ms(lambda: [vote.ensemble_partial_votes(v, c, m)
+                                 for m in models], 50)}
+    b6["plain_ms"] = cuda_ms(lambda: [vote.member_votes_torch(
+        v, c, *m.stacked()) for m in models], 10)
+    b6["ms_again"] = cuda_ms(lambda: [vote.ensemble_partial_votes(v, c, m)
+                                      for m in models], 50)
+    b6["slice_ms"] = [cuda_ms(lambda m=m: vote.ensemble_partial_votes(
+        v, c, m), 50) for m in models]
+    nbytes = S * (v.nbytes + c.nbytes + n * K * 4)
+    tests = sum(predicate_tests(v, c, m) for m in models)
+    b6.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+              tests=tests, tests_ms=tests / TESTS_PER_S * 1e3)
+    b6["bound_ms"] = max(b6["bytes_ms"], b6["tests_ms"])
+    b6["bound_by"] = "bytes" if b6["bytes_ms"] >= b6["tests_ms"] \
+        else "operations"
+    print(f"B6 partial votes, rafo9 forest (T,P,F,C,K={ens._stacked.shape}) "
+          f"in {S} tree slices of {models[0].shape[0]}, n={n}: {b6}",
+          flush=True)
+    parts = [vote.ensemble_partial_votes(v, c, m) for m in models]
+    fin = {"ms": cuda_ms(lambda: vote.vote_merge_finalize(parts, 1.5), 50)}
+    fin["plain_ms"] = cuda_ms(lambda: vote.vote_merge_finalize_torch(
+        parts, 1.5), 10)
+    fin["ms_again"] = cuda_ms(lambda: vote.vote_merge_finalize(parts, 1.5),
+                              50)
+    nbytes = S * n * K * 4 + n * 4
+    adds = n * K * (S - 1) + 2 * n * K
+    fin.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+               ops=adds, ops_ms=adds / TESTS_PER_S * 1e3)
+    fin["bound_ms"] = max(fin["bytes_ms"], fin["ops_ms"])
+    fin["bound_by"] = "bytes" if fin["bytes_ms"] >= fin["ops_ms"] \
+        else "operations"
+    print(f"merge-finalize, {S} shards x ({n}, {K}) tallies: {fin}",
+          flush=True)
+    efs, test_t, train_t, nd, nidx, single_warm = scale
+    k = KNN_SCALE[2]
+    tn_h, toh_h = comp.encode(test_t)
+    tn, toh = (torch.from_numpy(a).to(dev) for a in (tn_h, toh_h))
+    shards = comp.train_shards()
+    lists = [topk.topk_scan(tn, toh, rn, roh, k, "euclidean", comp._n_cat,
+                            comp._denom, comp._fscale) for rn, roh in shards]
+    ds, is_ = [d for d, _ in lists], [i for _, i in lists]
+    bases = np.concatenate([[0], np.cumsum([rn.shape[0] for rn, _ in shards])
+                            [:-1]]).tolist()
+    nt = tn.shape[0]
+    b7 = {"ms": cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k), 50)}
+    b7["plain_ms"] = cuda_ms(lambda: topk.topk_merge_torch(ds, is_, bases, k),
+                             10)
+    b7["ms_again"] = cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k), 50)
+    cat_d = torch.cat(ds, dim=1)
+    b7["sort_context_ms"] = cuda_ms(
+        lambda: torch.sort(cat_d, dim=1, stable=True), 20)
+    nbytes = S * nt * k * 8 + nt * k * 8
+    cmps = nt * k * S
+    b7.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
+              ops=cmps, ops_ms=cmps / TESTS_PER_S * 1e3)
+    b7["bound_ms"] = max(b7["bytes_ms"], b7["ops_ms"])
+    b7["bound_by"] = "bytes" if b7["bytes_ms"] >= b7["ops_ms"] \
+        else "operations"
+    b7["scan_ms"] = cuda_ms(lambda: [topk.topk_scan(
+        tn, toh, rn, roh, k, "euclidean", comp._n_cat, comp._denom,
+        comp._fscale) for rn, roh in shards], 3)
+    got = topk.topk_merge(ds, is_, bases, k)
+    torch.cuda.synchronize()
+    if not (np.array_equal(got[0].cpu().numpy().astype(np.int32), nd)
+            and np.array_equal(got[1].cpu().numpy(), nidx)):
+        fail("timed top-k merge differs from the single-device answer")
+    print(f"B7 merge, {S} shards x ({nt}, {k}) lists: {b7} (sort_context_ms: "
+          f"torch.sort over the concatenated lists, context only)",
+          flush=True)
+    print(f"pairwise_topk 20000 x 200000 k=10 warm wall: {knn_warm_4:.4f} s "
+          f"sharded 4 ways on one card vs {single_warm:.4f} s single-device "
+          f"(phase 17); on one card the shards run one after another",
+          flush=True)
+    print("no single PyTorch call computes the partial tallies, the merged "
+          "vote or the lexicographic merge: library_ms is null", flush=True)
+    return b6, fin, b7
+
+
+def distinct_b6(cards):
+    """Phase 19 again over distinct GPUs: B6 with each tree slice on its
+    own card, the partials gathered to the first card, the merge-finalize
+    there against B2 on the first card."""
+    import torch
+    from avenir_tpu_torch.kernels import vote
+    from avenir_tpu_torch.parallel.collectives import gather_to
+    rng = np.random.default_rng(20261020)
+    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+        stacked, vals, codes = random_forest_inputs(rng, shape, 100_000)
+        v0, c0 = (torch.from_numpy(a).to(cards[0]) for a in (vals, codes))
+        b2 = vote.ensemble_vote(v0, c0, vote.prepare_vote_model(
+            *stacked, cards[0]), 1.5)
+        for S in range(2, len(cards) + 1):
+            mesh = mesh_of(cards, S)
+            models = [vote.prepare_vote_model(*a, d) for a, d in
+                      zip(vote.shard_stacked_arrays(stacked, S), mesh.devices)]
+            parts = [vote.ensemble_partial_votes(v0.to(m.device),
+                                                 c0.to(m.device), m)
+                     for m in models]
+            plain = [vote.member_votes_torch(v0.to(m.device), c0.to(m.device),
+                                             *m.stacked()) for m in models]
+            merged = vote.vote_merge_finalize(gather_to(parts, cards[0]), 1.5)
+            for d in cards:
+                torch.cuda.synchronize(d)
+            if not all(torch.equal(a, b) for a, b in zip(parts, plain)):
+                fail(f"partial tallies over {mesh} != plain version")
+            if not torch.equal(merged, b2):
+                fail(f"merged votes over {mesh} != B2 on {cards[0]}")
+            print(f"shape {shape} n=100000 over {[str(d) for d in mesh.devices]}"
+                  f": partial tallies exact, merged votes == B2", flush=True)
 
 
 def main():
@@ -1249,7 +1737,27 @@ def main():
           "(torch.bincount needs the flat index and validity mask built "
           "first): library_ms is null", flush=True)
 
-    b5_err, b5_launches, b5_t = knn_phases(dev, rng)
+    b5_err, b5_launches, b5_t, knn_scale = knn_phases(dev, rng)
+
+    b6_err = b6_phase(dev, rng)
+    b7_err = b7_phase(dev, rng)
+    phase("21 sharded serving main path (serve_mesh over cuda x S)")
+    b6_launches, fin_launches = sharded_serving([dev], "one card")
+    phase("22 sharded knn main path (runtime context cuda x 4)")
+    b7_scan, b7_launches, knn_warm_4, comp4 = sharded_knn([dev], "one card",
+                                                          knn_scale)
+    n_cards = torch.cuda.device_count()
+    if n_cards > 1:
+        cards = [torch.device("cuda", i) for i in range(n_cards)]
+        phase("19, 21-22 again over distinct devices")
+        distinct_b6(cards)
+        sharded_serving(cards, "distinct devices")
+        sharded_knn(cards, "distinct devices", knn_scale)
+    else:
+        print("phases 19, 21-22 over distinct devices skipped: one device "
+              "visible", flush=True)
+    b6_t, fin_t, b7_t = sharded_times(dev, ens, requests, fs, comp4,
+                                      knn_scale, knn_warm_4)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -1289,6 +1797,25 @@ def main():
         "plain_ms": b5_t["euclidean"]["plain_ms"],
         "bound_ms": b5_t["euclidean"]["bound_ms"],
         "bound_by": b5_t["euclidean"]["bound_by"],
+        "library_ms": None}, {
+        "name": "ensemble_partial_votes", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/vote.cu",
+        "replaces": "avenir_tpu/ops/pallas/vote.py:73",
+        "launches": b6_launches, "max_abs_err": b6_err,
+        "ms": b6_t["ms"], "plain_ms": b6_t["plain_ms"],
+        "bound_ms": b6_t["bound_ms"], "bound_by": b6_t["bound_by"],
+        "library_ms": None,
+        "finalize_launches": fin_launches, "finalize_ms": fin_t["ms"],
+        "finalize_plain_ms": fin_t["plain_ms"],
+        "finalize_bound_ms": fin_t["bound_ms"],
+        "finalize_bound_by": fin_t["bound_by"]}, {
+        "name": "topk_scan_sharded", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/topk.cu",
+        "replaces": "avenir_tpu/ops/pallas/topk.py:128",
+        "launches": b7_launches, "scan_launches": b7_scan,
+        "max_abs_err": b7_err,
+        "ms": b7_t["ms"], "plain_ms": b7_t["plain_ms"],
+        "bound_ms": b7_t["bound_ms"], "bound_by": b7_t["bound_by"],
         "library_ms": None}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

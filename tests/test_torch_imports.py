@@ -31,7 +31,9 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.ops.distance",
              "avenir_tpu_torch.kernels.topk",
              "avenir_tpu_torch.models.knn",
-             "avenir_tpu_torch.cli.knn_jobs"):
+             "avenir_tpu_torch.cli.knn_jobs",
+             "avenir_tpu_torch.parallel.mesh",
+             "avenir_tpu_torch.parallel.collectives"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -47,5 +49,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x6, utils x2, kernels x6, models x4,
-    # serving x5, monitor x2, stats x2, ops x2, cli x5 and the package
-    assert int(res.stdout.strip()) >= 32
+    # serving x5, monitor x2, stats x2, ops x2, cli x5, parallel x3 and
+    # the package
+    assert int(res.stdout.strip()) >= 35
