@@ -30,28 +30,56 @@
 // so ties resolve to the lowest index with no index compare.  The first k of
 // the K smallest pairs are the k smallest.  K is a template size (8, 16, 32,
 // 64) held in registers; for k > 64 the list lives in the output rows in
-// global memory, with no size refused.
+// global memory (its totals in a scratch row), with no size refused.
 //
-// What bounds it on the H100: operations.  Per pair Fn FMAs plus about nine
-// float32 ops (add, subtract, max, add, divide, square root, multiply,
-// floor, compare) and a popcount per one-hot word; the bytes (the test and
-// train rows once, the (nt, k) results) are small.  20,000 x 200,000
-// e-learning rows (Fn = 4) is 4e9 pairs, about 1.6 ms at 33.5 T float32
-// instructions/s.
+// What bounds it on the H100: operations.  Per pair Fn FMAs, the
+// numerator's add, subtract, max and add (euclidean; manhattan: a
+// subtract, absolute value and add per feature and one add), and an AND
+// and a popcount per one-hot word; the bytes (the test and train rows
+// once, the (nt, k) results) are small.  20,000 x 200,000 e-learning rows
+// (Fn = 4) is 4e9 pairs, about 1 ms at 33.5 T float32 instructions/s.
 //
 // The train-sharded form (kernel B7, replacing ops/pallas/topk.py:128
 // `topk_scan_sharded`) runs this scan once per shard of the train rows and
 // merges the shards' lists with `avenir_topk_merge` below: one thread per
 // test row walks S ascending lists with one cursor each and keeps k slots.
 //
-// Design (simple and right first): the block's test rows sit in registers
-// (numeric features up to 8, one-hot words up to 2; wider rows are read from
-// global memory); the block walks the train rows in tiles staged in shared
-// memory (features, norm, one-hot words per row), every thread reading the
-// same staged row at a time (a broadcast).  What it leaves on the table: a
-// test chunk of 8,192 rows is 128 blocks of 64 threads, about 2 warps an SM,
-// so the long divide / square-root chains are latency-bound; splitting the
-// train axis over blocks and merging the partial lists would fill the card.
+// Design, and what it does about that bound:
+// - The block's 64 test rows sit in registers (numeric features up to 8,
+//   one-hot words up to 2, zero-padded to 4 or 8 features and 0 or 2
+//   words so every per-pair loop has a compile-time length; wider rows are
+//   read from global memory); the block walks train rows in tiles staged
+//   in shared memory (features, norm, one-hot words per row, padded
+//   alike), every thread reading the same staged row at a time (a
+//   broadcast).  A thread computes the totals of 4 pairs together.
+// - The train axis is split over the grid's y dimension: block (x, s)
+//   scans split s, a contiguous train range, and writes that range's
+//   (nt, k) list (local indices, -1 dead) to scratch; one launch of
+//   `avenir_topk_merge` below merges the splits.  The splits are ascending
+//   contiguous ranges, which is the merge's tie rule, so the result equals
+//   a single-range scan bit for bit.  One thread per test row alone gives
+//   an 8,192-row chunk 128 blocks, about 2 warps an SM; kernels/topk.py
+//   `split_ranges` picks enough splits for about 16 (from the SM count).
+// - The tail (divide, square root, multiply, floor) runs only for pairs
+//   that can enter the list.  Beside each slot the list keeps the raw
+//   pre-division total (euclidean max(sq, 0) + mismatches, manhattan
+//   sum + mismatches) of its entry; a pair whose total is >= the last
+//   slot's total is skipped.  Exact: for denom > 0 and fscale >= 0 the
+//   tail is monotone non-decreasing in the total (an IEEE divide by a
+//   positive divisor, square root, multiply by fscale >= 0 and floor each
+//   are), so such a pair's distance is >= the last slot's and the
+//   strict-less insert would refuse it.  A NaN total fails the compare and
+//   takes the full path.  The wrapper enables the skip only for those
+//   constants.
+// - The pairs that pass wait in a per-thread queue in shared memory; a
+//   warp drains all its lanes' queues when one is nearly full, so the
+//   rare tails and inserts run in few divergent sections instead of
+//   stalling the warp at every pair where one lane needs them.
+// - Measured on an H100 (PERF.md §6): about 14% of the operation bound at
+//   20,000 x 200,000 rows.  Tried and slower: padding staged rows to
+//   16-byte vector loads; 1, 2 or 8 pairs together instead of 4.  Left for
+//   later: several test rows a thread (each staged train row reused) and
+//   cp.async double-buffered tiles.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -63,6 +91,8 @@ constexpr int kThreads = 64;        // test rows per block
 constexpr int kTile = 256;          // train rows staged per tile, at most
 constexpr int kRegFn = 8;           // numeric features held in registers
 constexpr int kRegWords = 2;        // one-hot words held in registers
+constexpr int kGroup = 4;           // pairs a thread takes together
+constexpr int kQueue = 16;          // queued candidates a thread, at most
 constexpr int kEuclid = 0;
 constexpr int kSmemDefault = 48 * 1024;
 constexpr int kSmemMax = 227 * 1024;
@@ -95,53 +125,75 @@ __global__ void row_norms(const float* __restrict__ x, long long n, int Fn,
   out[i] = acc;
 }
 
-// Insert (d, idx) into the ascending register list of K slots; the caller
-// checked d < bd[K-1].  Slot j takes its left neighbour while that one is
-// greater than d, d where the left neighbour is <= d < bd[j], else stays.
+// Insert (d, idx, tot) into the ascending register list of K slots; the
+// caller checked d < bd[K-1].  Slot j takes its left neighbour while that
+// one is greater than d, the new entry where the left neighbour is <= d <
+// bd[j], else stays.  bt holds each entry's pre-division total.
 template <int K>
 __device__ __forceinline__ void insert_reg(float (&bd)[K], int (&bi)[K],
-                                           float d, int idx) {
+                                           float (&bt)[K], float d, int idx,
+                                           float tot) {
 #pragma unroll
   for (int j = K - 1; j >= 0; --j) {
-    const float prev = j > 0 ? bd[j > 0 ? j - 1 : 0] : -INFINITY;
+    const int l = j > 0 ? j - 1 : 0;
+    const float prev = j > 0 ? bd[l] : -INFINITY;
     if (prev > d) {
       bd[j] = prev;
-      bi[j] = bi[j > 0 ? j - 1 : 0];
+      bi[j] = bi[l];
+      bt[j] = bt[l];
     } else if (bd[j] > d) {
       bd[j] = d;
       bi[j] = idx;
+      bt[j] = tot;
     }
   }
 }
 
-// K > 0: register list of K slots; K == 0: the list is the row's k output
-// slots in global memory.  REG: the test row's features and one-hot words in
-// registers (Fn <= kRegFn, W <= kRegWords), else read from global memory.
-template <int K, bool REG, int METRIC>
+// K > 0: register list of K slots; K == 0: the list is the row's k slots of
+// `od`/`oi` in global memory, with its totals in `ot`.  RF > 0: the test
+// row's numeric features (RF of them, zero-padded) and one-hot words (RW,
+// zero-padded) sit in registers and the staged train rows are padded
+// alike, so the per-pair loops have compile-time lengths (a zero feature
+// adds an exact 0 to the dot and to the manhattan sum, a zero word no
+// match); RF == 0: widths at run time, the test row read from global
+// memory.  Block (x, s) scans train rows [s * split_rows, min(nr, (s + 1)
+// * split_rows)) and writes split s's list at od/oi + s * nt * k, indices
+// local to the split.  skip: take the tail only for pairs whose total is
+// below the last slot's.  Each thread computes the totals of kGroup pairs
+// together (independent chains), then queues those that pass in train
+// order; the dynamic shared memory holds the tile, then the queues.
+template <int K, int RF, int RW, int METRIC>
 __global__ void __launch_bounds__(kThreads)
 topk_kernel(const float* __restrict__ tn, const uint32_t* __restrict__ tw,
             const float* __restrict__ rn, const uint32_t* __restrict__ rw,
             const float* __restrict__ rnorm, int nt, int nr, int Fn, int W,
-            int k, int tile, float n_cat, float denom, float fscale,
-            float* __restrict__ od, int* __restrict__ oi) {
+            int k, int tile, int split_rows, bool skip, float n_cat,
+            float denom, float fscale, float* __restrict__ od,
+            int* __restrict__ oi, float* __restrict__ ot) {
   extern __shared__ __align__(16) uint32_t stage[];
-  const int stride = Fn + 1 + W;             // features, norm, words
+  constexpr bool REG = RF > 0;
+  const int sF = REG ? RF : Fn;              // staged features a row
+  const int sW = REG ? RW : W;               // staged one-hot words a row
+  const int stride = sF + 1 + sW;            // features, norm, words
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = row < nt;
   const long long trow = active ? row : 0;
   const float* t_g = tn + trow * Fn;
   const uint32_t* tw_g = tw + trow * W;
+  const int r0 = blockIdx.y * split_rows;
+  const int r1 = min(nr, r0 + split_rows);
+  const long long list_off = (long long)blockIdx.y * nt * k + trow * k;
 
-  float t[REG ? kRegFn : 1];
-  uint32_t twr[REG ? kRegWords : 1];
-  if (REG) {
+  float t[REG ? RF : 1];                     // t, or 2t for euclidean
+  uint32_t twr[RW > 0 ? RW : 1];
 #pragma unroll
-    for (int f = 0; f < (REG ? kRegFn : 1); ++f)
-      t[f] = (active && f < Fn) ? t_g[f] : 0.f;
-#pragma unroll
-    for (int w = 0; w < (REG ? kRegWords : 1); ++w)
-      twr[w] = (active && w < W) ? tw_g[w] : 0u;
+  for (int f = 0; f < (REG ? RF : 1); ++f) {
+    const float v = (REG && active && f < Fn) ? t_g[f] : 0.f;
+    t[f] = METRIC == kEuclid ? __fmul_rn(2.f, v) : v;
   }
+#pragma unroll
+  for (int w = 0; w < (RW > 0 ? RW : 1); ++w)
+    twr[w] = (RW > 0 && active && w < W) ? tw_g[w] : 0u;
   float tnorm = 0.f;
   if (METRIC == kEuclid && active) {
     for (int f = 0; f < Fn; ++f) {
@@ -152,101 +204,142 @@ topk_kernel(const float* __restrict__ tn, const uint32_t* __restrict__ tw,
 
   float bd[K > 0 ? K : 1];
   int bi[K > 0 ? K : 1];
+  float bt[K > 0 ? K : 1];
 #pragma unroll
   for (int j = 0; j < (K > 0 ? K : 1); ++j) {
     bd[j] = INFINITY;
     bi[j] = -1;
+    bt[j] = INFINITY;
   }
-  float* gd = od + trow * k;
-  int* gi = oi + trow * k;
+  float* gd = od + list_off;
+  int* gi = oi + list_off;
+  float* gt = ot + list_off;
   float kth = INFINITY;                      // the global list's last slot
+  float t_kth = INFINITY;                    // and its total
   if (K == 0 && active) {
     for (int j = 0; j < k; ++j) {
       gd[j] = INFINITY;
       gi[j] = -1;
+      gt[j] = INFINITY;
     }
   }
 
-  for (int base = 0; base < nr; base += tile) {
-    const int cnt = min(tile, nr - base);
+  // the pre-division total of the test row and staged train row s, every
+  // float32 op in the plain version's order
+  auto pair_total = [&](const uint32_t* s) -> float {
+    int match = 0;
+    if (REG) {
+#pragma unroll
+      for (int w = 0; w < RW; ++w) match += __popc(twr[w] & s[RF + 1 + w]);
+    } else {
+      for (int w = 0; w < W; ++w) match += __popc(tw_g[w] & s[Fn + 1 + w]);
+    }
+    const float mis = __fsub_rn(n_cat, (float)match);
+    if (METRIC == kEuclid) {
+      float dot = 0.f;
+      if (REG) {
+#pragma unroll
+        for (int f = 0; f < (REG ? RF : 1); ++f)
+          dot = __fmaf_rn(t[f], __uint_as_float(s[f]), dot);
+      } else {
+        for (int f = 0; f < Fn; ++f)
+          dot = __fmaf_rn(__fmul_rn(2.f, t_g[f]), __uint_as_float(s[f]),
+                          dot);
+      }
+      const float sq = __fsub_rn(__fadd_rn(tnorm, __uint_as_float(s[sF])),
+                                 dot);
+      return __fadd_rn(fmaxf(sq, 0.f), mis);
+    }
+    float num = 0.f;
+    if (REG) {
+#pragma unroll
+      for (int f = 0; f < (REG ? RF : 1); ++f)
+        num = __fadd_rn(num, fabsf(__fsub_rn(t[f], __uint_as_float(s[f]))));
+    } else {
+      for (int f = 0; f < Fn; ++f)
+        num = __fadd_rn(num, fabsf(__fsub_rn(t_g[f], __uint_as_float(s[f]))));
+    }
+    return __fadd_rn(num, mis);
+  };
+
+  // Candidates (pairs whose total is below the last slot's, or every pair
+  // without the skip) wait in a per-thread queue in shared memory, in
+  // train order; when one lane's queue is nearly full the warp drains all
+  // its lanes' queues together, so the divide, square root and insert run
+  // in few divergent sections.  A drain re-checks each total against the
+  // list as it then stands.
+  float* q_tot = reinterpret_cast<float*>(stage + tile * stride) +
+                 threadIdx.x;
+  int* q_idx = reinterpret_cast<int*>(q_tot - threadIdx.x +
+                                      kQueue * kThreads) + threadIdx.x;
+  int qn = 0;
+  auto drain = [&]() {
+    for (int j = 0; j < qn; ++j) {
+      const float total = q_tot[j * kThreads];
+      if (skip && total >= (K > 0 ? bt[K > 0 ? K - 1 : 0] : t_kth)) continue;
+      const float mean = __fdiv_rn(total, denom);
+      const float d =
+          METRIC == kEuclid
+              ? floorf(__fmul_rn(__fsqrt_rn(fmaxf(mean, 0.f)), fscale))
+              : floorf(__fmul_rn(mean, fscale));
+      const int idx = q_idx[j * kThreads];
+      if (K > 0) {
+        if (d < bd[K > 0 ? K - 1 : 0]) insert_reg(bd, bi, bt, d, idx, total);
+      } else if (d < kth) {
+        int q = k - 1;
+        while (q > 0 && gd[q - 1] > d) {
+          gd[q] = gd[q - 1];
+          gi[q] = gi[q - 1];
+          gt[q] = gt[q - 1];
+          --q;
+        }
+        gd[q] = d;
+        gi[q] = idx;
+        gt[q] = total;
+        kth = gd[k - 1];
+        t_kth = gt[k - 1];
+      }
+    }
+    qn = 0;
+  };
+
+  for (int base = r0; base < r1; base += tile) {
+    const int cnt = min(tile, r1 - base);
     __syncthreads();
     for (int i = threadIdx.x; i < cnt * stride; i += blockDim.x) {
       const int r = i / stride;
       const int c = i - r * stride;
       const long long g = (long long)base + r;
-      uint32_t v;
-      if (c < Fn) {
-        v = __float_as_uint(rn[g * Fn + c]);
-      } else if (c == Fn) {
+      uint32_t v = 0u;
+      if (c < sF) {
+        if (c < Fn) v = __float_as_uint(rn[g * Fn + c]);
+      } else if (c == sF) {
         v = METRIC == kEuclid ? __float_as_uint(rnorm[g]) : 0u;
-      } else {
-        v = rw[g * W + (c - Fn - 1)];
+      } else if (c - sF - 1 < W) {
+        v = rw[g * W + (c - sF - 1)];
       }
       stage[i] = v;
     }
     __syncthreads();
-    if (!active) continue;
-    for (int r = 0; r < cnt; ++r) {
-      const uint32_t* s = stage + r * stride;
-      int match = 0;
-      if (REG) {
+    for (int r = 0; r < cnt; r += kGroup) {
+      float tot[kGroup];
 #pragma unroll
-        for (int w = 0; w < (REG ? kRegWords : 1); ++w)
-          if (w < W) match += __popc(twr[w] & s[Fn + 1 + w]);
-      } else {
-        for (int w = 0; w < W; ++w) match += __popc(tw_g[w] & s[Fn + 1 + w]);
-      }
-      const float mis = __fsub_rn(n_cat, (float)match);
-      float d;
-      if (METRIC == kEuclid) {
-        float dot = 0.f;
-        if (REG) {
+      for (int j = 0; j < kGroup; ++j)
+        tot[j] = pair_total(stage + min(r + j, cnt - 1) * stride);
+      const float last = K > 0 ? bt[K > 0 ? K - 1 : 0] : t_kth;
 #pragma unroll
-          for (int f = 0; f < (REG ? kRegFn : 1); ++f)
-            if (f < Fn)
-              dot = __fmaf_rn(__fmul_rn(2.f, t[f]), __uint_as_float(s[f]),
-                              dot);
-        } else {
-          for (int f = 0; f < Fn; ++f)
-            dot = __fmaf_rn(__fmul_rn(2.f, t_g[f]), __uint_as_float(s[f]),
-                            dot);
+      for (int j = 0; j < kGroup; ++j) {
+        // NaN totals fail the compare and are queued
+        if (active && r + j < cnt && !(skip && tot[j] >= last)) {
+          q_tot[qn * kThreads] = tot[j];
+          q_idx[qn * kThreads] = base + r + j - r0;
+          ++qn;
         }
-        const float sq =
-            __fsub_rn(__fadd_rn(tnorm, __uint_as_float(s[Fn])), dot);
-        const float total = __fadd_rn(fmaxf(sq, 0.f), mis);
-        const float mean = __fdiv_rn(total, denom);
-        d = floorf(__fmul_rn(__fsqrt_rn(fmaxf(mean, 0.f)), fscale));
-      } else {
-        float num = 0.f;
-        if (REG) {
-#pragma unroll
-          for (int f = 0; f < (REG ? kRegFn : 1); ++f)
-            if (f < Fn)
-              num = __fadd_rn(num,
-                              fabsf(__fsub_rn(t[f], __uint_as_float(s[f]))));
-        } else {
-          for (int f = 0; f < Fn; ++f)
-            num = __fadd_rn(num,
-                            fabsf(__fsub_rn(t_g[f], __uint_as_float(s[f]))));
-        }
-        d = floorf(__fmul_rn(__fdiv_rn(__fadd_rn(num, mis), denom), fscale));
       }
-      const int idx = base + r;
-      if (K > 0) {
-        if (d < bd[K > 0 ? K - 1 : 0]) insert_reg(bd, bi, d, idx);
-      } else if (d < kth) {
-        int j = k - 1;
-        while (j > 0 && gd[j - 1] > d) {
-          gd[j] = gd[j - 1];
-          gi[j] = gi[j - 1];
-          --j;
-        }
-        gd[j] = d;
-        gi[j] = idx;
-        kth = gd[k - 1];
-      }
+      if (__any_sync(0xffffffffu, qn > kQueue - kGroup)) drain();
     }
   }
+  drain();
   if (K > 0 && active) {
 #pragma unroll
     for (int j = 0; j < (K > 0 ? K : 1); ++j) {
@@ -258,41 +351,61 @@ topk_kernel(const float* __restrict__ tn, const uint32_t* __restrict__ tw,
   }
 }
 
-template <int K, bool REG, int METRIC>
-cudaError_t launch_topk(int blocks, int smem, cudaStream_t s, const float* tn,
-                        const uint32_t* tw, const float* rn,
-                        const uint32_t* rw, const float* rnorm, int nt, int nr,
-                        int Fn, int W, int k, int tile, float n_cat,
-                        float denom, float fscale, float* od, int* oi) {
-  auto kern = topk_kernel<K, REG, METRIC>;
+struct ScanArgs {
+  const float* tn;
+  const uint32_t* tw;
+  const float* rn;
+  const uint32_t* rw;
+  const float* rnorm;
+  int nt, nr, Fn, W, k, tile, split_rows;
+  bool skip;
+  float n_cat, denom, fscale;
+  float* od;
+  int* oi;
+  float* ot;
+};
+
+template <int K, int RF, int RW, int METRIC>
+cudaError_t launch_topk(dim3 grid, int smem, cudaStream_t s,
+                        const ScanArgs& a) {
+  auto kern = topk_kernel<K, RF, RW, METRIC>;
   if (smem > kSmemDefault) {
     cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return e;
   }
-  kern<<<blocks, kThreads, smem, s>>>(tn, tw, rn, rw, rnorm, nt, nr, Fn, W, k,
-                                      tile, n_cat, denom, fscale, od, oi);
+  kern<<<grid, kThreads, smem, s>>>(a.tn, a.tw, a.rn, a.rw, a.rnorm, a.nt,
+                                    a.nr, a.Fn, a.W, a.k, a.tile,
+                                    a.split_rows, a.skip, a.n_cat, a.denom,
+                                    a.fscale, a.od, a.oi, a.ot);
   return cudaGetLastError();
 }
 
-template <bool REG, int METRIC>
-cudaError_t launch_k(int kcap, int blocks, int smem, cudaStream_t s,
-                     const float* tn, const uint32_t* tw, const float* rn,
-                     const uint32_t* rw, const float* rnorm, int nt, int nr,
-                     int Fn, int W, int k, int tile, float n_cat, float denom,
-                     float fscale, float* od, int* oi) {
-#define AVENIR_TOPK_LAUNCH(KK)                                              \
-  return launch_topk<KK, REG, METRIC>(blocks, smem, s, tn, tw, rn, rw,      \
-                                      rnorm, nt, nr, Fn, W, k, tile, n_cat, \
-                                      denom, fscale, od, oi)
+template <int RF, int RW, int METRIC>
+cudaError_t launch_k(int kcap, dim3 grid, int smem, cudaStream_t s,
+                     const ScanArgs& a) {
   switch (kcap) {
-    case 8: AVENIR_TOPK_LAUNCH(8);
-    case 16: AVENIR_TOPK_LAUNCH(16);
-    case 32: AVENIR_TOPK_LAUNCH(32);
-    case 64: AVENIR_TOPK_LAUNCH(64);
-    default: AVENIR_TOPK_LAUNCH(0);
+    case 8: return launch_topk<8, RF, RW, METRIC>(grid, smem, s, a);
+    case 16: return launch_topk<16, RF, RW, METRIC>(grid, smem, s, a);
+    case 32: return launch_topk<32, RF, RW, METRIC>(grid, smem, s, a);
+    case 64: return launch_topk<64, RF, RW, METRIC>(grid, smem, s, a);
+    default: return launch_topk<0, RF, RW, METRIC>(grid, smem, s, a);
   }
-#undef AVENIR_TOPK_LAUNCH
+}
+
+// The register-row widths (RF, RW) as launch_k's template arguments.
+template <int METRIC>
+cudaError_t launch_rows(int RF, int RW, int kcap, dim3 grid, int smem,
+                        cudaStream_t s, const ScanArgs& a) {
+  if (RF == 4) {
+    return RW ? launch_k<4, kRegWords, METRIC>(kcap, grid, smem, s, a)
+              : launch_k<4, 0, METRIC>(kcap, grid, smem, s, a);
+  }
+  if (RF == kRegFn) {
+    return RW ? launch_k<kRegFn, kRegWords, METRIC>(kcap, grid, smem, s, a)
+              : launch_k<kRegFn, 0, METRIC>(kcap, grid, smem, s, a);
+  }
+  return launch_k<0, 0, METRIC>(kcap, grid, smem, s, a);
 }
 
 // The register list size a launch uses for k (0 = the global-memory list)
@@ -386,17 +499,27 @@ extern "C" int avenir_topk_merge(const float* const* d, const int* const* i,
 // tn (nt, Fn) float32, toh (nt, Fc) int8 0/1, rn (nr, Fn) float32, roh
 // (nr, Fc) int8 0/1, all contiguous; nt, nr, k >= 1.  Scratch from the
 // wrapper: twords (nt, W) and rwords (nr, W) uint32 with W = ceil(Fc / 32)
-// (null when Fc == 0), rnorm (nr,) float32 (euclidean only, else null).
-// Outputs od (nt, k) float32, oi (nt, k) int32.  metric 0 = euclidean,
-// 1 = manhattan.
+// (null when Fc == 0), rnorm (nr,) float32 (euclidean only, else null), ot
+// (splits, nt, k) float32 when k > 64 (the global list's totals, else
+// null).  The train rows are scanned in `splits` contiguous ranges of
+// `split_rows` rows (the last shorter, none empty); outputs od (splits, nt,
+// k) float32 and oi (splits, nt, k) int32, each split's list with indices
+// local to its range (one split: the result itself).  metric 0 =
+// euclidean, 1 = manhattan.  skip != 0 takes the tail only for pairs that
+// can enter the list (exact for denom > 0 and fscale >= 0; the wrapper
+// decides).
 extern "C" int avenir_topk_scan(const float* tn, const int8_t* toh,
                                 const float* rn, const int8_t* roh, int nt,
                                 int nr, int Fn, int Fc, int k, int metric,
                                 float n_cat, float denom, float fscale,
+                                int splits, int split_rows, int skip,
                                 uint32_t* twords, uint32_t* rwords,
-                                float* rnorm, float* od, int* oi,
+                                float* rnorm, float* ot, float* od, int* oi,
                                 void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (splits < 1 || splits > 65535 || split_rows < 1 ||
+      (long long)(splits - 1) * split_rows >= nr)
+    return (int)cudaErrorInvalidValue;
   const int W = (Fc + 31) / 32;
   const int prep = 256;
   if (W > 0) {
@@ -411,31 +534,28 @@ extern "C" int avenir_topk_scan(const float* tn, const int8_t* toh,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int row_bytes = (Fn + 1 + W) * (int)sizeof(uint32_t);
-  int tile = kSmemDefault / row_bytes;
+  // register rows: features padded to 4 or kRegFn, words to 0 or
+  // kRegWords (staged alike); else the run-time widths
+  const bool reg = register_rows(Fn, Fc);
+  const int RF = reg ? (Fn <= 4 ? 4 : kRegFn) : 0;
+  const int RW = reg && W > 0 ? kRegWords : 0;
+  const int row_bytes =
+      (reg ? RF + 1 + RW : Fn + 1 + W) * (int)sizeof(uint32_t);
+  // the staged tile, then each thread's candidate queue (total, index)
+  const int queue_bytes = kQueue * kThreads * 8;
+  int tile = (kSmemDefault - queue_bytes) / row_bytes;
   if (tile > kTile) tile = kTile;
   if (tile < 1) {
-    if (row_bytes > kSmemMax) return (int)cudaErrorInvalidValue;
+    if (row_bytes + queue_bytes > kSmemMax) return (int)cudaErrorInvalidValue;
     tile = 1;
   }
-  const int smem = tile * row_bytes;
-  const int blocks = (nt + kThreads - 1) / kThreads;
+  const int smem = tile * row_bytes + queue_bytes;
+  const dim3 grid((nt + kThreads - 1) / kThreads, splits);
   const int kcap = list_size(k);
-  const bool reg = register_rows(Fn, Fc);
-  if (metric == kEuclid) {
-    err = reg ? launch_k<true, 0>(kcap, blocks, smem, s, tn, twords, rn,
-                                  rwords, rnorm, nt, nr, Fn, W, k, tile,
-                                  n_cat, denom, fscale, od, oi)
-              : launch_k<false, 0>(kcap, blocks, smem, s, tn, twords, rn,
-                                   rwords, rnorm, nt, nr, Fn, W, k, tile,
-                                   n_cat, denom, fscale, od, oi);
-  } else {
-    err = reg ? launch_k<true, 1>(kcap, blocks, smem, s, tn, twords, rn,
-                                  rwords, rnorm, nt, nr, Fn, W, k, tile,
-                                  n_cat, denom, fscale, od, oi)
-              : launch_k<false, 1>(kcap, blocks, smem, s, tn, twords, rn,
-                                   rwords, rnorm, nt, nr, Fn, W, k, tile,
-                                   n_cat, denom, fscale, od, oi);
-  }
+  const ScanArgs a{tn, twords, rn, rwords, rnorm, nt, nr, Fn, W, k, tile,
+                   split_rows, skip != 0, n_cat, denom, fscale, od, oi, ot};
+  err = metric == kEuclid
+            ? launch_rows<kEuclid>(RF, RW, kcap, grid, smem, s, a)
+            : launch_rows<1>(RF, RW, kcap, grid, smem, s, a);
   return (int)err;
 }

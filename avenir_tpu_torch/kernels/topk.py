@@ -15,7 +15,13 @@ past it would stay (+inf, -1).
 
 :func:`topk_scan` launches ``csrc/topk.cu`` for CUDA tensors and runs
 :func:`topk_scan_torch` for CPU tensors (``kernels/dispatch.py``);
-``launches`` counts kernel launches.
+``launches`` counts kernel launches.  On the card the train rows are
+scanned in the contiguous splits :func:`split_ranges` plans from the SM
+count, one split per grid row, and one launch of the top-k merge
+(``split_merge_launches`` counts those) merges the splits' lists; the
+scan skips the divide and square root for pairs that cannot enter a list
+where :func:`tail_skip` allows it.  Both leave the answer bit for bit as
+one scan over the whole range gives it.
 
 :func:`topk_scan_sharded` replaces the TPU kernel
 ``avenir_tpu/ops/pallas/topk.py`` ``topk_scan_sharded`` (B7): the train
@@ -33,11 +39,12 @@ queue C).
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
 from ..ops.distance import euclid_topk, manhattan, row_norms
+from ..parallel.mesh import MAX_SHARDS
 from .dispatch import BACKEND_CUDA, resolve_backend
 
 # kernel launches since the last reset (plain integers; chip_smoke.py
@@ -45,12 +52,21 @@ from .dispatch import BACKEND_CUDA, resolve_backend
 # the sharded form's merge
 launches = 0
 merge_launches = 0
+# the merges of one scan's train splits (at most one a scan)
+split_merge_launches = 0
 
 _INT32_MAX = 2 ** 31 - 1
 
 METRICS = {"euclidean": 0, "manhattan": 1}
 # (test row, train row) pairs one tile of the plain version holds
 _TORCH_TILE_PAIRS = 1 << 24
+# the scan's split plan: test rows a block (csrc/topk.cu kThreads, 2
+# warps), the resident warps an SM to aim for, the fewest train rows a
+# split, and the most splits (the merge's limit)
+_BLOCK_ROWS = 64
+WARPS_PER_SM = 16
+MIN_SPLIT_ROWS = 4096
+MAX_SPLITS = MAX_SHARDS
 
 
 def topk_scan_torch(tn: torch.Tensor, toh: torch.Tensor, rn: torch.Tensor,
@@ -95,11 +111,38 @@ def _lib():
         from .build import load
         fn = load("topk").avenir_topk_scan
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, f, p, p, p, p, p,
-                       p]
+        fn.argtypes = [p, p, p, p, i, i, i, i, i, i, f, f, f, i, i, i, p, p,
+                       p, p, p, p, p]
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+def split_ranges(nt: int, nr: int, k: int, sms: int,
+                 splits: Optional[int] = None) -> List[Tuple[int, int]]:
+    """The scan's train splits: ascending contiguous [start, stop) ranges
+    covering [0, nr), none empty, all but the last ``ceil(nr / S)`` rows.
+    ``splits`` forces S (clamped to [1, min(nr, MAX_SPLITS)]); else S is
+    the fewest splits that give ``sms`` SMs about ``WARPS_PER_SM`` warps
+    of 64-row blocks over ``nt`` test rows, with at least
+    ``max(MIN_SPLIT_ROWS, k)`` train rows a split."""
+    if nr <= 0:
+        return []
+    if splits is None:
+        blocks = max(1, -(-nt // _BLOCK_ROWS))
+        splits = -(-WARPS_PER_SM * max(sms, 1) // (2 * blocks))
+        splits = min(splits, nr // max(MIN_SPLIT_ROWS, k))
+    splits = max(1, min(int(splits), nr, MAX_SPLITS))
+    step = -(-nr // splits)
+    return [(s, min(s + step, nr)) for s in range(0, nr, step)]
+
+
+def tail_skip(denom: float, fscale: float) -> bool:
+    """Whether the scan may skip the tail of a pair whose pre-division
+    total is not below its list's last: exact when the tail (divide by
+    ``denom``, square root, multiply by ``fscale``, floor) is monotone
+    non-decreasing, that is for ``denom > 0`` and ``fscale >= 0``."""
+    return denom > 0 and fscale >= 0
 
 
 def list_size(k: int) -> int:
@@ -139,23 +182,31 @@ def _check(tn, toh, rn, roh, k, metric):
                          f"(got k={k}, nt={nt}, nr={nr})")
 
 
-def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale):
-    global launches
+def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale, splits,
+            skip):
+    global launches, split_merge_launches
     nt, Fn = tn.shape
     nr, Fc = roh.shape
     dev = tn.device
-    od = torch.full((nt, k), float("inf"), dtype=torch.float32, device=dev)
-    oi = torch.full((nt, k), -1, dtype=torch.int32, device=dev)
     if nt == 0 or nr == 0 or k == 0:
-        return od, oi
+        return (torch.full((nt, k), float("inf"), dtype=torch.float32,
+                           device=dev),
+                torch.full((nt, k), -1, dtype=torch.int32, device=dev))
     for name, t in (("tn", tn), ("toh", toh), ("rn", rn), ("roh", roh)):
         if not t.is_contiguous():
             raise ValueError(f"topk_scan: {name} must be contiguous")
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    ranges = split_ranges(nt, nr, k, sms, splits)
+    S, step = len(ranges), ranges[0][1]
     W = -(-Fc // 32)
     twords = torch.empty((nt, W), dtype=torch.int32, device=dev) if W else None
     rwords = torch.empty((nr, W), dtype=torch.int32, device=dev) if W else None
     rnorm = torch.empty((nr,), dtype=torch.float32, device=dev) \
         if metric == "euclidean" else None
+    totals = torch.empty((S, nt, k), dtype=torch.float32, device=dev) \
+        if list_size(k) == 0 else None
+    od = torch.empty((S, nt, k), dtype=torch.float32, device=dev)
+    oi = torch.empty((S, nt, k), dtype=torch.int32, device=dev)
 
     def ptr(t):
         return t.data_ptr() if t is not None else None
@@ -163,27 +214,35 @@ def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib()(tn.data_ptr(), ptr(toh), rn.data_ptr(), ptr(roh), nt,
                      nr, Fn, Fc, k, METRICS[metric], n_cat, denom, fscale,
-                     ptr(twords), ptr(rwords), ptr(rnorm), od.data_ptr(),
-                     oi.data_ptr(), stream)
+                     S, step, int(skip and tail_skip(denom, fscale)),
+                     ptr(twords), ptr(rwords), ptr(rnorm), ptr(totals),
+                     od.data_ptr(), oi.data_ptr(), stream)
     if err != 0:
         raise RuntimeError(f"topk_scan kernel launch failed: CUDA error "
                            f"{err}")
     launches += 1
-    return od, oi
+    if S == 1:
+        return od[0], oi[0]
+    out = _merge_call(list(od), list(oi), [a for a, _ in ranges], k)
+    split_merge_launches += 1
+    return out
 
 
 def topk_scan(tn: torch.Tensor, toh: torch.Tensor, rn: torch.Tensor,
               roh: torch.Tensor, k: int, metric: str, n_cat: float,
-              denom: float, fscale: float
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
+              denom: float, fscale: float, *, splits: Optional[int] = None,
+              skip: bool = True) -> Tuple[torch.Tensor, torch.Tensor]:
     """(best_d (nt,k) float32, best_i (nt,k) int32), rows nearest-first,
     ties to the lowest train index.  CUDA tensors launch
-    ``csrc/topk.cu`` (no launch when a side is empty or k = 0); CPU
-    tensors run :func:`topk_scan_torch`."""
+    ``csrc/topk.cu`` (no launch when a side is empty or k = 0) over the
+    :func:`split_ranges` plan, then merge the splits; CPU tensors run
+    :func:`topk_scan_torch`.  ``splits`` forces the split count and
+    ``skip=False`` turns the tail skip off, to hold the kernel's forms
+    against each other; neither changes the answer."""
     _check(tn, toh, rn, roh, k, metric)
     if resolve_backend(tn.device) == BACKEND_CUDA:
         return _launch(tn, toh, rn, roh, int(k), metric, float(n_cat),
-                       float(denom), float(fscale))
+                       float(denom), float(fscale), splits, skip)
     return topk_scan_torch(tn, toh, rn, roh, int(k), metric, float(n_cat),
                            float(denom), float(fscale))
 
@@ -229,8 +288,8 @@ def _merge_lib():
     return _merge_entry
 
 
-def _launch_merge(ds, is_, bases, k):
-    global merge_launches
+def _merge_call(ds, is_, bases, k):
+    """One launch of ``avenir_topk_merge`` over lists on one device."""
     nt = ds[0].shape[0]
     dev = ds[0].device
     od = torch.empty((nt, k), dtype=torch.float32, device=dev)
@@ -248,8 +307,15 @@ def _launch_merge(ds, is_, bases, k):
     if err != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: CUDA error "
                            f"{err}")
-    merge_launches += 1
     return od, oi
+
+
+def _launch_merge(ds, is_, bases, k):
+    global merge_launches
+    out = _merge_call(ds, is_, bases, k)
+    if ds[0].shape[0]:
+        merge_launches += 1
+    return out
 
 
 def topk_merge(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],

@@ -14,13 +14,17 @@ and, for the int8 form, qvals/qcodes (n,F) int8, q_lo/q_hi (T,P,F) int8 and
 cls_oh (T,P,K) uint8, compared as int32.
 
 :func:`prepare_vote_model` (float) and :func:`prepare_quantized_vote_model`
-(int8) put a stacked forest on a device once per model load and, for a CUDA
-device, also reduce it to the kernel's form: per-path class indices (T,P)
-int32, one flag byte per predicate slot and the categorical masks packed
-into 32-bit words.  :func:`ensemble_vote` and :func:`quantized_vote` launch
-``csrc/vote.cu`` for CUDA tensors and run :func:`ensemble_vote_torch` /
-:func:`quantized_vote_torch` for CPU tensors (``kernels/dispatch.py``);
-``launches`` and ``quantized_launches`` count their kernel launches.
+(int8) put a stacked forest on a device once per model load, with its
+per-feature path-mask tables (:func:`table_form`) where they fit the
+kernel's shared memory and, for a CUDA device, the scan form's view
+(:func:`kernel_form`): per-path class indices (T,P) int32, one flag byte
+per predicate slot and the categorical masks packed into 32-bit words.
+The kernel runs the table form when the model has tables and the path scan
+otherwise (:func:`vote_form`); both are exact.  :func:`ensemble_vote` and
+:func:`quantized_vote` launch ``csrc/vote.cu`` for CUDA tensors and run
+:func:`ensemble_vote_torch` / :func:`quantized_vote_torch` for CPU tensors
+(``kernels/dispatch.py``); ``launches`` and ``quantized_launches`` count
+their kernel launches.
 
 The tree-sharded serve (``serving/predictor.py`` with ``serve_mesh``) splits
 the float vote in two, as the JAX package's sharded core does:
@@ -30,7 +34,9 @@ shard's (n, K) float32 tallies, plain version :func:`member_votes_torch` —
 and :func:`vote_merge_finalize` replaces its ``psum`` + ``_vote_finalize``
 (``serving/predictor.py:437-438``) — the shards' tallies summed in shard
 order, then the finalize, plain version :func:`vote_merge_finalize_torch`.
-``partial_launches`` and ``finalize_launches`` count their launches.
+``partial_launches`` and ``finalize_launches`` count their launches;
+``table_launches`` counts the vote launches (float, int8, partial) that ran
+the table form.
 """
 
 from __future__ import annotations
@@ -52,9 +58,14 @@ quantized_launches = 0
 # the sharded form's: per-shard partial tallies and the merge-finalize
 partial_launches = 0
 finalize_launches = 0
+# the launches of the three vote entries above that ran the table form
+table_launches = 0
 
-# predicate tensors are staged in shared memory up to this size per block
+# predicate tensors (or the tables) are staged in shared memory up to this
+# size per block
 SMEM_LIMIT = 48 * 1024
+# features a row the table form holds in registers (csrc/vote.cu kFMax)
+TABLE_MAX_F = 16
 # K above this keeps the per-row tally in a global scratch buffer
 LOCAL_TALLY_MAX_K = 32
 # element budget of one row chunk of the plain version's (n,T,P,F) masks
@@ -70,7 +81,8 @@ class VoteModel:
     the reference layout (what the plain version reads; ``lo``/``hi`` are
     float32, or int8 for the quantized form, and ``cls_oh`` is float32 in
     both); ``flags``, ``catw`` and ``cls`` are the kernel's form, present on
-    CUDA devices only."""
+    CUDA devices only; ``u``, ``ntab`` and ``ctab`` the path-mask tables
+    (:func:`table_form`), present where they fit."""
     lo: torch.Tensor
     hi: torch.Tensor
     num_r: torch.Tensor
@@ -81,6 +93,9 @@ class VoteModel:
     flags: Optional[torch.Tensor] = None
     catw: Optional[torch.Tensor] = None
     cls: Optional[torch.Tensor] = None
+    u: Optional[torch.Tensor] = None
+    ntab: Optional[torch.Tensor] = None
+    ctab: Optional[torch.Tensor] = None
 
     @property
     def device(self) -> torch.device:
@@ -101,13 +116,22 @@ class VoteModel:
         return self.lo.dtype == torch.int8
 
     def smem_bytes(self) -> int:
-        """Bytes the kernel stages per block: lo and hi (4 bytes a slot in
-        float32, 1 in int8), flags, mask words, class indices and
+        """Bytes the scan form stages per block: lo and hi (4 bytes a slot
+        in float32, 1 in int8), flags, mask words, class indices and
         weights."""
         T, P, F, C, _ = self.shape
         W = (C + 31) // 32
         th = self.lo.element_size()
         return T * P * F * (2 * th + 1 + 4 * W) + T * P * 4 + T * 4
+
+    def table_bytes(self) -> int:
+        """Bytes the table form stages per block: the tables, class
+        indices and weights (0 without tables)."""
+        if self.ntab is None:
+            return 0
+        T, P = self.shape[:2]
+        return 4 * (self.u.numel() + self.ntab.numel() + self.ctab.numel()
+                    + T * P + T)
 
 
 def prepare_vote_model(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec,
@@ -164,6 +188,9 @@ def _prepare(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec, device) -> VoteModel:
         return torch.from_numpy(a).to(dev)
     model = VoteModel(put(lo), put(hi), put(num_r), put(cat_m), put(cat_r),
                       put(cls_oh), put(wvec))
+    tables = table_form(lo, hi, num_r, cat_m, cat_r)
+    if tables is not None:
+        model.u, model.ntab, model.ctab = (put(a) for a in tables)
     if dev.type == "cuda":
         flags, catw, cls = kernel_form(num_r, cat_m, cat_r, cls_oh)
         model.flags, model.catw, model.cls = put(flags), put(catw), put(cls)
@@ -193,21 +220,86 @@ def shard_stacked_arrays(arrays, S: int):
             for s in range(S)]
 
 
+def _pack_bits(bits):
+    """Bits over the last axis (..., B) packed into ceil(B/32) 32-bit words
+    (bit b of word b // 32), stored as int32."""
+    B = bits.shape[-1]
+    W = (B + 31) // 32
+    full = np.zeros(bits.shape[:-1] + (W * 32,), bool)
+    full[..., :B] = bits
+    words = (full.reshape(bits.shape[:-1] + (W, 32)).astype(np.uint64)
+             << np.arange(32, dtype=np.uint64)).sum(axis=-1)
+    return words.astype(np.uint32).view(np.int32)
+
+
+def table_form(lo, hi, num_r, cat_m, cat_r):
+    """The kernel's per-feature path-mask tables of a stacked forest (host
+    numpy; float32 or int8 thresholds), or None where they do not fit in
+    ``SMEM_LIMIT`` bytes of shared memory, the rows have more than
+    ``TABLE_MAX_F`` features or a restricted threshold is NaN:
+
+    * ``u`` (F, L) float32: for each feature the sorted distinct lo/hi
+      values of the slots whose numeric flag is set, +inf padded to L, the
+      smallest power of two above the longest; a value v's bin is
+      b = #{u < v}, a NaN's bin NB - 1;
+    * ``ntab`` (T, F, NB, PW) int32: path masks of ceil(P/32) words, bit p
+      of bin b set iff slot (t, p, f) is numerically unrestricted or
+      idx(lo) < b <= idx(hi) (that is lo < v <= hi for every non-NaN v);
+      the NaN bin admits only unrestricted slots;
+    * ``ctab`` (T, F, C+1, PW) int32: bit p of code c < C set iff the slot
+      is categorically unrestricted or its mask admits c; bin C (codes
+      < 0) admits only unrestricted slots.  Codes >= C use C - 1.
+
+    A tree's first match is the lowest set bit of AND_f ntab[t, f, b_f] &
+    ctab[t, f, c_f], path 0 when none is set."""
+    lo = np.asarray(lo).astype(np.float32)
+    hi = np.asarray(hi).astype(np.float32)
+    T, P, F, C = cat_m.shape
+    if F > TABLE_MAX_F:
+        return None
+    us = []
+    for f in range(F):
+        r = num_r[:, :, f]
+        th = np.concatenate([lo[:, :, f][r], hi[:, :, f][r]])
+        if np.isnan(th).any():
+            return None
+        us.append(np.unique(th))
+    u_max = max((len(u) for u in us), default=0)
+    L, NB, PW = 1 << u_max.bit_length(), u_max + 2, (P + 31) // 32
+    words = F * L + T * F * PW * (NB + C + 1) + T * P + T
+    if 4 * words > SMEM_LIMIT:
+        return None
+    u = np.full((F, L), np.inf, np.float32)
+    bins = np.arange(NB)
+    num_bits = np.zeros((T, F, NB, P), bool)
+    for f, uf in enumerate(us):
+        u[f, :len(uf)] = uf
+        ilo = np.searchsorted(uf, lo[:, :, f])[..., None]      # (T, P, 1)
+        ihi = np.searchsorted(uf, hi[:, :, f])[..., None]
+        ok = (ilo < bins) & (bins <= ihi)                      # (T, P, NB)
+        ok[..., NB - 1] = False                                # the NaN bin
+        num_bits[:, f] = (ok | ~num_r[:, :, f, None]).transpose(0, 2, 1)
+    free = ~cat_r[..., None]                                   # (T, P, F, 1)
+    cat_bits = np.concatenate([cat_m | free, free], axis=3)   # (T,P,F,C+1)
+    return (u, _pack_bits(num_bits),
+            _pack_bits(cat_bits.transpose(0, 2, 3, 1)))
+
+
+def vote_form(model: VoteModel) -> str:
+    """The form the kernel runs for ``model``: ``"table"`` where
+    :func:`table_form` built its tables, else ``"scan"``."""
+    return "table" if model.ntab is not None else "scan"
+
+
 def kernel_form(num_r, cat_m, cat_r, cls_oh):
     """The kernel's view of a stacked forest (host numpy): one flag byte per
     predicate slot (bit 0 numeric restricted, bit 1 categorical
     restricted), the (T,P,F,C) masks packed into ceil(C/32) 32-bit words
     (bit c of word c // 32, stored as int32), and each path's class index,
     -1 for a path that votes nothing."""
-    T, P, F, C = cat_m.shape
     flags = (num_r.astype(np.uint8) * _NUM_FLAG
              | cat_r.astype(np.uint8) * _CAT_FLAG)
-    W = (C + 31) // 32
-    bits = np.zeros((T, P, F, W * 32), bool)
-    bits[..., :C] = cat_m
-    words = (bits.reshape(T, P, F, W, 32).astype(np.uint64)
-             << np.arange(32, dtype=np.uint64)).sum(axis=4)
-    catw = words.astype(np.uint32).view(np.int32)
+    catw = _pack_bits(cat_m)
     cls = np.where(cls_oh.sum(axis=2) > 0, cls_oh.argmax(axis=2),
                    -1).astype(np.int32)
     return flags, catw, cls
@@ -309,15 +401,15 @@ _FORMS = {torch.float32: ("avenir_ensemble_vote", torch.int32,
                        "quantized_vote")}
 _p, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, \
     ctypes.c_float
-_VOTE_ARGS = [_p, _p, _ll, _i, _p, _p, _p, _p, _p, _p, _i, _i, _i, _i, _i,
-              _f, _p, _p, _i, _ll, _p]
+# rows, n, F, then _model_args: 9 pointers and T, P, C, W, K, L, NB, PW
+_MODEL_ARGS = [_p] * 9 + [_i] * 8
+_VOTE_ARGS = [_p, _p, _ll, _i, *_MODEL_ARGS, _f, _p, _p, _i, _ll, _p]
 # C entry point -> its argument types
 _ARGTYPES = {
     "avenir_ensemble_vote": _VOTE_ARGS,
     "avenir_quantized_vote": _VOTE_ARGS,
-    "avenir_ensemble_partial_votes": [_p, _p, _ll, _i, _p, _p, _p, _p, _p,
-                                      _p, _i, _i, _i, _i, _i, _p, _i, _ll,
-                                      _p],
+    "avenir_ensemble_partial_votes": [_p, _p, _ll, _i, *_MODEL_ARGS, _p, _i,
+                                      _ll, _p],
     "avenir_vote_merge_finalize": [_p, _i, _ll, _i, _f, _p, _p, _p]}
 _entries = {}
 
@@ -357,17 +449,34 @@ def _check_rows(vals, codes, model: VoteModel, what: str, code_dtype):
 
 def _model_args(model: VoteModel):
     """The predicate arguments every vote entry takes, after the rows:
-    lo, hi, flags, mask words, classes, weights, T, P, C, W, K."""
+    lo, hi, flags, mask words, classes, weights, the tables u, ntab and
+    ctab (null in the scan form), T, P, C, W, K, L, NB, PW."""
     T, P, F, C, K = model.shape
+    if model.ntab is not None:
+        tables = (model.u.data_ptr(), model.ntab.data_ptr(),
+                  model.ctab.data_ptr())
+        dims = (model.u.shape[1], model.ntab.shape[2], model.ntab.shape[3])
+    else:
+        tables, dims = (None, None, None), (0, 0, 0)
     return (model.lo.data_ptr(), model.hi.data_ptr(), model.flags.data_ptr(),
             model.catw.data_ptr(), model.cls.data_ptr(),
-            model.wvec.data_ptr(), T, P, C, (C + 31) // 32, K)
+            model.wvec.data_ptr(), *tables, T, P, C, (C + 31) // 32, K,
+            *dims)
 
 
 def _smem_args(model: VoteModel):
-    """(use_smem, smem_bytes) for a launch over ``model``."""
+    """(use_smem, smem_bytes) for a launch over ``model``: the table form
+    always stages its tables."""
+    if model.ntab is not None:
+        return 1, model.table_bytes()
     smem = model.smem_bytes()
     return (1, smem) if smem <= SMEM_LIMIT else (0, 0)
+
+
+def _count_form(model: VoteModel) -> None:
+    global table_launches
+    if model.ntab is not None:
+        table_launches += 1
 
 
 def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
@@ -395,6 +504,7 @@ def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
         quantized_launches += 1
     else:
         launches += 1
+    _count_form(model)
     return out
 
 
@@ -444,6 +554,7 @@ def _launch_partial(vals, codes, model: VoteModel) -> torch.Tensor:
         raise RuntimeError(f"ensemble_partial_votes kernel launch failed: "
                            f"CUDA error {err}")
     partial_launches += 1
+    _count_form(model)
     return out
 
 

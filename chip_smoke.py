@@ -18,9 +18,11 @@ order — any failure exits non-zero before the result line:
               the card: random stacked forests (NaNs, negative and
               out-of-range codes, negative integer weights, ties, min_odds
               1.0 and 1.5) at the published forest's shape (T=9, P=17, F=4,
-              C=4, K=3) and a wide one whose predicates do not fit in shared
-              memory (T=64, P=257, F=16, C=16, K=8), each at n = 1, 7, 513
-              and 1,000,000 rows; the int32 votes must be EXACTLY equal
+              C=4, K=3), which must select the table form and is also run
+              in the scan form, and a wide one whose tables and predicates
+              do not fit in shared memory (T=64, P=257, F=16, C=16, K=8),
+              which must select the scan form, each at n = 1, 7, 513 and
+              1,000,000 rows; the int32 votes must be EXACTLY equal
   4. golden   the port's modelPredictor CLI over the golden rf forest
               (tests/golden/fixtures/rf) must reproduce its pred.csv byte for
               byte
@@ -29,16 +31,19 @@ order — any failure exits non-zero before the result line:
               (in-process) over a copy of the fixture's registry must
               reproduce pred.csv and served.csv byte for byte.  Phases 4-5
               are the main path: launch counts are zeroed before them and
-              read after; the vote kernel must have launched and the ledger
-              must show ensemble.vote.cuda and never the torch or host vote
-  6. times    median CUDA-event times of the kernel and its plain version on
-              the rafo9 forest over its requests tiled to 1,000,000 rows (the
-              reported numbers), then on random inputs at the published and
-              the wide shape; and the bound: the larger of the bytes moved
-              over 3.35 TB/s and the predicate tests the kernel's scan runs
-              on this data over 33.5 T tests/s (one per float32 lane per
-              clock).  No single PyTorch call computes the vote, so
-              library_ms is null
+              read after; the vote kernel must have launched, every launch
+              in the table form, and the ledger must show
+              ensemble.vote.cuda and never the torch or host vote
+  6. times    median CUDA-event times of the kernel (table form; the scan
+              form on the same forest as "old", in turns) and its plain
+              version on the rafo9 forest over its requests tiled to
+              1,000,000 rows (the reported numbers), then on random inputs
+              at the published and the wide shape; each also on the card
+              alone (device_ms: calls queued behind a spin kernel); and the
+              bound: the larger of the bytes moved over 3.35 TB/s and the
+              predicate tests the kernel's scan runs on this data over
+              33.5 T tests/s (one per float32 lane per clock).  No single
+              PyTorch call computes the vote, so library_ms is null
   7. b1       the level-histogram kernel against its plain PyTorch version
               on the card: seeded inputs with node ids -1 and -2 (and >= N),
               classes of -1, zero weights, bootstrap-drawn uint8 weights and
@@ -76,9 +81,10 @@ order — any failure exits non-zero before the result line:
  11. b3       the int8 vote kernel against its plain PyTorch version on the
               card: random int8 forests (thresholds and values with the
               -128 / 127 sentinels, pad paths q_lo = 127, codes of -1 and
-              >= C) at the published shape and the wide one (predicates
-              from global memory), n = 1, 7, 513 and 1,000,000, min_odds
-              1.0 and 1.5; the votes must be EXACTLY equal
+              >= C) at the published shape (table and scan form) and the
+              wide one (scan form, predicates from global memory), n = 1, 7,
+              513 and 1,000,000, min_odds 1.0 and 1.5; the votes must be
+              EXACTLY equal
  12. b4       the bin-counts kernel against its plain PyTorch version: the
               rafo baseline (R=5, B=7), the default 32-bin shape (R=33,
               B=33) and a wide one whose accumulator does not fit in
@@ -90,14 +96,16 @@ order — any failure exits non-zero before the result line:
               dtb.baseline.publish=true over call_hangup_gen(5000, 17) must
               reproduce the rafo9 trees and the rafo9q fixture's meta.json,
               baseline.json and quantized.json bytes, its npz arrays and
-              its counters (B2, B3 and B4 must each have launched by then);
+              its counters (B2, B3 and B4 must each have launched by then,
+              every vote launch in the table form);
               predictionService -Dps.quantized=true over the rafo9 requests
               must reproduce served_quantized.csv.  The ledger must show
               quantized.vote.cuda and baseline.absorb.cuda and no torch or
               host form
  14. b3/b4 times  median CUDA-event times of each kernel and its plain
               version: B3 on the published int8 rafo9 forest over its
-              requests quantized and tiled to 1,000,000 rows, B4 at (R=5,
+              requests quantized and tiled to 1,000,000 rows (table form;
+              the scan form as "old", in turns), B4 at (R=5,
               B=7) over the monitor codes of 1,000,000 hangup rows; bounds
               as in phases 6 and 10.  No single PyTorch call computes
               either (B4: torch.bincount needs the flat r*B + code index
@@ -112,10 +120,12 @@ order — any failure exits non-zero before the result line:
               first (ties), both metrics, k = 1, 7, 10, 64 and 100 (above
               the largest register list: the list in global memory), each
               clamped to the train count, at n_test = 1, 7, 513 x n_train
-              = 5, 1000, 200,000; distances and indices must be EXACTLY
-              equal (at 200,000 train rows against the prefix of the
-              plain version's k = 100 answer, the k smallest pairs being
-              the first k of the 100 smallest)
+              = 5, 1000, 200,000, each with the planned train split count
+              and the count forced to 1, 2 and 7, the tail skip on and off;
+              distances and indices must be EXACTLY equal (at 200,000
+              train rows against the prefix of the plain version's k = 100
+              answer, the k smallest pairs being the first k of the 100
+              smallest)
  16. knn      the KNN main path, launch counts zeroed before and read
               after: the port's sameTypeSimilarity + nearestNeighbor CLI
               over the golden knn data must reproduce
@@ -127,21 +137,26 @@ order — any failure exits non-zero before the result line:
  17. scale    knnPipeline's pairwise_topk at 20,000 test x 200,000 train
               rows drawn with numpy from elearn_gen's model, k = 10: the
               kernel's (d, i) must equal the plain version's on the card;
+              B5 and split-merge launches zeroed before two pairwise_topk
+              calls and read after: one scan and one split merge a chunk;
               prints the wall time and the layer times (encode, H2D,
               kernel, readback, classify)
  18. b5 times median CUDA-event times of the kernel (its three test-chunk
-              launches, as pairwise_topk makes them) and the plain version
-              at that shape, euclidean (the reported numbers) and
-              manhattan, and the bound: the larger of the bytes moved over
-              3.35 TB/s and the pair operations (Fn FMAs + 9 for
-              euclidean, 3 Fn + 6 for manhattan, 2 per one-hot word) over
-              33.5 T/s.  No single PyTorch call computes the floored mixed
-              distance with the lexicographic top-k, so library_ms is
-              null; torch.cdist + torch.topk on the numeric part is timed
-              as context
+              scans and split merges, as pairwise_topk makes them; "old":
+              one split and no tail skip, in turns; the split merges alone)
+              and the plain version at that shape, euclidean (the reported
+              numbers) and manhattan, and the bound: the larger of the
+              bytes moved over 3.35 TB/s and the pair operations every
+              implementation needs (Fn FMAs + 4 for euclidean, 3 Fn + 1
+              for manhattan, 2 per one-hot word) over 33.5 T/s, beside the
+              count with the divide and square root (Fn + 9, 3 Fn + 6).  No
+              single PyTorch call computes the floored mixed distance with
+              the lexicographic top-k, so library_ms is null; torch.cdist
+              + torch.topk on the numeric part is timed as context
  19. b6       the partial-vote kernel (one tree shard's (n, K) float32
-              tallies) against member_votes_torch, tallies EXACTLY equal,
-              at the published and the wide shape of phase 3, over the
+              tallies) against member_votes_torch, tallies EXACTLY equal in
+              every form each slice selects (phase 3's published shape:
+              table and scan; wide: scan), over the
               tree slices of S = 1, 2, 3 and 4 shards (zero-weight pad
               members as the sharded serve makes them), n = 1, 7, 513 and
               1,000,000 (the wide shape's plain tallies at 1M rows from one
@@ -175,7 +190,8 @@ order — any failure exits non-zero before the result line:
               over distinct devices; with one, a line says they were skipped
  23. times    median CUDA-event times of the partial-vote kernel (4 tree
               slices of the rafo9 forest over its requests tiled to
-              1,000,000 rows), the merge-finalize (4 x (1M, 3) tallies)
+              1,000,000 rows; table form, the scan form as "old", in
+              turns), the merge-finalize (4 x (1M, 3) tallies)
               and the top-k merge (4 x (20,000, 10) lists), each beside its
               plain version and its bound (the bytes moved over 3.35 TB/s,
               or the operations over 33.5 T/s, the larger); torch.sort
@@ -183,10 +199,12 @@ order — any failure exits non-zero before the result line:
               pairwise_topk wall beside the single-device one.  No single
               PyTorch call computes any of the three: library_ms is null
 
-The line before the last is one JSON object with the kernel numbers; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is one JSON object with the kernel numbers (the
+votes' ``form``, B5's planned ``splits`` a chunk, each redesigned kernel's
+``old_ms``); the last line is ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import json
 import os
 import shutil
@@ -297,6 +315,25 @@ def random_quantized_inputs(rng, shape, n):
             cls_oh.astype(np.uint8), wvec), qv, qc
 
 
+def scan_form(model):
+    """The same prepared forest without its path-mask tables: the kernel
+    runs its path scan (the design before the tables) on it."""
+    return dataclasses.replace(model, u=None, ntab=None, ctab=None)
+
+
+def vote_forms(model, want):
+    """[(form, model)] of every vote form the kernel can run on ``model``:
+    the form its shape selects, which must be ``want``, and, where that is
+    the table form, the path scan on the same forest."""
+    from avenir_tpu_torch.kernels import vote
+    got = vote.vote_form(model)
+    if got != want:
+        fail(f"vote form of a {model.shape} (T,P,F,C,K) forest is {got!r}, "
+             f"expected {want!r}")
+    return [("table", model), ("scan", scan_form(model))] \
+        if got == "table" else [("scan", model)]
+
+
 def cuda_ms(fn, reps):
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs
     (after one warm-up run)."""
@@ -312,6 +349,29 @@ def cuda_ms(fn, reps):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return float(np.median(times))
+
+
+def device_ms(fn, reps=20):
+    """Median ms of one ``fn()`` on the card alone: ``reps`` calls enqueued
+    behind a spin kernel (``torch.cuda._sleep``, longer than the host takes
+    to enqueue them), so the card runs them back to back and the wrapper's
+    host work (checks, allocations, the ctypes call) falls outside the
+    event window that ``cuda_ms`` measures; median of 5 such windows."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(5):
+        torch.cuda._sleep(40_000_000)          # ~20 ms at 1.98 GHz
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
     return float(np.median(times))
 
 
@@ -349,12 +409,14 @@ def predicate_tests(v, c, model):
     return total
 
 
-def time_vote(model, vals, codes, plain):
+def time_vote(model, vals, codes, plain, old=None):
     """Kernel (and, with ``plain``, plain-version) median ms on host arrays
-    uploaded to the card, in turns kernel, plain, kernel; and the bound:
-    each input read once and the output written once at the HBM rate, or
-    the predicate tests this data makes the scan run at the test rate —
-    the larger of the two.  The float or the int8 vote, as ``model`` is."""
+    uploaded to the card, in turns kernel, [old,] plain, kernel[, old] —
+    ``old``: the same forest in the scan form, timed as ``old_ms``; and the
+    bound: each input read once and the output written once at the HBM
+    rate, or the predicate tests this data makes the scan run at the test
+    rate — the larger of the two.  The float or the int8 vote, as
+    ``model`` is."""
     import torch
     from avenir_tpu_torch.kernels import vote
     dev = model.device
@@ -367,11 +429,20 @@ def time_vote(model, vals, codes, plain):
     v = torch.from_numpy(np.ascontiguousarray(vals, vdt)).to(dev)
     c = torch.from_numpy(np.ascontiguousarray(codes, cdt)).to(dev)
     n, F = v.shape
-    res = {"ms": cuda_ms(lambda: kernel(v, c, model, 1.5), 50)}
+    res = {"form": vote.vote_form(model),
+           "ms": cuda_ms(lambda: kernel(v, c, model, 1.5), 50)}
+    if old is not None:
+        res["old_form"] = vote.vote_form(old)
+        res["old_ms"] = cuda_ms(lambda: kernel(v, c, old, 1.5), 50)
     if plain:
         res["plain_ms"] = cuda_ms(lambda: plain_fn(
             v, c, *model.stacked(), 1.5), 10)
         res["ms_again"] = cuda_ms(lambda: kernel(v, c, model, 1.5), 50)
+    if old is not None:
+        res["old_ms_again"] = cuda_ms(lambda: kernel(v, c, old, 1.5), 50)
+    res["device_ms"] = device_ms(lambda: kernel(v, c, model, 1.5))
+    if old is not None:
+        res["old_device_ms"] = device_ms(lambda: kernel(v, c, old, 1.5))
     kernel_form = (model.lo, model.hi, model.flags, model.catw, model.cls,
                    model.wvec)
     nbytes = v.nbytes + c.nbytes + n * 4 + sum(t.nbytes for t in kernel_form)
@@ -476,6 +547,8 @@ def time_b1(rng, shape, n, dev):
         nid, br, cls, w, N, B, C), 5)
     res["ms_again"] = cuda_ms(lambda: histogram.forest_level_counts(
         nid, br, cls, w, N, B, C), 20)
+    res["device_ms"] = device_ms(lambda: histogram.forest_level_counts(
+        nid, br, cls, w, N, B, C))
     res.update(b1_bound(nid, br, cls, w, shape))
     return res
 
@@ -493,6 +566,7 @@ def time_b4(codes, B, dev):
     res = {"ms": cuda_ms(lambda: histogram.bin_counts(c, B), 50)}
     res["plain_ms"] = cuda_ms(lambda: histogram.bin_counts_torch(c, B), 10)
     res["ms_again"] = cuda_ms(lambda: histogram.bin_counts(c, B), 50)
+    res["device_ms"] = device_ms(lambda: histogram.bin_counts(c, B))
     flat = (c.long() + B * torch.arange(R, device=dev)[None, :]).reshape(-1)
     res["bincount_prebuilt_ms"] = cuda_ms(
         lambda: torch.bincount(flat, minlength=R * B), 20)
@@ -575,19 +649,26 @@ def elearn_table(rng, n, fs):
 def b5_bound(nt, nr, Fn, Fc, k, metric):
     """The least time the card could take for one top-k scan: the test and
     train rows read once and the (nt, k) results written once at 3.35
-    TB/s, or the pair operations at the float32 rate (Fn FMAs plus 9 ops
-    for euclidean; a subtract, absolute value and add per feature plus 6
-    for manhattan; an AND and a popcount per 32-bit one-hot word) — the
-    larger of the two."""
+    TB/s, or the pair operations every implementation must do at the
+    float32 rate — the larger of the two.  Per pair: Fn FMAs and the
+    numerator's add, subtract, max and add for euclidean; a subtract,
+    absolute value and add per feature and one add for manhattan; an AND
+    and a popcount per 32-bit one-hot word.  The divide and square root
+    are not counted: a pair that cannot enter the list needs neither.
+    ``bound_ms_with_tail`` is the bound that counts them too (Fn + 9 and
+    3 Fn + 6 ops a pair)."""
     words = -(-Fc // 32)
-    per_pair = (Fn + 9 if metric == "euclidean" else 3 * Fn + 6) + 2 * words
+    per_pair = (Fn + 4 if metric == "euclidean" else 3 * Fn + 1) + 2 * words
+    old_pair = (Fn + 9 if metric == "euclidean" else 3 * Fn + 6) + 2 * words
     ops = float(nt) * nr * per_pair
     nbytes = (nt + nr) * (4 * Fn + Fc) + nt * k * 8
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / TESTS_PER_S * 1e3
+    old_ms = float(nt) * nr * old_pair / TESTS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms), "bytes": nbytes,
             "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
-            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+            "bound_ms_with_tail": max(bytes_ms, old_ms)}
 
 
 def run_cli(args):
@@ -631,6 +712,7 @@ def knn_phases(dev, rng):
 
     phase("15 B5 top-k kernel vs plain version")
     from avenir_tpu_torch.kernels import topk
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     b5_err = 0.0
     for name, (Fn, cards) in B5_SCHEMAS.items():
         n_cat = float(len(cards))
@@ -649,30 +731,41 @@ def knn_phases(dev, rng):
                             tn, toh, rn, roh, ks[-1], metric, n_cat, denom,
                             1000.0)
                     for k in ks:
-                        got = topk.topk_scan(tn, toh, rn, roh, k, metric,
-                                             n_cat, denom, 1000.0)
                         want = tuple(w[:, :k] for w in want_all) if big \
                             else topk.topk_scan_torch(
                                 tn, toh, rn, roh, k, metric, n_cat, denom,
                                 1000.0)
-                        torch.cuda.synchronize()
-                        if got[0].shape != (n_test, k) or \
-                                got[1].dtype != torch.int32:
-                            fail(f"topk output {tuple(got[0].shape)} "
-                                 f"{got[1].dtype}")
-                        err = float((got[0] - want[0]).abs().max().item())
-                        b5_err = max(b5_err, err)
-                        if not (torch.equal(got[0], want[0])
-                                and torch.equal(got[1], want[1])):
-                            fail(f"topk kernel != plain version at {name} "
-                                 f"{metric} n_test={n_test} "
-                                 f"n_train={n_train} k={k}: "
-                                 f"{int((got[0] != want[0]).sum().item())} "
-                                 f"distances and "
-                                 f"{int((got[1] != want[1]).sum().item())} "
-                                 f"indices differ")
+                        # the planned split count, forced counts and the
+                        # tail skip on and off: one answer
+                        for splits in (None, 1, 2, 7):
+                            for skip in (True, False):
+                                got = topk.topk_scan(
+                                    tn, toh, rn, roh, k, metric, n_cat,
+                                    denom, 1000.0, splits=splits, skip=skip)
+                                torch.cuda.synchronize()
+                                if got[0].shape != (n_test, k) or \
+                                        got[1].dtype != torch.int32:
+                                    fail(f"topk output {tuple(got[0].shape)}"
+                                         f" {got[1].dtype}")
+                                err = float((got[0] - want[0]).abs().max()
+                                            .item())
+                                b5_err = max(b5_err, err)
+                                if not (torch.equal(got[0], want[0])
+                                        and torch.equal(got[1], want[1])):
+                                    fail(
+                                        f"topk kernel != plain version at "
+                                        f"{name} {metric} n_test={n_test} "
+                                        f"n_train={n_train} k={k} "
+                                        f"splits={splits} skip={skip}: "
+                                        f"{int((got[0] != want[0]).sum())} "
+                                        f"distances and "
+                                        f"{int((got[1] != want[1]).sum())} "
+                                        f"indices differ")
+                plans = [len(topk.split_ranges(n_test, n_train, k, sms))
+                         for k in ks]
                 print(f"{name} (Fn={Fn}, Fc={sum(cards)}) n_test={n_test} "
-                      f"n_train={n_train} k={ks}: exact for both metrics "
+                      f"n_train={n_train} k={ks}: exact for both metrics at "
+                      f"splits planned {plans}, 1, 2, 7, skip on and off "
                       f"(register rows="
                       f"{topk.register_rows(Fn, sum(cards))}, lists "
                       f"{[topk.list_size(k) or 'global' for k in ks]})",
@@ -683,7 +776,7 @@ def knn_phases(dev, rng):
     from avenir_tpu_torch.cli.jobs import resolve
     knn_props = os.path.join(RES, "knn.properties")
     elearn_schema = os.path.join(RES, "elearn.json")
-    topk.launches = 0
+    topk.launches = topk.split_merge_launches = 0
     with transfer_ledger() as knn_ledger:
         phase("16 knn main path")
         from gen.elearn_gen import generate as elearn_generate
@@ -734,7 +827,9 @@ def knn_phases(dev, rng):
                          f"{knn_counters[run]}")
     b5_launches = topk.launches
     knn_backends = knn_ledger.backend_snapshot()
-    print(f"knn main path: topk_scan launches={b5_launches}; "
+    print(f"knn main path: topk_scan launches={b5_launches}, split merges="
+          f"{topk.split_merge_launches} (these train sets are below "
+          f"{2 * topk.MIN_SPLIT_ROWS} rows: one split); "
           f"KernelBackends={knn_backends}; knnPipeline wall s {knn_wall}; "
           f"counters equal the fixture's", flush=True)
     if b5_launches <= 0:
@@ -758,12 +853,23 @@ def knn_phases(dev, rng):
     train_t = elearn_table(knn_rng, n_train, efs)
     comp = DistanceComputer(efs, metric="euclidean", scale=1000, device=dev)
     torch.cuda.synchronize()
+    # launch counts zeroed just before the two calls, read just after
+    topk.launches = topk.split_merge_launches = 0
     t0 = time.perf_counter()
     nd, nidx = comp.pairwise_topk(test_t, train_t, k)
     cold_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     nd2, nidx2 = comp.pairwise_topk(test_t, train_t, k)
     warm_s = time.perf_counter() - t0
+    scale_launches = (topk.launches, topk.split_merge_launches)
+    chunk_rows = [min(8192, n_test - s) for s in range(0, n_test, 8192)]
+    splits = [len(topk.split_ranges(r, n_train, k, sms)) for r in chunk_rows]
+    want_launches = (2 * len(chunk_rows), 2 * sum(s > 1 for s in splits))
+    print(f"pairwise_topk x 2: topk_scan launches={scale_launches[0]}, split "
+          f"merges={scale_launches[1]}; planned splits a chunk {splits} "
+          f"({sms} SMs)", flush=True)
+    if scale_launches != want_launches:
+        fail(f"20k x 200k launches {scale_launches} != {want_launches}")
     # the same work layer by layer, synchronised between layers
     layers = {}
     t0 = time.perf_counter()
@@ -779,8 +885,9 @@ def knn_phases(dev, rng):
     layers["h2d"] = time.perf_counter() - t0
     consts = (comp._n_cat, comp._denom, comp._fscale)
 
-    def chunked(metric):
-        outs = [topk.topk_scan(tc, oc, rn_d, roh_d, k, metric, *consts)
+    def chunked(metric, splits=None, skip=True):
+        outs = [topk.topk_scan(tc, oc, rn_d, roh_d, k, metric, *consts,
+                               splits=splits, skip=skip)
                 for tc, oc in chunks]
         return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
     t0 = time.perf_counter()
@@ -819,19 +926,50 @@ def knn_phases(dev, rng):
           flush=True)
 
     phase("18 B5 top-k kernel times")
+    # new: the planned splits + merge, skip on; old: one split, skip off
+    # (the design before both), in turns new, old, plain, new, old
     b5_t = {}
     for metric in ("euclidean", "manhattan"):
-        res_t = {"ms": cuda_ms(lambda: chunked(metric), 5)}
+        res_t = {"splits": splits,
+                 "ms": cuda_ms(lambda: chunked(metric), 5)}
+        res_t["old_ms"] = cuda_ms(lambda: chunked(metric, 1, False), 3)
         res_t["plain_ms"] = cuda_ms(lambda: topk.topk_scan_torch(
             tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 2)
         res_t["ms_again"] = cuda_ms(lambda: chunked(metric), 5)
+        res_t["old_ms_again"] = cuda_ms(lambda: chunked(metric, 1, False), 3)
+        res_t["skip_off_ms"] = cuda_ms(lambda: chunked(metric, None, False),
+                                       3)
+        res_t["one_split_ms"] = cuda_ms(lambda: chunked(metric, 1, True), 3)
         res_t["one_launch_ms"] = cuda_ms(lambda: topk.topk_scan(
             tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 3)
+        # the split merges alone, over the splits' own lists
+        merges = []
+        for tc, oc in chunks:
+            ranges = topk.split_ranges(tc.shape[0], n_train, k, sms)
+            lists = [topk.topk_scan(tc, oc, rn_d[a:b], roh_d[a:b], k, metric,
+                                    *consts, splits=1) for a, b in ranges]
+            merges.append(([d for d, _ in lists], [i for _, i in lists],
+                           [a for a, _ in ranges]))
+        res_t["split_merge_ms"] = cuda_ms(lambda: [topk.topk_merge(
+            ds, is_, bases, k) for ds, is_, bases in merges], 20)
+        res_t["split_merge_device_ms"] = device_ms(lambda: [topk.topk_merge(
+            ds, is_, bases, k) for ds, is_, bases in merges])
+        res_t["device_ms"] = device_ms(lambda: chunked(metric), 3)
+        merged = [topk.topk_merge(ds, is_, bases, k)
+                  for ds, is_, bases in merges]
+        whole = chunked(metric)
+        if not (torch.equal(torch.cat([m[0] for m in merged]), whole[0])
+                and torch.equal(torch.cat([m[1] for m in merged]), whole[1])):
+            fail(f"{metric}: the split lists merged differ from the scan")
         res_t.update(b5_bound(n_test, n_train, tn_h.shape[1],
                               toh_h.shape[1], k, metric))
         b5_t[metric] = res_t
         print(f"{metric} {n_test} x {n_train} k={k} ({len(chunks)} "
               f"test-chunk launches): {res_t}", flush=True)
+        print(f"  bound: {res_t['bound_ms']:.4f} ms restated (no divide or "
+              f"square root counted) vs "
+              f"{res_t['bound_ms_with_tail']:.4f} ms counting them",
+              flush=True)
     tn_f, rn_f = tn_d.contiguous(), rn_d.contiguous()
     cdist_ms = cuda_ms(lambda: torch.topk(torch.cdist(tn_f, rn_f), k, dim=1,
                                           largest=False), 3)
@@ -842,8 +980,8 @@ def knn_phases(dev, rng):
           f"lexicographic top-k: library_ms is null", flush=True)
     del tn_d, toh_d, rn_d, roh_d, chunks, kd, ki, pd, pi
 
-    return b5_err, b5_launches, b5_t, (efs, test_t, train_t, nd, nidx,
-                                       warm_s)
+    return b5_err, b5_launches, scale_launches, b5_t, (
+        efs, test_t, train_t, nd, nidx, warm_s)
 
 
 def mesh_of(devices, S):
@@ -860,7 +998,7 @@ def b6_phase(dev, rng):
     from avenir_tpu_torch.kernels import vote
     phase("19 B6 partial-vote and merge-finalize kernels vs plain versions")
     err = 0.0
-    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+    for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
         T, P, F, C, K = shape
         for n in ROW_COUNTS:
             stacked, vals, codes = random_forest_inputs(rng, shape, n)
@@ -882,7 +1020,11 @@ def b6_phase(dev, rng):
             for S in (1, 2, 3, 4):
                 slices = vote.shard_stacked_arrays(stacked, S)
                 models = [vote.prepare_vote_model(*a, dev) for a in slices]
+                forms = [vote_forms(m, want_form) for m in models]
                 parts = [vote.ensemble_partial_votes(v, c, m) for m in models]
+                # every other form of each slice: the same tallies
+                others = [[vote.ensemble_partial_votes(v, c, m2)
+                           for _, m2 in f[1:]] for f in forms]
                 step = models[0].shape[0]
                 if shared:
                     want = [voted[:, s * step:min((s + 1) * step, T)].sum(1)
@@ -894,15 +1036,19 @@ def b6_phase(dev, rng):
                             for m in models]
                 torch.cuda.synchronize()
                 for s, (got, w) in enumerate(zip(parts, want)):
-                    if got.shape != (n, K) or got.dtype != torch.float32:
-                        fail(f"partial votes output {tuple(got.shape)} "
-                             f"{got.dtype}")
-                    if n:
-                        err = max(err, float((got - w).abs().max().item()))
-                    if not torch.equal(got, w):
-                        fail(f"partial-vote kernel != plain version at shape "
-                             f"{shape}, n={n}, S={S}, shard {s}: "
-                             f"{int((got != w).sum().item())} tallies differ")
+                    for got_f in [got] + others[s]:
+                        if got_f.shape != (n, K) or \
+                                got_f.dtype != torch.float32:
+                            fail(f"partial votes output "
+                                 f"{tuple(got_f.shape)} {got_f.dtype}")
+                        if n:
+                            err = max(err, float((got_f - w).abs().max()
+                                                 .item()))
+                        if not torch.equal(got_f, w):
+                            fail(f"partial-vote kernel != plain version at "
+                                 f"shape {shape}, n={n}, S={S}, shard {s}: "
+                                 f"{int((got_f != w).sum().item())} tallies "
+                                 f"differ")
                 for mo in (1.0, 1.5):
                     merged = vote.vote_merge_finalize(parts, mo)
                     plain = vote.vote_merge_finalize_torch(parts, mo) if n \
@@ -923,7 +1069,8 @@ def b6_phase(dev, rng):
             if shared:
                 del voted
             print(f"shape T,P,F,C,K={shape} n={n} S=1..4: partial tallies "
-                  f"and merged votes exact (plain tallies "
+                  f"in forms {[f for f, _ in forms[0]]} and merged votes "
+                  f"exact (plain tallies "
                   f"{'from one first-match pass' if shared else 'direct'}; "
                   f"merged = B2; vetoes at 1.5: {vetoes})", flush=True)
     return err
@@ -1175,15 +1322,22 @@ def sharded_times(dev, ens, requests, fs, comp, scale, knn_warm_4):
     slices = vote.shard_stacked_arrays(
         (*ens.stacked_host(), np.asarray(ens.weights, np.float32)), S)
     models = [vote.prepare_vote_model(*a, dev) for a in slices]
+    olds = [scan_form(m) for m in models]
     K = models[0].shape[4]
-    b6 = {"ms": cuda_ms(lambda: [vote.ensemble_partial_votes(v, c, m)
-                                 for m in models], 50)}
+
+    def partials(ms):
+        return [vote.ensemble_partial_votes(v, c, m) for m in ms]
+    b6 = {"form": [vote.vote_form(m) for m in models],
+          "ms": cuda_ms(lambda: partials(models), 50)}
+    b6["old_ms"] = cuda_ms(lambda: partials(olds), 50)
     b6["plain_ms"] = cuda_ms(lambda: [vote.member_votes_torch(
         v, c, *m.stacked()) for m in models], 10)
-    b6["ms_again"] = cuda_ms(lambda: [vote.ensemble_partial_votes(v, c, m)
-                                      for m in models], 50)
+    b6["ms_again"] = cuda_ms(lambda: partials(models), 50)
+    b6["old_ms_again"] = cuda_ms(lambda: partials(olds), 50)
     b6["slice_ms"] = [cuda_ms(lambda m=m: vote.ensemble_partial_votes(
         v, c, m), 50) for m in models]
+    b6["device_ms"] = device_ms(lambda: partials(models))
+    b6["old_device_ms"] = device_ms(lambda: partials(olds))
     nbytes = S * (v.nbytes + c.nbytes + n * K * 4)
     tests = sum(predicate_tests(v, c, m) for m in models)
     b6.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1200,6 +1354,8 @@ def sharded_times(dev, ens, requests, fs, comp, scale, knn_warm_4):
         parts, 1.5), 10)
     fin["ms_again"] = cuda_ms(lambda: vote.vote_merge_finalize(parts, 1.5),
                               50)
+    fin["device_ms"] = device_ms(lambda: vote.vote_merge_finalize(parts,
+                                                                  1.5))
     nbytes = S * n * K * 4 + n * 4
     adds = n * K * (S - 1) + 2 * n * K
     fin.update(bytes=nbytes, bytes_ms=nbytes / HBM_BYTES_PER_S * 1e3,
@@ -1224,6 +1380,7 @@ def sharded_times(dev, ens, requests, fs, comp, scale, knn_warm_4):
     b7["plain_ms"] = cuda_ms(lambda: topk.topk_merge_torch(ds, is_, bases, k),
                              10)
     b7["ms_again"] = cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k), 50)
+    b7["device_ms"] = device_ms(lambda: topk.topk_merge(ds, is_, bases, k))
     cat_d = torch.cat(ds, dim=1)
     b7["sort_context_ms"] = cuda_ms(
         lambda: torch.sort(cat_d, dim=1, stable=True), 20)
@@ -1318,28 +1475,33 @@ def main():
     phase("3 kernel vs plain version")
     rng = np.random.default_rng(20261016)
     max_err = 0
-    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+    for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
         for n in ROW_COUNTS:
             stacked, vals, codes = random_forest_inputs(rng, shape, n)
             model = vote.prepare_vote_model(*stacked, dev)
             d_vals = torch.from_numpy(vals).to(dev)
             d_codes = torch.from_numpy(codes).to(dev)
+            forms = vote_forms(model, want_form)
             for min_odds in (1.0, 1.5):
-                got = vote.ensemble_vote(d_vals, d_codes, model, min_odds)
                 want = vote.ensemble_vote_torch(d_vals, d_codes,
                                                 *model.stacked(), min_odds)
-                torch.cuda.synchronize()
-                if got.shape != (n,) or got.dtype != torch.int32:
-                    fail(f"kernel output {tuple(got.shape)} {got.dtype}")
-                err = int((got.long() - want.long()).abs().max().item()) \
-                    if n else 0
-                max_err = max(max_err, err)
-                if err:
-                    bad = int((got != want).sum().item())
-                    fail(f"kernel != plain version at shape {shape}, n={n}, "
-                         f"min_odds={min_odds}: {bad} rows differ")
-            print(f"shape T,P,F,C,K={shape} n={n}: exact "
-                  f"(smem={model.smem_bytes() <= vote.SMEM_LIMIT}, "
+                for form, m in forms:
+                    got = vote.ensemble_vote(d_vals, d_codes, m, min_odds)
+                    torch.cuda.synchronize()
+                    if got.shape != (n,) or got.dtype != torch.int32:
+                        fail(f"kernel output {tuple(got.shape)} {got.dtype}")
+                    err = int((got.long() - want.long()).abs().max().item()) \
+                        if n else 0
+                    max_err = max(max_err, err)
+                    if err:
+                        bad = int((got != want).sum().item())
+                        fail(f"kernel ({form} form) != plain version at "
+                             f"shape {shape}, n={n}, min_odds={min_odds}: "
+                             f"{bad} rows differ")
+            print(f"shape T,P,F,C,K={shape} n={n}: exact in forms "
+                  f"{[f for f, _ in forms]} (table bytes "
+                  f"{model.table_bytes()}, scan smem="
+                  f"{model.smem_bytes() <= vote.SMEM_LIMIT}, "
                   f"vetoes={int((got == shape[4]).sum().item())})",
                   flush=True)
 
@@ -1348,7 +1510,7 @@ def main():
     os.makedirs(WORK)
     props = os.path.join(RES, "rafo.properties")
     schema = os.path.join(RES, "call_hangup.json")
-    vote.launches = 0
+    vote.launches = vote.table_launches = 0
     with transfer_ledger() as ledger:
         phase("4 golden rf fixture")
         sys.path.insert(0, RES)
@@ -1383,9 +1545,10 @@ def main():
         same_bytes(os.path.join(served, "part-m-00000"),
                    os.path.join(RAFO9, "served.csv"), "rafo9 predictionService")
     launches = vote.launches
+    main_table = vote.table_launches
     backends = ledger.backend_snapshot()
-    print(f"main path: ensemble_vote launches={launches}; "
-          f"KernelBackends={backends}", flush=True)
+    print(f"main path: ensemble_vote launches={launches}, of which the "
+          f"table form {main_table}; KernelBackends={backends}", flush=True)
     with open(served + ".counters.json") as fh:
         sc = json.load(fh)
     print(f"predictionService: {sc['Serving']['Requests']} requests in "
@@ -1396,6 +1559,10 @@ def main():
           f"{sc['Serving']['serve.request.p99Us']} us", flush=True)
     if launches <= 0:
         fail("the main path never launched the ensemble-vote kernel")
+    if main_table != launches:
+        fail(f"serving main path: {launches - main_table} vote launches "
+             f"took the scan form; the golden rf and rafo9 forests take the "
+             f"table form")
     if not backends.get("ensemble.vote.cuda"):
         fail("ledger shows no ensemble.vote.cuda")
     wrong = [k for k in backends if k.endswith((".torch", ".host"))]
@@ -1415,13 +1582,16 @@ def main():
     vals, codes = ens.models[0].matrix.feature_arrays(load_csv(requests, fs))
     n = 1_000_000
     reps = -(-n // len(vals))
+    vote_forms(ens._stacked, "table")
     rafo9 = time_vote(ens._stacked, np.tile(vals, (reps, 1))[:n],
-                      np.tile(codes, (reps, 1))[:n], plain=True)
+                      np.tile(codes, (reps, 1))[:n], plain=True,
+                      old=scan_form(ens._stacked))
     print(f"rafo9 forest {ens._stacked.shape} (T,P,F,C,K), n={n}: {rafo9}",
           flush=True)
     stacked, vals_r, codes_r = random_forest_inputs(rng, RAFO_SHAPE, n)
-    rnd = time_vote(vote.prepare_vote_model(*stacked, dev), vals_r, codes_r,
-                    plain=True)
+    rnd_model = vote.prepare_vote_model(*stacked, dev)
+    rnd = time_vote(rnd_model, vals_r, codes_r, plain=True,
+                    old=scan_form(rnd_model))
     print(f"random inputs at shape {RAFO_SHAPE}, n={n}: {rnd}", flush=True)
     stacked, vals_w, codes_w = random_forest_inputs(rng, WIDE_SHAPE, n)
     wide = time_vote(vote.prepare_vote_model(*stacked, dev), vals_w, codes_w,
@@ -1585,28 +1755,34 @@ def main():
 
     phase("11 int8 vote kernel vs plain version")
     b3_err = 0
-    for shape in (RAFO_SHAPE, WIDE_SHAPE):
+    for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
         for n in ROW_COUNTS:
             stacked, qv, qc = random_quantized_inputs(rng, shape, n)
             model = vote.prepare_quantized_vote_model(*stacked, dev)
             d_qv = torch.from_numpy(qv).to(dev)
             d_qc = torch.from_numpy(qc).to(dev)
+            forms = vote_forms(model, want_form)
             for min_odds in (1.0, 1.5):
-                got = vote.quantized_vote(d_qv, d_qc, model, min_odds)
                 want = vote.quantized_vote_torch(d_qv, d_qc,
                                                  *model.stacked(), min_odds)
-                torch.cuda.synchronize()
-                if got.shape != (n,) or got.dtype != torch.int32:
-                    fail(f"int8 vote output {tuple(got.shape)} {got.dtype}")
-                err = int((got.long() - want.long()).abs().max().item())
-                b3_err = max(b3_err, err)
-                if err:
-                    bad = int((got != want).sum().item())
-                    fail(f"int8 vote kernel != plain version at shape "
-                         f"{shape}, n={n}, min_odds={min_odds}: {bad} rows "
-                         f"differ")
-            print(f"int8 shape T,P,F,C,K={shape} n={n}: exact "
-                  f"(smem={model.smem_bytes() <= vote.SMEM_LIMIT}, "
+                for form, m in forms:
+                    got = vote.quantized_vote(d_qv, d_qc, m, min_odds)
+                    torch.cuda.synchronize()
+                    if got.shape != (n,) or got.dtype != torch.int32:
+                        fail(f"int8 vote output {tuple(got.shape)} "
+                             f"{got.dtype}")
+                    err = int((got.long() - want.long()).abs().max().item()) \
+                        if n else 0
+                    b3_err = max(b3_err, err)
+                    if err:
+                        bad = int((got != want).sum().item())
+                        fail(f"int8 vote kernel ({form} form) != plain "
+                             f"version at shape {shape}, n={n}, "
+                             f"min_odds={min_odds}: {bad} rows differ")
+            print(f"int8 shape T,P,F,C,K={shape} n={n}: exact in forms "
+                  f"{[f for f, _ in forms]} (table bytes "
+                  f"{model.table_bytes()}, "
+                  f"smem={model.smem_bytes() <= vote.SMEM_LIMIT}, "
                   f"smem_bytes={model.smem_bytes()}, "
                   f"vetoes={int((got == shape[4]).sum().item())})",
                   flush=True)
@@ -1636,7 +1812,7 @@ def main():
                   f"total={float(want.sum().item()):.0f})", flush=True)
 
     # ---- the sidecar main path: counts zeroed just before, read after ----
-    vote.launches = vote.quantized_launches = 0
+    vote.launches = vote.quantized_launches = vote.table_launches = 0
     histogram.launches = histogram.bin_counts_launches = 0
     with transfer_ledger() as side_ledger:
         phase("13 sidecar main path")
@@ -1686,12 +1862,18 @@ def main():
                    "rafo9q predictionService -Dps.quantized=true")
     b3_launches = vote.quantized_launches
     b4_launches = histogram.bin_counts_launches
+    side_table = vote.table_launches
+    if side_table != vote.launches + b3_launches:
+        fail(f"sidecar main path: {vote.launches + b3_launches - side_table} "
+             f"float or int8 vote launches took the scan form; the rafo9 "
+             f"forests take the table form")
     side_backends = side_ledger.backend_snapshot()
     with open(served_q + ".counters.json") as fh:
         sq = json.load(fh)
     print(f"sidecar main path: launches in the publish {publish_launches}, "
           f"quantized_vote launches in all={b3_launches}, bin_counts "
-          f"launches={b4_launches}; KernelBackends={side_backends}; "
+          f"launches={b4_launches}, table-form vote launches={side_table}; "
+          f"KernelBackends={side_backends}; "
           f"randomForestBuilder {q_train_s:.2f} s wall; predictionService "
           f"{sq['Serving']['Requests']} requests in "
           f"{sq['Serving']['Batches']} batches, "
@@ -1722,8 +1904,11 @@ def main():
     qv, qc = qf.quantize_rows(req_vals, req_codes)
     n = 1_000_000
     reps = -(-n // len(qv))
-    b3 = time_vote(qf.prepare(dev).model, np.tile(qv, (reps, 1))[:n],
-                   np.tile(qc, (reps, 1))[:n], plain=True)
+    q_vote = qf.prepare(dev).model
+    vote_forms(q_vote, "table")
+    b3 = time_vote(q_vote, np.tile(qv, (reps, 1))[:n],
+                   np.tile(qc, (reps, 1))[:n], plain=True,
+                   old=scan_form(q_vote))
     print(f"int8 rafo9 forest {qf.q_lo.shape} (T,P,F), n={n}: {b3}",
           flush=True)
     specs = monitor_specs(fs)
@@ -1737,7 +1922,7 @@ def main():
           "(torch.bincount needs the flat index and validity mask built "
           "first): library_ms is null", flush=True)
 
-    b5_err, b5_launches, b5_t, knn_scale = knn_phases(dev, rng)
+    b5_err, b5_launches, b5_scale, b5_t, knn_scale = knn_phases(dev, rng)
 
     b6_err = b6_phase(dev, rng)
     b7_err = b7_phase(dev, rng)
@@ -1767,28 +1952,33 @@ def main():
         "launches": launches, "max_abs_err": max_err,
         "ms": rafo9["ms"], "plain_ms": rafo9["plain_ms"],
         "bound_ms": rafo9["bound_ms"], "bound_by": rafo9["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "form": rafo9["form"],
+        "table_launches": main_table, "old_form": rafo9["old_form"],
+        "old_ms": rafo9["old_ms"], "device_ms": rafo9["device_ms"],
+        "old_device_ms": rafo9["old_device_ms"]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
         "launches": b1_launches, "max_abs_err": b1_err,
         "ms": rafo_t["ms"], "plain_ms": rafo_t["plain_ms"],
         "bound_ms": rafo_t["bound_ms"], "bound_by": rafo_t["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "device_ms": rafo_t["device_ms"]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
         "launches": b3_launches, "max_abs_err": b3_err,
         "ms": b3["ms"], "plain_ms": b3["plain_ms"],
         "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "form": b3["form"], "old_form": b3["old_form"],
+        "old_ms": b3["old_ms"], "device_ms": b3["device_ms"],
+        "old_device_ms": b3["old_device_ms"]}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
         "launches": b4_launches, "max_abs_err": b4_err,
         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "device_ms": b4["device_ms"]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -1797,14 +1987,24 @@ def main():
         "plain_ms": b5_t["euclidean"]["plain_ms"],
         "bound_ms": b5_t["euclidean"]["bound_ms"],
         "bound_by": b5_t["euclidean"]["bound_by"],
-        "library_ms": None}, {
+        "library_ms": None, "splits": b5_t["euclidean"]["splits"],
+        "scale_launches": b5_scale[0], "split_merge_launches": b5_scale[1],
+        "split_merge_ms": b5_t["euclidean"]["split_merge_ms"],
+        "old_ms": b5_t["euclidean"]["old_ms"],
+        "bound_ms_with_tail": b5_t["euclidean"]["bound_ms_with_tail"],
+        "device_ms": b5_t["euclidean"]["device_ms"],
+        "split_merge_device_ms":
+            b5_t["euclidean"]["split_merge_device_ms"]}, {
         "name": "ensemble_partial_votes", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:73",
         "launches": b6_launches, "max_abs_err": b6_err,
         "ms": b6_t["ms"], "plain_ms": b6_t["plain_ms"],
         "bound_ms": b6_t["bound_ms"], "bound_by": b6_t["bound_by"],
-        "library_ms": None,
+        "library_ms": None, "form": b6_t["form"],
+        "old_ms": b6_t["old_ms"], "device_ms": b6_t["device_ms"],
+        "old_device_ms": b6_t["old_device_ms"],
+        "finalize_device_ms": fin_t["device_ms"],
         "finalize_launches": fin_launches, "finalize_ms": fin_t["ms"],
         "finalize_plain_ms": fin_t["plain_ms"],
         "finalize_bound_ms": fin_t["bound_ms"],
@@ -1816,7 +2016,7 @@ def main():
         "max_abs_err": b7_err,
         "ms": b7_t["ms"], "plain_ms": b7_t["plain_ms"],
         "bound_ms": b7_t["bound_ms"], "bound_by": b7_t["bound_by"],
-        "library_ms": None}]}), flush=True)
+        "library_ms": None, "device_ms": b7_t["device_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
