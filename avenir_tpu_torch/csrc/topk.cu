@@ -41,8 +41,8 @@
 //
 // The train-sharded form (kernel B7, replacing ops/pallas/topk.py:128
 // `topk_scan_sharded`) runs this scan once per shard of the train rows and
-// merges the shards' lists with `avenir_topk_merge` below: one thread per
-// test row walks S ascending lists with one cursor each and keeps k slots.
+// merges the shards' lists with `avenir_topk_merge` below (a lane group a
+// test row, one lane a list, k rounds of a shuffle argmin).
 //
 // Design, and what it does about that bound:
 // - The block's 64 test rows sit in registers (numeric features up to 8,
@@ -55,7 +55,7 @@
 // - The train axis is split over the grid's y dimension: block (x, s)
 //   scans split s, a contiguous train range, and writes that range's
 //   (nt, k) list (local indices, -1 dead) to scratch; one launch of
-//   `avenir_topk_merge` below merges the splits.  The splits are ascending
+//   `avenir_topk_merge_stacked` below merges the splits.  The splits are ascending
 //   contiguous ranges, which is the merge's tie rule, so the result equals
 //   a single-range scan bit for bit.  One thread per test row alone gives
 //   an 8,192-row chunk 128 blocks, about 2 warps an SM; kernels/topk.py
@@ -419,23 +419,172 @@ bool register_rows(int Fn, int Fc) {
   return Fn <= kRegFn && (Fc + 31) / 32 <= kRegWords;
 }
 
-// The shards' (nt, k) lists, by value (a kernel parameter): distances,
-// local train indices (-1 = dead slot) and each shard's first global row;
-// at most parallel/mesh.py MAX_SHARDS shards, as a DeviceMesh holds.
+// ---------------------------------------------------------------------------
+// The top-k merge (kernel B7's merge, and the join of B5's train splits).
+//
+// Replaces the lexicographic k-selection of ops/pallas/topk.py:128
+// `topk_scan_sharded` (its per-shard lists merged), and joins B5's split
+// lists (`avenir_topk_scan` with splits > 1).  S lists a test row, each
+// ascending by (d, local index) with its dead slots (index < 0) last, come
+// from ascending contiguous train ranges; the merge keeps the row's k
+// smallest (d, global index) pairs.  On equal d the lower list holds the
+// lower global index, so taking the first list whose head is strictly
+// smallest keeps the lexicographic order with no index compare.  A slot
+// nothing fills, or whose distance is +inf, is (+inf, -1).
+//
+// What bounds it on the H100: bytes, S*k*8 read and k*8 written a row (4
+// shards x 20,000 rows x k = 10: 8 MB, 0.0024 ms at 3.35 TB/s).
+//
+// Design (`topk_merge_warp_kernel`): a lane group of G = the next power of
+// two >= S lanes a row (32 / G rows a warp; for S > 32 each lane holds two
+// lists, s and s + 32).  Lane s keeps list s's cursor, its head (d, i) and
+// the next entry, prefetched, in registers.  Each of the k rounds is a
+// shuffle argmin over the key (d, s) inside the group: the distance's bits
+// made order-preserving in the high word (-0 counted as +0, so equal
+// distances tie), s in the low word, so the lower list wins a tie exactly
+// as the first strictly smallest head does.  Lists whose cursor reached k,
+// or whose head is dead, drop out with the largest key; a group with no
+// live head writes (+inf, -1), and a +inf head writes index -1.  B5's lists
+// hold no NaN (its insert is strict-less), and a NaN head would sort after
+// +inf here.  The winning lane writes the slot and advances, loading the
+// entry after its new head while the next rounds run.  Lists are read
+// through two accessors: separate tensors (`ListArray`: the sharded path's
+// lists gathered from shards) or one contiguous (S, nt, k) tensor
+// (`ListStack`: B5's split lists, bases s * step).
+//
+// `topk_merge_kernel` below is the first port's merge (one thread a row,
+// S dependent loads strided by k an output slot, cursors in local memory).
+// It runs only when a caller forces it (`old`), to time the two designs
+// against each other.
 constexpr int kMaxShards = 64;
-struct ShardLists {
+
+// Separate (nt, k) lists: distances, local train indices (-1 = dead slot)
+// and each list's first global row; at most parallel/mesh.py MAX_SHARDS,
+// as a DeviceMesh holds.  Passed by value (a kernel parameter).
+struct ListArray {
   const float* d[kMaxShards];
   const int* i[kMaxShards];
   int base[kMaxShards];
+  __device__ float dist(int s, long long at) const { return d[s][at]; }
+  __device__ int index(int s, long long at) const { return i[s][at]; }
+  __device__ int first(int s) const { return base[s]; }
 };
 
-// Merge S lists, each ascending by (d, local index) with its dead slots
-// last, into the row's k smallest (d, global index) pairs.  Shards are
-// ascending contiguous train ranges, so on equal d the lower shard holds the
-// lower global index: taking the first shard whose head is strictly
-// smallest keeps the lexicographic order with no index compare.  A slot
-// nothing fills, or whose distance is +inf, is (+inf, -1).
-__global__ void topk_merge_kernel(ShardLists L, int S, int nt, int k,
+// One contiguous (S, nt, k) pair of tensors; list s starts at global row
+// s * step.
+struct ListStack {
+  const float* d;
+  const int* i;
+  long long plane;  // nt * k
+  int step;
+  __device__ float dist(int s, long long at) const {
+    return d[s * plane + at];
+  }
+  __device__ int index(int s, long long at) const {
+    return i[s * plane + at];
+  }
+  __device__ int first(int s) const { return s * step; }
+};
+
+constexpr unsigned long long kDeadKey = ~0ull;
+
+// Order-preserving bits of a non-NaN float (-0 as +0).
+__device__ __forceinline__ unsigned ordered(float d) {
+  const unsigned u = __float_as_uint(d == 0.0f ? 0.0f : d);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+// One list's cursor a lane: the head (d, i) at `cur`, the next entry.
+struct Head {
+  float d, nd;
+  int i, ni, cur;
+};
+
+template <class Lists>
+__device__ __forceinline__ void head_init(Head& h, const Lists& L, int s,
+                                          bool live, long long off, int k) {
+  h.cur = 0;
+  h.i = h.ni = -1;
+  h.d = h.nd = INFINITY;
+  if (!live) return;
+  h.d = L.dist(s, off);
+  h.i = L.index(s, off);
+  if (k > 1) {
+    h.nd = L.dist(s, off + 1);
+    h.ni = L.index(s, off + 1);
+  }
+}
+
+template <class Lists>
+__device__ __forceinline__ void head_advance(Head& h, const Lists& L, int s,
+                                             long long off, int k) {
+  h.cur += 1;
+  h.d = h.nd;
+  h.i = h.ni;
+  if (h.cur + 1 < k) {
+    h.nd = L.dist(s, off + h.cur + 1);
+    h.ni = L.index(s, off + h.cur + 1);
+  } else {
+    h.ni = -1;
+  }
+}
+
+__device__ __forceinline__ unsigned long long head_key(const Head& h, int s) {
+  return h.i >= 0 ? ((unsigned long long)ordered(h.d) << 32) | (unsigned)s
+                  : kDeadKey;
+}
+
+// LG: log2 of the lanes a row (G = 1 << LG); for G = 32 a lane holds lists
+// lane and lane + 32.
+template <int LG, class Lists>
+__global__ void topk_merge_warp_kernel(Lists L, int S, int nt, int k,
+                                       float* __restrict__ od,
+                                       int* __restrict__ oi) {
+  constexpr int G = 1 << LG;
+  constexpr int kRowsPerWarp = 32 / G;
+  const int lane = threadIdx.x & 31;
+  const long long warp = ((long long)blockIdx.x * blockDim.x + threadIdx.x)
+                         >> 5;
+  const long long row = warp * kRowsPerWarp + (lane >> LG);
+  const int sub = lane & (G - 1);
+  const bool row_ok = row < nt;
+  const long long off = row * k;
+  Head h0, h1;
+  head_init(h0, L, sub, row_ok && sub < S, off, k);
+  head_init(h1, L, sub + 32, G == 32 && row_ok && sub + 32 < S, off, k);
+  for (int j = 0; j < k; ++j) {
+    unsigned long long key = head_key(h0, sub);
+    if (G == 32) key = min(key, head_key(h1, sub + 32));
+#pragma unroll
+    for (int o = G / 2; o >= 1; o >>= 1) {
+      key = min(key, __shfl_xor_sync(0xffffffffu, key, o));
+    }
+    if (!row_ok) continue;
+    if (key == kDeadKey) {
+      if (sub == 0) {
+        od[off + j] = INFINITY;
+        oi[off + j] = -1;
+      }
+      continue;
+    }
+    const int ws = (int)(key & 0xffffffffu);
+    if ((ws & 31) != sub) continue;
+    const bool hi_list = G == 32 && ws >= 32;
+    const float d = hi_list ? h1.d : h0.d;
+    const int li = hi_list ? h1.i : h0.i;
+    od[off + j] = d;
+    oi[off + j] = isinf(d) ? -1 : li + L.first(ws);
+    if (hi_list) {
+      head_advance(h1, L, ws, off, k);
+    } else {
+      head_advance(h0, L, ws, off, k);
+    }
+  }
+}
+
+// The first port's merge, kept as a timing reference (see above).
+template <class Lists>
+__global__ void topk_merge_kernel(Lists L, int S, int nt, int k,
                                   float* __restrict__ od,
                                   int* __restrict__ oi) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
@@ -449,9 +598,9 @@ __global__ void topk_merge_kernel(ShardLists L, int S, int nt, int k,
     int bi = -1;
     for (int s = 0; s < S; ++s) {
       if (cur[s] >= k) continue;
-      const int li = L.i[s][off + cur[s]];
+      const int li = L.index(s, off + cur[s]);
       if (li < 0) continue;
-      const float d = L.d[s][off + cur[s]];
+      const float d = L.dist(s, off + cur[s]);
       if (best < 0 || d < bd) {
         best = s;
         bd = d;
@@ -463,36 +612,77 @@ __global__ void topk_merge_kernel(ShardLists L, int S, int nt, int k,
       oi[off + j] = -1;
     } else {
       od[off + j] = bd;
-      oi[off + j] = isinf(bd) ? -1 : bi + L.base[best];
+      oi[off + j] = isinf(bd) ? -1 : bi + L.first(best);
       ++cur[best];
     }
   }
 }
 
+template <int LG, class Lists>
+void launch_merge_warp(const Lists& L, int S, int nt, int k, float* od,
+                       int* oi, cudaStream_t stream) {
+  constexpr int kThreads = 256;
+  constexpr int rows = (kThreads / 32) * (32 >> LG);
+  topk_merge_warp_kernel<LG, Lists><<<(nt + rows - 1) / rows, kThreads, 0,
+                                      stream>>>(L, S, nt, k, od, oi);
+}
+
+template <class Lists>
+int launch_merge(const Lists& L, int S, int nt, int k, float* od, int* oi,
+                 int old, void* stream) {
+  if (S < 1 || S > kMaxShards || k < 1) return (int)cudaErrorInvalidValue;
+  if (nt <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (old) {
+    const int threads = 128;
+    topk_merge_kernel<Lists><<<(nt + threads - 1) / threads, threads, 0, s>>>(
+        L, S, nt, k, od, oi);
+  } else if (S == 1) {
+    launch_merge_warp<0>(L, S, nt, k, od, oi, s);
+  } else if (S == 2) {
+    launch_merge_warp<1>(L, S, nt, k, od, oi, s);
+  } else if (S <= 4) {
+    launch_merge_warp<2>(L, S, nt, k, od, oi, s);
+  } else if (S <= 8) {
+    launch_merge_warp<3>(L, S, nt, k, od, oi, s);
+  } else if (S <= 16) {
+    launch_merge_warp<4>(L, S, nt, k, od, oi, s);
+  } else {
+    launch_merge_warp<5>(L, S, nt, k, od, oi, s);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// The merge of the train-sharded scan.  `d` and `i` are host arrays of S
-// device pointers to each shard's (nt, k) float32 distances and int32 local
-// indices (a shard's `avenir_topk_scan` output, gathered onto the current
-// device), `base` the S shards' first global train rows, 1 <= S <= 64.
-// Outputs od (nt, k) float32, oi (nt, k) int32.  Launch on `stream`;
+// The top-k merge over separate lists (the train-sharded scan).  `d` and
+// `i` are host arrays of S device pointers to each list's (nt, k) float32
+// distances and int32 local indices (a shard's `avenir_topk_scan` output,
+// gathered onto the current device), `base` the S lists' first global
+// train rows, 1 <= S <= 64.  Outputs od (nt, k) float32, oi (nt, k) int32.
+// old != 0 runs the first port's merge (timing only).  Launch on `stream`;
 // returns cudaGetLastError() (0 = ok).
 extern "C" int avenir_topk_merge(const float* const* d, const int* const* i,
                                  const int* base, int S, int nt, int k,
-                                 float* od, int* oi, void* stream) {
-  if (S < 1 || S > kMaxShards || k < 1) return (int)cudaErrorInvalidValue;
-  if (nt <= 0) return 0;
-  ShardLists L{};
+                                 float* od, int* oi, int old, void* stream) {
+  if (S < 1 || S > kMaxShards) return (int)cudaErrorInvalidValue;
+  ListArray L{};
   for (int s = 0; s < S; ++s) {
     L.d[s] = d[s];
     L.i[s] = i[s];
     L.base[s] = base[s];
   }
-  const int threads = 128;
-  topk_merge_kernel<<<(nt + threads - 1) / threads, threads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(L, S, nt, k, od,
-                                                           oi);
-  return (int)cudaGetLastError();
+  return launch_merge(L, S, nt, k, od, oi, old, stream);
+}
+
+// The same merge over one contiguous (S, nt, k) pair (B5's split lists):
+// list s's first global train row is s * step.
+extern "C" int avenir_topk_merge_stacked(const float* d, const int* i,
+                                         int step, int S, int nt, int k,
+                                         float* od, int* oi, int old,
+                                         void* stream) {
+  ListStack L{d, i, (long long)nt * k, step};
+  return launch_merge(L, S, nt, k, od, oi, old, stream);
 }
 
 // Launch on `stream`; returns cudaGetLastError() after the launches (0 = ok).

@@ -17,7 +17,13 @@ in any summation order: the kernel and the plain version agree bit for bit.
 
 :func:`forest_level_counts` launches ``csrc/histogram.cu`` for CUDA tensors
 and runs :func:`forest_level_counts_torch` for CPU tensors
-(``kernels/dispatch.py``); ``launches`` counts kernel launches.
+(``kernels/dispatch.py``); ``launches`` counts kernel launches.  The kernel
+has two forms, which :func:`level_form` picks from the shape and the weight
+dtype: ``"mma"``, the one-hot contraction on the integer tensor cores (u8
+operands, int32 sums; uint8 weights, histograms that :func:`mma_plan` fits
+in registers and shared memory), and ``"atomic"``, shared-memory atomic adds
+(float32 weights and wider histograms).  ``mma_launches`` counts the mma
+form's launches.
 
 :func:`bin_counts` replaces the TPU kernel ``avenir_tpu/ops/pallas/histogram.py``
 ``bin_counts`` (XLA twin ``ops/histogram.py`` ``feature_bin_counts``), the
@@ -33,6 +39,9 @@ launch ``csrc/bin_counts.cu``, CPU tensors run :func:`bin_counts_torch`;
 from __future__ import annotations
 
 import ctypes
+import functools
+from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -42,14 +51,35 @@ from .dispatch import BACKEND_CUDA, resolve_backend
 # zeroes them around the main path and reads them back): the level
 # histogram's and the bin counts'
 launches = 0
+mma_launches = 0
 bin_counts_launches = 0
 
-# the per-block accumulator lives in shared memory up to this size (the
-# H100 gives a block up to 227 KB; the launch raises the 48 KB default);
-# wider histograms are added straight into global memory
+# a block's dynamic shared memory limit (the H100 gives a block up to 227
+# KB; the launch raises the 48 KB default): the atomic form keeps its
+# per-block accumulator there up to this size (wider histograms add
+# straight into global memory); the mma form's buffers must fit in it
 SMEM_LIMIT = 200 * 1024
 # element budget of one row chunk of the plain version's one-hot operands
 _TORCH_CHUNK_ELEMS = 1 << 26
+
+# the mma form's plan (csrc/histogram.cu kMmaRows, kMmaWarps, kWarpTiles):
+# rows a staged tile, warps a block, the warp tile shapes the kernel is
+# built for (MT m16 tiles x NT n8 tiles a warp, 4 int32 accumulators a
+# tile), the most slabs the T*N axis is cut into over the grid (each reads
+# every row again)
+MMA_ROWS = 128
+# bytes of an operand row (csrc/histogram.cu kOpStride): one column's
+# MMA_ROWS bytes, padded to 4 x an odd number of words
+MMA_OP_STRIDE = MMA_ROWS + 16
+MMA_WARPS = 8
+MMA_WARP_TILES = ((1, 4), (1, 8), (1, 12), (1, 16), (2, 4), (2, 8), (4, 4))
+MMA_SLABS_MAX = 4
+# the most blocks an SM the mma form's grid takes (fewer where fewer are
+# resident); each block writes one row of partial sums, which a second
+# kernel adds up
+MMA_BLOCKS_PER_SM = 2
+
+FORMS = ("mma", "atomic")
 
 _WEIGHT_DTYPES = {torch.uint8: 0, torch.float32: 1}
 
@@ -99,14 +129,100 @@ def forest_level_counts_torch(node_ids: torch.Tensor, branches: torch.Tensor,
 
 
 # --------------------------------------------------------------------------
+# which form runs
+# --------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class MmaPlan:
+    """How the mma form cuts a (T*N) x (C*S*B) product: ``m_tiles`` m16
+    and ``n_tiles`` n8 tiles, ``slab_tiles`` m16 tiles a slab (grid y),
+    ``slabs`` slabs; the block's warps as a (MMA_WARPS / wn) x ``wn`` grid
+    over a slab's tiles, each holding at most ``MMA_WARP_TILES[shape]``
+    (m-tiles, n-tiles); and the dynamic shared memory: two staging buffers
+    and two operand buffers."""
+    m_tiles: int
+    n_tiles: int
+    slab_tiles: int
+    slabs: int
+    wn: int
+    shape: int
+    smem_bytes: int
+
+
+def _round16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def stage_bytes(T: int, S: int) -> int:
+    """One staging buffer of the mma form (``csrc/histogram.cu``
+    ``stage_sizes``): a tile's node ids, weights, branch codes and classes,
+    each with room for the partial 16-byte granules at its ends."""
+    return (_round16(MMA_ROWS * T * 4 + 32) + _round16(MMA_ROWS * T + 32)
+            + _round16(MMA_ROWS * S * 4 + 32) + _round16(MMA_ROWS * 4 + 32))
+
+
+def operand_bytes(slab_tiles: int, n_tiles: int) -> int:
+    """One operand buffer (``csrc/histogram.cu`` ``operand_bytes``): a
+    slab's A rows and Bm's rows, ``MMA_OP_STRIDE`` bytes each (a row holds
+    one column's bytes for the tile's rows)."""
+    return (slab_tiles * 16 + n_tiles * 8) * MMA_OP_STRIDE
+
+
+@functools.lru_cache(maxsize=None)
+def mma_plan(T: int, N: int, S: int, B: int, C: int) -> Optional[MmaPlan]:
+    """The mma form's plan for a (T, N, S, B, C) level, or None where it
+    does not fit: more than ``MMA_SLABS_MAX`` slabs, or shared memory past
+    ``SMEM_LIMIT``.  Of the warp grids and tile shapes, the one with the
+    fewest slabs, then the fewest instructions a warp a k-step (its mma,
+    one A fragment load an m-tile, one B load two n-tiles), then the
+    fewest accumulators."""
+    m_tiles = -(-T * N // 16)
+    n_tiles = -(-C * S * B // 8)
+    best = None
+    for wn in (1, 2, 4, 8):
+        wm = MMA_WARPS // wn
+        nt = -(-n_tiles // wn)
+        for shape, (tm, tn) in enumerate(MMA_WARP_TILES):
+            if nt > tn:
+                continue
+            slabs = -(-m_tiles // (wm * tm))
+            slab_tiles = -(-m_tiles // slabs)   # slabs of even size
+            mt = -(-slab_tiles // wm)
+            if mt > tm:
+                continue
+            key = (slabs, mt * nt + mt + -(-nt // 2), tm * tn)
+            if best is None or key < best[0]:
+                best = (key, slabs, slab_tiles, wn, shape)
+    if best is None or best[1] > MMA_SLABS_MAX:
+        return None
+    _, slabs, slab_tiles, wn, shape = best
+    smem = 2 * stage_bytes(T, S) + 2 * operand_bytes(slab_tiles, n_tiles)
+    if smem > SMEM_LIMIT:
+        return None
+    return MmaPlan(m_tiles, n_tiles, slab_tiles, slabs, wn, shape, smem)
+
+
+def level_form(T: int, N: int, S: int, B: int, C: int,
+               weight_dtype: torch.dtype) -> str:
+    """The form the kernel runs for a (T, N, S, B, C) level: ``"mma"`` for
+    uint8 weights where :func:`mma_plan` fits, else ``"atomic"`` (float32
+    weights, which the u8 operands cannot hold, and wider levels)."""
+    if weight_dtype == torch.uint8 and mma_plan(T, N, S, B, C) is not None:
+        return "mma"
+    return "atomic"
+
+
+# --------------------------------------------------------------------------
 # the wrapper
 # --------------------------------------------------------------------------
 
 _entry = None
+_mma_entry = None
 
 
 def _lib():
-    """The kernel's C entry point, typed (built and loaded on first use)."""
+    """The atomic form's C entry point, typed (built and loaded on first
+    use)."""
     global _entry
     if _entry is None:
         from .build import load
@@ -117,6 +233,21 @@ def _lib():
         fn.restype = ctypes.c_int
         _entry = fn
     return _entry
+
+
+def _mma_lib():
+    """The mma form's C entry point, typed (built and loaded on first
+    use)."""
+    global _mma_entry
+    if _mma_entry is None:
+        from .build import load
+        fn = load("histogram").avenir_forest_level_counts_mma
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        fn.argtypes = [p, p, p, p, ll, i, i, i, i, i, i, i, i, i, ll, p, i,
+                       p, p]
+        fn.restype = ctypes.c_int
+        _mma_entry = fn
+    return _mma_entry
 
 
 def _check(node_ids, branches, cls, weights, n_nodes, B, C):
@@ -146,8 +277,9 @@ def _check(node_ids, branches, cls, weights, n_nodes, B, C):
                          "more")
 
 
-def _launch(node_ids, branches, cls, weights, n_nodes, B, C) -> torch.Tensor:
-    global launches
+def _launch(node_ids, branches, cls, weights, n_nodes, B, C,
+            form=None) -> torch.Tensor:
+    global launches, mma_launches
     n, T = node_ids.shape
     S = branches.shape[1]
     N = int(n_nodes)
@@ -156,36 +288,66 @@ def _launch(node_ids, branches, cls, weights, n_nodes, B, C) -> torch.Tensor:
         if not t.is_contiguous():
             raise ValueError(f"forest_level_counts: {name} must be "
                              f"contiguous")
-    out = torch.zeros((T, N, S, B, C), dtype=torch.float32,
-                      device=node_ids.device)
+    want = level_form(T, N, S, B, C, weights.dtype)
+    form = want if form is None else form
+    if form == "mma" and want != "mma":
+        raise ValueError(f"forest_level_counts: the mma form takes uint8 "
+                         f"weights at a level mma_plan fits, not "
+                         f"{weights.dtype} at (T,N,S,B,C)="
+                         f"{(T, N, S, B, C)}")
+    dev = node_ids.device
     if n == 0:
-        return out
-    smem = T * N * S * B * C * 4
-    use_smem = smem <= SMEM_LIMIT
-    with torch.cuda.device(node_ids.device):
-        stream = torch.cuda.current_stream(node_ids.device).cuda_stream
-        err = _lib()(node_ids.data_ptr(), branches.data_ptr(),
-                     cls.data_ptr(), weights.data_ptr(),
-                     _WEIGHT_DTYPES[weights.dtype], n, T, N, S, B, C,
-                     out.data_ptr(), int(use_smem), smem if use_smem else 0,
-                     stream)
+        return torch.zeros((T, N, S, B, C), dtype=torch.float32, device=dev)
+    # the mma form's second kernel writes every cell; the atomic form adds
+    out = (torch.empty if form == "mma" else torch.zeros)(
+        (T, N, S, B, C), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if form == "mma":
+            plan = mma_plan(T, N, S, B, C)
+            blocks = torch.cuda.get_device_properties(dev) \
+                .multi_processor_count * MMA_BLOCKS_PER_SM
+            partial = torch.empty((blocks, T * N * S * B * C),
+                                  dtype=torch.int32, device=dev)
+            err = _mma_lib()(node_ids.data_ptr(), branches.data_ptr(),
+                             cls.data_ptr(), weights.data_ptr(), n, T, N, S,
+                             B, C, plan.slab_tiles, plan.slabs, plan.wn,
+                             plan.shape, plan.smem_bytes, partial.data_ptr(),
+                             blocks, out.data_ptr(), stream)
+        else:
+            smem = T * N * S * B * C * 4
+            use_smem = smem <= SMEM_LIMIT
+            err = _lib()(node_ids.data_ptr(), branches.data_ptr(),
+                         cls.data_ptr(), weights.data_ptr(),
+                         _WEIGHT_DTYPES[weights.dtype], n, T, N, S, B, C,
+                         out.data_ptr(), int(use_smem),
+                         smem if use_smem else 0, stream)
     if err != 0:
-        raise RuntimeError(f"forest_level_counts kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"forest_level_counts kernel launch failed "
+                           f"({form} form): CUDA error {err}")
     launches += 1
+    if form == "mma":
+        mma_launches += 1
     return out
 
 
 def forest_level_counts(node_ids: torch.Tensor, branches: torch.Tensor,
                         cls: torch.Tensor, weights: torch.Tensor,
-                        n_nodes: int, B: int, C: int) -> torch.Tensor:
+                        n_nodes: int, B: int, C: int, *,
+                        form: Optional[str] = None) -> torch.Tensor:
     """(T,N,S,B,C) float32 level counts.  CUDA tensors launch
-    ``csrc/histogram.cu``; CPU tensors run
+    ``csrc/histogram.cu`` in the :func:`level_form` form; CPU tensors run
     :func:`forest_level_counts_torch`.  n = 0 returns zeros without a
-    launch."""
+    launch.  ``form`` forces ``"mma"`` or ``"atomic"``, to hold the two
+    forms against each other (``"mma"`` raises where the level does not
+    take it); it never changes the answer."""
     _check(node_ids, branches, cls, weights, n_nodes, B, C)
+    if form is not None and form not in FORMS:
+        raise ValueError(f"forest_level_counts: form must be one of "
+                         f"{FORMS}, got {form!r}")
     if resolve_backend(node_ids.device) == BACKEND_CUDA:
-        return _launch(node_ids, branches, cls, weights, n_nodes, B, C)
+        return _launch(node_ids, branches, cls, weights, n_nodes, B, C,
+                       form)
     return forest_level_counts_torch(node_ids, branches, cls, weights,
                                      n_nodes, B, C)
 

@@ -49,10 +49,11 @@ from .dispatch import BACKEND_CUDA, resolve_backend
 
 # kernel launches since the last reset (plain integers; chip_smoke.py
 # zeroes them around the main path and reads them back): the scan's and
-# the sharded form's merge
+# the sharded form's merge (:func:`topk_merge`)
 launches = 0
 merge_launches = 0
-# the merges of one scan's train splits (at most one a scan)
+# the merges of one scan's train splits (:func:`topk_merge_stacked`, at
+# most one a scan)
 split_merge_launches = 0
 
 _INT32_MAX = 2 ** 31 - 1
@@ -184,7 +185,7 @@ def _check(tn, toh, rn, roh, k, metric):
 
 def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale, splits,
             skip):
-    global launches, split_merge_launches
+    global launches
     nt, Fn = tn.shape
     nr, Fc = roh.shape
     dev = tn.device
@@ -223,9 +224,7 @@ def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale, splits,
     launches += 1
     if S == 1:
         return od[0], oi[0]
-    out = _merge_call(list(od), list(oi), [a for a, _ in ranges], k)
-    split_merge_launches += 1
-    return out
+    return topk_merge_stacked(od, oi, step, k)
 
 
 def topk_scan(tn: torch.Tensor, toh: torch.Tensor, rn: torch.Tensor,
@@ -273,27 +272,47 @@ def topk_merge_torch(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
 
 
 _merge_entry = None
+_stacked_entry = None
 
 
 def _merge_lib():
-    """The merge's C entry point, typed (built and loaded on first use)."""
+    """The merge's C entry point over separate lists, typed (built and
+    loaded on first use)."""
     global _merge_entry
     if _merge_entry is None:
         from .build import load
         fn = load("topk").avenir_topk_merge
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, i, p, p, p]
+        fn.argtypes = [p, p, p, i, i, i, p, p, i, p]
         fn.restype = ctypes.c_int
         _merge_entry = fn
     return _merge_entry
 
 
-def _merge_call(ds, is_, bases, k):
+def _stacked_lib():
+    """The merge's C entry point over one (S, nt, k) pair, typed."""
+    global _stacked_entry
+    if _stacked_entry is None:
+        from .build import load
+        fn = load("topk").avenir_topk_merge_stacked
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p, p, i, i, i, i, p, p, i, p]
+        fn.restype = ctypes.c_int
+        _stacked_entry = fn
+    return _stacked_entry
+
+
+def _merge_out(nt, k, dev):
+    return (torch.empty((nt, k), dtype=torch.float32, device=dev),
+            torch.empty((nt, k), dtype=torch.int32, device=dev))
+
+
+def _merge_call(ds, is_, bases, k, old):
     """One launch of ``avenir_topk_merge`` over lists on one device."""
+    global merge_launches
     nt = ds[0].shape[0]
     dev = ds[0].device
-    od = torch.empty((nt, k), dtype=torch.float32, device=dev)
-    oi = torch.empty((nt, k), dtype=torch.int32, device=dev)
+    od, oi = _merge_out(nt, k, dev)
     if nt == 0:
         return od, oi
     S = len(ds)
@@ -303,30 +322,42 @@ def _merge_call(ds, is_, bases, k):
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _merge_lib()(d_ptrs, i_ptrs, base_arr, S, nt, k,
-                           od.data_ptr(), oi.data_ptr(), stream)
+                           od.data_ptr(), oi.data_ptr(), int(old), stream)
     if err != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: CUDA error "
                            f"{err}")
+    merge_launches += 1
     return od, oi
 
 
-def _launch_merge(ds, is_, bases, k):
-    global merge_launches
-    out = _merge_call(ds, is_, bases, k)
-    if ds[0].shape[0]:
-        merge_launches += 1
-    return out
+def _stacked_call(d, i, step, k, old):
+    """One launch of ``avenir_topk_merge_stacked`` over (S, nt, k)."""
+    global split_merge_launches
+    S, nt = d.shape[0], d.shape[1]
+    od, oi = _merge_out(nt, k, d.device)
+    if nt == 0:
+        return od, oi
+    with torch.cuda.device(d.device):
+        stream = torch.cuda.current_stream(d.device).cuda_stream
+        err = _stacked_lib()(d.data_ptr(), i.data_ptr(), int(step), S, nt, k,
+                             od.data_ptr(), oi.data_ptr(), int(old), stream)
+    if err != 0:
+        raise RuntimeError(f"topk_merge_stacked kernel launch failed: CUDA "
+                           f"error {err}")
+    split_merge_launches += 1
+    return od, oi
 
 
 def topk_merge(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
-               bases: Sequence[int], k: int
+               bases: Sequence[int], k: int, *, old: bool = False
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The k smallest (distance, global train index) pairs of each test
     row over S shards' (nt, k) lists, all on one device: ``ds`` float32,
     ``is_`` int32 local indices (< 0: dead slot), ``bases`` each shard's
     first global row, ascending.  CUDA tensors launch ``csrc/topk.cu``'s
     merge (at most ``parallel.mesh.MAX_SHARDS`` shards, k >= 1); CPU
-    tensors run :func:`topk_merge_torch`."""
+    tensors run :func:`topk_merge_torch`.  ``old=True`` launches the first
+    port's merge kernel instead, to time the two designs; same answer."""
     ds, is_, bases = list(ds), list(is_), [int(b) for b in bases]
     if not ds or not (len(ds) == len(is_) == len(bases)):
         raise ValueError("topk_merge needs one (d, i, base) per shard")
@@ -345,11 +376,40 @@ def topk_merge(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
     if any(b2 < b1 for b1, b2 in zip(bases, bases[1:])):
         raise ValueError(f"topk_merge: shard bases {bases} must ascend")
     if k == 0:
-        return (torch.empty((nt, 0), dtype=torch.float32, device=dev),
-                torch.empty((nt, 0), dtype=torch.int32, device=dev))
+        return _merge_out(nt, 0, dev)
     if resolve_backend(dev) == BACKEND_CUDA:
-        return _launch_merge(ds, is_, bases, k)
+        return _merge_call(ds, is_, bases, k, old)
     return topk_merge_torch(ds, is_, bases, k)
+
+
+def topk_merge_stacked(d: torch.Tensor, i: torch.Tensor, step: int, k: int,
+                       *, old: bool = False
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_merge` over one contiguous (S, nt, k) pair of lists, list
+    s starting at global train row ``s * step`` (B5's train splits, each
+    ``step`` rows but the last).  CUDA tensors launch
+    ``avenir_topk_merge_stacked`` (two pointers, no per-list arrays;
+    ``split_merge_launches`` counts it); CPU tensors run
+    :func:`topk_merge_torch` over the S planes.  ``old`` as in
+    :func:`topk_merge`."""
+    if d.dim() != 3 or tuple(i.shape) != tuple(d.shape) \
+            or d.dtype != torch.float32 or i.dtype != torch.int32 \
+            or d.device != i.device \
+            or not (d.is_contiguous() and i.is_contiguous()) \
+            or d.shape[2] != k or not 1 <= d.shape[0] <= MAX_SPLITS \
+            or step < 0:
+        raise ValueError(
+            f"topk_merge_stacked needs contiguous (S, nt, {k}) float32 / "
+            f"int32 lists on one device with 1 <= S <= {MAX_SPLITS} and "
+            f"step >= 0, got {tuple(d.shape)} {d.dtype} / {tuple(i.shape)} "
+            f"{i.dtype}, step {step}")
+    S, nt = d.shape[0], d.shape[1]
+    if k == 0:
+        return _merge_out(nt, 0, d.device)
+    if resolve_backend(d.device) == BACKEND_CUDA:
+        return _stacked_call(d, i, int(step), k, old)
+    return topk_merge_torch(list(d), list(i), [s * int(step)
+                                                for s in range(S)], k)
 
 
 def shard_ranges(n: int, S: int) -> List[Tuple[int, int]]:

@@ -46,8 +46,8 @@ import torch
 
 from ..core.schema import FeatureField, FeatureSchema
 from ..core.table import ColumnarTable
-from ..kernels.dispatch import note_backend, resolve_backend
-from ..kernels.histogram import forest_level_counts
+from ..kernels.dispatch import BACKEND_CUDA, note_backend, resolve_backend
+from ..kernels.histogram import forest_level_counts, level_form
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, layer, note_dispatch, note_h2d
 
@@ -834,16 +834,21 @@ def count_level(node_ids: torch.Tensor, branches: torch.Tensor,
     int32 and accumulate on the device (exact to 2^31 a cell), so chunk
     boundaries cannot change a count, and the host fetches the stacked
     counts once.  Every launch records ``site`` in the Dispatches and
-    KernelBackends ledgers."""
+    KernelBackends ledgers, and on the card also the kernel's form
+    (``<site>.form.mma`` or ``.atomic``, :func:`level_form`)."""
     n, T = node_ids.shape
     S = branches.shape[1]
     backend = resolve_backend(node_ids.device)
+    form = level_form(T, n_nodes, S, B, C, weights.dtype) \
+        if backend == BACKEND_CUDA else None
     acc = None
     for start in range(0, n, chunk):
         end = min(start + chunk, n)
         # count + accumulate when chunked, as the reference records it
         note_dispatch(1 if n <= chunk else 2, site=site)
         note_backend(site, backend)
+        if form is not None:
+            note_backend(f"{site}.form", form)
         with layer(profile, "b1"):
             c = forest_level_counts(node_ids[start:end], branches[start:end],
                                     cls[start:end], weights[start:end],

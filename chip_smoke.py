@@ -45,15 +45,19 @@ order — any failure exits non-zero before the result line:
               33.5 T tests/s (one per float32 lane per clock).  No single
               PyTorch call computes the vote, so library_ms is null
   7. b1       the level-histogram kernel against its plain PyTorch version
-              on the card: seeded inputs with node ids -1 and -2 (and >= N),
-              classes of -1, zero weights, bootstrap-drawn uint8 weights and
-              float32 integer weights (a launch's weight mass below 2^24),
-              at the rafo forest's level shape (T=9, N=1 and 8, S=19, B=2,
-              C=2), the bench forest's (T=16, N=8) and a wide one whose
-              accumulator does not fit in shared memory (T=64, N=128, S=64,
-              B=4, C=4), each at n = 1, 7 and 1000, plus rafo at 1,000,000
-              rows, bench at 8,000,000 and wide at 262,144; the float32
-              counts must be EXACTLY equal
+              on the card, in each form a shape takes: seeded inputs with
+              node ids -1, -2 and N, classes -1 and C, branch codes -1 and
+              B, zero weights and weight 255, bootstrap-drawn uint8 weights
+              (the mma form, which level_form must select, and the forced
+              atomic form) and float32 integer weights (the atomic form; a
+              launch's weight mass below 2^24), at the rafo forest's level
+              shape (T=9, N=1 and 8, S=19, B=2, C=2), the bench forest's
+              (T=16, N=8) and a wide one that takes only the atomic form
+              and whose accumulator does not fit in shared memory (T=64,
+              N=128, S=64, B=4, C=4), each at n = 1, 7 and 1000 (also from
+              row 3 on: slices off any 16-byte boundary), plus rafo at
+              1,000,000 rows, bench at 8,000,000 and wide at 262,144; the
+              float32 counts must be EXACTLY equal
   8. train    the training main path, launch counts zeroed before and read
               after: the port's randomForestBuilder CLI over the golden rf
               data (3 trees) and three decisionTreeBuilder levels over the
@@ -63,16 +67,20 @@ order — any failure exits non-zero before the result line:
               rafo9 trees and the committed meta.json, and
               predictionService serving that freshly trained registry must
               reproduce served.csv.  The histogram kernel must have
-              launched, and the ledger must show forest.level.cuda and
-              tree.level.cuda and no torch form
+              launched, every launch in the mma form
+              (histogram.mma_launches), and the ledger must show
+              forest.level.cuda, tree.level.cuda and their .form.mma and no
+              torch or atomic form
   9. scale    a 1,000,000-row table in call_hangup.json's schema, drawn
               with numpy: the rafo forest trained on the card and, with
               device="cpu", through the plain version must give identical
-              trees; prints the card's wall time and the median per-level
-              layer times
- 10. b1 times median CUDA-event times of the histogram kernel and its plain
-              version at rafo 1,000,000 rows (N=8, the reported numbers; and
-              N=1, the root level) and bench 8,000,000 rows (N=8), and the
+              trees, every card launch in the mma form; prints the card's
+              wall time and the median per-level layer times
+ 10. b1 times median CUDA-event times of the histogram kernel (the mma
+              form; the atomic form as "old", in turns, each also on the
+              card alone) and its plain version at rafo 1,000,000 rows
+              (N=8, the reported numbers; and N=1, the root level) and
+              bench 8,000,000 rows (N=8), and the
               bound: the larger of the bytes moved over 3.35 TB/s and the
               active (row, tree, split) adds over 33.5 T adds/s (the
               float32 add rate used for the vote).  No single PyTorch call computes the histogram
@@ -143,7 +151,8 @@ order — any failure exits non-zero before the result line:
               kernel, readback, classify)
  18. b5 times median CUDA-event times of the kernel (its three test-chunk
               scans and split merges, as pairwise_topk makes them; "old":
-              one split and no tail skip, in turns; the split merges alone)
+              one split and no tail skip, in turns; the split merges alone,
+              through the stacked entry, the first port's merge as "old")
               and the plain version at that shape, euclidean (the reported
               numbers) and manhattan, and the bound: the larger of the
               bytes moved over 3.35 TB/s and the pair operations every
@@ -163,9 +172,11 @@ order — any failure exits non-zero before the result line:
               plain first-match pass); then the merge-finalize kernel
               against its plain version on those partials, min_odds 1.0
               and 1.5, and against B2 on the same rows: equal votes
- 20. b7       the top-k merge kernel against topk_merge_torch, exactly:
-              S = 1, 2, 3, 4, 8, k = 1, 7, 10, 64, 100, nt = 1, 7, 513,
-              20,000, lists from B5 over shards shorter than k, empty
+ 20. b7       the top-k merge kernel against topk_merge_torch, exactly,
+              through the list entry and the stacked (S, nt, k) entry:
+              S = 1, 2, 3, 4, 5, 8, 9, 16, 19, 33, 64, k = 1, 7, 10, 64,
+              100, nt = 1, 7, 513, 20,000 (and the first port's merge at
+              20,000), lists from B5 over shards shorter than k, empty
               shards and rows repeated across shards (ties); then
               topk_scan_sharded over cuda x 2/3/4/8 against single-device
               B5 at phase 15's schemas (n_train 5 and 1000), and at the pad
@@ -192,7 +203,8 @@ order — any failure exits non-zero before the result line:
               slices of the rafo9 forest over its requests tiled to
               1,000,000 rows; table form, the scan form as "old", in
               turns), the merge-finalize (4 x (1M, 3) tallies)
-              and the top-k merge (4 x (20,000, 10) lists), each beside its
+              and the top-k merge (4 x (20,000, 10) lists; the first port's
+              merge as "old", in turns), each beside its
               plain version and its bound (the bytes moved over 3.35 TB/s,
               or the operations over 33.5 T/s, the larger); torch.sort
               over the concatenated lists as context; the sharded
@@ -200,8 +212,9 @@ order — any failure exits non-zero before the result line:
               PyTorch call computes any of the three: library_ms is null
 
 The line before the last is one JSON object with the kernel numbers (the
-votes' ``form``, B5's planned ``splits`` a chunk, each redesigned kernel's
-``old_ms``); the last line is ``{"ok": true, "device": {...}}``.
+votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
+kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
+times); the last line is ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -249,6 +262,9 @@ B5_KS = (1, 7, 10, 64, 100)
 B5_TEST_ROWS = (1, 7, 513)
 B5_TRAIN_ROWS = (5, 1000, 200_000)
 KNN_SCALE = (20_000, 200_000, 10)         # test rows, train rows, k
+# list counts the top-k merge is held at (lane groups of 1 to 32 lanes, and
+# two lists a lane past 32)
+MERGE_LISTS = (1, 2, 3, 4, 5, 8, 9, 16, 19, 33, 64)
 # phase 19 runs the plain partial tallies slice by slice up to this many
 # (row, predicate slot) pairs, and from one shared first-match pass above
 B6_DIRECT_PAIRS = 1e10
@@ -495,21 +511,26 @@ def serving_layers(path_lists, fs, requests, dev, reps=30):
 
 def level_inputs(rng, shape, n, edges=True):
     """Seeded level-histogram inputs: node ids (n,T) in [0,N) — with
-    ``edges``, also -1, -2 and N —, branch codes (n,S) in [0,B), classes
-    (n,) in [0,C) (with ``edges`` some -1), and per-tree bootstrap weights
-    (bincount of 0.9n uniform draws, so zero weights occur and a tree's
-    mass is 0.9n < 2^24)."""
+    ``edges``, also -1, -2 and N —, branch codes (n,S) in [0,B) (with
+    ``edges`` also -1 and B), classes (n,) in [0,C) (with ``edges`` also -1
+    and C), and per-tree bootstrap weights (bincount of 0.9n uniform draws,
+    so zero weights occur and a tree's mass is 0.9n < 2^24; with ``edges``
+    one (row, tree) pair in 2000 weighs 255)."""
     T, N, S, B, C = shape
     lo = -2 if edges else 0
     hi = N + 1 if edges else N
     nid = rng.integers(lo, hi, (n, T), dtype=np.int32)
-    br = rng.integers(0, B, (n, S), dtype=np.int32)
-    cls = rng.integers(-1 if edges else 0, C, (n,), dtype=np.int32)
+    br = rng.integers(-1 if edges else 0, B + 1 if edges else B, (n, S),
+                      dtype=np.int32)
+    cls = rng.integers(-1 if edges else 0, C + 1 if edges else C, (n,),
+                       dtype=np.int32)
     w = np.empty((n, T), np.uint8)
     for t in range(T):
         draws = rng.integers(0, n, int(0.9 * n)) if n > 1 else \
             rng.integers(0, 2, n)
         w[:, t] = np.bincount(draws, minlength=n)[:n]
+    if edges:
+        w[rng.random((n, T)) < 0.0005] = 255
     return nid, br, cls, w
 
 
@@ -534,21 +555,30 @@ def b1_bound(nid, br, cls, w, shape):
 
 def time_b1(rng, shape, n, dev):
     """Kernel and plain-version median ms at one level shape, in turns
-    kernel, plain, kernel, on a level with every row active (bootstrap
-    weights, so about 41% of the (row, tree) pairs weigh 0)."""
+    new (the form ``level_form`` picks: the mma form for uint8 weights),
+    old (the atomic form), plain, new, old, on a level with every row
+    active (bootstrap weights, so about 41% of the (row, tree) pairs weigh
+    0); each form also on the card alone (``device_ms``)."""
     import torch
     from avenir_tpu_torch.kernels import histogram
     host = level_inputs(rng, shape, n, edges=False)
     nid, br, cls, w = (torch.from_numpy(a).to(dev) for a in host)
     N, B, C = shape[1], shape[3], shape[4]
-    res = {"ms": cuda_ms(lambda: histogram.forest_level_counts(
-        nid, br, cls, w, N, B, C), 20)}
+
+    def run(form=None):
+        return histogram.forest_level_counts(nid, br, cls, w, N, B, C,
+                                             form=form)
+    res = {"form": histogram.level_form(*shape, w.dtype),
+           "ms": cuda_ms(run, 20)}
+    res["old_ms"] = cuda_ms(lambda: run("atomic"), 20)
     res["plain_ms"] = cuda_ms(lambda: histogram.forest_level_counts_torch(
         nid, br, cls, w, N, B, C), 5)
-    res["ms_again"] = cuda_ms(lambda: histogram.forest_level_counts(
-        nid, br, cls, w, N, B, C), 20)
-    res["device_ms"] = device_ms(lambda: histogram.forest_level_counts(
-        nid, br, cls, w, N, B, C))
+    res["ms_again"] = cuda_ms(run, 20)
+    res["old_ms_again"] = cuda_ms(lambda: run("atomic"), 20)
+    res["device_ms"] = device_ms(run)
+    res["old_device_ms"] = device_ms(lambda: run("atomic"))
+    if not torch.equal(run(), run("atomic")):
+        fail(f"histogram forms differ on the timed inputs at {shape}")
     res.update(b1_bound(nid, br, cls, w, shape))
     return res
 
@@ -943,24 +973,40 @@ def knn_phases(dev, rng):
         res_t["one_launch_ms"] = cuda_ms(lambda: topk.topk_scan(
             tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 3)
         # the split merges alone, over the splits' own lists
+        # the split merges alone, over the splits' own lists stacked as
+        # the scan writes them; new (the warp tournament) and old (the
+        # first port's thread-per-row merge), in turns
         merges = []
         for tc, oc in chunks:
             ranges = topk.split_ranges(tc.shape[0], n_train, k, sms)
             lists = [topk.topk_scan(tc, oc, rn_d[a:b], roh_d[a:b], k, metric,
                                     *consts, splits=1) for a, b in ranges]
-            merges.append(([d for d, _ in lists], [i for _, i in lists],
-                           [a for a, _ in ranges]))
-        res_t["split_merge_ms"] = cuda_ms(lambda: [topk.topk_merge(
-            ds, is_, bases, k) for ds, is_, bases in merges], 20)
-        res_t["split_merge_device_ms"] = device_ms(lambda: [topk.topk_merge(
-            ds, is_, bases, k) for ds, is_, bases in merges])
+            merges.append((torch.stack([d for d, _ in lists]),
+                           torch.stack([i for _, i in lists]),
+                           ranges[0][1]))
+
+        def split_merges(old=False):
+            return [topk.topk_merge_stacked(d, i, step, k, old=old)
+                    for d, i, step in merges]
+        res_t["split_merge_ms"] = cuda_ms(split_merges, 20)
+        res_t["split_merge_old_ms"] = cuda_ms(lambda: split_merges(True), 20)
+        res_t["split_merge_device_ms"] = device_ms(split_merges)
+        res_t["split_merge_old_device_ms"] = device_ms(
+            lambda: split_merges(True))
+        # their bound: each list read once, each merged list written once
+        merge_bytes = sum(d.numel() * 8 + d.shape[1] * k * 8
+                          for d, _, _ in merges)
+        res_t["split_merge_bytes"] = merge_bytes
+        res_t["split_merge_bound_ms"] = merge_bytes / HBM_BYTES_PER_S * 1e3
         res_t["device_ms"] = device_ms(lambda: chunked(metric), 3)
-        merged = [topk.topk_merge(ds, is_, bases, k)
-                  for ds, is_, bases in merges]
         whole = chunked(metric)
-        if not (torch.equal(torch.cat([m[0] for m in merged]), whole[0])
-                and torch.equal(torch.cat([m[1] for m in merged]), whole[1])):
-            fail(f"{metric}: the split lists merged differ from the scan")
+        for old in (False, True):
+            merged = split_merges(old)
+            if not (torch.equal(torch.cat([m[0] for m in merged]), whole[0])
+                    and torch.equal(torch.cat([m[1] for m in merged]),
+                                    whole[1])):
+                fail(f"{metric}: the split lists merged (old={old}) differ "
+                     f"from the scan")
         res_t.update(b5_bound(n_test, n_train, tn_h.shape[1],
                               toh_h.shape[1], k, metric))
         b5_t[metric] = res_t
@@ -1085,7 +1131,7 @@ def b7_phase(dev, rng):
     phase("20 B7 top-k merge kernel vs plain version; sharded scan vs B5")
     err = 0.0
     pool = rng.integers(0, 4, (48, 2)).astype(np.float32)   # ties
-    for S in (1, 2, 3, 4, 8):
+    for S in MERGE_LISTS:
         for k in B5_KS:
             # shards shorter and longer than k, one empty when S > 1; rows
             # drawn from a small pool, so equal rows sit in several shards
@@ -1097,6 +1143,7 @@ def b7_phase(dev, rng):
             shards = [torch.from_numpy(pool[rng.integers(0, 48, n_s)]).to(dev)
                       for n_s in sizes]
             bases = np.concatenate([[0], np.cumsum(sizes)[:-1]]).tolist()
+            step = 2 * k + 2
             for nt in (1, 7, 513, 20_000):
                 tn = torch.from_numpy(
                     (rng.random((nt, 2)) * 4).astype(np.float32)).to(dev)
@@ -1106,19 +1153,31 @@ def b7_phase(dev, rng):
                                              dtype=torch.int8, device=dev),
                     k, "euclidean", 0.0, 2.0, 1000.0) for rn in shards]
                 ds, is_ = [d for d, _ in lists], [i for _, i in lists]
-                got = topk.topk_merge(ds, is_, bases, k)
-                want = topk.topk_merge_torch(ds, is_, bases, k)
+                # the list entry (separate tensors, the shards' bases) and
+                # the stacked entry (one (S, nt, k) pair, bases s * step)
+                checks = [("list", topk.topk_merge(ds, is_, bases, k),
+                           topk.topk_merge_torch(ds, is_, bases, k)),
+                          ("stacked", topk.topk_merge_stacked(
+                              torch.stack(ds), torch.stack(is_), step, k),
+                           topk.topk_merge_torch(
+                               ds, is_, [s * step for s in range(S)], k))]
+                if nt == 20_000:
+                    checks.append(("old", topk.topk_merge(
+                        ds, is_, bases, k, old=True), checks[0][2]))
                 torch.cuda.synchronize()
-                live = torch.isfinite(want[0])
-                if live.any():
-                    err = max(err, float((got[0][live] - want[0][live])
-                                         .abs().max().item()))
-                if not (torch.equal(got[0], want[0])
-                        and torch.equal(got[1], want[1])):
-                    fail(f"top-k merge kernel != plain version at S={S}, "
-                         f"k={k}, nt={nt}, shard rows {sizes.tolist()}")
-            print(f"merge S={S} k={k} shard rows {sizes.tolist()}: exact at "
-                  f"nt = 1, 7, 513, 20000", flush=True)
+                for entry, got, want in checks:
+                    live = torch.isfinite(want[0])
+                    if live.any():
+                        err = max(err, float((got[0][live] - want[0][live])
+                                             .abs().max().item()))
+                    if not (torch.equal(got[0], want[0])
+                            and torch.equal(got[1], want[1])):
+                        fail(f"top-k merge kernel ({entry} entry) != plain "
+                             f"version at S={S}, k={k}, nt={nt}, shard "
+                             f"rows {sizes.tolist()}")
+        print(f"merge S={S} k={B5_KS}: exact through the list and the "
+              f"stacked entry at nt = 1, 7, 513, 20000 (last shard rows "
+              f"{sizes.tolist()})", flush=True)
     for name, (Fn, cards) in B5_SCHEMAS.items():
         n_cat, denom = float(len(cards)), float(max(Fn + len(cards), 1))
         for n_train in (5, 1000):
@@ -1376,11 +1435,18 @@ def sharded_times(dev, ens, requests, fs, comp, scale, knn_warm_4):
     bases = np.concatenate([[0], np.cumsum([rn.shape[0] for rn, _ in shards])
                             [:-1]]).tolist()
     nt = tn.shape[0]
+    # new (the warp tournament) and old (the first port's merge), in turns
     b7 = {"ms": cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k), 50)}
+    b7["old_ms"] = cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k,
+                                                   old=True), 50)
     b7["plain_ms"] = cuda_ms(lambda: topk.topk_merge_torch(ds, is_, bases, k),
                              10)
     b7["ms_again"] = cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k), 50)
+    b7["old_ms_again"] = cuda_ms(lambda: topk.topk_merge(ds, is_, bases, k,
+                                                         old=True), 50)
     b7["device_ms"] = device_ms(lambda: topk.topk_merge(ds, is_, bases, k))
+    b7["old_device_ms"] = device_ms(lambda: topk.topk_merge(
+        ds, is_, bases, k, old=True))
     cat_d = torch.cat(ds, dim=1)
     b7["sort_context_ms"] = cuda_ms(
         lambda: torch.sort(cat_d, dim=1, stable=True), 20)
@@ -1610,33 +1676,53 @@ def main():
     b1_err = 0.0
     for name, shape in B1_SHAPES.items():
         T, N, S, B, C = shape
+        want_form = "atomic" if name == "wide" else "mma"
+        got_form = histogram.level_form(*shape, torch.uint8)
+        if got_form != want_form or \
+                histogram.level_form(*shape, torch.float32) != "atomic":
+            fail(f"level form at {name} {shape}: {got_form} for uint8 "
+                 f"weights, expected {want_form}; float32 must be atomic")
         for n in (1, 7, 1000, B1_BIG_ROWS[name]):
-            host = level_inputs(rng, shape, n)
-            nid, br, cls, w8 = (torch.from_numpy(a).to(dev) for a in host)
-            for w in (w8, w8.to(torch.float32)):
-                got = histogram.forest_level_counts(nid, br, cls, w, N, B, C)
-                want = histogram.forest_level_counts_torch(nid, br, cls, w,
-                                                           N, B, C)
-                torch.cuda.synchronize()
-                if got.shape != (T, N, S, B, C) or got.dtype != torch.float32:
-                    fail(f"histogram output {tuple(got.shape)} {got.dtype}")
-                err = float((got - want).abs().max().item())
-                b1_err = max(b1_err, err)
-                if err or not torch.equal(got, want):
-                    bad = int((got != want).sum().item())
-                    fail(f"histogram kernel != plain version at {name} "
-                         f"{shape}, n={n}, weights {w.dtype}: {bad} cells "
-                         f"differ")
-            print(f"{name} T,N,S,B,C={shape} n={n}: exact for uint8 and "
-                  f"float32 weights (smem="
-                  f"{T * N * S * B * C * 4 <= histogram.SMEM_LIMIT}, "
-                  f"total={float(want.double().sum().item()):.0f})", flush=True)
-            del nid, br, cls, w8, w, got, want
+            host = level_inputs(rng, shape, n + 3)
+            full = [torch.from_numpy(a).to(dev) for a in host]
+            # rows [3:] too: slices that start off any 16-byte boundary,
+            # as a chunked level passes them
+            for off in ((0, 3) if n == 1000 else (0,)):
+                nid, br, cls, w8 = (a[off:off + n] for a in full)
+                for w in (w8, w8.to(torch.float32)):
+                    want = histogram.forest_level_counts_torch(
+                        nid, br, cls, w, N, B, C)
+                    forms = ["mma", "atomic"] if histogram.level_form(
+                        *shape, w.dtype) == "mma" else ["atomic"]
+                    for form in forms:
+                        got = histogram.forest_level_counts(
+                            nid, br, cls, w, N, B, C, form=form)
+                        torch.cuda.synchronize()
+                        if got.shape != (T, N, S, B, C) \
+                                or got.dtype != torch.float32:
+                            fail(f"histogram output {tuple(got.shape)} "
+                                 f"{got.dtype}")
+                        err = float((got - want).abs().max().item())
+                        b1_err = max(b1_err, err)
+                        if err or not torch.equal(got, want):
+                            bad = int((got != want).sum().item())
+                            fail(f"histogram kernel ({form} form) != plain "
+                                 f"version at {name} {shape}, n={n}, rows "
+                                 f"from {off}, weights {w.dtype}: {bad} "
+                                 f"cells differ")
+            u8_forms = "the mma and atomic forms" if got_form == "mma" \
+                else "the atomic form"
+            print(f"{name} T,N,S,B,C={shape} n={n}: exact in {u8_forms} "
+                  f"for uint8 weights ({got_form} selected) and the atomic "
+                  f"form for float32 (plan {histogram.mma_plan(*shape)}, "
+                  f"total={float(want.double().sum().item()):.0f})",
+                  flush=True)
+            del full, nid, br, cls, w8, w, got, want
 
     # ---- the training main path: counts zeroed just before, read after ----
     from avenir_tpu_torch.core.config import load_config
     vote.launches = 0
-    histogram.launches = 0
+    histogram.launches = histogram.mma_launches = 0
     with transfer_ledger() as train_ledger:
         phase("8 training main path")
         rf_model = os.path.join(WORK, "rf_model")
@@ -1691,22 +1777,31 @@ def main():
                    os.path.join(RAFO9, "served.csv"),
                    "predictionService from the freshly trained registry")
     b1_launches = histogram.launches
+    b1_mma_launches = histogram.mma_launches
     train_backends = train_ledger.backend_snapshot()
     with open(r9_model + ".counters.json") as fh:
         rc = json.load(fh)
     print(f"training main path: forest_level_counts launches={b1_launches}, "
+          f"of which the mma form {b1_mma_launches}, "
           f"ensemble_vote launches={vote.launches}; "
           f"KernelBackends={train_backends}; rafo9 randomForestBuilder "
           f"{train_s:.2f} s wall, Dispatches={rc.get('Dispatches')}",
           flush=True)
     if b1_launches <= 0:
         fail("the training main path never launched the histogram kernel")
-    for site in ("forest.level.cuda", "tree.level.cuda"):
+    if b1_mma_launches != b1_launches:
+        fail(f"training main path: {b1_launches - b1_mma_launches} "
+             f"histogram launches took the atomic form; every rafo-width "
+             f"level takes the mma form")
+    for site in ("forest.level.cuda", "tree.level.cuda",
+                 "forest.level.form.mma", "tree.level.form.mma"):
         if not train_backends.get(site):
             fail(f"training ledger shows no {site}")
-    wrong = [k for k in train_backends if k.endswith((".torch", ".host"))]
+    wrong = [k for k in train_backends
+             if k.endswith((".torch", ".host", ".atomic"))]
     if wrong:
-        fail(f"ledger shows non-kernel forms on the training path: {wrong}")
+        fail(f"ledger shows non-kernel or atomic forms on the training "
+             f"path: {wrong}")
 
     phase("9 scale: rafo forest on 1,000,000 rows")
     from avenir_tpu_torch.cli.jobs import _tree_params
@@ -1718,6 +1813,7 @@ def main():
                            seed=cfg.get_int("dtb.random.seed"))
     big = hangup_table(np.random.default_rng(20261017), 1_000_000, fs)
     torch.cuda.synchronize()
+    histogram.launches = histogram.mma_launches = 0
     t0 = time.perf_counter()
     gpu_trees = build_forest(big, fparams, device=dev)
     torch.cuda.synchronize()
@@ -1726,6 +1822,10 @@ def main():
     t0 = time.perf_counter()
     prof_trees = build_forest(big, fparams, device=dev, profile=prof)
     prof_s = time.perf_counter() - t0
+    scale_b1 = (histogram.launches, histogram.mma_launches)
+    if scale_b1[0] <= 0 or scale_b1[1] != scale_b1[0]:
+        fail(f"1M-row rafo forest: {scale_b1[0]} histogram launches, "
+             f"{scale_b1[1]} in the mma form; all must be")
     t0 = time.perf_counter()
     cpu_trees = build_forest(big, fparams, device="cpu")
     cpu_s = time.perf_counter() - t0
@@ -1736,7 +1836,8 @@ def main():
     print(f"1M-row rafo forest (9 trees, depth 4): identical trees on the "
           f"card and the CPU; card wall {gpu_s:.3f} s (profiled run "
           f"{prof_s:.3f} s), CPU plain-version wall {cpu_s:.2f} s; "
-          f"{len(prof.levels)} levels", flush=True)
+          f"{len(prof.levels)} levels; histogram launches (two card builds) "
+          f"{scale_b1[0]}, all in the mma form", flush=True)
     print(f"  setup ms: {json.dumps({k: v * 1e3 for k, v in prof.setup.items()})}",
           flush=True)
     print(f"  median ms per level: {json.dumps(prof.median_ms())}",
@@ -1962,7 +2063,16 @@ def main():
         "launches": b1_launches, "max_abs_err": b1_err,
         "ms": rafo_t["ms"], "plain_ms": rafo_t["plain_ms"],
         "bound_ms": rafo_t["bound_ms"], "bound_by": rafo_t["bound_by"],
-        "library_ms": None, "device_ms": rafo_t["device_ms"]}, {
+        "library_ms": None, "device_ms": rafo_t["device_ms"],
+        "form": rafo_t["form"], "mma_launches": b1_mma_launches,
+        "old_form": "atomic", "old_ms": rafo_t["old_ms"],
+        "old_device_ms": rafo_t["old_device_ms"],
+        "root_device_ms": root_t["device_ms"],
+        "root_old_device_ms": root_t["old_device_ms"],
+        "root_bound_ms": root_t["bound_ms"],
+        "bench_device_ms": bench_t["device_ms"],
+        "bench_old_device_ms": bench_t["old_device_ms"],
+        "bench_bound_ms": bench_t["bound_ms"]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -1994,7 +2104,10 @@ def main():
         "bound_ms_with_tail": b5_t["euclidean"]["bound_ms_with_tail"],
         "device_ms": b5_t["euclidean"]["device_ms"],
         "split_merge_device_ms":
-            b5_t["euclidean"]["split_merge_device_ms"]}, {
+            b5_t["euclidean"]["split_merge_device_ms"],
+        "split_merge_old_device_ms":
+            b5_t["euclidean"]["split_merge_old_device_ms"],
+        "split_merge_bound_ms": b5_t["euclidean"]["split_merge_bound_ms"]}, {
         "name": "ensemble_partial_votes", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:73",
@@ -2016,7 +2129,9 @@ def main():
         "max_abs_err": b7_err,
         "ms": b7_t["ms"], "plain_ms": b7_t["plain_ms"],
         "bound_ms": b7_t["bound_ms"], "bound_by": b7_t["bound_by"],
-        "library_ms": None, "device_ms": b7_t["device_ms"]}]}), flush=True)
+        "library_ms": None, "device_ms": b7_t["device_ms"],
+        "old_ms": b7_t["old_ms"],
+        "old_device_ms": b7_t["old_device_ms"]}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
