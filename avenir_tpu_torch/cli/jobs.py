@@ -9,7 +9,8 @@ the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
 (here, monolithic training, the registry publish and its baseline and
 int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
-``knnPipeline`` (``knn_jobs.py``).
+``knnPipeline`` (``knn_jobs.py``), ``driftMonitor`` and
+``predictDriftScore`` (``monitor_jobs.py``).
 """
 
 from __future__ import annotations

@@ -22,6 +22,7 @@ from typing import List, Optional
 from ..core.config import Config, load_config
 from . import jobs
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
+from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
 from . import serving_jobs  # noqa: F401  (registers predictionService)
 
 

@@ -15,6 +15,8 @@ import threading
 from collections import defaultdict
 from typing import Dict, Tuple
 
+import numpy as np
+
 
 class Counters:
     """Hadoop-counter-style metrics: (group, name) -> int.
@@ -108,6 +110,20 @@ class ConfusionMatrix:
                 self.true_neg += 1
             else:
                 self.false_neg += 1
+
+    def report_batch(self, pred_is_pos: np.ndarray, actual_is_pos: np.ndarray,
+                     actual_is_neg: np.ndarray) -> None:
+        """Vectorized report: boolean arrays per record.  actual_is_neg is
+        passed separately because the reference treats 'not neg' (e.g. an
+        unknown label) as a false negative when the prediction is
+        negative."""
+        pp = np.asarray(pred_is_pos, dtype=bool)
+        ap = np.asarray(actual_is_pos, dtype=bool)
+        an = np.asarray(actual_is_neg, dtype=bool)
+        self.true_pos += int(np.sum(pp & ap))
+        self.false_pos += int(np.sum(pp & ~ap))
+        self.true_neg += int(np.sum(~pp & an))
+        self.false_neg += int(np.sum(~pp & ~an))
 
     # integer-percent metrics, matching reference integer division (plus a
     # zero-denominator guard the reference lacks)

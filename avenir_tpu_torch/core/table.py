@@ -10,18 +10,104 @@ encoded once on load:
   * id/string columns    -> kept host-side as python lists (never on device)
 
 Only the pure-Python parse is here; the native CSV reader is not ported yet.
+:class:`BadRecordPolicy` and :func:`_bad_row_checker` are the reference's
+malformed-record handling, which the drift jobs use (skip by default);
+training still refuses every policy but ``fail``.
 """
 
 from __future__ import annotations
 
 import io
+import os
 import re
 from dataclasses import dataclass, field as dc_field
-from typing import Dict, List, Optional, Union
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 
+from .metrics import Counters
 from .schema import FeatureSchema
+
+
+# --------------------------------------------------------------------------
+# bad-record policy (Hadoop skip-bad-records)
+# --------------------------------------------------------------------------
+
+@dataclass
+class BadRecordPolicy:
+    """What to do with a malformed CSV record (a short row, or a numeric
+    field that fails to parse; unknown categorical values encode as -1 and
+    are NOT malformed):
+
+      * ``fail``        — raise, killing the job
+      * ``skip``        — drop the record, count it
+      * ``quarantine``  — drop the record, count it, and append its raw
+        line to ``<quarantine_path>/part-q-00000``
+
+    Counters land in the Hadoop-style ``BadRecords`` group: ``Malformed``
+    (total seen), ``Skipped``, ``Quarantined``."""
+
+    policy: str = "fail"
+    quarantine_path: Optional[str] = None
+    counters: Optional[Counters] = None
+    n_bad: int = 0
+    # the quarantine dir is made once, not per appended record
+    _qdir_ready: bool = dc_field(default=False, repr=False, compare=False)
+
+    POLICIES = ("fail", "skip", "quarantine")
+
+    def __post_init__(self):
+        if self.policy not in self.POLICIES:
+            raise ValueError(f"badrecords.policy must be one of "
+                             f"{self.POLICIES}, got {self.policy!r}")
+        if self.policy == "quarantine" and not self.quarantine_path:
+            raise ValueError("badrecords.policy=quarantine needs a "
+                             "quarantine path")
+
+    @property
+    def skips(self) -> bool:
+        return self.policy in ("skip", "quarantine")
+
+    def quarantine_file(self) -> str:
+        if not self._qdir_ready:
+            os.makedirs(self.quarantine_path, exist_ok=True)
+            self._qdir_ready = True
+        return os.path.join(self.quarantine_path, "part-q-00000")
+
+    def record(self, lines: Sequence[str]) -> None:
+        """Report (and for quarantine, persist) a batch of malformed raw
+        lines.  The quarantine file is appended first, in one write, and
+        the counters move only after it succeeded."""
+        n = len(lines)
+        if n == 0:
+            return
+        if self.policy == "quarantine":
+            with open(self.quarantine_file(), "a") as fh:
+                fh.write("".join(line + "\n" for line in lines))
+            if self.counters is not None:
+                self.counters.increment("BadRecords", "Quarantined", n)
+        self.n_bad += n
+        if self.counters is not None:
+            self.counters.increment("BadRecords", "Malformed", n)
+            self.counters.increment("BadRecords", "Skipped", n)
+
+
+def _bad_row_checker(schema: FeatureSchema):
+    """Per-row malformedness test: a short row (any schema field's ordinal
+    missing) or a numeric field that fails ``float()``."""
+    need = max((f.ordinal for f in schema.fields), default=-1)
+    numeric_ords = [f.ordinal for f in schema.fields if f.is_numeric]
+
+    def bad(r: List[str]) -> bool:
+        if len(r) <= need:
+            return True
+        for o in numeric_ords:
+            try:
+                float(r[o])
+            except (TypeError, ValueError):
+                return True
+        return False
+    return bad
 
 
 @dataclass

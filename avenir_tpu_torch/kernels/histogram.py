@@ -31,8 +31,11 @@ drift monitor's counting primitive:
 
     codes (n,R) int32, mask (n,) bool or None  ->  counts (R,B) float32
 
-A code outside [0, B) drops and a masked-out row adds nothing.  CUDA tensors
-launch ``csrc/bin_counts.cu``, CPU tensors run :func:`bin_counts_torch`;
+A code outside [0, B) drops and a masked-out row adds nothing; ``out=``
+adds the counts into an (R,B) float32 carry in place (the monitor's window
+matrix).  CUDA tensors launch ``csrc/bin_counts.cu``, one launch a call,
+with a per-(device, stream) int32 accumulator and ticket that the kernel
+leaves zero (:func:`_workspace`); CPU tensors run :func:`bin_counts_torch`;
 ``bin_counts_launches`` counts its kernel launches.
 """
 
@@ -40,8 +43,9 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -87,9 +91,6 @@ _WEIGHT_DTYPES = {torch.uint8: 0, torch.float32: 1}
 # the float32 result is exact; longer inputs add launch results in float32,
 # as the reference's float32 sum does
 BIN_ROWS_MAX = 1 << 24
-# the bin-counts accumulator lives in shared memory up to this size (no
-# attribute raise needed); wider ones add straight into global memory
-BIN_SMEM_LIMIT = 48 * 1024
 
 
 # --------------------------------------------------------------------------
@@ -357,11 +358,14 @@ def forest_level_counts(node_ids: torch.Tensor, branches: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def bin_counts_torch(codes: torch.Tensor, num_bins: int,
-                     mask: torch.Tensor = None) -> torch.Tensor:
+                     mask: torch.Tensor = None,
+                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain version: ``feature_bin_counts`` as one ``bincount`` over
     the flat ``r*B + code`` index of the valid, unmasked codes, in int64,
-    then float32.  The CPU path and the oracle the kernel is held against
-    on the card."""
+    then float32.  With ``out``, adds the counts into it in place (one
+    float32 add a cell, the reference's ``counts + feature_bin_counts``) and
+    returns it.  The CPU path and the oracle the kernel is held against on
+    the card."""
     n, R = codes.shape
     B = int(num_bins)
     valid = (codes >= 0) & (codes < B)
@@ -369,52 +373,123 @@ def bin_counts_torch(codes: torch.Tensor, num_bins: int,
         valid &= mask[:, None]
     flat = codes.long() + B * torch.arange(R, device=codes.device)[None, :]
     counts = torch.bincount(flat[valid], minlength=R * B)
-    return counts.to(torch.float32).reshape(R, B)
+    counts = counts.to(torch.float32).reshape(R, B)
+    return counts if out is None else out.add_(counts)
 
 
-_bins_entry = None
+_bins_entries = None
 
 
 def _bins_lib():
-    """The bin-counts kernel's C entry point, typed (built on first use)."""
-    global _bins_entry
-    if _bins_entry is None:
+    """The bin-counts library's C entry points, typed (built on first
+    use): the kernel, the first port's two launches and the empty launch."""
+    global _bins_entries
+    if _bins_entries is None:
         from .build import load
-        fn = load("bin_counts").avenir_bin_counts
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, ctypes.c_longlong, i, i, p, p, i, p]
-        fn.restype = ctypes.c_int
-        _bins_entry = fn
-    return _bins_entry
+        lib = load("bin_counts")
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        new = lib.avenir_bin_counts
+        new.argtypes = [p, p, ll, i, i, p, p, p, i, i, p]
+        old = lib.avenir_bin_counts_old
+        old.argtypes = [p, p, ll, i, i, p, p, i, p]
+        empty = lib.avenir_empty_launch
+        empty.argtypes = [p]
+        for fn in (new, old, empty):
+            fn.restype = ctypes.c_int
+        _bins_entries = (new, old, empty)
+    return _bins_entries
 
 
-def _launch_bins(codes, B, mask) -> torch.Tensor:
+# (device index, raw stream) -> (int32 accumulator, uint32 ticket), zero
+# between calls: the kernel's last block returns both to zero.  One per
+# stream, so calls on two streams at once never share one; grown on demand.
+_workspaces: Dict[Tuple[int, int], torch.Tensor] = {}
+_workspace_lock = threading.Lock()
+
+
+def _workspace(dev: torch.device, stream: int, cells: int) -> torch.Tensor:
+    """int32 (cap + 1,): ``[:cap]`` the accumulator, ``[cap]`` the ticket."""
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws.numel() <= cells:
+        with _workspace_lock:
+            ws = _workspaces.get(key)
+            if ws is None or ws.numel() <= cells:
+                cap = max(cells, 1024 if ws is None else 2 * (ws.numel() - 1))
+                # allocated zeroed once; the stream's order makes the old
+                # one's memory safe to reuse after the calls queued on it
+                ws = torch.zeros(cap + 1, dtype=torch.int32, device=dev)
+                _workspaces[key] = ws
+    return ws
+
+
+def _rows_per_launch(R: int) -> int:
+    """Rows one launch takes: at most BIN_ROWS_MAX (counts exact in
+    float32) and fewer than 2^30 codes (the kernel's 32-bit indices)."""
+    return max(1, min(BIN_ROWS_MAX, ((1 << 30) - 1) // max(R, 1)))
+
+
+def _launch_bins(codes, B, mask, out, accumulate) -> None:
+    """One kernel launch: counts of ``codes`` written into (or, with
+    ``accumulate``, added into) ``out``."""
     global bin_counts_launches
     n, R = codes.shape
-    out = torch.zeros((R, B), dtype=torch.float32, device=codes.device)
-    if n == 0 or R == 0:
-        return out
-    acc = torch.zeros((R, B), dtype=torch.int32, device=codes.device)
-    with torch.cuda.device(codes.device):
-        stream = torch.cuda.current_stream(codes.device).cuda_stream
-        err = _bins_lib()(codes.data_ptr(),
-                          mask.data_ptr() if mask is not None else None, n,
-                          R, B, acc.data_ptr(), out.data_ptr(),
-                          int(R * B * 4 <= BIN_SMEM_LIMIT), stream)
+    dev = codes.device
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    ws = _workspace(dev, stream, R * B)
+    cap = ws.numel() - 1
+    err = _bins_lib()[0](codes.data_ptr(),
+                         mask.data_ptr() if mask is not None else None, n,
+                         R, B, ws.data_ptr(), ws.data_ptr() + 4 * cap,
+                         out.data_ptr(), int(accumulate), dev.index, stream)
     if err != 0:
         raise RuntimeError(f"bin_counts kernel launch failed: CUDA error "
                            f"{err}")
     bin_counts_launches += 1
+
+
+def _launch_bins_old(codes, B, mask) -> torch.Tensor:
+    """The first port's design (zeroed int32 accumulator, counting launch,
+    conversion launch), for timing beside the kernel only."""
+    n, R = codes.shape
+    out = torch.zeros((R, B), dtype=torch.float32, device=codes.device)
+    acc = torch.zeros((R, B), dtype=torch.int32, device=codes.device)
+    with torch.cuda.device(codes.device):
+        stream = torch.cuda.current_stream(codes.device).cuda_stream
+        err = _bins_lib()[1](codes.data_ptr(),
+                             mask.data_ptr() if mask is not None else None,
+                             n, R, B, acc.data_ptr(), out.data_ptr(),
+                             int(R * B * 4 <= 48 * 1024), stream)
+    if err != 0:
+        raise RuntimeError(f"bin_counts (old) launch failed: CUDA error "
+                           f"{err}")
     return out
 
 
+def empty_launch(device=None) -> None:
+    """Launch one empty kernel on the current stream of ``device`` (the
+    yardstick of a call whose bytes cost nothing; counted nowhere)."""
+    dev = torch.device(device if device is not None else "cuda")
+    if dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    err = _bins_lib()[2](torch._C._cuda_getCurrentRawStream(dev.index))
+    if err != 0:
+        raise RuntimeError(f"empty launch failed: CUDA error {err}")
+
+
 def bin_counts(codes: torch.Tensor, num_bins: int,
-               mask: torch.Tensor = None) -> torch.Tensor:
+               mask: torch.Tensor = None, out: Optional[torch.Tensor] = None,
+               *, old: bool = False) -> torch.Tensor:
     """(R, B) float32 counts of the (n, R) int32 ``codes``; ``mask`` (n,)
-    bool keeps the rows it marks.  CUDA tensors launch
-    ``csrc/bin_counts.cu`` (one launch per ``BIN_ROWS_MAX`` rows; n = 0
-    returns zeros without a launch); CPU tensors run
-    :func:`bin_counts_torch` over the same row chunks."""
+    bool keeps the rows it marks.  With ``out`` ((R, B) float32 on the
+    codes' device) the counts are added into it in place and it is
+    returned: bit-identical to ``out + bin_counts(codes, ...)``.
+
+    CUDA tensors launch ``csrc/bin_counts.cu``: one launch a call (one per
+    :func:`_rows_per_launch` rows beyond that), n = 0 included; CPU
+    tensors run :func:`bin_counts_torch` over the same row chunks.
+    ``old=True`` launches the first port's design instead (CUDA only, no
+    ``out``), for timing; it does not count in ``bin_counts_launches``."""
     B = int(num_bins)
     if codes.dim() != 2 or codes.dtype != torch.int32 \
             or not codes.is_contiguous():
@@ -432,11 +507,39 @@ def bin_counts(codes: torch.Tensor, num_bins: int,
     if B < 1 or R * B >= 1 << 31:
         raise ValueError(f"bin_counts needs 1 <= num_bins and R*B < 2^31 "
                          f"(got R={R}, B={B})")
-    form = _launch_bins if resolve_backend(codes.device) == BACKEND_CUDA \
-        else bin_counts_torch
-    out = None
-    for s in range(0, max(n, 1), BIN_ROWS_MAX):
-        part = form(codes[s:s + BIN_ROWS_MAX], B,
-                    None if mask is None else mask[s:s + BIN_ROWS_MAX])
-        out = part if out is None else out + part
+    if out is not None and (out.dtype != torch.float32
+                            or tuple(out.shape) != (R, B)
+                            or out.device != codes.device
+                            or not out.is_contiguous()):
+        raise ValueError(f"bin_counts: out must be a contiguous ({R}, {B}) "
+                         f"float32 tensor on {codes.device}, got "
+                         f"{tuple(out.shape)} {out.dtype} on {out.device}")
+    cuda = resolve_backend(codes.device) == BACKEND_CUDA
+    if old:
+        if not cuda or out is not None or n > BIN_ROWS_MAX:
+            raise ValueError("bin_counts(old=True) times the first port's "
+                             "kernel: CUDA codes, no out, at most "
+                             "BIN_ROWS_MAX rows")
+        return _launch_bins_old(codes, B, mask)
+    if not cuda:
+        step = BIN_ROWS_MAX
+        for s in range(0, max(n, 1), step):
+            part = bin_counts_torch(
+                codes[s:s + step], B,
+                None if mask is None else mask[s:s + step])
+            out = part if out is None else out.add_(part)
+        return out
+    accumulate = out is not None
+    if out is None:
+        out = torch.empty((R, B), dtype=torch.float32, device=codes.device)
+    if R == 0:
+        return out
+    step = _rows_per_launch(R)
+    if n <= step:                 # the common case: one launch, no slices
+        _launch_bins(codes, B, mask, out, accumulate)
+        return out
+    for s in range(0, n, step):
+        _launch_bins(codes[s:s + step], B,
+                     None if mask is None else mask[s:s + step], out,
+                     accumulate or s > 0)
     return out

@@ -7,8 +7,8 @@ one, fixed ``n_bins`` over [min, max] otherwise), each categorical feature
 (frequency table keyed by the schema's cardinality, plus one trailing bin
 for unknown values), and the training class distribution.  ``update``
 encodes a table's monitor codes on the host and adds their bin counts into
-a device float32 (R, B_max) carry with the bin-counts kernel
-(``kernels/histogram.py`` ``bin_counts``, replacing the Pallas
+a device float32 (R, B_max) carry in place with the bin-counts kernel
+(``kernels/histogram.py`` ``bin_counts(..., out=)``, replacing the Pallas
 ``ops/pallas/histogram.py`` ``bin_counts``); ``finalize()`` is the only
 host sync and derives per-numeric-row quantiles from the cumulative
 histogram (``stats/histogram.py``).
@@ -16,7 +16,8 @@ histogram (``stats/histogram.py``).
 Baselines publish into a model's registry version as a ``baseline.json`` +
 ``baseline.npz`` sidecar pair through ``ModelRegistry.add_sidecar``.  The
 fused-pipeline stage, the streaming tee and the multi-process all-reduce of
-the reference are not ported yet.
+the reference are not ported yet (``tee_blocks`` is here; the streamed
+training that would feed it is not).
 """
 
 from __future__ import annotations
@@ -47,6 +48,8 @@ QUANTILE_QS = (1.0, 5.0, 25.0, 50.0, 75.0, 95.0, 99.0)
 NUMERIC = "numeric"
 CATEGORICAL = "categorical"
 CLASS = "class"
+# the class row's scope in drift reports
+PREDICTION_SCOPE = "__prediction__"
 
 
 @dataclass
@@ -175,6 +178,30 @@ class Baseline:
     quantile_qs: Tuple[float, ...] = QUANTILE_QS
     quantiles: Optional[np.ndarray] = None   # (R, Q) float64, nan non-numeric
 
+    @property
+    def n_bins_max(self) -> int:
+        return self.counts.shape[1]
+
+    @property
+    def class_row(self) -> int:
+        return len(self.specs) - 1
+
+    def class_codes_for_labels(self, labels) -> np.ndarray:
+        """Map predicted class labels onto the class row's bin codes
+        (unknown/ambiguous labels take the trailing unknown bin): the label
+        encoding shared by the serving hook and the driftMonitor job."""
+        spec = self.specs[self.class_row]
+        code = {lab: i for i, lab in enumerate(spec.labels or [])}
+        unknown = spec.n_bins - 1
+        return np.fromiter((code.get(lab, unknown) for lab in labels),
+                           dtype=np.int32, count=len(labels))
+
+    def probabilities(self) -> np.ndarray:
+        """(R, B) per-row normalized distribution (zero-total rows stay
+        all-zero)."""
+        totals = self.counts.sum(axis=1, keepdims=True)
+        return np.divide(self.counts, np.maximum(totals, 1.0))
+
     # ---- sidecar serialization ----
     def to_sidecar(self) -> Dict[str, bytes]:
         """The registry sidecar pair: JSON spec + NPZ payload, as bytes."""
@@ -241,8 +268,7 @@ class BaselineBuilder:
                 self.device)
         note_dispatch(site="baseline.absorb")
         note_backend("baseline.absorb", resolve_backend(self.device))
-        self._counts = self._counts + bin_counts(d_codes,
-                                                 self._counts.shape[1], m)
+        bin_counts(d_codes, self._counts.shape[1], m, out=self._counts)
         self._n += table.n_rows if mask is None else int(np.sum(mask))
         return self
 
@@ -259,6 +285,14 @@ class BaselineBuilder:
         return Baseline(specs=[RowSpec.from_dict(s.to_dict())
                                for s in self.specs],
                         counts=counts, n_rows=self._n, quantiles=quantiles)
+
+
+def tee_blocks(blocks, builder: BaselineBuilder):
+    """Pass-through generator: every block updates the baseline builder
+    on its way to the consumer (no second pass over a streamed input)."""
+    for b in blocks:
+        builder.update(b)
+        yield b
 
 
 def compute_baseline(table: ColumnarTable, n_bins: int = DEFAULT_NUM_BINS,

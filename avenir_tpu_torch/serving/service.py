@@ -21,9 +21,11 @@ Batching modes (``BatchPolicy.batching``):
 
 SLO-adaptive coalescing (``BatchPolicy.slo_p99_ms``) and admission control
 (``BatchPolicy.max_queue_depth``: a submit against a full queue is answered
-``busy_label`` at once) behave as in the reference.  The wire transports
-(RESP, native codec), request tracing, the drift-monitor hook and metrics
-binding are not ported yet.
+``busy_label`` at once) behave as in the reference.  ``monitor=`` attaches
+the drift monitor's hook (``monitor.accumulator.ServingMonitor``): every
+answered batch's rows and labels are recorded through it, and a failing
+hook is warned, never raised into serving.  The wire transports (RESP,
+native codec), request tracing and metrics binding are not ported yet.
 """
 
 from __future__ import annotations
@@ -105,7 +107,8 @@ class PredictionService:
                  busy_label: str = "busy",
                  device=None,
                  quantized: bool = False,
-                 serve_mesh=None):
+                 serve_mesh=None,
+                 monitor=None):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
         self.registry = registry
@@ -130,6 +133,12 @@ class PredictionService:
         self.ambiguous_label = ambiguous_label
         self.busy_label = busy_label
         self.version: Optional[int] = None
+        # drift/quality hook (monitor.accumulator.ServingMonitor): every
+        # answered micro-batch records through it; None = unmonitored
+        self.monitor = monitor
+        # set by mark_degraded (a drift policy's degrade_action); cleared
+        # by a hot-swap
+        self.degraded: Optional[str] = None
         self._swap_lock = threading.Lock()
         if predictor is None:
             predictor = self._load(must=True)
@@ -139,6 +148,8 @@ class PredictionService:
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        if monitor is not None and warm and hasattr(monitor, "warm"):
+            monitor.warm()   # the monitor's first build off the live path
         # adaptive coalescing state (only moves when slo_p99_ms is set)
         self._adaptive_wait_ms = self.policy.max_wait_ms
         self._hold_ema_ms = 0.0
@@ -184,8 +195,16 @@ class PredictionService:
         with self._swap_lock:
             self.predictor = pred
             self.version = latest
+        self.degraded = None   # a fresh model clears the degraded flag
         self.counters.increment("Serving", "HotSwaps")
         return True
+
+    def mark_degraded(self, reason: str) -> None:
+        """Flag the served model as degraded (drift policy guardrail).
+        Serving continues; a successful :meth:`refresh` hot-swap clears
+        it."""
+        self.degraded = reason
+        self.counters.increment("Serving", "Degraded")
 
     # ---- prediction ----
     def _label(self, pred: Optional[str]) -> str:
@@ -212,8 +231,10 @@ class PredictionService:
         record, a non-numeric token), fall back to per-row isolation so one
         malformed request cannot take down its batchmates."""
         try:
-            return [("ok", lab) for lab in
-                    self.predict_rows(rows, _pred=pred)]
+            results = [("ok", lab) for lab in
+                       self.predict_rows(rows, _pred=pred)]
+            self._record_monitor(rows, results)
+            return results
         except Exception as exc:
             warnings.warn(
                 f"serving: batch predict failed ({type(exc).__name__}: "
@@ -240,7 +261,24 @@ class PredictionService:
         self.counters.increment("Serving", "Requests", len(rows))
         self.counters.increment("Serving", "Batches")
         self.counters.increment("Serving", "IsolatedBatches")
+        self._record_monitor(rows, out)
         return out
+
+    def _record_monitor(self, rows, results) -> None:
+        """Feed the answered (row, label) pairs to the drift monitor hook.
+        The hook only buffers on this path; its failures are warned, never
+        propagated: observability must not take serving down."""
+        if self.monitor is None:
+            return
+        try:
+            ok_rows = [r for r, (st, _) in zip(rows, results) if st == "ok"]
+            ok_labels = [v for st, v in results if st == "ok"]
+            if ok_rows:
+                self.monitor.record_batch(ok_rows, ok_labels)
+        except Exception as exc:
+            warnings.warn(f"serving: monitor hook failed "
+                          f"({type(exc).__name__}: {exc}); continuing "
+                          f"unmonitored for this batch", RuntimeWarning)
 
     # ---- in-process micro-batch loop ----
     def submit(self, row) -> "Future[str]":
@@ -436,6 +474,7 @@ class PredictionService:
             self.timer.record("serve.batch", time.perf_counter() - t0)
             self.counters.increment("Serving", "Requests", len(rows))
             self.counters.increment("Serving", "Batches")
+            self._record_monitor(rows, results)
         except Exception as exc:
             warnings.warn(
                 f"serving: dispatched batch readback failed "

@@ -24,6 +24,7 @@ call in ``avenir_tpu/utils/tracing.py``.
 from __future__ import annotations
 
 import contextlib
+import logging
 import threading
 import time
 from collections import defaultdict, deque
@@ -250,3 +251,17 @@ class StepTimer:
                     counters.set(
                         group, f"{name}.p{q}Us",
                         int(round(self.percentile_ms(name, q) * 1000)))
+
+
+def get_logger(name: str = "avenir_tpu_torch", debug_on: bool = False
+               ) -> logging.Logger:
+    """The reference's debug.on gate: DEBUG level when set, WARN otherwise."""
+    logger = logging.getLogger(name)
+    logger.setLevel(logging.DEBUG if debug_on else logging.WARNING)
+    logger.propagate = False  # our handler only: no doubling via root
+    if not logger.handlers:
+        h = logging.StreamHandler()
+        h.setFormatter(logging.Formatter(
+            "%(asctime)s %(name)s %(levelname)s %(message)s"))
+        logger.addHandler(h)
+    return logger

@@ -1,0 +1,142 @@
+"""float32 arithmetic that rounds as XLA's CPU backend does, in torch ops.
+
+The JAX package scores drift windows with a jitted float32 kernel
+(``avenir_tpu/monitor/drift.py`` ``_score_kernel``) compiled by XLA for the
+CPU.  Its report strings (``repr(round(stat, 6))``) and alert levels depend
+on the last bits of those statistics, and three things in XLA's arithmetic
+differ from what ``torch.log`` / ``torch.sum`` give:
+
+* ``log`` is an inlined Cephes polynomial (the same one as Eigen's
+  ``plog_float``), its multiply-adds contracted to FMAs, and its input's
+  subnormals flushed to zero (-> ``-inf``).  :func:`xla_log_f32`
+  reproduces it bit for bit on every float32 input we swept
+  (``tests/test_torch_xla_math.py``); ``torch.log`` is within 1 ulp of the
+  correctly rounded log, which differs from XLA's in about 11% of inputs.
+* A reduction over a row runs left to right, one element at a time
+  (:func:`seq_row_sum`, :func:`seq_cumsum`); a product that feeds it is
+  fused into the accumulation, ``acc = fma(a, b, acc)``
+  (:func:`fma_row_sum`).  ``torch.sum`` and ``torch.cumsum`` add in other
+  orders.
+* Operands that depend only on compile-time constants are folded by XLA
+  before the kernel runs (a log correctly rounded, a division by a
+  constant turned into a multiply by its folded reciprocal); callers
+  compute those with :func:`folded_log_f32` and plain float32 division.
+
+An FMA of float32 operands is computed as the float64 ``a*b + c`` rounded
+to float32 (:func:`fma_f32`): the product is exact in float64, so only
+the sum rounds twice, and a double rounding that differs from one
+rounding needs the float64 sum to fall exactly halfway between two
+float32 values — rare, and bounded by the tests.  Plain torch ops, no
+kernel: nothing here replaces a Pallas kernel.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _f32(v: float) -> float:
+    return float(np.float32(v))
+
+
+# Cephes' log coefficients as XLA's CPU backend states them, rounded to
+# float32 (the float64 FMA must see the float32 operands)
+_LOG_P = tuple(_f32(v) for v in (
+    7.0376836292e-2, -1.1514610310e-1, 1.1676998740e-1, -1.2420140846e-1,
+    1.4249322787e-1, -1.6668057665e-1, 2.0000714765e-1, -2.4999993993e-1,
+    3.3333331174e-1))
+_LOG_Q1 = _f32(-2.12194440e-4)
+_LOG_Q2 = _f32(0.693359375)
+_SQRTHF = _f32(0.707106781186547524)
+_MIN_NORMAL = float(np.finfo(np.float32).tiny)
+
+
+def fma_f32(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 ``a*b + c`` with one rounding of the float64 sum (see the
+    module docstring); ``b`` and ``c`` may be float32 tensors or floats
+    that float32 holds exactly."""
+    a64 = a.double()
+    b64 = b.double() if torch.is_tensor(b) else b
+    c64 = c.double() if torch.is_tensor(c) else c
+    return (a64 * b64 + c64).float()
+
+
+def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
+    """Natural log of float32 ``x`` as XLA's CPU backend computes it.
+
+    Frexp to a mantissa in [0.5, 1) and an exponent, the SQRTHF fold, the
+    three-way Cephes polynomial with every multiply-add an FMA, then
+    ``y = fma(y, x^3, q1*e)``, ``t -= x^2/2``, ``t += y``,
+    ``t = fma(q2, e, t)``.  Subnormal inputs of either sign count as 0
+    (XLA runs with denormals flushed): ``log(+-0) = -inf``,
+    ``log(inf) = inf``, other negative and NaN inputs give NaN."""
+    x = x.float()
+    # clamp below at the smallest normal (the polynomial's own clamp), as
+    # raw bits: exponent and mantissa split with integer ops
+    t = torch.clamp(x, min=_MIN_NORMAL)
+    bits = t.view(torch.int32)
+    emm0 = (bits >> 23) - 0x7F
+    mant = ((bits & ~0x7F800000) | 0x3F000000).view(torch.float32)
+    e = emm0.float() + 1.0
+    fold = mant < _SQRTHF
+    e = e - fold.float()
+    t0 = (mant - 1.0) + torch.where(fold, mant, torch.zeros_like(mant))
+    x2 = t0 * t0
+    x3 = x2 * t0
+    p = _LOG_P
+    y = fma_f32(t0, p[0], p[1])
+    y1 = fma_f32(t0, p[3], p[4])
+    y2 = fma_f32(t0, p[6], p[7])
+    y = fma_f32(y, t0, p[2])
+    y1 = fma_f32(y1, t0, p[5])
+    y2 = fma_f32(y2, t0, p[8])
+    y = fma_f32(y, x3, y1)
+    y = fma_f32(y, x3, y2)
+    y = fma_f32(y, x3, e * _LOG_Q1)
+    t0 = t0 - x2 * 0.5          # exact: the FMA and the plain form agree
+    t0 = t0 + y
+    t0 = fma_f32(e, _LOG_Q2, t0)
+    zero = x.abs() < _MIN_NORMAL      # subnormals of either sign are 0
+    t0 = torch.where(zero, torch.full_like(t0, -float("inf")), t0)
+    t0 = torch.where(x == float("inf"), x, t0)
+    return torch.where((x <= -_MIN_NORMAL) | torch.isnan(x),
+                       torch.full_like(t0, float("nan")), t0)
+
+
+def folded_log_f32(x: np.ndarray) -> np.ndarray:
+    """float32 log of host constants as XLA's constant folder computes it
+    (the float64 log rounded to float32: correctly rounded but for a rare
+    double rounding)."""
+    x = np.asarray(x, np.float32)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        return np.log(x.astype(np.float64)).astype(np.float32)
+
+
+def seq_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sums over the last axis, added left to right."""
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def fma_row_sum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``sum(a * b)`` over the last axis as XLA fuses it: left to
+    right, ``acc = fma(a[..., j], b[..., j], acc)``.  One float64 pass a
+    column over every leading index at once."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros(a.shape[:-1], dtype=torch.float32, device=a.device)
+    for j in range(a.shape[-1]):
+        acc = (a64[..., j] * b64[..., j] + acc.double()).float()
+    return acc
+
+
+def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 running sums over the last axis, added left to right."""
+    out = torch.empty_like(x, dtype=torch.float32)
+    acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+        out[..., j] = acc
+    return out

@@ -95,8 +95,9 @@ order — any failure exits non-zero before the result line:
               EXACTLY equal
  12. b4       the bin-counts kernel against its plain PyTorch version: the
               rafo baseline (R=5, B=7), the default 32-bin shape (R=33,
-              B=33) and a wide one whose accumulator does not fit in
-              shared memory (R=64, B=256), codes in [-2, B+2), n = 1, 7,
+              B=33) and a wide one whose per-warp accumulators do not fit
+              in 48 KB (R=64, B=256: one block-wide accumulator in 64 KB of
+              dynamic shared memory), codes in [-2, B+2), n = 1, 7,
               1000 and 1,000,000, mask None and partial; the float32
               counts must be EXACTLY equal
  13. sidecars the sidecar main path, launch counts zeroed before and read
@@ -110,16 +111,12 @@ order — any failure exits non-zero before the result line:
               must reproduce served_quantized.csv.  The ledger must show
               quantized.vote.cuda and baseline.absorb.cuda and no torch or
               host form
- 14. b3/b4 times  median CUDA-event times of each kernel and its plain
-              version: B3 on the published int8 rafo9 forest over its
-              requests quantized and tiled to 1,000,000 rows (table form;
-              the scan form as "old", in turns), B4 at (R=5,
-              B=7) over the monitor codes of 1,000,000 hangup rows; bounds
-              as in phases 6 and 10.  No single PyTorch call computes
-              either (B4: torch.bincount needs the flat r*B + code index
-              and the validity mask built first, which is the work; its
-              time over a prebuilt index is printed as context), so
-              library_ms is null
+ 14. b3 times median CUDA-event times of B3 and its plain version on
+              the published int8 rafo9 forest over its requests quantized
+              and tiled to 1,000,000 rows (table form; the scan form as
+              "old", in turns); bound as in phase 6.  No single PyTorch
+              call computes it, so library_ms is null (B4's times moved to
+              phase 27)
  15. b5       the KNN distance + top-k kernel against its plain PyTorch
               version on the card: seeded rows in the e-learning (Fn=4,
               Fc=0), bench (Fn=2, Fc=7), all-categorical (Fn=0, Fc=10)
@@ -211,10 +208,56 @@ order — any failure exits non-zero before the result line:
               pairwise_topk wall beside the single-device one.  No single
               PyTorch call computes any of the three: library_ms is null
 
+ 24. b4 again the bin-counts kernel against its plain version in both
+              forms, counts written (out None) and added into an out carry
+              (every other carry above 2^24, where the float32 add
+              rounds): phase 12's shapes at n = 1, 7, 64, 256, 1000, 2048,
+              4096 (the drift monitor's blocks) and 1,000,000, slices from
+              rows 0, 1 and 3 (off any 16-byte boundary), mask None and
+              partial; R=8, B=8192 (counts in global memory) at n = 1,
+              1000 and 100,000; all codes in one bin (skew); n = 0; two Python
+              threads, each on its own stream, accumulating blocks at once
+              (the per-(device, stream) workspace and ticket); every case
+              EXACT
+ 25. drift    the drift monitor's main path, launch counts zeroed before
+              and read after: driftMonitor and predictDriftScore
+              (dm.pipeline.fuse=false) over tests/torch_fixtures/drift9's
+              stream against a copy of the rafo9q registry must give the
+              fixture's report rows (non-statistic fields equal,
+              statistics within rtol 1e-5 / atol 1e-7; the six-decimal
+              strings that differ are counted), alert records (value
+              within the same tolerance), BadRecords / DriftMonitor /
+              PredictDrift counters and predictions (bytes);
+              histogram.bin_counts_launches must equal the absorbed blocks
+              (the jobs' monitor.absorb dispatches), B2 must have
+              launched, the ledger must show monitor.absorb.cuda and no
+              torch or host form.  Then PredictionService with a
+              ServingMonitor (async_flush=False) serves rafo9's requests:
+              its reports must equal an offline StreamDriftMonitor's over
+              the same rows and labels, RecordErrors 0
+ 26. scale    a 1,000,000-row drifted replay (numpy draws from
+              call_hangup_gen's model; the second half with queue time
+              shifted 600 s and the reason mix reweighted) through
+              StreamDriftMonitor at 2,048-row windows against the rafo9q
+              baseline: one bin-counts launch a window; rows/s and
+              windows/s; per window, median ms of encode (host), the B4
+              absorb call, the finalize read-back and the two scores (the
+              window and its long window in one pass), each synchronised
+ 27. b4 times median CUDA-event call and device times of B4, its first
+              port's design as "old" in the same turns, and its plain
+              version, with the bound (bytes over 3.35 TB/s or adds over
+              33.5 T/s): 1,000,000 rows at (R=5, B=7) over hangup monitor
+              codes (the reported numbers), (33, 33) and (64, 256), and
+              monitor blocks of 2,048 and 256 rows at (5, 7); an empty
+              kernel launch (the yardstick at block size) and
+              torch.bincount over a prebuilt flat index (context: the
+              index and validity mask are the work), so library_ms is null
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
-times); the last line is ``{"ok": true, "device": {...}}``.
+times, B4's 2,048-row block and empty-launch times); the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -252,6 +295,13 @@ B1_BIG_ROWS = {"rafo": 1_000_000, "rafo_root": 1_000_000,
 # bin-counts shapes (R, B) held against the plain version
 B4_SHAPES = {"rafo": (5, 7), "default": (33, 33), "wide": (64, 256)}
 B4_ROWS = (1, 7, 1000, 1_000_000)
+# the drift monitor's absorbed block sizes (its buckets' edges), and a
+# shape whose counts fit no shared memory (65,536 cells)
+B4_BLOCK_ROWS = (64, 256, 2048, 4096)
+B4_GLOBAL_SHAPE = (8, 8192)
+DRIFT9 = os.path.join(ROOT, "tests", "torch_fixtures", "drift9")
+DRIFT_SCALE_ROWS = 1_000_000
+DRIFT_WINDOW_ROWS = 2048
 KNN_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "knn")
 ELEARN_KNN = os.path.join(ROOT, "tests", "torch_fixtures", "elearn_knn")
 # B5 schemas: numeric width Fn and categorical cardinalities (one-hot width
@@ -583,40 +633,52 @@ def time_b1(rng, shape, n, dev):
     return res
 
 
-def time_b4(codes, B, dev):
-    """Bin-counts kernel and plain-version median ms on (n, R) codes, in
-    turns kernel, plain, kernel; torch.bincount over a prebuilt flat index
-    as context; and the bound: the codes read once and the counts written
-    once at 3.35 TB/s, or one add per valid code at the float32 add rate —
-    the larger of the two."""
-    import torch
-    from avenir_tpu_torch.kernels import histogram
-    c = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(dev)
+def b4_bound(c, B):
+    """The least time the card could take for one bin-counts call on the
+    (n, R) codes ``c``: the codes read once and the counts written once at
+    3.35 TB/s, or one add per valid code at the float32 add rate — the
+    larger of the two."""
     n, R = c.shape
-    res = {"ms": cuda_ms(lambda: histogram.bin_counts(c, B), 50)}
-    res["plain_ms"] = cuda_ms(lambda: histogram.bin_counts_torch(c, B), 10)
-    res["ms_again"] = cuda_ms(lambda: histogram.bin_counts(c, B), 50)
-    res["device_ms"] = device_ms(lambda: histogram.bin_counts(c, B))
-    flat = (c.long() + B * torch.arange(R, device=dev)[None, :]).reshape(-1)
-    res["bincount_prebuilt_ms"] = cuda_ms(
-        lambda: torch.bincount(flat, minlength=R * B), 20)
     nbytes = c.nbytes + R * B * 4
     adds = int(((c >= 0) & (c < B)).sum().item())
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     adds_ms = adds / TESTS_PER_S * 1e3
-    res.update(bound_ms=max(bytes_ms, adds_ms), bytes=nbytes,
-               bytes_ms=bytes_ms, adds=adds, adds_ms=adds_ms,
-               bound_by="bytes" if bytes_ms >= adds_ms else "operations")
+    return {"bound_ms": max(bytes_ms, adds_ms), "bytes": nbytes,
+            "bytes_ms": bytes_ms, "adds": adds, "adds_ms": adds_ms,
+            "bound_by": "bytes" if bytes_ms >= adds_ms else "operations"}
+
+
+def time_b4(codes, B, dev):
+    """Median ms of the bin-counts kernel (call: cuda_ms; device: the card
+    alone, device_ms), the first port's design as "old" in the same turns
+    (new, old, plain, new again), the plain version, and b4_bound.  At a
+    monitor block's size the yardstick is one launch: callers time
+    ``histogram.empty_launch`` beside it."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    c = torch.from_numpy(np.ascontiguousarray(codes, np.int32)).to(dev)
+    reps = 50 if c.shape[0] >= 100_000 else 200
+    res = {"ms": cuda_ms(lambda: histogram.bin_counts(c, B), reps)}
+    res["old_ms"] = cuda_ms(lambda: histogram.bin_counts(c, B, old=True),
+                            reps)
+    res["plain_ms"] = cuda_ms(lambda: histogram.bin_counts_torch(c, B), 10)
+    res["ms_again"] = cuda_ms(lambda: histogram.bin_counts(c, B), reps)
+    res["device_ms"] = device_ms(lambda: histogram.bin_counts(c, B))
+    res["old_device_ms"] = device_ms(
+        lambda: histogram.bin_counts(c, B, old=True))
+    res.update(b4_bound(c, B))
     return res
 
 
-def hangup_table(rng, n, fs):
+def hangup_table(rng, n, fs, reason_p=REASON_P, queue_shift=0):
     """n rows in call_hangup.json's schema drawn vectorised from
     call_hangup_gen's model (call-reason mix, exponential queue time,
-    Poisson transfers and prior calls, logistic hang-up)."""
+    Poisson transfers and prior calls, logistic hang-up); a drifted stream
+    passes another reason mix and a queue-time shift in seconds."""
     from avenir_tpu_torch.core.table import ColumnarTable
-    reason = rng.choice(4, n, p=REASON_P)
-    queue = np.clip(rng.exponential(420, n), 0, 1800).astype(np.int64)
+    reason = rng.choice(4, n, p=reason_p)
+    queue = np.clip(rng.exponential(420, n) + queue_shift, 0,
+                    1800).astype(np.int64)
     transfers = np.clip(rng.poisson(0.7, n), 0, 4)
     prior = np.clip(rng.poisson(1.0, n), 0, 9)
     annoy = queue / np.asarray(PATIENCE)[reason] + 0.5 * transfers \
@@ -1510,6 +1572,372 @@ def distinct_b6(cards):
                   f": partial tallies exact, merged votes == B2", flush=True)
 
 
+def b4_phase(dev, rng):
+    """Phase 24: B4 against its plain version in both forms (counts written,
+    counts added into an ``out`` carry, one above 2^24 among them) at the
+    phase-12 shapes and the drift monitor's block sizes, unaligned slices,
+    one skewed case, and two threads launching on two streams at once.
+    Returns the largest absolute difference (0: every case exact)."""
+    import threading
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    phase("24 bin-counts kernel vs plain version: out= carries, monitor "
+          "blocks, skew, two streams")
+    cases = 0
+
+    def check(codes, B, mask, what):
+        nonlocal cases
+        R = codes.shape[1]
+        carry = torch.from_numpy(
+            (2.0 ** 24 + rng.integers(0, 64, (R, B))
+             + rng.integers(0, 2, (R, B)) * 2.0 ** 25).astype(np.float32)
+            if cases % 2 else rng.integers(0, 5000, (R, B)).astype(
+                np.float32)).to(dev)
+        want = histogram.bin_counts_torch(codes, B, mask)
+        got = histogram.bin_counts(codes, B, mask)
+        added = histogram.bin_counts(codes, B, mask, out=carry.clone())
+        want_added = histogram.bin_counts_torch(codes, B, mask,
+                                                out=carry.clone())
+        torch.cuda.synchronize()
+        if not torch.equal(got, want) or not torch.equal(added, want_added) \
+                or not torch.equal(want_added, carry + want):
+            fail(f"bin-counts kernel != plain version: {what}")
+        cases += 1
+
+    rows = sorted(set(B4_ROWS) | set(B4_BLOCK_ROWS))
+    for name, (R, B) in B4_SHAPES.items():
+        for n in rows:
+            codes = torch.from_numpy(rng.integers(
+                -2, B + 2, (n + 3, R), dtype=np.int32)).to(dev)
+            part = torch.from_numpy(rng.random(n + 3) < 0.6).to(dev)
+            for off in ((0, 1, 3) if n <= 4096 else (0,)):
+                c, m = codes[off:off + n], part[off:off + n]
+                for mask in (None, m):
+                    check(c, B, mask, f"{name} R={R} B={B} n={n} from row "
+                          f"{off}, mask {'part' if mask is not None else None}")
+        print(f"{name} R,B=({R},{B}): exact at n={rows}, slices from rows "
+              f"0/1/3, mask None and partial, out None and an out carry "
+              f"(every other one above 2^24)", flush=True)
+    # past the block-wide accumulator's 200 KB of shared memory: lanes add
+    # straight into the global accumulator
+    R, B = B4_GLOBAL_SHAPE
+    for n in (1, 1000, 100_000):
+        codes = torch.from_numpy(rng.integers(-2, B + 2, (n, R),
+                                              dtype=np.int32)).to(dev)
+        check(codes, B, None, f"global accumulator R={R} B={B} n={n}")
+    print(f"global-accumulator shape R,B={B4_GLOBAL_SHAPE}: exact at n = 1, "
+          f"1000, 100,000", flush=True)
+    skew = torch.full((1_000_000, 5), 3, dtype=torch.int32, device=dev)
+    check(skew, 7, None, "skewed: every code in one bin")
+    empty = torch.zeros((0, 5), dtype=torch.int32, device=dev)
+    check(empty, 7, None, "n = 0")
+    errs = []
+
+    def worker(seed):
+        r = np.random.default_rng(seed)
+        stream = torch.cuda.Stream(dev)
+        with torch.cuda.stream(stream):
+            for _ in range(40):
+                n = int(r.choice(B4_BLOCK_ROWS))
+                c = torch.from_numpy(r.integers(-1, 8, (n, 5),
+                                                dtype=np.int32)).to(dev)
+                out = torch.zeros((5, 7), device=dev)
+                for _ in range(3):
+                    histogram.bin_counts(c, 7, out=out)
+                want = histogram.bin_counts_torch(c, 7) * 3
+                stream.synchronize()
+                if not torch.equal(out, want):
+                    errs.append(seed)
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (1, 2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errs:
+        fail(f"bin counts launched from two threads on two streams "
+             f"differ from the plain version (threads {sorted(set(errs))})")
+    print(f"skewed 1M x 5 codes in one bin, n = 0, and two threads x 40 "
+          f"blocks x 3 accumulating calls on two streams: exact "
+          f"({cases} cases in all; workspaces keyed by (device, stream): "
+          f"{len(histogram._workspaces)})", flush=True)
+    return 0.0
+
+
+def drift9_module():
+    """tests/torch_fixtures/drift9/make.py as a module (its job keys and
+    constants; it imports the JAX package only inside ``make``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "drift9_make", os.path.join(DRIFT9, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def same_report(got, want, what):
+    """Drift report CSVs: non-statistic fields equal, statistics within
+    rtol 1e-5 / atol 1e-7; returns the count of differing six-decimal
+    strings."""
+    with open(got) as a, open(want) as b:
+        g_lines, w_lines = a.read().splitlines(), b.read().splitlines()
+    if len(g_lines) != len(w_lines):
+        fail(f"{what}: {len(g_lines)} report rows, fixture {len(w_lines)}")
+    strings = 0
+    for g, w in zip(g_lines, w_lines):
+        gf, wf = g.split(","), w.split(",")
+        if gf[:5] + gf[10:] != wf[:5] + wf[10:]:
+            fail(f"{what}: row {g!r} != fixture {w!r}")
+        for x, y in zip(gf[5:10], wf[5:10]):
+            if abs(float(x) - float(y)) > 1e-7 + 1e-5 * abs(float(y)):
+                fail(f"{what}: statistic {x} vs fixture {y} in {g!r}")
+            strings += x != y
+    return strings
+
+
+def same_alerts(got, want, what):
+    with open(got) as a, open(want) as b:
+        g_recs = [json.loads(line) for line in a]
+        w_recs = [json.loads(line) for line in b]
+    if len(g_recs) != len(w_recs):
+        fail(f"{what}: {len(g_recs)} alert records, fixture {len(w_recs)}")
+    for g, w in zip(g_recs, w_recs):
+        gv, wv = g.pop("value"), w.pop("value")
+        if g != w or abs(gv - wv) > 1e-7 + 1e-5 * abs(wv):
+            fail(f"{what}: record {g} ({gv}) != fixture {w} ({wv})")
+
+
+def drift_main_path(dev):
+    """Phase 25: the drift monitor's main path on the card, counts zeroed
+    just before and read just after: driftMonitor and predictDriftScore
+    (dm.pipeline.fuse=false) over the drift9 fixture's stream against a
+    copy of the rafo9q registry; then the serving hook.  Returns (B4
+    launches, B2 launches, six-decimal strings that differ)."""
+    import torch
+    from avenir_tpu_torch.core.table import encode_rows
+    from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.monitor.accumulator import (ServingMonitor,
+                                                      StreamDriftMonitor)
+    from avenir_tpu_torch.monitor.baseline import load_baseline
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    from avenir_tpu_torch.serving.service import BatchPolicy, \
+        PredictionService
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    mk = drift9_module()
+    reg = os.path.join(WORK, "drift9_registry")
+    shutil.copytree(os.path.join(RAFO9Q, "registry"), reg)
+    stream = os.path.join(DRIFT9, "stream.csv")
+    outs = {}
+    histogram.bin_counts_launches = 0
+    vote.launches = vote.table_launches = 0
+    with transfer_ledger() as ledger:
+        phase("25 drift main path: driftMonitor, predictDriftScore "
+              "(dm.pipeline.fuse=false) == the drift9 fixture")
+        for job, sub, extra in (("driftMonitor", "drift", ()),
+                                ("predictDriftScore", "predict",
+                                 ("-Ddm.pipeline.fuse=false",))):
+            out = os.path.join(WORK, f"drift9_{sub}")
+            t0 = time.perf_counter()
+            run_cli([job, f"-Ddm.model.registry.dir={reg}",
+                     f"-Ddm.model.name={mk.MODEL_NAME}", *mk.KEYS, *extra,
+                     stream, out])
+            outs[sub] = (out, time.perf_counter() - t0)
+    b4_launches = histogram.bin_counts_launches
+    b2_launches = vote.launches
+    backends = ledger.backend_snapshot()
+    strings = absorbed = 0
+    for sub, (out, wall) in outs.items():
+        want = os.path.join(DRIFT9, sub)
+        n_diff = same_report(os.path.join(out, "part-r-00000"),
+                             os.path.join(want, "part-r-00000"),
+                             f"drift9 {sub} report")
+        strings += n_diff
+        same_alerts(os.path.join(out, "alerts.jsonl"),
+                    os.path.join(want, "alerts.jsonl"), f"drift9 {sub}")
+        with open(out + ".counters.json") as fh:
+            counters = json.load(fh)
+        got_c = {g: counters[g] for g in mk.COUNTER_GROUPS if g in counters}
+        with open(os.path.join(DRIFT9, f"{sub}_counters.json")) as fh:
+            if got_c != json.load(fh):
+                fail(f"drift9 {sub} counters {got_c} != the fixture's")
+        absorbed += counters["Dispatches"]["monitor.absorb"]
+        print(f"drift9 {sub}: report rows and alert records equal to the "
+              f"fixture's ({n_diff} six-decimal statistics differ), "
+              f"counters {got_c}; wall {wall:.2f} s", flush=True)
+    same_bytes(os.path.join(outs["predict"][0], "predictions",
+                            "part-m-00000"),
+               os.path.join(DRIFT9, "predict", "predictions", "part-m-00000"),
+               "drift9 predictDriftScore predictions")
+    print(f"drift main path: bin_counts launches={b4_launches} (absorbed "
+          f"blocks {absorbed}), ensemble_vote launches={b2_launches} (table "
+          f"form {vote.table_launches}); KernelBackends={backends}",
+          flush=True)
+    if b4_launches != absorbed:
+        fail(f"drift main path: {b4_launches} bin-counts launches for "
+             f"{absorbed} absorbed blocks")
+    if b2_launches <= 0:
+        fail("drift main path never launched the ensemble-vote kernel")
+    if not backends.get("monitor.absorb.cuda"):
+        fail("drift ledger shows no monitor.absorb.cuda")
+    wrong = [k for k in backends if k.endswith((".torch", ".host"))]
+    if wrong:
+        fail(f"ledger shows non-kernel forms on the drift path: {wrong}")
+
+    # the serving hook against an offline monitor over the same rows
+    registry = ModelRegistry(reg)
+    baseline = load_baseline(registry, mk.MODEL_NAME)
+    schema = registry.load(mk.MODEL_NAME).schema
+    mon = ServingMonitor(baseline, schema, window_rows=512, flush_rows=128,
+                         async_flush=False, device=dev)
+    svc = PredictionService(registry=registry, model_name=mk.MODEL_NAME,
+                            monitor=mon, device=dev,
+                            policy=BatchPolicy(max_batch=64))
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        rows = [line.split(",") for line in fh.read().splitlines()]
+    svc.start()
+    labels = [f.result(timeout=120) for f in [svc.submit(r) for r in rows]]
+    svc.stop()
+    mon.close()
+    offline = StreamDriftMonitor(baseline, window_rows=512, device=dev)
+    offline.observe_table(encode_rows(rows, schema),
+                          class_codes=baseline.class_codes_for_labels(labels))
+    offline.close_window()
+
+    def key(r):
+        return (r.index, r.kind, r.n_rows,
+                [(x.scope, x.kind, x.stats) for x in r.rows])
+    if [key(r) for r in mon.reports] != [key(r) for r in offline.reports]:
+        fail("the serving hook's drift reports differ from an offline "
+             "StreamDriftMonitor's over the same rows and labels")
+    errors = mon.counters.get("DriftMonitor", "RecordErrors")
+    if errors:
+        fail(f"the serving hook dropped {errors} rows (RecordErrors)")
+    print(f"serving hook: {len(rows)} rafo9 requests served on the card "
+          f"with a ServingMonitor; its {len(mon.reports)} reports equal an "
+          f"offline StreamDriftMonitor's; RecordErrors=0", flush=True)
+    torch.cuda.synchronize()
+    return b4_launches, b2_launches, strings
+
+
+def drift_scale(dev, fs):
+    """Phase 26: a 1,000,000-row drifted replay (numpy draws from
+    call_hangup_gen's model; the second half with queue time shifted and
+    the reason mix reweighted) through StreamDriftMonitor at 2,048-row
+    windows against the rafo9q baseline; rows/s and windows/s end to end,
+    then the per-window layers with each one synchronised."""
+    import torch
+    from avenir_tpu_torch.core.table import ColumnarTable
+    from avenir_tpu_torch.kernels import histogram
+    from avenir_tpu_torch.monitor.accumulator import StreamDriftMonitor
+    from avenir_tpu_torch.monitor.baseline import (encode_monitor_codes,
+                                                   load_baseline)
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    phase("26 scale: a 1,000,000-row drifted replay at 2,048-row windows")
+    baseline = load_baseline(ModelRegistry(os.path.join(RAFO9Q, "registry")),
+                             "rafo9")
+    rng = np.random.default_rng(20261026)
+    half = DRIFT_SCALE_ROWS // 2
+    quiet = hangup_table(rng, half, fs)
+    drifted = hangup_table(rng, DRIFT_SCALE_ROWS - half, fs,
+                           reason_p=(0.1, 0.1, 0.1, 0.7), queue_shift=600)
+    table = ColumnarTable(schema=fs, n_rows=DRIFT_SCALE_ROWS, columns={
+        k: np.concatenate([quiet.columns[k], drifted.columns[k]])
+        for k in quiet.columns})
+    w = DRIFT_WINDOW_ROWS
+    mon = StreamDriftMonitor(baseline, window_rows=w, device=dev).warm()
+    histogram.bin_counts_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for lo in range(0, table.n_rows, w):
+        mon.observe_codes(encode_monitor_codes(
+            table.take_rows(lo, min(lo + w, table.n_rows)), baseline.specs))
+    mon.close_window()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    windows = mon.counters.get("DriftMonitor", "WindowsScored")
+    launches = histogram.bin_counts_launches
+    if launches != windows:
+        fail(f"drift replay: {launches} bin-counts launches for {windows} "
+             f"windows of {w} rows")
+    last = [r for r in mon.reports if r.kind == "window"][-1]
+    if last.row("queueTimeSec").stats["psi"] < 0.25:
+        fail("drift replay: the shifted queue time did not score as drift")
+    print(f"replay: {table.n_rows} rows in {windows} windows, {wall:.3f} s "
+          f"wall: {table.n_rows / wall:,.0f} rows/s, {windows / wall:,.1f} "
+          f"windows/s; bin_counts launches={launches}", flush=True)
+    # per-layer: each step of a window synchronised, medians over windows
+    layers = {k: [] for k in ("encode", "absorb", "finalize", "score")}
+    scorer, acc = mon.scorer, mon.acc
+    for lo in range(0, table.n_rows, w):
+        t = time.perf_counter()
+        codes = encode_monitor_codes(
+            table.take_rows(lo, min(lo + w, table.n_rows)), baseline.specs)
+        layers["encode"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        acc.absorb_codes(codes)
+        torch.cuda.synchronize()
+        layers["absorb"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        counts, n = acc.finalize()
+        layers["finalize"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        # the window and a long-window twin in one pass, as _close scores
+        scorer.score_many([(counts, n, 0, "window"),
+                           (counts * 0.9, n, 0, "longterm")])
+        layers["score"].append(time.perf_counter() - t)
+    med = {k: float(np.median(v)) * 1e3 for k, v in layers.items()}
+    print(f"per window, median ms (each layer synchronised): encode (host) "
+          f"{med['encode']:.4f}, B4 absorb call {med['absorb']:.4f}, "
+          f"finalize read-back {med['finalize']:.4f}, the two scores (one "
+          f"pass) {med['score']:.4f}", flush=True)
+    return {"rows_per_s": table.n_rows / wall, "windows_per_s": windows / wall,
+            "wall_s": wall, "windows": windows, "launches": launches,
+            "layers_ms": med}
+
+
+def b4_times(dev, fs):
+    """Phase 27: B4 call and device times, new and old form in the same
+    turns, with the plain version and the bound: 1M rows at the rafo
+    baseline's (5, 7) (hangup monitor codes), (33, 33) and (64, 256)
+    (random codes), and monitor blocks of 2,048 and 256 rows at (5, 7);
+    an empty kernel launch and torch.bincount over a prebuilt flat index
+    as context."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    from avenir_tpu_torch.monitor.baseline import (encode_monitor_codes,
+                                                   monitor_specs)
+    phase("27 bin-counts kernel times: new and old form")
+    specs = monitor_specs(fs)
+    hangup = encode_monitor_codes(
+        hangup_table(np.random.default_rng(20261018), 1_000_000, fs), specs)
+    B = max(s.n_bins for s in specs)
+    rng = np.random.default_rng(20261027)
+    res = {}
+    for name, codes, b in (
+            ("rafo_1m", hangup, B),
+            ("default_1m", rng.integers(0, 33, (1_000_000, 33),
+                                        dtype=np.int32), 33),
+            ("wide_1m", rng.integers(0, 256, (1_000_000, 64),
+                                     dtype=np.int32), 256),
+            ("rafo_2048", hangup[:2048], B), ("rafo_256", hangup[:256], B)):
+        res[name] = time_b4(codes, b, dev)
+        print(f"bin counts {name} R,B=({codes.shape[1]},{b}) "
+              f"n={codes.shape[0]}: {res[name]}", flush=True)
+    res["empty_ms"] = cuda_ms(lambda: histogram.empty_launch(dev), 200)
+    res["empty_device_ms"] = device_ms(lambda: histogram.empty_launch(dev))
+    c = torch.from_numpy(hangup).to(dev)
+    flat = (c.long() + B * torch.arange(c.shape[1], device=dev)[None, :]
+            ).reshape(-1)
+    res["bincount_prebuilt_ms"] = cuda_ms(
+        lambda: torch.bincount(flat, minlength=c.shape[1] * B), 20)
+    print(f"empty kernel launch: {res['empty_ms']:.5f} ms call, "
+          f"{res['empty_device_ms']:.5f} ms device; torch.bincount over a "
+          f"prebuilt flat index (context, not the function: the index and "
+          f"validity mask are the work) {res['bincount_prebuilt_ms']:.5f} "
+          f"ms; no single PyTorch call computes the bin counts: library_ms "
+          f"is null", flush=True)
+    return res
+
+
 def main():
     import torch
     phase("1 device")
@@ -1909,8 +2337,8 @@ def main():
                          f"R={R} B={B}, n={n}, mask "
                          f"{'partial' if mask is not None else 'None'}")
             print(f"{name} R,B=({R},{B}) n={n}: exact with mask None and "
-                  f"partial (smem={R * B * 4 <= histogram.BIN_SMEM_LIMIT}, "
-                  f"total={float(want.sum().item()):.0f})", flush=True)
+                  f"partial (total={float(want.sum().item()):.0f})",
+                  flush=True)
 
     # ---- the sidecar main path: counts zeroed just before, read after ----
     vote.launches = vote.quantized_launches = vote.table_launches = 0
@@ -1962,7 +2390,7 @@ def main():
                    os.path.join(RAFO9Q, "served_quantized.csv"),
                    "rafo9q predictionService -Dps.quantized=true")
     b3_launches = vote.quantized_launches
-    b4_launches = histogram.bin_counts_launches
+    b4_side_launches = histogram.bin_counts_launches
     side_table = vote.table_launches
     if side_table != vote.launches + b3_launches:
         fail(f"sidecar main path: {vote.launches + b3_launches - side_table} "
@@ -1973,7 +2401,8 @@ def main():
         sq = json.load(fh)
     print(f"sidecar main path: launches in the publish {publish_launches}, "
           f"quantized_vote launches in all={b3_launches}, bin_counts "
-          f"launches={b4_launches}, table-form vote launches={side_table}; "
+          f"launches={b4_side_launches}, table-form vote launches="
+          f"{side_table}; "
           f"KernelBackends={side_backends}; "
           f"randomForestBuilder {q_train_s:.2f} s wall; predictionService "
           f"{sq['Serving']['Requests']} requests in "
@@ -1991,9 +2420,7 @@ def main():
     if wrong:
         fail(f"ledger shows non-kernel forms on the sidecar path: {wrong}")
 
-    phase("14 int8 vote and bin-counts kernel times")
-    from avenir_tpu_torch.monitor.baseline import (encode_monitor_codes,
-                                                   monitor_specs)
+    phase("14 int8 vote kernel times")
     from avenir_tpu_torch.serving.quantized import load_quantized
     from avenir_tpu_torch.serving.registry import ModelRegistry
     qf = load_quantized(ModelRegistry(q_reg), "rafo9", 1)
@@ -2012,16 +2439,8 @@ def main():
                    old=scan_form(q_vote))
     print(f"int8 rafo9 forest {qf.q_lo.shape} (T,P,F), n={n}: {b3}",
           flush=True)
-    specs = monitor_specs(fs)
-    mon_codes = encode_monitor_codes(
-        hangup_table(np.random.default_rng(20261018), 1_000_000, fs), specs)
-    b4_B = max(s.n_bins for s in specs)
-    b4 = time_b4(mon_codes, b4_B, dev)
-    print(f"bin counts R,B=({len(specs)},{b4_B}) n=1,000,000 (hangup "
-          f"monitor codes): {b4}", flush=True)
-    print("no single PyTorch call computes the int8 vote or the bin counts "
-          "(torch.bincount needs the flat index and validity mask built "
-          "first): library_ms is null", flush=True)
+    print("no single PyTorch call computes the int8 vote: library_ms is "
+          "null", flush=True)
 
     b5_err, b5_launches, b5_scale, b5_t, knn_scale = knn_phases(dev, rng)
 
@@ -2045,6 +2464,13 @@ def main():
     b6_t, fin_t, b7_t = sharded_times(dev, ens, requests, fs, comp4,
                                       knn_scale, knn_warm_4)
 
+    b4_err = max(b4_err, b4_phase(dev, rng))
+    b4_launches, drift_b2, drift_strings = drift_main_path(dev)
+    drift = drift_scale(dev, fs)
+    b4_t = b4_times(dev, fs)
+    b4 = b4_t["rafo_1m"]
+    blk = b4_t["rafo_2048"]
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ensemble_vote", "route": "cuda",
@@ -2056,7 +2482,8 @@ def main():
         "library_ms": None, "form": rafo9["form"],
         "table_launches": main_table, "old_form": rafo9["old_form"],
         "old_ms": rafo9["old_ms"], "device_ms": rafo9["device_ms"],
-        "old_device_ms": rafo9["old_device_ms"]}, {
+        "old_device_ms": rafo9["old_device_ms"],
+        "drift_launches": drift_b2}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -2088,7 +2515,18 @@ def main():
         "launches": b4_launches, "max_abs_err": b4_err,
         "ms": b4["ms"], "plain_ms": b4["plain_ms"],
         "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
-        "library_ms": None, "device_ms": b4["device_ms"]}, {
+        "library_ms": None, "device_ms": b4["device_ms"],
+        "old_ms": b4["old_ms"], "old_device_ms": b4["old_device_ms"],
+        "block_2048_ms": blk["ms"], "block_2048_device_ms": blk["device_ms"],
+        "block_2048_old_ms": blk["old_ms"],
+        "block_2048_old_device_ms": blk["old_device_ms"],
+        "block_2048_bound_ms": blk["bound_ms"],
+        "empty_launch_ms": b4_t["empty_ms"],
+        "empty_launch_device_ms": b4_t["empty_device_ms"],
+        "sidecar_launches": b4_side_launches,
+        "drift_replay_launches": drift["launches"],
+        "drift_replay_rows_per_s": drift["rows_per_s"],
+        "drift_six_decimal_diffs": drift_strings}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",

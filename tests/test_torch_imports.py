@@ -33,7 +33,12 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.models.knn",
              "avenir_tpu_torch.cli.knn_jobs",
              "avenir_tpu_torch.parallel.mesh",
-             "avenir_tpu_torch.parallel.collectives"):
+             "avenir_tpu_torch.parallel.collectives",
+             "avenir_tpu_torch.monitor.drift",
+             "avenir_tpu_torch.monitor.accumulator",
+             "avenir_tpu_torch.monitor.policy",
+             "avenir_tpu_torch.utils.xla_math",
+             "avenir_tpu_torch.cli.monitor_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -48,7 +53,7 @@ def test_port_imports_without_jax_or_avenir_tpu():
     res = subprocess.run([sys.executable, "-I", "-c", _PROBE, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # runtime, weights, core x6, utils x2, kernels x6, models x4,
-    # serving x5, monitor x2, stats x2, ops x2, cli x5, parallel x3 and
+    # runtime, weights, core x6, utils x3, kernels x6, models x4,
+    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x3 and
     # the package
-    assert int(res.stdout.strip()) >= 35
+    assert int(res.stdout.strip()) >= 40
