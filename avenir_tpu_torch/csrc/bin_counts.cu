@@ -205,9 +205,10 @@ cudaError_t launch_new(int blocks, size_t smem, cudaStream_t s,
 }
 
 // SMs of each device, read once a device; the opt-in above 48 KB of
-// dynamic shared memory for the block-wide form, made once a process
+// dynamic shared memory for the block-wide form, made once a device (the
+// attribute holds per device context)
 int g_sms[kMaxDevices];
-bool g_block_smem_set = false;
+bool g_block_smem_set[kMaxDevices];
 
 int sm_count(int dev) {
   if (dev < 0 || dev >= kMaxDevices) return 132;
@@ -309,7 +310,9 @@ extern "C" int avenir_bin_counts(const int* codes,
   const int step_i = 4 * kThreads;
   const int grid_i = 4 * kThreads * kVec * (blocks - 1);
   cudaError_t err = cudaSuccess;
-  if (acc_form == kAccBlock && smem > 48 * 1024 && !g_block_smem_set) {
+  const bool known = dev >= 0 && dev < kMaxDevices;
+  if (acc_form == kAccBlock && smem > 48 * 1024 &&
+      !(known && g_block_smem_set[dev])) {
     err = cudaFuncSetAttribute(bin_counts_kernel<kAccBlock, true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                kBlockSmemMax);
@@ -317,7 +320,7 @@ extern "C" int avenir_bin_counts(const int* codes,
       err = cudaFuncSetAttribute(bin_counts_kernel<kAccBlock, false>,
                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  kBlockSmemMax);
-    if (err == cudaSuccess) g_block_smem_set = true;
+    if (err == cudaSuccess && known) g_block_smem_set[dev] = true;
   }
   if (err == cudaSuccess) {
     auto go = acc_form == kAccWarp    ? launch_new<kAccWarp>

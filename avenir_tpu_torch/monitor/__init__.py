@@ -12,14 +12,15 @@
     alert records, the refresh / degrade guardrails, delayed-label
     accuracy.
 
-The reference's ``retrain_action`` (its ``control`` package) is not ported.
+The reference's ``retrain_action`` (its ``control`` package) is not ported,
+nor its ``tee_blocks`` (streamed baseline training is not ported).
 CLI: ``driftMonitor`` and ``predictDriftScore`` (``cli/monitor_jobs.py``).
 """
 
 from .baseline import (BASELINE_JSON, BASELINE_NPZ, Baseline,
                        BaselineBuilder, PREDICTION_SCOPE, RowSpec,
                        compute_baseline, load_baseline, monitor_specs,
-                       publish_baseline, tee_blocks)
+                       publish_baseline)
 from .accumulator import (DriftAccumulator, ServingMonitor,
                           StreamDriftMonitor)
 from .drift import STATS, DriftReport, DriftScorer, RowScore
@@ -30,7 +31,7 @@ from .policy import (AccuracyTracker, AlertRecord, DriftPolicy,
 __all__ = [
     "BASELINE_JSON", "BASELINE_NPZ", "Baseline", "BaselineBuilder",
     "PREDICTION_SCOPE", "RowSpec", "compute_baseline", "load_baseline",
-    "monitor_specs", "publish_baseline", "tee_blocks", "DriftAccumulator",
+    "monitor_specs", "publish_baseline", "DriftAccumulator",
     "ServingMonitor", "StreamDriftMonitor", "STATS", "DriftReport",
     "DriftScorer", "RowScore", "AccuracyTracker", "AlertRecord",
     "DriftPolicy", "DEFAULT_ALERT", "DEFAULT_WARN", "degrade_action",

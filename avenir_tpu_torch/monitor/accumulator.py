@@ -4,8 +4,8 @@ Layout is the baseline's stacked (R, B_max) count matrix.  Absorbing a row
 block is one bin-counts launch (``kernels/histogram.py`` ``bin_counts``,
 kernel B4) that adds the block's counts in place into the window's float32
 matrix on the device; ``finalize()`` is the only host readback.  Blocks
-longer than the top bucket (``DEFAULT_BLOCK_BUCKETS[-1]``, 4,096 rows)
-split there, as in the reference, so the float32 adds are the same ones.
+longer than ``BLOCK_ROWS`` (4,096, the reference's top bucket) split
+there, as in the reference, so the float32 adds are the same ones.
 The reference's padding of a block up to a power-of-two bucket only bounds
 its jit's shapes; padded rows are masked out and add nothing, so the port
 launches on the block as it is.
@@ -32,7 +32,7 @@ import threading
 import time
 import warnings
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -46,7 +46,8 @@ from ..utils.tracing import fetch, note_dispatch, note_h2d
 from .baseline import Baseline, encode_monitor_codes
 from .drift import DriftReport, DriftScorer
 
-DEFAULT_BLOCK_BUCKETS = (64, 256, 1024, 4096)
+# the reference's top block bucket: the split of a long absorbed block
+BLOCK_ROWS = 4096
 
 
 @dataclass
@@ -60,18 +61,10 @@ class WindowSnapshot:
 
 
 class DriftAccumulator:
-    """A device (R, B_max) float32 window matrix and its in-place absorb.
+    """A device (R, B_max) float32 window matrix and its in-place absorb."""
 
-    ``buckets`` keeps the reference's knob: only its largest value is used
-    here, as the block split."""
-
-    def __init__(self, baseline: Baseline,
-                 buckets: Sequence[int] = DEFAULT_BLOCK_BUCKETS,
-                 device=None):
+    def __init__(self, baseline: Baseline, device=None):
         self.baseline = baseline
-        self.buckets = tuple(sorted({int(b) for b in buckets}))
-        if not self.buckets or self.buckets[0] < 1:
-            raise ValueError(f"buckets must be positive ints, got {buckets}")
         self.device = resolve_device(device)
         self._shape = baseline.counts.shape
         self._counts = torch.zeros(self._shape, dtype=torch.float32,
@@ -83,20 +76,20 @@ class DriftAccumulator:
         return self._n
 
     def absorb_codes(self, codes: np.ndarray) -> None:
-        """Add one (n, R) int32 code block: one B4 launch per top-bucket
-        slice of it, each adding into the window matrix in place."""
+        """Add one (n, R) int32 code block: one B4 launch per
+        ``BLOCK_ROWS`` slice of it, each adding into the window matrix in
+        place."""
         n = codes.shape[0]
         if n == 0:
             return
-        top = self.buckets[-1]
         codes = np.ascontiguousarray(codes, dtype=np.int32)
         note_h2d(codes.nbytes)
         d_codes = torch.from_numpy(codes).to(self.device)
         backend = resolve_backend(self.device)
-        for s in range(0, n, top):
+        for s in range(0, n, BLOCK_ROWS):
             note_dispatch(site="monitor.absorb")
             note_backend("monitor.absorb", backend)
-            bin_counts(d_codes[s:s + top], self._shape[1],
+            bin_counts(d_codes[s:s + BLOCK_ROWS], self._shape[1],
                        out=self._counts)
         self._n += n
 
@@ -138,9 +131,7 @@ class StreamDriftMonitor:
                  = None, policy=None, window_rows: int = 4096,
                  window_s: Optional[float] = None, decay: float = 0.9,
                  counters: Optional[Counters] = None,
-                 keep_reports: int = 256,
-                 buckets: Sequence[int] = DEFAULT_BLOCK_BUCKETS,
-                 device=None):
+                 keep_reports: int = 256, device=None):
         if not 0.0 <= decay < 1.0:
             raise ValueError(f"decay must be in [0, 1), got {decay}")
         if window_rows < 1:
@@ -155,8 +146,7 @@ class StreamDriftMonitor:
         self.decay = float(decay)
         self.counters = counters if counters is not None else Counters()
         self.keep_reports = keep_reports
-        self.acc = DriftAccumulator(baseline, buckets=buckets,
-                                    device=self.scorer.device)
+        self.acc = DriftAccumulator(baseline, device=self.scorer.device)
         self._long_counts = np.zeros_like(baseline.counts)
         self._long_n = 0.0
         self._window_start = time.monotonic()

@@ -16,8 +16,7 @@ histogram (``stats/histogram.py``).
 Baselines publish into a model's registry version as a ``baseline.json`` +
 ``baseline.npz`` sidecar pair through ``ModelRegistry.add_sidecar``.  The
 fused-pipeline stage, the streaming tee and the multi-process all-reduce of
-the reference are not ported yet (``tee_blocks`` is here; the streamed
-training that would feed it is not).
+the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -285,14 +284,6 @@ class BaselineBuilder:
         return Baseline(specs=[RowSpec.from_dict(s.to_dict())
                                for s in self.specs],
                         counts=counts, n_rows=self._n, quantiles=quantiles)
-
-
-def tee_blocks(blocks, builder: BaselineBuilder):
-    """Pass-through generator: every block updates the baseline builder
-    on its way to the consumer (no second pass over a streamed input)."""
-    for b in blocks:
-        builder.update(b)
-        yield b
 
 
 def compute_baseline(table: ColumnarTable, n_bins: int = DEFAULT_NUM_BINS,

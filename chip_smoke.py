@@ -194,8 +194,10 @@ order — any failure exits non-zero before the result line:
               merge a chunk and only knn.topk.cuda in the ledger; then the
               20,000 x 200,000 top-k over 4 train shards must equal phase
               17's (d, i).  With several GPUs, B6 and the merge-finalize
-              (each tree slice on its own card) and phases 21-22 run again
-              over distinct devices; with one, a line says they were skipped
+              (each tree slice on its own card), phases 21-22 and the
+              bin-counts kernel at phase 24's layouts (each card's own
+              shared-memory opt-in) run again over distinct devices; with
+              one, a line says they were skipped
  23. times    median CUDA-event times of the partial-vote kernel (4 tree
               slices of the rafo9 forest over its requests tiled to
               1,000,000 rows; table form, the scan form as "old", in
@@ -1572,6 +1574,33 @@ def distinct_b6(cards):
                   f": partial tallies exact, merged votes == B2", flush=True)
 
 
+def distinct_b4(cards):
+    """Phase 24's layouts again on every card, the first card first: the
+    block-wide form's opt-in above 48 KB of shared memory (the ``wide``
+    layout) and the SM count are each card's own."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram
+    rng = np.random.default_rng(20261017)
+    for name, (R, B) in B4_SHAPES.items():
+        codes = rng.integers(-2, B + 2, (100_000, R), dtype=np.int32)
+        mask = rng.random(100_000) < 0.6
+        for d in cards:
+            c = torch.from_numpy(codes).to(d)
+            m = torch.from_numpy(mask).to(d)
+            carry = torch.full((R, B), 7.0, device=d)
+            got = histogram.bin_counts(c, B, m)
+            added = histogram.bin_counts(c, B, m, out=carry.clone())
+            want = histogram.bin_counts_torch(c, B, m)
+            torch.cuda.synchronize(d)
+            if not torch.equal(got, want) or not torch.equal(added,
+                                                             carry + want):
+                fail(f"bin-counts kernel != plain version on {d}: {name} "
+                     f"R={R} B={B}")
+        print(f"bin counts {name} R,B=({R},{B}) n=100000 masked, out None "
+              f"and an out carry: exact on {[str(d) for d in cards]}",
+              flush=True)
+
+
 def b4_phase(dev, rng):
     """Phase 24: B4 against its plain version in both forms (counts written,
     counts added into an ``out`` carry, one above 2^24 among them) at the
@@ -2454,13 +2483,14 @@ def main():
     n_cards = torch.cuda.device_count()
     if n_cards > 1:
         cards = [torch.device("cuda", i) for i in range(n_cards)]
-        phase("19, 21-22 again over distinct devices")
+        phase("19, 21-22 and 24's layouts again over distinct devices")
         distinct_b6(cards)
+        distinct_b4(cards)
         sharded_serving(cards, "distinct devices")
         sharded_knn(cards, "distinct devices", knn_scale)
     else:
-        print("phases 19, 21-22 over distinct devices skipped: one device "
-              "visible", flush=True)
+        print("phases 19, 21-22, 24 over distinct devices skipped: one "
+              "device visible", flush=True)
     b6_t, fin_t, b7_t = sharded_times(dev, ens, requests, fs, comp4,
                                       knn_scale, knn_warm_4)
 
