@@ -7,8 +7,9 @@ name that is not ported yet raises :class:`JobNotPorted`, and so does a
 ported job given a key of a tier that is not; nothing here dispatches to
 the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
-(here, monolithic training, the registry publish and its baseline and
-int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
+(here: monolithic and streamed training on one process, bad-record
+skip/quarantine, checkpoints and ``--resume``, the registry publish and
+its baseline and int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
 ``knnPipeline`` (``knn_jobs.py``), ``driftMonitor`` and
 ``predictDriftScore`` (``monitor_jobs.py``).
 """
@@ -16,13 +17,13 @@ int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
 from __future__ import annotations
 
 import os
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 from ..core import artifacts
 from ..core.config import Config
 from ..core.metrics import Counters
 from ..core.schema import FeatureSchema
-from ..core.table import _make_splitter, load_csv
+from ..core.table import BadRecordPolicy, _make_splitter, load_csv
 
 JOBS: Dict[str, Callable] = {}
 
@@ -118,22 +119,43 @@ def model_predictor_job(cfg: Config, in_path: str, out_path: str) -> Counters:
 # org.avenir.tree
 # --------------------------------------------------------------------------
 
-# training keys whose tier is not ported: set true, each is refused by name
-# (streaming ingest and its resume)
-_UNPORTED_FOREST_KEYS = ("dtb.streaming.ingest", "dtb.streaming.resume")
+def _bad_records_policy(cfg: Config, counters: Counters,
+                        out_path: Optional[str] = None
+                        ) -> Optional[BadRecordPolicy]:
+    """The job-level ``badrecords.policy`` knob (fail|skip|quarantine),
+    Hadoop's skip-bad-records.  Quarantined raw lines land in
+    ``badrecords.quarantine.path`` (default ``<out>/_quarantine``);
+    skip/quarantine tallies surface in the ``BadRecords`` counter group."""
+    pol = cfg.get("badrecords.policy", "fail")
+    if pol == "fail":
+        return None
+    qpath = cfg.get("badrecords.quarantine.path")
+    if pol == "quarantine" and not qpath:
+        if not out_path:
+            raise ValueError("badrecords.policy=quarantine needs "
+                             "badrecords.quarantine.path (no output dir "
+                             "to default under)")
+        qpath = os.path.join(out_path, "_quarantine")
+    return BadRecordPolicy(pol, qpath, counters)
 
 
-def _refuse_unported(cfg: Config, job: str, true_keys=()) -> None:
-    """Raise :class:`JobNotPorted` naming every key of an unported tier:
-    ``true_keys`` set true, and ``badrecords.policy`` other than ``fail``
-    (the port's CSV reader has no skip/quarantine policy)."""
-    keys = [f"{k}=true" for k in true_keys if cfg.get_boolean(k, False)]
-    policy = cfg.get("badrecords.policy", "fail")
-    if policy != "fail":
-        keys.append(f"badrecords.policy={policy}")
-    if keys:
-        raise JobNotPorted(f"{job} keys {keys} belong to tiers not ported "
-                           f"to avenir_tpu_torch yet")
+def _refuse_multi_shard(job: str) -> None:
+    """Raise :class:`JobNotPorted` under an ``AVENIR_TPU_SHARD=i/P`` lane
+    with P > 1: row-range sharded training is not ported, and a
+    multi-shard launch must never train single-host in silence."""
+    env = os.environ.get("AVENIR_TPU_SHARD")
+    if not env:
+        return
+    try:
+        count = int(env.partition("/")[2])
+    except ValueError as exc:
+        raise ValueError(f"AVENIR_TPU_SHARD must look like 'index/count', "
+                         f"got {env!r}") from exc
+    if count > 1:
+        raise JobNotPorted(
+            f"{job} under AVENIR_TPU_SHARD={env}: row-range sharded "
+            f"training is not ported to avenir_tpu_torch yet; refusing to "
+            f"silently train single-host")
 
 
 def _tree_params(cfg: Config):
@@ -167,10 +189,11 @@ def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     re-evaluating the decision paths, so the output dir just carries the
     input records forward for script compatibility."""
     from ..models import tree as T
-    _refuse_unported(cfg, "decisionTreeBuilder")
+    _refuse_multi_shard("decisionTreeBuilder")
     counters = Counters()
     schema = _schema_path(cfg, "dtb.feature.schema.file.path")
-    table = load_csv(in_path, schema, cfg.field_delim_regex, keep_raw=True)
+    table = load_csv(in_path, schema, cfg.field_delim_regex, keep_raw=True,
+                     bad_records=_bad_records_policy(cfg, counters, out_path))
     builder = T.TreeBuilder(table, _tree_params(cfg))
     dec_in = cfg.get("dtb.decision.file.path.in")
     dpl = None
@@ -195,21 +218,52 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     with ``dtb.model.registry.dir``, publishes the forest as the next
     version of ``dtb.model.name`` (default ``forest``) in that registry.
 
+    ``dtb.streaming.ingest=true`` trains through the chunked CSV -> device
+    pipeline (``dtb.streaming.block.rows`` rows a block, default 2^22):
+    host memory holds a few parsed blocks instead of the whole encoded
+    dataset.  A parse thread reads the CSV, a staging thread encodes each
+    block and uploads it, the job's thread computes its branch codes on
+    the device; the trees are those of the monolithic path.
+    ``dtb.pipeline.fuse`` is accepted and both values run this per-stage
+    form: the reference's fused per-chunk program and its
+    ``ProgramCache`` counters are not ported, and its own tests pin the
+    two forms to the same outputs.
+
+    Fault tolerance: ``badrecords.policy`` (both paths) skips or
+    quarantines malformed records; ``dtb.streaming.checkpoint.dir`` (+
+    ``dtb.streaming.checkpoint.blocks``, default 16) persists ingest
+    progress, and ``dtb.streaming.resume=true`` (CLI ``--resume``)
+    restarts from the last intact step to the model of an uninterrupted
+    run.  Still refused by name (:class:`JobNotPorted`): a
+    ``dtb.streaming.cache.policy`` other than ``off`` (the columnar
+    cache) and an ``AVENIR_TPU_SHARD`` lane of more than one shard.
+
     Two sidecars ride the published version (both need the registry):
-    ``dtb.baseline.publish=true`` profiles the training table into the
-    drift monitor's baseline (``dtb.baseline.bins``, default 32), and
-    ``dtb.model.quantize=true`` attaches the int8 serving sidecar after
-    holding the quantized vote to ``dtb.model.quantize.budget`` (default
-    0.01 prediction-mismatch fraction against the float ensemble) on the
-    training table; an over-budget quantization refuses to publish.
+    ``dtb.baseline.publish=true`` profiles the training data into the
+    drift monitor's baseline (``dtb.baseline.bins``, default 32; a
+    streamed ingest tees the same pass, a resumed one profiles the rows
+    it re-reads), and ``dtb.model.quantize=true`` attaches the int8
+    serving sidecar after holding the quantized vote to
+    ``dtb.model.quantize.budget`` (default 0.01 prediction-mismatch
+    fraction against the float ensemble) on the training table, or on a
+    head sample of ``dtb.model.quantize.sample.rows`` (default 65536)
+    rows when streamed; an over-budget quantization refuses to publish.
     ``predictionService`` selects that sidecar with ``ps.quantized``."""
-    from ..models.forest import ForestParams, build_forest
-    _refuse_unported(cfg, "randomForestBuilder", _UNPORTED_FOREST_KEYS)
+    from ..models.forest import (ForestParams, build_forest,
+                                 build_forest_from_stream)
+    _refuse_multi_shard("randomForestBuilder")
+    cache_pol = cfg.get("dtb.streaming.cache.policy", "off")
+    if cache_pol != "off":
+        raise JobNotPorted(
+            f"randomForestBuilder key dtb.streaming.cache.policy="
+            f"{cache_pol}: the columnar cache is not ported to "
+            f"avenir_tpu_torch yet")
     counters = Counters()
     schema = _schema_path(cfg, "dtb.feature.schema.file.path")
     params = ForestParams(tree=_tree_params(cfg),
                           num_trees=cfg.get_int("dtb.num.trees", 5),
                           seed=cfg.get_int("dtb.random.seed", 0))
+    policy = _bad_records_policy(cfg, counters, out_path)
     reg_dir = cfg.get("dtb.model.registry.dir")
     baseline_builder = None
     if cfg.get_boolean("dtb.baseline.publish", False):
@@ -224,10 +278,77 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     if quantize and not reg_dir:
         raise ValueError("dtb.model.quantize needs dtb.model.registry.dir "
                          "(the int8 sidecar rides the registry version)")
-    table = load_csv(in_path, schema, cfg.field_delim_regex)
-    if baseline_builder is not None:
-        baseline_builder.update(table)
-    models = build_forest(table, params)
+    streamed = cfg.get_boolean("dtb.streaming.ingest", False)
+    if cfg.get_boolean("dtb.streaming.resume", False) and not streamed:
+        # a --resume that silently retrains from row 0 through the
+        # monolithic path is the failure mode the flag exists to prevent
+        raise ValueError("dtb.streaming.resume needs "
+                         "dtb.streaming.ingest=true (checkpoints only "
+                         "exist for the streaming build)")
+    shard_knob = cfg.get("dtb.streaming.shard", "auto")
+    if shard_knob not in ("auto", "on", "off"):
+        raise ValueError(f"dtb.streaming.shard must be auto|on|off, "
+                         f"got {shard_knob!r}")
+    if shard_knob == "on" and not streamed:
+        raise ValueError("dtb.streaming.shard=on needs "
+                         "dtb.streaming.ingest=true (only the streaming "
+                         "build can row-range shard)")
+    if streamed:
+        from ..core.checkpoint import CheckpointManager
+        from ..core.table import iter_csv_chunks, prefetch_chunks
+        if shard_knob == "on":
+            # one process: the refusal of a shard=on run that is not
+            # multi-shard (a multi-shard lane was refused above)
+            raise ValueError(
+                "dtb.streaming.shard=on needs a multi-shard run "
+                "(jax.distributed, or AVENIR_TPU_SHARD=i/P with "
+                "AVENIR_TPU_ALLREDUCE_DIR); refusing to silently train "
+                "single-host")
+        cfg.get_boolean("dtb.pipeline.fuse", True)   # accepted, see above
+        ckpt_dir = cfg.get("dtb.streaming.checkpoint.dir")
+        mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
+        every = cfg.get_int("dtb.streaming.checkpoint.blocks", 16) \
+            if mgr is not None else 0
+        resume_state = None
+        start_row = 0
+        if cfg.get_boolean("dtb.streaming.resume", False):
+            if mgr is None:
+                raise ValueError("dtb.streaming.resume needs "
+                                 "dtb.streaming.checkpoint.dir")
+            try:
+                step, arrays, meta = mgr.restore()
+            except FileNotFoundError:
+                if mgr.steps():
+                    # steps exist but none restore: re-ingesting from row
+                    # 0 as a cold start is what the flag must prevent
+                    raise RuntimeError(
+                        f"dtb.streaming.resume: checkpoint dir "
+                        f"{ckpt_dir!r} holds {len(mgr.steps())} step(s) "
+                        f"but none restore intact; refusing to silently "
+                        f"restart from row 0 — clear the dir to force a "
+                        f"cold start")
+                # nothing saved yet: cold start
+            else:
+                resume_state = (arrays, meta)
+                start_row = int(meta.get("source_rows_done") or 0)
+                counters.set("Checkpoint", "ResumedFromStep", step)
+                counters.set("Checkpoint", "ResumedSourceRows", start_row)
+        # consumer_wait_key=None: this parse layer feeds from_stream's
+        # staging thread, whose own stats time the wait on it
+        blocks = prefetch_chunks(iter_csv_chunks(
+            in_path, schema, cfg.field_delim_regex,
+            chunk_rows=cfg.get_int("dtb.streaming.block.rows", 1 << 22),
+            bad_records=policy, start_row=start_row),
+            consumer_wait_key=None)
+        models = build_forest_from_stream(
+            blocks, schema, params, checkpoint=mgr, checkpoint_every=every,
+            resume_state=resume_state, baseline=baseline_builder)
+    else:
+        table = load_csv(in_path, schema, cfg.field_delim_regex,
+                         bad_records=policy)
+        if baseline_builder is not None:
+            baseline_builder.update(table)
+        models = build_forest(table, params)
     os.makedirs(out_path, exist_ok=True)
     for i, dpl in enumerate(models):
         with open(os.path.join(out_path, f"tree_{i}.json"), "w") as fh:
@@ -245,8 +366,10 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
             counters.set("Random forest", "BaselineRows", baseline.n_rows)
         if quantize:
             from ..serving.quantized import publish_quantized
+            sample = table if not streamed else _head_sample(
+                cfg, in_path, schema)
             info = publish_quantized(
-                registry, model_name, version, models, schema, table,
+                registry, model_name, version, models, schema, sample,
                 budget=cfg.get_float("dtb.model.quantize.budget", 0.01))
             counters.set("Random forest", "QuantizedSampleRows",
                          int(info["n_sample"]))
@@ -254,3 +377,23 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
                          int(round(info["mismatch"] * 1e6)))
     counters.increment("Random forest", "Trees", len(models))
     return counters
+
+
+def _head_sample(cfg: Config, in_path: str, schema: FeatureSchema):
+    """The streamed quantize publish's budget sample: the first
+    ``dtb.model.quantize.sample.rows`` well-formed rows, re-read with
+    malformed records skipped (the encoded dataset is gone by then)."""
+    from ..core.table import iter_csv_chunks
+    gen = iter_csv_chunks(
+        in_path, schema, cfg.field_delim_regex,
+        chunk_rows=cfg.get_int("dtb.model.quantize.sample.rows", 65536),
+        bad_records=BadRecordPolicy("skip"))
+    try:
+        return next(gen)
+    except StopIteration:
+        raise ValueError(
+            "dtb.model.quantize: the input yielded no sample rows to "
+            "enforce the accuracy budget on (empty/fully-filtered "
+            "file)") from None
+    finally:
+        gen.close()   # release the file handle now

@@ -4,6 +4,10 @@ driver lines, like ``avenir_tpu/cli/run.py``.
     python -m avenir_tpu_torch.cli.run org.avenir.model.ModelPredictor \\
         -Dconf.path=rafo.properties <inPath> <outPath>
 
+``--resume`` restarts a checkpointed streamed training job from its last
+intact step (``-Ddtb.streaming.resume=true``).  ``AVENIR_TPU_FAULTS``
+installs a fault injector for the run (``core/faults.py``).
+
 Jobs run on the GPU (``cuda``) unless ``-Dplatform=cpu`` asks for the CPU;
 the kernels run on the GPU, their plain versions on the CPU.  The same
 device decides the job's runtime context (``parallel.mesh``): every
@@ -52,6 +56,10 @@ def parse_args(argv: List[str]):
     for a in argv:
         if a.startswith("-Dconf.path="):
             conf_path = a.split("=", 1)[1]
+        elif a == "--resume":
+            # restart a checkpointed streaming job from its last intact
+            # step (sugar for -Ddtb.streaming.resume=true)
+            overrides["dtb.streaming.resume"] = "true"
         elif a.startswith("-D"):
             k, _, v = a[2:].partition("=")
             overrides[k] = v

@@ -10,7 +10,10 @@ Training (the rafo.sh per-tree rerun loop, in-process):
     stacked (T, N, S, B, C) histogram (``kernels/histogram.py``, replacing
     the Pallas ``ops/pallas/histogram.py`` ``forest_level_counts``), the
     chunks accumulate in int32 on the device, and the host fetches the
-    stacked counts once a level — never once a tree.
+    stacked counts once a level — never once a tree;
+  * ``build_forest_from_stream`` — the same trees from CSV row blocks
+    (``TreeBuilder.from_stream`` assembles the device state; checkpoints,
+    resume and a teed baseline ride the ingest).
 
 Prediction:
   * ``EnsembleModel``   == model/EnsemblePredictiveModel.java:69-113 —
@@ -25,8 +28,7 @@ batch (``kernels/vote.py``).  Ensembles the stacked form rejects — a
 degenerate member, bounds that are not float32-exact, non-integer weights —
 vote on the host in float64 (``_predict_host``); that is the reference's
 own semantics for them, not a fallback, and every run of it is recorded as
-``ensemble.vote.host`` in the KernelBackends ledger.  Streaming training
-(``build_forest_from_stream``) is not ported yet.
+``ensemble.vote.host`` in the KernelBackends ledger.
 
 Tree-sharded vote (``EnsembleModel.shard_stacked``, the JAX package's
 sharded serving core, ``serving/predictor.py:398-438``): the stacked
@@ -317,14 +319,19 @@ class ForestBuilder:
     once for the whole forest over (n, T) node and weight arrays, and
     records are re-tagged for all trees by one reassign a level."""
 
-    def __init__(self, table: ColumnarTable, params: ForestParams,
-                 device=None, profile=None):
+    def __init__(self, table: Optional[ColumnarTable], params: ForestParams,
+                 device=None, profile=None,
+                 base: Optional[TreeBuilder] = None):
         """``profile`` (a ``utils.tracing.LayerProfile``) times the layers
-        of each level."""
+        of each level.  ``base`` injects a built TreeBuilder (one
+        assembled by ``TreeBuilder.from_stream`` over CSV row blocks); it
+        must carry ``replace(params.tree, seed=params.seed)``.  Otherwise
+        the builder is constructed from ``table``."""
         self.params = params
         self.profile = profile
-        self.base = TreeBuilder(table, replace(params.tree, seed=params.seed),
-                                device, profile=profile)
+        self.base = base if base is not None else TreeBuilder(
+            table, replace(params.tree, seed=params.seed), device,
+            profile=profile)
         self.tree_builders = [
             self.base.with_params(
                 replace(params.tree, seed=params.seed + 1000 * (t + 1)))
@@ -448,4 +455,43 @@ def build_forest(table: ColumnarTable, params: ForestParams, device=None,
     for t in range(params.num_trees):
         tree_params = replace(params.tree, seed=params.seed + 1000 * (t + 1))
         models.append(base_builder.with_params(tree_params).build())
+    return models
+
+
+def build_forest_from_stream(blocks, schema: FeatureSchema,
+                             params: ForestParams, device=None,
+                             stats: Optional[dict] = None,
+                             checkpoint=None, checkpoint_every: int = 0,
+                             resume_state=None, baseline=None,
+                             profile=None) -> List[DecisionPathList]:
+    """Train the forest from an iterator of ColumnarTable row blocks — the
+    streamed CSV -> device ingest's training entry.  Each block is encoded
+    to branch and class codes on the device and released, so host memory
+    holds a few blocks in flight instead of the whole dataset; wrap the
+    source in ``core.table.prefetch_chunks`` so block i+1 parses while
+    block i uploads.  The trees are those of ``build_forest`` over the
+    assembled table: the bootstrap draws, RNG streams and level
+    histograms see the same records.
+
+    ``stats`` collects the phase times: ``parse_s`` (from the caller's
+    ``prefetch_chunks``), ``stage_wait_s``, ``transfer_s``,
+    ``queue_wait_s``, ``ingest_compute_s`` (``TreeBuilder.from_stream``),
+    ``ingest_wall_s`` (the whole ingest) and ``build_s`` (the level loop).
+    ``checkpoint``, ``checkpoint_every``, ``resume_state`` and
+    ``baseline`` go to ``TreeBuilder.from_stream``."""
+    import time as _time
+    t0 = _time.perf_counter()
+    base = TreeBuilder.from_stream(blocks, schema,
+                                   replace(params.tree, seed=params.seed),
+                                   device, stats=stats,
+                                   checkpoint=checkpoint,
+                                   checkpoint_every=checkpoint_every,
+                                   resume_state=resume_state,
+                                   baseline=baseline, profile=profile)
+    t1 = _time.perf_counter()
+    models = ForestBuilder(None, params, profile=profile,
+                           base=base).build_all()
+    if stats is not None:
+        stats["ingest_wall_s"] = t1 - t0
+        stats["build_s"] = _time.perf_counter() - t1
     return models

@@ -28,16 +28,24 @@ Builder half (level-synchronous growth, tree/DecisionTreeBuilder.java):
     Pallas).  The host epilogue and every random draw follow the JAX
     package's code and call order, so the trees are byte-identical.
 
-On one device nothing is padded: ``n_padded == n_rows``.  Streaming
-ingest (``from_stream``), cross-process count reduction and checkpoints
-are not ported yet.
+Streamed ingest (``TreeBuilder.from_stream``) assembles the same device
+state from CSV row blocks: a staging thread encodes block i+1 and uploads
+it from pinned memory on a side CUDA stream while the consumer computes
+block i's branch codes, with checkpoints of the accumulated state every N
+blocks and resume from one.  A monolithic build pads nothing
+(``n_padded == n_rows``); a restored checkpoint written by the JAX package
+on a device mesh carries its pad rows, and weights are placed by mask
+position over the true row count.  Cross-process count reduction is not
+ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import json
 import random as pyrandom
+import time
 from dataclasses import dataclass, field as dc_field
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -45,7 +53,7 @@ import numpy as np
 import torch
 
 from ..core.schema import FeatureField, FeatureSchema
-from ..core.table import ColumnarTable
+from ..core.table import ColumnarTable, stage_chunks
 from ..kernels.dispatch import BACKEND_CUDA, note_backend, resolve_backend
 from ..kernels.histogram import forest_level_counts, level_form
 from ..runtime import resolve_device
@@ -867,6 +875,135 @@ def count_level(node_ids: torch.Tensor, branches: torch.Tensor,
 _REASSIGN_CHUNK = 1 << 20
 
 
+def _save_stream_checkpoint(mgr, blocks_done: int, br_parts, cls_parts,
+                            mask_parts, n_rows: int,
+                            source_rows_done: Optional[int],
+                            complete: bool) -> None:
+    """Persist the accumulated streamed-ingest state as one checkpoint
+    step: branch codes (int32), class codes (int32) and the pad mask
+    (float32), with meta ``n_rows``, ``blocks_done``, ``source_rows_done``
+    and ``ingest_complete`` — the JAX package's layout.  Full-state
+    snapshots, not increments: any single intact step resumes, which is
+    what lets the manager keep only the newest few.  The host copies
+    synchronise the device."""
+    arrays = {
+        "branches": np.concatenate([fetch(p) for p in br_parts])
+        if br_parts else np.zeros((0, 0), np.int32),
+        "cls_codes": np.concatenate([fetch(p) for p in cls_parts])
+        if cls_parts else np.zeros((0,), np.int32),
+        "mask": np.concatenate(mask_parts)
+        if mask_parts else np.zeros((0,), np.float32),
+    }
+    meta = {"n_rows": int(n_rows), "blocks_done": int(blocks_done),
+            "source_rows_done": None if source_rows_done is None
+            else int(source_rows_done),
+            "ingest_complete": bool(complete)}
+    mgr.save(blocks_done, arrays, meta)
+
+
+class _BlockStager:
+    """The staging-thread half of the streamed ingest, and its hand-off to
+    the consumer.
+
+    ``stage`` (staging thread) encodes one block's feature matrix and
+    class codes on the host and uploads them.  On a CUDA device it copies
+    them into one of two pinned host buffers and issues the copies on a
+    side stream with ``non_blocking=True``, recording an event after
+    them; a buffer is refilled only after its previous copy's event has
+    completed.  ``receive`` (consumer) makes the consumer's stream wait on
+    that event and marks the tensors as used on it, so the caching
+    allocator does not hand their memory to a later upload too early.
+    ``pull`` runs the block source's own steps (the baseline tee's B4
+    launch among them) under the same device and side stream.  On the CPU
+    both halves are plain ``torch.from_numpy``."""
+
+    def __init__(self, split_set: "SplitSet", cls_ord: int,
+                 device: torch.device):
+        self.split_set = split_set
+        self.cls_ord = cls_ord
+        self.device = device
+        self.cuda = device.type == "cuda"
+        if self.cuda:
+            self.stream = torch.cuda.Stream(device)
+            self._bufs: List[Optional[Tuple[torch.Tensor, Any]]] = [None,
+                                                                    None]
+            self._slot = 0
+
+    def _on_device(self):
+        """Device and side-stream scope for the staging thread (a new
+        thread's current device is cuda:0, and its stream the default)."""
+        ctx = contextlib.ExitStack()
+        if self.cuda:
+            ctx.enter_context(torch.cuda.device(self.device))
+            ctx.enter_context(torch.cuda.stream(self.stream))
+        return ctx
+
+    def pull(self, blocks):
+        """Iterate ``blocks`` with every step of the source under the
+        staging scope; closing this generator closes the source."""
+        it = iter(blocks)
+        try:
+            while True:
+                with self._on_device():
+                    try:
+                        block = next(it)
+                    except StopIteration:
+                        return
+                yield block
+        finally:
+            close = getattr(it, "close", None)
+            if close is not None:
+                close()
+
+    def _pinned(self, nbytes: int) -> torch.Tensor:
+        """The next pinned byte buffer of at least ``nbytes``, once the
+        copy that last read it has completed."""
+        slot = self._bufs[self._slot]
+        if slot is not None:
+            slot[1].synchronize()
+        if slot is None or slot[0].numel() < nbytes:
+            buf = torch.empty(max(nbytes, 1), dtype=torch.uint8,
+                              pin_memory=True)
+        else:
+            buf = slot[0]
+        return buf
+
+    def stage(self, block: ColumnarTable):
+        bn = block.n_rows
+        X = self.split_set.feature_matrix(block)
+        cc = np.ascontiguousarray(
+            block.columns[self.cls_ord].astype(np.int32))
+        note_h2d(X.nbytes + cc.nbytes, transfers=2)
+        src_end = getattr(block, "source_row_end", None)
+        if not self.cuda:
+            return (torch.from_numpy(X).to(self.device),
+                    torch.from_numpy(cc).to(self.device), None, bn, src_end)
+        x_bytes = -(-X.nbytes // 16) * 16       # cc starts 16-byte aligned
+        with self._on_device():
+            buf = self._pinned(x_bytes + cc.nbytes)
+            hx = buf[:X.nbytes].view(torch.from_numpy(X[:0]).dtype
+                                     ).view(X.shape)
+            hc = buf[x_bytes:x_bytes + cc.nbytes].view(torch.int32)
+            hx.numpy()[...] = X
+            hc.numpy()[...] = cc
+            Xd = hx.to(self.device, non_blocking=True)
+            ccd = hc.to(self.device, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(self.stream)
+        self._bufs[self._slot] = (buf, done)
+        self._slot ^= 1
+        return Xd, ccd, done, bn, src_end
+
+    def receive(self, staged):
+        Xd, ccd, done, bn, src_end = staged
+        if done is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(done)
+            Xd.record_stream(cur)
+            ccd.record_stream(cur)
+        return Xd, ccd, bn, src_end
+
+
 class TreeBuilder:
     """Level-synchronous tree growth on one device.
 
@@ -891,6 +1028,7 @@ class TreeBuilder:
         self.pyrng = pyrandom.Random(params.seed)
         # one device: no pad rows, every row is valid
         self.n_rows = self.n_padded = table.n_rows
+        self.mask_np = np.ones((table.n_rows,), np.float32)
         cls_np = np.ascontiguousarray(
             table.columns[self.class_field.ordinal].astype(np.int32))
         with layer(profile, "branch_codes"):
@@ -907,12 +1045,165 @@ class TreeBuilder:
         for i, s in enumerate(self.splits):
             self.splits_by_attr.setdefault(s.attr, []).append(i)
 
+    @classmethod
+    def from_stream(cls, blocks, schema: FeatureSchema, params: TreeParams,
+                    device=None, stats: Optional[dict] = None,
+                    checkpoint=None, checkpoint_every: int = 0,
+                    resume_state=None, baseline=None,
+                    profile=None) -> "TreeBuilder":
+        """Build the device state from an iterator of ColumnarTable row
+        blocks instead of one assembled table — the consume stage of the
+        streamed CSV -> device ingest (``avenir_tpu``'s unfused form).
+
+        Per block: the host feature matrix and class codes are built and
+        uploaded on a staging thread (:func:`core.table.stage_chunks`,
+        two blocks deep; :class:`_BlockStager`), and the consumer computes
+        the block's branch codes on the device.  Only the (n, S) branch
+        codes and (n,) class codes stay resident, joined by one
+        ``torch.cat`` at the end, so host memory holds a few blocks.
+        ``baseline`` (a ``monitor.baseline.BaselineBuilder``) tees the
+        block stream: its bin-counts launch runs on the staging thread,
+        on the side stream, once a block.
+
+        ``stats['transfer_s']`` accumulates the staging thread's encode
+        and upload time, ``stats['ingest_compute_s']`` the consumer's
+        branch-code time plus the final device sync.
+
+        Checkpoint/resume: with a ``checkpoint``
+        (``core.checkpoint.CheckpointManager``) and ``checkpoint_every``
+        > 0, every Nth block persists the accumulated state
+        (:func:`_save_stream_checkpoint`), and a final step with
+        ``ingest_complete=True`` lands after the last block.
+        ``resume_state`` is ``(arrays, meta)`` from
+        ``CheckpointManager.restore``: the restored state is uploaded
+        again and ``blocks`` must be the REMAINING stream
+        (``iter_csv_chunks(..., start_row=meta['source_rows_done'])``).
+        Branch and class codes are exact integers and weights are placed
+        by mask position over the true row count, so an interrupted then
+        resumed ingest trains the model of an uninterrupted one,
+        whichever package wrote the checkpoint."""
+        self = cls.__new__(cls)
+        dev = resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            # pinned to an index here: the staging thread's own current
+            # device is cuda:0, whatever this thread's is
+            dev = torch.device("cuda", torch.cuda.current_device())
+        self.device = dev
+        self.params = params
+        self.profile = profile
+        self.schema = schema
+        self.class_field = schema.class_attr_field
+        self.class_values = list(self.class_field.cardinality or [])
+        self.C = len(self.class_values)
+        self.splits = generate_candidate_splits(schema)
+        self.split_set = SplitSet(self.splits, schema)
+        self.rng = np.random.default_rng(params.seed)
+        self.pyrng = pyrandom.Random(params.seed)
+
+        br_parts: List[torch.Tensor] = []
+        cls_parts: List[torch.Tensor] = []
+        mask_parts: List[np.ndarray] = []
+        n_rows = 0
+        blocks_done = 0
+        source_rows_done: Optional[int] = None
+        t_compute = 0.0
+        if resume_state is not None:
+            arrays, meta = resume_state
+            saved_shard = meta.get("shard")
+            if saved_shard is not None:
+                raise ValueError(
+                    f"checkpoint belongs to shard {saved_shard}, this "
+                    f"process is None: a sharded build must resume under "
+                    f"the SAME process count and shard assignment (the "
+                    f"row-range split would move around the saved state); "
+                    f"clear the checkpoint dir to restart cold")
+            rb = np.ascontiguousarray(arrays["branches"], dtype=np.int32)
+            if rb.shape[0]:
+                if rb.shape[1] != self.split_set.n_splits:
+                    raise ValueError(
+                        f"checkpoint branch width {rb.shape[1]} does not "
+                        f"match the schema's {self.split_set.n_splits} "
+                        f"candidate splits; the checkpoint belongs to a "
+                        f"different config")
+                rc = np.ascontiguousarray(arrays["cls_codes"],
+                                          dtype=np.int32)
+                note_h2d(rb.nbytes + rc.nbytes, transfers=2)
+                br_parts.append(torch.from_numpy(rb).to(dev))
+                cls_parts.append(torch.from_numpy(rc).to(dev))
+                mask_parts.append(np.asarray(arrays["mask"],
+                                             dtype=np.float32))
+            n_rows = int(meta["n_rows"])
+            blocks_done = int(meta.get("blocks_done", 0))
+            source_rows_done = meta.get("source_rows_done")
+
+        stager = _BlockStager(self.split_set, self.class_field.ordinal, dev)
+        if baseline is not None:
+            from ..monitor.baseline import tee_blocks
+            blocks = tee_blocks(blocks, baseline)
+        consumer = torch.cuda.device(dev) if stager.cuda \
+            else contextlib.nullcontext()
+        with consumer:
+            for staged in stage_chunks(stager.pull(blocks), stager.stage,
+                                       depth=2, stats=stats):
+                t0 = time.perf_counter()
+                Xd, ccd, bn, src_end = stager.receive(staged)
+                br_parts.append(self.split_set.branch_codes(Xd))
+                cls_parts.append(ccd)
+                del Xd
+                mask_parts.append(np.ones((bn,), np.float32))
+                n_rows += bn
+                blocks_done += 1
+                if src_end is not None:
+                    source_rows_done = int(src_end)
+                t_compute += time.perf_counter() - t0
+                if (checkpoint is not None and checkpoint_every > 0
+                        and blocks_done % checkpoint_every == 0):
+                    _save_stream_checkpoint(
+                        checkpoint, blocks_done, br_parts, cls_parts,
+                        mask_parts, n_rows, source_rows_done, False)
+            if checkpoint is not None and checkpoint_every > 0:
+                # the ingest-complete step: a crash in the build phase
+                # resumes straight to training, re-reading no source row
+                _save_stream_checkpoint(
+                    checkpoint, blocks_done, br_parts, cls_parts,
+                    mask_parts, n_rows, source_rows_done, True)
+            t0 = time.perf_counter()
+            if not br_parts:
+                # the monolithic path cannot train on 0 rows either
+                raise ValueError("from_stream got an empty block stream "
+                                 "(no rows to train on)")
+            if len(br_parts) == 1:
+                self.branches, self.cls_codes = br_parts[0], cls_parts[0]
+            else:
+                self.branches = torch.cat(br_parts)
+                self.cls_codes = torch.cat(cls_parts)
+            del br_parts, cls_parts
+            if stager.cuda:
+                torch.cuda.synchronize(dev)
+        t_compute += time.perf_counter() - t0
+        self.mask_np = np.concatenate(mask_parts)
+        self.n_rows = n_rows
+        self.n_padded = int(self.mask_np.shape[0])
+        if stats is not None:
+            stats["ingest_compute_s"] = (stats.get("ingest_compute_s", 0.0)
+                                         + t_compute)
+        self._w_max = 1.0
+        self.splits_by_attr = {}
+        for i, s in enumerate(self.splits):
+            self.splits_by_attr.setdefault(s.attr, []).append(i)
+        return self
+
     def _expand_weights(self, w: Optional[np.ndarray]) -> np.ndarray:
-        """Per-record float32 weights over the rows (ones when not
-        sub-sampling)."""
+        """Per-record float32 weights drawn over the TRUE row count (ones
+        when not sub-sampling), placed at the valid positions of the
+        device layout, zero on pad rows.  A monolithic build's mask is all
+        ones; a restored checkpoint's pad rows may interleave with valid
+        ones (the JAX package pads every block to its mesh)."""
         if w is None:
-            return np.ones((self.n_rows,), dtype=np.float32)
-        return w.astype(np.float32)
+            w = np.ones((self.n_rows,), dtype=np.float32)
+        full = np.zeros((self.n_padded,), dtype=np.float32)
+        full[self.mask_np > 0] = w.astype(np.float32)
+        return full
 
     def with_params(self, params: TreeParams) -> "TreeBuilder":
         """Shallow copy sharing the device-resident encoded data, with fresh

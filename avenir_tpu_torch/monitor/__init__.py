@@ -12,15 +12,15 @@
     alert records, the refresh / degrade guardrails, delayed-label
     accuracy.
 
-The reference's ``retrain_action`` (its ``control`` package) is not ported,
-nor its ``tee_blocks`` (streamed baseline training is not ported).
+``tee_blocks`` feeds a baseline from a streamed training ingest.  The
+reference's ``retrain_action`` (its ``control`` package) is not ported.
 CLI: ``driftMonitor`` and ``predictDriftScore`` (``cli/monitor_jobs.py``).
 """
 
 from .baseline import (BASELINE_JSON, BASELINE_NPZ, Baseline,
                        BaselineBuilder, PREDICTION_SCOPE, RowSpec,
                        compute_baseline, load_baseline, monitor_specs,
-                       publish_baseline)
+                       publish_baseline, tee_blocks)
 from .accumulator import (DriftAccumulator, ServingMonitor,
                           StreamDriftMonitor)
 from .drift import STATS, DriftReport, DriftScorer, RowScore
@@ -31,7 +31,7 @@ from .policy import (AccuracyTracker, AlertRecord, DriftPolicy,
 __all__ = [
     "BASELINE_JSON", "BASELINE_NPZ", "Baseline", "BaselineBuilder",
     "PREDICTION_SCOPE", "RowSpec", "compute_baseline", "load_baseline",
-    "monitor_specs", "publish_baseline", "DriftAccumulator",
+    "monitor_specs", "publish_baseline", "tee_blocks", "DriftAccumulator",
     "ServingMonitor", "StreamDriftMonitor", "STATS", "DriftReport",
     "DriftScorer", "RowScore", "AccuracyTracker", "AlertRecord",
     "DriftPolicy", "DEFAULT_ALERT", "DEFAULT_WARN", "degrade_action",

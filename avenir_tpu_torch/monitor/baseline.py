@@ -14,9 +14,11 @@ host sync and derives per-numeric-row quantiles from the cumulative
 histogram (``stats/histogram.py``).
 
 Baselines publish into a model's registry version as a ``baseline.json`` +
-``baseline.npz`` sidecar pair through ``ModelRegistry.add_sidecar``.  The
-fused-pipeline stage, the streaming tee and the multi-process all-reduce of
-the reference are not ported yet.
+``baseline.npz`` sidecar pair through ``ModelRegistry.add_sidecar``.  A
+streamed training ingest feeds the builder through :func:`tee_blocks`, so
+the baseline rides the same single pass (one bin-counts launch a block, on
+the thread and stream that pull the blocks).  The fused-pipeline stage and
+the multi-process all-reduce of the reference are not ported yet.
 """
 
 from __future__ import annotations
@@ -246,6 +248,9 @@ class BaselineBuilder:
         self.device = resolve_device(device)
         self._counts: Optional[torch.Tensor] = None  # (R, B_max) f32, lazy
         self._n = 0
+        # the CUDA stream of the last update (a streamed ingest updates on
+        # its staging thread's side stream); finalize orders after it
+        self._stream: Optional[torch.cuda.Stream] = None
 
     def _ensure_state(self):
         if self._counts is None:
@@ -268,12 +273,18 @@ class BaselineBuilder:
         note_dispatch(site="baseline.absorb")
         note_backend("baseline.absorb", resolve_backend(self.device))
         bin_counts(d_codes, self._counts.shape[1], m, out=self._counts)
+        if self._counts.is_cuda:
+            self._stream = torch.cuda.current_stream(self._counts.device)
         self._n += table.n_rows if mask is None else int(np.sum(mask))
         return self
 
     def finalize(self) -> Baseline:
-        """Host sync: pull the device counts once, derive quantiles."""
+        """Host sync: pull the device counts once, derive quantiles.  The
+        read-back waits for the stream the counts were last added on."""
         self._ensure_state()
+        if self._stream is not None:
+            torch.cuda.current_stream(self._counts.device).wait_stream(
+                self._stream)
         counts = fetch(self._counts).astype(np.float64)
         quantiles = np.full((len(self.specs), len(QUANTILE_QS)), np.nan)
         for i, s in enumerate(self.specs):
@@ -284,6 +295,15 @@ class BaselineBuilder:
         return Baseline(specs=[RowSpec.from_dict(s.to_dict())
                                for s in self.specs],
                         counts=counts, n_rows=self._n, quantiles=quantiles)
+
+
+def tee_blocks(blocks, builder: BaselineBuilder):
+    """Pass-through generator: every block updates the baseline builder on
+    its way to the training consumer, so the baseline costs no second pass
+    over a streamed ingest."""
+    for b in blocks:
+        builder.update(b)
+        yield b
 
 
 def compute_baseline(table: ColumnarTable, n_bins: int = DEFAULT_NUM_BINS,

@@ -254,6 +254,40 @@ order — any failure exits non-zero before the result line:
               kernel launch (the yardstick at block size) and
               torch.bincount over a prebuilt flat index (context: the
               index and validity mask are the work), so library_ms is null
+ 28. stream   the streamed training main path, launch counts zeroed before
+              and read after: randomForestBuilder with
+              dtb.streaming.ingest=true (777-row blocks, a checkpoint every
+              2 blocks, badrecords.policy=quarantine, both sidecars) over
+              tests/torch_fixtures/rafo9s/train.csv (5 malformed records)
+              must reproduce the fixture (made by the JAX package's
+              streamed job): trees, the registry's meta.json,
+              baseline.json and quantized.json bytes and npz arrays (the
+              baseline equals the monolithic one), part-q-00000 and the
+              Random forest / BadRecords counters.  Every B1 launch in the
+              mma form; B4 launches equal the ingest blocks (the job's
+              ingest.encode dispatches, and ceil(rows / 777)); B2 and B3
+              launched by the quantize publish; the ledger shows
+              forest.level.cuda, baseline.absorb.cuda and no torch, host
+              or atomic form
+ 29. resume   the same job in a subprocess with
+              AVENIR_TPU_FAULTS=chunk_encode@3=raise:RuntimeError and a
+              checkpoint every block must fail with the injected fault and
+              leave an ingest-incomplete step; the job again with
+              --resume must give the fixture's trees, part-q-00000,
+              meta.json and quantized sidecar, and a baseline of the
+              re-read rows only (the reference's resume contract)
+ 30. scale    a 1,000,000-row CSV (numpy draws from call_hangup_gen's
+              model), trained in two subprocesses: streamed at 262,144-row
+              blocks (iter_csv_chunks -> prefetch_chunks ->
+              build_forest_from_stream with a BaselineBuilder) and
+              monolithic (load_csv -> build_forest); trees and baseline
+              counts identical, every B1 launch in the mma form, B4
+              launches equal the blocks; prints the stream's parse_s,
+              transfer_s, stage_wait_s, queue_wait_s, ingest_compute_s,
+              ingest_wall_s and build_s, rows/s of both and each child's
+              host memory: the job's peak RSS (VmRSS sampled every 5 ms
+              after a warm-up), its own ru_maxrss and RUSAGE_CHILDREN
+              after it
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -268,6 +302,7 @@ import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -279,6 +314,16 @@ RF_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "rf")
 DT_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "dt")
 RAFO9 = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9")
 RAFO9Q = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9q")
+RAFO9S = os.path.join(ROOT, "tests", "torch_fixtures", "rafo9s")
+# the rafo9s fixture's job keys (tests/torch_fixtures/rafo9s/make.py)
+STREAM_BLOCK_ROWS = 777
+STREAM_KEYS = ("-Ddtb.streaming.ingest=true",
+               f"-Ddtb.streaming.block.rows={STREAM_BLOCK_ROWS}",
+               "-Ddtb.streaming.checkpoint.blocks=2",
+               "-Dbadrecords.policy=quarantine",
+               "-Ddtb.model.quantize=true", "-Ddtb.baseline.publish=true")
+STREAM_SCALE_ROWS = 1_000_000
+STREAM_SCALE_BLOCK = 262_144
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
 # H100 SXM float32 outside the tensor cores is 67 TFLOP/s counting a fused
@@ -1967,6 +2012,297 @@ def b4_times(dev, fs):
     return res
 
 
+def rafo9s_job(reg, ck, out, extra=()):
+    """The rafo9s fixture's randomForestBuilder arguments."""
+    return ["org.avenir.tree.RandomForestBuilder",
+            f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
+            f"-Ddtb.feature.schema.file.path="
+            f"{os.path.join(RES, 'call_hangup.json')}",
+            f"-Ddtb.model.registry.dir={reg}", "-Ddtb.model.name=rafo9s",
+            f"-Ddtb.streaming.checkpoint.dir={ck}", *STREAM_KEYS, *extra,
+            os.path.join(RAFO9S, "train.csv"), out]
+
+
+def same_rafo9s(out, reg, what, files=("meta.json", "baseline.json",
+                                       "quantized.json"),
+                arrays=("arrays.npz", "baseline.npz", "quantized.npz")):
+    """Trees, quarantine part file and published files equal the rafo9s
+    fixture's."""
+    for i in range(9):
+        same_bytes(os.path.join(out, f"tree_{i}.json"),
+                   os.path.join(RAFO9S, f"tree_{i}.json"),
+                   f"{what} tree {i}")
+    same_bytes(os.path.join(out, "_quarantine", "part-q-00000"),
+               os.path.join(RAFO9S, "part-q-00000"), f"{what} quarantine")
+    version = os.path.join("rafo9s", "v_000001")
+    for f in files:
+        same_bytes(os.path.join(reg, version, f),
+                   os.path.join(RAFO9S, "registry", version, f),
+                   f"{what} published {f}")
+    for f in arrays:
+        same_arrays(os.path.join(reg, version, f),
+                    os.path.join(RAFO9S, "registry", version, f),
+                    f"{what} published {f}")
+
+
+def stream_main_path(dev):
+    """Phase 28: the streamed training job over the rafo9s fixture's CSV,
+    counts zeroed just before and read just after.  Returns the launches
+    of B1 (and in the mma form), B4, B2 and B3, and the ingest blocks."""
+    from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    out = os.path.join(WORK, "rafo9s_model")
+    reg = os.path.join(WORK, "rafo9s_registry")
+    ck = os.path.join(WORK, "rafo9s_ck")
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    vote.launches = vote.quantized_launches = vote.table_launches = 0
+    with transfer_ledger() as ledger:
+        phase("28 streamed training main path: randomForestBuilder "
+              "dtb.streaming.ingest=true == the rafo9s fixture")
+        t0 = time.perf_counter()
+        run_cli(rafo9s_job(reg, ck, out))
+        wall = time.perf_counter() - t0
+    got = {"b1": histogram.launches, "b1_mma": histogram.mma_launches,
+           "b4": histogram.bin_counts_launches, "b2": vote.launches,
+           "b3": vote.quantized_launches}
+    backends = ledger.backend_snapshot()
+    same_rafo9s(out, reg, "rafo9s streamed randomForestBuilder")
+    with open(out + ".counters.json") as fh:
+        counters = json.load(fh)
+    with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
+        want = json.load(fh)
+    for group, values in want.items():
+        if counters.get(group) != values:
+            fail(f"rafo9s counters {group}: {counters.get(group)} != "
+                 f"{values}")
+    print(f"rafo9s counters equal the fixture's: {want}", flush=True)
+    rows = want["Random forest"]["BaselineRows"]
+    blocks = -(-rows // STREAM_BLOCK_ROWS)
+    got["blocks"] = blocks
+    encodes = counters["Dispatches"].get("ingest.encode")
+    print(f"streamed main path: {wall:.2f} s wall; launches {got}; "
+          f"{rows} rows in {blocks} ingest blocks (ingest.encode "
+          f"dispatches {encodes}); KernelBackends={backends}", flush=True)
+    if got["b1"] <= 0 or got["b1_mma"] != got["b1"]:
+        fail(f"streamed main path: {got['b1']} B1 launches, "
+             f"{got['b1_mma']} in the mma form; all must be")
+    if got["b4"] != blocks or encodes != blocks:
+        fail(f"streamed main path: {got['b4']} B4 launches and {encodes} "
+             f"encoded blocks for {blocks} ingest blocks")
+    if got["b2"] <= 0 or got["b3"] <= 0:
+        fail("the streamed quantize publish never launched B2 or B3")
+    for site in ("forest.level.cuda", "forest.level.form.mma",
+                 "baseline.absorb.cuda", "quantized.vote.cuda"):
+        if not backends.get(site):
+            fail(f"streamed ledger shows no {site}")
+    wrong = [k for k in backends
+             if k.endswith((".torch", ".host", ".atomic"))]
+    if wrong:
+        fail(f"ledger shows non-kernel or atomic forms on the streamed "
+             f"path: {wrong}")
+    return got
+
+
+def stream_resume(dev):
+    """Phase 29: a crash at block 3's encode in a subprocess, then
+    --resume, against the rafo9s fixture."""
+    from avenir_tpu_torch.core.checkpoint import CheckpointManager
+    from avenir_tpu_torch.monitor.baseline import load_baseline
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    phase("29 streamed crash (chunk_encode@3) and --resume == rafo9s")
+    out = os.path.join(WORK, "rafo9s_resumed")
+    reg = os.path.join(WORK, "rafo9s_resumed_registry")
+    ck = os.path.join(WORK, "rafo9s_resumed_ck")
+    # a checkpoint every block: the resume re-reads no block whose bad
+    # records were already quarantined
+    args = rafo9s_job(reg, ck, out, ("-Ddtb.streaming.checkpoint.blocks=1",))
+    env = dict(os.environ,
+               AVENIR_TPU_FAULTS="chunk_encode@3=raise:RuntimeError")
+    t0 = time.perf_counter()
+    crash = subprocess.run([sys.executable, "-m", "avenir_tpu_torch.cli.run",
+                            *args], env=env, cwd=ROOT, capture_output=True,
+                           text=True, timeout=300)
+    crash_s = time.perf_counter() - t0
+    if crash.returncode == 0 or \
+            "injected fault: chunk_encode@3" not in crash.stderr:
+        fail(f"the faulted run did not crash at chunk_encode@3 (rc "
+             f"{crash.returncode}): {crash.stderr[-2000:]}")
+    step, _, meta = CheckpointManager(ck).restore()
+    if meta["ingest_complete"] or step != 3:
+        fail(f"the crashed run's newest checkpoint is step {step}, "
+             f"{meta}; want step 3, ingest incomplete")
+    t0 = time.perf_counter()
+    run_cli(args[:-2] + ["--resume"] + args[-2:])
+    resume_s = time.perf_counter() - t0
+    same_rafo9s(out, reg, "rafo9s crash + --resume",
+                files=("meta.json", "quantized.json"),
+                arrays=("arrays.npz", "quantized.npz"))
+    with open(out + ".counters.json") as fh:
+        counters = json.load(fh)
+    with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
+        total = json.load(fh)["Random forest"]["BaselineRows"]
+    tail = total - int(meta["n_rows"])
+    base = load_baseline(ModelRegistry(reg), "rafo9s", 1)
+    if counters["Checkpoint"] != {"ResumedFromStep": 3,
+                                  "ResumedSourceRows":
+                                      meta["source_rows_done"]} \
+            or base.n_rows != tail:
+        fail(f"resumed run: Checkpoint counters {counters['Checkpoint']}, "
+             f"baseline rows {base.n_rows}; want step 3 and {tail} rows")
+    print(f"crashed subprocess {crash_s:.2f} s wall (rc {crash.returncode},"
+          f" newest step 3, {meta['n_rows']} rows); resumed run "
+          f"{resume_s:.2f} s wall from source row "
+          f"{meta['source_rows_done']}; baseline of the {tail} re-read "
+          f"rows", flush=True)
+
+
+def write_hangup_csv(table, path):
+    """A call_hangup.json CSV of a hangup_table."""
+    issues = np.asarray(["billing", "outage", "upgrade", "other"])
+    cols = table.columns
+    ids = np.char.add("K", np.char.zfill(
+        np.arange(table.n_rows).astype(str), 7))
+    text = [ids, issues[cols[1]]] + [cols[o].astype(np.int64).astype(str)
+                                     for o in (2, 3, 4)] \
+        + [np.asarray(["F", "T"])[cols[5]]]
+    rows = text[0]
+    for c in text[1:]:
+        rows = np.char.add(np.char.add(rows, ","), c)
+    with open(path, "w") as fh:
+        fh.write("\n".join(rows.tolist()) + "\n")
+
+
+def proc_status_kb(key):
+    """A ``/proc/self/status`` size field in kB (VmRSS)."""
+    with open("/proc/self/status") as fh:
+        for line in fh:
+            if line.startswith(key + ":"):
+                return int(line.split()[1])
+    return None
+
+
+def scale_child(mode, csv, out):
+    """One phase-30 training run in its own process: prints one JSON line
+    (stats, wall, launches, peak RSS) and writes the trees and baseline
+    counts under ``out``."""
+    import resource
+    import torch
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import (iter_csv_chunks, load_csv,
+                                             prefetch_chunks)
+    from avenir_tpu_torch.kernels import histogram
+    from avenir_tpu_torch.models.forest import (ForestParams, build_forest,
+                                                build_forest_from_stream)
+    from avenir_tpu_torch.monitor.baseline import BaselineBuilder
+    cfg = load_config(os.path.join(RES, "rafo.properties"))
+    params = ForestParams(tree=_tree_params(cfg),
+                          num_trees=cfg.get_int("dtb.num.trees"),
+                          seed=cfg.get_int("dtb.random.seed"))
+    fs = FeatureSchema.load(os.path.join(RES, "call_hangup.json"))
+    dev = torch.device("cuda", 0)
+    # warm-up: CUDA context and kernel libraries before the timed run
+    warm = hangup_table(np.random.default_rng(1), 4096, fs)
+    build_forest(warm, params, device=dev)
+    BaselineBuilder(fs, device=dev).update(warm).finalize()
+    torch.cuda.synchronize()
+    rss_before = proc_status_kb("VmRSS")
+    # the job's peak RSS, sampled every 5 ms (ru_maxrss is the CUDA
+    # start-up's peak, the same in both children)
+    peak = [rss_before]
+    done = threading.Event()
+
+    def sample():
+        while not done.wait(0.005):
+            peak[0] = max(peak[0], proc_status_kb("VmRSS"))
+    sampler = threading.Thread(target=sample, daemon=True)
+    sampler.start()
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    stats = {}
+    t0 = time.perf_counter()
+    base = BaselineBuilder(fs, device=dev)
+    if mode == "stream":
+        blocks = prefetch_chunks(iter_csv_chunks(
+            csv, fs, chunk_rows=STREAM_SCALE_BLOCK), stats=stats,
+            consumer_wait_key=None)
+        trees = build_forest_from_stream(blocks, fs, params, device=dev,
+                                         stats=stats, baseline=base)
+    else:
+        table = load_csv(csv, fs)
+        base.update(table)
+        t1 = time.perf_counter()
+        trees = build_forest(table, params, device=dev)
+        stats = {"load_s": t1 - t0, "build_s": time.perf_counter() - t1}
+    counts = base.finalize().counts
+    torch.cuda.synchronize()
+    stats["wall_s"] = time.perf_counter() - t0
+    done.set()
+    sampler.join()
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "trees.json"), "w") as fh:
+        json.dump([t.to_json() for t in trees], fh)
+    np.save(os.path.join(out, "baseline_counts.npy"), counts)
+    print(json.dumps({"mode": mode, **stats,
+                      "b1": histogram.launches,
+                      "b1_mma": histogram.mma_launches,
+                      "b4": histogram.bin_counts_launches,
+                      "rss_before_kb": rss_before,
+                      "job_peak_rss_kb": peak[0],
+                      "max_rss_kb": resource.getrusage(
+                          resource.RUSAGE_SELF).ru_maxrss}), flush=True)
+
+
+def stream_scale(dev, fs):
+    """Phase 30: streamed against monolithic training over one 1,000,000-row
+    CSV, each in its own process.  Returns the printed numbers."""
+    import resource
+    phase(f"30 scale: streamed vs monolithic rafo forest over a "
+          f"{STREAM_SCALE_ROWS:,}-row CSV")
+    csv = os.path.join(WORK, "stream_scale.csv")
+    t0 = time.perf_counter()
+    write_hangup_csv(hangup_table(np.random.default_rng(20261018),
+                                  STREAM_SCALE_ROWS, fs), csv)
+    print(f"wrote {STREAM_SCALE_ROWS:,} rows "
+          f"({os.path.getsize(csv) / 1e6:.1f} MB) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    runs = {}
+    for mode in ("stream", "mono"):
+        out = os.path.join(WORK, f"stream_scale_{mode}")
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--scale-child", mode, csv, out], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"phase 30 {mode} child failed (rc {r.returncode}): "
+                 f"{r.stderr[-3000:]}")
+        runs[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+        runs[mode]["children_max_rss_kb"] = resource.getrusage(
+            resource.RUSAGE_CHILDREN).ru_maxrss
+        runs[mode]["rows_per_s"] = STREAM_SCALE_ROWS / runs[mode]["wall_s"]
+        with open(os.path.join(out, "trees.json")) as fh:
+            runs[mode]["trees"] = fh.read()
+        runs[mode]["counts"] = np.load(os.path.join(out,
+                                                    "baseline_counts.npy"))
+    st, mo = runs["stream"], runs["mono"]
+    if st.pop("trees") != mo.pop("trees"):
+        fail("phase 30: streamed and monolithic trees differ")
+    if not np.array_equal(st.pop("counts"), mo.pop("counts")):
+        fail("phase 30: streamed and monolithic baselines differ")
+    blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
+    for name, r in runs.items():
+        if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
+            fail(f"phase 30 {name}: {r['b1']} B1 launches, {r['b1_mma']} "
+                 f"in the mma form; all must be")
+    if st["b4"] != blocks or mo["b4"] != 1:
+        fail(f"phase 30: B4 launches {st['b4']} streamed (want {blocks} "
+             f"blocks), {mo['b4']} monolithic (want 1)")
+    print("streamed and monolithic trees and baselines identical", flush=True)
+    print(json.dumps({"stream_scale": runs}), flush=True)
+    return runs
+
+
 def main():
     import torch
     phase("1 device")
@@ -2501,6 +2837,10 @@ def main():
     b4 = b4_t["rafo_1m"]
     blk = b4_t["rafo_2048"]
 
+    streamed = stream_main_path(dev)
+    stream_resume(dev)
+    scale = stream_scale(dev, fs)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [{
         "name": "ensemble_vote", "route": "cuda",
@@ -2513,7 +2853,8 @@ def main():
         "table_launches": main_table, "old_form": rafo9["old_form"],
         "old_ms": rafo9["old_ms"], "device_ms": rafo9["device_ms"],
         "old_device_ms": rafo9["old_device_ms"],
-        "drift_launches": drift_b2}, {
+        "drift_launches": drift_b2,
+        "stream_launches": streamed["b2"]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -2529,7 +2870,10 @@ def main():
         "root_bound_ms": root_t["bound_ms"],
         "bench_device_ms": bench_t["device_ms"],
         "bench_old_device_ms": bench_t["old_device_ms"],
-        "bench_bound_ms": bench_t["bound_ms"]}, {
+        "bench_bound_ms": bench_t["bound_ms"],
+        "stream_launches": streamed["b1"],
+        "stream_mma_launches": streamed["b1_mma"],
+        "stream_scale_launches": scale["stream"]["b1"]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -2538,7 +2882,8 @@ def main():
         "bound_ms": b3["bound_ms"], "bound_by": b3["bound_by"],
         "library_ms": None, "form": b3["form"], "old_form": b3["old_form"],
         "old_ms": b3["old_ms"], "device_ms": b3["device_ms"],
-        "old_device_ms": b3["old_device_ms"]}, {
+        "old_device_ms": b3["old_device_ms"],
+        "stream_launches": streamed["b3"]}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
@@ -2556,7 +2901,10 @@ def main():
         "sidecar_launches": b4_side_launches,
         "drift_replay_launches": drift["launches"],
         "drift_replay_rows_per_s": drift["rows_per_s"],
-        "drift_six_decimal_diffs": drift_strings}, {
+        "drift_six_decimal_diffs": drift_strings,
+        "stream_launches": streamed["b4"],
+        "stream_blocks": streamed["blocks"],
+        "stream_scale_launches": scale["stream"]["b4"]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -2606,4 +2954,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--scale-child"]:
+        scale_child(*sys.argv[2:5])
+    else:
+        main()

@@ -410,27 +410,40 @@ def test_port_publish_is_byte_identical_and_loads_in_both(tmp_path):
 
 
 @pytest.mark.parametrize("key", [
-    "dtb.streaming.ingest=true", "dtb.streaming.resume=true",
+    "dtb.streaming.cache.policy=build", "dtb.streaming.resume=true",
     "dtb.baseline.publish=true", "dtb.model.quantize=true",
-    "badrecords.policy=skip"])
-def test_unported_training_keys_refuse_by_name(tmp_path, key):
-    """Keys of unported tiers raise JobNotPorted naming them; the sidecar
-    keys are ported, and without a registry to ride they raise a
-    ValueError naming the key and the registry key it needs."""
+    "AVENIR_TPU_SHARD=0/2"])
+def test_unported_training_keys_refuse_by_name(tmp_path, monkeypatch, key):
+    """Keys of unported tiers raise JobNotPorted naming them (the columnar
+    cache, and a multi-shard AVENIR_TPU_SHARD lane in both builders); the
+    sidecar keys are ported, and without a registry to ride they raise a
+    ValueError naming the key and the registry key it needs; a resume
+    without streamed ingest raises the reference's ValueError."""
     train = _gen(50, 1, tmp_path / "train.csv")
-    sidecar = key.startswith(("dtb.baseline", "dtb.model.quantize"))
-    want = (ValueError, key.split("=")[0].replace(".", r"\.")
-            + r" needs dtb\.model\.registry\.dir") if sidecar \
-        else (JobNotPorted, key.replace(".", r"\."))
+    name, _, value = key.partition("=")
+    args = []
+    if name == "AVENIR_TPU_SHARD":
+        monkeypatch.setenv(name, value)
+        want = (JobNotPorted, r"AVENIR_TPU_SHARD=0/2")
+    elif name.startswith(("dtb.baseline", "dtb.model.quantize")):
+        args = [f"-D{key}"]
+        want = (ValueError, name.replace(".", r"\.")
+                + r" needs dtb\.model\.registry\.dir")
+    elif name == "dtb.streaming.resume":
+        args = [f"-D{key}"]
+        want = (ValueError, r"dtb\.streaming\.resume needs "
+                            r"dtb\.streaming\.ingest=true")
+    else:
+        args = [f"-D{key}"]
+        want = (JobNotPorted, key.replace(".", r"\."))
     with pytest.raises(want[0], match=want[1]):
         port_run.main(["randomForestBuilder", f"-Dconf.path={RAFO_PROPS}",
                        f"-Ddtb.feature.schema.file.path={SCHEMA}",
-                       f"-D{key}", "-Dplatform=cpu", train,
+                       *args, "-Dplatform=cpu", train,
                        str(tmp_path / "o")])
     assert not os.path.exists(tmp_path / "o")
-    if key.startswith("badrecords"):
-        with pytest.raises(JobNotPorted, match="badrecords"):
+    if name == "AVENIR_TPU_SHARD":
+        with pytest.raises(JobNotPorted, match=want[1]):
             port_run.main(["decisionTreeBuilder", f"-Dconf.path={DETR_PROPS}",
                            f"-Ddtb.feature.schema.file.path={SCHEMA}",
-                           f"-D{key}", "-Dplatform=cpu", train,
-                           str(tmp_path / "o")])
+                           "-Dplatform=cpu", train, str(tmp_path / "o")])

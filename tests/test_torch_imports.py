@@ -38,7 +38,10 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.monitor.accumulator",
              "avenir_tpu_torch.monitor.policy",
              "avenir_tpu_torch.utils.xla_math",
-             "avenir_tpu_torch.cli.monitor_jobs"):
+             "avenir_tpu_torch.cli.monitor_jobs",
+             "avenir_tpu_torch.core.checkpoint",
+             "avenir_tpu_torch.core.faults",
+             "avenir_tpu_torch.core.table"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -53,7 +56,7 @@ def test_port_imports_without_jax_or_avenir_tpu():
     res = subprocess.run([sys.executable, "-I", "-c", _PROBE, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # runtime, weights, core x6, utils x3, kernels x6, models x4,
+    # runtime, weights, core x7, utils x3, kernels x6, models x4,
     # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x3 and
     # the package
-    assert int(res.stdout.strip()) >= 40
+    assert int(res.stdout.strip()) >= 41
