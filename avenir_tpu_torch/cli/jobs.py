@@ -12,6 +12,24 @@ skip/quarantine, checkpoints and ``--resume``, the registry publish and
 its baseline and int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
 ``knnPipeline`` (``knn_jobs.py``), ``driftMonitor`` and
 ``predictDriftScore`` (``monitor_jobs.py``).
+
+Every job carries its multi-process mode (``register(dist=)``, the JAX
+package's classes), which ``cli.run`` enforces in a joined
+``torch.distributed`` run:
+
+* ``sharded`` — the job reads its own shard and makes global results with
+  explicit collectives (both tree builders; the port runs the streamed
+  ``randomForestBuilder`` row-range sharded and refuses the others);
+* ``map`` — a per-record transform of the local input; each process writes
+  its own part file (``modelPredictor``);
+* ``partition`` — a global input view, the work split by process
+  (``knnPipeline``: the test axis by ``work_slice``, or the train axis
+  with ``nen.train.shard=true``);
+* ``gather`` — host-side global computation over every process's input
+  files (``sameTypeSimilarity``, ``nearestNeighbor``): the input spool is
+  not ported, so a joined run refuses them;
+* ``refuse`` — no multi-process form (``predictionService``,
+  ``driftMonitor``, ``predictDriftScore``).
 """
 
 from __future__ import annotations
@@ -26,18 +44,43 @@ from ..core.schema import FeatureSchema
 from ..core.table import BadRecordPolicy, _make_splitter, load_csv
 
 JOBS: Dict[str, Callable] = {}
+# the multi-process mode of each job function (module docstring)
+JOB_DIST: Dict[Callable, str] = {}
+DIST_MODES = ("sharded", "gather", "map", "partition", "refuse")
 
 
 class JobNotPorted(KeyError):
     """The job exists in the reference but not (yet) in the port."""
 
 
-def register(*names: str):
+def register(*names: str, dist: str):
+    if dist not in DIST_MODES:
+        raise ValueError(f"register(dist={dist!r}): must be one of "
+                         f"{DIST_MODES}")
+
     def deco(fn):
         for n in names:
             JOBS[n] = fn
+        JOB_DIST[fn] = dist
         return fn
     return deco
+
+
+def dist_mode(fn: Callable) -> str:
+    """The job's multi-process mode; a function registered without one is
+    ``refuse``, so nothing emits shard-local results in silence."""
+    return JOB_DIST.get(fn, "refuse")
+
+
+def shards_by_row_range(fn: Callable, cfg: Config) -> bool:
+    """True when this job, under this config, splits one shared input by
+    row range itself (the streamed ``randomForestBuilder`` with
+    ``dtb.streaming.shard`` not ``off``): every process then legitimately
+    gets the same input path, and ``cli.run``'s identical-input refusal
+    for sharded jobs stands down."""
+    return (fn is random_forest_builder
+            and cfg.get_boolean("dtb.streaming.ingest", False)
+            and cfg.get("dtb.streaming.shard", "auto") != "off")
 
 
 def resolve(name: str) -> Callable:
@@ -61,7 +104,7 @@ def _splitter(delim_regex: str):
     return _make_splitter(delim_regex)
 
 
-@register("org.avenir.model.ModelPredictor", "modelPredictor")
+@register("org.avenir.model.ModelPredictor", "modelPredictor", dist="map")
 def model_predictor_job(cfg: Config, in_path: str, out_path: str) -> Counters:
     """Generic map-only predictor (model/ModelPredictor.java:46-82): loads N
     decision-path model files (mop.model.dir.path + mop.model.file.names,
@@ -140,22 +183,22 @@ def _bad_records_policy(cfg: Config, counters: Counters,
 
 
 def _refuse_multi_shard(job: str) -> None:
-    """Raise :class:`JobNotPorted` under an ``AVENIR_TPU_SHARD=i/P`` lane
-    with P > 1: row-range sharded training is not ported, and a
+    """Raise :class:`JobNotPorted` in a run of more than one shard (an
+    ``AVENIR_TPU_SHARD=i/P`` lane with P > 1, or a joined run) for a
+    training path with no sharded form in the port: the per-level
+    builder, and the forest builders over per-process input files.  A
     multi-shard launch must never train single-host in silence."""
-    env = os.environ.get("AVENIR_TPU_SHARD")
-    if not env:
-        return
-    try:
-        count = int(env.partition("/")[2])
-    except ValueError as exc:
-        raise ValueError(f"AVENIR_TPU_SHARD must look like 'index/count', "
-                         f"got {env!r}") from exc
-    if count > 1:
+    from ..parallel.distributed import shard_spec
+    spec = shard_spec()
+    if spec.active:
+        env = os.environ.get("AVENIR_TPU_SHARD")
+        where = f"under AVENIR_TPU_SHARD={env}" if env else \
+            f"in a joined run of {spec.count} processes"
         raise JobNotPorted(
-            f"{job} under AVENIR_TPU_SHARD={env}: row-range sharded "
-            f"training is not ported to avenir_tpu_torch yet; refusing to "
-            f"silently train single-host")
+            f"{job} {where}: only the streamed, row-range sharded "
+            f"randomForestBuilder (dtb.streaming.ingest=true) runs on "
+            f"several processes in avenir_tpu_torch; refusing to silently "
+            f"train single-host")
 
 
 def _tree_params(cfg: Config):
@@ -181,7 +224,8 @@ def _tree_params(cfg: Config):
     )
 
 
-@register("org.avenir.tree.DecisionTreeBuilder", "decisionTreeBuilder")
+@register("org.avenir.tree.DecisionTreeBuilder", "decisionTreeBuilder",
+          dist="sharded")
 def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     """One level of tree growth per invocation — the reference job contract
     (tree/DecisionTreeBuilder.java, driven by resource/detr.sh's rotation of
@@ -210,7 +254,8 @@ def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     return counters
 
 
-@register("org.avenir.tree.RandomForestBuilder", "randomForestBuilder")
+@register("org.avenir.tree.RandomForestBuilder", "randomForestBuilder",
+          dist="sharded")
 def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     """Full in-process random forest: the rafo.sh per-tree rerun loop
     (resource/rafo.sh:34-43) collapsed into one job.  Writes one
@@ -234,9 +279,22 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     ``dtb.streaming.checkpoint.blocks``, default 16) persists ingest
     progress, and ``dtb.streaming.resume=true`` (CLI ``--resume``)
     restarts from the last intact step to the model of an uninterrupted
-    run.  Still refused by name (:class:`JobNotPorted`): a
-    ``dtb.streaming.cache.policy`` other than ``off`` (the columnar
-    cache) and an ``AVENIR_TPU_SHARD`` lane of more than one shard.
+    run.
+
+    Data-parallel over processes (``dtb.streaming.shard=auto|on|off``,
+    default auto): in a run of several shards (``AVENIR_TPU_SHARD=i/P``
+    with ``AVENIR_TPU_ALLREDUCE_DIR``, or a joined ``torch.distributed``
+    run) every process reads the same CSV, parses only its row range
+    (``iter_csv_chunks(shard=)``) and sums one stacked count array a tree
+    level with its peers (``parallel.collectives.AllReducer``): every
+    process trains the single-process forest.  ``on`` refuses a run of
+    one shard; ``off``, and the monolithic build, refuse a run of several
+    (per-process input files are not ported).  Each shard checkpoints
+    under ``<dir>/shard-<i>-of-<P>``; the baseline's partial counts are
+    summed before publishing; shard 0 of process 0 alone publishes and
+    sets ``Shard/Count``.  Still refused by name (:class:`JobNotPorted`):
+    a ``dtb.streaming.cache.policy`` other than ``off`` (the columnar
+    cache).
 
     Two sidecars ride the published version (both need the registry):
     ``dtb.baseline.publish=true`` profiles the training data into the
@@ -251,7 +309,7 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     ``predictionService`` selects that sidecar with ``ps.quantized``."""
     from ..models.forest import (ForestParams, build_forest,
                                  build_forest_from_stream)
-    _refuse_multi_shard("randomForestBuilder")
+    from ..parallel.distributed import process_index, shard_spec
     cache_pol = cfg.get("dtb.streaming.cache.policy", "off")
     if cache_pol != "off":
         raise JobNotPorted(
@@ -293,19 +351,35 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
         raise ValueError("dtb.streaming.shard=on needs "
                          "dtb.streaming.ingest=true (only the streaming "
                          "build can row-range shard)")
+    spec = shard_spec()
+    sharded = streamed and shard_knob != "off" and spec.active
+    if not sharded:
+        _refuse_multi_shard("randomForestBuilder"
+                            + (" with dtb.streaming.shard=off"
+                               if streamed else ""))
+    stream_reducer = None
     if streamed:
         from ..core.checkpoint import CheckpointManager
         from ..core.table import iter_csv_chunks, prefetch_chunks
-        if shard_knob == "on":
-            # one process: the refusal of a shard=on run that is not
-            # multi-shard (a multi-shard lane was refused above)
+        if shard_knob == "on" and not sharded:
             raise ValueError(
                 "dtb.streaming.shard=on needs a multi-shard run "
-                "(jax.distributed, or AVENIR_TPU_SHARD=i/P with "
+                "(torch.distributed, or AVENIR_TPU_SHARD=i/P with "
                 "AVENIR_TPU_ALLREDUCE_DIR); refusing to silently train "
                 "single-host")
         cfg.get_boolean("dtb.pipeline.fuse", True)   # accepted, see above
+        if sharded:
+            from ..parallel.collectives import AllReducer
+            stream_reducer = AllReducer(spec=spec, name="rf-stream")
+            # set by shard 0 alone: a joined run's counter all-reduce sums
+            if spec.index == 0:
+                counters.set("Shard", "Count", spec.count)
         ckpt_dir = cfg.get("dtb.streaming.checkpoint.dir")
+        if ckpt_dir and sharded:
+            # per-shard step dirs: shards saving into one dir would race
+            # on the same step names
+            ckpt_dir = os.path.join(
+                ckpt_dir, f"shard-{spec.index}-of-{spec.count}")
         mgr = CheckpointManager(ckpt_dir) if ckpt_dir else None
         every = cfg.get_int("dtb.streaming.checkpoint.blocks", 16) \
             if mgr is not None else 0
@@ -338,11 +412,13 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
         blocks = prefetch_chunks(iter_csv_chunks(
             in_path, schema, cfg.field_delim_regex,
             chunk_rows=cfg.get_int("dtb.streaming.block.rows", 1 << 22),
-            bad_records=policy, start_row=start_row),
+            bad_records=policy, start_row=start_row,
+            shard=(spec.index, spec.count) if sharded else None),
             consumer_wait_key=None)
         models = build_forest_from_stream(
             blocks, schema, params, checkpoint=mgr, checkpoint_every=every,
-            resume_state=resume_state, baseline=baseline_builder)
+            resume_state=resume_state, baseline=baseline_builder,
+            reducer=stream_reducer)
     else:
         table = load_csv(in_path, schema, cfg.field_delim_regex,
                          bad_records=policy)
@@ -353,15 +429,24 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     for i, dpl in enumerate(models):
         with open(os.path.join(out_path, f"tree_{i}.json"), "w") as fh:
             fh.write(dpl.to_json())
-    if reg_dir:
+    # every process trains the same forest; the registry has one writer
+    publish = process_index() == 0 and (stream_reducer is None
+                                        or stream_reducer.spec.index == 0)
+    baseline = None
+    if reg_dir and baseline_builder is not None:
+        # a collective: every shard sums its partial counts first, then
+        # only the publisher writes
+        from ..monitor.baseline import allreduce_partials
+        baseline = allreduce_partials(baseline_builder,
+                                      reducer=stream_reducer).finalize()
+    if reg_dir and publish:
         from ..serving.registry import ModelRegistry
         registry = ModelRegistry(reg_dir)
         model_name = cfg.get("dtb.model.name", "forest")
         version = registry.publish(model_name, models, schema=schema)
         counters.set("Random forest", "RegistryVersion", version)
-        if baseline_builder is not None:
+        if baseline is not None:
             from ..monitor.baseline import publish_baseline
-            baseline = baseline_builder.finalize()
             publish_baseline(registry, model_name, version, baseline)
             counters.set("Random forest", "BaselineRows", baseline.n_rows)
         if quantize:

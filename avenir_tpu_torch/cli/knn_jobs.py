@@ -10,8 +10,12 @@ then avenir's NearestNeighbor), from ``avenir_tpu/cli/jobs.py``:
   devices (``-Dplatform=cuda`` on a host with several GPUs, or a mesh the
   caller installed) the train rows shard over them (kernel B7).
 
-Single process: ``nen.train.shard=true`` (the multi-host train split) is
-not ported and raises :class:`JobNotPorted`.
+Over processes ``knnPipeline`` is a partition job: each process classifies
+its ``work_slice`` of the test rows against the whole train set and writes
+its own part file, or, with ``nen.train.shard=true``, scans every test row
+against its row range of the train set and merges the lists with its peers
+once a test chunk (kernel B7's merge), so every process writes the
+single-process predictions.
 """
 
 from __future__ import annotations
@@ -27,7 +31,7 @@ from ..core.config import Config
 from ..core.metrics import ConfusionMatrix, Counters
 from ..core.schema import FeatureSchema
 from ..core.table import load_csv_text
-from .jobs import JobNotPorted, _schema_path, _splitter, register
+from .jobs import _schema_path, _splitter, register
 
 
 def _load_train_test(in_path: str, prefix: str, schema: FeatureSchema,
@@ -61,7 +65,7 @@ def _load_train_test(in_path: str, prefix: str, schema: FeatureSchema,
 
 
 @register("org.sifarish.feature.SameTypeSimilarity", "sameTypeSimilarity",
-          "recordSimilarity")
+          "recordSimilarity", dist="gather")
 def same_type_similarity(cfg: Config, in_path: str, out_path: str
                          ) -> Counters:
     """All-pairs record distance (the external sifarish job of
@@ -136,7 +140,8 @@ def _knn_params(cfg: Config):
     return params
 
 
-@register("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess")
+@register("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess",
+          dist="partition")
 def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
     """The whole knn.sh pipeline fused in process: distance + running top-k
     on the device (``DistanceComputer.pairwise_topk``, kernel B5; sharded
@@ -146,7 +151,16 @@ def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
     validation counters match nearestNeighbor's.  Intra-set input gives
     every row its k nearest among ALL other rows (leave-one-out: k + 1
     neighbors, then the self-match dropped).  Class-conditional weighting
-    and regression need the file flow's layout and are refused."""
+    and regression need the file flow's layout and are refused.
+
+    ``nen.train.shard=true`` splits the TRAIN rows by the run's shards
+    (``parallel.distributed.shard_spec``): each process scans the whole
+    test set against its train range and the nearest lists merge once a
+    test chunk (``DistanceComputer.pairwise_topk(shard_reducer=)``), so
+    every shard writes the single-process predictions as ``part-r-00000``
+    and shard 0 alone sets the counters.  Otherwise each process
+    classifies its ``work_slice`` of the test rows and writes its own part
+    file, with per-slice counters that a joined run sums."""
     from ..models import knn as K
     from ..ops.distance import DistanceComputer
     counters = Counters()
@@ -160,10 +174,6 @@ def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
         raise ValueError(
             "knnPipeline is classification-only; KNN regression needs the "
             "nearestNeighbor file layout's target columns")
-    if cfg.get_boolean("nen.train.shard", False):
-        raise JobNotPorted("knnPipeline nen.train.shard=true (the multi-host "
-                           "train split) is not ported to avenir_tpu_torch "
-                           "yet")
     schema = _schema_path(cfg, "sts.same.schema.file.path")
     delim = cfg.field_delim_regex
     od = cfg.field_delim_out
@@ -176,10 +186,26 @@ def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
     train, test, intra_set = _load_train_test(in_path, prefix, schema, delim)
     comp = DistanceComputer(schema, metric=metric, scale=scale)
     k = min(params.top_match_count, train.n_rows - (1 if intra_set else 0))
-    nd, idx = comp.pairwise_topk(test, train, k + 1 if intra_set else k)
+    knn_reducer = None
+    t_lo = 0
+    if cfg.get_boolean("nen.train.shard", False):
+        from ..parallel.collectives import AllReducer
+        from ..parallel.distributed import shard_spec
+        spec = shard_spec()
+        knn_reducer = AllReducer(spec=spec, name="knn-train")
+        tr_lo, tr_hi = spec.range_for(train.n_rows)
+        nd, idx = comp.pairwise_topk(
+            test, train.take_rows(tr_lo, tr_hi), k + 1 if intra_set else k,
+            shard_reducer=knn_reducer, shard_base=tr_lo)
+    else:
+        from ..parallel.distributed import work_slice
+        t_lo, t_hi = work_slice(test.n_rows)
+        test = test.take_rows(t_lo, t_hi)
+        nd, idx = comp.pairwise_topk(test, train, k + 1 if intra_set else k)
     if intra_set:
-        # drop the self-match (train index == test row), keeping the order
-        self_col = np.arange(test.n_rows)[:, None]
+        # drop the self-match (train index == global test row), keeping
+        # the order
+        self_col = (np.arange(test.n_rows) + t_lo)[:, None]
         keep = np.argsort(idx == self_col, axis=1, kind="stable")[:, :k]
         nd = np.take_along_axis(nd, keep, axis=1)
         idx = np.take_along_axis(idx, keep, axis=1)
@@ -202,8 +228,8 @@ def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
     res = K.classify_topk(nd, mapped[idx], class_values, params)
 
     id_ord = schema.id_fields[0].ordinal if schema.id_fields else 0
-    test_ids = test.str_columns.get(id_ord,
-                                    [str(i) for i in range(test.n_rows)])
+    test_ids = test.str_columns.get(
+        id_ord, [str(i) for i in range(t_lo, t_lo + test.n_rows)])
     actual = None
     cm = None
     if validation:
@@ -232,15 +258,19 @@ def knn_pipeline(cfg: Config, in_path: str, out_path: str) -> Counters:
             cm.report(res.pred_class[i], actual[i])
         parts.append(res.pred_class[i])
         out_lines.append(od.join(parts))
-    if cm is not None:
-        cm.export(counters)
-    counters.increment("Neighborhood", "Test records", test.n_rows)
-    artifacts.write_text_output(out_path, out_lines)
+    # train-sharded: every shard computed the whole, identical prediction
+    # set, so shard 0 alone sets the counters (a joined run sums them)
+    if knn_reducer is None or knn_reducer.spec.index == 0:
+        if cm is not None:
+            cm.export(counters)
+        counters.increment("Neighborhood", "Test records", test.n_rows)
+    artifacts.write_text_output(out_path, out_lines,
+                                local_shard=knn_reducer is None)
     return counters
 
 
 @register("org.avenir.knn.NearestNeighbor", "nearestNeighbor",
-          "knnClassifier")
+          "knnClassifier", dist="gather")
 def nearest_neighbor(cfg: Config, in_path: str, out_path: str) -> Counters:
     """KNN classification/regression over precomputed neighbor lines
     (knn/NearestNeighbor.java; the knn.sh 'knnClassifier' step).

@@ -250,7 +250,7 @@ def _fresh_alerts_path(out_path: str) -> str:
     return path
 
 
-@register("org.avenir.monitor.DriftMonitor", "driftMonitor")
+@register("org.avenir.monitor.DriftMonitor", "driftMonitor", dist="refuse")
 def drift_monitor(cfg: Config, in_path: str, out_path: str) -> Counters:
     from ..core.table import encode_rows
     from ..monitor.baseline import load_baseline
@@ -318,7 +318,8 @@ def _refuse_even_forest(loaded) -> None:
         raise ValueError("need odd number of models in ensemble")
 
 
-@register("org.avenir.monitor.PredictDriftScore", "predictDriftScore")
+@register("org.avenir.monitor.PredictDriftScore", "predictDriftScore",
+          dist="refuse")
 def predict_drift_score(cfg: Config, in_path: str, out_path: str
                         ) -> Counters:
     """``predict + driftScore`` in one pass over the records, unfused: per

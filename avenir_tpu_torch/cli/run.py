@@ -15,10 +15,23 @@ visible GPU for cuda, the CPU for cpu, unless the caller installed one
 with ``set_runtime_context``.  Prints a
 Hadoop-style counter dump and writes it as ``<outPath>.counters.json``.
 A job that is not ported yet raises ``JobNotPorted``.
+
+Several processes (``parallel/distributed.py``): under torchrun's
+environment (``WORLD_SIZE`` > 1, ``RANK``, ``MASTER_ADDR`` /
+``MASTER_PORT``) the runner joins a ``torch.distributed`` run (gloo) and
+enforces the job's multi-process mode (:func:`_apply_dist_mode`); under
+``AVENIR_TPU_SHARD=i/P`` the row-range sharded jobs exchange partials
+through the file transport.  In either, each process drives one card,
+``parallel.mesh.worker_device`` of its local index, and a joined run sums
+the counters across processes (not for ``gather`` jobs, whose counters are
+global already); process 0 prints them and shard 0 alone writes
+``counters.json``.
 """
 
 from __future__ import annotations
 
+import glob
+import hashlib
 import os
 import sys
 from typing import List, Optional
@@ -73,7 +86,139 @@ def parse_args(argv: List[str]):
     return job_name, conf_path, overrides, positional
 
 
+def file_sha(path: str, full: bool) -> str:
+    """Content digest of an input file: all of it (``full``), or its size,
+    head, tail and three interior samples — O(1) reads for the large
+    inputs of sharded and map jobs."""
+    h = hashlib.sha256()
+    size = os.path.getsize(path)
+    with open(path, "rb") as fh:
+        if full:
+            for chunk in iter(lambda: fh.read(1 << 20), b""):
+                h.update(chunk)
+        else:
+            h.update(f"{size}:".encode())
+            h.update(fh.read(1 << 16))
+            if size > (1 << 16):
+                for frac in (0.25, 0.5, 0.75):
+                    fh.seek(int(size * frac))
+                    h.update(fh.read(4096))
+                fh.seek(-(1 << 16), os.SEEK_END)
+                h.update(fh.read(1 << 16))
+    return h.hexdigest()
+
+
+def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
+                     cfg: Optional[Config] = None) -> Optional[str]:
+    """Enforce the job's multi-process mode in a joined run (the identity
+    in a single process).  ``sharded`` and ``map`` jobs read their own
+    input; ``partition`` jobs need one global input; ``gather`` jobs
+    (their input spool is not ported) and ``refuse`` jobs raise.
+
+    One digest exchange tells an input that is identical on every process
+    (a shared-filesystem launch) from per-process inputs:
+
+    * ``sharded`` / ``map``: identical inputs would make every process
+      treat the whole file as its shard and inflate the results P-fold —
+      refused (``AVENIR_TPU_ALLOW_IDENTICAL_SHARDS=1`` overrides), except
+      for a job that splits one shared file by row range itself
+      (``jobs.shards_by_row_range``), which in turn refuses distinct
+      inputs (each process would split its own file and drop rows);
+    * ``partition``: identical inputs are used as they are; distinct ones
+      would need the gather spool, not ported.
+
+    Processes that disagree on whether an input was given at all raise on
+    every process instead of leaving half of them in a collective."""
+    from ..parallel.distributed import allgather_object, is_multiprocess
+    if not is_multiprocess():
+        return in_path
+    mode = jobs.dist_mode(fn)
+    if mode == "gather":
+        raise jobs.JobNotPorted(
+            f"job {job_name} (dist mode 'gather') in a joined run: the "
+            f"input spool that gives every process the union of the "
+            f"processes' inputs is not ported to avenir_tpu_torch yet; run "
+            f"it single-process")
+    if mode not in ("sharded", "map", "partition"):
+        raise RuntimeError(
+            f"job {job_name} is not multi-process safe (dist mode "
+            f"{mode!r}): running it in a joined run would emit shard-local "
+            f"results; run it single-process")
+    if in_path is None:
+        paths = []
+    elif os.path.isdir(in_path):
+        paths = sorted(p for p in glob.glob(os.path.join(in_path, "*"))
+                       if os.path.isfile(p))
+    else:
+        paths = [in_path]
+    digest = hashlib.sha256(repr(
+        [(os.path.basename(p), file_sha(p, mode == "partition"))
+         for p in paths]).encode()).hexdigest()
+    meta = allgather_object((in_path is not None, digest))
+    flags = [has for has, _ in meta]
+    if len(set(flags)) > 1:
+        raise RuntimeError(
+            f"job {job_name}: processes disagree on whether an input path "
+            f"was given ({flags}); fix the per-process argv")
+    if in_path is None:
+        return None
+    identical = len({d for _, d in meta}) == 1
+    if mode == "partition":
+        if not identical:
+            raise jobs.JobNotPorted(
+                f"job {job_name} (dist mode 'partition') with distinct "
+                f"per-process inputs needs the input spool, which is not "
+                f"ported to avenir_tpu_torch yet; give every process the "
+                f"same input")
+        return in_path
+    row_range = cfg is not None and jobs.shards_by_row_range(fn, cfg)
+    if row_range and not identical:
+        raise RuntimeError(
+            f"job {job_name}: dtb.streaming.shard is active but the "
+            f"{len(meta)} processes were given DISTINCT inputs — the "
+            f"row-range split assumes every process reads the SAME file "
+            f"and would silently drop rows from each per-process file.  "
+            f"Give every process the same input path, or set "
+            f"dtb.streaming.shard=off")
+    if identical and not row_range and not os.environ.get(
+            "AVENIR_TPU_ALLOW_IDENTICAL_SHARDS"):
+        raise RuntimeError(
+            f"job {job_name} (dist mode {mode!r}): all {len(meta)} "
+            f"processes were given IDENTICAL input — each would treat the "
+            f"full file as its shard and the results would be silently "
+            f"{len(meta)}x inflated.  Give each process its own input "
+            f"shard (or set AVENIR_TPU_ALLOW_IDENTICAL_SHARDS=1 if the "
+            f"shards are genuinely identical)")
+    return in_path
+
+
+def _process_device():
+    """In a run of several shards, the card (or the CPU) this process
+    drives, installed as the default device and a one-device runtime
+    context unless the caller installed a context.  Returns True when it
+    installed them."""
+    from ..parallel.distributed import local_index, shard_spec
+    from ..parallel.mesh import (DeviceMesh, MeshContext, installed_context,
+                                 set_runtime_context, worker_device)
+    from ..runtime import set_default_device
+    if not shard_spec().active or installed_context() is not None:
+        return False
+    dev = worker_device(local_index())
+    if dev.type == "cuda":
+        # a bare "cuda" (pinned host memory, current streams) then means
+        # this process's card too
+        import torch
+        torch.cuda.set_device(dev)
+    set_default_device(dev)
+    set_runtime_context(MeshContext(DeviceMesh([dev])))
+    return True
+
+
 def main(argv: Optional[List[str]] = None) -> int:
+    from ..parallel.distributed import (all_reduce_counters, initialize,
+                                        is_multiprocess, leave,
+                                        process_index, shard_spec)
+    from ..parallel.mesh import set_runtime_context
     from ..runtime import platform_device, set_default_device
     from ..utils.tracing import StepTimer, transfer_ledger
     argv = list(sys.argv[1:] if argv is None else argv)
@@ -93,22 +238,40 @@ def main(argv: Optional[List[str]] = None) -> int:
         in_path, out_path = None, positional[0]
     else:
         in_path = out_path = None
+    # a joined run when torchrun's environment says so (a partial one
+    # raises); the identity in a single process.  A run this call joined
+    # is left when the job succeeds
+    joined_here = not is_multiprocess() and initialize()
     platform = cfg.get("platform")
     # the process-level device, installed for the job and cleared after it
     # so one in-process run cannot leak it into the next
     set_default_device(platform_device(platform) if platform else None)
+    own_ctx = False
     try:
+        in_path = _apply_dist_mode(fn, job_name, in_path, cfg)
+        own_ctx = _process_device()
         timer = StepTimer()
         with transfer_ledger() as ledger:
             with timer.step("job"):
                 counters = fn(cfg, in_path, out_path)
         if counters is not None:
+            # the ledger before the sum: each process moved its own bytes;
+            # the step times after it: wall clocks do not add up
             ledger.export(counters)
+            if jobs.dist_mode(fn) != "gather":
+                counters = all_reduce_counters(counters)
             timer.export(counters)
-            print(counters.render())
-            write_counters_json(counters, out_path)
+            spec = shard_spec()
+            if process_index() == 0:
+                print(counters.render())
+                if not spec.active or spec.index == 0:
+                    write_counters_json(counters, out_path)
+        if joined_here:
+            leave()
     finally:
         set_default_device(None)
+        if own_ctx:
+            set_runtime_context(None)
     return 0
 
 

@@ -45,7 +45,8 @@ _UNPORTED_KEYS = ("ps.models", "ps.workers", "ps.broker.shards",
                   "ps.trace.sample")
 
 
-@register("org.avenir.serving.PredictionService", "predictionService")
+@register("org.avenir.serving.PredictionService", "predictionService",
+          dist="refuse")
 def prediction_service(cfg: Config, in_path: str, out_path: str) -> Counters:
     from ..serving.predictor import DEFAULT_BUCKETS, make_predictor
     from ..serving.registry import ModelRegistry

@@ -20,16 +20,30 @@ from __future__ import annotations
 import glob
 import json
 import os
-from typing import Any, Iterable, List
+from typing import Any, Iterable, List, Optional
 
 from .faults import with_retry
 
 
 def write_text_output(dir_path: str, lines: Iterable[str],
-                      part: int = 0, role: str = "r") -> str:
+                      part: Optional[int] = None, role: str = "r",
+                      local_shard: Optional[bool] = None) -> str:
     """Write lines as ``<dir>/part-{role}-{part:05d}`` (Hadoop output layout:
     role "m" for the map-only predictor jobs, "r" for reducer artifacts).
-    The port runs single-process, so the part number defaults to 0."""
+
+    ``local_shard=True`` marks per-record output over this process's own
+    input (prediction lines): in a joined multi-process run the part
+    number defaults to the process index, so each process writes its own
+    part file, the one-part-a-task layout.  Unset, map outputs (role "m")
+    are local and reducer artifacts (role "r": global results every
+    process computes alike) keep part 0."""
+    if part is None:
+        if local_shard is None:
+            local_shard = role == "m"
+        part = 0
+        if local_shard:
+            from ..parallel.distributed import process_index
+            part = process_index()
     os.makedirs(dir_path, exist_ok=True)
     path = os.path.join(dir_path, f"part-{role}-{part:05d}")
     # materialize once so a retried write re-emits identical content even

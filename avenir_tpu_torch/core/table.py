@@ -287,10 +287,22 @@ def load_csv_text(text: str, schema: FeatureSchema, delim_regex: str = ",",
 # chunked / streaming ingest (the CSV -> device pipeline's host stages)
 # --------------------------------------------------------------------------
 
+def count_source_rows(path: str) -> int:
+    """The SOURCE rows (non-blank lines) of a CSV: the denominator of the
+    sharded ingest's split.  One streaming text pass, no tokenising."""
+    n = 0
+    with open(path, "r") as fh:
+        for line in fh:
+            if line.strip():
+                n += 1
+    return n
+
+
 def iter_csv_chunks(path: str, schema: FeatureSchema,
                     delim_regex: str = ",", chunk_rows: int = 1 << 22,
                     bad_records: Optional[BadRecordPolicy] = None,
-                    start_row: int = 0):
+                    start_row: int = 0, shard=None,
+                    stop_row: Optional[int] = None):
     """Yield a CSV as ColumnarTable row blocks of up to ``chunk_rows``
     well-formed rows — the parse stage of the streamed CSV -> device
     ingest.  The file is read line by line and host memory holds one
@@ -303,13 +315,32 @@ def iter_csv_chunks(path: str, schema: FeatureSchema,
     yielded.  ``start_row`` restarts the stream at a SOURCE row index
     (non-blank line count) — the checkpoint/resume contract; every
     yielded chunk reports its own ``source_row_end`` on that axis.  Each
-    block's encode passes the ``chunk_encode`` fault point.  This is the
-    reference's python reader; its native reader, columnar cache and
-    row-range shards are not ported."""
+    block's encode passes the ``chunk_encode`` fault point.
+
+    ``shard=(index, count)`` yields only that row-range shard of the
+    source: split points from ``parallel.distributed.shard_rows`` over the
+    source-row count (:func:`count_source_rows`, one cheap pass), on the
+    ``chunk_rows`` grid, so the shards' streams together are the whole
+    stream and each bad record is reported by exactly one shard.  It
+    composes with ``start_row`` (a resumed shard restarts at the larger of
+    its range's start and ``start_row``).  ``stop_row`` (exclusive, on the
+    same axis) ends the stream early; it is what ``shard`` is built on,
+    and passing both is refused.  This is the reference's python reader;
+    its native reader and columnar cache are not ported."""
     if chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
     if start_row < 0:
         raise ValueError(f"start_row must be >= 0, got {start_row}")
+    if shard is not None and stop_row is not None:
+        raise ValueError("pass shard= or stop_row=, not both (shard "
+                         "computes its own bounds)")
+    skip_rows = int(start_row)
+    stop = int(stop_row) if stop_row is not None else None
+    if shard is not None:
+        from ..parallel.distributed import shard_rows
+        lo, stop = shard_rows(count_source_rows(path), int(shard[0]),
+                              int(shard[1]), chunk_rows)
+        skip_rows = max(skip_rows, lo)
     split = _make_splitter(delim_regex)
     skipping = bad_records is not None and bad_records.skips
     is_bad = _bad_row_checker(schema) if skipping else None
@@ -323,8 +354,10 @@ def iter_csv_chunks(path: str, schema: FeatureSchema,
             line = line.rstrip("\r\n")  # same record set as str.splitlines
             if not line.strip():        # for \n / \r\n terminated CSVs
                 continue
+            if stop is not None and consumed >= stop:
+                break           # this line's 0-based source index
             consumed += 1
-            if consumed <= start_row:
+            if consumed <= skip_rows:
                 continue
             r = split(line)
             if skipping and is_bad(r):

@@ -341,14 +341,17 @@ class ForestBuilder:
     def _level_counts(self, node_ids, weights, n_nodes: int) -> np.ndarray:
         """One level for the whole forest: (T, N, S, B, C) float64 counts,
         row-chunked launches accumulated in int32 on the device, one host
-        transfer of the stacked counts."""
+        transfer of the stacked counts — and, in a sharded build, one
+        all-reduce of them (``TreeBuilder._reduce_counts``)."""
         base = self.base
         T = len(self.tree_builders)
         S, B, C = base.split_set.n_splits, base.split_set.max_branches, base.C
         chunk = level_chunk(n_nodes, T, S, B, C, self._w_max)
-        return count_level(node_ids, base.branches, base.cls_codes, weights,
-                           n_nodes, B, C, chunk, "forest.level",
-                           self.profile)
+        counts = count_level(node_ids, base.branches, base.cls_codes,
+                             weights, n_nodes, B, C, chunk, "forest.level",
+                             self.profile)
+        with layer(self.profile, "allreduce"):
+            return base._reduce_counts(counts)
 
     def _level_fused(self, node_ids, weights, sel_split: np.ndarray,
                      child_table: np.ndarray, n_new: int):
@@ -463,7 +466,8 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
                              stats: Optional[dict] = None,
                              checkpoint=None, checkpoint_every: int = 0,
                              resume_state=None, baseline=None,
-                             profile=None) -> List[DecisionPathList]:
+                             profile=None,
+                             reducer=None) -> List[DecisionPathList]:
     """Train the forest from an iterator of ColumnarTable row blocks — the
     streamed CSV -> device ingest's training entry.  Each block is encoded
     to branch and class codes on the device and released, so host memory
@@ -478,7 +482,13 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
     ``queue_wait_s``, ``ingest_compute_s`` (``TreeBuilder.from_stream``),
     ``ingest_wall_s`` (the whole ingest) and ``build_s`` (the level loop).
     ``checkpoint``, ``checkpoint_every``, ``resume_state`` and
-    ``baseline`` go to ``TreeBuilder.from_stream``."""
+    ``baseline`` go to ``TreeBuilder.from_stream``.
+
+    ``reducer`` (a ``parallel.collectives.AllReducer``) makes the build
+    data-parallel over processes: ``blocks`` is this process's row-range
+    shard (``iter_csv_chunks(shard=...)``), every tree level pays one
+    all-reduce of the stacked (T, N, S, B, C) counts, and every process
+    returns the single-process forest."""
     import time as _time
     t0 = _time.perf_counter()
     base = TreeBuilder.from_stream(blocks, schema,
@@ -487,7 +497,8 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
                                    checkpoint=checkpoint,
                                    checkpoint_every=checkpoint_every,
                                    resume_state=resume_state,
-                                   baseline=baseline, profile=profile)
+                                   baseline=baseline, profile=profile,
+                                   reducer=reducer)
     t1 = _time.perf_counter()
     models = ForestBuilder(None, params, profile=profile,
                            base=base).build_all()

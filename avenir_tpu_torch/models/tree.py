@@ -878,11 +878,12 @@ _REASSIGN_CHUNK = 1 << 20
 def _save_stream_checkpoint(mgr, blocks_done: int, br_parts, cls_parts,
                             mask_parts, n_rows: int,
                             source_rows_done: Optional[int],
-                            complete: bool) -> None:
+                            complete: bool, shard=None) -> None:
     """Persist the accumulated streamed-ingest state as one checkpoint
     step: branch codes (int32), class codes (int32) and the pad mask
     (float32), with meta ``n_rows``, ``blocks_done``, ``source_rows_done``
-    and ``ingest_complete`` — the JAX package's layout.  Full-state
+    and ``ingest_complete``, and a sharded build's ``shard`` spec
+    (``{"index", "count"}``) — the JAX package's layout.  Full-state
     snapshots, not increments: any single intact step resumes, which is
     what lets the manager keep only the newest few.  The host copies
     synchronise the device."""
@@ -898,6 +899,11 @@ def _save_stream_checkpoint(mgr, blocks_done: int, br_parts, cls_parts,
             "source_rows_done": None if source_rows_done is None
             else int(source_rows_done),
             "ingest_complete": bool(complete)}
+    if shard is not None:
+        # a sharded build's state is one shard's rows: resuming it under
+        # another shard count would move the row-range split around it
+        meta["shard"] = {"index": int(shard.index),
+                         "count": int(shard.count)}
     mgr.save(blocks_done, arrays, meta)
 
 
@@ -1040,6 +1046,7 @@ class TreeBuilder:
             self.branches = self.split_set.branch_codes(
                 torch.from_numpy(X).to(self.device))
         self._w_max = 1.0
+        self._reducer = None
         # splits grouped by attr for selection strategies
         self.splits_by_attr: Dict[int, List[int]] = {}
         for i, s in enumerate(self.splits):
@@ -1050,7 +1057,7 @@ class TreeBuilder:
                     device=None, stats: Optional[dict] = None,
                     checkpoint=None, checkpoint_every: int = 0,
                     resume_state=None, baseline=None,
-                    profile=None) -> "TreeBuilder":
+                    profile=None, reducer=None) -> "TreeBuilder":
         """Build the device state from an iterator of ColumnarTable row
         blocks instead of one assembled table — the consume stage of the
         streamed CSV -> device ingest (``avenir_tpu``'s unfused form).
@@ -1081,8 +1088,23 @@ class TreeBuilder:
         Branch and class codes are exact integers and weights are placed
         by mask position over the true row count, so an interrupted then
         resumed ingest trains the model of an uninterrupted one,
-        whichever package wrote the checkpoint."""
+        whichever package wrote the checkpoint.
+
+        Data-parallel over processes (``reducer``, a
+        ``parallel.collectives.AllReducer``): ``blocks`` is this process's
+        row-range shard of the source (``iter_csv_chunks(shard=...)``),
+        staged onto this process's device only.  One allgather after the
+        ingest exchanges the shards' row counts: every process learns the
+        global row total (the bootstrap draw's denominator) and its own
+        offset into the globally drawn weights (:meth:`_expand_weights`).
+        Training then sums one stacked count array a level across the
+        processes (:meth:`_reduce_counts`), so the host epilogue, and the
+        model, is the single-process build's on every process.  A shard
+        with no rows still joins every collective.  Its checkpoints carry
+        the shard spec; a resume under another shard count is refused."""
         self = cls.__new__(cls)
+        spec = reducer.spec if reducer is not None else None
+        self._reducer = reducer
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             # pinned to an index here: the staging thread's own current
@@ -1110,13 +1132,15 @@ class TreeBuilder:
         if resume_state is not None:
             arrays, meta = resume_state
             saved_shard = meta.get("shard")
-            if saved_shard is not None:
+            want_shard = None if spec is None else \
+                {"index": spec.index, "count": spec.count}
+            if saved_shard != want_shard:
                 raise ValueError(
                     f"checkpoint belongs to shard {saved_shard}, this "
-                    f"process is None: a sharded build must resume under "
-                    f"the SAME process count and shard assignment (the "
-                    f"row-range split would move around the saved state); "
-                    f"clear the checkpoint dir to restart cold")
+                    f"process is {want_shard}: a sharded build must resume "
+                    f"under the SAME process count and shard assignment "
+                    f"(the row-range split would move around the saved "
+                    f"state); clear the checkpoint dir to restart cold")
             rb = np.ascontiguousarray(arrays["branches"], dtype=np.int32)
             if rb.shape[0]:
                 if rb.shape[1] != self.split_set.n_splits:
@@ -1160,19 +1184,29 @@ class TreeBuilder:
                         and blocks_done % checkpoint_every == 0):
                     _save_stream_checkpoint(
                         checkpoint, blocks_done, br_parts, cls_parts,
-                        mask_parts, n_rows, source_rows_done, False)
+                        mask_parts, n_rows, source_rows_done, False,
+                        shard=spec)
             if checkpoint is not None and checkpoint_every > 0:
                 # the ingest-complete step: a crash in the build phase
                 # resumes straight to training, re-reading no source row
                 _save_stream_checkpoint(
                     checkpoint, blocks_done, br_parts, cls_parts,
-                    mask_parts, n_rows, source_rows_done, True)
+                    mask_parts, n_rows, source_rows_done, True, shard=spec)
             t0 = time.perf_counter()
-            if not br_parts:
+            if not br_parts and spec is None:
                 # the monolithic path cannot train on 0 rows either
                 raise ValueError("from_stream got an empty block stream "
                                  "(no rows to train on)")
-            if len(br_parts) == 1:
+            if not br_parts:
+                # a shard that owns no blocks (more processes than
+                # blocks) joins every collective with zero partials
+                self.branches = torch.zeros(
+                    (0, self.split_set.n_splits), dtype=torch.int32,
+                    device=dev)
+                self.cls_codes = torch.zeros((0,), dtype=torch.int32,
+                                             device=dev)
+                mask_parts = [np.zeros((0,), np.float32)]
+            elif len(br_parts) == 1:
                 self.branches, self.cls_codes = br_parts[0], cls_parts[0]
             else:
                 self.branches = torch.cat(br_parts)
@@ -1182,6 +1216,17 @@ class TreeBuilder:
                 torch.cuda.synchronize(dev)
         t_compute += time.perf_counter() - t0
         self.mask_np = np.concatenate(mask_parts)
+        self._local_rows = n_rows
+        self._row_offset = 0
+        if reducer is not None:
+            # the one allgather of the ingest: the global row total and
+            # this shard's offset into the globally drawn weights
+            per_shard = reducer.allgather(int(n_rows))
+            self._row_offset = int(sum(per_shard[:spec.index]))
+            n_rows = int(sum(per_shard))
+            if n_rows == 0:
+                raise ValueError("sharded from_stream: no shard produced "
+                                 "any rows (empty source)")
         self.n_rows = n_rows
         self.n_padded = int(self.mask_np.shape[0])
         if stats is not None:
@@ -1198,9 +1243,15 @@ class TreeBuilder:
         when not sub-sampling), placed at the valid positions of the
         device layout, zero on pad rows.  A monolithic build's mask is all
         ones; a restored checkpoint's pad rows may interleave with valid
-        ones (the JAX package pads every block to its mesh)."""
+        ones (the JAX package pads every block to its mesh).
+
+        A sharded build draws ``w`` over the GLOBAL row count (every
+        process replays the same draws) and keeps this shard's slice:
+        global row i gets the same weight whichever process holds it."""
         if w is None:
             w = np.ones((self.n_rows,), dtype=np.float32)
+        if self._reducer is not None:
+            w = w[self._row_offset:self._row_offset + self._local_rows]
         full = np.zeros((self.n_padded,), dtype=np.float32)
         full[self.mask_np > 0] = w.astype(np.float32)
         return full
@@ -1214,6 +1265,27 @@ class TreeBuilder:
         b.rng = np.random.default_rng(params.seed)
         b.pyrng = pyrandom.Random(params.seed)
         return b
+
+    def _reduce_counts(self, counts: np.ndarray) -> np.ndarray:
+        """The one cross-process collective of a tree level: this shard's
+        stacked counts summed with every peer's, so that every process
+        holds the global histogram and replays the same host epilogue.
+        Exact (integer counts), hence the single-process model.  The
+        identity without a reducer; a reducer of one shard still records
+        the collective.
+
+        The wire dtype comes from a bound every process agrees on, never
+        from local values (all must issue the same collective): a cell is
+        at most the global weight mass, the global row count times the
+        sub-sampling rate.  int32 below 2^31, else int64."""
+        if self._reducer is None:
+            return counts
+        p = self.params
+        rate = p.sub_sampling_rate / 100.0 \
+            if p.sub_sampling != "none" else 1.0
+        mass_bound = float(self.n_rows) * max(1.0, rate)
+        wire = np.int32 if mass_bound < float(2 ** 31 - 1) else np.int64
+        return self._reducer.sum(counts.astype(wire)).astype(np.float64)
 
     @staticmethod
     def _reassign(node_ids: torch.Tensor, branches: torch.Tensor,
@@ -1263,8 +1335,9 @@ class TreeBuilder:
         node_ids = torch.where(keep, torch.div(nc, C, rounding_mode="floor"),
                                -1).to(torch.int32)[:, None].contiguous()
         cls = torch.remainder(nc, C).to(torch.int32)
-        return count_level(node_ids, self.branches, cls, weights, n_nodes, B,
-                           C, chunk, "tree.level", self.profile)[0]
+        return self._reduce_counts(count_level(
+            node_ids, self.branches, cls, weights, n_nodes, B, C, chunk,
+            "tree.level", self.profile)[0])
 
     # ---- attribute selection (DecisionTreeBuilder.getSplitAttributes :365-381)
     def _allowed_attrs(self, leaf: _LeafState) -> List[int]:

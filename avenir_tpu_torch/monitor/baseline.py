@@ -278,14 +278,18 @@ class BaselineBuilder:
         self._n += table.n_rows if mask is None else int(np.sum(mask))
         return self
 
-    def finalize(self) -> Baseline:
-        """Host sync: pull the device counts once, derive quantiles.  The
-        read-back waits for the stream the counts were last added on."""
+    def host_counts(self) -> np.ndarray:
+        """The (R, B_max) counts as float64 on the host.  The read-back
+        waits for the stream the counts were last added on."""
         self._ensure_state()
         if self._stream is not None:
             torch.cuda.current_stream(self._counts.device).wait_stream(
                 self._stream)
-        counts = fetch(self._counts).astype(np.float64)
+        return fetch(self._counts).astype(np.float64)
+
+    def finalize(self) -> Baseline:
+        """Host sync: pull the device counts once, derive quantiles."""
+        counts = self.host_counts()
         quantiles = np.full((len(self.specs), len(QUANTILE_QS)), np.nan)
         for i, s in enumerate(self.specs):
             if s.kind != NUMERIC or counts[i, :s.n_bins].sum() <= 0:
@@ -295,6 +299,45 @@ class BaselineBuilder:
         return Baseline(specs=[RowSpec.from_dict(s.to_dict())
                                for s in self.specs],
                         counts=counts, n_rows=self._n, quantiles=quantiles)
+
+
+def _require_bounded_numerics(schema: FeatureSchema) -> None:
+    """Multi-process guard: every numeric feature's bins must be pinned by
+    the schema, or each shard resolves its own edges from its first block
+    and the sum of the partial counts means nothing."""
+    unbounded = [f.name for f in schema.feature_fields
+                 if f.is_numeric and (f.min is None or f.max is None)]
+    if unbounded:
+        raise ValueError(
+            f"multi-process baseline needs schema min/max on every numeric "
+            f"feature (bins must agree across shards); missing on: "
+            f"{unbounded}")
+
+
+def allreduce_partials(builder: BaselineBuilder,
+                       reducer=None) -> BaselineBuilder:
+    """Sum the per-shard partial counts (and row counts) so every process
+    finalises the same global baseline: through ``reducer``'s allgather in
+    a row-range-sharded build (either lane), through the joined run's
+    allgather otherwise, and not at all in a single process.  A
+    collective: every shard calls it, also one with no rows, and before
+    only shard 0 publishes.  Exact: the counts are integers below 2^24 a
+    cell (float32)."""
+    from ..parallel.distributed import allgather_object, is_multiprocess
+    if reducer is not None and reducer.spec.active:
+        gather = reducer.allgather
+    elif is_multiprocess():
+        gather = allgather_object
+    else:
+        return builder
+    _require_bounded_numerics(builder.schema)
+    parts = gather((builder.host_counts(), builder._n))
+    total = np.sum([c for c, _ in parts], axis=0).astype(np.float32)
+    note_h2d(total.nbytes)
+    builder._counts = torch.from_numpy(total).to(builder.device)
+    builder._stream = None
+    builder._n = int(sum(n for _, n in parts))
+    return builder
 
 
 def tee_blocks(blocks, builder: BaselineBuilder):

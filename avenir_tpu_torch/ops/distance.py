@@ -309,7 +309,8 @@ class DistanceComputer:
         return out.astype(np.int32)
 
     def pairwise_topk(self, test: ColumnarTable, train: ColumnarTable,
-                      k: int, test_chunk: int = 1 << 13
+                      k: int, test_chunk: int = 1 << 13,
+                      shard_reducer=None, shard_base: int = 0
                       ) -> Tuple[np.ndarray, np.ndarray]:
         """Fused all-pairs distance + nearest-k: the (n_test, n_train)
         matrix never exists.  One B5 launch per ``test_chunk`` test rows
@@ -323,6 +324,18 @@ class DistanceComputer:
         int32), rows nearest-first, ties to the lowest train index, with
         ``k`` clamped to ``n_train``.
 
+        Over processes (``shard_reducer``, a
+        ``parallel.collectives.AllReducer``): ``train`` is this process's
+        row-range shard of the global train set, from global row
+        ``shard_base``.  Each test chunk's local list (B5 with k clamped
+        to the shard's rows, live indices lifted to global rows) merges
+        with every peer's in one lock-step collective a chunk
+        (``AllReducer.merge_topk``, the top-k merge kernel on this
+        process's device), so every process returns the single-process
+        scan's lists; ``k`` is then clamped to the global train count.  An
+        empty shard still joins every chunk's merge.  All processes must
+        walk the same test rows in the same chunks.
+
         Ledger shape: each test chunk costs 2 H2D transfers and 1
         ``knn.topk`` dispatch (over a mesh also 1 ``knn.shard_merge``
         dispatch and 1 gather); several chunks add 1 concat dispatch; the
@@ -333,33 +346,56 @@ class DistanceComputer:
         tn, toh = self.encode(test)
         rn, roh = self._encode_train(train)
         n_test, n_train = tn.shape[0], rn.shape[0]
-        k = min(k, n_train)
-        if n_train == 0 or n_test == 0:
-            return (np.zeros((n_test, k), np.int32),
-                    np.zeros((n_test, k), np.int32))
+        k_loc = min(k, n_train)
+        if shard_reducer is None:
+            k = k_loc
+            if n_train == 0 or n_test == 0:
+                return (np.zeros((n_test, k), np.int32),
+                        np.zeros((n_test, k), np.int32))
         self._check_metric()
-        if self.mesh is not None:
+        if n_train and self.mesh is not None:
             shards = self.train_shards()
-        else:
+        elif n_train:
             rn_d, roh_d = self.train_device()
         backend = resolve_backend(self.device)
-        out_d: List[torch.Tensor] = []
-        out_i: List[torch.Tensor] = []
+        out_d: List = []
+        out_i: List = []
+        consts = (k_loc, self.metric, self._n_cat, self._denom,
+                  self._fscale)
         for ts in range(0, n_test, test_chunk):
             te = min(ts + test_chunk, n_test)
-            note_h2d(tn[ts:te].nbytes + toh[ts:te].nbytes, transfers=2)
-            tn_c, toh_c = self._upload(tn[ts:te]), self._upload(toh[ts:te])
-            note_dispatch(site="knn.topk")
-            note_backend("knn.topk", backend)
-            consts = (k, self.metric, self._n_cat, self._denom, self._fscale)
-            if self.mesh is not None:
-                note_dispatch(site="knn.shard_merge")
-                best_d, best_i = topk_scan_sharded(tn_c, toh_c, shards,
-                                                   *consts, self.mesh)
-            else:
-                best_d, best_i = topk_scan(tn_c, toh_c, rn_d, roh_d, *consts)
+            if n_train:
+                note_h2d(tn[ts:te].nbytes + toh[ts:te].nbytes, transfers=2)
+                tn_c = self._upload(tn[ts:te])
+                toh_c = self._upload(toh[ts:te])
+                note_dispatch(site="knn.topk")
+                note_backend("knn.topk", backend)
+                if self.mesh is not None:
+                    note_dispatch(site="knn.shard_merge")
+                    best_d, best_i = topk_scan_sharded(
+                        tn_c, toh_c, shards, *consts, self.mesh)
+                else:
+                    best_d, best_i = topk_scan(tn_c, toh_c, rn_d, roh_d,
+                                               *consts)
+            if shard_reducer is not None:
+                if n_train:
+                    d_h, i_h = fetch(best_d), fetch(best_i)
+                    i_h = np.where(i_h >= 0, i_h + np.int32(shard_base),
+                                   np.int32(-1))
+                else:
+                    # an empty train shard joins every merge, with nothing
+                    d_h = np.zeros((te - ts, 0), np.float32)
+                    i_h = np.zeros((te - ts, 0), np.int32)
+                best_d, best_i = shard_reducer.merge_topk(
+                    d_h, i_h, k, device=self.device)
             out_d.append(best_d)
             out_i.append(best_i)
+        if shard_reducer is not None:
+            if not out_d:
+                return (np.zeros((0, k_loc), np.int32),
+                        np.zeros((0, k_loc), np.int32))
+            return (np.concatenate(out_d).astype(np.int32),
+                    np.concatenate(out_i))
         if len(out_d) == 1:
             d_all, i_all = out_d[0], out_i[0]
         else:

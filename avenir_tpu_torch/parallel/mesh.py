@@ -14,8 +14,11 @@ cpu; asking for cuda without a GPU raises, as ``runtime.resolve_device``
 does.  An explicit ``devices`` list may name one device several times
 (``[cuda:0] * 4``, or ``[cpu] * 8`` in the tests): every shard's kernel
 and every merge then run on that one device.  The defaults never repeat a
-device.  Left out of the port: the hybrid multi-host mesh, the
-process-local ingest and ``shard_rows_streamed``.
+device.  In a run of several processes each process drives one card,
+:func:`worker_device` of its local index (``cli.run`` installs it).  Left
+out of the port: the JAX package's mesh axis names (a port mesh has one
+axis), the hybrid multi-host mesh, the process-local ingest and
+``shard_rows_streamed``.
 """
 
 from __future__ import annotations
@@ -27,10 +30,6 @@ import torch
 
 from ..runtime import resolve_device
 
-DATA_AXIS = "data"
-# model-parallel serving axis: the ensemble vote shards its member (tree)
-# dimension over it (serving/predictor.py), not the row dimension
-TREE_AXIS = "tree"
 # shards one merge launch takes: csrc/vote.cu and csrc/topk.cu size their
 # per-shard pointer arrays to it (kMaxShards) and refuse more
 MAX_SHARDS = 64
@@ -48,10 +47,10 @@ def _normalize(device) -> torch.device:
 
 
 class DeviceMesh:
-    """An ordered tuple of torch devices with one axis name.  Shard ``s``
-    lives on ``devices[s]``; ``devices[0]`` is the merge device."""
+    """An ordered tuple of torch devices.  Shard ``s`` lives on
+    ``devices[s]``; ``devices[0]`` is the merge device."""
 
-    def __init__(self, devices: Sequence, axis_name: str = DATA_AXIS):
+    def __init__(self, devices: Sequence):
         devs = tuple(_normalize(d) for d in devices)
         if not devs:
             raise ValueError("a DeviceMesh needs at least one device")
@@ -63,7 +62,6 @@ class DeviceMesh:
             raise ValueError(f"a DeviceMesh holds devices of one type, got "
                              f"{sorted(types)}")
         self.devices: Tuple[torch.device, ...] = devs
-        self.axis_name = axis_name
 
     @property
     def size(self) -> int:
@@ -75,8 +73,7 @@ class DeviceMesh:
         return self.devices[0].type
 
     def __repr__(self) -> str:
-        return (f"DeviceMesh({[str(d) for d in self.devices]}, "
-                f"axis_name={self.axis_name!r})")
+        return f"DeviceMesh({[str(d) for d in self.devices]})"
 
 
 def visible_devices() -> Tuple[torch.device, ...]:
@@ -89,48 +86,39 @@ def visible_devices() -> Tuple[torch.device, ...]:
     return (torch.device(dev.type),)
 
 
-def make_mesh(n_devices: Optional[int] = None, axis_name: str = DATA_AXIS,
+def make_mesh(n_devices: Optional[int] = None,
               devices: Optional[Sequence] = None) -> DeviceMesh:
     """A mesh over ``devices`` (default :func:`visible_devices`), or over
     their first ``n_devices``."""
     devs = list(devices if devices is not None else visible_devices())
     if n_devices is not None:
         devs = devs[:int(n_devices)]
-    return DeviceMesh(devs, axis_name)
+    return DeviceMesh(devs)
 
 
 def tree_mesh(n_shards: Optional[int] = None,
               devices: Optional[Sequence] = None) -> DeviceMesh:
-    """A ``tree``-axis mesh for model-parallel serving: the stacked member
-    tensors shard over it (one tree slice per device), the request rows
-    and the merged (n, K) tally stay whole."""
-    return make_mesh(n_devices=n_shards, axis_name=TREE_AXIS,
-                     devices=devices)
+    """The mesh of model-parallel serving: the stacked member tensors
+    shard over it (one tree slice per device), the request rows and the
+    merged (n, K) tally stay whole."""
+    return make_mesh(n_devices=n_shards, devices=devices)
 
 
 def worker_device(index: int, devices: Optional[Sequence] = None
                   ) -> torch.device:
     """Round-robin device for worker ``index`` over ``devices`` (default
-    :func:`visible_devices`)."""
+    :func:`visible_devices`): the card a process of a multi-process run
+    drives, from its local index (several processes share a card when
+    there are more of them than cards)."""
     devs = list(devices if devices is not None else visible_devices())
     return _normalize(devs[index % len(devs)])
 
 
 class MeshContext:
-    """A mesh bundled as the runtime handle a job reads: its device count,
-    platform and axis name."""
+    """A mesh bundled as the runtime handle a job reads."""
 
     def __init__(self, mesh: Optional[DeviceMesh] = None):
         self.mesh = mesh if mesh is not None else make_mesh()
-        self.axis = self.mesh.axis_name
-
-    @property
-    def n_devices(self) -> int:
-        return self.mesh.size
-
-    @property
-    def device_platform(self) -> str:
-        return self.mesh.platform
 
 
 # --------------------------------------------------------------------------
@@ -148,6 +136,11 @@ def set_runtime_context(ctx: Optional[MeshContext]) -> None:
     global _runtime_ctx
     with _ctx_lock:
         _runtime_ctx = ctx
+
+
+def installed_context() -> Optional[MeshContext]:
+    """The context a caller installed, or None."""
+    return _runtime_ctx
 
 
 def runtime_context() -> MeshContext:

@@ -16,7 +16,11 @@ call in ``avenir_tpu/utils/tracing.py``.
   ``serve.predict.quantized`` for the int8 serve), so a fallback never
   passes for a kernel result, and the in-process merges of a mesh's shards
   (``Collectives`` group: ``Gathers`` and the ``GatherBytes`` copied onto
-  the merge device, exported when a run made any).
+  the merge device, exported when a run made any), and the cross-process
+  collectives of ``parallel.collectives.AllReducer`` (the same group's
+  ``AllReduces`` and ``AllReduceBytes``, the JAX package's names: one a
+  tree level, one row-count allgather after a sharded ingest, one a KNN
+  test chunk; exported when a run made any).
 - :class:`LayerProfile` — per-level wall time of the training layers,
   taken only when a caller passes one to a builder.
 """
@@ -41,7 +45,7 @@ class TransferLedger:
 
     __slots__ = ("h2d_bytes", "d2h_bytes", "h2d_transfers", "d2h_transfers",
                  "dispatches", "dispatch_sites", "kernel_backends", "gathers",
-                 "gather_bytes", "_lock")
+                 "gather_bytes", "allreduces", "allreduce_bytes", "_lock")
 
     def __init__(self):
         self.h2d_bytes = 0
@@ -53,6 +57,8 @@ class TransferLedger:
         self.kernel_backends: Dict[str, int] = defaultdict(int)
         self.gathers = 0
         self.gather_bytes = 0
+        self.allreduces = 0
+        self.allreduce_bytes = 0
         self._lock = threading.Lock()
 
     def record_h2d(self, nbytes: int, transfers: int = 1) -> None:
@@ -83,6 +89,12 @@ class TransferLedger:
             self.gathers += int(n)
             self.gather_bytes += int(nbytes)
 
+    def record_allreduce(self, nbytes: int, n: int = 1) -> None:
+        """One cross-process collective carrying ``nbytes`` of payload."""
+        with self._lock:
+            self.allreduces += int(n)
+            self.allreduce_bytes += int(nbytes)
+
     def site_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.dispatch_sites)
@@ -102,6 +114,10 @@ class TransferLedger:
         if self.gathers:
             counters.update_group("Collectives", {
                 "Gathers": self.gathers, "GatherBytes": self.gather_bytes})
+        if self.allreduces:
+            counters.update_group("Collectives", {
+                "AllReduces": self.allreduces,
+                "AllReduceBytes": self.allreduce_bytes})
         if self.dispatch_sites:
             counters.update_group("Dispatches",
                                   dict(sorted(self.dispatch_sites.items())))
@@ -152,6 +168,11 @@ def note_kernel_backend(site: str, backend: str, n: int = 1) -> None:
 def note_gather(nbytes: int, n: int = 1) -> None:
     for led in list(_ledgers):
         led.record_gather(nbytes, n)
+
+
+def note_allreduce(nbytes: int, n: int = 1) -> None:
+    for led in list(_ledgers):
+        led.record_allreduce(nbytes, n)
 
 
 def fetch(tensor) -> np.ndarray:

@@ -288,11 +288,45 @@ order — any failure exits non-zero before the result line:
               host memory: the job's peak RSS (VmRSS sampled every 5 ms
               after a warm-up), its own ru_maxrss and RUSAGE_CHILDREN
               after it
+ 31. shard    the shard lane, each process a subprocess on the card with
+     lane     its launch counts zeroed before its job and read after:
+              randomForestBuilder with the rafo9s keys under
+              AVENIR_TPU_SHARD=0/2 and 1/2 and one file transport
+              (AVENIR_TPU_ALLREDUCE_DIR) must write the fixture's trees on
+              both shards and, from shard 0, its registry version (JSON
+              bytes, npz arrays); the two quarantine files concatenate to
+              its part-q-00000 and the BadRecords counters sum to its; B1
+              all mma on both, B4 3 + 4 launches (the shards' blocks), B2
+              and B3 from shard 0's publish only; prints
+              Collectives.AllReduces a process
+ 32. resume   the same lane with a checkpoint every block and shard 1
+              crashing at chunk_encode@2: shard 0 must fail at its next
+              collective within AVENIR_TPU_ALLREDUCE_TIMEOUT_S=5; --resume
+              on both must give the fixture's trees
+ 33. scale    phase 30's 1,000,000-row CSV over two --shard-child
+              processes (row-range shards, 262,144-row blocks, a teed
+              baseline, the file transport): trees and baseline counts
+              identical to phase 30's streamed process; B1 all mma, B4
+              launches sum to the 4 blocks; prints rows/s against phase
+              30's, each shard's parse_s and the all-reduce wall a level
+ 34. knn      knnPipeline nen.train.shard=true over 20,000 test x 200,000
+              train e-learning rows (numpy draws from elearn_gen's model),
+              k = 10, in two shard-lane processes: predictions byte-equal
+              to the single-process job's; B5 and B7's merge one launch a
+              test chunk in each process
+ 35. joined   two torch.distributed ranks (gloo, torchrun's environment,
+              one card): the streamed rafo9s build gives the fixture's
+              trees on both ranks and its meta.json, B1 all mma; then
+              modelPredictor over two halves of the rafo9 requests writes
+              part-m-00000 and part-m-00001, which concatenate to pred.csv
+ 36. cards    with several GPUs visible, phases 31 and 35 again with each
+              process on its own card (with one, a line says so)
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
-times, B4's 2,048-row block and empty-launch times); the last line is
+times, B4's 2,048-row block and empty-launch times, and each kernel's
+launches a process on the multi-process paths); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2286,9 +2320,10 @@ def stream_scale(dev, fs):
         runs[mode]["counts"] = np.load(os.path.join(out,
                                                     "baseline_counts.npy"))
     st, mo = runs["stream"], runs["mono"]
-    if st.pop("trees") != mo.pop("trees"):
+    trees, counts = st.pop("trees"), st.pop("counts")
+    if trees != mo.pop("trees"):
         fail("phase 30: streamed and monolithic trees differ")
-    if not np.array_equal(st.pop("counts"), mo.pop("counts")):
+    if not np.array_equal(counts, mo.pop("counts")):
         fail("phase 30: streamed and monolithic baselines differ")
     blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
     for name, r in runs.items():
@@ -2300,7 +2335,481 @@ def stream_scale(dev, fs):
              f"blocks), {mo['b4']} monolithic (want 1)")
     print("streamed and monolithic trees and baselines identical", flush=True)
     print(json.dumps({"stream_scale": runs}), flush=True)
-    return runs
+    return runs, trees, counts, csv
+
+
+# --------------------------------------------------------------------------
+# phases 31-36: the multi-process lanes (each process a subprocess)
+# --------------------------------------------------------------------------
+
+LANE_KEYS = ("AVENIR_TPU_SHARD", "AVENIR_TPU_ALLREDUCE_DIR",
+             "AVENIR_TPU_FAULTS", "RANK", "WORLD_SIZE", "LOCAL_RANK",
+             "MASTER_ADDR", "MASTER_PORT")
+
+
+def lane_env(extra, one_card):
+    """A child's environment: none of the parent's lane keys, the given
+    ones, and with ``one_card`` only the first visible card."""
+    env = {k: v for k, v in os.environ.items() if k not in LANE_KEYS}
+    env.setdefault("AVENIR_TPU_ALLREDUCE_TIMEOUT_S", "120")
+    if one_card:
+        first = os.environ.get("CUDA_VISIBLE_DEVICES", "0").split(",")[0]
+        env["CUDA_VISIBLE_DEVICES"] = first or "0"
+    env.update(extra)
+    return env
+
+
+def cli_child(counts_path, *args):
+    """One CLI job in its own process (``--cli-child``): the launch counts
+    zeroed just before ``cli.run.main`` and written to ``counts_path``
+    just after; exits with the job's code (a raised job exits non-zero)."""
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.kernels import histogram, topk, vote
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    vote.launches = vote.quantized_launches = vote.table_launches = 0
+    topk.launches = topk.merge_launches = topk.split_merge_launches = 0
+    t0 = time.perf_counter()
+    rc = cli_run.main(list(args))
+    wall = time.perf_counter() - t0
+    with open(counts_path, "w") as fh:
+        json.dump({"b1": histogram.launches,
+                   "b1_mma": histogram.mma_launches,
+                   "b4": histogram.bin_counts_launches,
+                   "b2": vote.launches, "b3": vote.quantized_launches,
+                   "b5": topk.launches, "b7_merge": topk.merge_launches,
+                   "b5_split_merge": topk.split_merge_launches,
+                   "wall_s": wall}, fh)
+    sys.exit(rc)
+
+
+def run_children(cmds, timeout=300):
+    """Start every (argv, env) at once and wait for all, each on its own
+    thread; returns their (returncode, stdout, stderr, seconds from the
+    start to that process's exit).  A process still running after
+    ``timeout`` seconds is killed and reported with a non-zero code."""
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv, env in cmds]
+    out = [None] * len(procs)
+
+    def wait(i, p):
+        try:
+            so, se = p.communicate(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            se += f"\n[killed after {timeout} s]"
+        out[i] = (p.returncode, so, se, time.perf_counter() - t0)
+    waiters = [threading.Thread(target=wait, args=(i, p))
+               for i, p in enumerate(procs)]
+    for w in waiters:
+        w.start()
+    for w in waiters:
+        w.join()
+    return out
+
+
+def cli_cmd(counts, args):
+    return [sys.executable, os.path.abspath(__file__), "--cli-child", counts,
+            *args]
+
+
+def counter_dump(stdout):
+    """A job's printed Hadoop-style counter dump as {group: {name: v}}."""
+    groups, cur = {}, None
+    for line in stdout.splitlines():
+        if line.startswith("\t") and cur is not None and "=" in line:
+            k, _, v = line.strip().partition("=")
+            groups[cur][k] = int(v)
+        elif line and not line.startswith(("\t", "[", "{")):
+            cur = line.strip()
+            groups.setdefault(cur, {})
+    return groups
+
+
+def read_json(path):
+    with open(path) as fh:
+        return json.load(fh)
+
+
+def all_ok(res, what):
+    for i, (rc, _, se, _) in enumerate(res):
+        if rc != 0:
+            fail(f"{what}: process {i} exited {rc}: {se[-3000:]}")
+
+
+def same_trees(out, what):
+    for t in range(9):
+        same_bytes(os.path.join(out, f"tree_{t}.json"),
+                   os.path.join(RAFO9S, f"tree_{t}.json"), f"{what} tree {t}")
+
+
+def shard_lane(layout, one_card):
+    """Phase 31: the rafo9s job over two AVENIR_TPU_SHARD processes on the
+    card and a file transport.  Returns the per-process launch counts."""
+    phase(f"31 shard lane ({layout}): randomForestBuilder over "
+          f"AVENIR_TPU_SHARD=i/2 == the rafo9s fixture")
+    base = os.path.join(WORK, f"lane_{layout.replace(' ', '_')}")
+    shutil.rmtree(base, ignore_errors=True)
+    reg, ck, rdir = (os.path.join(base, d) for d in ("reg", "ck", "reduce"))
+    outs = [os.path.join(base, f"out{i}") for i in range(2)]
+    counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
+    res = run_children([
+        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i])),
+         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, one_card))
+        for i in range(2)])
+    all_ok(res, "shard lane")
+    got = [read_json(c) for c in counts]
+    dumps = [counter_dump(so) for _, so, _, _ in res]
+    for i in range(2):
+        same_trees(outs[i], f"shard lane {i}/2")
+    version = os.path.join("rafo9s", "v_000001")
+    for f in ("meta.json", "baseline.json", "quantized.json"):
+        same_bytes(os.path.join(reg, version, f),
+                   os.path.join(RAFO9S, "registry", version, f),
+                   f"shard lane published {f}")
+    for f in ("arrays.npz", "baseline.npz", "quantized.npz"):
+        same_arrays(os.path.join(reg, version, f),
+                    os.path.join(RAFO9S, "registry", version, f),
+                    f"shard lane published {f}")
+    q = b"".join(open(os.path.join(o, "_quarantine", "part-q-00000"),
+                      "rb").read() for o in outs)
+    if q != open(os.path.join(RAFO9S, "part-q-00000"), "rb").read():
+        fail("shard lane: the shards' quarantine files do not add up to "
+             "the fixture's part-q-00000")
+    want = read_json(os.path.join(RAFO9S, "train_counters.json"))
+    for name, total in want["BadRecords"].items():
+        if sum(d["BadRecords"][name] for d in dumps) != total:
+            fail(f"shard lane BadRecords {name}: "
+                 f"{[d['BadRecords'] for d in dumps]} do not sum to {total}")
+    if dumps[0]["Random forest"] != want["Random forest"]:
+        fail(f"shard lane Random forest counters {dumps[0]['Random forest']}"
+             f" != {want['Random forest']}")
+    for i, g in enumerate(got):
+        if g["b1"] <= 0 or g["b1_mma"] != g["b1"]:
+            fail(f"shard lane {i}: {g['b1']} B1 launches, {g['b1_mma']} in "
+                 f"the mma form; all must be")
+    blocks = [3, 4]      # 777-row blocks 0-2 and 3-6 of 5,000 source rows
+    if [g["b4"] for g in got] != blocks:
+        fail(f"shard lane B4 launches {[g['b4'] for g in got]} != {blocks}")
+    if got[0]["b2"] <= 0 or got[0]["b3"] <= 0 or got[1]["b2"] or got[1]["b3"]:
+        fail(f"shard lane: B2/B3 must launch in shard 0's quantize publish "
+             f"only: {got}")
+    allreduces = [d["Collectives"]["AllReduces"] for d in dumps]
+    print(f"shard lane ({layout}): walls {[round(r[3], 2) for r in res]} s; "
+          f"B1 launches {[g['b1'] for g in got]} (all mma), B4 "
+          f"{[g['b4'] for g in got]}, B2 {[g['b2'] for g in got]}, B3 "
+          f"{[g['b3'] for g in got]}; Collectives.AllReduces {allreduces}; "
+          f"BadRecords {[d['BadRecords'] for d in dumps]}", flush=True)
+    return {"launches": got, "allreduces": allreduces,
+            "wall_s": [r[3] for r in res]}
+
+
+def shard_resume():
+    """Phase 32: shard 1 crashes at its third block; shard 0 fails at the
+    next collective within a 5 s deadline; --resume on both gives the
+    fixture's trees."""
+    phase("32 shard lane crash (shard 1 at chunk_encode@2) and --resume")
+    base = os.path.join(WORK, "lane_resume")
+    shutil.rmtree(base, ignore_errors=True)
+    reg, ck, rdir = (os.path.join(base, d) for d in ("reg", "ck", "reduce"))
+    outs = [os.path.join(base, f"out{i}") for i in range(2)]
+    counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
+    every = ("-Ddtb.streaming.checkpoint.blocks=1",)
+    envs = [{"AVENIR_TPU_SHARD": f"{i}/2", "AVENIR_TPU_ALLREDUCE_DIR": rdir,
+             "AVENIR_TPU_ALLREDUCE_TIMEOUT_S": "5"} for i in range(2)]
+    envs[1]["AVENIR_TPU_FAULTS"] = "chunk_encode@2=raise:RuntimeError"
+    res = run_children([
+        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i], every)),
+         lane_env(envs[i], True)) for i in range(2)], timeout=120)
+    (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res
+    if rc1 == 0 or "injected fault: chunk_encode@2" not in se1:
+        fail(f"shard 1 did not crash at chunk_encode@2 (rc {rc1}): "
+             f"{se1[-2000:]}")
+    if rc0 == 0 or "within 5.0s" not in se0:
+        fail(f"shard 0 did not fail at its collective within the 5 s "
+             f"deadline (rc {rc0}): {se0[-2000:]}")
+    print(f"crash: shard 1 exited {rc1} {t1_s:.2f} s after the launch "
+          f"(injected fault), shard 0 exited {rc0} {t0_s - t1_s:.2f} s after "
+          f"it (missing peer past the 5 s deadline)", flush=True)
+    res = run_children([
+        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i],
+                                       every + ("--resume",))),
+         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+        for i in range(2)])
+    all_ok(res, "shard lane --resume")
+    for i in range(2):
+        same_trees(outs[i], f"resumed shard {i}/2")
+    resumed = [counter_dump(so).get("Checkpoint") for _, so, _, _ in res]
+    print(f"--resume on both: walls {[round(r[3], 2) for r in res]} s; "
+          f"Checkpoint counters {resumed}; B4 launches "
+          f"{[read_json(c)['b4'] for c in counts]} (re-read blocks)",
+          flush=True)
+
+
+def shard_child(index, count, csv, out, rdir):
+    """One process of phase 33 (``--shard-child``): the 1,000,000-row CSV's
+    row-range shard trained streamed with a teed baseline, the counts
+    summed with the peer through the file transport.  Prints one JSON
+    line and writes the trees and baseline counts under ``out``."""
+    import torch
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import iter_csv_chunks, prefetch_chunks
+    from avenir_tpu_torch.kernels import histogram
+    from avenir_tpu_torch.models.forest import (ForestParams, build_forest,
+                                                build_forest_from_stream)
+    from avenir_tpu_torch.monitor.baseline import (BaselineBuilder,
+                                                   allreduce_partials)
+    from avenir_tpu_torch.parallel.collectives import AllReducer
+    from avenir_tpu_torch.parallel.distributed import ShardSpec
+    from avenir_tpu_torch.utils.tracing import LayerProfile, transfer_ledger
+    index, count = int(index), int(count)
+    cfg = load_config(os.path.join(RES, "rafo.properties"))
+    params = ForestParams(tree=_tree_params(cfg),
+                          num_trees=cfg.get_int("dtb.num.trees"),
+                          seed=cfg.get_int("dtb.random.seed"))
+    fs = FeatureSchema.load(os.path.join(RES, "call_hangup.json"))
+    dev = torch.device("cuda", 0)
+    warm = hangup_table(np.random.default_rng(1), 4096, fs)
+    build_forest(warm, params, device=dev)
+    BaselineBuilder(fs, device=dev).update(warm).finalize()
+    torch.cuda.synchronize()
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    stats = {}
+    profile = LayerProfile(device=dev)
+    red = AllReducer(spec=ShardSpec(index, count), name="scale",
+                     transport_dir=rdir, timeout_s=300)
+    t0 = time.perf_counter()
+    base = BaselineBuilder(fs, device=dev)
+    with transfer_ledger() as led:
+        blocks = prefetch_chunks(iter_csv_chunks(
+            csv, fs, chunk_rows=STREAM_SCALE_BLOCK, shard=(index, count)),
+            stats=stats, consumer_wait_key=None)
+        trees = build_forest_from_stream(blocks, fs, params, device=dev,
+                                         stats=stats, baseline=base,
+                                         reducer=red, profile=profile)
+        counts = allreduce_partials(base, reducer=red).finalize().counts
+    torch.cuda.synchronize()
+    stats["wall_s"] = time.perf_counter() - t0
+    allreduce = [lv.get("allreduce", 0.0) * 1e3 for lv in profile.levels]
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "trees.json"), "w") as fh:
+        json.dump([t.to_json() for t in trees], fh)
+    np.save(os.path.join(out, "baseline_counts.npy"), counts)
+    print(json.dumps({"shard": index, **stats, "b1": histogram.launches,
+                      "b1_mma": histogram.mma_launches,
+                      "b4": histogram.bin_counts_launches,
+                      "allreduces": led.allreduces,
+                      "allreduce_bytes": led.allreduce_bytes,
+                      "allreduce_ms_per_level": allreduce,
+                      "levels": len(profile.levels)}), flush=True)
+
+
+def shard_scale(csv, single, trees, counts):
+    """Phase 33: phase 30's 1,000,000-row CSV over two processes on the
+    card against phase 30's one streamed process."""
+    phase(f"33 scale: the {STREAM_SCALE_ROWS:,}-row CSV over 2 processes "
+          f"(row-range shards, {STREAM_SCALE_BLOCK:,}-row blocks)")
+    base = os.path.join(WORK, "shard_scale")
+    shutil.rmtree(base, ignore_errors=True)
+    rdir = os.path.join(base, "reduce")
+    res = run_children([
+        ([sys.executable, os.path.abspath(__file__), "--shard-child",
+          str(i), "2", csv, os.path.join(base, f"out{i}"), rdir],
+         lane_env({}, True)) for i in range(2)], timeout=600)
+    all_ok(res, "phase 33")
+    runs = [json.loads(so.strip().splitlines()[-1]) for _, so, _, _ in res]
+    for i, r in enumerate(runs):
+        with open(os.path.join(base, f"out{i}", "trees.json")) as fh:
+            if fh.read() != trees:
+                fail(f"phase 33 shard {i}: trees differ from one process's")
+        if not np.array_equal(np.load(os.path.join(
+                base, f"out{i}", "baseline_counts.npy")), counts):
+            fail(f"phase 33 shard {i}: baseline differs from one process's")
+        if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
+            fail(f"phase 33 shard {i}: {r['b1']} B1 launches, "
+                 f"{r['b1_mma']} mma")
+    blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
+    if sum(r["b4"] for r in runs) != blocks:
+        fail(f"phase 33: B4 launches {[r['b4'] for r in runs]} do not sum "
+             f"to the {blocks} blocks")
+    wall = max(r["wall_s"] for r in runs)
+    summary = {"rows_per_s": STREAM_SCALE_ROWS / wall,
+               "one_process_rows_per_s": single["rows_per_s"],
+               "one_process_parse_s": single["parse_s"],
+               "shards": runs}
+    print("2-process trees and baseline identical to one process's",
+          flush=True)
+    print(json.dumps({"shard_scale": summary}), flush=True)
+    return summary
+
+
+def write_elearn_csv(cols, prefix, path):
+    """elearn.json rows (id, videoHours, quizScore, forumPosts,
+    assignmentsDone, outcome) from elearn_columns."""
+    n = cols.shape[0]
+    ids = np.char.add(prefix, np.char.zfill(np.arange(n).astype(str), 6))
+    fields = [ids, np.char.mod("%.2f", cols[:, 0]),
+              np.char.mod("%.1f", cols[:, 1]),
+              cols[:, 2].astype(np.int64).astype(str),
+              cols[:, 3].astype(np.int64).astype(str),
+              np.asarray(["fail", "pass"])[cols[:, 4].astype(np.int64)]]
+    rows = fields[0]
+    for c in fields[1:]:
+        rows = np.char.add(np.char.add(rows, ","), c)
+    with open(path, "w") as fh:
+        fh.write("\n".join(rows.tolist()) + "\n")
+
+
+def knn_two_process():
+    """Phase 34: knnPipeline nen.train.shard=true at 20,000 x 200,000, k =
+    10, over two processes, against the single-process job."""
+    n_test, n_train, k = KNN_SCALE
+    phase(f"34 knnPipeline nen.train.shard=true at {n_test:,} x "
+          f"{n_train:,}, k = {k}, over 2 processes")
+    base = os.path.join(WORK, "knn_2p")
+    shutil.rmtree(base, ignore_errors=True)
+    data = os.path.join(base, "data")
+    os.makedirs(data)
+    rng = np.random.default_rng(20261020)
+    write_elearn_csv(elearn_columns(rng, n_train), "S",
+                     os.path.join(data, "tr_train.csv"))
+    write_elearn_csv(elearn_columns(rng, n_test), "T",
+                     os.path.join(data, "test.csv"))
+    job = ["knnPipeline", f"-Dconf.path={os.path.join(RES, 'knn.properties')}",
+           f"-Dsts.same.schema.file.path={os.path.join(RES, 'elearn.json')}",
+           f"-Dnen.top.match.count={k}"]
+    single = run_children([(cli_cmd(os.path.join(base, "c_single.json"),
+                                    job + [data, os.path.join(base, "one")]),
+                            lane_env({}, True))])
+    all_ok(single, "single-process knnPipeline")
+    rdir = os.path.join(base, "reduce")
+    res = run_children([
+        (cli_cmd(os.path.join(base, f"c{i}.json"),
+                 job + ["-Dnen.train.shard=true", data,
+                        os.path.join(base, f"out{i}")]),
+         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+        for i in range(2)])
+    all_ok(res, "2-process knnPipeline")
+    for i in range(2):
+        same_bytes(os.path.join(base, f"out{i}", "part-r-00000"),
+                   os.path.join(base, "one", "part-r-00000"),
+                   f"knnPipeline shard {i}/2 predictions vs one process")
+    got = [read_json(os.path.join(base, f"c{i}.json")) for i in range(2)]
+    one = read_json(os.path.join(base, "c_single.json"))
+    chunks = -(-n_test // 8192)
+    for i, g in enumerate(got):
+        if g["b5"] != chunks or g["b7_merge"] != chunks:
+            fail(f"knn shard {i}: B5 launches {g['b5']}, B7 merges "
+                 f"{g['b7_merge']}; want {chunks} each (one a test chunk)")
+    dumps = [counter_dump(so) for _, so, _, _ in res]
+    print(f"2-process knnPipeline == one process byte for byte; walls "
+          f"{[round(g['wall_s'], 2) for g in got]} s (one process "
+          f"{one['wall_s']:.2f} s); B5 launches {[g['b5'] for g in got]}, "
+          f"B7 merge launches {[g['b7_merge'] for g in got]} ({chunks} test "
+          f"chunks); Collectives.AllReduces "
+          f"{[d['Collectives']['AllReduces'] for d in dumps]}", flush=True)
+    return {"launches": got, "one_process": one}
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def joined_lane(layout, one_card):
+    """Phase 35: two gloo ranks from torchrun's environment: the streamed
+    sharded rafo9s build, then modelPredictor over two halves of the
+    rafo9 requests."""
+    phase(f"35 torch.distributed lane ({layout}): gloo, 2 ranks")
+    base = os.path.join(WORK, f"joined_{layout.replace(' ', '_')}")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    reg, ck = os.path.join(base, "reg"), os.path.join(base, "ck")
+    outs = [os.path.join(base, f"out{i}") for i in range(2)]
+
+    def ranks(port, i):
+        return lane_env({"RANK": str(i), "WORLD_SIZE": "2",
+                         "LOCAL_RANK": str(i), "MASTER_ADDR": "127.0.0.1",
+                         "MASTER_PORT": str(port)}, one_card)
+    port = free_port()
+    res = run_children([
+        (cli_cmd(os.path.join(base, f"rf{i}.json"),
+                 rafo9s_job(reg, ck, outs[i])), ranks(port, i))
+        for i in range(2)])
+    all_ok(res, "joined streamed randomForestBuilder")
+    for i in range(2):
+        same_trees(outs[i], f"joined rank {i}")
+    same_bytes(os.path.join(reg, "rafo9s", "v_000001", "meta.json"),
+               os.path.join(RAFO9S, "registry", "rafo9s", "v_000001",
+                            "meta.json"), "joined published meta.json")
+    rf = [read_json(os.path.join(base, f"rf{i}.json")) for i in range(2)]
+    for i, g in enumerate(rf):
+        if g["b1"] <= 0 or g["b1_mma"] != g["b1"]:
+            fail(f"joined rank {i}: {g['b1']} B1 launches, {g['b1_mma']} mma")
+    dump = counter_dump(res[0][1])
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        requests = fh.read().splitlines(True)
+    for i, part in enumerate((requests[:1000], requests[1000:])):
+        with open(os.path.join(base, f"req{i}.csv"), "w") as fh:
+            fh.write("".join(part))
+    pred = os.path.join(base, "pred")
+    port = free_port()
+    res = run_children([
+        (cli_cmd(os.path.join(base, f"mp{i}.json"), [
+            "modelPredictor", f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
+            f"-Dmop.model.dir.path={RAFO9}",
+            f"-Dmop.feature.schema.file.path="
+            f"{os.path.join(RES, 'call_hangup.json')}",
+            os.path.join(base, f"req{i}.csv"), pred]), ranks(port, i))
+        for i in range(2)])
+    all_ok(res, "joined modelPredictor")
+    if sorted(os.listdir(pred)) != ["part-m-00000", "part-m-00001"]:
+        fail(f"joined modelPredictor wrote {sorted(os.listdir(pred))}")
+    parts = b"".join(open(os.path.join(pred, p), "rb").read()
+                     for p in ("part-m-00000", "part-m-00001"))
+    if parts != open(os.path.join(RAFO9, "pred.csv"), "rb").read():
+        fail("joined modelPredictor: part-m-00000 + part-m-00001 != the "
+             "single-process pred.csv")
+    mp = [read_json(os.path.join(base, f"mp{i}.json")) for i in range(2)]
+    if any(g["b2"] <= 0 for g in mp):
+        fail(f"joined modelPredictor: a rank never launched B2: {mp}")
+    print(f"joined lane ({layout}): trees == rafo9s on both ranks, B1 "
+          f"launches {[g['b1'] for g in rf]} (all mma), B4 "
+          f"{[g['b4'] for g in rf]}; summed Collectives.AllReduces "
+          f"{dump['Collectives']['AllReduces']}; modelPredictor parts "
+          f"concatenate to pred.csv, B2 launches {[g['b2'] for g in mp]}",
+          flush=True)
+    return {"rf": rf, "mp": mp,
+            "allreduces": dump["Collectives"]["AllReduces"]}
+
+
+def multi_process_phases(scale_csv, single, trees, counts):
+    """Phases 31-36.  Returns the launch counts for the kernels line."""
+    import torch
+    lane = shard_lane("one card", True)
+    shard_resume()
+    scale2 = shard_scale(scale_csv, single, trees, counts)
+    knn2 = knn_two_process()
+    joined = joined_lane("one card", True)
+    if torch.cuda.device_count() > 1:
+        phase("36 phases 31 and 35 again, each process on its own card")
+        shard_lane("distinct cards", False)
+        joined_lane("distinct cards", False)
+    else:
+        print("phase 36 (31 and 35 over distinct cards) skipped: one device "
+              "visible", flush=True)
+    return {"lane": lane, "scale2": scale2, "knn2": knn2, "joined": joined}
 
 
 def main():
@@ -2839,7 +3348,14 @@ def main():
 
     streamed = stream_main_path(dev)
     stream_resume(dev)
-    scale = stream_scale(dev, fs)
+    scale, scale_trees, scale_counts, scale_csv = stream_scale(dev, fs)
+    multi = multi_process_phases(scale_csv, scale["stream"], scale_trees,
+                                 scale_counts)
+
+    def per_process(run, key):
+        return [g[key] for g in run["launches"]]
+    lane, joined = multi["lane"], multi["joined"]
+    scale2 = multi["scale2"]["shards"]
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -2854,7 +3370,9 @@ def main():
         "old_ms": rafo9["old_ms"], "device_ms": rafo9["device_ms"],
         "old_device_ms": rafo9["old_device_ms"],
         "drift_launches": drift_b2,
-        "stream_launches": streamed["b2"]}, {
+        "stream_launches": streamed["b2"],
+        "shard_lane_launches": per_process(lane, "b2"),
+        "joined_predictor_launches": [g["b2"] for g in joined["mp"]]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -2873,7 +3391,11 @@ def main():
         "bench_bound_ms": bench_t["bound_ms"],
         "stream_launches": streamed["b1"],
         "stream_mma_launches": streamed["b1_mma"],
-        "stream_scale_launches": scale["stream"]["b1"]}, {
+        "stream_scale_launches": scale["stream"]["b1"],
+        "shard_lane_launches": per_process(lane, "b1"),
+        "shard_lane_mma_launches": per_process(lane, "b1_mma"),
+        "joined_launches": [g["b1"] for g in joined["rf"]],
+        "two_process_scale_launches": [r["b1"] for r in scale2]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -2883,7 +3405,8 @@ def main():
         "library_ms": None, "form": b3["form"], "old_form": b3["old_form"],
         "old_ms": b3["old_ms"], "device_ms": b3["device_ms"],
         "old_device_ms": b3["old_device_ms"],
-        "stream_launches": streamed["b3"]}, {
+        "stream_launches": streamed["b3"],
+        "shard_lane_launches": per_process(lane, "b3")}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
@@ -2904,7 +3427,10 @@ def main():
         "drift_six_decimal_diffs": drift_strings,
         "stream_launches": streamed["b4"],
         "stream_blocks": streamed["blocks"],
-        "stream_scale_launches": scale["stream"]["b4"]}, {
+        "stream_scale_launches": scale["stream"]["b4"],
+        "shard_lane_launches": per_process(lane, "b4"),
+        "joined_launches": [g["b4"] for g in joined["rf"]],
+        "two_process_scale_launches": [r["b4"] for r in scale2]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -2923,7 +3449,8 @@ def main():
             b5_t["euclidean"]["split_merge_device_ms"],
         "split_merge_old_device_ms":
             b5_t["euclidean"]["split_merge_old_device_ms"],
-        "split_merge_bound_ms": b5_t["euclidean"]["split_merge_bound_ms"]}, {
+        "split_merge_bound_ms": b5_t["euclidean"]["split_merge_bound_ms"],
+        "two_process_knn_launches": per_process(multi["knn2"], "b5")}, {
         "name": "ensemble_partial_votes", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:73",
@@ -2947,7 +3474,9 @@ def main():
         "bound_ms": b7_t["bound_ms"], "bound_by": b7_t["bound_by"],
         "library_ms": None, "device_ms": b7_t["device_ms"],
         "old_ms": b7_t["old_ms"],
-        "old_device_ms": b7_t["old_device_ms"]}]}), flush=True)
+        "old_device_ms": b7_t["old_device_ms"],
+        "process_merge_launches": per_process(multi["knn2"],
+                                              "b7_merge")}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -2956,5 +3485,9 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--scale-child"]:
         scale_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--shard-child"]:
+        shard_child(*sys.argv[2:7])
+    elif sys.argv[1:2] == ["--cli-child"]:
+        cli_child(*sys.argv[2:])
     else:
         main()

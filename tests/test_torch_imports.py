@@ -34,6 +34,7 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.cli.knn_jobs",
              "avenir_tpu_torch.parallel.mesh",
              "avenir_tpu_torch.parallel.collectives",
+             "avenir_tpu_torch.parallel.distributed",
              "avenir_tpu_torch.monitor.drift",
              "avenir_tpu_torch.monitor.accumulator",
              "avenir_tpu_torch.monitor.policy",
@@ -57,6 +58,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x7, utils x3, kernels x6, models x4,
-    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x3 and
+    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x4 and
     # the package
-    assert int(res.stdout.strip()) >= 41
+    assert int(res.stdout.strip()) >= 42

@@ -124,8 +124,7 @@ def test_knn_pipeline_reproduces_fixture(port_pipeline, name):
 
 @pytest.mark.parametrize("key,exc", [
     ("nen.class.condition.weighted=true", ValueError),
-    ("nen.prediction.mode=regression", ValueError),
-    ("nen.train.shard=true", port_jobs.JobNotPorted)])
+    ("nen.prediction.mode=regression", ValueError)])
 def test_knn_pipeline_refuses_loudly(tmp_path, key, exc):
     with pytest.raises(exc):
         port_run.main(["knnPipeline", f"-Dconf.path={PROPS}",

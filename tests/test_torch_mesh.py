@@ -33,12 +33,11 @@ def no_context():
 def test_cpu_default_gives_one_cpu_device(cpu_default, no_context):
     mesh = M.make_mesh()
     assert mesh.devices == (torch.device("cpu"),)
-    assert (mesh.size, mesh.platform, mesh.axis_name) == (1, "cpu",
-                                                          M.DATA_AXIS)
+    assert (mesh.size, mesh.platform) == (1, "cpu")
     ctx = M.runtime_context()
-    assert (ctx.n_devices, ctx.device_platform, ctx.axis) == (1, "cpu",
-                                                              M.DATA_AXIS)
+    assert (ctx.mesh.size, ctx.mesh.platform) == (1, "cpu")
     assert M.runtime_context() is not ctx      # built anew, nothing installed
+    assert M.installed_context() is None
     assert M.worker_device(5) == torch.device("cpu")
 
 
@@ -72,10 +71,10 @@ def test_mesh_checks():
 
 def test_tree_axis_is_distinct():
     m = M.tree_mesh(devices=["cpu"] * 4)
-    assert m.axis_name == M.TREE_AXIS != M.DATA_AXIS
+    assert m.devices == M.make_mesh(devices=["cpu"] * 4).devices
     assert M.tree_mesh(3, devices=["cpu"] * 4).size == 3
     ctx = M.MeshContext(m)
-    assert ctx.axis == M.TREE_AXIS and ctx.n_devices == 4
+    assert ctx.mesh is m and ctx.mesh.size == 4
 
 
 def test_gather_to_copies_only_other_devices():

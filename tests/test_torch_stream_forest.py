@@ -362,7 +362,9 @@ def test_resume_refusals_keep_the_reference_message(data, tmp_path, case):
         try:
             jjobs.random_forest_builder(JaxConfig(keys), data["csv"], out)
         except Exception as exc:
-            want = (type(exc).__name__, str(exc))
+            # the port's joined run is torch.distributed's
+            want = (type(exc).__name__,
+                    str(exc).replace("jax.distributed", "torch.distributed"))
     assert got is not None and got == want
 
 
