@@ -182,6 +182,20 @@ def _bad_records_policy(cfg: Config, counters: Counters,
     return BadRecordPolicy(pol, qpath, counters)
 
 
+def _cache_policy(cfg: Config, counters: Counters,
+                  prefix: str = "dtb.streaming.cache"):
+    """The job-level columnar-cache knob (``<prefix>.policy`` =
+    off|use|build|require, ``<prefix>.dir`` overriding the default
+    ``<csv>.avtc`` sidecar location).  Tallies surface in the job's counter
+    dump as the ``ColumnarCache`` group."""
+    pol = cfg.get(f"{prefix}.policy", "off")
+    if pol == "off":
+        return None
+    from ..io.colcache import CachePolicy
+    return CachePolicy(policy=pol, cache_dir=cfg.get(f"{prefix}.dir"),
+                       counters=counters)
+
+
 def _refuse_multi_shard(job: str) -> None:
     """Raise :class:`JobNotPorted` in a run of more than one shard (an
     ``AVENIR_TPU_SHARD=i/P`` lane with P > 1, or a joined run) for a
@@ -292,9 +306,14 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     (per-process input files are not ported).  Each shard checkpoints
     under ``<dir>/shard-<i>-of-<P>``; the baseline's partial counts are
     summed before publishing; shard 0 of process 0 alone publishes and
-    sets ``Shard/Count``.  Still refused by name (:class:`JobNotPorted`):
-    a ``dtb.streaming.cache.policy`` other than ``off`` (the columnar
-    cache).
+    sets ``Shard/Count``.
+
+    ``dtb.streaming.cache.policy`` (off|use|build|require, + ``.dir``)
+    slots the columnar cache sidecar under the streamed ingest
+    (``io.colcache``): ``build`` writes ``<csv>.avtc`` during a cold full
+    pass, and ``use``/``build``/``require`` serve an intact fresh one
+    instead of parsing; the trees are the same either way.  A sharded pass
+    and every process but 0 never build.
 
     Two sidecars ride the published version (both need the registry):
     ``dtb.baseline.publish=true`` profiles the training data into the
@@ -310,12 +329,6 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     from ..models.forest import (ForestParams, build_forest,
                                  build_forest_from_stream)
     from ..parallel.distributed import process_index, shard_spec
-    cache_pol = cfg.get("dtb.streaming.cache.policy", "off")
-    if cache_pol != "off":
-        raise JobNotPorted(
-            f"randomForestBuilder key dtb.streaming.cache.policy="
-            f"{cache_pol}: the columnar cache is not ported to "
-            f"avenir_tpu_torch yet")
     counters = Counters()
     schema = _schema_path(cfg, "dtb.feature.schema.file.path")
     params = ForestParams(tree=_tree_params(cfg),
@@ -413,6 +426,7 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
             in_path, schema, cfg.field_delim_regex,
             chunk_rows=cfg.get_int("dtb.streaming.block.rows", 1 << 22),
             bad_records=policy, start_row=start_row,
+            cache=_cache_policy(cfg, counters),
             shard=(spec.index, spec.count) if sharded else None),
             consumer_wait_key=None)
         models = build_forest_from_stream(

@@ -2,9 +2,10 @@
 (the port's copy of ``avenir_tpu/core/faults.py``).
 
   * :func:`with_retry` retries a callable on transient ``OSError`` /
-    ``MemoryError`` — artifact and quarantine writes (core/artifacts,
-    core/table) and served batches (serving/service) — as the reference's
-    Hadoop substrate retries a task.
+    ``MemoryError`` — native CSV block reads, artifact and quarantine
+    writes (core/artifacts, core/table) and served batches
+    (serving/service) — as the reference's Hadoop substrate retries a
+    task.
   * :class:`FaultInjector` is a spec-driven injector used by the tests
     and by operators, through the ``AVENIR_TPU_FAULTS`` env hook, to prove
     the retry / skip / resume story end to end.  Instrumented sites call
@@ -15,15 +16,20 @@ Fault spec grammar (comma or semicolon separated entries)::
 
     <op>@<index|*>=<action>[x<times>]
 
-    chunk_encode@3=raise:RuntimeError a crash before CSV block #3 encodes
+    chunk_read@3=raise:RuntimeError   a crash before native CSV block #3
+    chunk_read@2=raise:OSError        one OSError on native block read #2
+    chunk_encode@3=raise:RuntimeError a crash before Python CSV block #3
     artifact_write@0=raise:OSError    one transient write failure
     chunk_encode@*=delay:0.01x5       10 ms stall on the first 5 blocks
 
 ``index`` counts calls to the op's fault point (0-based, one count per
 call, retries included); ``times`` bounds how often the spec fires
 (default 1: fail once, then heal).  The port's instrumented ops are
-``chunk_encode`` (the CSV block parse), ``artifact_write`` (quarantine
-appends) and ``checkpoint_save`` (``CheckpointManager.save``).
+``chunk_read`` (the native reader's block parse, retried through
+:func:`with_retry`), ``chunk_encode`` (the Python reader's block parse),
+``cache_read`` and ``cache_write`` (a columnar cache chunk),
+``artifact_write`` (quarantine appends) and ``checkpoint_save``
+(``CheckpointManager.save``).
 """
 
 from __future__ import annotations

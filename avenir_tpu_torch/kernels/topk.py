@@ -382,6 +382,30 @@ def topk_merge(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
     return topk_merge_torch(ds, is_, bases, k)
 
 
+def topk_merge_rounds(ds: Sequence[torch.Tensor], is_: Sequence[torch.Tensor],
+                      k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`topk_merge` over any number of (nt, k) lists that already
+    carry GLOBAL indices (every base 0), lists in ascending train-range
+    order: rounds of at most ``parallel.mesh.MAX_SHARDS`` lists each, every
+    round's outputs the next round's lists, until one list is left.  A
+    round's output is the lexicographic (distance, global index) best of
+    its lists with dead slots (+inf, -1), so the rounds give the one-merge
+    answer: ties to the lowest global index.  CUDA tensors launch the
+    merge kernel once a group; CPU tensors run the plain version the same
+    way."""
+    ds, is_ = list(ds), list(is_)
+    if not ds or len(ds) != len(is_):
+        raise ValueError("topk_merge_rounds needs one (d, i) per list")
+    while True:
+        merged = []
+        for g in range(0, len(ds), MAX_SHARDS):
+            group_d, group_i = ds[g:g + MAX_SHARDS], is_[g:g + MAX_SHARDS]
+            merged.append(topk_merge(group_d, group_i, [0] * len(group_d), k))
+        if len(merged) == 1:
+            return merged[0]
+        ds, is_ = [m[0] for m in merged], [m[1] for m in merged]
+
+
 def topk_merge_stacked(d: torch.Tensor, i: torch.Tensor, step: int, k: int,
                        *, old: bool = False
                        ) -> Tuple[torch.Tensor, torch.Tensor]:

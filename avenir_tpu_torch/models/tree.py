@@ -822,12 +822,51 @@ def level_chunk(n_nodes: int, n_trees: int, S: int, B: int, C: int,
     return max(1024, min(mem_chunk, exact_chunk))
 
 
+def unpack_weights4(packed: torch.Tensor, T: int) -> torch.Tensor:
+    """(n, ceil(T/2)) uint8 of 4-bit weight pairs (tree 2j in the low
+    nibble, 2j+1 in the high) -> the (n, T) uint8 weights, contiguous, on
+    the tensor's device: composed elementwise torch ops, the counterpart of
+    the JAX package's jitted ``_unpack_weights4``."""
+    pairs = torch.stack([packed & 15, packed >> 4], dim=2)
+    return pairs.reshape(packed.shape[0], -1)[:, :T].contiguous()
+
+
 def weights_to_device(w: np.ndarray, w_max: float, device) -> torch.Tensor:
     """(n, T) integral per-record weights -> the level histogram's weight
-    tensor on ``device``: uint8 while ``w_max < 256`` (bootstrap counts
-    are small), else float32.  Both hold the integers exactly."""
-    wire = np.uint8 if w_max < 256 else np.float32
-    host = np.ascontiguousarray(w.astype(wire))
+    tensor on ``device``, shipped in the narrowest wire that holds
+    ``w_max`` (the JAX package's ``ForestBuilder.build_all`` rule):
+
+      * ``w_max < 16`` and T > 1: two trees a byte — T padded to even, the
+        pairs packed ``lo | hi << 4``, the packed half uploaded and
+        unpacked on the device (:func:`unpack_weights4`) into the uint8
+        (n, T) tensor;
+      * ``w_max < 256``: uint8 (bootstrap counts are small);
+      * ``w_max < 65536``: uint16 on the wire, widened to float32 on the
+        device;
+      * else float32.
+
+    Every form holds the integers exactly; the H2D bytes are recorded as
+    uploaded (``note_h2d``)."""
+    n, T = w.shape
+    if w_max < 256:
+        host = w.astype(np.uint8)
+        if w_max < 16 and T > 1 and n > 0:
+            if T % 2:
+                host = np.concatenate([host, np.zeros((n, 1), np.uint8)],
+                                      axis=1)
+            packed = np.ascontiguousarray(host[:, 0::2] | (host[:, 1::2] << 4))
+            note_h2d(packed.nbytes)
+            return unpack_weights4(torch.from_numpy(packed).to(device), T)
+        host = np.ascontiguousarray(host)
+        note_h2d(host.nbytes)
+        return torch.from_numpy(host).to(device)
+    if w_max < 65536:
+        host = np.ascontiguousarray(w.astype(np.uint16))
+        note_h2d(host.nbytes)
+        # widened through int32: uint16 arithmetic is not on every device
+        wire = torch.from_numpy(host.view(np.int16)).to(device)
+        return (wire.to(torch.int32) & 0xFFFF).to(torch.float32)
+    host = np.ascontiguousarray(w.astype(np.float32))
     note_h2d(host.nbytes)
     return torch.from_numpy(host).to(device)
 

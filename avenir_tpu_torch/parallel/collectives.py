@@ -152,19 +152,16 @@ class AllReducer:
         (n_test, min(k, total w)) best list, ties to the lowest global
         index: the single-process scan's answer.  One allgather; then
         every process uploads the P lists to ``device`` and merges them
-        with the top-k merge kernel (``kernels.topk.topk_merge``; its
-        plain version for CPU tensors).  Returns host arrays."""
+        with the top-k merge kernel, in rounds of at most 64 lists when
+        P is larger (``kernels.topk.topk_merge_rounds``; its plain version
+        for CPU tensors).  Returns host arrays."""
         from ..kernels.dispatch import note_backend, resolve_backend
-        from ..kernels.topk import topk_merge
+        from ..kernels.topk import topk_merge_rounds
         from ..runtime import resolve_device
         from ..utils.tracing import fetch, note_dispatch, note_h2d
-        from .mesh import MAX_SHARDS
         nd = np.asarray(nd, np.float32)
         ni = np.asarray(ni, np.int32)
         parts = self.allgather((nd, ni))
-        if len(parts) > MAX_SHARDS:
-            raise ValueError(f"merge_topk: {len(parts)} processes; the merge "
-                             f"kernel takes at most {MAX_SHARDS} lists")
         nt = nd.shape[0]
         kk = min(int(k), sum(p[0].shape[1] for p in parts))
         dev = resolve_device(device)
@@ -180,7 +177,7 @@ class AllReducer:
             is_.append(torch.from_numpy(ip).to(dev))
         note_dispatch(site="knn.process_merge")
         note_backend("knn.process_merge", resolve_backend(dev))
-        bd, bi = topk_merge(ds, is_, [0] * len(parts), kk)
+        bd, bi = topk_merge_rounds(ds, is_, kk)
         return fetch(bd), fetch(bi)
 
     # ---- file transport ----

@@ -20,7 +20,12 @@ call in ``avenir_tpu/utils/tracing.py``.
   collectives of ``parallel.collectives.AllReducer`` (the same group's
   ``AllReduces`` and ``AllReduceBytes``, the JAX package's names: one a
   tree level, one row-count allgather after a sharded ingest, one a KNN
-  test chunk; exported when a run made any).
+  test chunk; exported when a run made any), and which CSV reader read
+  each block (``IngestReaders`` group: ``<reader>.blocks`` and
+  ``<reader>.rows`` for ``native``, ``python`` and ``cache``, and
+  ``python.<reason>`` counting the Python blocks by why the native reader
+  did not read them), so a Python fallback never passes for the native
+  reader.
 - :class:`LayerProfile` — per-level wall time of the training layers,
   taken only when a caller passes one to a builder.
 """
@@ -45,7 +50,8 @@ class TransferLedger:
 
     __slots__ = ("h2d_bytes", "d2h_bytes", "h2d_transfers", "d2h_transfers",
                  "dispatches", "dispatch_sites", "kernel_backends", "gathers",
-                 "gather_bytes", "allreduces", "allreduce_bytes", "_lock")
+                 "gather_bytes", "allreduces", "allreduce_bytes", "ingest",
+                 "_lock")
 
     def __init__(self):
         self.h2d_bytes = 0
@@ -59,6 +65,7 @@ class TransferLedger:
         self.gather_bytes = 0
         self.allreduces = 0
         self.allreduce_bytes = 0
+        self.ingest: Dict[str, int] = defaultdict(int)
         self._lock = threading.Lock()
 
     def record_h2d(self, nbytes: int, transfers: int = 1) -> None:
@@ -95,6 +102,21 @@ class TransferLedger:
             self.allreduces += int(n)
             self.allreduce_bytes += int(nbytes)
 
+    def record_ingest(self, reader: str, rows: int,
+                      reason: Optional[str] = None) -> None:
+        """One block of ``rows`` rows read by ``reader`` (``native``,
+        ``python`` or ``cache``); ``reason`` says why a Python block was
+        not read natively."""
+        with self._lock:
+            self.ingest[f"{reader}.blocks"] += 1
+            self.ingest[f"{reader}.rows"] += int(rows)
+            if reason:
+                self.ingest[f"{reader}.{reason}"] += 1
+
+    def ingest_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self.ingest)
+
     def site_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.dispatch_sites)
@@ -124,6 +146,9 @@ class TransferLedger:
         if self.kernel_backends:
             counters.update_group("KernelBackends",
                                   dict(sorted(self.kernel_backends.items())))
+        if self.ingest:
+            counters.update_group("IngestReaders",
+                                  dict(sorted(self.ingest.items())))
 
 
 _ledgers: List[TransferLedger] = []
@@ -163,6 +188,11 @@ def note_dispatch(n: int = 1, site: Optional[str] = None) -> None:
 def note_kernel_backend(site: str, backend: str, n: int = 1) -> None:
     for led in list(_ledgers):
         led.record_kernel_backend(site, backend, n)
+
+
+def note_ingest(reader: str, rows: int, reason: Optional[str] = None) -> None:
+    for led in list(_ledgers):
+        led.record_ingest(reader, rows, reason)
 
 
 def note_gather(nbytes: int, n: int = 1) -> None:

@@ -12,8 +12,8 @@ order — any failure exits non-zero before the result line:
               power limit (nvidia-smi)
   2. build    build every CUDA kernel from csrc/ (one nvcc per source, all
               started together: vote.cu, histogram.cu, bin_counts.cu and
-              topk.cu)
-              into build/avenir_tpu_torch/
+              topk.cu) and, on a thread meanwhile, the native CSV reader
+              (io/csv_native.cpp, g++) into build/avenir_tpu_torch/
   3. kernel   the ensemble-vote kernel against its plain PyTorch version on
               the card: random stacked forests (NaNs, negative and
               out-of-range codes, negative integer weights, ties, min_odds
@@ -75,7 +75,9 @@ order — any failure exits non-zero before the result line:
               with numpy: the rafo forest trained on the card and, with
               device="cpu", through the plain version must give identical
               trees, every card launch in the mma form; prints the card's
-              wall time and the median per-level layer times
+              wall time, the median per-level layer times and the
+              bootstrap weights' H2D bytes (the 4-bit wire: ceil(T/2) =
+              5 bytes a row at T = 9, which it must be)
  10. b1 times median CUDA-event times of the histogram kernel (the mma
               form; the atomic form as "old", in turns, each also on the
               card alone) and its plain version at rafo 1,000,000 rows
@@ -178,7 +180,10 @@ order — any failure exits non-zero before the result line:
               topk_scan_sharded over cuda x 2/3/4/8 against single-device
               B5 at phase 15's schemas (n_train 5 and 1000), and at the pad
               probe (10 train rows over 4 shards, k = 2: d [[1, 2]], i
-              [[0, 9]])
+              [[0, 9]]); then the cross-process merge of 130 lists (20,000
+              x 10, global indices, ties and dead slots) in rounds of 64
+              (3 launches, then 1) against the plain version's stable sort
+              of all 130, exactly
  21. sharded  the tree-sharded serving main path, launch counts zeroed
      serve    before and read after: PredictionService over a copy of the
               rafo9 registry and make_predictor over its requests, with
@@ -268,26 +273,31 @@ order — any failure exits non-zero before the result line:
               ingest.encode dispatches, and ceil(rows / 777)); B2 and B3
               launched by the quantize publish; the ledger shows
               forest.level.cuda, baseline.absorb.cuda and no torch, host
-              or atomic form
- 29. resume   the same job in a subprocess with
-              AVENIR_TPU_FAULTS=chunk_encode@3=raise:RuntimeError and a
-              checkpoint every block must fail with the injected fault and
-              leave an ingest-incomplete step; the job again with
-              --resume must give the fixture's trees, part-q-00000,
+              or atomic form, and every block (the quantize sample's too)
+              read by the native reader (IngestReaders)
+ 29. resume   on each reader, the same job in a subprocess with a
+              checkpoint every block and AVENIR_TPU_FAULTS set to crash at
+              block 3 (chunk_read@3 on the native reader, chunk_encode@3
+              on the Python reader; the other point armed too and never
+              firing) must fail with the injected fault and leave an
+              ingest-incomplete step 3; the job again with --resume on the
+              same reader must give the fixture's trees, part-q-00000,
               meta.json and quantized sidecar, and a baseline of the
               re-read rows only (the reference's resume contract)
  30. scale    a 1,000,000-row CSV (numpy draws from call_hangup_gen's
-              model), trained in two subprocesses: streamed at 262,144-row
-              blocks (iter_csv_chunks -> prefetch_chunks ->
-              build_forest_from_stream with a BaselineBuilder) and
-              monolithic (load_csv -> build_forest); trees and baseline
+              model), trained in three subprocesses: streamed at
+              262,144-row blocks (iter_csv_chunks -> prefetch_chunks ->
+              build_forest_from_stream with a BaselineBuilder) on the
+              native reader and on the Python reader, and monolithic
+              (load_csv, native -> build_forest); trees and baseline
               counts identical, every B1 launch in the mma form, B4
-              launches equal the blocks; prints the stream's parse_s,
-              transfer_s, stage_wait_s, queue_wait_s, ingest_compute_s,
-              ingest_wall_s and build_s, rows/s of both and each child's
-              host memory: the job's peak RSS (VmRSS sampled every 5 ms
-              after a warm-up), its own ru_maxrss and RUSAGE_CHILDREN
-              after it
+              launches equal the blocks, and the ledger's IngestReaders
+              show every block read by the reader asked for; prints each
+              stream's parse_s, transfer_s, stage_wait_s, queue_wait_s,
+              ingest_compute_s, ingest_wall_s and build_s, rows/s of all
+              three and each child's host memory: the job's peak RSS
+              (VmRSS sampled every 5 ms after a warm-up), its own
+              ru_maxrss and RUSAGE_CHILDREN after it
  31. shard    the shard lane, each process a subprocess on the card with
      lane     its launch counts zeroed before its job and read after:
               randomForestBuilder with the rafo9s keys under
@@ -299,16 +309,20 @@ order — any failure exits non-zero before the result line:
               all mma on both, B4 3 + 4 launches (the shards' blocks), B2
               and B3 from shard 0's publish only; prints
               Collectives.AllReduces a process
- 32. resume   the same lane with a checkpoint every block and shard 1
-              crashing at chunk_encode@2: shard 0 must fail at its next
-              collective within AVENIR_TPU_ALLREDUCE_TIMEOUT_S=5; --resume
-              on both must give the fixture's trees
+ 32. resume   on each reader, the same lane with a checkpoint every
+              block and shard 1 crashing at its third block (chunk_read@2
+              native, chunk_encode@2 Python): shard 0 must fail at its
+              next collective within AVENIR_TPU_ALLREDUCE_TIMEOUT_S=5;
+              --resume on both must give the fixture's trees, read by the
+              same reader
  33. scale    phase 30's 1,000,000-row CSV over two --shard-child
               processes (row-range shards, 262,144-row blocks, a teed
-              baseline, the file transport): trees and baseline counts
-              identical to phase 30's streamed process; B1 all mma, B4
-              launches sum to the 4 blocks; prints rows/s against phase
-              30's, each shard's parse_s and the all-reduce wall a level
+              baseline, the file transport), on the native reader, then
+              on the Python reader: trees and baseline counts identical to
+              phase 30's streamed process; B1 all mma, B4 launches sum to
+              the 4 blocks, every block read by the reader asked for;
+              prints rows/s against phase 30's on the same reader, each
+              shard's parse_s and the all-reduce wall a level
  34. knn      knnPipeline nen.train.shard=true over 20,000 test x 200,000
               train e-learning rows (numpy draws from elearn_gen's model),
               k = 10, in two shard-lane processes: predictions byte-equal
@@ -321,6 +335,19 @@ order — any failure exits non-zero before the result line:
               part-m-00000 and part-m-00001, which concatenate to pred.csv
  36. cards    with several GPUs visible, phases 31 and 35 again with each
               process on its own card (with one, a line says so)
+ 37. cache    phase 30's CSV through the randomForestBuilder job in two
+              --cache-child processes (streamed, 262,144-row blocks, a
+              published baseline): cold with
+              dtb.streaming.cache.policy=build, then warm with use.  Both
+              give phase 30's trees, B1 all mma and B4 one launch a block;
+              the cold job reads every block natively and builds the
+              sidecar (ColumnarCache Built=1), the warm one serves every
+              block from it (Hit=1, BytesRead == the cold BytesWritten,
+              IngestReaders all cache); prints both jobs' rows/s.  Then
+              phase 30's streamed build over the sidecar (--scale-child
+              stream_cache): the same trees, every block from the
+              sidecar; prints its parse_s (the sidecar read) beside
+              phase 30's native parse
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -396,6 +423,9 @@ KNN_SCALE = (20_000, 200_000, 10)         # test rows, train rows, k
 # list counts the top-k merge is held at (lane groups of 1 to 32 lanes, and
 # two lists a lane past 32)
 MERGE_LISTS = (1, 2, 3, 4, 5, 8, 9, 16, 19, 33, 64)
+# lists of the cross-process merge past one launch's 64 (two full rounds
+# and a short one, then the final merge)
+ROUND_LISTS = 130
 # phase 19 runs the plain partial tallies slice by slice up to this many
 # (row, predicate slot) pairs, and from one shared first-match pass above
 B6_DIRECT_PAIRS = 1e10
@@ -407,6 +437,15 @@ PATIENCE = (500.0, 900.0, 420.0, 380.0)
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def _try(fn):
+    """``[]`` when ``fn()`` returns, else ``[the exception]``."""
+    try:
+        fn()
+    except Exception as exc:
+        return [exc]
+    return []
 
 
 def phase(name):
@@ -842,6 +881,26 @@ def b5_bound(nt, nr, Fn, Fc, k, metric):
             "bytes_ms": bytes_ms, "ops": ops, "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "bound_ms_with_tail": max(bytes_ms, old_ms)}
+
+
+class python_reader:
+    """Within this context every ``core.table.iter_csv_chunks`` call (the
+    streamed job's and its quantize sample's) reads with the Python
+    reader, ``use_native=False``: the other reader of phases 29-33."""
+
+    def __enter__(self):
+        from avenir_tpu_torch.core import table
+        self._orig = orig = table.iter_csv_chunks
+
+        def python_chunks(*args, **kw):
+            kw["use_native"] = False
+            return orig(*args, **kw)
+        table.iter_csv_chunks = python_chunks
+        return self
+
+    def __exit__(self, *exc):
+        from avenir_tpu_torch.core import table
+        table.iter_csv_chunks = self._orig
 
 
 def run_cli(args):
@@ -1364,6 +1423,44 @@ def b7_phase(dev, rng):
     print("pad probe (10 train rows over 4 shards, k=2): sharded == single "
           "== d [[1, 2]], i [[0, 9]]", flush=True)
     return err
+
+
+def merge_rounds_check(dev, rng, P=ROUND_LISTS, nt=20_000, k=10):
+    """The end of phase 20: the cross-process merge over more lists than
+    one launch takes, ``topk_merge_rounds`` on the card (ceil(P / 64)
+    launches, then one) against the plain version's one stable sort of all
+    P lists: each list k train rows of its own range, ascending by
+    (distance, global index), distances from a pool of 6 (ties across
+    lists), every seventh list with dead (+inf, -1) tails.  Returns the
+    largest distance difference and the launches."""
+    import torch
+    from avenir_tpu_torch.kernels import topk
+    ds, is_ = [], []
+    for s in range(P):
+        d = np.sort(rng.integers(0, 6, (nt, k)), axis=1).astype(np.float32)
+        i = np.tile(np.arange(s * 2 * k, s * 2 * k + k, dtype=np.int32),
+                    (nt, 1))
+        if s % 7 == 3:
+            d[:, k // 2:], i[:, k // 2:] = np.inf, -1
+        ds.append(torch.from_numpy(np.ascontiguousarray(d)).to(dev))
+        is_.append(torch.from_numpy(np.ascontiguousarray(i)).to(dev))
+    topk.merge_launches = 0
+    got = topk.topk_merge_rounds(ds, is_, k)
+    launches = topk.merge_launches
+    want = topk.topk_merge_torch(ds, is_, [0] * P, k)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+        fail(f"{P}-list merge in rounds != the plain version's stable sort")
+    rounds = -(-P // topk.MAX_SHARDS) + 1
+    if launches != rounds:
+        fail(f"{P}-list merge: {launches} launches, want {rounds}")
+    print(f"merge of {P} lists (nt={nt:,}, k={k}) in rounds of 64: "
+          f"{launches} launches, exact against the plain version's stable "
+          f"sort of all {P}", flush=True)
+    live = torch.isfinite(want[0])
+    err = float((got[0][live] - want[0][live]).abs().max().item()) \
+        if live.any() else 0.0
+    return err, launches
 
 
 def sharded_serving(devices, label):
@@ -2130,6 +2227,13 @@ def stream_main_path(dev):
                  "baseline.absorb.cuda", "quantized.vote.cuda"):
         if not backends.get(site):
             fail(f"streamed ledger shows no {site}")
+    readers = ledger.ingest_snapshot()
+    # the ingest blocks and the quantize publish's head sample
+    if readers != {"native.blocks": blocks + 1,
+                   "native.rows": 2 * rows}:
+        fail(f"streamed main path: IngestReaders {readers}; every block "
+             f"must be read by the native reader")
+    print(f"IngestReaders {readers}: every block native", flush=True)
     wrong = [k for k in backends
              if k.endswith((".torch", ".host", ".atomic"))]
     if wrong:
@@ -2139,56 +2243,76 @@ def stream_main_path(dev):
 
 
 def stream_resume(dev):
-    """Phase 29: a crash at block 3's encode in a subprocess, then
-    --resume, against the rafo9s fixture."""
+    """Phase 29, on each reader: a crash at block 3 in a subprocess (the
+    native reader's ``chunk_read``, the Python reader's ``chunk_encode``;
+    the other point armed too, so it must never fire), then --resume on
+    the same reader, against the rafo9s fixture."""
     from avenir_tpu_torch.core.checkpoint import CheckpointManager
     from avenir_tpu_torch.monitor.baseline import load_baseline
     from avenir_tpu_torch.serving.registry import ModelRegistry
-    phase("29 streamed crash (chunk_encode@3) and --resume == rafo9s")
-    out = os.path.join(WORK, "rafo9s_resumed")
-    reg = os.path.join(WORK, "rafo9s_resumed_registry")
-    ck = os.path.join(WORK, "rafo9s_resumed_ck")
-    # a checkpoint every block: the resume re-reads no block whose bad
-    # records were already quarantined
-    args = rafo9s_job(reg, ck, out, ("-Ddtb.streaming.checkpoint.blocks=1",))
-    env = dict(os.environ,
-               AVENIR_TPU_FAULTS="chunk_encode@3=raise:RuntimeError")
-    t0 = time.perf_counter()
-    crash = subprocess.run([sys.executable, "-m", "avenir_tpu_torch.cli.run",
-                            *args], env=env, cwd=ROOT, capture_output=True,
-                           text=True, timeout=300)
-    crash_s = time.perf_counter() - t0
-    if crash.returncode == 0 or \
-            "injected fault: chunk_encode@3" not in crash.stderr:
-        fail(f"the faulted run did not crash at chunk_encode@3 (rc "
-             f"{crash.returncode}): {crash.stderr[-2000:]}")
-    step, _, meta = CheckpointManager(ck).restore()
-    if meta["ingest_complete"] or step != 3:
-        fail(f"the crashed run's newest checkpoint is step {step}, "
-             f"{meta}; want step 3, ingest incomplete")
-    t0 = time.perf_counter()
-    run_cli(args[:-2] + ["--resume"] + args[-2:])
-    resume_s = time.perf_counter() - t0
-    same_rafo9s(out, reg, "rafo9s crash + --resume",
-                files=("meta.json", "quantized.json"),
-                arrays=("arrays.npz", "quantized.npz"))
-    with open(out + ".counters.json") as fh:
-        counters = json.load(fh)
+    phase("29 streamed crash (chunk_read@3 native, chunk_encode@3 python) "
+          "and --resume == rafo9s")
     with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
         total = json.load(fh)["Random forest"]["BaselineRows"]
-    tail = total - int(meta["n_rows"])
-    base = load_baseline(ModelRegistry(reg), "rafo9s", 1)
-    if counters["Checkpoint"] != {"ResumedFromStep": 3,
-                                  "ResumedSourceRows":
-                                      meta["source_rows_done"]} \
-            or base.n_rows != tail:
-        fail(f"resumed run: Checkpoint counters {counters['Checkpoint']}, "
-             f"baseline rows {base.n_rows}; want step 3 and {tail} rows")
-    print(f"crashed subprocess {crash_s:.2f} s wall (rc {crash.returncode},"
-          f" newest step 3, {meta['n_rows']} rows); resumed run "
-          f"{resume_s:.2f} s wall from source row "
-          f"{meta['source_rows_done']}; baseline of the {tail} re-read "
-          f"rows", flush=True)
+    for reader, point, other in (("native", "chunk_read", "chunk_encode"),
+                                 ("python", "chunk_encode", "chunk_read")):
+        out = os.path.join(WORK, f"rafo9s_resumed_{reader}")
+        reg = os.path.join(WORK, f"rafo9s_resumed_registry_{reader}")
+        ck = os.path.join(WORK, f"rafo9s_resumed_ck_{reader}")
+        # a checkpoint every block: the resume re-reads no block whose bad
+        # records were already quarantined
+        args = rafo9s_job(reg, ck, out,
+                          ("-Ddtb.streaming.checkpoint.blocks=1",))
+        flag = ["--python-reader"] if reader == "python" else []
+        env = dict(os.environ, AVENIR_TPU_FAULTS=f"{point}@3=raise:"
+                   f"RuntimeError,{other}@*=raise:RuntimeError")
+        t0 = time.perf_counter()
+        crash = subprocess.run(
+            cli_cmd(os.path.join(WORK, f"crash_{reader}.json"),
+                    flag + args), env=env, cwd=ROOT, capture_output=True,
+            text=True, timeout=300)
+        crash_s = time.perf_counter() - t0
+        if crash.returncode == 0 or \
+                f"injected fault: {point}@3" not in crash.stderr:
+            fail(f"the faulted {reader} run did not crash at {point}@3 (rc "
+                 f"{crash.returncode}): {crash.stderr[-2000:]}")
+        step, _, meta = CheckpointManager(ck).restore()
+        if meta["ingest_complete"] or step != 3:
+            fail(f"the crashed {reader} run's newest checkpoint is step "
+                 f"{step}, {meta}; want step 3, ingest incomplete")
+        t0 = time.perf_counter()
+        if reader == "python":
+            with python_reader():
+                run_cli(args[:-2] + ["--resume"] + args[-2:])
+        else:
+            run_cli(args[:-2] + ["--resume"] + args[-2:])
+        resume_s = time.perf_counter() - t0
+        same_rafo9s(out, reg, f"rafo9s crash + --resume ({reader} reader)",
+                    files=("meta.json", "quantized.json"),
+                    arrays=("arrays.npz", "quantized.npz"))
+        with open(out + ".counters.json") as fh:
+            counters = json.load(fh)
+        tail = total - int(meta["n_rows"])
+        base = load_baseline(ModelRegistry(reg), "rafo9s", 1)
+        if counters["Checkpoint"] != {"ResumedFromStep": 3,
+                                      "ResumedSourceRows":
+                                          meta["source_rows_done"]} \
+                or base.n_rows != tail:
+            fail(f"resumed {reader} run: Checkpoint counters "
+                 f"{counters['Checkpoint']}, baseline rows {base.n_rows}; "
+                 f"want step 3 and {tail} rows")
+        readers = counters["IngestReaders"]
+        if reader == "native" and any(k.startswith("python") for k in
+                                      readers) or \
+                reader == "python" and any(k.startswith("native") for k in
+                                           readers):
+            fail(f"resumed {reader} run read with another reader: "
+                 f"{readers}")
+        print(f"{reader} reader: crashed subprocess {crash_s:.2f} s wall "
+              f"(rc {crash.returncode}, newest step 3, {meta['n_rows']} "
+              f"rows); resumed run {resume_s:.2f} s wall from source row "
+              f"{meta['source_rows_done']}; baseline of the {tail} re-read "
+              f"rows; IngestReaders {readers}", flush=True)
 
 
 def write_hangup_csv(table, path):
@@ -2217,9 +2341,11 @@ def proc_status_kb(key):
 
 
 def scale_child(mode, csv, out):
-    """One phase-30 training run in its own process: prints one JSON line
-    (stats, wall, launches, peak RSS) and writes the trees and baseline
-    counts under ``out``."""
+    """One phase-30 training run in its own process (phase 37's
+    ``stream_cache`` too: the stream served from the columnar sidecar):
+    prints one JSON line (stats, wall, launches, peak RSS, the ledger's
+    IngestReaders) and writes the trees and baseline counts under
+    ``out``."""
     import resource
     import torch
     from avenir_tpu_torch.cli.jobs import _tree_params
@@ -2227,10 +2353,12 @@ def scale_child(mode, csv, out):
     from avenir_tpu_torch.core.schema import FeatureSchema
     from avenir_tpu_torch.core.table import (iter_csv_chunks, load_csv,
                                              prefetch_chunks)
+    from avenir_tpu_torch.io.colcache import CachePolicy
     from avenir_tpu_torch.kernels import histogram
     from avenir_tpu_torch.models.forest import (ForestParams, build_forest,
                                                 build_forest_from_stream)
     from avenir_tpu_torch.monitor.baseline import BaselineBuilder
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
     cfg = load_config(os.path.join(RES, "rafo.properties"))
     params = ForestParams(tree=_tree_params(cfg),
                           num_trees=cfg.get_int("dtb.num.trees"),
@@ -2258,20 +2386,24 @@ def scale_child(mode, csv, out):
     stats = {}
     t0 = time.perf_counter()
     base = BaselineBuilder(fs, device=dev)
-    if mode == "stream":
-        blocks = prefetch_chunks(iter_csv_chunks(
-            csv, fs, chunk_rows=STREAM_SCALE_BLOCK), stats=stats,
-            consumer_wait_key=None)
-        trees = build_forest_from_stream(blocks, fs, params, device=dev,
-                                         stats=stats, baseline=base)
-    else:
-        table = load_csv(csv, fs)
-        base.update(table)
-        t1 = time.perf_counter()
-        trees = build_forest(table, params, device=dev)
-        stats = {"load_s": t1 - t0, "build_s": time.perf_counter() - t1}
-    counts = base.finalize().counts
-    torch.cuda.synchronize()
+    with transfer_ledger() as led:
+        if mode.startswith("stream"):
+            cache = CachePolicy("use", stats=stats) \
+                if mode == "stream_cache" else None
+            blocks = prefetch_chunks(iter_csv_chunks(
+                csv, fs, chunk_rows=STREAM_SCALE_BLOCK,
+                use_native=mode != "stream_python", cache=cache),
+                stats=stats, consumer_wait_key=None)
+            trees = build_forest_from_stream(blocks, fs, params, device=dev,
+                                             stats=stats, baseline=base)
+        else:
+            table = load_csv(csv, fs)
+            base.update(table)
+            t1 = time.perf_counter()
+            trees = build_forest(table, params, device=dev)
+            stats = {"load_s": t1 - t0, "build_s": time.perf_counter() - t1}
+        counts = base.finalize().counts
+        torch.cuda.synchronize()
     stats["wall_s"] = time.perf_counter() - t0
     done.set()
     sampler.join()
@@ -2280,6 +2412,7 @@ def scale_child(mode, csv, out):
         json.dump([t.to_json() for t in trees], fh)
     np.save(os.path.join(out, "baseline_counts.npy"), counts)
     print(json.dumps({"mode": mode, **stats,
+                      "ingest": led.ingest_snapshot(),
                       "b1": histogram.launches,
                       "b1_mma": histogram.mma_launches,
                       "b4": histogram.bin_counts_launches,
@@ -2290,11 +2423,13 @@ def scale_child(mode, csv, out):
 
 
 def stream_scale(dev, fs):
-    """Phase 30: streamed against monolithic training over one 1,000,000-row
-    CSV, each in its own process.  Returns the printed numbers."""
+    """Phase 30: one 1,000,000-row CSV trained streamed on the native
+    reader, streamed on the Python reader and monolithic (the native
+    whole-file load), each in its own process.  Returns the printed
+    numbers, the trees, the baseline counts and the CSV's path."""
     import resource
-    phase(f"30 scale: streamed vs monolithic rafo forest over a "
-          f"{STREAM_SCALE_ROWS:,}-row CSV")
+    phase(f"30 scale: streamed (native and Python reader) vs monolithic "
+          f"rafo forest over a {STREAM_SCALE_ROWS:,}-row CSV")
     csv = os.path.join(WORK, "stream_scale.csv")
     t0 = time.perf_counter()
     write_hangup_csv(hangup_table(np.random.default_rng(20261018),
@@ -2303,7 +2438,7 @@ def stream_scale(dev, fs):
           f"({os.path.getsize(csv) / 1e6:.1f} MB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     runs = {}
-    for mode in ("stream", "mono"):
+    for mode in ("stream", "stream_python", "mono"):
         out = os.path.join(WORK, f"stream_scale_{mode}")
         r = subprocess.run([sys.executable, os.path.abspath(__file__),
                             "--scale-child", mode, csv, out], cwd=ROOT,
@@ -2319,21 +2454,41 @@ def stream_scale(dev, fs):
             runs[mode]["trees"] = fh.read()
         runs[mode]["counts"] = np.load(os.path.join(out,
                                                     "baseline_counts.npy"))
-    st, mo = runs["stream"], runs["mono"]
+    st = runs["stream"]
     trees, counts = st.pop("trees"), st.pop("counts")
-    if trees != mo.pop("trees"):
-        fail("phase 30: streamed and monolithic trees differ")
-    if not np.array_equal(counts, mo.pop("counts")):
-        fail("phase 30: streamed and monolithic baselines differ")
+    for mode in ("stream_python", "mono"):
+        if runs[mode].pop("trees") != trees:
+            fail(f"phase 30: {mode} trees differ from the native stream's")
+        if not np.array_equal(runs[mode].pop("counts"), counts):
+            fail(f"phase 30: {mode} baseline differs from the native "
+                 f"stream's")
     blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
     for name, r in runs.items():
         if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
             fail(f"phase 30 {name}: {r['b1']} B1 launches, {r['b1_mma']} "
                  f"in the mma form; all must be")
-    if st["b4"] != blocks or mo["b4"] != 1:
-        fail(f"phase 30: B4 launches {st['b4']} streamed (want {blocks} "
-             f"blocks), {mo['b4']} monolithic (want 1)")
-    print("streamed and monolithic trees and baselines identical", flush=True)
+    want_b4 = {"stream": blocks, "stream_python": blocks, "mono": 1}
+    want_ingest = {
+        "stream": {"native.blocks": blocks,
+                   "native.rows": STREAM_SCALE_ROWS},
+        "stream_python": {"python.blocks": blocks,
+                          "python.rows": STREAM_SCALE_ROWS,
+                          "python.asked": blocks},
+        "mono": {"native.blocks": 1, "native.rows": STREAM_SCALE_ROWS}}
+    for name, r in runs.items():
+        if r["b4"] != want_b4[name]:
+            fail(f"phase 30 {name}: {r['b4']} B4 launches, want "
+                 f"{want_b4[name]}")
+        if r["ingest"] != want_ingest[name]:
+            fail(f"phase 30 {name}: IngestReaders {r['ingest']}, want "
+                 f"{want_ingest[name]}")
+    print("streamed (both readers) and monolithic trees and baselines "
+          "identical; every block read by the reader asked for", flush=True)
+    for name in ("stream", "stream_python"):
+        print(f"{name}: {runs[name]['rows_per_s']:,.0f} rows/s, parse_s "
+              f"{runs[name]['parse_s']:.3f} of ingest_wall_s "
+              f"{runs[name]['ingest_wall_s']:.3f}, build_s "
+              f"{runs[name]['build_s']:.3f}", flush=True)
     print(json.dumps({"stream_scale": runs}), flush=True)
     return runs, trees, counts, csv
 
@@ -2362,15 +2517,25 @@ def lane_env(extra, one_card):
 def cli_child(counts_path, *args):
     """One CLI job in its own process (``--cli-child``): the launch counts
     zeroed just before ``cli.run.main`` and written to ``counts_path``
-    just after; exits with the job's code (a raised job exits non-zero)."""
+    just after; exits with the job's code (a raised job exits non-zero).
+    A first argument ``--python-reader`` runs the job on the Python
+    reader (:class:`python_reader`)."""
     from avenir_tpu_torch.cli import run as cli_run
     from avenir_tpu_torch.kernels import histogram, topk, vote
+    args = list(args)
+    python = args[:1] == ["--python-reader"]
+    if python:
+        args = args[1:]
     histogram.launches = histogram.mma_launches = 0
     histogram.bin_counts_launches = 0
     vote.launches = vote.quantized_launches = vote.table_launches = 0
     topk.launches = topk.merge_launches = topk.split_merge_launches = 0
     t0 = time.perf_counter()
-    rc = cli_run.main(list(args))
+    if python:
+        with python_reader():
+            rc = cli_run.main(args)
+    else:
+        rc = cli_run.main(args)
     wall = time.perf_counter() - t0
     with open(counts_path, "w") as fh:
         json.dump({"b1": histogram.launches,
@@ -2509,53 +2674,69 @@ def shard_lane(layout, one_card):
 
 
 def shard_resume():
-    """Phase 32: shard 1 crashes at its third block; shard 0 fails at the
-    next collective within a 5 s deadline; --resume on both gives the
-    fixture's trees."""
-    phase("32 shard lane crash (shard 1 at chunk_encode@2) and --resume")
-    base = os.path.join(WORK, "lane_resume")
-    shutil.rmtree(base, ignore_errors=True)
-    reg, ck, rdir = (os.path.join(base, d) for d in ("reg", "ck", "reduce"))
-    outs = [os.path.join(base, f"out{i}") for i in range(2)]
-    counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
-    every = ("-Ddtb.streaming.checkpoint.blocks=1",)
-    envs = [{"AVENIR_TPU_SHARD": f"{i}/2", "AVENIR_TPU_ALLREDUCE_DIR": rdir,
-             "AVENIR_TPU_ALLREDUCE_TIMEOUT_S": "5"} for i in range(2)]
-    envs[1]["AVENIR_TPU_FAULTS"] = "chunk_encode@2=raise:RuntimeError"
-    res = run_children([
-        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i], every)),
-         lane_env(envs[i], True)) for i in range(2)], timeout=120)
-    (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res
-    if rc1 == 0 or "injected fault: chunk_encode@2" not in se1:
-        fail(f"shard 1 did not crash at chunk_encode@2 (rc {rc1}): "
-             f"{se1[-2000:]}")
-    if rc0 == 0 or "within 5.0s" not in se0:
-        fail(f"shard 0 did not fail at its collective within the 5 s "
-             f"deadline (rc {rc0}): {se0[-2000:]}")
-    print(f"crash: shard 1 exited {rc1} {t1_s:.2f} s after the launch "
-          f"(injected fault), shard 0 exited {rc0} {t0_s - t1_s:.2f} s after "
-          f"it (missing peer past the 5 s deadline)", flush=True)
-    res = run_children([
-        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i],
-                                       every + ("--resume",))),
-         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
-                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
-        for i in range(2)])
-    all_ok(res, "shard lane --resume")
-    for i in range(2):
-        same_trees(outs[i], f"resumed shard {i}/2")
-    resumed = [counter_dump(so).get("Checkpoint") for _, so, _, _ in res]
-    print(f"--resume on both: walls {[round(r[3], 2) for r in res]} s; "
-          f"Checkpoint counters {resumed}; B4 launches "
-          f"{[read_json(c)['b4'] for c in counts]} (re-read blocks)",
-          flush=True)
+    """Phase 32, on each reader: shard 1 crashes at its third block (the
+    native reader's ``chunk_read@2``, the Python reader's
+    ``chunk_encode@2``); shard 0 fails at the next collective within a 5 s
+    deadline; --resume on both gives the fixture's trees."""
+    phase("32 shard lane crash (shard 1 at chunk_read@2 native, "
+          "chunk_encode@2 python) and --resume")
+    for reader, point in (("native", "chunk_read"),
+                          ("python", "chunk_encode")):
+        base = os.path.join(WORK, f"lane_resume_{reader}")
+        shutil.rmtree(base, ignore_errors=True)
+        reg, ck, rdir = (os.path.join(base, d)
+                         for d in ("reg", "ck", "reduce"))
+        outs = [os.path.join(base, f"out{i}") for i in range(2)]
+        counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
+        every = ("-Ddtb.streaming.checkpoint.blocks=1",)
+        flag = ["--python-reader"] if reader == "python" else []
+        envs = [{"AVENIR_TPU_SHARD": f"{i}/2",
+                 "AVENIR_TPU_ALLREDUCE_DIR": rdir,
+                 "AVENIR_TPU_ALLREDUCE_TIMEOUT_S": "5"} for i in range(2)]
+        envs[1]["AVENIR_TPU_FAULTS"] = f"{point}@2=raise:RuntimeError"
+        res = run_children([
+            (cli_cmd(counts[i], flag + rafo9s_job(reg, ck, outs[i], every)),
+             lane_env(envs[i], True)) for i in range(2)], timeout=120)
+        (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res
+        if rc1 == 0 or f"injected fault: {point}@2" not in se1:
+            fail(f"shard 1 ({reader}) did not crash at {point}@2 (rc "
+                 f"{rc1}): {se1[-2000:]}")
+        if rc0 == 0 or "within 5.0s" not in se0:
+            fail(f"shard 0 ({reader}) did not fail at its collective within "
+                 f"the 5 s deadline (rc {rc0}): {se0[-2000:]}")
+        print(f"{reader} crash: shard 1 exited {rc1} {t1_s:.2f} s after the "
+              f"launch (injected fault), shard 0 exited {rc0} "
+              f"{t0_s - t1_s:.2f} s after it (missing peer past the 5 s "
+              f"deadline)", flush=True)
+        res = run_children([
+            (cli_cmd(counts[i], flag + rafo9s_job(
+                reg, ck, outs[i], every + ("--resume",))),
+             lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                       "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+            for i in range(2)])
+        all_ok(res, f"shard lane --resume ({reader})")
+        for i in range(2):
+            same_trees(outs[i], f"resumed shard {i}/2 ({reader})")
+        dumps = [counter_dump(so) for _, so, _, _ in res]
+        other = "python" if reader == "native" else "native"
+        for d in dumps:
+            if any(k.startswith(other) for k in d.get("IngestReaders", {})):
+                fail(f"resumed {reader} shard read with the {other} reader: "
+                     f"{d['IngestReaders']}")
+        print(f"{reader} --resume on both: walls "
+              f"{[round(r[3], 2) for r in res]} s; Checkpoint counters "
+              f"{[d.get('Checkpoint') for d in dumps]}; B4 launches "
+              f"{[read_json(c)['b4'] for c in counts]} (re-read blocks); "
+              f"IngestReaders {[d.get('IngestReaders') for d in dumps]}",
+              flush=True)
 
 
-def shard_child(index, count, csv, out, rdir):
+def shard_child(index, count, csv, out, rdir, reader="native"):
     """One process of phase 33 (``--shard-child``): the 1,000,000-row CSV's
-    row-range shard trained streamed with a teed baseline, the counts
-    summed with the peer through the file transport.  Prints one JSON
-    line and writes the trees and baseline counts under ``out``."""
+    row-range shard trained streamed on ``reader`` (native or python) with
+    a teed baseline, the counts summed with the peer through the file
+    transport.  Prints one JSON line and writes the trees and baseline
+    counts under ``out``."""
     import torch
     from avenir_tpu_torch.cli.jobs import _tree_params
     from avenir_tpu_torch.core.config import load_config
@@ -2590,7 +2771,8 @@ def shard_child(index, count, csv, out, rdir):
     base = BaselineBuilder(fs, device=dev)
     with transfer_ledger() as led:
         blocks = prefetch_chunks(iter_csv_chunks(
-            csv, fs, chunk_rows=STREAM_SCALE_BLOCK, shard=(index, count)),
+            csv, fs, chunk_rows=STREAM_SCALE_BLOCK, shard=(index, count),
+            use_native=reader == "native"),
             stats=stats, consumer_wait_key=None)
         trees = build_forest_from_stream(blocks, fs, params, device=dev,
                                          stats=stats, baseline=base,
@@ -2603,7 +2785,9 @@ def shard_child(index, count, csv, out, rdir):
     with open(os.path.join(out, "trees.json"), "w") as fh:
         json.dump([t.to_json() for t in trees], fh)
     np.save(os.path.join(out, "baseline_counts.npy"), counts)
-    print(json.dumps({"shard": index, **stats, "b1": histogram.launches,
+    print(json.dumps({"shard": index, "reader": reader, **stats,
+                      "ingest": led.ingest_snapshot(),
+                      "b1": histogram.launches,
                       "b1_mma": histogram.mma_launches,
                       "b4": histogram.bin_counts_launches,
                       "allreduces": led.allreduces,
@@ -2614,41 +2798,189 @@ def shard_child(index, count, csv, out, rdir):
 
 def shard_scale(csv, single, trees, counts):
     """Phase 33: phase 30's 1,000,000-row CSV over two processes on the
-    card against phase 30's one streamed process."""
+    card, on the native reader and then on the Python reader, against
+    phase 30's one streamed process on the same reader."""
     phase(f"33 scale: the {STREAM_SCALE_ROWS:,}-row CSV over 2 processes "
-          f"(row-range shards, {STREAM_SCALE_BLOCK:,}-row blocks)")
-    base = os.path.join(WORK, "shard_scale")
-    shutil.rmtree(base, ignore_errors=True)
-    rdir = os.path.join(base, "reduce")
-    res = run_children([
-        ([sys.executable, os.path.abspath(__file__), "--shard-child",
-          str(i), "2", csv, os.path.join(base, f"out{i}"), rdir],
-         lane_env({}, True)) for i in range(2)], timeout=600)
-    all_ok(res, "phase 33")
-    runs = [json.loads(so.strip().splitlines()[-1]) for _, so, _, _ in res]
-    for i, r in enumerate(runs):
-        with open(os.path.join(base, f"out{i}", "trees.json")) as fh:
-            if fh.read() != trees:
-                fail(f"phase 33 shard {i}: trees differ from one process's")
-        if not np.array_equal(np.load(os.path.join(
-                base, f"out{i}", "baseline_counts.npy")), counts):
-            fail(f"phase 33 shard {i}: baseline differs from one process's")
-        if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
-            fail(f"phase 33 shard {i}: {r['b1']} B1 launches, "
-                 f"{r['b1_mma']} mma")
+          f"(row-range shards, {STREAM_SCALE_BLOCK:,}-row blocks), native "
+          f"and Python reader")
     blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
-    if sum(r["b4"] for r in runs) != blocks:
-        fail(f"phase 33: B4 launches {[r['b4'] for r in runs]} do not sum "
-             f"to the {blocks} blocks")
-    wall = max(r["wall_s"] for r in runs)
-    summary = {"rows_per_s": STREAM_SCALE_ROWS / wall,
-               "one_process_rows_per_s": single["rows_per_s"],
-               "one_process_parse_s": single["parse_s"],
-               "shards": runs}
-    print("2-process trees and baseline identical to one process's",
-          flush=True)
+    summary = {}
+    for reader, one in (("native", single["stream"]),
+                        ("python", single["stream_python"])):
+        base = os.path.join(WORK, f"shard_scale_{reader}")
+        shutil.rmtree(base, ignore_errors=True)
+        rdir = os.path.join(base, "reduce")
+        res = run_children([
+            ([sys.executable, os.path.abspath(__file__), "--shard-child",
+              str(i), "2", csv, os.path.join(base, f"out{i}"), rdir, reader],
+             lane_env({}, True)) for i in range(2)], timeout=600)
+        all_ok(res, f"phase 33 ({reader})")
+        runs = [json.loads(so.strip().splitlines()[-1])
+                for _, so, _, _ in res]
+        for i, r in enumerate(runs):
+            with open(os.path.join(base, f"out{i}", "trees.json")) as fh:
+                if fh.read() != trees:
+                    fail(f"phase 33 {reader} shard {i}: trees differ from "
+                         f"one process's")
+            if not np.array_equal(np.load(os.path.join(
+                    base, f"out{i}", "baseline_counts.npy")), counts):
+                fail(f"phase 33 {reader} shard {i}: baseline differs from "
+                     f"one process's")
+            if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
+                fail(f"phase 33 {reader} shard {i}: {r['b1']} B1 launches, "
+                     f"{r['b1_mma']} mma")
+            if r["ingest"].get(f"{reader}.blocks") != r["b4"] or \
+                    any(not k.startswith(reader) for k in r["ingest"]):
+                fail(f"phase 33 {reader} shard {i}: IngestReaders "
+                     f"{r['ingest']} for {r['b4']} blocks")
+        if sum(r["b4"] for r in runs) != blocks:
+            fail(f"phase 33 ({reader}): B4 launches {[r['b4'] for r in runs]}"
+                 f" do not sum to the {blocks} blocks")
+        wall = max(r["wall_s"] for r in runs)
+        summary[reader] = {"rows_per_s": STREAM_SCALE_ROWS / wall,
+                           "one_process_rows_per_s": one["rows_per_s"],
+                           "one_process_parse_s": one["parse_s"],
+                           "shards": runs}
+        print(f"{reader} reader: 2 processes {STREAM_SCALE_ROWS / wall:,.0f} "
+              f"rows/s against one process's {one['rows_per_s']:,.0f}; "
+              f"shards' parse_s {[round(r['parse_s'], 3) for r in runs]} "
+              f"(one process {one['parse_s']:.3f}); trees and baseline "
+              f"identical to one process's", flush=True)
     print(json.dumps({"shard_scale": summary}), flush=True)
     return summary
+
+
+def cache_child(policy, csv, out):
+    """One phase-37 job in its own process (``--cache-child``): after a
+    warm-up, the randomForestBuilder CLI over phase 30's CSV, streamed at
+    262,144-row blocks with a published baseline (B4 every block) and
+    ``dtb.streaming.cache.policy=policy``, launch counts zeroed just
+    before and read just after.  Prints one JSON line: wall, launches and
+    the job's counters."""
+    import torch
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.kernels import histogram
+    from avenir_tpu_torch.models.forest import ForestParams, build_forest
+    from avenir_tpu_torch.monitor.baseline import BaselineBuilder
+    cfg = load_config(os.path.join(RES, "rafo.properties"))
+    params = ForestParams(tree=_tree_params(cfg),
+                          num_trees=cfg.get_int("dtb.num.trees"),
+                          seed=cfg.get_int("dtb.random.seed"))
+    fs = FeatureSchema.load(os.path.join(RES, "call_hangup.json"))
+    dev = torch.device("cuda", 0)
+    warm = hangup_table(np.random.default_rng(1), 4096, fs)
+    build_forest(warm, params, device=dev)
+    BaselineBuilder(fs, device=dev).update(warm).finalize()
+    torch.cuda.synchronize()
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    t0 = time.perf_counter()
+    rc = cli_run.main([
+        "randomForestBuilder",
+        f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
+        f"-Ddtb.feature.schema.file.path="
+        f"{os.path.join(RES, 'call_hangup.json')}",
+        "-Ddtb.streaming.ingest=true",
+        f"-Ddtb.streaming.block.rows={STREAM_SCALE_BLOCK}",
+        f"-Ddtb.streaming.cache.policy={policy}",
+        f"-Ddtb.model.registry.dir={out}_registry",
+        "-Ddtb.baseline.publish=true", csv, out])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        sys.exit(rc)
+    with open(out + ".counters.json") as fh:
+        counters = json.load(fh)
+    print(json.dumps({"policy": policy, "wall_s": wall,
+                      "b1": histogram.launches,
+                      "b1_mma": histogram.mma_launches,
+                      "b4": histogram.bin_counts_launches,
+                      "counters": {g: counters.get(g) for g in (
+                          "ColumnarCache", "IngestReaders",
+                          "Random forest")}}), flush=True)
+
+
+def cache_scale(csv, single, trees):
+    """Phase 37: phase 30's CSV trained through the job cold with
+    ``dtb.streaming.cache.policy=build``, then warm with ``use``."""
+    phase(f"37 columnar cache: the {STREAM_SCALE_ROWS:,}-row CSV cold "
+          f"(cache.policy=build) then warm (cache.policy=use)")
+    drop = csv + ".avtc"
+    shutil.rmtree(drop, ignore_errors=True)
+    blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
+    want_trees = json.loads(trees)
+    runs = {}
+    for policy in ("build", "use"):
+        out = os.path.join(WORK, f"cache_{policy}")
+        r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                            "--cache-child", policy, csv, out], cwd=ROOT,
+                           capture_output=True, text=True, timeout=600)
+        if r.returncode != 0:
+            fail(f"phase 37 {policy} job failed (rc {r.returncode}): "
+                 f"{r.stderr[-3000:]}")
+        run = json.loads(r.stdout.strip().splitlines()[-1])
+        got = [open(os.path.join(out, f"tree_{i}.json")).read()
+               for i in range(len(want_trees))]
+        if got != want_trees:
+            fail(f"phase 37 {policy}: trees differ from phase 30's")
+        if run["b1"] <= 0 or run["b1_mma"] != run["b1"]:
+            fail(f"phase 37 {policy}: {run['b1']} B1 launches, "
+                 f"{run['b1_mma']} in the mma form; all must be")
+        if run["b4"] != blocks:
+            fail(f"phase 37 {policy}: {run['b4']} B4 launches for "
+                 f"{blocks} blocks")
+        reader = "native" if policy == "build" else "cache"
+        want = {f"{reader}.blocks": blocks,
+                f"{reader}.rows": STREAM_SCALE_ROWS}
+        if run["counters"]["IngestReaders"] != want:
+            fail(f"phase 37 {policy}: IngestReaders "
+                 f"{run['counters']['IngestReaders']}, want {want}")
+        run["rows_per_s"] = STREAM_SCALE_ROWS / run["wall_s"]
+        runs[policy] = run
+    cold = runs["build"]["counters"]["ColumnarCache"]
+    warm = runs["use"]["counters"]["ColumnarCache"]
+    if cold.get("Built") != 1 or warm.get("Hit") != 1 or \
+            warm.get("BytesRead") != cold.get("BytesWritten") or \
+            not warm.get("BytesRead"):
+        fail(f"phase 37: ColumnarCache cold {cold}, warm {warm}; want "
+             f"Built=1, then Hit=1 with BytesRead == BytesWritten")
+    print(f"cold job (parse + sidecar build): {runs['build']['wall_s']:.3f} "
+          f"s, {runs['build']['rows_per_s']:,.0f} rows/s; warm job (served "
+          f"from the sidecar): {runs['use']['wall_s']:.3f} s, "
+          f"{runs['use']['rows_per_s']:,.0f} rows/s; ColumnarCache cold "
+          f"{cold}, warm {warm}; trees identical to phase 30's; B1 all mma, "
+          f"B4 {blocks} launches a job", flush=True)
+    # phase 30's streamed build over the sidecar: its parse_s is the
+    # sidecar read, beside phase 30's native parse
+    out = os.path.join(WORK, "cache_stream")
+    r = subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--scale-child", "stream_cache", csv, out], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    if r.returncode != 0:
+        fail(f"phase 37 stream_cache child failed (rc {r.returncode}): "
+             f"{r.stderr[-3000:]}")
+    stream = json.loads(r.stdout.strip().splitlines()[-1])
+    with open(os.path.join(out, "trees.json")) as fh:
+        if fh.read() != trees:
+            fail("phase 37: the stream over the sidecar gave other trees")
+    if stream["ingest"] != {"cache.blocks": blocks,
+                            "cache.rows": STREAM_SCALE_ROWS} or \
+            stream["b4"] != blocks or stream["b1_mma"] != stream["b1"]:
+        fail(f"phase 37 stream_cache: IngestReaders {stream['ingest']}, "
+             f"B4 {stream['b4']}, B1 {stream['b1']} ({stream['b1_mma']} mma)")
+    stream["rows_per_s"] = STREAM_SCALE_ROWS / stream["wall_s"]
+    runs["stream_cache"] = stream
+    print(f"phase 30's stream over the sidecar: {stream['rows_per_s']:,.0f} "
+          f"rows/s, parse_s (the sidecar read) {stream['parse_s']:.3f} of "
+          f"ingest_wall_s {stream['ingest_wall_s']:.3f}, build_s "
+          f"{stream['build_s']:.3f}; native parse: "
+          f"{single['rows_per_s']:,.0f} rows/s, parse_s "
+          f"{single['parse_s']:.3f}", flush=True)
+    print(json.dumps({"cache_scale": runs}), flush=True)
+    return runs
 
 
 def write_elearn_csv(cols, prefix, path):
@@ -2833,12 +3165,25 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     phase("2 build")
+    from avenir_tpu_torch.io import native_csv
+    # the g++ reader compiles on a thread while the nvcc processes run
+    native_err = []
+    native_t = threading.Thread(target=lambda: native_err.extend(
+        _try(native_csv.build)))
+    native_t.start()
     secs = build.build_all()
+    native_t.join()
+    if native_err:
+        fail(f"native CSV reader build failed: {native_err[0]}")
     for name, s in secs.items():
         print(f"built {build.SOURCES[name]} in {s:.1f} s", flush=True)
         log = build.build_log.get(name, (0, ""))[1].strip()
         if log:
             print(log, flush=True)
+    native_s = native_csv.build_log[0] if native_csv.build_log else 0.0
+    print(f"built {os.path.relpath(native_csv.SOURCE, ROOT)} with g++ in "
+          f"{native_s:.1f} s into {os.path.relpath(native_csv.library_path(), ROOT)}",
+          flush=True)
 
     phase("3 kernel vs plain version")
     rng = np.random.default_rng(20261016)
@@ -3116,10 +3461,31 @@ def main():
     big = hangup_table(np.random.default_rng(20261017), 1_000_000, fs)
     torch.cuda.synchronize()
     histogram.launches = histogram.mma_launches = 0
-    t0 = time.perf_counter()
-    gpu_trees = build_forest(big, fparams, device=dev)
-    torch.cuda.synchronize()
-    gpu_s = time.perf_counter() - t0
+    from avenir_tpu_torch.models import forest as forest_mod
+    wire = {}
+    to_device = forest_mod.weights_to_device
+
+    def weights_spy(w, w_max, device):
+        # the weights' own H2D bytes, from a ledger around the upload
+        with transfer_ledger() as led:
+            out = to_device(w, w_max, device)
+        wire.update(bytes=led.h2d_bytes, w_max=w_max, T=w.shape[1])
+        return out
+    forest_mod.weights_to_device = weights_spy
+    try:
+        t0 = time.perf_counter()
+        gpu_trees = build_forest(big, fparams, device=dev)
+        torch.cuda.synchronize()
+        gpu_s = time.perf_counter() - t0
+    finally:
+        forest_mod.weights_to_device = to_device
+    w_T = wire["T"]
+    w_want = big.n_rows * (-(-w_T // 2) if wire["w_max"] < 16 and w_T > 1
+                           else w_T)
+    if wire["bytes"] != w_want:
+        fail(f"1M-row rafo forest: bootstrap weights uploaded "
+             f"{wire['bytes']} bytes; the wire for w_max {wire['w_max']} "
+             f"and T={w_T} ships {w_want}")
     prof = LayerProfile(dev)
     t0 = time.perf_counter()
     prof_trees = build_forest(big, fparams, device=dev, profile=prof)
@@ -3139,7 +3505,10 @@ def main():
           f"card and the CPU; card wall {gpu_s:.3f} s (profiled run "
           f"{prof_s:.3f} s), CPU plain-version wall {cpu_s:.2f} s; "
           f"{len(prof.levels)} levels; histogram launches (two card builds) "
-          f"{scale_b1[0]}, all in the mma form", flush=True)
+          f"{scale_b1[0]}, all in the mma form; bootstrap weights H2D "
+          f"{wire['bytes']:,} bytes (w_max {wire['w_max']:g}, T={w_T}: "
+          f"{wire['bytes'] / big.n_rows:g} bytes a row, uint8 would be "
+          f"{w_T})", flush=True)
     print(f"  setup ms: {json.dumps({k: v * 1e3 for k, v in prof.setup.items()})}",
           flush=True)
     print(f"  median ms per level: {json.dumps(prof.median_ms())}",
@@ -3320,6 +3689,8 @@ def main():
 
     b6_err = b6_phase(dev, rng)
     b7_err = b7_phase(dev, rng)
+    round_err, round_launches = merge_rounds_check(dev, rng)
+    b7_err = max(b7_err, round_err)
     phase("21 sharded serving main path (serve_mesh over cuda x S)")
     b6_launches, fin_launches = sharded_serving([dev], "one card")
     phase("22 sharded knn main path (runtime context cuda x 4)")
@@ -3349,13 +3720,14 @@ def main():
     streamed = stream_main_path(dev)
     stream_resume(dev)
     scale, scale_trees, scale_counts, scale_csv = stream_scale(dev, fs)
-    multi = multi_process_phases(scale_csv, scale["stream"], scale_trees,
+    multi = multi_process_phases(scale_csv, scale, scale_trees,
                                  scale_counts)
+    cached = cache_scale(scale_csv, scale["stream"], scale_trees)
 
     def per_process(run, key):
         return [g[key] for g in run["launches"]]
     lane, joined = multi["lane"], multi["joined"]
-    scale2 = multi["scale2"]["shards"]
+    scale2 = multi["scale2"]["native"]["shards"]
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -3395,7 +3767,8 @@ def main():
         "shard_lane_launches": per_process(lane, "b1"),
         "shard_lane_mma_launches": per_process(lane, "b1_mma"),
         "joined_launches": [g["b1"] for g in joined["rf"]],
-        "two_process_scale_launches": [r["b1"] for r in scale2]}, {
+        "two_process_scale_launches": [r["b1"] for r in scale2],
+        "cache_launches": [cached[p]["b1"] for p in ("build", "use")]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -3430,7 +3803,8 @@ def main():
         "stream_scale_launches": scale["stream"]["b4"],
         "shard_lane_launches": per_process(lane, "b4"),
         "joined_launches": [g["b4"] for g in joined["rf"]],
-        "two_process_scale_launches": [r["b4"] for r in scale2]}, {
+        "two_process_scale_launches": [r["b4"] for r in scale2],
+        "cache_launches": [cached[p]["b4"] for p in ("build", "use")]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -3476,7 +3850,9 @@ def main():
         "old_ms": b7_t["old_ms"],
         "old_device_ms": b7_t["old_device_ms"],
         "process_merge_launches": per_process(multi["knn2"],
-                                              "b7_merge")}]}), flush=True)
+                                              "b7_merge"),
+        "round_merge_lists": ROUND_LISTS,
+        "round_merge_launches": round_launches}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
@@ -3486,8 +3862,10 @@ if __name__ == "__main__":
     if sys.argv[1:2] == ["--scale-child"]:
         scale_child(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--shard-child"]:
-        shard_child(*sys.argv[2:7])
+        shard_child(*sys.argv[2:8])
     elif sys.argv[1:2] == ["--cli-child"]:
         cli_child(*sys.argv[2:])
+    elif sys.argv[1:2] == ["--cache-child"]:
+        cache_child(*sys.argv[2:5])
     else:
         main()

@@ -414,14 +414,29 @@ def test_port_publish_is_byte_identical_and_loads_in_both(tmp_path):
     "dtb.baseline.publish=true", "dtb.model.quantize=true",
     "AVENIR_TPU_SHARD=0/2"])
 def test_unported_training_keys_refuse_by_name(tmp_path, monkeypatch, key):
-    """Keys of unported tiers raise JobNotPorted naming them (the columnar
-    cache, and a multi-shard AVENIR_TPU_SHARD lane in both builders); the
-    sidecar keys are ported, and without a registry to ride they raise a
-    ValueError naming the key and the registry key it needs; a resume
-    without streamed ingest raises the reference's ValueError."""
+    """Keys of unported tiers raise JobNotPorted naming them (a multi-shard
+    AVENIR_TPU_SHARD lane in both builders); the sidecar keys are ported,
+    and without a registry to ride they raise a ValueError naming the key
+    and the registry key it needs; a resume without streamed ingest raises
+    the reference's ValueError.  The columnar cache key is ported: it no
+    longer refuses, and a streamed job with it builds the sidecar."""
     train = _gen(50, 1, tmp_path / "train.csv")
     name, _, value = key.partition("=")
     args = []
+    if name == "dtb.streaming.cache.policy":
+        assert port_run.main(["randomForestBuilder",
+                              f"-Dconf.path={RAFO_PROPS}",
+                              f"-Ddtb.feature.schema.file.path={SCHEMA}",
+                              f"-D{key}", "-Ddtb.streaming.ingest=true",
+                              "-Dplatform=cpu", train,
+                              str(tmp_path / "o")]) == 0
+        chunk_bytes = sum(os.path.getsize(os.path.join(train + ".avtc", f))
+                          for f in os.listdir(train + ".avtc")
+                          if f.startswith("chunk_"))
+        with open(str(tmp_path / "o") + ".counters.json") as fh:
+            assert json.load(fh)["ColumnarCache"] == {
+                "Built": 1, "BytesWritten": chunk_bytes, "Miss": 1}
+        return
     if name == "AVENIR_TPU_SHARD":
         monkeypatch.setenv(name, value)
         want = (JobNotPorted, r"AVENIR_TPU_SHARD=0/2")

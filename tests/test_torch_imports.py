@@ -42,11 +42,29 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.cli.monitor_jobs",
              "avenir_tpu_torch.core.checkpoint",
              "avenir_tpu_torch.core.faults",
-             "avenir_tpu_torch.core.table"):
+             "avenir_tpu_torch.core.table",
+             "avenir_tpu_torch.io",
+             "avenir_tpu_torch.io.native_csv",
+             "avenir_tpu_torch.io.colcache"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
+# the native reader builds and loads the port's own library, never one
+# of the JAX package's
+import os, tempfile
+from avenir_tpu_torch.core.schema import FeatureSchema
+from avenir_tpu_torch.core.table import load_csv
+fs = FeatureSchema.from_dict({"fields": [
+    {"name": "v", "ordinal": 0, "dataType": "double", "feature": True}]})
+with tempfile.NamedTemporaryFile("w", suffix=".csv", delete=False) as fh:
+    fh.write("1.5\n2.5\n")
+assert load_csv(fh.name, fs).columns[0].tolist() == [1.5, 2.5]
+os.remove(fh.name)
+maps = open("/proc/self/maps").read()
+assert "libcsv_native-" in maps
+assert os.sep + os.path.join("avenir_tpu", "") not in maps, \
+    [l for l in maps.splitlines() if "avenir_tpu" + os.sep in l]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 assert not leaked, leaked
 print(len(names))
@@ -58,6 +76,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x7, utils x3, kernels x6, models x4,
-    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x4 and
-    # the package
-    assert int(res.stdout.strip()) >= 42
+    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x4, io x3
+    # and the package
+    assert int(res.stdout.strip()) >= 45

@@ -15,6 +15,7 @@ import threading
 
 import numpy as np
 import pytest
+import torch
 
 from avenir_tpu.core.schema import FeatureSchema as JaxSchema
 from avenir_tpu.core.table import ColumnarTable as JaxTable
@@ -128,6 +129,55 @@ def test_merge_equals_the_reference(tmp_path, case):
         np.testing.assert_array_equal(got[s][1], want[s][1])
         assert got[s][0].shape == (nt, min(k, sum(min(k, n)
                                                   for n in sizes)))
+
+
+@pytest.mark.parametrize("P", [65, 130])
+def test_merge_above_64_processes_equals_a_stable_sort(P):
+    """More lists than one merge launch takes (64): the merge runs in
+    rounds and still equals a numpy stable sort of the concatenated lists
+    (ties to the lowest global index, dead slots (+inf, -1) dead) and the
+    JAX package's host sort.  The P lists come from a stubbed allgather."""
+    rng = np.random.default_rng(P)
+    pool = np.array([0.0, 1.0, 2.0, 2.0, 3.0, 7.0], np.float32)
+    nt, k, rows = 6, 4, 9
+    lists = []
+    for s in range(P):
+        d, i = _sorted_list(rng, nt, k, s * rows, (s + 1) * rows, pool)
+        if s % 7 == 3:                    # a short shard: dead tails
+            d[:, 2:], i[:, 2:] = np.inf, -1
+        lists.append((d, i))
+    cd = np.concatenate([d for d, _ in lists], axis=1)
+    ci = np.concatenate([i for _, i in lists], axis=1)
+    order = np.argsort(cd, axis=1, kind="stable")[:, :k]
+    want_d = np.take_along_axis(cd, order, 1)
+    want_i = np.where(np.isinf(want_d), -1, np.take_along_axis(ci, order, 1))
+    red = AllReducer(spec=ShardSpec(0, 1))
+    red.allgather = lambda obj: lists
+    with transfer_ledger() as led:
+        d, i = red.merge_topk(*lists[0], k, device="cpu")
+    np.testing.assert_array_equal(d, want_d)
+    np.testing.assert_array_equal(i, want_i)
+    assert led.backend_snapshot() == {"knn.process_merge.torch": 1}
+    jred = JaxAllReducer(spec=JaxShardSpec(0, 1))
+    jred.allgather = lambda obj: lists
+    jd, ji = jred.merge_topk(*lists[0], k)
+    np.testing.assert_array_equal(d, jd)
+    np.testing.assert_array_equal(i, ji)
+    # the rounds: ceil(P / 64) merges, then one more
+    calls = []
+    orig = ptopk.topk_merge
+
+    def count(ds, *a, **kw):
+        calls.append(len(ds))
+        return orig(ds, *a, **kw)
+    ptopk.topk_merge = count
+    try:
+        ptopk.topk_merge_rounds(
+            [torch.from_numpy(x) for x, _ in lists],
+            [torch.from_numpy(x) for _, x in lists], k)
+    finally:
+        ptopk.topk_merge = orig
+    assert max(calls) <= 64 and sum(calls) == P + -(-P // 64)
 
 
 def test_merge_launches_the_kernel_form_recorded(tmp_path):

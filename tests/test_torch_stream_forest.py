@@ -4,8 +4,9 @@ monolithic build and of the JAX package's streamed build at every block
 size, and a teed baseline equals the monolithic one; a checkpoint written
 by either package (the JAX one on its 8-device test mesh, pad rows
 included) resumes in the other to the same trees; the port's CLI crashed
-at ``chunk_encode@3`` and run again with ``--resume`` gives the trees and
-quarantine of an uninterrupted run; every resume refusal keeps the
+at ``chunk_read@3`` (the native reader) or ``chunk_encode@3`` (the python
+reader) and run again with ``--resume`` gives the trees and quarantine of
+an uninterrupted run; every resume refusal keeps the
 reference's message; and both builders' monolithic skip/quarantine paths
 equal the reference's."""
 
@@ -105,10 +106,10 @@ def _json(trees):
     return [t.to_json() for t in trees]
 
 
-def _port_stream(data, chunk, **kw):
+def _port_stream(data, chunk, use_native=True, **kw):
     stats = {}
     blocks = ptable.prefetch_chunks(ptable.iter_csv_chunks(
-        data["csv"], data["fs"], chunk_rows=chunk,
+        data["csv"], data["fs"], chunk_rows=chunk, use_native=use_native,
         bad_records=ptable.BadRecordPolicy("skip"),
         start_row=kw.pop("start_row", 0)),
         stats=stats, consumer_wait_key=None)
@@ -117,9 +118,9 @@ def _port_stream(data, chunk, **kw):
     return trees, stats
 
 
-def _jax_stream(data, chunk, ctx, **kw):
+def _jax_stream(data, chunk, ctx, use_native=False, **kw):
     blocks = jtable.prefetch_chunks(jtable.iter_csv_chunks(
-        data["csv"], data["jfs"], chunk_rows=chunk, use_native=False,
+        data["csv"], data["jfs"], chunk_rows=chunk, use_native=use_native,
         bad_records=jtable.BadRecordPolicy("skip"),
         start_row=kw.pop("start_row", 0)), consumer_wait_key=None)
     return jforest.build_forest_from_stream(blocks, data["jfs"], _params()[1],
@@ -168,7 +169,10 @@ def test_checkpoint_resumes_across_packages(data, port_mono, mesh_ctx,
     The JAX package's checkpoint comes from its 8-device test mesh, so
     every 97-row block carries 7 pad rows; the port writes 96-row blocks,
     whose rows the 8-device mesh it resumes on accepts (the reference
-    refuses a checkpoint its mesh does not divide)."""
+    refuses a checkpoint its mesh does not divide).  Both packages read
+    with the python reader here, whose blocks hold ``chunk`` good rows and
+    pass ``chunk_encode``; the native reader's crash and resume is
+    ``test_native_checkpoint_resumes_in_both_packages``."""
     ck = str(tmp_path / "ck")
     spec = "chunk_encode@4=raise:RuntimeError"
     chunk = 97 if writer == "jax" else 96
@@ -184,7 +188,8 @@ def test_checkpoint_resumes_across_packages(data, port_mono, mesh_ctx,
         pfaults.install(pfaults.FaultInjector.parse(spec))
         try:
             with pytest.raises(RuntimeError, match="chunk_encode@4"):
-                _port_stream(data, chunk, checkpoint=CheckpointManager(ck),
+                _port_stream(data, chunk, use_native=False,
+                             checkpoint=CheckpointManager(ck),
                              checkpoint_every=1)
         finally:
             pfaults.uninstall()
@@ -203,6 +208,40 @@ def test_checkpoint_resumes_across_packages(data, port_mono, mesh_ctx,
     assert step == 4 and meta["n_rows"] == 4 * chunk
     assert not meta["ingest_complete"]
     assert _json(trees) == port_mono
+
+
+def test_native_checkpoint_resumes_in_both_packages(data, port_mono,
+                                                    tmp_path):
+    """The native reader's block parse passes ``chunk_read``: a build
+    crashed at block 4 (a checkpoint every block) has read 4 blocks of 96
+    source rows, the bad ones among them dropped, and resumes to the
+    trees of an uninterrupted build in the port and in the JAX package
+    (one device: the reference refuses a checkpoint its mesh does not
+    divide), both reading natively."""
+    from avenir_tpu.parallel.mesh import MeshContext as JaxMeshContext
+    from avenir_tpu.parallel.mesh import make_mesh as jax_make_mesh
+    ck = str(tmp_path / "ck")
+    pfaults.install(pfaults.FaultInjector.parse(
+        "chunk_read@4=raise:RuntimeError,chunk_encode@*=raise:RuntimeError"))
+    try:
+        with pytest.raises(RuntimeError, match="chunk_read@4"):
+            _port_stream(data, 96, checkpoint=CheckpointManager(ck),
+                         checkpoint_every=1)
+    finally:
+        pfaults.uninstall()
+    step, arrays, meta = CheckpointManager(ck).restore()
+    dropped = sum(1 for b in GARBLED + TRUNCATED if b < 4 * 96)
+    assert step == 4 and meta["source_rows_done"] == 4 * 96
+    assert meta["n_rows"] == 4 * 96 - dropped and arrays["mask"].all()
+    trees, _ = _port_stream(data, 96, start_row=meta["source_rows_done"],
+                            resume_state=(arrays, meta))
+    assert _json(trees) == port_mono
+    _, jarrays, jmeta = JaxCkpt(ck).restore()
+    jtrees = _jax_stream(data, 96, JaxMeshContext(jax_make_mesh(1)),
+                         use_native=True,
+                         start_row=jmeta["source_rows_done"],
+                         resume_state=(jarrays, jmeta))
+    assert _json(jtrees) == port_mono
 
 
 def test_restored_pad_rows_weigh_by_mask_position(data):
@@ -270,9 +309,21 @@ def _trees(out):
             for n in sorted(os.listdir(out)) if n.endswith(".json")}
 
 
-def test_cli_crash_then_resume_equals_an_uninterrupted_run(
-        data, port_mono, tmp_path, monkeypatch):
+def _cli_crash_then_resume(data, port_mono, tmp_path, monkeypatch, reader):
+    """A clean CLI run; a run with a transient quarantine write fault and a
+    crash at block 3 on ``reader``'s fault point; then ``--resume``: the
+    trees and quarantine bytes of the clean run, every block read by
+    ``reader``."""
     monkeypatch.setattr(pfaults, "RETRY_BASE_S", 0.0)
+    if reader == "python":
+        orig = ptable.iter_csv_chunks
+
+        def python_reader(*a, **kw):
+            kw["use_native"] = False
+            return orig(*a, **kw)
+        monkeypatch.setattr(ptable, "iter_csv_chunks", python_reader)
+    point = "chunk_read" if reader == "native" else "chunk_encode"
+    other = "chunk_encode" if reader == "native" else "chunk_read"
     clean = str(tmp_path / "clean")
     props = _props(tmp_path, data, tmp_path / "ck_clean", tmp_path / "qc")
     assert port_run.main(["randomForestBuilder", f"-Dconf.path={props}",
@@ -282,16 +333,23 @@ def test_cli_crash_then_resume_equals_an_uninterrupted_run(
     with open(tmp_path / "qc" / "part-q-00000") as fh:
         assert fh.read().splitlines() == sorted(
             data["bad"], key=lambda l: int(l.split(",")[0][1:]))
+    with open(clean + ".counters.json") as fh:
+        readers = json.load(fh)["IngestReaders"]
+    assert readers[f"{reader}.blocks"] == -(-N_ROWS // 48) \
+        if reader == "native" else readers[f"{reader}.blocks"] > 0
+    assert set(readers) <= {f"{reader}.blocks", f"{reader}.rows",
+                            "python.asked"}
 
     props = _props(tmp_path, data, tmp_path / "ck", tmp_path / "q")
     out = str(tmp_path / "out")
     # a transient quarantine write fault (retried) and a crash at block 3
     pfaults.install(pfaults.FaultInjector.parse(
-        "artifact_write@0=raise:OSError,chunk_encode@3=raise:RuntimeError"))
+        f"artifact_write@0=raise:OSError,{point}@3=raise:RuntimeError,"
+        f"{other}@*=raise:RuntimeError"))
     try:
         with warnings.catch_warnings():
             warnings.simplefilter("ignore")
-            with pytest.raises(RuntimeError, match="chunk_encode@3"):
+            with pytest.raises(RuntimeError, match=f"{point}@3"):
                 port_run.main(["randomForestBuilder", f"-Dconf.path={props}",
                                "-Dplatform=cpu", data["csv"], out])
     finally:
@@ -311,6 +369,18 @@ def test_cli_crash_then_resume_equals_an_uninterrupted_run(
         assert json.load(fh)["Checkpoint"] == {
             "ResumedFromStep": 3,
             "ResumedSourceRows": meta["source_rows_done"]}
+
+
+def test_cli_crash_then_resume_equals_an_uninterrupted_run(
+        data, port_mono, tmp_path, monkeypatch):
+    """The python reader (``chunk_encode@3``)."""
+    _cli_crash_then_resume(data, port_mono, tmp_path, monkeypatch, "python")
+
+
+def test_cli_native_crash_then_resume_equals_an_uninterrupted_run(
+        data, port_mono, tmp_path, monkeypatch):
+    """The job's default, native reader (``chunk_read@3``)."""
+    _cli_crash_then_resume(data, port_mono, tmp_path, monkeypatch, "native")
 
 
 def _refusal_cfg(case, data, tmp_path):

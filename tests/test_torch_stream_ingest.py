@@ -28,6 +28,7 @@ from avenir_tpu_torch.core import faults as pfaults
 from avenir_tpu_torch.core import table as ptable
 from avenir_tpu_torch.core.metrics import Counters
 from avenir_tpu_torch.core.schema import FeatureSchema
+from avenir_tpu_torch.utils.tracing import transfer_ledger
 
 # an id, a numeric and a categorical feature, a class; a float feature
 # too, so a garbled number and a short row are both malformed
@@ -103,47 +104,83 @@ def _quarantine(pol):
         return fh.read()
 
 
+def _stream_run(tmp_path, tag, policy, reader, **kw):
+    """(chunks, policy) of one reader over the fixture: ``port`` (the
+    port's default, native reader), ``port_python``, ``jax_native`` or
+    ``jax_python``."""
+    csv, fs, jfs, _ = kw.pop("data")
+    pp, jp = _policies(tmp_path / tag, policy)
+    if reader.startswith("port"):
+        pol = pp
+        gen = ptable.iter_csv_chunks(csv, fs, bad_records=pp,
+                                     use_native=reader == "port", **kw)
+    else:
+        pol = jp
+        gen = jtable.iter_csv_chunks(csv, jfs, bad_records=jp,
+                                     use_native=reader == "jax_native", **kw)
+    return list(gen), pol
+
+
 @pytest.mark.parametrize("policy", ["skip", "quarantine"])
 @pytest.mark.parametrize("chunk", [1, 257, 10 ** 6])
 @pytest.mark.parametrize("start_row", [0, 41, 299])
 def test_chunks_equal_the_reference_python_reader(data, tmp_path, chunk,
                                                   start_row, policy):
-    csv, fs, jfs, _ = data
-    pp, jp = _policies(tmp_path, policy)
-    got = list(ptable.iter_csv_chunks(csv, fs, chunk_rows=chunk,
-                                      bad_records=pp, start_row=start_row))
-    want = list(jtable.iter_csv_chunks(csv, jfs, chunk_rows=chunk,
-                                       use_native=False, bad_records=jp,
-                                       start_row=start_row))
-    assert len(got) == len(want) > 0
-    for g, w in zip(got, want):
-        _table_equal(g, w)
-        assert g.source_row_end == w.source_row_end
-    assert pp.n_bad == jp.n_bad
-    assert pp.counters.as_dict() == jp.counters.as_dict()
-    assert _quarantine(pp) == _quarantine(jp)
+    """The port's default (native) reader against both of the reference's
+    readers: block for block against its native reader (the same blocks:
+    ``chunk_rows`` source rows each, bad rows dropped inside), and as one
+    table, with the same tallies and quarantine bytes, against its python
+    reader (whose blocks hold ``chunk_rows`` good rows).  The port's
+    python reader equals the reference's python reader block for block."""
+    kw = dict(data=data, chunk_rows=chunk, start_row=start_row)
+    runs = {r: _stream_run(tmp_path, r, policy, r, **dict(kw))
+            for r in ("port", "port_python", "jax_native", "jax_python")}
+    for mine, ref in (("port", "jax_native"), ("port_python", "jax_python")):
+        got, want = runs[mine][0], runs[ref][0]
+        assert len(got) == len(want) > 0
+        for g, w in zip(got, want):
+            _table_equal(g, w)
+            assert g.source_row_end == w.source_row_end
+    _table_equal(ptable.ColumnarTable.from_chunks(runs["port"][0]),
+                 jtable.ColumnarTable.from_chunks(runs["jax_python"][0]))
+    pols = [runs[r][1] for r in runs]
+    assert len({p.n_bad for p in pols}) == 1
+    assert len({json.dumps(p.counters.as_dict(), sort_keys=True)
+                for p in pols}) == 1
+    assert len({_quarantine(p) for p in pols}) == 1
+    pp = runs["port"][1]
     if start_row == 0:
         assert pp.n_bad == len(GARBLED) + len(TRUNCATED)
-        assert got[-1].source_row_end in (N_ROWS - 1, N_ROWS)
+        assert runs["port"][0][-1].source_row_end in (N_ROWS - 1, N_ROWS)
 
 
 def test_chunks_without_a_policy_raise_as_the_reference(data):
     """With no policy a malformed record raises, the same exception type
-    after the same blocks (a truncated row first: IndexError)."""
+    after the same blocks (a truncated row first: IndexError) on the
+    python readers.  The native readers of both packages hand the block
+    with the bad row to their python reader at the same row, with the
+    same warning, and then raise the same way."""
     csv, fs, jfs, _ = data
 
     def run(gen):
         n = 0
         try:
-            for _ in gen:
-                n += 1
+            with warnings.catch_warnings(record=True) as w:
+                warnings.simplefilter("always")
+                for _ in gen:
+                    n += 1
         except Exception as exc:
-            return n, type(exc)
-        return n, None
-    got = run(ptable.iter_csv_chunks(csv, fs, chunk_rows=64))
+            return n, type(exc), [str(x.message) for x in w]
+        return n, None, [str(x.message) for x in w]
+    got = run(ptable.iter_csv_chunks(csv, fs, chunk_rows=64,
+                                     use_native=False))
     assert got == run(jtable.iter_csv_chunks(csv, jfs, chunk_rows=64,
                                              use_native=False))
     assert got[1] is not None
+    native = run(ptable.iter_csv_chunks(csv, fs, chunk_rows=64))
+    assert native == run(jtable.iter_csv_chunks(csv, jfs, chunk_rows=64))
+    assert native[:2] == got[:2]
+    assert len(native[2]) == 1 and "mid-stream at row 0" in native[2][0]
 
 
 @pytest.mark.parametrize("kwargs", [{"chunk_rows": 0}, {"start_row": -1}])
@@ -155,15 +192,19 @@ def test_chunk_reader_refuses_bad_arguments(data, kwargs):
 
 @pytest.mark.parametrize("chunk", [1, 257, 10 ** 6])
 def test_from_chunks_equals_load_csv(data, tmp_path, chunk):
+    """Chunks of the port's native and python readers join to the port's
+    monolithic load and to the reference's, from either of its readers."""
     csv, fs, jfs, _ = data
-    pp, jp = _policies(tmp_path, "skip")
-    joined = ptable.ColumnarTable.from_chunks(
-        ptable.iter_csv_chunks(csv, fs, chunk_rows=chunk, bad_records=pp))
     whole = ptable.load_csv(csv, fs, bad_records=ptable.BadRecordPolicy(
         "skip"))
-    _table_equal(joined, whole)
-    _table_equal(joined, jtable.load_csv(csv, jfs, use_native=False,
-                                         bad_records=jp))
+    for use_native in (True, False):
+        pp, jp = _policies(tmp_path / str(use_native), "skip")
+        joined = ptable.ColumnarTable.from_chunks(ptable.iter_csv_chunks(
+            csv, fs, chunk_rows=chunk, bad_records=pp,
+            use_native=use_native))
+        _table_equal(joined, whole)
+        _table_equal(joined, jtable.load_csv(csv, jfs, use_native=use_native,
+                                             bad_records=jp))
 
 
 def test_from_chunks_joins_raw_rows_and_refuses_an_empty_list(data):
@@ -187,15 +228,24 @@ def test_from_chunks_joins_raw_rows_and_refuses_an_empty_list(data):
 
 @pytest.mark.parametrize("policy", ["skip", "quarantine"])
 def test_monolithic_load_equals_the_reference(data, tmp_path, policy):
+    """The skipping monolithic load reads with the python reader in both
+    packages (the policy needs the raw lines), whichever reader was asked
+    for; the port records why."""
     csv, fs, jfs, bad = data
     pp, jp = _policies(tmp_path, policy)
-    got = ptable.load_csv(csv, fs, keep_raw=True, bad_records=pp)
-    want = jtable.load_csv(csv, jfs, keep_raw=True, use_native=False,
-                           bad_records=jp)
-    _table_equal(got, want)
-    assert got.raw_rows == want.raw_rows
-    assert pp.counters.as_dict() == jp.counters.as_dict()
-    assert _quarantine(pp) == _quarantine(jp)
+    with transfer_ledger() as led:
+        got = ptable.load_csv(csv, fs, keep_raw=True, bad_records=pp)
+    assert led.ingest_snapshot() == {
+        "python.blocks": 1, "python.rows": got.n_rows,
+        "python.keep_raw": 1}
+    for use_native in (False, True):
+        jpol = _policies(tmp_path / f"j{use_native}", policy)[1]
+        want = jtable.load_csv(csv, jfs, keep_raw=True,
+                               use_native=use_native, bad_records=jpol)
+        _table_equal(got, want)
+        assert got.raw_rows == want.raw_rows
+        assert pp.counters.as_dict() == jpol.counters.as_dict()
+        assert _quarantine(pp) == _quarantine(jpol)
     if policy == "quarantine":
         lines = _quarantine(pp).decode().splitlines()
         assert sorted(lines) == sorted(b.rstrip("\r") for b in bad)
@@ -203,6 +253,11 @@ def test_monolithic_load_equals_the_reference(data, tmp_path, policy):
         text = fh.read()
     pp2, _ = _policies(tmp_path / "text", policy)
     _table_equal(ptable.load_csv_text(text, fs, bad_records=pp2), want)
+    pp3, _ = _policies(tmp_path / "native", policy)
+    with transfer_ledger() as led:
+        _table_equal(ptable.load_csv(csv, fs, bad_records=pp3), want)
+    assert led.ingest_snapshot()["python.policy"] == 1
+    assert _quarantine(pp3) == _quarantine(pp)
 
 
 def test_quarantine_write_retries_then_counts(tmp_path, monkeypatch):
@@ -224,11 +279,15 @@ def test_quarantine_write_retries_then_counts(tmp_path, monkeypatch):
 
 
 def test_chunk_encode_fault_point_fires_per_block(data):
+    """The python reader's block parse passes ``chunk_encode`` (the native
+    reader's passes ``chunk_read``:
+    ``test_chunk_read_fault_point_fires_per_block``)."""
     csv, fs, _, _ = data
     pfaults.install(pfaults.FaultInjector.parse(
         "chunk_encode@2=raise:RuntimeError"))
     try:
         it = ptable.iter_csv_chunks(csv, fs, chunk_rows=100,
+                                    use_native=False,
                                     bad_records=ptable.BadRecordPolicy(
                                         "skip"))
         got = [next(it), next(it)]
@@ -237,6 +296,57 @@ def test_chunk_encode_fault_point_fires_per_block(data):
     finally:
         pfaults.uninstall()
     assert [c.n_rows for c in got] == [100, 100]
+
+
+@pytest.mark.parametrize("reader,spec", [
+    ("native", "chunk_read@2=raise:RuntimeError"),
+    ("python", "chunk_encode@2=raise:RuntimeError")])
+def test_chunk_read_fault_point_fires_per_block(data, reader, spec):
+    """Each reader's own fault point stops it before its third block: the
+    native reader's ``chunk_read`` (blocks of 100 source rows, bad rows
+    dropped inside), the python reader's ``chunk_encode`` (blocks of 100
+    good rows).  The other point never fires on a reader."""
+    csv, fs, _, _ = data
+    other = "chunk_encode" if reader == "native" else "chunk_read"
+    pfaults.install(pfaults.FaultInjector.parse(
+        f"{spec},{other}@*=raise:RuntimeError"))
+    try:
+        it = ptable.iter_csv_chunks(csv, fs, chunk_rows=100,
+                                    use_native=reader == "native",
+                                    bad_records=ptable.BadRecordPolicy(
+                                        "skip"))
+        got = [next(it), next(it)]
+        with pytest.raises(RuntimeError, match=spec.split("=")[0]):
+            next(it)
+    finally:
+        pfaults.uninstall()
+    assert [c.source_row_end for c in got] == \
+        ([100, 200] if reader == "native" else [103, 203])
+
+
+def test_transient_chunk_read_fault_is_retried(data, monkeypatch):
+    """A transient OSError on a native block read is retried through
+    ``with_retry``: same blocks, every one read natively."""
+    csv, fs, _, _ = data
+    monkeypatch.setattr(pfaults, "RETRY_BASE_S", 0.0)
+    want = list(ptable.iter_csv_chunks(csv, fs, chunk_rows=100,
+                                       bad_records=ptable.BadRecordPolicy(
+                                           "skip")))
+    pfaults.install(pfaults.FaultInjector.parse("chunk_read@2=raise:OSError"))
+    try:
+        with transfer_ledger() as led, \
+                pytest.warns(RuntimeWarning, match="chunk read"):
+            got = list(ptable.iter_csv_chunks(
+                csv, fs, chunk_rows=100,
+                bad_records=ptable.BadRecordPolicy("skip")))
+    finally:
+        pfaults.uninstall()
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        _table_equal(g, w)
+    assert led.ingest_snapshot() == {"native.blocks": 6,
+                                     "native.rows": sum(c.n_rows
+                                                        for c in got)}
 
 
 # --------------------------------------------------------------------------

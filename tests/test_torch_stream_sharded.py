@@ -127,21 +127,42 @@ def _threads(fn, n, timeout=240):
 @pytest.mark.parametrize("count,chunk", [(1, 64), (2, 64), (3, 64),
                                          (7, 64), (2, 100), (5, 37)])
 def test_shard_streams_equal_the_reference(tmp_path, count, chunk):
+    """Each shard's stream on the port's native reader equals the
+    reference's native shard block for block, and the reference's python
+    shard as one table (its blocks hold ``chunk`` good rows, the native
+    ones ``chunk`` source rows); the port's python shard equals the
+    reference's block for block."""
     schema, jschema = _schemas()
     csv = _write_csv(tmp_path / "d.csv", 499, bad_rows={5, 200, 201})
     whole = []
-    for i in range(count):
-        pol = BadRecordPolicy("skip")
-        got = list(iter_csv_chunks(csv, schema, ",", chunk_rows=chunk,
-                                   bad_records=pol, shard=(i, count)))
-        want = list(jtable.iter_csv_chunks(
-            csv, jschema, ",", chunk_rows=chunk, use_native=False,
+
+    def shard(pkg, use_native, i):
+        if pkg == "port":
+            return list(iter_csv_chunks(
+                csv, schema, ",", chunk_rows=chunk, use_native=use_native,
+                bad_records=BadRecordPolicy("skip"), shard=(i, count)))
+        return list(jtable.iter_csv_chunks(
+            csv, jschema, ",", chunk_rows=chunk, use_native=use_native,
             bad_records=jtable.BadRecordPolicy("skip"), shard=(i, count)))
-        assert [(c.n_rows, c.source_row_end) for c in got] == \
-            [(c.n_rows, c.source_row_end) for c in want]
-        for g, w in zip(got, want):
-            for o in w.columns:
-                np.testing.assert_array_equal(g.columns[o], w.columns[o])
+    for i in range(count):
+        runs = {(pkg, nat): shard(pkg, nat, i)
+                for pkg in ("port", "jax") for nat in (True, False)}
+        for nat in (True, False):
+            got, want = runs["port", nat], runs["jax", nat]
+            assert [(c.n_rows, c.source_row_end) for c in got] == \
+                [(c.n_rows, c.source_row_end) for c in want]
+            for g, w in zip(got, want):
+                for o in w.columns:
+                    np.testing.assert_array_equal(g.columns[o], w.columns[o])
+        got = runs["port", True]
+        if runs["jax", False]:
+            mine = ColumnarTable.from_chunks(got)
+            ref = jtable.ColumnarTable.from_chunks(runs["jax", False])
+            for o in ref.columns:
+                np.testing.assert_array_equal(mine.columns[o],
+                                              ref.columns[o])
+        else:
+            assert sum(c.n_rows for c in got) == 0
         lo, hi = shard_rows(499, i, count, chunk)
         assert all(lo < c.source_row_end <= hi for c in got)
         whole.extend(got)
@@ -187,12 +208,13 @@ def test_shard_composes_with_start_row_and_refuses_stop_row(tmp_path):
     cut = lo + 70
     got = ColumnarTable.from_chunks(list(iter_csv_chunks(
         csv, schema, ",", chunk_rows=64, shard=(1, 2), start_row=cut)))
-    want = jtable.ColumnarTable.from_chunks(list(jtable.iter_csv_chunks(
-        csv, jschema, ",", chunk_rows=64, use_native=False, shard=(1, 2),
-        start_row=cut)))
-    assert got.n_rows == want.n_rows == hi - cut
-    for o in want.columns:
-        np.testing.assert_array_equal(got.columns[o], want.columns[o])
+    for use_native in (False, True):
+        want = jtable.ColumnarTable.from_chunks(list(jtable.iter_csv_chunks(
+            csv, jschema, ",", chunk_rows=64, use_native=use_native,
+            shard=(1, 2), start_row=cut)))
+        assert got.n_rows == want.n_rows == hi - cut
+        for o in want.columns:
+            np.testing.assert_array_equal(got.columns[o], want.columns[o])
     assert list(iter_csv_chunks(csv, schema, ",", chunk_rows=64,
                                 shard=(1, 2), start_row=hi + 5)) == []
     stopped = list(iter_csv_chunks(csv, schema, ",", chunk_rows=64,
@@ -227,13 +249,13 @@ def _port_shards(csv, schema, params, P, rdir, chunk=64, **kw):
     return out
 
 
-def _jax_shards(csv, jschema, params, P, rdir, chunk=64):
+def _jax_shards(csv, jschema, params, P, rdir, chunk=64, use_native=False):
     def shard(i):
         red = JaxAllReducer(spec=JaxShardSpec(i, P), name="rf",
                             transport_dir=rdir, timeout_s=120)
         models = jforest.build_forest_from_stream(
             jtable.iter_csv_chunks(csv, jschema, ",", chunk_rows=chunk,
-                                   use_native=False, shard=(i, P)),
+                                   use_native=use_native, shard=(i, P)),
             jschema, params, ctx=JaxMeshContext(jax_make_mesh(1)),
             reducer=red, fuse=False)
         return [m.to_json() for m in models]
@@ -256,9 +278,12 @@ def test_sharded_build_equals_the_reference_and_one_process(
     single = [m.to_json() for m in build_forest(
         load_csv(csv, schema, ","), _params(), device="cpu")]
     got = _port_shards(csv, schema, _params(), P, str(tmp_path / "p"))
-    want = _jax_shards(csv, jschema, _jax_params(), P, str(tmp_path / "j"))
-    for i in range(P):
-        assert got[i] == want[i] == single
+    for use_native in (False, True):
+        want = _jax_shards(csv, jschema, _jax_params(), P,
+                           str(tmp_path / f"j{use_native}"),
+                           use_native=use_native)
+        for i in range(P):
+            assert got[i] == want[i] == single
 
 
 def test_one_shard_pays_the_reference_collectives(tmp_path, jax_one_device):
@@ -272,13 +297,16 @@ def test_one_shard_pays_the_reference_collectives(tmp_path, jax_one_device):
             iter_csv_chunks(csv, schema, ",", chunk_rows=128, shard=(0, 1)),
             schema, _params(), device="cpu",
             reducer=AllReducer(spec=ShardSpec(0, 1)))
-    with jax_ledger() as jled:
-        jforest.build_forest_from_stream(
-            jtable.iter_csv_chunks(csv, jschema, ",", chunk_rows=128,
-                                   use_native=False, shard=(0, 1)),
-            jschema, _jax_params(), ctx=JaxMeshContext(jax_make_mesh(1)),
-            reducer=JaxAllReducer(spec=JaxShardSpec(0, 1)), fuse=False)
-    assert led.allreduces == jled.snapshot()["allreduces"] == 4
+    for use_native in (False, True):
+        with jax_ledger() as jled:
+            jforest.build_forest_from_stream(
+                jtable.iter_csv_chunks(csv, jschema, ",", chunk_rows=128,
+                                       use_native=use_native, shard=(0, 1)),
+                jschema, _jax_params(),
+                ctx=JaxMeshContext(jax_make_mesh(1)),
+                reducer=JaxAllReducer(spec=JaxShardSpec(0, 1)), fuse=False)
+        assert led.allreduces == jled.snapshot()["allreduces"] == 4
+    assert led.ingest_snapshot() == {"native.blocks": 4, "native.rows": 400}
     assert [m.to_json() for m in got] == [m.to_json() for m in build_forest(
         load_csv(csv, schema, ","), _params(), device="cpu")]
 
@@ -391,26 +419,28 @@ def test_allreduce_partials_equals_the_monolithic_baseline(tmp_path):
                          transport_dir=str(tmp_path / "r"), timeout_s=60)
         return allreduce_partials(b, reducer=red).finalize()
 
-    def jshard(i):
+    def jshard(i, use_native):
         b = jbaseline.BaselineBuilder(jschema)
         for c in jtable.iter_csv_chunks(
-                csv, jschema, ",", chunk_rows=64, use_native=False,
+                csv, jschema, ",", chunk_rows=64, use_native=use_native,
                 bad_records=jtable.BadRecordPolicy("skip"), shard=(i, 3)):
             b.update(c)
-        red = JaxAllReducer(spec=JaxShardSpec(i, 3), name="base",
+        red = JaxAllReducer(spec=JaxShardSpec(i, 3),
+                            name=f"base{int(use_native)}",
                             transport_dir=str(tmp_path / "j"), timeout_s=60)
         return jbaseline.allreduce_partials(b, reducer=red).finalize()
 
     got, errs = _threads(shard, 3)
     assert not errs, errs
-    want, errs = _threads(jshard, 3)
-    assert not errs, errs
-    for i in range(3):
-        assert got[i].n_rows == want[i].n_rows == mono.n_rows == 399
-        np.testing.assert_array_equal(got[i].counts, mono.counts)
-        np.testing.assert_array_equal(got[i].counts, want[i].counts)
-        assert got[i].to_sidecar()["baseline.json"] == \
-            mono.to_sidecar()["baseline.json"]
+    for use_native in (False, True):
+        want, errs = _threads(lambda i: jshard(i, use_native), 3)
+        assert not errs, errs
+        for i in range(3):
+            assert got[i].n_rows == want[i].n_rows == mono.n_rows == 399
+            np.testing.assert_array_equal(got[i].counts, mono.counts)
+            np.testing.assert_array_equal(got[i].counts, want[i].counts)
+            assert got[i].to_sidecar()["baseline.json"] == \
+                mono.to_sidecar()["baseline.json"]
     # one process: the identity; a numeric feature without min/max refuses
     solo = BaselineBuilder(schema, device="cpu")
     assert allreduce_partials(solo) is solo

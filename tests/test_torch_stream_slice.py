@@ -8,8 +8,9 @@ fixture — the input CSV, trees, JSON files, quarantine part file and
 counters byte for byte, ``.npz`` files by arrays and dtypes.  The port's
 streamed job over the fixture's CSV (``-Dplatform=cpu``) must give the same
 bytes and arrays and the same job counter groups (``Random forest``,
-``BadRecords``), and its monolithic job must give the same trees,
-quarantine and published forest."""
+``BadRecords``), reading every block with the native reader, and its
+monolithic job must give the same trees, quarantine and published
+forest."""
 
 import importlib.util
 import json
@@ -142,6 +143,24 @@ def test_port_streamed_job_quarantine_counters_and_checkpoints(
     # steps every 2 blocks and the ingest-complete one; the newest 3 kept
     assert sorted(os.listdir(os.path.join(d, "ck"))) == [
         "step_00000004", "step_00000006", "step_00000007"]
+
+
+def test_port_streamed_job_reads_every_block_natively(port_streamed):
+    """rafo9s is reproduced with the native reader: the 7 ingest blocks
+    (777 source rows each, the bad records dropped inside) and the
+    quantize publish's head sample, all native, none Python."""
+    counters = port_streamed[2]
+    assert counters["IngestReaders"] == {"native.blocks": 8,
+                                         "native.rows": 2 * 4995}
+
+
+def test_port_monolithic_job_records_why_it_read_python(port_monolithic):
+    """The monolithic load under the quarantine policy reads with the
+    Python reader, as the reference does (the policy needs the raw lines);
+    the ledger says so.  The quantize publish's sample reads the whole
+    table already loaded."""
+    assert port_monolithic[2]["IngestReaders"] == {
+        "python.blocks": 1, "python.rows": 4995, "python.policy": 1}
 
 
 @pytest.mark.parametrize("name", TREES + [
