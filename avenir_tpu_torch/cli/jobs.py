@@ -7,10 +7,11 @@ name that is not ported yet raises :class:`JobNotPorted`, and so does a
 ported job given a key of a tier that is not; nothing here dispatches to
 the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (``serving_jobs.py``), ``decisionTreeBuilder`` and ``randomForestBuilder``
-(here: monolithic and streamed training on one process, bad-record
-skip/quarantine, checkpoints and ``--resume``, the registry publish and
-its baseline and int8 sidecars), ``sameTypeSimilarity``, ``nearestNeighbor`` and
-``knnPipeline`` (``knn_jobs.py``), ``driftMonitor`` and
+(here: monolithic and streamed training on one process or several,
+bad-record skip/quarantine, checkpoints and ``--resume``, the registry publish and
+its baseline and int8 sidecars), ``sameTypeSimilarity``,
+``nearestNeighbor``, ``groupedRecordSimilarity`` and ``knnPipeline``
+(``knn_jobs.py``), ``driftMonitor`` and
 ``predictDriftScore`` (``monitor_jobs.py``).
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
@@ -18,16 +19,17 @@ package's classes), which ``cli.run`` enforces in a joined
 ``torch.distributed`` run:
 
 * ``sharded`` — the job reads its own shard and makes global results with
-  explicit collectives (both tree builders; the port runs the streamed
-  ``randomForestBuilder`` row-range sharded and refuses the others);
+  explicit collectives (both tree builders: the streamed
+  ``randomForestBuilder`` row-range sharded over one shared file, the
+  others over per-process files);
 * ``map`` — a per-record transform of the local input; each process writes
   its own part file (``modelPredictor``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
   with ``nen.train.shard=true``);
 * ``gather`` — host-side global computation over every process's input
-  files (``sameTypeSimilarity``, ``nearestNeighbor``): the input spool is
-  not ported, so a joined run refuses them;
+  files (``sameTypeSimilarity``, ``nearestNeighbor``,
+  ``groupedRecordSimilarity``), read from ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
   ``driftMonitor``, ``predictDriftScore``).
 """
@@ -197,22 +199,37 @@ def _cache_policy(cfg: Config, counters: Counters,
 
 
 def _refuse_multi_shard(job: str) -> None:
-    """Raise :class:`JobNotPorted` in a run of more than one shard (an
-    ``AVENIR_TPU_SHARD=i/P`` lane with P > 1, or a joined run) for a
-    training path with no sharded form in the port: the per-level
-    builder, and the forest builders over per-process input files.  A
-    multi-shard launch must never train single-host in silence."""
+    """Raise :class:`JobNotPorted` on the shard lane
+    (``AVENIR_TPU_SHARD=i/P`` with P > 1) for a training path with no form
+    there: the per-level builder, and the monolithic or
+    ``dtb.streaming.shard=off`` forest over per-process files.  The lane's
+    processes share no global arrays (the JAX package trains each of them
+    alone on its own file); a joined run trains these paths with
+    :func:`_joined_reducer`.  A multi-shard launch must never train
+    single-host in silence."""
+    from ..parallel.distributed import shard_spec
+    env = os.environ.get("AVENIR_TPU_SHARD")
+    if env and shard_spec().active:
+        raise JobNotPorted(
+            f"{job} on the shard lane (AVENIR_TPU_SHARD={env}): only the "
+            f"streamed, row-range sharded randomForestBuilder "
+            f"(dtb.streaming.ingest=true) runs on the lane in "
+            f"avenir_tpu_torch; run this path in a joined torch.distributed "
+            f"run, or single-process; refusing to silently train "
+            f"single-host")
+
+
+def _joined_reducer(name: str):
+    """In a joined run (after :func:`_refuse_multi_shard`), the
+    ``parallel.collectives.AllReducer`` over its processes that makes a
+    build over per-process inputs train the model of one process over
+    their concatenation; ``None`` in a single process."""
     from ..parallel.distributed import shard_spec
     spec = shard_spec()
-    if spec.active:
-        env = os.environ.get("AVENIR_TPU_SHARD")
-        where = f"under AVENIR_TPU_SHARD={env}" if env else \
-            f"in a joined run of {spec.count} processes"
-        raise JobNotPorted(
-            f"{job} {where}: only the streamed, row-range sharded "
-            f"randomForestBuilder (dtb.streaming.ingest=true) runs on "
-            f"several processes in avenir_tpu_torch; refusing to silently "
-            f"train single-host")
+    if not spec.active:
+        return None
+    from ..parallel.collectives import AllReducer
+    return AllReducer(spec=spec, name=name)
 
 
 def _tree_params(cfg: Config):
@@ -245,14 +262,20 @@ def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     (tree/DecisionTreeBuilder.java, driven by resource/detr.sh's rotation of
     dtb.decision.file.path.out -> .in between runs).  Records are routed by
     re-evaluating the decision paths, so the output dir just carries the
-    input records forward for script compatibility."""
+    input records forward for script compatibility.
+
+    In a joined run each process reads its own input, the level's counts
+    are summed across the processes, and every process writes the
+    decision paths of one process over the concatenated inputs to
+    ``dtb.decision.file.path.out``; its records go to its own part file."""
     from ..models import tree as T
     _refuse_multi_shard("decisionTreeBuilder")
     counters = Counters()
     schema = _schema_path(cfg, "dtb.feature.schema.file.path")
     table = load_csv(in_path, schema, cfg.field_delim_regex, keep_raw=True,
                      bad_records=_bad_records_policy(cfg, counters, out_path))
-    builder = T.TreeBuilder(table, _tree_params(cfg))
+    builder = T.TreeBuilder(table, _tree_params(cfg),
+                            reducer=_joined_reducer("dt-level"))
     dec_in = cfg.get("dtb.decision.file.path.in")
     dpl = None
     if dec_in:
@@ -262,8 +285,10 @@ def decision_tree_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     with open(cfg.must_get("dtb.decision.file.path.out"), "w") as fh:
         fh.write(new_dpl.to_json())
     if out_path:
+        # this process's own records: its own part file in a joined run
         artifacts.write_text_output(
-            out_path, (cfg.field_delim_out.join(r) for r in table.raw_rows))
+            out_path, (cfg.field_delim_out.join(r) for r in table.raw_rows),
+            local_shard=True)
     counters.increment("Decision tree", "Paths", len(new_dpl.decision_paths))
     return counters
 
@@ -302,11 +327,17 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     (``iter_csv_chunks(shard=)``) and sums one stacked count array a tree
     level with its peers (``parallel.collectives.AllReducer``): every
     process trains the single-process forest.  ``on`` refuses a run of
-    one shard; ``off``, and the monolithic build, refuse a run of several
-    (per-process input files are not ported).  Each shard checkpoints
-    under ``<dir>/shard-<i>-of-<P>``; the baseline's partial counts are
-    summed before publishing; shard 0 of process 0 alone publishes and
-    sets ``Shard/Count``.
+    one shard.  In a joined run, the monolithic build and
+    ``off`` train over per-process input files the same way: the row
+    counts are exchanged once, the bootstrap is drawn over the global
+    count, and every process trains the forest of one process over the
+    files concatenated in process order (the JAX package draws each
+    process's bootstrap over its own rows instead; ROADMAP §C).  The
+    shard lane refuses them.  Each shard checkpoints under
+    ``<dir>/shard-<i>-of-<P>``; the baseline's partial counts are summed
+    before publishing; shard 0 of process 0 alone publishes, with the
+    quantize budget held on its own rows, and sets ``Shard/Count`` in a
+    row-range sharded build.
 
     ``dtb.streaming.cache.policy`` (off|use|build|require, + ``.dir``)
     slots the columnar cache sidecar under the streamed ingest
@@ -366,11 +397,12 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
                          "build can row-range shard)")
     spec = shard_spec()
     sharded = streamed and shard_knob != "off" and spec.active
+    reducer = None
     if not sharded:
         _refuse_multi_shard("randomForestBuilder"
                             + (" with dtb.streaming.shard=off"
                                if streamed else ""))
-    stream_reducer = None
+        reducer = _joined_reducer("rf-joined")
     if streamed:
         from ..core.checkpoint import CheckpointManager
         from ..core.table import iter_csv_chunks, prefetch_chunks
@@ -383,12 +415,12 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
         cfg.get_boolean("dtb.pipeline.fuse", True)   # accepted, see above
         if sharded:
             from ..parallel.collectives import AllReducer
-            stream_reducer = AllReducer(spec=spec, name="rf-stream")
+            reducer = AllReducer(spec=spec, name="rf-stream")
             # set by shard 0 alone: a joined run's counter all-reduce sums
             if spec.index == 0:
                 counters.set("Shard", "Count", spec.count)
         ckpt_dir = cfg.get("dtb.streaming.checkpoint.dir")
-        if ckpt_dir and sharded:
+        if ckpt_dir and reducer is not None:
             # per-shard step dirs: shards saving into one dir would race
             # on the same step names
             ckpt_dir = os.path.join(
@@ -432,27 +464,27 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
         models = build_forest_from_stream(
             blocks, schema, params, checkpoint=mgr, checkpoint_every=every,
             resume_state=resume_state, baseline=baseline_builder,
-            reducer=stream_reducer)
+            reducer=reducer)
     else:
         table = load_csv(in_path, schema, cfg.field_delim_regex,
                          bad_records=policy)
         if baseline_builder is not None:
             baseline_builder.update(table)
-        models = build_forest(table, params)
+        models = build_forest(table, params, reducer=reducer)
     os.makedirs(out_path, exist_ok=True)
     for i, dpl in enumerate(models):
         with open(os.path.join(out_path, f"tree_{i}.json"), "w") as fh:
             fh.write(dpl.to_json())
     # every process trains the same forest; the registry has one writer
-    publish = process_index() == 0 and (stream_reducer is None
-                                        or stream_reducer.spec.index == 0)
+    publish = process_index() == 0 and (reducer is None
+                                        or reducer.spec.index == 0)
     baseline = None
     if reg_dir and baseline_builder is not None:
         # a collective: every shard sums its partial counts first, then
         # only the publisher writes
         from ..monitor.baseline import allreduce_partials
         baseline = allreduce_partials(baseline_builder,
-                                      reducer=stream_reducer).finalize()
+                                      reducer=reducer).finalize()
     if reg_dir and publish:
         from ..serving.registry import ModelRegistry
         registry = ModelRegistry(reg_dir)

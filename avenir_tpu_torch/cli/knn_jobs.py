@@ -5,12 +5,17 @@ then avenir's NearestNeighbor), from ``avenir_tpu/cli/jobs.py``:
   ``trainId,testId,dist[,trainClass,testClass]``;
 * ``nearestNeighbor`` — groups those lines per test row and classifies or
   regresses;
+* ``groupedRecordSimilarity`` — the all-pairs distance within each group of
+  records sharing the group fields;
 * ``knnPipeline`` — the fused in-process flow: distance + top-k on the
   device (kernel B5), then the vote.  Under a runtime context of several
   devices (``-Dplatform=cuda`` on a host with several GPUs, or a mesh the
   caller installed) the train rows shard over them (kernel B7).
 
-Over processes ``knnPipeline`` is a partition job: each process classifies
+``sameTypeSimilarity``, ``nearestNeighbor`` and ``groupedRecordSimilarity``
+are gather jobs: in a joined run every process computes the whole answer
+over the union of the processes' inputs (``cli.run``'s spool).  Over
+processes ``knnPipeline`` is a partition job: each process classifies
 its ``work_slice`` of the test rows against the whole train set and writes
 its own part file, or, with ``nen.train.shard=true``, scans every test row
 against its row range of the train set and merges the lists with its peers
@@ -107,6 +112,59 @@ def same_type_similarity(cfg: Config, in_path: str, out_path: str
             lines.append(od.join(parts))
     artifacts.write_text_output(out_path, lines)
     counters.increment("Similarity", "Pairs", len(lines))
+    return counters
+
+
+@register("org.avenir.spark.similarity.GroupedRecordSimilarity",
+          "groupedRecordSimilarity", dist="gather")
+def grouped_record_similarity(cfg: Config, in_path: str, out_path: str
+                              ) -> Counters:
+    """Per-group all-pairs record distance
+    (spark/.../similarity/GroupedRecordSimilarity.scala:34-103): records
+    grouped by ``grs.group.field.ordinals``; within each group, in sorted
+    group order, every unordered pair (i < j) gets the mixed-type distance
+    of ``DistanceComputer.pairwise``, euclidean in the top-k order.
+
+    The JAX package pads each group to a power of two rows for its compile
+    cache, and XLA's CPU dot takes its summation order from the padded
+    shape: over four numeric features the top-k order at 4 rows and at
+    64 and more, other orders at 8-32, where a distance can differ by one
+    or two (ROADMAP §C).  No shape changes the order here, so groups are
+    not padded.
+
+    Output lines ``group...,firstId,secondId,distance``."""
+    from ..ops.distance import DistanceComputer
+    counters = Counters()
+    schema = _schema_path(cfg, "sts.same.schema.file.path")
+    delim = cfg.field_delim_regex
+    od = cfg.field_delim_out
+    scale = cfg.get_int("sts.distance.scale", 1000)
+    metric = cfg.get("sts.distance.metric", "euclidean")
+    group_ords = [int(x) for x in cfg.must_get_list("grs.group.field.ordinals")]
+    split_line = _splitter(delim)
+    groups: Dict[str, List[str]] = {}
+    for line in artifacts.read_text_input(in_path):
+        items = split_line(line)
+        groups.setdefault(od.join(items[o] for o in group_ords),
+                          []).append(line)
+    comp = DistanceComputer(schema, metric=metric, scale=scale)
+    id_ord = schema.id_fields[0].ordinal if schema.id_fields else 0
+    out_lines: List[str] = []
+    for gkey in sorted(groups):
+        glines = groups[gkey]
+        n = len(glines)
+        if n < 2:
+            continue
+        table = load_csv_text("\n".join(glines), schema, delim)
+        dmat = comp.pairwise(table, table, topk_order=True)
+        ids = table.str_columns.get(id_ord, [str(i) for i in range(n)])
+        for i in range(n):
+            for j in range(i + 1, n):
+                out_lines.append(od.join(
+                    [gkey, ids[i], ids[j], str(int(dmat[i, j]))]))
+        counters.increment("Similarity", "Groups", 1)
+    counters.increment("Similarity", "Pairs", len(out_lines))
+    artifacts.write_text_output(out_path, out_lines)
     return counters
 
 

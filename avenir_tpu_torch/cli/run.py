@@ -25,7 +25,9 @@ through the file transport.  In either, each process drives one card,
 ``parallel.mesh.worker_device`` of its local index, and a joined run sums
 the counters across processes (not for ``gather`` jobs, whose counters are
 global already); process 0 prints them and shard 0 alone writes
-``counters.json``.
+``counters.json``.  A joined ``gather`` or ``partition`` job over distinct
+per-process inputs reads them from a spool directory that holds every
+process's files (:func:`_apply_dist_mode`), removed when the job ends.
 """
 
 from __future__ import annotations
@@ -33,8 +35,10 @@ from __future__ import annotations
 import glob
 import hashlib
 import os
+import shutil
 import sys
-from typing import List, Optional
+import tempfile
+from typing import List, Optional, Tuple
 
 from ..core.config import Config, load_config
 from . import jobs
@@ -109,11 +113,13 @@ def file_sha(path: str, full: bool) -> str:
 
 
 def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
-                     cfg: Optional[Config] = None) -> Optional[str]:
+                     cfg: Optional[Config] = None
+                     ) -> Tuple[Optional[str], Optional[str]]:
     """Enforce the job's multi-process mode in a joined run (the identity
-    in a single process).  ``sharded`` and ``map`` jobs read their own
-    input; ``partition`` jobs need one global input; ``gather`` jobs
-    (their input spool is not ported) and ``refuse`` jobs raise.
+    in a single process): ``sharded`` and ``map`` jobs read their own
+    input; ``gather`` and ``partition`` jobs see the global input on every
+    process; ``refuse`` jobs raise.  Returns ``(input path, spool dir or
+    None)``; the caller removes the spool after the job.
 
     One digest exchange tells an input that is identical on every process
     (a shared-filesystem launch) from per-process inputs:
@@ -124,22 +130,23 @@ def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
       for a job that splits one shared file by row range itself
       (``jobs.shards_by_row_range``), which in turn refuses distinct
       inputs (each process would split its own file and drop rows);
-    * ``partition``: identical inputs are used as they are; distinct ones
-      would need the gather spool, not ported.
+    * ``gather`` / ``partition``: an identical input already is the
+      global one and is used as it is.  Distinct inputs are exchanged
+      (``distributed.allgather_files``, which fails on every process if
+      any read fails) and written to a spool directory of
+      ``<basename>.p<process>`` files (``distributed.spool_name``): the
+      basenames stay, since the similarity jobs key the train set on
+      their prefix.  Their digest hashes whole files.
 
     Processes that disagree on whether an input was given at all raise on
     every process instead of leaving half of them in a collective."""
-    from ..parallel.distributed import allgather_object, is_multiprocess
+    from ..parallel.distributed import (allgather_files, allgather_object,
+                                        is_multiprocess, process_index,
+                                        spool_name)
     if not is_multiprocess():
-        return in_path
+        return in_path, None
     mode = jobs.dist_mode(fn)
-    if mode == "gather":
-        raise jobs.JobNotPorted(
-            f"job {job_name} (dist mode 'gather') in a joined run: the "
-            f"input spool that gives every process the union of the "
-            f"processes' inputs is not ported to avenir_tpu_torch yet; run "
-            f"it single-process")
-    if mode not in ("sharded", "map", "partition"):
+    if mode not in ("sharded", "gather", "map", "partition"):
         raise RuntimeError(
             f"job {job_name} is not multi-process safe (dist mode "
             f"{mode!r}): running it in a joined run would emit shard-local "
@@ -151,9 +158,12 @@ def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
                        if os.path.isfile(p))
     else:
         paths = [in_path]
+    # gather and partition jobs need the global input view: a difference
+    # anywhere in a file matters
+    full = mode in ("gather", "partition")
     digest = hashlib.sha256(repr(
-        [(os.path.basename(p), file_sha(p, mode == "partition"))
-         for p in paths]).encode()).hexdigest()
+        [(os.path.basename(p), file_sha(p, full)) for p in paths]
+    ).encode()).hexdigest()
     meta = allgather_object((in_path is not None, digest))
     flags = [has for has, _ in meta]
     if len(set(flags)) > 1:
@@ -161,16 +171,31 @@ def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
             f"job {job_name}: processes disagree on whether an input path "
             f"was given ({flags}); fix the per-process argv")
     if in_path is None:
-        return None
+        return None, None
     identical = len({d for _, d in meta}) == 1
-    if mode == "partition":
-        if not identical:
-            raise jobs.JobNotPorted(
-                f"job {job_name} (dist mode 'partition') with distinct "
-                f"per-process inputs needs the input spool, which is not "
-                f"ported to avenir_tpu_torch yet; give every process the "
-                f"same input")
-        return in_path
+    if full:
+        if identical:
+            if process_index() == 0:
+                print(f"[dist] {job_name}: input identical on all "
+                      f"{len(meta)} processes; using it as-is (no gather)",
+                      file=sys.stderr)
+            return in_path, None
+        gathered = allgather_files(paths, f"job {job_name}: input gather")
+        spool = tempfile.mkdtemp(prefix="avenir_dist_gather_")
+        try:
+            for proc, files in enumerate(gathered):
+                for base, data in files:
+                    with open(os.path.join(spool, spool_name(base, proc)),
+                              "wb") as fh:
+                        fh.write(data)
+        except OSError:
+            shutil.rmtree(spool, ignore_errors=True)
+            raise
+        if process_index() == 0:
+            print(f"[dist] {job_name}: gathered "
+                  f"{sum(len(f) for f in gathered)} input file(s) from "
+                  f"{len(gathered)} processes", file=sys.stderr)
+        return spool, spool
     row_range = cfg is not None and jobs.shards_by_row_range(fn, cfg)
     if row_range and not identical:
         raise RuntimeError(
@@ -189,7 +214,7 @@ def _apply_dist_mode(fn, job_name: str, in_path: Optional[str],
             f"{len(meta)}x inflated.  Give each process its own input "
             f"shard (or set AVENIR_TPU_ALLOW_IDENTICAL_SHARDS=1 if the "
             f"shards are genuinely identical)")
-    return in_path
+    return in_path, None
 
 
 def _process_device():
@@ -247,8 +272,9 @@ def main(argv: Optional[List[str]] = None) -> int:
     # so one in-process run cannot leak it into the next
     set_default_device(platform_device(platform) if platform else None)
     own_ctx = False
+    spool = None
     try:
-        in_path = _apply_dist_mode(fn, job_name, in_path, cfg)
+        in_path, spool = _apply_dist_mode(fn, job_name, in_path, cfg)
         own_ctx = _process_device()
         timer = StepTimer()
         with transfer_ledger() as ledger:
@@ -272,6 +298,10 @@ def main(argv: Optional[List[str]] = None) -> int:
         set_default_device(None)
         if own_ctx:
             set_runtime_context(None)
+        if spool is not None:
+            # a spool holds a copy of the global input; chained jobs must
+            # not pile them up
+            shutil.rmtree(spool, ignore_errors=True)
     return 0
 
 

@@ -321,17 +321,18 @@ class ForestBuilder:
 
     def __init__(self, table: Optional[ColumnarTable], params: ForestParams,
                  device=None, profile=None,
-                 base: Optional[TreeBuilder] = None):
+                 base: Optional[TreeBuilder] = None, reducer=None):
         """``profile`` (a ``utils.tracing.LayerProfile``) times the layers
         of each level.  ``base`` injects a built TreeBuilder (one
         assembled by ``TreeBuilder.from_stream`` over CSV row blocks); it
         must carry ``replace(params.tree, seed=params.seed)``.  Otherwise
-        the builder is constructed from ``table``."""
+        the builder is constructed from ``table``, data-parallel over
+        processes with a ``reducer`` (``TreeBuilder``)."""
         self.params = params
         self.profile = profile
         self.base = base if base is not None else TreeBuilder(
             table, replace(params.tree, seed=params.seed), device,
-            profile=profile)
+            profile=profile, reducer=reducer)
         self.tree_builders = [
             self.base.with_params(
                 replace(params.tree, seed=params.seed + 1000 * (t + 1)))
@@ -439,22 +440,29 @@ class ForestBuilder:
 
 
 def build_forest(table: ColumnarTable, params: ForestParams, device=None,
-                 batched: bool = True,
-                 profile=None) -> List[DecisionPathList]:
+                 batched: bool = True, profile=None,
+                 reducer=None) -> List[DecisionPathList]:
     """Train num_trees trees, each with an independent bootstrap + RNG
     (the rafo.sh per-tree rerun loop, in-process), on ``device`` (default:
     the process device, ``cuda`` unless asked otherwise).  ``batched=True``
     (the default) advances all trees level by level through one shared
     histogram; ``batched=False`` is the sequential per-tree loop, whose
     counts take the single-tree semantics of the reference for rows of
-    unknown class (``TreeBuilder.level_counts``)."""
+    unknown class (``TreeBuilder.level_counts``).
+
+    ``reducer`` (a ``parallel.collectives.AllReducer``) trains over
+    processes that each hold their own ``table``: one row-count allgather,
+    one count all-reduce a level, and every process returns the forest of
+    one process over the tables concatenated in process order
+    (``TreeBuilder``)."""
     device = resolve_device(device)
     if batched:
-        return ForestBuilder(table, params, device, profile=profile).build_all()
+        return ForestBuilder(table, params, device, profile=profile,
+                             reducer=reducer).build_all()
     models: List[DecisionPathList] = []
     # data is encoded and branch codes computed once; each tree shares them
     base_builder = TreeBuilder(table, replace(params.tree, seed=params.seed),
-                               device, profile=profile)
+                               device, profile=profile, reducer=reducer)
     for t in range(params.num_trees):
         tree_params = replace(params.tree, seed=params.seed + 1000 * (t + 1))
         models.append(base_builder.with_params(tree_params).build())

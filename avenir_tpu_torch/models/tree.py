@@ -1056,10 +1056,20 @@ class TreeBuilder:
     ``build()`` runs the whole iterative loop (the reference's shell-script
     rotation detr.sh:35-41 collapsed into Python), ``build_one_level()``
     runs a single level for the per-level job.  ``profile`` (a
-    ``utils.tracing.LayerProfile``) times the layers of each level."""
+    ``utils.tracing.LayerProfile``) times the layers of each level.
+
+    ``reducer`` (a ``parallel.collectives.AllReducer``) makes the build
+    data-parallel over processes that each hold their own ``table``, the
+    processes' tables in process order being the whole input: one
+    allgather of the row counts gives the global count (the bootstrap
+    draw's denominator) and this process's offset into the globally drawn
+    weights, and each level's counts are summed across the processes, as
+    in :meth:`from_stream`.  Every process then trains the model of one
+    process over the concatenated tables, bootstrap included, whatever
+    the tables' sizes."""
 
     def __init__(self, table: ColumnarTable, params: TreeParams,
-                 device=None, profile=None):
+                 device=None, profile=None, reducer=None):
         self.device = resolve_device(device)
         self.params = params
         self.profile = profile
@@ -1072,8 +1082,16 @@ class TreeBuilder:
         self.rng = np.random.default_rng(params.seed)
         self.pyrng = pyrandom.Random(params.seed)
         # one device: no pad rows, every row is valid
-        self.n_rows = self.n_padded = table.n_rows
+        self.n_rows = self.n_padded = self._local_rows = table.n_rows
         self.mask_np = np.ones((table.n_rows,), np.float32)
+        self._reducer = reducer
+        self._row_offset = 0
+        if reducer is not None:
+            per_shard = reducer.allgather(int(table.n_rows))
+            self._row_offset = int(sum(per_shard[:reducer.spec.index]))
+            self.n_rows = int(sum(per_shard))
+            if self.n_rows == 0:
+                raise ValueError("TreeBuilder: no process holds any rows")
         cls_np = np.ascontiguousarray(
             table.columns[self.class_field.ordinal].astype(np.int32))
         with layer(profile, "branch_codes"):
@@ -1085,7 +1103,6 @@ class TreeBuilder:
             self.branches = self.split_set.branch_codes(
                 torch.from_numpy(X).to(self.device))
         self._w_max = 1.0
-        self._reducer = None
         # splits grouped by attr for selection strategies
         self.splits_by_attr: Dict[int, List[int]] = {}
         for i, s in enumerate(self.splits):

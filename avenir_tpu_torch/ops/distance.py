@@ -290,14 +290,16 @@ class DistanceComputer:
             raise ValueError(f"unknown metric {self.metric!r}")
 
     def pairwise(self, test: ColumnarTable, train: ColumnarTable,
-                 tile: int = 4096) -> np.ndarray:
-        """(n_test, n_train) int32 scaled distances (euclidean in the
-        pairwise order), computed ``tile`` test rows at a time."""
+                 tile: int = 4096, topk_order: bool = False) -> np.ndarray:
+        """(n_test, n_train) int32 scaled distances, computed ``tile`` test
+        rows at a time: euclidean in the pairwise order, or with
+        ``topk_order`` in the top-k order (:func:`euclid_topk`)."""
         self._check_metric()
         tn, toh = self.encode(test)
         self._encode_train(train)
         rn_d, roh_d = self.train_device()
-        body = euclid_pairwise if self.metric == "euclidean" else manhattan
+        body = manhattan if self.metric == "manhattan" else \
+            euclid_topk if topk_order else euclid_pairwise
         out = np.zeros((tn.shape[0], rn_d.shape[0]), dtype=np.float32)
         for s in range(0, tn.shape[0], tile):
             e = min(s + tile, tn.shape[0])

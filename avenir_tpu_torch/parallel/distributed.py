@@ -20,6 +20,10 @@ contiguous source-row range a shard, aligned to the ingest block grid.
 process.  Every multi-process job keeps the reference's contract: each
 process trains the model a single process trains, bit for bit.
 
+A ``gather`` job's input spool rests on :func:`allgather_files` (every
+process's input files as bytes, one exchange) and :func:`spool_name` (the
+rank-ordered file names the spool directory holds).
+
 Each process drives its own card (``parallel.mesh.worker_device`` of
 :func:`local_index`); on a machine with one GPU the ranks share it.
 
@@ -34,7 +38,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -230,6 +234,39 @@ def allgather_object(obj):
     out = [None] * d.get_world_size()
     d.all_gather_object(out, obj)
     return out
+
+
+def allgather_files(paths: Sequence[str], what: str = "input gather"
+                    ) -> List[List[Tuple[str, bytes]]]:
+    """Every process's files as ``(basename, bytes)`` pairs, in process
+    order: one :func:`allgather_object` of this process's files read as
+    bytes (a byte that does not decode must not raise on one process while
+    its peers wait in the collective), together with this process's read
+    error.  A read error on any process raises ``RuntimeError`` on every
+    process, naming each failed one, so none is left in a collective."""
+    err, local = None, []
+    try:
+        for p in paths:
+            with open(p, "rb") as fh:
+                local.append((os.path.basename(p), fh.read()))
+    except Exception as exc:   # MemoryError too: any escape before the
+        # collective would leave the peers blocked in it
+        err = f"process {process_index()}: {type(exc).__name__}: {exc}"
+        local = []
+    gathered = allgather_object((err, local))
+    errors = [e for e, _ in gathered if e]
+    if errors:
+        raise RuntimeError(f"{what} failed on {len(errors)} process(es): "
+                           + "; ".join(errors))
+    return [files for _, files in gathered]
+
+
+def spool_name(basename: str, proc: int) -> str:
+    """The name of process ``proc``'s file ``basename`` in a gather spool:
+    ``<basename>.p<proc>``.  The basename is kept (the similarity jobs key
+    the train set on its prefix) and the suffix keeps two processes' files
+    of one name apart."""
+    return f"{basename}.p{proc}"
 
 
 def all_reduce_host_array(x) -> np.ndarray:

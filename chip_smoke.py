@@ -335,6 +335,41 @@ order — any failure exits non-zero before the result line:
               part-m-00000 and part-m-00001, which concatenate to pred.csv
  36. cards    with several GPUs visible, phases 31 and 35 again with each
               process on its own card (with one, a line says so)
+ 38-41        the joined run over per-process inputs, each process a
+              --joined-child on the card running its jobs in order with
+              the launch counts zeroed before each job and read after:
+              one child runs one process's jobs, then two gloo ranks
+              (torchrun's environment, one card) run theirs; no rank may
+              leave a gather spool in its TMPDIR
+ 38. joined   phase 30's CSV split 500,000 + 500,000 and 600,000 +
+     mono     400,000 rows, randomForestBuilder monolithic with the rafo
+              keys (withReplace), a published baseline and the int8
+              sidecar, then dtb.streaming.shard=off over the halves at
+              262,144-row blocks: every rank writes the trees of one
+              process's job on the whole CSV (which are phase 30's), and
+              rank 0's registry version is that job's (meta.json and
+              baseline.json bytes; arrays, baseline and quantized npz
+              arrays; quantized.json holds the mismatch on rank 0's rows);
+              B1 all mma with launches = levels (the count all-reduces)
+              on each rank, B4 1 a rank (2 streamed), B2 and B3 on rank 0
+              only; prints rows/s against the one-process job, each
+              rank's load_s and build_s and the all-reduce ms a level
+ 39. joined   four levels of the detr.sh rotation over the first 200,000
+     dt       rows split in halves: every rank writes one process's
+              decision paths at every level, the ranks' record parts
+              concatenate to its part file, B1 one mma launch a level a
+              rank
+ 40. joined   sameTypeSimilarity, nearestNeighbor and
+     gather   groupedRecordSimilarity over distinct per-rank inputs
+              (elearn rows, the golden knn distance lines split in two):
+              every rank's output equals one process's job over a
+              directory laid out as the spool (<basename>.p<rank>); then
+              both ranks given one identical input: no spool, the same
+              output
+ 41. joined   knnPipeline over phase 34's 20,000 test x 200,000 train rows
+     knn      split between the ranks as distinct files: the two part
+              files concatenate to phase 34's one-process predictions; B5
+              one launch a test chunk on each rank
  37. cache    phase 30's CSV through the randomForestBuilder job in two
               --cache-child processes (streamed, 262,144-row blocks, a
               published baseline): cold with
@@ -353,7 +388,9 @@ The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
 times, B4's 2,048-row block and empty-launch times, and each kernel's
-launches a process on the multi-process paths); the last line is
+launches a process on the multi-process paths: ``joined_mono_*``,
+``joined_unequal_*``, ``joined_stream_off_*``, ``joined_dt_*`` and
+``joined_knn_*`` are phases 38-41's, one entry a rank); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -2521,15 +2558,11 @@ def cli_child(counts_path, *args):
     A first argument ``--python-reader`` runs the job on the Python
     reader (:class:`python_reader`)."""
     from avenir_tpu_torch.cli import run as cli_run
-    from avenir_tpu_torch.kernels import histogram, topk, vote
     args = list(args)
     python = args[:1] == ["--python-reader"]
     if python:
         args = args[1:]
-    histogram.launches = histogram.mma_launches = 0
-    histogram.bin_counts_launches = 0
-    vote.launches = vote.quantized_launches = vote.table_launches = 0
-    topk.launches = topk.merge_launches = topk.split_merge_launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     if python:
         with python_reader():
@@ -2538,14 +2571,27 @@ def cli_child(counts_path, *args):
         rc = cli_run.main(args)
     wall = time.perf_counter() - t0
     with open(counts_path, "w") as fh:
-        json.dump({"b1": histogram.launches,
-                   "b1_mma": histogram.mma_launches,
-                   "b4": histogram.bin_counts_launches,
-                   "b2": vote.launches, "b3": vote.quantized_launches,
-                   "b5": topk.launches, "b7_merge": topk.merge_launches,
-                   "b5_split_merge": topk.split_merge_launches,
-                   "wall_s": wall}, fh)
+        json.dump({**launch_counts(), "wall_s": wall}, fh)
     sys.exit(rc)
+
+
+def zero_launches():
+    """Every kernel wrapper's launch count set to 0."""
+    from avenir_tpu_torch.kernels import histogram, topk, vote
+    histogram.launches = histogram.mma_launches = 0
+    histogram.bin_counts_launches = 0
+    vote.launches = vote.quantized_launches = vote.table_launches = 0
+    topk.launches = topk.merge_launches = topk.split_merge_launches = 0
+
+
+def launch_counts():
+    """The kernel wrappers' launch counts since :func:`zero_launches`."""
+    from avenir_tpu_torch.kernels import histogram, topk, vote
+    return {"b1": histogram.launches, "b1_mma": histogram.mma_launches,
+            "b4": histogram.bin_counts_launches,
+            "b2": vote.launches, "b3": vote.quantized_launches,
+            "b5": topk.launches, "b7_merge": topk.merge_launches,
+            "b5_split_merge": topk.split_merge_launches}
 
 
 def run_children(cmds, timeout=300):
@@ -3126,14 +3172,408 @@ def joined_lane(layout, one_card):
             "allreduces": dump["Collectives"]["AllReduces"]}
 
 
+# --------------------------------------------------------------------------
+# phases 38-41: the joined run over per-process inputs
+# --------------------------------------------------------------------------
+
+JOINED_DT_ROWS = 200_000
+JOINED_DT_LEVELS = 4
+JOINED_MONO_KEYS = ("-Ddtb.model.name=hangup", "-Ddtb.baseline.publish=true",
+                    "-Ddtb.model.quantize=true")
+
+
+def joined_child(spec_path, result_path):
+    """One process of phases 38-41 (``--joined-child``): after a warm-up,
+    the spec's jobs in order, each through ``cli.run.main`` with its own
+    ``MASTER_PORT`` in a joined run (torchrun's other keys in the
+    environment), the launch counts zeroed just before each job and read
+    just after.  The job's load and build times come from wrappers around
+    ``load_csv``, ``build_forest`` and ``build_forest_from_stream``, each
+    count all-reduce's wall from one around ``AllReducer.sum``, and the
+    joined run's set-up and tear-down (``join_s``, ``leave_s``) from ones
+    around ``distributed.initialize`` and ``distributed.leave``.  Writes
+    one JSON record a job to ``result_path``."""
+    import torch
+    from avenir_tpu_torch.cli import jobs as cli_jobs
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.models import forest
+    from avenir_tpu_torch.monitor.baseline import BaselineBuilder
+    from avenir_tpu_torch.parallel import collectives, distributed
+    cfg = load_config(os.path.join(RES, "rafo.properties"))
+    params = forest.ForestParams(tree=_tree_params(cfg),
+                                 num_trees=cfg.get_int("dtb.num.trees"),
+                                 seed=cfg.get_int("dtb.random.seed"))
+    fs = FeatureSchema.load(os.path.join(RES, "call_hangup.json"))
+    dev = torch.device("cuda", 0)
+    warm = hangup_table(np.random.default_rng(1), 4096, fs)
+    forest.build_forest(warm, params, device=dev)
+    BaselineBuilder(fs, device=dev).update(warm).finalize()
+    torch.cuda.synchronize()
+    times = {}
+
+    def timed(key, fn):
+        def wrapper(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                times[key] = times.get(key, 0.0) + time.perf_counter() - t0
+        return wrapper
+
+    def streamed(fn):
+        def wrapper(*args, **kwargs):
+            stats = kwargs.setdefault("stats", {})
+            out = fn(*args, **kwargs)
+            times["load_s"] = stats["ingest_wall_s"]
+            times["build_s"] = stats["build_s"]
+            return out
+        return wrapper
+    sums = []
+    reduce_sum = collectives.AllReducer.sum
+
+    def timed_sum(self, arr):
+        t0 = time.perf_counter()
+        out = reduce_sum(self, arr)
+        sums.append(time.perf_counter() - t0)
+        return out
+    distributed.initialize = timed("join_s", distributed.initialize)
+    distributed.leave = timed("leave_s", distributed.leave)
+    cli_jobs.load_csv = timed("load_s", cli_jobs.load_csv)
+    forest.build_forest = timed("build_s", forest.build_forest)
+    forest.build_forest_from_stream = streamed(
+        forest.build_forest_from_stream)
+    collectives.AllReducer.sum = timed_sum
+    results = []
+    for run in read_json(spec_path)["runs"]:
+        if run["port"] is not None:
+            os.environ["MASTER_PORT"] = str(run["port"])
+        times.clear()
+        sums.clear()
+        zero_launches()
+        t0 = time.perf_counter()
+        rc = cli_run.main(run["argv"])
+        wall = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        results.append({"name": run["name"], "rc": rc, "wall_s": wall,
+                        **launch_counts(), **times,
+                        "allreduce_ms": [t * 1e3 for t in sums]})
+    with open(result_path, "w") as fh:
+        json.dump(results, fh)
+
+
+def split_lines(src, cuts, dests):
+    """Write the lines of ``src`` between consecutive ``cuts`` to
+    ``dests``, one file each."""
+    with open(src, "rb") as fh:
+        lines = fh.read().splitlines(True)
+    for lo, hi, dest in zip(cuts, cuts[1:], dests):
+        os.makedirs(os.path.dirname(dest), exist_ok=True)
+        with open(dest, "wb") as fh:
+            fh.write(b"".join(lines[lo:hi]))
+
+
+def spool_layout(dest, per_rank):
+    """A directory laid out as the gather spool: each file of rank r's
+    input (a file, or a directory's files) as ``<basename>.p<r>``."""
+    from avenir_tpu_torch.parallel.distributed import spool_name
+    os.makedirs(dest)
+    for rank, src in enumerate(per_rank):
+        files = [os.path.join(src, b) for b in sorted(os.listdir(src))] \
+            if os.path.isdir(src) else [src]
+        for f in files:
+            shutil.copy(f, os.path.join(
+                dest, spool_name(os.path.basename(f), rank)))
+    return dest
+
+
+def joined_phases(scale_csv, single_trees, knn_base):
+    """Phases 38-41: jobs over per-process inputs on two gloo ranks (one
+    card), each held against one process's job on the concatenated input
+    or on a directory laid out as the spool; one child runs every
+    single-process job, then two joined children run the ranks' jobs.
+    Returns their launch counts for the kernels line."""
+    import torch
+    phase("38-41 joined run over per-process inputs: preparing inputs and "
+          "running one process's jobs, then two ranks'")
+    t_start = time.perf_counter()
+    base = os.path.join(WORK, "joined_inputs")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    n = STREAM_SCALE_ROWS
+    half = [os.path.join(base, f"half{i}.csv") for i in range(2)]
+    uneq = [os.path.join(base, f"uneq{i}.csv") for i in range(2)]
+    split_lines(scale_csv, [0, n // 2, n], half)
+    split_lines(scale_csv, [0, 6 * n // 10, n], uneq)
+    dt_src = os.path.join(base, "dt.csv")
+    dt = [os.path.join(base, f"dt{i}.csv") for i in range(2)]
+    split_lines(scale_csv, [0, JOINED_DT_ROWS], [dt_src])
+    split_lines(scale_csv, [0, JOINED_DT_ROWS // 2, JOINED_DT_ROWS], dt)
+    rng = np.random.default_rng(20261021)
+    sim, grs = [], []
+    for i in range(2):
+        sim.append(os.path.join(base, f"sim{i}"))
+        os.makedirs(sim[i])
+        write_elearn_csv(elearn_columns(rng, 300), f"S{i}",
+                         os.path.join(sim[i], "tr_part"))
+        write_elearn_csv(elearn_columns(rng, 100), f"T{i}",
+                         os.path.join(sim[i], "test_part"))
+        grs.append(os.path.join(base, f"grs{i}.csv"))
+        write_elearn_csv(elearn_columns(rng, 400), f"G{i}", grs[i])
+    with open(os.path.join(KNN_GOLDEN, "dist.csv"), "rb") as fh:
+        n_dist = len(fh.read().splitlines())
+    nn = [os.path.join(base, f"nn{i}", "dist.csv") for i in range(2)]
+    split_lines(os.path.join(KNN_GOLDEN, "dist.csv"),
+                [0, n_dist // 2, n_dist], nn)
+    n_test, n_train, k = KNN_SCALE
+    knn_data = os.path.join(knn_base, "data")
+    kn = [os.path.join(base, f"knn{i}") for i in range(2)]
+    split_lines(os.path.join(knn_data, "tr_train.csv"),
+                [0, n_train // 2, n_train],
+                [os.path.join(d, "tr_train.csv") for d in kn])
+    split_lines(os.path.join(knn_data, "test.csv"),
+                [0, n_test // 2, n_test],
+                [os.path.join(d, "test.csv") for d in kn])
+    spools = {name: spool_layout(os.path.join(base, f"spool_{name}"), src)
+              for name, src in (("sts", sim), ("nn", nn), ("grs", grs))}
+
+    hangup = ("-Ddtb.feature.schema.file.path="
+              f"{os.path.join(RES, 'call_hangup.json')}")
+    rafo = f"-Dconf.path={os.path.join(RES, 'rafo.properties')}"
+    detr = f"-Dconf.path={os.path.join(RES, 'detr.properties')}"
+    knn = f"-Dconf.path={os.path.join(RES, 'knn.properties')}"
+    elearn = f"-Dsts.same.schema.file.path={os.path.join(RES, 'elearn.json')}"
+    out = os.path.join(WORK, "joined_out")
+    shutil.rmtree(out, ignore_errors=True)
+
+    def rf(src, dest, extra=()):
+        return ["randomForestBuilder", rafo, hangup, *extra, src, dest]
+
+    def dtb(src, dest, dec, lv):
+        return (["decisionTreeBuilder", detr, hangup,
+                 f"-Ddtb.decision.file.path.out={dec}{lv}.json"]
+                + ([f"-Ddtb.decision.file.path.in={dec}{lv - 1}.json"]
+                   if lv else []) + [src, f"{dest}{lv}"])
+
+    def gather(name, src, dest):
+        job = {"sts": ["sameTypeSimilarity", knn, elearn],
+               "nn": ["nearestNeighbor", knn],
+               "grs": ["groupedRecordSimilarity", knn, elearn,
+                       "-Dgrs.group.field.ordinals=5"]}[name]
+        return job + [src, dest]
+    stream_off = ("-Ddtb.streaming.ingest=true", "-Ddtb.streaming.shard=off",
+                  f"-Ddtb.streaming.block.rows={STREAM_SCALE_BLOCK}",
+                  *JOINED_MONO_KEYS)
+    one = [("mono", rf(scale_csv, f"{out}/one_mono", JOINED_MONO_KEYS + (
+        f"-Ddtb.model.registry.dir={out}/reg_one",)))]
+    one += [(f"dt{lv}", dtb(dt_src, f"{out}/one_dt", f"{out}/one_dec", lv))
+            for lv in range(JOINED_DT_LEVELS)]
+    one += [(name, gather(name, spools[name], f"{out}/one_{name}"))
+            for name in spools]
+    ranks = []
+    for i in range(2):
+        runs = [("mono", rf(half[i], f"{out}/mono{i}", JOINED_MONO_KEYS + (
+                    f"-Ddtb.model.registry.dir={out}/reg_mono",))),
+                ("unequal", rf(uneq[i], f"{out}/uneq{i}", JOINED_MONO_KEYS + (
+                    f"-Ddtb.model.registry.dir={out}/reg_uneq",))),
+                ("soff", rf(half[i], f"{out}/soff{i}", stream_off + (
+                    f"-Ddtb.model.registry.dir={out}/reg_soff",)))]
+        runs += [(f"dt{lv}", dtb(dt[i], f"{out}/dt", f"{out}/dec{i}_", lv))
+                 for lv in range(JOINED_DT_LEVELS)]
+        runs += [(name, gather(name, src[i], f"{out}/{name}{i}"))
+                 for name, src in (("sts", sim), ("nn", nn), ("grs", grs))]
+        runs += [("same", gather("sts", spools["sts"], f"{out}/same{i}")),
+                 ("knn", ["knnPipeline", knn, elearn,
+                          f"-Dnen.top.match.count={k}", kn[i],
+                          f"{out}/knn"])]
+        ranks.append(runs)
+    ports = [free_port() for _ in ranks[0]]
+
+    def child(name, runs, env):
+        spec = os.path.join(base, f"spec_{name}.json")
+        with open(spec, "w") as fh:
+            json.dump({"runs": [{"name": r, "argv": a,
+                                 "port": p if env else None}
+                                for (r, a), p in zip(runs, ports)]}, fh)
+        tmp = os.path.join(base, f"tmp_{name}")
+        os.makedirs(tmp)
+        return ([sys.executable, os.path.abspath(__file__), "--joined-child",
+                 spec, os.path.join(base, f"result_{name}.json")],
+                lane_env({"TMPDIR": tmp, **env}, True))
+    res = run_children([child("one", one, {})], timeout=600)
+    all_ok(res, "phases 38-41: one process's jobs")
+    res = run_children([child(f"rank{i}", ranks[i], {
+        "RANK": str(i), "WORLD_SIZE": "2", "LOCAL_RANK": str(i),
+        "MASTER_ADDR": "127.0.0.1"}) for i in range(2)], timeout=600)
+    all_ok(res, "phases 38-41: the joined ranks' jobs")
+    single = {r["name"]: r for r in read_json(
+        os.path.join(base, "result_one.json"))}
+    got = [{r["name"]: r for r in read_json(
+        os.path.join(base, f"result_rank{i}.json"))} for i in range(2)]
+    for r in list(single.values()) + [g for rk in got for g in rk.values()]:
+        if r["rc"] != 0:
+            fail(f"phases 38-41: job {r['name']} exited {r['rc']}")
+    for name in ("one", "rank0", "rank1"):
+        left = [f for f in os.listdir(os.path.join(base, f"tmp_{name}"))
+                if f.startswith("avenir_dist_gather_")]
+        if left:
+            fail(f"phases 38-41: {name} left spools behind: {left}")
+
+    phase(f"38 joined-mono: randomForestBuilder over {n // 2:,} + "
+          f"{n // 2:,} and {6 * n // 10:,} + {4 * n // 10:,} rows on two "
+          f"ranks == one process over the {n:,}-row CSV; then "
+          f"dtb.streaming.shard=off")
+    for t, want in enumerate(json.loads(single_trees)):
+        with open(os.path.join(out, "one_mono", f"tree_{t}.json")) as fh:
+            if fh.read() != want:
+                fail(f"phase 38: the one-process job's tree {t} differs "
+                     f"from phase 30's build")
+    for name in ("mono", "unequal", "soff"):
+        tag = {"mono": "mono", "unequal": "uneq", "soff": "soff"}[name]
+        for i in range(2):
+            same_trees_as(os.path.join(out, f"{tag}{i}"),
+                          os.path.join(out, "one_mono"),
+                          f"phase 38 {name} rank {i}")
+        reg = os.path.join(out, f"reg_{tag}", "hangup")
+        if os.listdir(reg) != ["v_000001"]:
+            fail(f"phase 38 {name}: registry holds {os.listdir(reg)}")
+        want = os.path.join(out, "reg_one", "hangup", "v_000001")
+        for f in ("meta.json", "baseline.json"):
+            same_bytes(os.path.join(reg, "v_000001", f),
+                       os.path.join(want, f), f"phase 38 {name} {f}")
+        # the int8 sidecar's quantized.json holds the mismatch on rank 0's
+        # own rows (its budget sample), not on the whole CSV
+        for f in ("arrays.npz", "baseline.npz", "quantized.npz"):
+            same_arrays(os.path.join(reg, "v_000001", f),
+                        os.path.join(want, f), f"phase 38 {name} {f}")
+        for i in range(2):
+            g = got[i][name]
+            levels = len(g["allreduce_ms"])
+            if g["b1"] != levels or g["b1_mma"] != levels:
+                fail(f"phase 38 {name} rank {i}: {g['b1']} B1 launches, "
+                     f"{g['b1_mma']} mma, {levels} level all-reduces")
+            want_b4 = 1 if name != "soff" else -(-n // 2 // STREAM_SCALE_BLOCK)
+            if g["b4"] != want_b4:
+                fail(f"phase 38 {name} rank {i}: {g['b4']} B4 launches, "
+                     f"want {want_b4}")
+            if (g["b2"] > 0, g["b3"] > 0) != (i == 0, i == 0):
+                fail(f"phase 38 {name} rank {i}: B2 {g['b2']}, B3 "
+                     f"{g['b3']} launches; the quantize publish is rank "
+                     f"0's alone")
+    one_wall = single["mono"]["wall_s"]
+    report = {}
+    for name in ("mono", "unequal", "soff"):
+        wall = max(got[i][name]["wall_s"] for i in range(2))
+        report[name] = {
+            "rows_per_s": n / wall, "one_process_rows_per_s": n / one_wall,
+            **{key: [got[i][name][key] for i in range(2)]
+               for key in ("wall_s", "join_s", "leave_s", "load_s",
+                           "build_s", "allreduce_ms")}}
+        print(f"{name}: 2 ranks {n / wall:,.0f} rows/s against one "
+              f"process's {n / one_wall:,.0f} (one process wall "
+              f"{one_wall:.3f} s, load_s {single['mono']['load_s']:.3f}, "
+              f"build_s {single['mono']['build_s']:.3f}); ranks' wall "
+              f"{[round(x, 3) for x in report[name]['wall_s']]}, join_s "
+              f"{[round(x, 3) for x in report[name]['join_s']]}, leave_s "
+              f"{[round(x, 3) for x in report[name]['leave_s']]}, load_s "
+              f"{[round(x, 3) for x in report[name]['load_s']]}, build_s "
+              f"{[round(x, 3) for x in report[name]['build_s']]}; "
+              f"all-reduce ms a level "
+              f"{[[round(x, 2) for x in r] for r in report[name]['allreduce_ms']]};"
+              f" B1 {[got[i][name]['b1'] for i in range(2)]} (all mma), B4 "
+              f"{[got[i][name]['b4'] for i in range(2)]}, B2 "
+              f"{[got[i][name]['b2'] for i in range(2)]}, B3 "
+              f"{[got[i][name]['b3'] for i in range(2)]}", flush=True)
+
+    phase(f"39 joined-dt: {JOINED_DT_LEVELS} levels of the detr.sh rotation "
+          f"over {JOINED_DT_ROWS // 2:,} + {JOINED_DT_ROWS // 2:,} rows")
+    for lv in range(JOINED_DT_LEVELS):
+        for i in range(2):
+            same_bytes(os.path.join(out, f"dec{i}_{lv}.json"),
+                       os.path.join(out, f"one_dec{lv}.json"),
+                       f"phase 39 level {lv} rank {i} decision paths")
+            g = got[i][f"dt{lv}"]
+            if g["b1"] != 1 or g["b1_mma"] != 1:
+                fail(f"phase 39 level {lv} rank {i}: {g['b1']} B1 launches "
+                     f"({g['b1_mma']} mma), want 1")
+        parts = b"".join(open(os.path.join(out, f"dt{lv}", p), "rb").read()
+                         for p in ("part-r-00000", "part-r-00001"))
+        if parts != open(os.path.join(out, f"one_dt{lv}", "part-r-00000"),
+                         "rb").read():
+            fail(f"phase 39 level {lv}: the ranks' record parts do not "
+                 f"concatenate to one process's")
+    dt_walls = {who: [round(r[f"dt{lv}"]["wall_s"], 3)
+                      for lv in range(JOINED_DT_LEVELS)]
+                for who, r in (("one", single), ("rank0", got[0]),
+                               ("rank1", got[1]))}
+    report["dt_wall_s"] = dt_walls
+    print(f"decision paths == one process's at every level on both ranks; "
+          f"B1 one mma launch a level a rank; walls a level (s) {dt_walls}",
+          flush=True)
+
+    phase("40 joined-gather: sameTypeSimilarity, nearestNeighbor and "
+          "groupedRecordSimilarity over distinct inputs == one process over "
+          "the spool layout; an identical input makes no spool")
+    for name in ("sts", "nn", "grs"):
+        for i in range(2):
+            same_bytes(os.path.join(out, f"{name}{i}", "part-r-00000"),
+                       os.path.join(out, f"one_{name}", "part-r-00000"),
+                       f"phase 40 {name} rank {i}")
+    for i in range(2):
+        same_bytes(os.path.join(out, f"same{i}", "part-r-00000"),
+                   os.path.join(out, "one_sts", "part-r-00000"),
+                   f"phase 40 identical input rank {i}")
+    notes = res[0][2]
+    if notes.count("using it as-is (no gather)") != 1 or \
+            notes.count("gathered") != 4:
+        fail(f"phase 40: rank 0 spooled wrongly: {notes[-2000:]}")
+    print("gather outputs == one process's over the spool layout on both "
+          "ranks; the identical input used as it is; every spool removed",
+          flush=True)
+
+    phase(f"41 joined-knn: knnPipeline over {n_test:,} test x {n_train:,} "
+          f"train rows given to the ranks as distinct files")
+    parts = b"".join(open(os.path.join(out, "knn", f"part-r-0000{i}"),
+                          "rb").read() for i in range(2))
+    if parts != open(os.path.join(knn_base, "one", "part-r-00000"),
+                     "rb").read():
+        fail("phase 41: the ranks' parts do not concatenate to phase 34's "
+             "single-process predictions")
+    chunks = -(-(n_test // 2) // 8192)
+    for i in range(2):
+        if got[i]["knn"]["b5"] != chunks:
+            fail(f"phase 41 rank {i}: {got[i]['knn']['b5']} B5 launches, "
+                 f"want {chunks} (one a test chunk)")
+    report["knn_wall_s"] = [got[i]["knn"]["wall_s"] for i in range(2)]
+    print(f"parts == phase 34's one-process predictions; B5 launches "
+          f"{[got[i]['knn']['b5'] for i in range(2)]} ({chunks} test chunks "
+          f"a rank); walls {[round(w, 3) for w in report['knn_wall_s']]} s",
+          flush=True)
+    report["phases_s"] = time.perf_counter() - t_start
+    print(f"phases 38-41: {report['phases_s']:.1f} s", flush=True)
+    print(json.dumps({"joined_scale": report}), flush=True)
+    return {"ranks": got, "report": report}
+
+
+def same_trees_as(out, want, what):
+    for t in range(9):
+        same_bytes(os.path.join(out, f"tree_{t}.json"),
+                   os.path.join(want, f"tree_{t}.json"), f"{what} tree {t}")
+
+
 def multi_process_phases(scale_csv, single, trees, counts):
-    """Phases 31-36.  Returns the launch counts for the kernels line."""
+    """Phases 31-36 and 38-41.  Returns the launch counts for the kernels
+    line."""
     import torch
     lane = shard_lane("one card", True)
     shard_resume()
     scale2 = shard_scale(scale_csv, single, trees, counts)
     knn2 = knn_two_process()
     joined = joined_lane("one card", True)
+    joined_inputs = joined_phases(scale_csv, trees,
+                                  os.path.join(WORK, "knn_2p"))
     if torch.cuda.device_count() > 1:
         phase("36 phases 31 and 35 again, each process on its own card")
         shard_lane("distinct cards", False)
@@ -3141,7 +3581,8 @@ def multi_process_phases(scale_csv, single, trees, counts):
     else:
         print("phase 36 (31 and 35 over distinct cards) skipped: one device "
               "visible", flush=True)
-    return {"lane": lane, "scale2": scale2, "knn2": knn2, "joined": joined}
+    return {"lane": lane, "scale2": scale2, "knn2": knn2, "joined": joined,
+            "joined_inputs": joined_inputs}
 
 
 def main():
@@ -3728,6 +4169,10 @@ def main():
         return [g[key] for g in run["launches"]]
     lane, joined = multi["lane"], multi["joined"]
     scale2 = multi["scale2"]["native"]["shards"]
+    ranks = multi["joined_inputs"]["ranks"]
+
+    def joined_job(name, key):
+        return [rank[name][key] for rank in ranks]
 
     print(card, flush=True)
     print(json.dumps({"kernels": [{
@@ -3744,7 +4189,9 @@ def main():
         "drift_launches": drift_b2,
         "stream_launches": streamed["b2"],
         "shard_lane_launches": per_process(lane, "b2"),
-        "joined_predictor_launches": [g["b2"] for g in joined["mp"]]}, {
+        "joined_predictor_launches": [g["b2"] for g in joined["mp"]],
+        "joined_mono_launches": joined_job("mono", "b2"),
+        "joined_stream_off_launches": joined_job("soff", "b2")}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -3768,7 +4215,14 @@ def main():
         "shard_lane_mma_launches": per_process(lane, "b1_mma"),
         "joined_launches": [g["b1"] for g in joined["rf"]],
         "two_process_scale_launches": [r["b1"] for r in scale2],
-        "cache_launches": [cached[p]["b1"] for p in ("build", "use")]}, {
+        "cache_launches": [cached[p]["b1"] for p in ("build", "use")],
+        "joined_mono_launches": joined_job("mono", "b1"),
+        "joined_mono_mma_launches": joined_job("mono", "b1_mma"),
+        "joined_unequal_launches": joined_job("unequal", "b1"),
+        "joined_stream_off_launches": joined_job("soff", "b1"),
+        "joined_dt_launches": [sum(rank[f"dt{lv}"]["b1"]
+                                   for lv in range(JOINED_DT_LEVELS))
+                               for rank in ranks]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -3779,7 +4233,9 @@ def main():
         "old_ms": b3["old_ms"], "device_ms": b3["device_ms"],
         "old_device_ms": b3["old_device_ms"],
         "stream_launches": streamed["b3"],
-        "shard_lane_launches": per_process(lane, "b3")}, {
+        "shard_lane_launches": per_process(lane, "b3"),
+        "joined_mono_launches": joined_job("mono", "b3"),
+        "joined_stream_off_launches": joined_job("soff", "b3")}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
@@ -3804,7 +4260,9 @@ def main():
         "shard_lane_launches": per_process(lane, "b4"),
         "joined_launches": [g["b4"] for g in joined["rf"]],
         "two_process_scale_launches": [r["b4"] for r in scale2],
-        "cache_launches": [cached[p]["b4"] for p in ("build", "use")]}, {
+        "cache_launches": [cached[p]["b4"] for p in ("build", "use")],
+        "joined_mono_launches": joined_job("mono", "b4"),
+        "joined_stream_off_launches": joined_job("soff", "b4")}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -3824,7 +4282,8 @@ def main():
         "split_merge_old_device_ms":
             b5_t["euclidean"]["split_merge_old_device_ms"],
         "split_merge_bound_ms": b5_t["euclidean"]["split_merge_bound_ms"],
-        "two_process_knn_launches": per_process(multi["knn2"], "b5")}, {
+        "two_process_knn_launches": per_process(multi["knn2"], "b5"),
+        "joined_knn_launches": joined_job("knn", "b5")}, {
         "name": "ensemble_partial_votes", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:73",
@@ -3867,5 +4326,7 @@ if __name__ == "__main__":
         cli_child(*sys.argv[2:])
     elif sys.argv[1:2] == ["--cache-child"]:
         cache_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--joined-child"]:
+        joined_child(*sys.argv[2:4])
     else:
         main()

@@ -13,11 +13,14 @@ hung peer fails the test instead of holding the run):
   and ``modelPredictor`` over two halves of the rafo9 requests writes
   ``part-m-00000`` and ``part-m-00001``, which concatenate to the
   single-process output;
+* the input rules of a joined run: the gather spool for distinct inputs
+  and none for an identical one;
 * the refusals: ``dtb.streaming.shard=on`` without a multi-shard run, a
   shard count above 1 with no transport, a missing peer past the deadline
-  (non-zero exit), the per-level builder under ``AVENIR_TPU_SHARD``, and
-  in a joined run the ``gather`` and ``refuse`` jobs, identical inputs to
-  a ``map`` job and distinct ones to the row-range sharded build."""
+  (non-zero exit), the per-level builder and the monolithic forest under
+  ``AVENIR_TPU_SHARD``, and in a joined run the ``refuse`` jobs, a gather
+  job whose peer failed to read or was given no input, identical inputs
+  to a ``map`` job and distinct ones to the row-range sharded build."""
 
 import json
 import os
@@ -308,10 +311,15 @@ def test_refusals_without_a_multi_shard_run(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="never combine"):
         pjobs.random_forest_builder(Config(dict(base)), csv,
                                     str(tmp_path / "o"))
-    # and a path with no sharded form refuses by name
-    with pytest.raises(pjobs.JobNotPorted, match="AVENIR_TPU_SHARD=0/2"):
+    # and a path with no form on the lane refuses, naming the lane
+    with pytest.raises(pjobs.JobNotPorted,
+                       match="shard lane .AVENIR_TPU_SHARD=0/2"):
         pjobs.random_forest_builder(
             Config(dict(base, **{"dtb.streaming.shard": "off"})), csv,
+            str(tmp_path / "o"))
+    with pytest.raises(pjobs.JobNotPorted, match="AVENIR_TPU_SHARD=0/2"):
+        pjobs.random_forest_builder(
+            Config(dict(base, **{"dtb.streaming.ingest": "false"})), csv,
             str(tmp_path / "o"))
     with pytest.raises(pjobs.JobNotPorted, match="AVENIR_TPU_SHARD=0/2"):
         port_run.main(["decisionTreeBuilder",
@@ -328,18 +336,70 @@ def joined(monkeypatch):
     test (``peer[0]``: "same" or "other")."""
     peer = ["same"]
     monkeypatch.setattr(D, "is_multiprocess", lambda: True)
-    monkeypatch.setattr(
-        D, "allgather_object",
-        lambda obj: [obj, obj if peer[0] == "same" else (obj[0], "other")])
+    def gather(obj):
+        if peer[0] == "same" or not isinstance(obj[1], str):
+            return [obj, obj]
+        return [obj, (obj[0], "other")]
+    monkeypatch.setattr(D, "allgather_object", gather)
     return peer
 
 
 @pytest.mark.parametrize("job", ["sameTypeSimilarity", "nearestNeighbor"])
-def test_joined_run_refuses_gather_jobs(joined, tmp_path, job):
+def test_joined_run_refuses_gather_jobs(joined, tmp_path, job, monkeypatch):
+    """A gather job refuses on every process when the processes disagree
+    on whether an input was given, or when a peer fails to read its
+    input: none spools a partial view or waits in a collective."""
     fn = pjobs.resolve(job)
     assert pjobs.dist_mode(fn) == "gather"
-    with pytest.raises(pjobs.JobNotPorted, match="spool"):
+    monkeypatch.setattr(D, "allgather_object",
+                        lambda obj: [obj, (False, "")])
+    with pytest.raises(RuntimeError, match="disagree"):
         port_run._apply_dist_mode(fn, job, str(tmp_path), Config())
+    (tmp_path / "shard.csv").write_text("a\n")
+
+    def peer_fails(obj):
+        if isinstance(obj[1], str):            # the digest exchange
+            return [obj, (True, "peer-digest")]
+        return [obj, ("process 1: OSError: file vanished", [])]
+    monkeypatch.setattr(D, "allgather_object", peer_fails)
+    monkeypatch.setattr(port_run.tempfile, "mkdtemp", _no_spool)
+    with pytest.raises(RuntimeError, match="1 process.*file vanished"):
+        port_run._apply_dist_mode(fn, job, str(tmp_path / "shard.csv"),
+                                  Config())
+
+
+def _no_spool(*a, **k):
+    raise AssertionError("a spool was made")
+
+
+@pytest.mark.parametrize("job", ["sameTypeSimilarity", "nearestNeighbor",
+                                 "groupedRecordSimilarity"])
+def test_joined_gather_spools_distinct_inputs(joined, tmp_path, job,
+                                              monkeypatch):
+    """Distinct inputs: every process's files, read as bytes, in a spool
+    directory of ``<basename>.p<process>`` files (the train prefix kept);
+    an identical input is used as it is, with no spool."""
+    fn = pjobs.resolve(job)
+    assert pjobs.dist_mode(fn) == "gather"
+    indir = tmp_path / "in"
+    indir.mkdir()
+    (indir / "tr-part").write_bytes(b"a\n\xff\n")
+    (indir / "test").write_text("c\n")
+    assert port_run._apply_dist_mode(fn, job, str(indir), Config()) == \
+        (str(indir), None)
+
+    def peer_differs(obj):
+        if isinstance(obj[1], str):
+            return [obj, (True, "peer-digest")]
+        return [obj, (None, [("tr-part", b"x\ny\n")])]
+    monkeypatch.setattr(D, "allgather_object", peer_differs)
+    monkeypatch.setattr(port_run.tempfile, "tempdir", str(tmp_path))
+    spool, cleanup = port_run._apply_dist_mode(fn, job, str(indir), Config())
+    assert spool == cleanup and os.path.dirname(spool) == str(tmp_path)
+    assert sorted(os.listdir(spool)) == ["test.p0", "tr-part.p0",
+                                         "tr-part.p1"]
+    assert _read(os.path.join(spool, "tr-part.p0"), "rb") == b"a\n\xff\n"
+    assert _read(os.path.join(spool, "tr-part.p1"), "rb") == b"x\ny\n"
 
 
 @pytest.mark.parametrize("job", ["predictionService", "driftMonitor",
@@ -351,10 +411,10 @@ def test_joined_run_refuses_refuse_jobs(joined, tmp_path, job):
         port_run._apply_dist_mode(fn, job, str(tmp_path), Config())
 
 
-def test_joined_run_input_rules(joined, tmp_path):
+def test_joined_run_input_rules(joined, tmp_path, monkeypatch):
     """map: identical inputs refused, distinct ones pass; the row-range
-    sharded build: the reverse; partition: identical pass, distinct need
-    the unported spool."""
+    sharded build: the reverse; partition: identical pass, distinct ones
+    go through the spool."""
     csv = os.path.join(RAFO9S, "train.csv")
     mp = pjobs.resolve("modelPredictor")
     rf = pjobs.resolve("randomForestBuilder")
@@ -364,15 +424,21 @@ def test_joined_run_input_rules(joined, tmp_path):
     streamed = Config({"dtb.streaming.ingest": "true"})
     with pytest.raises(RuntimeError, match="IDENTICAL"):
         port_run._apply_dist_mode(mp, "modelPredictor", csv, Config())
-    assert port_run._apply_dist_mode(rf, "rf", csv, streamed) == csv
-    assert port_run._apply_dist_mode(knn, "knn", csv, Config()) == csv
+    assert port_run._apply_dist_mode(rf, "rf", csv, streamed) == (csv, None)
+    assert port_run._apply_dist_mode(knn, "knn", csv, Config()) == \
+        (csv, None)
     joined[0] = "other"
     assert port_run._apply_dist_mode(mp, "modelPredictor", csv,
-                                     Config()) == csv
+                                     Config()) == (csv, None)
     with pytest.raises(RuntimeError, match="DISTINCT"):
         port_run._apply_dist_mode(rf, "rf", csv, streamed)
     assert port_run._apply_dist_mode(
         rf, "rf", csv, Config({"dtb.streaming.ingest": "true",
-                               "dtb.streaming.shard": "off"})) == csv
-    with pytest.raises(pjobs.JobNotPorted, match="spool"):
-        port_run._apply_dist_mode(knn, "knn", csv, Config())
+                               "dtb.streaming.shard": "off"})) == (csv, None)
+    monkeypatch.setattr(port_run.tempfile, "tempdir", str(tmp_path))
+    spool, cleanup = port_run._apply_dist_mode(knn, "knn", csv, Config())
+    assert spool == cleanup and os.path.dirname(spool) == str(tmp_path)
+    # the patched peer sent this process's own files back
+    assert sorted(os.listdir(spool)) == ["train.csv.p0", "train.csv.p1"]
+    assert _read(os.path.join(spool, "train.csv.p1"), "rb") == \
+        _read(csv, "rb")

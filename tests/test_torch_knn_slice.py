@@ -139,16 +139,17 @@ def test_knn_pipeline_refuses_loudly(tmp_path, key, exc):
     ("org.avenir.knn.NearestNeighbor", "nearestNeighbor", "knnClassifier",
      "NearestNeighbor"),
     ("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess",
-     "KnnPipeline")])
+     "KnnPipeline"),
+    ("org.avenir.spark.similarity.GroupedRecordSimilarity",
+     "groupedRecordSimilarity", "GroupedRecordSimilarity")])
 def test_job_names_resolve(names):
     fns = {port_jobs.resolve(n) for n in names}
     assert len(fns) == 1
 
 
 def test_unported_knn_neighbours_stay_unported():
-    for name in ("groupedRecordSimilarity", "featureCondProbJoiner"):
-        with pytest.raises(port_jobs.JobNotPorted):
-            port_jobs.resolve(name)
+    with pytest.raises(port_jobs.JobNotPorted):
+        port_jobs.resolve("featureCondProbJoiner")
 
 
 def test_intra_set_votes_sum_to_k(tmp_path):
