@@ -24,5 +24,9 @@ served by the int8 form of the vote kernel in ``csrc/vote.cu``) — KNN
 distance + top-k scan as a CUDA kernel, ``csrc/topk.cu``) — and one process
 over several devices (``parallel/``): the tree-sharded serving vote
 (``serve_mesh``) and the train-sharded KNN top-k, with the partial-vote,
-merge-finalize and top-k merge kernels.
+merge-finalize and top-k merge kernels — and Naive Bayes
+(``models/bayes.py``, ``models/bayes_text.py``, ``ops/histogram.py``: the
+train and predict jobs, tabular and text, ``featureCondProbJoiner``, the
+registry's ``bayes`` kind and its serving), composed torch ops, since the
+JAX package's Bayes path reaches no Pallas kernel.
 """

@@ -10,8 +10,9 @@ the JAX package.  Ported: ``modelPredictor`` (here), ``predictionService``
 (here: monolithic and streamed training on one process or several,
 bad-record skip/quarantine, checkpoints and ``--resume``, the registry publish and
 its baseline and int8 sidecars), ``sameTypeSimilarity``,
-``nearestNeighbor``, ``groupedRecordSimilarity`` and ``knnPipeline``
-(``knn_jobs.py``), ``driftMonitor`` and
+``nearestNeighbor``, ``groupedRecordSimilarity``, ``featureCondProbJoiner``
+and ``knnPipeline`` (``knn_jobs.py``), ``bayesianDistribution`` and
+``bayesianPredictor`` (``bayes_jobs.py``), ``driftMonitor`` and
 ``predictDriftScore`` (``monitor_jobs.py``).
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
@@ -21,15 +22,16 @@ package's classes), which ``cli.run`` enforces in a joined
 * ``sharded`` — the job reads its own shard and makes global results with
   explicit collectives (both tree builders: the streamed
   ``randomForestBuilder`` row-range sharded over one shared file, the
-  others over per-process files);
+  others over per-process files; ``bayesianDistribution``);
 * ``map`` — a per-record transform of the local input; each process writes
-  its own part file (``modelPredictor``);
+  its own part file (``modelPredictor``, ``bayesianPredictor``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
   with ``nen.train.shard=true``);
 * ``gather`` — host-side global computation over every process's input
   files (``sameTypeSimilarity``, ``nearestNeighbor``,
-  ``groupedRecordSimilarity``), read from ``cli.run``'s spool;
+  ``groupedRecordSimilarity``, ``featureCondProbJoiner``), read from
+  ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
   ``driftMonitor``, ``predictDriftScore``).
 """
@@ -201,8 +203,9 @@ def _cache_policy(cfg: Config, counters: Counters,
 def _refuse_multi_shard(job: str) -> None:
     """Raise :class:`JobNotPorted` on the shard lane
     (``AVENIR_TPU_SHARD=i/P`` with P > 1) for a training path with no form
-    there: the per-level builder, and the monolithic or
-    ``dtb.streaming.shard=off`` forest over per-process files.  The lane's
+    there: the per-level builder, the monolithic or
+    ``dtb.streaming.shard=off`` forest and the Naive Bayes train over
+    per-process files.  The lane's
     processes share no global arrays (the JAX package trains each of them
     alone on its own file); a joined run trains these paths with
     :func:`_joined_reducer`.  A multi-shard launch must never train

@@ -7,13 +7,16 @@ then avenir's NearestNeighbor), from ``avenir_tpu/cli/jobs.py``:
   regresses;
 * ``groupedRecordSimilarity`` — the all-pairs distance within each group of
   records sharing the group fields;
+* ``featureCondProbJoiner`` — joins ``bayesianPredictor``'s feature
+  probabilities onto the distance lines: the class-conditional layout
+  ``nearestNeighbor`` reads with ``nen.class.condition.weighted``;
 * ``knnPipeline`` — the fused in-process flow: distance + top-k on the
   device (kernel B5), then the vote.  Under a runtime context of several
   devices (``-Dplatform=cuda`` on a host with several GPUs, or a mesh the
   caller installed) the train rows shard over them (kernel B7).
 
-``sameTypeSimilarity``, ``nearestNeighbor`` and ``groupedRecordSimilarity``
-are gather jobs: in a joined run every process computes the whole answer
+``sameTypeSimilarity``, ``nearestNeighbor``, ``groupedRecordSimilarity``
+and ``featureCondProbJoiner`` are gather jobs: in a joined run every process computes the whole answer
 over the union of the processes' inputs (``cli.run``'s spool).  Over
 processes ``knnPipeline`` is a partition job: each process classifies
 its ``work_slice`` of the test rows against the whole train set and writes
@@ -196,6 +199,60 @@ def _knn_params(cfg: Config):
         params.false_pos_cost = int(costs[0])
         params.false_neg_cost = int(costs[1])
     return params
+
+
+@register("org.avenir.knn.FeatureCondProbJoiner", "featureCondProbJoiner",
+          dist="gather")
+def feature_cond_prob_joiner(cfg: Config, in_path: str, out_path: str
+                             ) -> Counters:
+    """Join the Bayesian feature posterior probabilities onto nearest-
+    neighbour lines (knn/FeatureCondProbJoiner.java; knn.sh's
+    joinFeatureDistr step).
+
+    The input dir holds two kinds of files: those whose name starts with
+    ``fcb.feature.cond.prob.split.prefix`` (default ``condProb``) are
+    ``bayesianPredictor``'s feature-prob output (itemID, P(x), class,
+    P(x|c) pairs, actual class), the rest are distance lines
+    (trainId,testId,distance,trainClass,testClass).  The output is the
+    class-conditional layout ``nearestNeighbor`` reads: testId,
+    testClassActual, trainId, distance, trainClass, P(x|trainClass)."""
+    counters = Counters()
+    prefix = cfg.get("fcb.feature.cond.prob.split.prefix", "condProb")
+    split = _splitter(cfg.field_delim_regex)
+    od = cfg.field_delim_out
+    prob_lines: List[List[str]] = []
+    neigh_lines: List[List[str]] = []
+    files = sorted(glob.glob(os.path.join(in_path, "*"))) \
+        if os.path.isdir(in_path) else [in_path]
+    for p in files:
+        base = os.path.basename(p)
+        if not os.path.isfile(p) or base.startswith(("_", ".")):
+            continue  # Hadoop-style markers (_SUCCESS, .crc)
+        bucket = prob_lines if base.startswith(prefix) else neigh_lines
+        bucket.extend(split(l) for l in artifacts.read_text_input(p))
+    # train item -> (actual class, P(x|actual class))
+    cls_prob: Dict[str, str] = {}
+    for it in prob_lines:
+        actual = it[-1]
+        pairs = it[2:-1]
+        for i in range(0, len(pairs) - 1, 2):
+            if pairs[i] == actual:
+                cls_prob[it[0]] = f"{actual}{od}{pairs[i + 1]}"
+                break
+    out = []
+    for it in neigh_lines:
+        train_id, test_id, dist = it[0], it[1], it[2]
+        test_class = it[4] if len(it) > 4 else "?"
+        joined = cls_prob.get(train_id)
+        if joined is None:
+            # a train item whose actual class had no (class, prob) pair:
+            # bap.predict.class did not cover every class value
+            counters.increment("Join", "unmatchedNeighbors")
+            continue
+        out.append(od.join([test_id, test_class, train_id, dist, joined]))
+    artifacts.write_text_output(out_path, out)
+    counters.set("Join", "joinedLines", len(out))
+    return counters
 
 
 @register("org.avenir.knn.KnnPipeline", "knnPipeline", "knnInProcess",

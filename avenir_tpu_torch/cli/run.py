@@ -42,6 +42,7 @@ from typing import List, Optional, Tuple
 
 from ..core.config import Config, load_config
 from . import jobs
+from . import bayes_jobs  # noqa: F401  (registers the Naive Bayes jobs)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
 from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
 from . import serving_jobs  # noqa: F401  (registers predictionService)

@@ -1,2 +1,3 @@
 """Device math outside the kernels: the KNN record distance
-(``ops/distance.py``)."""
+(``ops/distance.py``) and the counting primitives of Naive Bayes
+(``ops/histogram.py``)."""

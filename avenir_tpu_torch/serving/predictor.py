@@ -1,6 +1,6 @@
-"""Warm, shape-bucketed forest predictors: port of
-``avenir_tpu/serving/predictor.py`` (the ``Predictor`` base and the
-single-device ``ForestPredictor``).
+"""Warm, shape-bucketed predictors: port of
+``avenir_tpu/serving/predictor.py`` (the ``Predictor`` base, the
+``ForestPredictor`` and the ``BayesPredictor``).
 
 Every ``Predictor`` pads incoming micro-batches up to a fixed bucket size
 with copies of the batch's last row (per-row prediction is independent, so
@@ -17,7 +17,9 @@ service's ``ambiguous_label``.  Given a version's int8 sidecar
 quantized vote instead, over about 4x fewer request bytes.  Given
 ``serve_mesh`` it shards the members over the trees of a device mesh
 (forests too big for one device's memory) and merges each batch's
-tallies on the mesh's first device.
+tallies on the mesh's first device.  A ``BayesPredictor`` scores each
+bucket-padded table with ``models/bayes.predict``, the offline
+``bayesianPredictor``'s argmax.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from ..core.table import ColumnarTable, encode_rows
 from ..kernels.dispatch import note_backend
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, note_dispatch
-from .registry import FOREST, LoadedModel
+from .registry import BAYES, FOREST, LoadedModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 AMBIGUOUS = "ambiguous"   # the ensemble's min-odds veto, as a wire label
@@ -262,27 +264,62 @@ class ForestPredictor(Predictor):
             self.dispatch_prepared([(table, table.n_rows)]))
 
 
+class BayesPredictor(Predictor):
+    """Naive Bayes serving through ``models/bayes.predict`` itself, on
+    ``device`` (default: the process device): each bucket-padded table is
+    one predict, and a response is the class the offline
+    ``bayesianPredictor`` job prints for the record.  The model's tables
+    stay on the device across batches (cached on the model)."""
+
+    def __init__(self, model, schema: Optional[FeatureSchema] = None,
+                 device=None, **kw):
+        super().__init__(schema or model.schema, **kw)
+        self.model = model
+        self.device = resolve_device(device)
+
+    def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
+        from ..models import bayes
+        return list(bayes.predict(self.model, table,
+                                  self.device).pred_class)
+
+
 def make_predictor(loaded: LoadedModel,
                    schema: Optional[FeatureSchema] = None,
                    buckets: Sequence[int] = DEFAULT_BUCKETS,
                    delim: str = ",", device=None,
                    quantized: bool = False, serve_mesh=None) -> Predictor:
-    """Registry artifact -> a Predictor, using the artifact's embedded
-    schema unless one is passed explicitly.  Forests only so far.
+    """Registry artifact -> a Predictor of its kind (``forest`` or
+    ``bayes``), using the artifact's embedded schema unless one is passed
+    explicitly.
 
-    ``quantized=True`` (the ``ps.quantized`` knob) loads the version's int8
-    sidecar and serves the budget-pinned quantized vote; a version without
-    an intact sidecar warns and serves the float model.  ``serve_mesh``
-    shards the vote over a device mesh (``ForestPredictor``)."""
+    ``quantized=True`` (the ``ps.quantized`` knob) loads a forest
+    version's int8 sidecar and serves the budget-pinned quantized vote; a
+    version without an intact sidecar, and every version of another kind,
+    warns and serves the float model.  ``serve_mesh`` shards a forest's
+    vote over a device mesh (``ForestPredictor``); another kind warns and
+    serves on ``device``."""
     schema = schema or loaded.schema
     if schema is None:
         raise ValueError(
             f"model {loaded.name!r} v{loaded.version} has no embedded "
             "schema; pass schema= to make_predictor")
-    if loaded.kind != FOREST:
+    if loaded.kind not in (FOREST, BAYES):
         raise NotImplementedError(
             f"serving model kind {loaded.kind!r} is not ported to "
-            f"avenir_tpu_torch yet (ported: {FOREST!r})")
+            f"avenir_tpu_torch yet (ported: {FOREST!r}, {BAYES!r})")
+    if quantized and loaded.kind != FOREST:
+        warnings.warn(
+            f"ps.quantized: only forest artifacts have a quantized "
+            f"serving path (got kind {loaded.kind!r}); serving the "
+            f"float model", RuntimeWarning)
+    if serve_mesh is not None and loaded.kind != FOREST:
+        warnings.warn(
+            f"serve_mesh placement applies to forest serving only (got "
+            f"kind {loaded.kind!r}); serving on one device",
+            RuntimeWarning)
+    if loaded.kind == BAYES:
+        return BayesPredictor(loaded.model, schema, device=device,
+                              buckets=buckets, delim=delim)
     p = loaded.params
     qf = None
     if quantized:

@@ -1,5 +1,5 @@
 """Model registry: port of ``avenir_tpu/serving/registry.py`` for the
-``forest`` kind — reading versions and publishing them.
+``forest`` and ``bayes`` kinds — reading versions and publishing them.
 
 It reads the versions the JAX package's ``ModelRegistry.publish`` writes,
 and ``publish`` writes them byte for byte as that one does:
@@ -17,8 +17,11 @@ place, so a reader sees the previous latest or the complete new version.
 tmp-then-rename, the ``meta.json`` manifest rewritten last), and the
 intactness probe covers every file the manifest lists.  ``latest_version``
 skips torn version directories with a warning, and ``serving_version``
-honours a pin whose target is intact.  Deltas, writing pins, retention and
-the other model kinds are not ported yet.
+honours a pin whose target is intact.  A forest's payload is its trees'
+JSON in ``meta.json`` (an empty ``arrays.npz``); a Naive Bayes model's is
+its count tables and Gaussian parameters in ``arrays.npz`` and its record
+total in ``meta.json``.  Deltas, writing pins, retention and the
+``logistic`` and ``mlp`` kinds are not ported yet.
 """
 
 from __future__ import annotations
@@ -78,31 +81,82 @@ def _tree_shas(trees_json: List[Any]) -> List[str]:
         for t in trees_json]
 
 
-def _encode_forest(model: Any, schema: Optional[FeatureSchema]
-                   ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any],
-                              Optional[List[str]]]:
-    """A forest (a ``DecisionPathList`` or a list of them) -> (arrays,
-    model_json, class_values); a forest's arrays are empty."""
+def _detect_kind(model: Any) -> str:
+    """The registry kind of a model object: a forest (a
+    ``DecisionPathList`` or a list of them) or a ``NaiveBayesModel``."""
+    from ..models.bayes import NaiveBayesModel
     from ..models.tree import DecisionPathList
-    trees = [model] if isinstance(model, DecisionPathList) else list(model)
-    if not trees or not all(isinstance(t, DecisionPathList) for t in trees):
-        raise NotImplementedError(
-            f"publishing {type(model).__name__} is not ported to "
-            f"avenir_tpu_torch yet (ported: {FOREST!r}, a list of "
-            f"DecisionPathList)")
-    model_json = {"trees": [json.loads(t.to_json()) for t in trees]}
-    cls = list(schema.class_attr_field.cardinality or []) if schema else None
-    return {}, model_json, cls
+    if isinstance(model, NaiveBayesModel):
+        return BAYES
+    if isinstance(model, DecisionPathList) or (
+            isinstance(model, (list, tuple)) and model
+            and all(isinstance(m, DecisionPathList) for m in model)):
+        return FOREST
+    raise NotImplementedError(
+        f"publishing {type(model).__name__} is not ported to "
+        f"avenir_tpu_torch yet (ported kinds: {FOREST!r}, a "
+        f"DecisionPathList or a list of them, and {BAYES!r}, a "
+        f"NaiveBayesModel)")
 
 
-def _decode(kind: str, meta: Dict[str, Any]) -> Any:
+def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
+            ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any],
+                       Optional[List[str]]]:
+    """A model of a detected kind -> (arrays, model_json, class_values),
+    as the JAX package encodes it: a forest's arrays are empty, a Naive
+    Bayes model's are its tables with their dtypes (the ordinals and bin
+    counts int64)."""
+    if kind == FOREST:
+        from ..models.tree import DecisionPathList
+        trees = [model] if isinstance(model, DecisionPathList) \
+            else list(model)
+        model_json = {"trees": [json.loads(t.to_json()) for t in trees]}
+        cls = list(schema.class_attr_field.cardinality or []) if schema \
+            else None
+        return {}, model_json, cls
+    arrays = {
+        "post_counts": np.asarray(model.post_counts),
+        "class_counts": np.asarray(model.class_counts),
+        "prior_counts": np.asarray(model.prior_counts),
+        "cont_post_mean": np.asarray(model.cont_post_mean),
+        "cont_post_std": np.asarray(model.cont_post_std),
+        "cont_prior_mean": np.asarray(model.cont_prior_mean),
+        "cont_prior_std": np.asarray(model.cont_prior_std),
+        "binned_ordinals": np.asarray(model.binned_ordinals, np.int64),
+        "cont_ordinals": np.asarray(model.cont_ordinals, np.int64),
+        "num_bins": np.asarray(model.num_bins, np.int64),
+    }
+    return arrays, {"total": float(model.total)}, list(model.class_values)
+
+
+def _decode(kind: str, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
+            schema: Optional[FeatureSchema]) -> Any:
     if kind == FOREST:
         from ..models.tree import DecisionPathList
         return [DecisionPathList.from_json(json.dumps(t))
                 for t in meta["model_json"]["trees"]]
+    if kind == BAYES:
+        from ..models.bayes import NaiveBayesModel
+        if schema is None:
+            raise ValueError("bayes artifact needs a schema (save one into "
+                             "the artifact or pass schema= to load)")
+        return NaiveBayesModel(
+            schema=schema,
+            class_values=list(meta.get("class_values") or []),
+            binned_ordinals=[int(o) for o in arrays["binned_ordinals"]],
+            cont_ordinals=[int(o) for o in arrays["cont_ordinals"]],
+            num_bins=[int(b) for b in arrays["num_bins"]],
+            post_counts=arrays["post_counts"],
+            class_counts=arrays["class_counts"],
+            prior_counts=arrays["prior_counts"],
+            total=float(meta["model_json"]["total"]),
+            cont_post_mean=arrays["cont_post_mean"],
+            cont_post_std=arrays["cont_post_std"],
+            cont_prior_mean=arrays["cont_prior_mean"],
+            cont_prior_std=arrays["cont_prior_std"])
     raise NotImplementedError(
         f"model kind {kind!r} is not ported to avenir_tpu_torch yet "
-        f"(ported: {FOREST!r})")
+        f"(ported: {FOREST!r}, {BAYES!r})")
 
 
 class ModelRegistry:
@@ -209,7 +263,8 @@ class ModelRegistry:
         with open(os.path.join(d, META_FILE)) as fh:
             meta = json.load(fh)
         with np.load(os.path.join(d, ARRAYS_FILE)) as z:
-            actual = {k: str(z[k].dtype) for k in z.files}
+            arrays = {k: z[k] for k in z.files}
+        actual = {k: str(v.dtype) for k, v in arrays.items()}
         declared = meta.get("dtypes", {})
         if declared != actual:
             raise ValueError(
@@ -219,18 +274,20 @@ class ModelRegistry:
             schema = FeatureSchema.from_dict(meta["schema"])
         kind = meta["kind"]
         return LoadedModel(name=name, version=version, kind=kind,
-                           model=_decode(kind, meta), meta=meta,
+                           model=_decode(kind, arrays, meta, schema),
+                           meta=meta,
                            schema=schema, base_dir=self.base_dir)
 
     def publish(self, name: str, model: Any, *,
                 schema: Optional[FeatureSchema] = None) -> int:
-        """Write the model (a forest: a list of ``DecisionPathList``) as
-        the next version and atomically commit it; returns the version
-        number.  ``meta.json`` and the (empty, for a forest)
-        ``arrays.npz`` are byte-identical to what the JAX package's
-        ``publish`` writes for the same trees, so either package loads
-        the version."""
-        arrays, model_json, class_values = _encode_forest(model, schema)
+        """Write the model (a forest: a list of ``DecisionPathList``; or a
+        ``NaiveBayesModel``) as the next version and atomically commit it;
+        returns the version number.  ``meta.json`` and ``arrays.npz`` hold
+        what the JAX package's ``publish`` writes for the same model (the
+        JSON byte for byte, the arrays array for array), so either package
+        loads the version."""
+        kind = _detect_kind(model)
+        arrays, model_json, class_values = _encode(model, kind, schema)
         versions = self.versions(name)
         version = (versions[-1] + 1) if versions else 1
         final = self.version_dir(name, version)
@@ -244,7 +301,7 @@ class ModelRegistry:
             "format_version": FORMAT_VERSION,
             "name": name,
             "version": version,
-            "kind": FOREST,
+            "kind": kind,
             "class_values": class_values,
             "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
             "params": {},
@@ -253,7 +310,8 @@ class ModelRegistry:
             # manifest of payload files the intactness probe covers
             "files": [ARRAYS_FILE],
         }
-        meta["tree_shas"] = _tree_shas(model_json["trees"])
+        if kind == FOREST:
+            meta["tree_shas"] = _tree_shas(model_json["trees"])
         with_retry(lambda: np.savez(os.path.join(tmp, ARRAYS_FILE), **arrays),
                    what=f"registry publish {name} v{version}")
         write_json(os.path.join(tmp, META_FILE), meta)

@@ -104,6 +104,48 @@ def xla_log_f32(x: torch.Tensor) -> torch.Tensor:
                        torch.full_like(t0, float("nan")), t0)
 
 
+# Cephes' expf as XLA's CPU backend emits it, every constant float32:
+# the input clamp, log2(e), the two-part ln(2) and the degree-5 polynomial
+_EXP_LO = _f32(-87.80000305175781)
+_EXP_HI = _f32(88.80000305175781)
+_LOG2E = _f32(1.4426950216293335)
+_EXP_C1 = _f32(0.693359375)
+_EXP_C2 = _f32(-0.00021219444170128554)
+_EXP_P = tuple(_f32(v) for v in (
+    0.00019875691214110702, 0.001398199936375022, 0.008333452045917511,
+    0.04166579619050026, 0.1666666567325592, 0.5))
+
+
+def xla_exp_f32(x: torch.Tensor) -> torch.Tensor:
+    """``e**x`` of float32 ``x`` as XLA's CPU backend computes it.
+
+    Clamp ``x`` to [-87.8, 88.8]; ``n = floor(fma(x, log2e, 0.5))``
+    clamped to [-127, 127]; ``r = fma(-n, c1, x)``, ``r = fma(-n, c2, r)``;
+    ``p`` the Cephes polynomial in ``r`` by FMAs; ``y = fma(r*r, p, r) +
+    1``; the result ``y * 2**n`` with the power built from its exponent
+    bits, so ``n = -127`` gives 0.  Results below the smallest normal are
+    flushed to 0 (XLA runs with denormals flushed), above the largest
+    float they are ``inf``; NaN stays NaN."""
+    x = x.float()
+    t = torch.clamp(x, _EXP_LO, _EXP_HI)
+    n = torch.floor(fma_f32(t, _LOG2E, 0.5)).clamp(-127.0, 127.0)
+    r = fma_f32(-n, _EXP_C1, t)
+    r = fma_f32(-n, _EXP_C2, r)
+    p = _EXP_P
+    y = torch.full_like(r, p[0])
+    for c in p[1:]:
+        y = fma_f32(y, r, c)
+    y = fma_f32(r * r, y, r) + 1.0
+    # 2**n from its bit pattern (n = -127 is +0.0; a NaN input's y is NaN
+    # whatever its n)
+    n = torch.nan_to_num(n)
+    scale = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    # y * 2**n is exact in float64; below the smallest normal it flushes
+    out = y.double() * scale.double()
+    out = torch.where(out.abs() < _MIN_NORMAL, torch.zeros_like(out), out)
+    return out.float()
+
+
 def folded_log_f32(x: np.ndarray) -> np.ndarray:
     """float32 log of host constants as XLA's constant folder computes it
     (the float64 log rounded to float32: correctly rounded but for a rare

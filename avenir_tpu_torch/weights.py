@@ -20,6 +20,11 @@ For KNN the model is the encoded train set: the JAX package's
 ``DistanceComputer.encode`` arrays (numeric float32, one-hot int8) prime a
 port :class:`~avenir_tpu_torch.ops.distance.DistanceComputer`
 (:func:`knn_train_from_arrays`).
+
+A Naive Bayes model is its count tables and Gaussian parameters: the JAX
+package's ``NaiveBayesModel`` and ``TextBayesModel`` fields, as numpy
+arrays and lists, become the port's models (:func:`bayes_from_arrays`,
+:func:`text_bayes_from_arrays`).
 """
 
 from __future__ import annotations
@@ -31,8 +36,11 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from .core.schema import FeatureSchema
 from .core.table import ColumnarTable
 from .kernels.vote import VoteModel, prepare_vote_model
+from .models.bayes import NaiveBayesModel
+from .models.bayes_text import TextBayesModel
 from .models.tree import DecisionPathList
 from .monitor.baseline import QUANTILE_QS, Baseline, RowSpec
 from .ops.distance import DistanceComputer
@@ -148,3 +156,37 @@ def knn_train_from_arrays(comp: DistanceComputer, train: ColumnarTable,
                          f"{oh.dtype} {oh.shape}")
     comp.prime_train(train, num, oh)
     return comp.train_device()
+
+
+def bayes_from_arrays(schema, class_values: Sequence[str],
+                      binned_ordinals: Sequence[int],
+                      cont_ordinals: Sequence[int], num_bins: Sequence[int],
+                      post_counts, class_counts, prior_counts, total: float,
+                      cont_post_mean, cont_post_std, cont_prior_mean,
+                      cont_prior_std) -> NaiveBayesModel:
+    """The JAX package's ``NaiveBayesModel`` fields (by name) -> the port's.
+    ``schema`` is a port ``FeatureSchema`` or its dict form
+    (``to_dict``); the tables keep their dtypes (float64 from a train)."""
+    if not isinstance(schema, FeatureSchema):
+        schema = FeatureSchema.from_dict(schema)
+    return NaiveBayesModel(
+        schema=schema, class_values=list(class_values),
+        binned_ordinals=[int(o) for o in binned_ordinals],
+        cont_ordinals=[int(o) for o in cont_ordinals],
+        num_bins=[int(b) for b in num_bins],
+        post_counts=np.asarray(post_counts),
+        class_counts=np.asarray(class_counts),
+        prior_counts=np.asarray(prior_counts), total=float(total),
+        cont_post_mean=np.asarray(cont_post_mean),
+        cont_post_std=np.asarray(cont_post_std),
+        cont_prior_mean=np.asarray(cont_prior_mean),
+        cont_prior_std=np.asarray(cont_prior_std))
+
+
+def text_bayes_from_arrays(class_values: Sequence[str],
+                           vocab: Sequence[str], token_counts,
+                           class_counts) -> TextBayesModel:
+    """The JAX package's ``TextBayesModel`` fields -> the port's."""
+    return TextBayesModel(class_values=list(class_values), vocab=list(vocab),
+                          token_counts=np.asarray(token_counts),
+                          class_counts=np.asarray(class_counts))

@@ -384,13 +384,57 @@ order — any failure exits non-zero before the result line:
               sidecar; prints its parse_s (the sidecar read) beside
               phase 30's native parse
 
+ 42-46        Naive Bayes (no Pallas kernel is on its path: composed torch
+              ops, held against the JAX package's committed outputs and
+              against the port's own CPU runs); launch counts zeroed
+              before phase 42 and read after phase 43
+ 42. nb       the port's bayesianDistribution and bayesianPredictor CLI on
+              the card over telecom_churn_gen(400, 11) must reproduce
+              tests/golden/fixtures/nb model.csv and pred.csv byte for
+              byte
+ 43. nb9      the tests/torch_fixtures/nb9 jobs through the port's CLI on
+              the card (nb9_flow): the model with its Gaussian lines, the
+              predictor's argmax, cost, prob-diff-threshold and
+              feature-prob outputs, the text-mode model and predictions,
+              sameTypeSimilarity -> featureCondProbJoiner (its output's
+              digest) -> class-conditional nearestNeighbor, knnPipeline
+              over the same records and predictionService over a copy of
+              the fixture's bayes version, byte for byte with the
+              fixture's counters; the port's own publish of the library
+              train gives the fixture's meta.json bytes and arrays.  The
+              file pipeline's sameTypeSimilarity is the all-pairs
+              distance, which launches no kernel; B5 must have launched
+              (knnPipeline) and the ledger must show knn.topk.cuda and no
+              torch or host form, and bayes.train / bayes.predict
+              dispatches
+ 44. scale    bayes.train over 10,000,000 churn rows (numpy draws from
+              telecom_churn_gen's model) on the card: two chunks, the
+              4-bit wire (3 H2D bytes a row, which it must be); its model
+              lines must equal the port's device="cpu" train of the same
+              rows; prints rows/s and the layers (host wire pack, H2D,
+              device counts, D2H, model write)
+ 45. scale    bayesianDistribution and bayesianPredictor (argmax, then the
+              feature-prob mode) over a 1,000,000-row CSV of the same model,
+              on the card and with -Dplatform=cpu: model, pred and
+              feature-prob files byte-equal (the differing feature-prob
+              strings are counted, target 0); prints each job's rows/s and
+              the library predict's layers (host pack, table upload,
+              scoring, read-back) and train's over the loaded rows
+ 46. joined   bayesianDistribution over that CSV split 500,000 + 500,000
+     nb       and 600,000 + 400,000 rows on two gloo ranks (--joined-child,
+              one card): every rank's model equals phase 45's one-process
+              model of the whole file; prints each rank's wall, join_s and
+              the all-reduce ms
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
 times, B4's 2,048-row block and empty-launch times, and each kernel's
 launches a process on the multi-process paths: ``joined_mono_*``,
 ``joined_unequal_*``, ``joined_stream_off_*``, ``joined_dt_*`` and
-``joined_knn_*`` are phases 38-41's, one entry a rank); the last line is
+``joined_knn_*`` are phases 38-41's, one entry a rank; B5's
+``nb_pipeline_launches`` is phase 43's) and, under ``bayes``, phases
+42-46's launch counts, rows/s and layer times; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -469,6 +513,14 @@ B6_DIRECT_PAIRS = 1e10
 # call_hangup_gen's generative model (resource/gen/call_hangup_gen.py)
 REASON_P = (0.35, 0.2, 0.25, 0.2)
 PATIENCE = (500.0, 900.0, 420.0, 380.0)
+NB_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "nb")
+NB9 = os.path.join(ROOT, "tests", "torch_fixtures", "nb9")
+NB_TRAIN_ROWS = 10_000_000     # the library train: two chunks
+NB_CLI_ROWS = 1_000_000
+# telecom_churn_gen's generative model (resource/gen/telecom_churn_gen.py)
+CHURN_PLAN_P = (0.25, 0.4, 0.2, 0.15)
+CHURN_USAGE = ((250, 1200), (600, 3000), (900, 5000), (1300, 7000))
+CHURN_PAY_P = (0.2, 0.4, 0.4)
 
 
 def fail(msg):
@@ -3242,6 +3294,8 @@ def joined_child(spec_path, result_path):
     distributed.initialize = timed("join_s", distributed.initialize)
     distributed.leave = timed("leave_s", distributed.leave)
     cli_jobs.load_csv = timed("load_s", cli_jobs.load_csv)
+    from avenir_tpu_torch.cli import bayes_jobs
+    bayes_jobs.load_csv = timed("load_s", bayes_jobs.load_csv)
     forest.build_forest = timed("build_s", forest.build_forest)
     forest.build_forest_from_stream = streamed(
         forest.build_forest_from_stream)
@@ -3583,6 +3637,416 @@ def multi_process_phases(scale_csv, single, trees, counts):
               "visible", flush=True)
     return {"lane": lane, "scale2": scale2, "knn2": knn2, "joined": joined,
             "joined_inputs": joined_inputs}
+
+
+# --------------------------------------------------------------------------
+# Naive Bayes (phases 42-46)
+# --------------------------------------------------------------------------
+
+def nb9_module():
+    """tests/torch_fixtures/nb9/make.py as a module (its job keys and
+    constants; it imports the JAX package only inside ``make``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "nb9_make", os.path.join(NB9, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def nb9_flow(work, plat=()):
+    """The nb9 fixture's jobs through the port's CLI into ``work`` (``plat``
+    e.g. ``["-Dplatform=cpu"]``; none: the card): bayesianDistribution,
+    bayesianPredictor in its four output modes, sameTypeSimilarity ->
+    featureCondProbJoiner -> nearestNeighbor (class-conditional),
+    knnPipeline, the text mode, and predictionService over a copy of the
+    fixture's registry.  Returns ({name: output file}, {name: the
+    fixture's counter groups of its counters.json})."""
+    mk = nb9_module()
+    schema = os.path.join(NB9, "schema.json")
+    data = os.path.join(NB9, "data")
+    train, test = os.path.join(data, "tr_part"), os.path.join(data,
+                                                             "test_part")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    outs, counters = {}, {}
+
+    def run(job, args, inp, name, part):
+        out = os.path.join(work, name)
+        run_cli([job, *plat, *args, inp, out])
+        got = read_json(out + ".counters.json")
+        counters[name] = {g: got[g] for g in mk.COUNTER_GROUPS if g in got}
+        outs[name] = os.path.join(out, part)
+        return outs[name]
+    model = run("bayesianDistribution",
+                [f"-Dbad.feature.schema.file.path={schema}"], train, "model",
+                "part-r-00000")
+    bap = [f"-Dbap.feature.schema.file.path={schema}",
+           f"-Dbap.bayesian.model.file.path={model}"]
+    for name, extra, inp in (
+            ("pred", [], test),
+            ("pred_cost", [f"-Dbap.predict.class.cost={mk.COSTS}"], test),
+            ("pred_diff", [f"-Dbap.class.prob.diff.threshold={mk.DIFF}"],
+             test),
+            ("cond_prob", ["-Dbap.output.feature.prob.only=true"], train)):
+        run("bayesianPredictor", bap + extra, inp, name, "part-m-00000")
+    dist = run("sameTypeSimilarity", [f"-Dsts.same.schema.file.path={schema}"],
+               data, "dist", "part-r-00000")
+    join_in = os.path.join(work, "join_in")
+    os.makedirs(join_in)
+    shutil.copyfile(outs["cond_prob"], os.path.join(join_in, "condProb_part"))
+    shutil.copyfile(dist, os.path.join(join_in, "neighbors"))
+    joined = run("featureCondProbJoiner", [], join_in, "joined",
+                 "part-r-00000")
+    run("nearestNeighbor", [*mk.KNN_KEYS, mk.WEIGHTED],
+        os.path.dirname(joined), "nn", "part-r-00000")
+    run("knnPipeline", [f"-Dsts.same.schema.file.path={schema}",
+                        *mk.KNN_KEYS], data, "knn", "part-r-00000")
+    text_model = run("bayesianDistribution", [],
+                     os.path.join(NB9, "text", "train.txt"), "text_model",
+                     "part-r-00000")
+    run("bayesianPredictor",
+        [f"-Dbap.bayesian.model.file.path={text_model}"],
+        os.path.join(NB9, "text", "test.txt"), "text_pred", "part-m-00000")
+    reg = os.path.join(work, "registry")
+    shutil.copytree(os.path.join(NB9, "registry"), reg)
+    run("predictionService", [f"-Dps.model.registry.dir={reg}",
+                              f"-Dps.model.name={mk.MODEL_NAME}",
+                              "-Dps.transport=inprocess"], test, "served",
+        "part-m-00000")
+    return outs, counters
+
+
+# nb9_flow's outputs and the fixture file each must equal
+NB9_FILES = {"model": "model.csv", "pred": "pred.csv",
+             "pred_cost": "pred_cost.csv", "pred_diff": "pred_diff.csv",
+             "cond_prob": "cond_prob.csv", "nn": "nn_pred.csv",
+             "knn": "knn_pred.csv", "text_model": "text/model.csv",
+             "text_pred": "text/pred.csv", "served": "served.csv"}
+
+
+def nb9_check(outs, counters, what):
+    """nb9_flow's outputs byte-equal to the fixture's, the joiner's by its
+    digest and line count, and the counter groups equal."""
+    import hashlib
+    for name, rel in NB9_FILES.items():
+        same_bytes(outs[name], os.path.join(NB9, rel), f"{what} {name}")
+    with open(outs["joined"], "rb") as fh:
+        data = fh.read()
+    got = f"{hashlib.sha256(data).hexdigest()} {data.count(b'\n')}\n"
+    with open(os.path.join(NB9, "joined.sha256")) as fh:
+        if got != fh.read():
+            fail(f"{what} featureCondProbJoiner output {got.strip()} != "
+                 f"the fixture's joined.sha256")
+    print(f"{what} joined: digest equal to joined.sha256", flush=True)
+    want = read_json(os.path.join(NB9, "counters.json"))
+    if counters != want:
+        fail(f"{what} counters {counters} != the fixture's {want}")
+
+
+def churn_columns(rng, n):
+    """``n`` records of telecom_churn_gen's model drawn with numpy at once:
+    {field: array} in resource/churn.json's codes (plan, paymentHistory
+    and status as category codes)."""
+    plan = rng.choice(len(CHURN_PLAN_P), n, p=CHURN_PLAN_P)
+    usage = rng.lognormal(0.0, 0.5, n)
+    minutes = np.clip(np.array([m for m, _ in CHURN_USAGE])[plan] * usage,
+                      0, 1999).astype(np.int64)
+    data = np.clip(np.array([d for _, d in CHURN_USAGE])[plan] * usage
+                   * rng.lognormal(0, 0.3, n), 0, 9999).astype(np.int64)
+    pay = rng.choice(3, n, p=CHURN_PAY_P)
+    calls = np.clip(rng.poisson(1.2, n), 0, 9)
+    risk = 0.15 + 0.25 * (usage < 0.6) + 0.25 * (pay == 0) \
+        + 0.25 * (calls >= 4)
+    churned = rng.random(n) < risk
+    return {"plan": plan, "minutes": minutes, "data": data, "calls": calls,
+            "pay": pay, "status": churned.astype(np.int64)}
+
+
+def churn_table(cols, fs):
+    """The columns as a port ColumnarTable (category codes int32, numbers
+    float64, as the CSV reader encodes them)."""
+    from avenir_tpu_torch.core.table import ColumnarTable
+    n = len(cols["plan"])
+    return ColumnarTable(schema=fs, n_rows=n, columns={
+        1: cols["plan"].astype(np.int32),
+        2: cols["minutes"].astype(np.float64),
+        3: cols["data"].astype(np.float64),
+        4: cols["calls"].astype(np.float64),
+        5: cols["pay"].astype(np.int32),
+        6: cols["status"].astype(np.int32)})
+
+
+def write_churn_csv(cols, path):
+    plans = np.array(["prepaid", "standard", "family", "business"])
+    pays = np.array(["poor", "average", "good"])
+    status = np.array(["active", "churned"])
+    rows = zip(plans[cols["plan"]], cols["minutes"], cols["data"],
+               cols["calls"], pays[cols["pay"]], status[cols["status"]])
+    with open(path, "w") as fh:
+        fh.write("\n".join(f"C{i:07d},{p},{m},{d},{c},{y},{s}"
+                           for i, (p, m, d, c, y, s) in enumerate(rows)))
+        fh.write("\n")
+
+
+def bayes_main_path():
+    """Phases 42-43: the Naive Bayes main path on the card, every launch
+    count zeroed just before and read just after.  Returns the launch
+    counts and the ledger's backends."""
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.models import bayes
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    from gen.telecom_churn_gen import generate as churn_generate
+    work = os.path.join(WORK, "nb")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    props = f"-Dconf.path={os.path.join(RES, 'churn.properties')}"
+    churn = os.path.join(RES, "churn.json")
+    t0 = time.perf_counter()
+    zero_launches()
+    with transfer_ledger() as ledger:
+        phase("42 golden nb: bayesianDistribution + bayesianPredictor")
+        train = os.path.join(work, "train.csv")
+        with open(train, "w") as fh:
+            fh.write("\n".join(churn_generate(400, 11)))
+        run_cli(["org.avenir.bayesian.BayesianDistribution", props,
+                 f"-Dbad.feature.schema.file.path={churn}", train,
+                 os.path.join(work, "model")])
+        model = os.path.join(work, "model", "part-r-00000")
+        run_cli(["org.avenir.bayesian.BayesianPredictor", props,
+                 f"-Dbap.feature.schema.file.path={churn}",
+                 f"-Dbap.bayesian.model.file.path={model}", train,
+                 os.path.join(work, "pred")])
+        same_bytes(model, os.path.join(NB_GOLDEN, "model.csv"),
+                   "golden nb model")
+        same_bytes(os.path.join(work, "pred", "part-m-00000"),
+                   os.path.join(NB_GOLDEN, "pred.csv"), "golden nb pred")
+        phase("43 nb9 fixture: every predictor mode, the text mode, the "
+              "knn.sh class-conditional pipeline, knnPipeline and "
+              "predictionService over a bayes version")
+        outs, counters = nb9_flow(os.path.join(work, "nb9"))
+        nb9_check(outs, counters, "nb9")
+        # the port's own publish of the same model: the JAX package's
+        # version, meta.json byte for byte and arrays.npz array for array
+        fs = FeatureSchema.load(os.path.join(NB9, "schema.json"))
+        m = bayes.train(load_csv(os.path.join(NB9, "data", "tr_part"), fs))
+        reg = ModelRegistry(os.path.join(work, "nb9_publish"))
+        v = reg.publish(nb9_module().MODEL_NAME, m, schema=fs)
+        want = os.path.join(NB9, "registry", "nb9", "v_000001")
+        same_bytes(os.path.join(reg.version_dir("nb9", v), "meta.json"),
+                   os.path.join(want, "meta.json"), "nb9 port publish")
+        same_arrays(os.path.join(reg.version_dir("nb9", v), "arrays.npz"),
+                    os.path.join(want, "arrays.npz"), "nb9 port publish")
+    counts = launch_counts()
+    backends = ledger.backend_snapshot()
+    sites = ledger.site_snapshot()
+    print(f"bayes main path: launches {counts}; KernelBackends={backends}; "
+          f"dispatch sites bayes.train={sites.get('bayes.train', 0)} "
+          f"bayes.predict={sites.get('bayes.predict', 0)}; phases 42-43 "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    if counts["b5"] <= 0:
+        fail("phase 43 never launched the top-k kernel (knnPipeline)")
+    if not backends.get("knn.topk.cuda"):
+        fail("phase 43 ledger shows no knn.topk.cuda")
+    wrong = [k for k in backends if k.endswith((".torch", ".host"))]
+    if wrong:
+        fail(f"phase 43 ledger shows non-kernel forms: {wrong}")
+    if not sites.get("bayes.train") or not sites.get("bayes.predict"):
+        fail(f"phases 42-43 dispatched no bayes train or predict: {sites}")
+    return counts, backends
+
+
+def bayes_scale(dev):
+    """Phases 44-45: the 10,000,000-row library train on the card against
+    the port's CPU train, then the 1,000,000-row CLI pair on the card
+    against -Dplatform=cpu runs.  Returns the numbers for the kernels
+    line and the CSV phase 46 splits."""
+    import torch
+    from avenir_tpu_torch.core.artifacts import read_text_input
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.models import bayes
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    fs = FeatureSchema.load(os.path.join(RES, "churn.json"))
+    rng = np.random.default_rng(20261017)
+    n = NB_TRAIN_ROWS
+    t_phase = time.perf_counter()
+    phase(f"44 scale: bayes.train over {n:,} churn rows on the card == "
+          f"device='cpu'")
+    table = churn_table(churn_columns(rng, n), fs)
+    warm = churn_table(churn_columns(rng, 4096), fs)
+    bayes.train(warm, device=dev)
+    torch.cuda.synchronize()
+    stats = {}
+    with transfer_ledger() as ledger:
+        t0 = time.perf_counter()
+        m_dev = bayes.train(table, device=dev, stats=stats)
+        wall = time.perf_counter() - t0
+    chunks = ledger.site_snapshot().get("bayes.train", 0)
+    h2d = ledger.h2d_bytes
+    # the 4-bit wire: the class and five bin codes, two a byte
+    if h2d != n * 3:
+        fail(f"bayes.train over {n:,} rows moved {h2d:,} H2D bytes, not "
+             f"the 4-bit wire's {n * 3:,}")
+    t0 = time.perf_counter()
+    lines = m_dev.to_lines()
+    path = os.path.join(WORK, "nb_scale_model.csv")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    m_cpu = bayes.train(table, device="cpu")
+    cpu_wall = time.perf_counter() - t0
+    if m_cpu.to_lines() != lines:
+        fail(f"bayes.train over {n:,} rows: the card's model lines differ "
+             f"from device='cpu'")
+    if chunks != -(-n // bayes.CHUNK_ROWS):
+        fail(f"bayes.train over {n:,} rows ran {chunks} chunks")
+    train = {"rows": n, "wall_s": wall, "rows_per_s": n / wall,
+             "chunks": chunks, "h2d_bytes": h2d, "model_write_s": write_s,
+             "cpu_wall_s": cpu_wall,
+             **{k: v for k, v in stats.items()}}
+    print(f"bayes.train {n:,} rows: card {wall:.4f} s = "
+          f"{n / wall:,.0f} rows/s ({chunks} chunks, H2D {h2d:,} bytes: "
+          f"the 4-bit wire), layers {json.dumps(stats)}, model write "
+          f"{write_s:.4f} s; device='cpu' {cpu_wall:.4f} s; model lines "
+          f"equal; phase 44 {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    train["phase_s"] = time.perf_counter() - t_phase
+
+    n = NB_CLI_ROWS
+    t_phase = time.perf_counter()
+    phase(f"45 scale: bayesianDistribution + bayesianPredictor over a "
+          f"{n:,}-row CSV on the card == -Dplatform=cpu")
+    base = os.path.join(WORK, "nb_cli")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    csv = os.path.join(base, "churn.csv")
+    cols = churn_columns(rng, n)
+    write_churn_csv(cols, csv)
+    props = f"-Dconf.path={os.path.join(RES, 'churn.properties')}"
+    churn = os.path.join(RES, "churn.json")
+    walls = {}
+    for plat in ("cuda", "cpu"):
+        model = os.path.join(base, f"model_{plat}")
+        keys = [props, f"-Dplatform={plat}"]
+        t0 = time.perf_counter()
+        run_cli(["bayesianDistribution", *keys,
+                 f"-Dbad.feature.schema.file.path={churn}", csv, model])
+        walls[f"train_{plat}_s"] = time.perf_counter() - t0
+        bap = keys + [f"-Dbap.feature.schema.file.path={churn}",
+                      "-Dbap.bayesian.model.file.path="
+                      f"{os.path.join(base, 'model_cuda', 'part-r-00000')}"]
+        t0 = time.perf_counter()
+        run_cli(["bayesianPredictor", *bap, csv,
+                 os.path.join(base, f"pred_{plat}")])
+        walls[f"predict_{plat}_s"] = time.perf_counter() - t0
+        run_cli(["bayesianPredictor", *bap,
+                 "-Dbap.output.feature.prob.only=true", csv,
+                 os.path.join(base, f"prob_{plat}")])
+    same_bytes(os.path.join(base, "model_cuda", "part-r-00000"),
+               os.path.join(base, "model_cpu", "part-r-00000"),
+               f"{n:,}-row model, card vs cpu")
+    same_bytes(os.path.join(base, "pred_cuda", "part-m-00000"),
+               os.path.join(base, "pred_cpu", "part-m-00000"),
+               f"{n:,}-row pred, card vs cpu")
+    with open(os.path.join(base, "prob_cuda", "part-m-00000")) as a, \
+            open(os.path.join(base, "prob_cpu", "part-m-00000")) as b:
+        got, want = a.read().splitlines(), b.read().splitlines()
+    if len(got) != len(want):
+        fail(f"feature-prob runs: {len(got)} lines on the card, "
+             f"{len(want)} on the cpu")
+    strings = sum(x != y for g, w in zip(got, want)
+                  for x, y in zip(g.split(","), w.split(",")))
+    print(f"feature-prob strings that differ, card vs cpu: {strings} of "
+          f"{len(got) * 3:,} (target 0)", flush=True)
+    if strings:
+        fail(f"{strings} feature-prob strings differ between the card and "
+             f"the cpu")
+    # the predict layers of the library call over the same rows
+    tab = load_csv(csv, fs)
+    model = bayes.NaiveBayesModel.from_lines(read_text_input(os.path.join(
+        base, "model_cuda", "part-r-00000")), fs)
+    bayes.predict(model, tab, device=dev)
+    torch.cuda.synchronize()
+    pstats, tstats = {}, {}
+    t0 = time.perf_counter()
+    bayes.predict(model, tab, device=dev, stats=pstats)
+    pwall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bayes.train(tab, device=dev, stats=tstats)
+    twall = time.perf_counter() - t0
+    cli = {"rows": n, **walls,
+           "train_rows_per_s": n / walls["train_cuda_s"],
+           "predict_rows_per_s": n / walls["predict_cuda_s"],
+           "feature_prob_string_diffs": strings,
+           "library_predict_s": pwall,
+           "library_predict_rows_per_s": n / pwall,
+           "predict_layers": pstats, "library_train_s": twall,
+           "library_train_rows_per_s": n / twall, "train_layers": tstats,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"{n:,}-row CLI pair: {json.dumps(cli)}", flush=True)
+    return train, cli, csv
+
+
+def bayes_joined(csv):
+    """Phase 46: bayesianDistribution over per-process files on two gloo
+    ranks on the card (--joined-child), 500,000 + 500,000 and 600,000 +
+    400,000 rows of phase 45's CSV: every rank's model equals phase 45's
+    one-process model of the whole file."""
+    n = NB_CLI_ROWS
+    t_phase = time.perf_counter()
+    phase(f"46 joined-nb: bayesianDistribution over {n // 2:,} + "
+          f"{n // 2:,} and {6 * n // 10:,} + {4 * n // 10:,} rows on two "
+          f"ranks == one process over the {n:,}-row CSV")
+    base = os.path.join(WORK, "nb_joined")
+    shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
+    props = f"-Dconf.path={os.path.join(RES, 'churn.properties')}"
+    churn = (f"-Dbad.feature.schema.file.path="
+             f"{os.path.join(RES, 'churn.json')}")
+    layouts = {"half": [0, n // 2, n], "uneq": [0, 6 * n // 10, n]}
+    ranks = [[], []]
+    for name, cuts in layouts.items():
+        parts = [os.path.join(base, f"{name}{i}.csv") for i in range(2)]
+        split_lines(csv, cuts, parts)
+        for i in range(2):
+            ranks[i].append((name, ["bayesianDistribution", props, churn,
+                                    parts[i], f"{base}/{name}_out{i}"]))
+    ports = [free_port() for _ in ranks[0]]
+    cmds = []
+    for i, runs in enumerate(ranks):
+        spec = os.path.join(base, f"spec{i}.json")
+        with open(spec, "w") as fh:
+            json.dump({"runs": [{"name": r, "argv": a, "port": p}
+                                for (r, a), p in zip(runs, ports)]}, fh)
+        tmp = os.path.join(base, f"tmp{i}")
+        os.makedirs(tmp)
+        cmds.append(([sys.executable, os.path.abspath(__file__),
+                      "--joined-child", spec,
+                      os.path.join(base, f"result{i}.json")],
+                     lane_env({"TMPDIR": tmp, "RANK": str(i),
+                               "WORLD_SIZE": "2", "LOCAL_RANK": str(i),
+                               "MASTER_ADDR": "127.0.0.1"}, True)))
+    res = run_children(cmds, timeout=300)
+    all_ok(res, "phase 46")
+    want = os.path.join(WORK, "nb_cli", "model_cuda", "part-r-00000")
+    out = {}
+    for i in range(2):
+        for r in read_json(os.path.join(base, f"result{i}.json")):
+            if r["rc"] != 0:
+                fail(f"phase 46: rank {i} job {r['name']} exited {r['rc']}")
+            out.setdefault(r["name"], []).append(
+                {k: r[k] for k in ("wall_s", "join_s", "allreduce_ms")
+                 if k in r})
+            same_bytes(os.path.join(base, f"{r['name']}_out{i}",
+                                    "part-r-00000"), want,
+                       f"joined nb {r['name']} rank {i}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"phase 46 ranks: {json.dumps(out)}", flush=True)
+    return out
 
 
 def main():
@@ -4164,6 +4628,9 @@ def main():
     multi = multi_process_phases(scale_csv, scale, scale_trees,
                                  scale_counts)
     cached = cache_scale(scale_csv, scale["stream"], scale_trees)
+    nb_counts, nb_backends = bayes_main_path()
+    nb_train, nb_cli, nb_csv = bayes_scale(dev)
+    nb_joined = bayes_joined(nb_csv)
 
     def per_process(run, key):
         return [g[key] for g in run["launches"]]
@@ -4283,7 +4750,8 @@ def main():
             b5_t["euclidean"]["split_merge_old_device_ms"],
         "split_merge_bound_ms": b5_t["euclidean"]["split_merge_bound_ms"],
         "two_process_knn_launches": per_process(multi["knn2"], "b5"),
-        "joined_knn_launches": joined_job("knn", "b5")}, {
+        "joined_knn_launches": joined_job("knn", "b5"),
+        "nb_pipeline_launches": nb_counts["b5"]}, {
         "name": "ensemble_partial_votes", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:73",
@@ -4311,7 +4779,11 @@ def main():
         "process_merge_launches": per_process(multi["knn2"],
                                               "b7_merge"),
         "round_merge_lists": ROUND_LISTS,
-        "round_merge_launches": round_launches}]}), flush=True)
+        "round_merge_launches": round_launches}],
+        "bayes": {"main_path_launches": nb_counts,
+                  "main_path_backends": nb_backends,
+                  "train_10m": nb_train, "cli_1m": nb_cli,
+                  "joined": nb_joined}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

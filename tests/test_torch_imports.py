@@ -45,7 +45,12 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.core.table",
              "avenir_tpu_torch.io",
              "avenir_tpu_torch.io.native_csv",
-             "avenir_tpu_torch.io.colcache"):
+             "avenir_tpu_torch.io.colcache",
+             "avenir_tpu_torch.ops.histogram",
+             "avenir_tpu_torch.models.bayes",
+             "avenir_tpu_torch.models.bayes_text",
+             "avenir_tpu_torch.text.wordcount",
+             "avenir_tpu_torch.cli.bayes_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
