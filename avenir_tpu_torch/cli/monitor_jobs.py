@@ -1,5 +1,5 @@
 """Drift-monitoring jobs (org.avenir.monitor.*), ported from
-``avenir_tpu/cli/monitor_jobs.py`` for the file source.
+``avenir_tpu/cli/monitor_jobs.py``.
 
 ``driftMonitor`` replays a record stream (a CSV file or a dir of part
 files) against a registry model's training baseline and emits one
@@ -23,8 +23,12 @@ drift-score row per (window, monitored distribution).  Config keys
   dm.accuracy.warn/.alert    integer accuracy percents (0 = disabled)
   dm.accuracy.window         outcomes per quality window (default:
                              dm.window.rows)
-  dm.source                  file (``resp``, the RESP queue source, is not
-                             ported and is refused by name)
+  dm.source                  file | resp (default file).  ``resp`` drains
+                             the records from a RESP list queue
+                             (redis.server.host / redis.server.port /
+                             redis.request.queue) in pipelined pops until
+                             a ``stop`` line or dm.resp.max.idle.s
+                             (default 10) without traffic
   badrecords.policy          skip (default) | quarantine | fail
 
 Output: ``<out>/part-r-00000`` rows ``windowIndex,windowKind,scope,
@@ -43,6 +47,7 @@ ported, and an unset or true ``dm.pipeline.fuse`` is refused by name.
 from __future__ import annotations
 
 import os
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -85,6 +90,41 @@ def _iter_line_windows(in_path: str, split, window_rows: int):
                     rows = []
     if rows:
         yield rows
+
+
+def _iter_resp_windows(cfg: Config, split, window_rows: int):
+    """Token-row windows drained from a RESP list queue (pipelined pops,
+    the serving loop's wire discipline); 'stop' or the idle timeout ends
+    the stream."""
+    from ..io.respq import RespClient
+    client = RespClient(cfg.get("redis.server.host", "127.0.0.1"),
+                        int(cfg.get("redis.server.port", 6379)))
+    queue = cfg.get("redis.request.queue", "requestQueue")
+    max_idle_s = cfg.get_float("dm.resp.max.idle.s", 10.0)
+    idle_since = time.monotonic()
+    stopped = False
+    try:
+        rows: List[List[str]] = []
+        while not stopped:
+            msgs = client.rpop_many(queue, window_rows)
+            if not msgs:
+                if time.monotonic() - idle_since > max_idle_s:
+                    break
+                time.sleep(0.002)
+                continue
+            idle_since = time.monotonic()
+            for m in msgs:
+                if m == "stop":
+                    stopped = True
+                else:
+                    rows.append(split(m))
+            while len(rows) >= window_rows:
+                yield rows[:window_rows]
+                rows = rows[window_rows:]
+        if rows:
+            yield rows
+    finally:
+        client.close()
 
 
 # --------------------------------------------------------------------------
@@ -178,9 +218,8 @@ def _window_source(cfg: Config, job: str, in_path: str, window_rows: int):
     if source == "file":
         return _iter_line_windows(in_path, split, window_rows)
     if source == "resp":
-        raise JobNotPorted(f"{job}: dm.source=resp (the RESP queue source) "
-                           f"is not ported to avenir_tpu_torch yet")
-    raise ValueError(f"unknown dm.source {source!r} (file | resp)")
+        return _iter_resp_windows(cfg, split, window_rows)
+    raise ValueError(f"{job}: unknown dm.source {source!r} (file | resp)")
 
 
 def _make_bad_filter(cfg: Config, schema, out_path: str, counters):

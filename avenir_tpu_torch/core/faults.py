@@ -28,8 +28,14 @@ call, retries included); ``times`` bounds how often the spec fires
 ``chunk_read`` (the native reader's block parse, retried through
 :func:`with_retry`), ``chunk_encode`` (the Python reader's block parse),
 ``cache_read`` and ``cache_write`` (a columnar cache chunk),
-``artifact_write`` (quarantine appends) and ``checkpoint_save``
-(``CheckpointManager.save``).
+``artifact_write`` (quarantine appends), ``checkpoint_save``
+(``CheckpointManager.save``), the broker journal's ``journal_write``
+(before every segment append and checkpoint write), ``journal_fsync``
+(before every fsync) and ``journal_replay`` (replay start,
+``io/qjournal``), the registry's ``registry_publish`` (the payload write
+of a publish) and ``registry_sidecar`` (each sidecar file write), and
+``swap_patch`` (the delta reload: the service's patch entry and every
+slice of ``ForestPredictor.apply_delta``).
 """
 
 from __future__ import annotations

@@ -81,26 +81,33 @@ def _cpu_model() -> str:
     return platform.processor()
 
 
-def library_path() -> Path:
-    """Where the library for this source, these flags and this host lives.
-    A missing source hashes by its path, so the compiler reports it."""
+def library_path(source: Optional[Path] = None,
+                 stem: str = "libcsv_native") -> Path:
+    """Where the library for this source (default: the CSV reader's), these
+    flags and this host lives; ``stem`` names it.  A missing source hashes
+    by its path, so the compiler reports it."""
+    source = SOURCE if source is None else source
     try:
-        src = Path(SOURCE).read_bytes()
+        src = Path(source).read_bytes()
     except OSError:
-        src = str(SOURCE).encode()
+        src = str(source).encode()
     key = b"\0".join([src, " ".join((CXX, *CXX_FLAGS, ARCH_FLAG)).encode(),
                       platform.machine().encode(), _cpu_model().encode()])
-    return BUILD_DIR / f"libcsv_native-{hashlib.sha256(key).hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}-{hashlib.sha256(key).hexdigest()[:16]}.so"
 
 
-def build() -> Path:
-    """Compile the library unless it is built already; returns its path.
-    Holds ``<library>.lock`` around the compile so concurrent processes
-    build it once.  Raises :class:`NativeBuildError` with the compiler's
-    output when no flag set compiles."""
+def build(source: Optional[Path] = None, stem: str = "libcsv_native",
+          what: str = "native CSV reader") -> Path:
+    """Compile the library of ``source`` (default: the CSV reader) unless
+    it is built already; returns its path.  Holds ``<library>.lock``
+    around the compile so concurrent processes build it once.  Raises
+    :class:`NativeBuildError` with the compiler's output when no flag set
+    compiles.  ``build_log`` keeps the CSV reader's build only."""
     global build_log
     import time
-    final = library_path()
+    csv_reader = source is None
+    source = SOURCE if csv_reader else source
+    final = library_path(source, stem)
     if final.exists():
         return final
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -113,7 +120,7 @@ def build() -> Path:
             outputs = []
             t0 = time.perf_counter()
             for flags in ((*CXX_FLAGS, ARCH_FLAG), CXX_FLAGS):
-                cmd = [CXX, *flags, "-o", str(tmp), str(SOURCE)]
+                cmd = [CXX, *flags, "-o", str(tmp), str(source)]
                 try:
                     res = subprocess.run(cmd, capture_output=True, text=True,
                                          timeout=300)
@@ -123,11 +130,13 @@ def build() -> Path:
                 outputs.append(f"$ {' '.join(cmd)}\n{res.stdout}{res.stderr}")
                 if res.returncode == 0:
                     os.replace(tmp, final)
-                    build_log = (time.perf_counter() - t0, outputs[-1])
+                    if csv_reader:
+                        build_log = (time.perf_counter() - t0,
+                                     outputs[-1])
                     return final
             if tmp.exists():
                 tmp.unlink()
-            raise NativeBuildError("native CSV reader build failed:\n"
+            raise NativeBuildError(f"{what} build failed:\n"
                                    + "\n".join(outputs))
         finally:
             fcntl.flock(lock_fh, fcntl.LOCK_UN)

@@ -197,6 +197,68 @@ def _prepare(lo, hi, num_r, cat_m, cat_r, cls_oh, wvec, device) -> VoteModel:
     return model
 
 
+def patch_vote_model(model: VoteModel, host, idx, slices, wvec):
+    """A float :class:`VoteModel` with trees ``idx`` replaced: ``host`` is
+    the model's seven host arrays (``stacked_host`` + wvec), ``slices``
+    the six stacked arrays' rows for those trees, ``wvec`` the new (T,)
+    member weights.  Returns ``(model, host, h2d_bytes)``.
+
+    Only the slices (and the weights) cross to the device: each stacked
+    tensor, and on a CUDA device the kernel form's flags, mask words and
+    class indices, is copied with the changed trees' rows replaced
+    (``index_copy``, out of place, so ``model`` stays valid for any batch
+    still using it).  The path-mask tables are a function of every tree's
+    thresholds, so :func:`table_form` runs again over the patched host
+    arrays and the new tables (at most ``SMEM_LIMIT`` bytes) are uploaded
+    whole; where the patched forest no longer fits them the new model has
+    none and runs the scan form.  Raises before touching the device on a
+    quantized model, a layout mismatch or a ``cls_oh`` row that is
+    neither one-hot nor zero."""
+    if model.quantized:
+        raise ValueError("patch_vote_model: the int8 form reloads in full")
+    idx = np.asarray(idx, np.int64)
+    slices = [np.ascontiguousarray(s, h.dtype)
+              for s, h in zip(slices, host[:6])]
+    for s, h in zip(slices, host[:6]):
+        if s.shape != (idx.size,) + h.shape[1:]:
+            raise ValueError(f"patch slice shape {s.shape} does not match "
+                             f"({idx.size},) + {h.shape[1:]}")
+    cls = slices[5]
+    if not (np.isin(cls, (0.0, 1.0)).all()
+            and np.isin(cls.sum(axis=2), (0, 1)).all()):
+        raise ValueError("cls_oh rows must be one-hot or all zero")
+    wvec = np.ascontiguousarray(wvec, np.float32)
+    if wvec.shape != host[6].shape:
+        raise ValueError(f"patch wvec shape {wvec.shape} != "
+                         f"{host[6].shape}")
+    new_host = [h.copy() for h in host[:6]]
+    for h, s in zip(new_host, slices):
+        h[idx] = s
+    new_host.append(wvec)
+    dev = model.device
+    moved = idx.nbytes + wvec.nbytes
+    d_idx = torch.from_numpy(idx).to(dev)
+
+    def patch(cur, rows):
+        nonlocal moved
+        moved += rows.nbytes
+        return cur.index_copy(0, d_idx, torch.from_numpy(rows).to(dev))
+    new = VoteModel(*(patch(cur, s) for cur, s in zip(
+        (model.lo, model.hi, model.num_r, model.cat_m, model.cat_r,
+         model.cls_oh), slices)), torch.from_numpy(wvec).to(dev))
+    if model.flags is not None:
+        flags, catw, cls_i = kernel_form(*slices[2:])
+        new.flags = patch(model.flags, flags)
+        new.catw = patch(model.catw, catw)
+        new.cls = patch(model.cls, cls_i)
+    tables = table_form(*new_host[:5])
+    if tables is not None:
+        new.u, new.ntab, new.ctab = (torch.from_numpy(a).to(dev)
+                                     for a in tables)
+        moved += sum(a.nbytes for a in tables)
+    return new, tuple(new_host), moved
+
+
 # the pad member's value of each stacked array (lo, hi, num_r, cat_m, cat_r,
 # cls_oh, wvec): never matches, votes no class, weighs nothing
 _PAD_MEMBER = (np.inf, -np.inf, True, False, False, 0.0, 0.0)

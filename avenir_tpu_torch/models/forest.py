@@ -87,6 +87,10 @@ class EnsembleModel:
         # table for the batch path and the serving layer
         self._lut = np.concatenate([self._cls_arr.astype(object), [None]])
         self._vote_backend = resolve_backend(self.device)
+        # the host arrays of the resident form (stacked_host + the weight
+        # vector; per shard when sharded): a delta reload patches them
+        self._host = None
+        self._sharded_host = None
         # stack=False skips device placement (callers that only need the
         # stacked layout, or shard_stacked)
         self._stacked = self._stack_members() if stack else None
@@ -141,8 +145,8 @@ class EnsembleModel:
         host = self.stacked_host()
         if host is None:
             return None
-        return prepare_vote_model(*host, np.asarray(self.weights, np.float32),
-                                  self.device)
+        self._host = (*host, np.asarray(self.weights, np.float32))
+        return prepare_vote_model(*self._host, self.device)
 
     def shard_stacked(self, mesh):
         """Place the stacked members over ``mesh`` (a
@@ -166,6 +170,7 @@ class EnsembleModel:
             (*host, np.asarray(self.weights, np.float32)), mesh.size)
         self._sharded = [prepare_vote_model(*arrays, dev)
                          for arrays, dev in zip(slices, mesh.devices)]
+        self._sharded_host = slices
 
     def device_inputs(self, table: ColumnarTable, cache=None):
         """The single gate for the device vote: (d_vals, d_codes) when this

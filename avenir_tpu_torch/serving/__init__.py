@@ -1,7 +1,8 @@
-"""Online prediction serving (port of ``avenir_tpu/serving``): the forest
-registry (publish, read, sidecars), warm bucketed predictors (float and
-int8), and the micro-batched in-process serving loop.
+"""Online prediction serving (port of ``avenir_tpu/serving``): the model
+registry (publish whole or as a delta, read, sidecars, the serving pin,
+retention), warm bucketed predictors (float and int8, with the delta
+patch), and the micro-batched serving loop, in-process and over the RESP
+wire (``service.RespPredictionLoop``).
 
-Deltas, the wire transports, fleets and routers are not ported yet; import
-the submodules directly.
+Fleets and routers are not ported yet; import the submodules directly.
 """

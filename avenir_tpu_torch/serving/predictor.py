@@ -17,24 +17,33 @@ service's ``ambiguous_label``.  Given a version's int8 sidecar
 quantized vote instead, over about 4x fewer request bytes.  Given
 ``serve_mesh`` it shards the members over the trees of a device mesh
 (forests too big for one device's memory) and merges each batch's
-tallies on the mesh's first device.  A ``BayesPredictor`` scores each
-bucket-padded table with ``models/bayes.predict``, the offline
+tallies on the mesh's first device.  A quantized ``ForestPredictor`` also
+serves client-binned int8 rows (``predict_prebinned``, the ``predictq``
+wire form), and a float one patches the trees a registry delta changed
+(``apply_delta``) in place of a full reload.  A ``BayesPredictor`` scores
+each bucket-padded table with ``models/bayes.predict``, the offline
 ``bayesianPredictor``'s argmax.
 """
 
 from __future__ import annotations
 
+import json
 import warnings
-from typing import List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence
+
+import numpy as np
 
 from ..core.schema import FeatureSchema
 from ..core.table import ColumnarTable, encode_rows
-from ..kernels.dispatch import note_backend
+from ..kernels.dispatch import BACKEND_CUDA, note_backend
+from ..kernels.vote import patch_vote_model, vote_form
 from ..runtime import resolve_device
-from ..utils.tracing import fetch, note_dispatch
+from ..utils.tracing import fetch, note_dispatch, note_h2d
 from .registry import BAYES, FOREST, LoadedModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
+# the stacked arrays a delta sidecar carries slices of, in stacked order
+_DELTA_NAMES = ("lo", "hi", "num_r", "cat_m", "cat_r", "cls_oh")
 AMBIGUOUS = "ambiguous"   # the ensemble's min-odds veto, as a wire label
 
 
@@ -113,6 +122,22 @@ class Predictor:
             return []
         return self.predict_prepared(self.prepare_rows(rows))
 
+    # ---- pre-binned int8 wire form (predictq) ----
+    @property
+    def supports_prebinned(self) -> bool:
+        """True when :meth:`predict_prebinned` can serve the int8
+        ``predictq`` wire form (quantized forests only)."""
+        return False
+
+    @property
+    def prebinned_width(self) -> int:
+        """F of the (n, F) int8 pre-binned row — 0 when unsupported."""
+        return 0
+
+    def predict_prebinned(self, qv, qc) -> List[Optional[str]]:
+        raise NotImplementedError(
+            f"{type(self).__name__} has no pre-binned serving path")
+
     def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
         raise NotImplementedError
 
@@ -142,8 +167,12 @@ class ForestPredictor(Predictor):
     def __init__(self, path_lists, schema: FeatureSchema,
                  weights: Optional[Sequence[float]] = None,
                  min_odds_ratio: float = 1.0, quantized=None, device=None,
-                 serve_mesh=None, **kw):
+                 serve_mesh=None, tree_shas: Optional[Sequence[str]] = None,
+                 **kw):
         super().__init__(schema, **kw)
+        # the published per-tree content shas: the identity a delta's
+        # parent chain must match before apply_delta patches anything
+        self.tree_shas = list(tree_shas) if tree_shas else None
         from ..models.forest import EnsembleModel
         from ..models.tree import DecisionTreeModel
         if serve_mesh is not None and device is not None:
@@ -237,7 +266,14 @@ class ForestPredictor(Predictor):
             cache = FeatureCache()
             dev = self.ensemble.device_inputs(table, cache)
             if dev is not None:
-                note_backend("serve.predict", self.ensemble._vote_backend)
+                backend = self.ensemble._vote_backend
+                note_backend("serve.predict", backend)
+                if backend == BACKEND_CUDA and self.serve_mesh is None:
+                    # the form the kernel runs: a delta reload rebuilds
+                    # the tables, and a patched forest that outgrows them
+                    # runs the scan form
+                    note_backend("serve.predict.form",
+                                 vote_form(self.ensemble._stacked))
                 if self.serve_mesh is not None:
                     # one sharded batch, pinned in the ledger as in the JAX
                     # package (vote_device records its merge)
@@ -262,6 +298,146 @@ class ForestPredictor(Predictor):
     def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
         return self.readback_dispatched(
             self.dispatch_prepared([(table, table.n_rows)]))
+
+    # ---- pre-binned int8 wire form (predictq) ----
+    @property
+    def supports_prebinned(self) -> bool:
+        return self._qvote is not None
+
+    @property
+    def prebinned_width(self) -> int:
+        if self._qvote is None:
+            return 0
+        return len(self.models[0].matrix.feat_ordinals)
+
+    def predict_prebinned(self, qv, qc) -> List[Optional[str]]:
+        """Serve client-pre-binned int8 rows (the ``predictq`` wire form):
+        the host encode — tokenize, ``float()``, ``quantize_rows`` — was
+        done by the client, so the decoded rows go straight to the int8
+        vote (B3) with no re-quantization.  Same bucket/pad discipline as
+        ``_bucketed_tables``: chunks of the top bucket, each padded to its
+        bucket with copies of its last row."""
+        if self._qvote is None:
+            raise NotImplementedError(
+                "predict_prebinned needs a quantized sidecar (ps.quantized)")
+        qv = np.asarray(qv, np.int8)
+        qc = np.asarray(qc, np.int8)
+        n_all = qv.shape[0]
+        staged = []
+        top = self.buckets[-1]
+        for s in range(0, n_all, top):
+            n = min(top, n_all - s)
+            b = self.bucket_size(n)
+            cv, cc = qv[s:s + n], qc[s:s + n]
+            if b != n:
+                cv = np.concatenate([cv, np.repeat(cv[-1:], b - n, 0)])
+                cc = np.concatenate([cc, np.repeat(cc[-1:], b - n, 0)])
+            note_backend("serve.predict", "quantized")
+            staged.append((self._qvote(cv, cc), n))
+        out: List[Optional[str]] = []
+        for v, n in staged:
+            out.extend(list(self.ensemble._lut[fetch(v)])[:n])
+        return out
+
+    # ---- delta reload ----
+    def apply_delta(self, dmeta: Dict[str, Any], arrays) -> int:
+        """Patch ONLY the changed trees of the resident forest: the delta
+        slices go to the device into fresh copies of the stacked tensors
+        (``kernels.vote.patch_vote_model``), the kernel's path-mask tables
+        are rebuilt from the patched forest — they are a function of every
+        tree's thresholds — and the new ``VoteModel`` replaces the old one
+        in one assignment at the end.  Nothing is patched in place, so a
+        batch already launched keeps a valid model.  A tree-sharded core
+        patches every shard's slice.  If the patched forest no longer fits
+        the table form, the new model runs the scan form (recorded as
+        ``serve.predict.form.scan``).  Raises on ANY mismatch — the parent
+        sha chain, the class vocabulary, a slice's layout — before
+        anything changes, so the caller takes the full load: never wrong
+        weights.  Returns the H2D bytes moved (also recorded in the
+        active TransferLedger)."""
+        from ..core.faults import fault_point
+        from ..models.tree import DecisionPathList, DecisionTreeModel
+        ens = self.ensemble
+        if self.single or ens is None:
+            raise ValueError("delta patch: single-tree predictors reload "
+                             "in full")
+        if ens._stacked is None and ens._sharded is None:
+            raise ValueError("delta patch needs the stacked device vote "
+                             "(host-path ensembles reload in full)")
+        if self._qvote is not None:
+            raise ValueError("delta patch: quantized serving rebuilds its "
+                             "int8 sidecar a version; reload in full")
+        parent = list(dmeta.get("parent_tree_shas") or [])
+        if not self.tree_shas or parent != list(self.tree_shas):
+            raise ValueError("delta patch: parent sha chain does not match "
+                             "the resident model")
+        if list(dmeta.get("classes") or []) != list(ens.classes):
+            raise ValueError("delta patch: class vocabulary mismatch")
+        idx = np.asarray(arrays["idx"], np.int32)
+        T = len(self.models)
+        if idx.size and (idx.min() < 0 or idx.max() >= T):
+            raise ValueError("delta patch: changed-tree index out of range")
+        host = ens._host if ens._sharded is None else ens._sharded_host[0]
+        slices = []
+        for name, cur in zip(_DELTA_NAMES, host):
+            upd = np.asarray(arrays[name])
+            if upd.shape[1:] != cur.shape[1:] or \
+                    upd.shape[0] != idx.size or upd.dtype != cur.dtype:
+                raise ValueError(
+                    f"delta patch: slice {name} layout {upd.shape}/"
+                    f"{upd.dtype} does not match resident "
+                    f"{cur.shape}/{cur.dtype}")
+            slices.append(upd)
+        new_wv = np.asarray(arrays["wvec"], np.float32)
+        if new_wv.shape != (T,):
+            raise ValueError("delta patch: wvec shape mismatch")
+        changed_trees = dmeta.get("changed_trees") or []
+        if len(changed_trees) != idx.size:
+            raise ValueError("delta patch: changed_trees does not match "
+                             "the index list")
+        moved = 0
+        if ens._sharded is None:
+            fault_point("swap_patch")
+            stacked, new_host, moved = patch_vote_model(
+                ens._stacked, ens._host, idx, slices, new_wv)
+            sharded = sharded_host = None
+        else:
+            # the shards hold contiguous slices of T padded to a multiple
+            # of S (zero-weight pad members): each takes its own trees
+            S = len(ens._sharded)
+            step = ens._sharded_host[0][0].shape[0]
+            wv = np.zeros(S * step, np.float32)
+            wv[:T] = new_wv
+            sharded, sharded_host = [], []
+            for s, (model, h) in enumerate(zip(ens._sharded,
+                                               ens._sharded_host)):
+                fault_point("swap_patch")
+                mine = (idx >= s * step) & (idx < (s + 1) * step)
+                m, nh, b = patch_vote_model(
+                    model, h, idx[mine] - s * step,
+                    [a[mine] for a in slices],
+                    wv[s * step:(s + 1) * step])
+                sharded.append(m)
+                sharded_host.append(nh)
+                moved += b
+            stacked = new_host = None
+        fault_point("swap_patch")
+        note_h2d(moved)
+        # host twins of the changed members (the host vote and the
+        # feature gate stay coherent with the device form)
+        for i, tj in zip(idx, changed_trees):
+            self.models[int(i)] = DecisionTreeModel(
+                DecisionPathList.from_json(json.dumps(tj)), self.schema,
+                device=self.device)
+        ens.weights = [float(w) for w in new_wv]
+        # the swap: one assignment per resident form; a batch that already
+        # launched keeps the tensors it was given
+        if sharded is None:
+            ens._stacked, ens._host = stacked, new_host
+        else:
+            ens._sharded, ens._sharded_host = sharded, sharded_host
+        self.tree_shas = list(dmeta["tree_shas"])
+        return moved
 
 
 class BayesPredictor(Predictor):
@@ -335,4 +511,6 @@ def make_predictor(loaded: LoadedModel,
     return ForestPredictor(
         loaded.model, schema, weights=p.get("weights"),
         min_odds_ratio=float(p.get("min_odds_ratio", 1.0)), quantized=qf,
-        device=device, serve_mesh=serve_mesh, buckets=buckets, delim=delim)
+        device=device, serve_mesh=serve_mesh,
+        tree_shas=loaded.meta.get("tree_shas"), buckets=buckets,
+        delim=delim)

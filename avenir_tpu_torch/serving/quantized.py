@@ -23,14 +23,17 @@ published registry version (``ModelRegistry.add_sidecar``).  Serving
 selects it with ``ps.quantized``; a version without an intact sidecar warns
 and serves the float model.  The vote is the int8 form of the ensemble-vote
 kernel (``kernels/vote.py`` ``quantized_vote``, replacing the Pallas
-``ops/pallas/vote.py`` ``quantized_vote``).  The ``predictq`` wire codec of
-the RESP tier is not ported yet.
+``ops/pallas/vote.py`` ``quantized_vote``).  A client holding the grid can
+pre-bin its rows itself and send the int8 ``predictq`` wire form
+(:func:`wire_encode_rows`, :func:`wire_decode_tokens`): the RESP tier then
+hands the decoded rows straight to the int8 vote.
 """
 
 from __future__ import annotations
 
 import io as _io
 import json
+import re
 import warnings
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -276,3 +279,65 @@ def load_quantized(registry, name: str,
             f"torn or unreadable ({type(exc).__name__}: {exc}); serving "
             f"the float model", RuntimeWarning)
         return None
+
+
+# --------------------------------------------------------------------------
+# the int8 wire form: client-side pre-binning
+# --------------------------------------------------------------------------
+#
+# A client that holds the published grid (sidecar ``scale``/``fmin``) can
+# quantize request rows ITSELF and ship the int8 form:
+#
+#   predictq,<rid>[,t=<us>:<0|1>],<F>,<qv_0..qv_{F-1}>,<qc_0..qc_{F-1}>
+#
+# where F = len(feat_ordinals) of the serving forest and every qv/qc token
+# is a CANONICAL signed decimal int8: ``0`` or ``-?[1-9][0-9]{0,2}`` in
+# [-128, 127] — no '+', no '-0', no leading zeros, so one byte pattern per
+# value and the native parser (io/serve_native.cpp) and this codec can
+# never disagree on a valid payload.  The width echo <F> lets the server
+# reject a grid-shape mismatch before touching the payload.  The layout is
+# the JAX package's (its golden ``wire`` fixture pins the bytes).
+
+QUANTIZED_VERB = "predictq"
+
+_Q_INT_RE = re.compile(r"^(?:0|-?[1-9][0-9]{0,2})$")
+_WIDTH_RE = re.compile(r"^(?:0|[1-9][0-9]*)$")
+
+
+def wire_encode_rows(rids: Sequence[str], qv: np.ndarray, qc: np.ndarray,
+                     *, delim: str = ",") -> List[str]:
+    """Encode pre-binned rows (``quantize_rows`` output) as predictq wire
+    messages, one per request id — the canonical on-wire layout."""
+    qv = np.asarray(qv, np.int8)
+    qc = np.asarray(qc, np.int8)
+    width = qv.shape[1]
+    out = []
+    for rid, vrow, crow in zip(rids, qv, qc):
+        parts = [QUANTIZED_VERB, str(rid), str(width)]
+        parts.extend(str(int(x)) for x in vrow)
+        parts.extend(str(int(x)) for x in crow)
+        out.append(delim.join(parts))
+    return out
+
+
+def wire_decode_tokens(tokens: Sequence[str], width: int
+                       ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+    """Strict decode of a predictq payload (the row fields after
+    rid/trace): ``(qv, qc)`` int8 arrays, or None when the payload is
+    malformed — wrong arity, width-echo mismatch, or any non-canonical
+    token.  This decoder is the semantics oracle the native parser defers
+    to (it FALLS BACK rather than guess)."""
+    if len(tokens) != 1 + 2 * width:
+        return None
+    if _WIDTH_RE.match(tokens[0]) is None or int(tokens[0]) != width:
+        return None
+    vals = []
+    for tok in tokens[1:]:
+        if _Q_INT_RE.match(tok) is None:
+            return None
+        v = int(tok)
+        if not -128 <= v <= 127:
+            return None
+        vals.append(v)
+    return (np.asarray(vals[:width], np.int8),
+            np.asarray(vals[width:], np.int8))

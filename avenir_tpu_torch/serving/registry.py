@@ -1,5 +1,6 @@
 """Model registry: port of ``avenir_tpu/serving/registry.py`` for the
-``forest`` and ``bayes`` kinds — reading versions and publishing them.
+``forest`` and ``bayes`` kinds — reading versions, publishing them (whole or as a delta
+over a parent), the serving pin and retention.
 
 It reads the versions the JAX package's ``ModelRegistry.publish`` writes,
 and ``publish`` writes them byte for byte as that one does:
@@ -20,7 +21,16 @@ skips torn version directories with a warning, and ``serving_version``
 honours a pin whose target is intact.  A forest's payload is its trees'
 JSON in ``meta.json`` (an empty ``arrays.npz``); a Naive Bayes model's is
 its count tables and Gaussian parameters in ``arrays.npz`` and its record
-total in ``meta.json``.  Deltas, writing pins, retention and the
+total in ``meta.json``.
+
+``pin_version`` / ``clear_pin`` write and remove the serving pin
+(tmp-then-rename), ``retire`` keeps the newest versions plus the pinned,
+the serving and any live delta parent, and sweeps abandoned tmps of dead
+publishers.  ``publish_delta`` publishes a forest in full and attaches a
+``delta.json`` + ``delta.npz`` sidecar pair holding only the trees that
+changed against a parent version, in the parent's stacked layout: a
+serving tier resident on the parent patches those trees
+(``ForestPredictor.apply_delta``) instead of reloading the forest.  The
 ``logistic`` and ``mlp`` kinds are not ported yet.
 """
 
@@ -31,6 +41,7 @@ import json
 import os
 import re
 import shutil
+import time
 import warnings
 from dataclasses import dataclass
 from typing import Any, Dict, List, Optional, Tuple
@@ -38,8 +49,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..core.artifacts import ArtifactStore, write_json
-from ..core.faults import with_retry
+from ..core.faults import fault_point, with_retry
 from ..core.schema import FeatureSchema
+from ..telemetry import instant
 
 FOREST = "forest"
 BAYES = "bayes"
@@ -49,10 +61,22 @@ KINDS = (FOREST, BAYES, LOGISTIC, MLP)
 
 META_FILE = "meta.json"
 ARRAYS_FILE = "arrays.npz"
+# the delta sidecar pair: the changed trees' stacked slices and the parent
+# version's per-tree sha chain
+DELTA_JSON = "delta.json"
+DELTA_NPZ = "delta.npz"
+DELTA_FORMAT_VERSION = 1
 PIN_FILE = "serving.json"
 FORMAT_VERSION = 1
 
 _VERSION_RE = re.compile(r"^v_(\d{6})$")
+# abandoned publish/pin tmps a dead process left behind (the trailing
+# group is the pid retire()'s sweep liveness-checks); younger tmps are
+# never swept — a remote host's live publisher looks pid-dead locally
+_TMP_RE = re.compile(r"^(?:v_\d{6}|" + re.escape(PIN_FILE)
+                     + r")\.tmp\.(\d+)$")
+_TMP_GRACE_S = float(os.environ.get("AVENIR_TPU_REGISTRY_TMP_GRACE_S",
+                                    "3600"))
 
 
 @dataclass
@@ -71,6 +95,10 @@ class LoadedModel:
     def params(self) -> Dict[str, Any]:
         return self.meta.get("params", {})
 
+    @property
+    def class_values(self) -> List[str]:
+        return list(self.meta.get("class_values") or [])
+
 
 def _tree_shas(trees_json: List[Any]) -> List[str]:
     """Per-tree content shas over the canonical (sorted-key, no-space)
@@ -79,6 +107,38 @@ def _tree_shas(trees_json: List[Any]) -> List[str]:
         json.dumps(t, sort_keys=True,
                    separators=(",", ":")).encode()).hexdigest()
         for t in trees_json]
+
+
+def _pad_stacked_to(c_host, p_host):
+    """Re-pad a child forest's stacked host arrays into the parent's
+    ``(P, cmax)`` layout so delta slices align with a parent-layout
+    resident.  Raises when the child cannot fit — a changed tree with more
+    paths (or wider categorical sets) than the parent layout holds has no
+    delta form; the serving tier then loads the full artifact."""
+    lo, hi, num_r, cat_m, cat_r, cls_oh = c_host
+    T, Pc, F = lo.shape
+    cmax_c, Kc = cat_m.shape[3], cls_oh.shape[2]
+    P, Fp = p_host[0].shape[1], p_host[0].shape[2]
+    cmax, K = p_host[3].shape[3], p_host[5].shape[2]
+    if F != Fp or Kc != K:
+        raise ValueError("feature/class axis changed; patch slices "
+                         "would not align")
+    if Pc > P or cmax_c > cmax:
+        raise ValueError(
+            f"child outgrows the parent stacked layout "
+            f"(P {Pc}>{P} or cmax {cmax_c}>{cmax}); no delta form")
+    # stacked_host's own pad rows: never-match bounds, unrestricted
+    # categoricals, vote-nothing one-hot
+    nlo = np.full((T, P, F), np.inf, np.float32)
+    nhi = np.full((T, P, F), -np.inf, np.float32)
+    nnum = np.ones((T, P, F), dtype=bool)
+    ncm = np.zeros((T, P, F, cmax), dtype=bool)
+    ncr = np.zeros((T, P, F), dtype=bool)
+    ncls = np.zeros((T, P, K), np.float32)
+    nlo[:, :Pc], nhi[:, :Pc], nnum[:, :Pc] = lo, hi, num_r
+    ncm[:, :Pc, :, :cmax_c] = cat_m
+    ncr[:, :Pc], ncls[:, :Pc] = cat_r, cls_oh
+    return nlo, nhi, nnum, ncm, ncr, ncls
 
 
 def _detect_kind(model: Any) -> str:
@@ -218,11 +278,41 @@ class ModelRegistry:
                 f"or unreadable; skipping it for serving", RuntimeWarning)
         return None
 
+    # ---- serving pin (the rollback surface) ----
+    def _pin_path(self, name: str) -> str:
+        return self.store.path(name, PIN_FILE)
+
+    def pin_version(self, name: str, version: int) -> None:
+        """Pin the version the serving tier resolves (tmp-then-rename, so
+        readers see the old pin or the new one, never a torn file).
+        Refuses a version that is not committed and intact — pinning a
+        torn version would wedge every later hot-swap refresh."""
+        if not self.is_intact(name, version):
+            raise ValueError(
+                f"refusing to pin model {name!r} version {version}: not a "
+                f"committed intact version in {self.base_dir!r}")
+        final = self._pin_path(name)
+        tmp = final + f".tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump({"version": int(version),
+                       "pinned_unix": time.time()}, fh)
+        os.replace(tmp, final)
+        instant("registry.pin", cat="registry", model=name,
+                version=int(version))
+
+    def clear_pin(self, name: str) -> None:
+        """Back to newest-intact resolution (idempotent)."""
+        try:
+            os.remove(self._pin_path(name))
+        except FileNotFoundError:
+            return
+        instant("registry.unpin", cat="registry", model=name)
+
     def pinned_version(self, name: str) -> Optional[int]:
         """The pinned version number, or None (no pin / unreadable pin — an
         unreadable pin file warns and reads as absent)."""
         try:
-            with open(self.store.path(name, PIN_FILE)) as fh:
+            with open(self._pin_path(name)) as fh:
                 return int(json.load(fh)["version"])
         except FileNotFoundError:
             return None
@@ -246,6 +336,88 @@ class ModelRegistry:
                 f"{self.base_dir!r} is torn or missing; serving falls "
                 f"back to the newest intact version", RuntimeWarning)
         return self.latest_version(name)
+
+    # ---- retention ----
+    @staticmethod
+    def _pid_alive(pid: int) -> bool:
+        try:
+            os.kill(pid, 0)
+            return True
+        except ProcessLookupError:
+            return False
+        except PermissionError:
+            return True        # exists, just not ours
+        except OSError:
+            return True        # unknown: err on the safe side
+
+    def retire(self, name: str, keep_last: int = 3,
+               dry_run: bool = False) -> List[int]:
+        """Delete old versions: keep the newest ``keep_last`` committed
+        versions plus, always, the pinned version, the resolved serving
+        version, and the direct delta parent of any version a consumer can
+        be told to load next (latest, pinned, serving) — residents on that
+        parent are the ones a delta reload patches.  Abandoned ``.tmp``
+        publishes and pin tmps are swept too, but only when the pid in
+        their suffix is dead here and they are older than the grace
+        period (``AVENIR_TPU_REGISTRY_TMP_GRACE_S``, default 3600 s: on a
+        shared registry a remote publisher looks pid-dead locally).
+        Returns the retired version numbers; ``dry_run`` computes the same
+        list without deleting anything."""
+        if keep_last < 1:
+            raise ValueError(f"keep_last must be >= 1, got {keep_last}")
+        versions = self.versions(name)
+        keep = set(versions[-keep_last:])
+        for protected in (self.pinned_version(name),
+                          self.serving_version(name)):
+            if protected is not None:
+                keep.add(protected)
+        all_v = set(versions)
+        loadable = {v for v in (versions[-1] if versions else None,
+                                self.pinned_version(name),
+                                self.serving_version(name))
+                    if v is not None}
+        for v in loadable:
+            info = self.delta_info(name, v)
+            if not info:
+                continue
+            parent = int(info.get("parent_version", -1))
+            if parent in all_v:
+                keep.add(parent)
+        retired = [v for v in versions if v not in keep]
+        if dry_run:
+            return retired
+        for v in retired:
+            shutil.rmtree(self.version_dir(name, v), ignore_errors=True)
+        d = self.store.path(name)
+        if os.path.isdir(d):
+            now = time.time()
+            for entry in os.listdir(d):
+                m = _TMP_RE.match(entry)
+                if not m or self._pid_alive(int(m.group(1))):
+                    continue
+                path = os.path.join(d, entry)
+                try:
+                    age = now - os.path.getmtime(path)
+                except OSError:
+                    continue
+                if age < _TMP_GRACE_S:
+                    continue
+                if os.path.isdir(path):
+                    shutil.rmtree(path, ignore_errors=True)
+                else:
+                    try:
+                        os.remove(path)   # an orphaned pin tmp file
+                    except OSError:
+                        pass
+        return retired
+
+    def names(self) -> List[str]:
+        """All model names with at least one committed version."""
+        if not os.path.isdir(self.base_dir):
+            return []
+        return [entry for entry in sorted(os.listdir(self.base_dir))
+                if os.path.isdir(os.path.join(self.base_dir, entry))
+                and self.versions(entry)]
 
     def load(self, name: str, version: Optional[int] = None,
              schema: Optional[FeatureSchema] = None) -> LoadedModel:
@@ -279,14 +451,20 @@ class ModelRegistry:
                            schema=schema, base_dir=self.base_dir)
 
     def publish(self, name: str, model: Any, *,
-                schema: Optional[FeatureSchema] = None) -> int:
+                schema: Optional[FeatureSchema] = None,
+                kind: Optional[str] = None,
+                params: Optional[Dict[str, Any]] = None) -> int:
         """Write the model (a forest: a list of ``DecisionPathList``; or a
         ``NaiveBayesModel``) as the next version and atomically commit it;
         returns the version number.  ``meta.json`` and ``arrays.npz`` hold
         what the JAX package's ``publish`` writes for the same model (the
         JSON byte for byte, the arrays array for array), so either package
         loads the version."""
-        kind = _detect_kind(model)
+        detected = _detect_kind(model)
+        if kind is not None and kind != detected:
+            raise ValueError(f"publish kind {kind!r} does not match the "
+                             f"model's kind {detected!r}")
+        kind = detected
         arrays, model_json, class_values = _encode(model, kind, schema)
         versions = self.versions(name)
         version = (versions[-1] + 1) if versions else 1
@@ -304,7 +482,7 @@ class ModelRegistry:
             "kind": kind,
             "class_values": class_values,
             "dtypes": {k: str(v.dtype) for k, v in arrays.items()},
-            "params": {},
+            "params": dict(params or {}),
             "model_json": model_json,
             "schema": schema.to_dict() if schema is not None else None,
             # manifest of payload files the intactness probe covers
@@ -312,11 +490,147 @@ class ModelRegistry:
         }
         if kind == FOREST:
             meta["tree_shas"] = _tree_shas(model_json["trees"])
-        with_retry(lambda: np.savez(os.path.join(tmp, ARRAYS_FILE), **arrays),
-                   what=f"registry publish {name} v{version}")
+        def write_arrays():
+            fault_point("registry_publish")
+            np.savez(os.path.join(tmp, ARRAYS_FILE), **arrays)
+        with_retry(write_arrays, what=f"registry publish {name} v{version}")
         write_json(os.path.join(tmp, META_FILE), meta)
         os.replace(tmp, final)
+        instant("registry.publish", cat="registry", model=name,
+                version=version, kind=kind)
         return version
+
+    # ---- delta distribution ----
+    def publish_delta(self, name: str, model: Any, *,
+                      parent_version: int,
+                      schema: Optional[FeatureSchema] = None,
+                      params: Optional[Dict[str, Any]] = None) -> int:
+        """Publish a forest as the next version PLUS a ``delta.npz`` /
+        ``delta.json`` sidecar pair holding only the trees that changed
+        against ``parent_version``.  The FULL artifact is always written
+        first (the delta is an overlay, never the only copy), and the
+        sidecar attach is best-effort: any incompatibility — parent torn
+        or retired, member count or class vocabulary changed, a changed
+        tree outgrowing the parent's stacked layout (smaller layouts
+        re-pad) — warns and leaves the plain full publish.  Returns the
+        new version number either way."""
+        params = dict(params or {})
+        params["delta_parent"] = int(parent_version)
+        version = self.publish(name, model, schema=schema, params=params)
+        try:
+            self._attach_delta(name, version, int(parent_version))
+        except Exception as exc:
+            warnings.warn(
+                f"model {name!r} v{version}: delta sidecar against "
+                f"parent v{parent_version} not attached "
+                f"({type(exc).__name__}: {exc}); consumers will load "
+                f"the full artifact", RuntimeWarning)
+        return version
+
+    def _attach_delta(self, name: str, version: int,
+                      parent_version: int) -> None:
+        """Compute and attach the delta sidecars (raises on any layout or
+        chain mismatch — publish_delta turns that into a warning).  The
+        stacked forms are built on the host (``device="cpu"``)."""
+        import io
+        from ..models.forest import EnsembleModel
+        from ..models.tree import DecisionTreeModel
+        if not self.is_intact(name, parent_version):
+            raise ValueError(f"parent v{parent_version} is not intact")
+        child = self.load(name, version)
+        parent = self.load(name, parent_version)
+        if child.kind != FOREST or parent.kind != FOREST:
+            raise ValueError("delta publish is forest-only")
+        child_shas = list(child.meta.get("tree_shas") or [])
+        parent_shas = list(parent.meta.get("tree_shas") or [])
+        if not child_shas or not parent_shas:
+            raise ValueError("parent predates per-tree shas")
+        if len(child_shas) != len(parent_shas):
+            raise ValueError(
+                f"member count changed ({len(parent_shas)} -> "
+                f"{len(child_shas)}); no delta form exists")
+        if child.schema is None:
+            raise ValueError("forest artifact has no embedded schema")
+
+        def host_form(loaded):
+            models = [DecisionTreeModel(pl, loaded.schema, device="cpu")
+                      for pl in loaded.model]
+            ens = EnsembleModel(
+                models, weights=loaded.params.get("weights"),
+                min_odds_ratio=float(
+                    loaded.params.get("min_odds_ratio", 1.0)),
+                require_odd=False, stack=False, device="cpu")
+            return ens, ens.stacked_host()
+        c_ens, c_host = host_form(child)
+        p_ens, p_host = host_form(parent)
+        if c_host is None or p_host is None:
+            raise ValueError("no stacked device form (degenerate member "
+                             "or non-f32-exact bounds)")
+        if c_ens.classes != p_ens.classes:
+            raise ValueError("class vocabulary changed")
+        if any(c.shape[1:] != q.shape[1:]
+               for c, q in zip(c_host, p_host)):
+            # each tree's slot is laid out on its own (sentinel at its own
+            # path count, never-match rows after), so re-padding the child
+            # to the parent's (P, cmax) is exact
+            c_host = _pad_stacked_to(c_host, p_host)
+        changed = [i for i, (cs, ps) in
+                   enumerate(zip(child_shas, parent_shas)) if cs != ps]
+        lo, hi, num_r, cat_m, cat_r, cls_oh = c_host
+        idx = np.asarray(changed, np.int32)
+        buf = io.BytesIO()
+        np.savez(buf, idx=idx, lo=lo[idx], hi=hi[idx], num_r=num_r[idx],
+                 cat_m=cat_m[idx], cat_r=cat_r[idx], cls_oh=cls_oh[idx],
+                 wvec=np.asarray(c_ens.weights, np.float32))
+        trees = child.meta["model_json"]["trees"]
+        dmeta = {
+            "format": DELTA_FORMAT_VERSION,
+            "parent_version": int(parent_version),
+            "parent_tree_shas": parent_shas,
+            "tree_shas": child_shas,
+            "classes": list(c_ens.classes),
+            "n_trees": len(child_shas),
+            "changed": [int(i) for i in changed],
+            "changed_trees": [trees[i] for i in changed],
+            "stacked_shape": {"P": int(lo.shape[1]),
+                              "F": int(lo.shape[2]),
+                              "cmax": int(cat_m.shape[3]),
+                              "K": int(cls_oh.shape[2])},
+        }
+        self.add_sidecar(name, version, {
+            DELTA_NPZ: buf.getvalue(),
+            DELTA_JSON: json.dumps(dmeta).encode(),
+        })
+        instant("registry.delta_publish", cat="registry", model=name,
+                version=version, parent=int(parent_version),
+                changed=len(changed), total=len(child_shas))
+
+    def delta_info(self, name: str, version: int) -> Optional[Dict]:
+        """The parsed ``delta.json`` sidecar, or None when the version
+        carries no (readable) delta — absence means a full load, never an
+        error."""
+        try:
+            return json.loads(
+                self.read_sidecar(name, version, DELTA_JSON))
+        except FileNotFoundError:
+            return None
+        except Exception as exc:
+            warnings.warn(
+                f"model {name!r} v{version}: delta sidecar unreadable "
+                f"({type(exc).__name__}: {exc}); treating as absent",
+                RuntimeWarning)
+            return None
+
+    def load_delta(self, name: str, version: int
+                   ) -> Tuple[Dict, Dict[str, np.ndarray]]:
+        """(delta meta, delta arrays) of a version published with a delta
+        sidecar; FileNotFoundError when it has none."""
+        import io
+        dmeta = json.loads(self.read_sidecar(name, version, DELTA_JSON))
+        with np.load(io.BytesIO(
+                self.read_sidecar(name, version, DELTA_NPZ))) as z:
+            arrays = {k: z[k] for k in z.files}
+        return dmeta, arrays
 
     # ---- sidecars ----
     def add_sidecar(self, name: str, version: int,
@@ -342,6 +656,7 @@ class ModelRegistry:
             tmp = final + f".tmp.{os.getpid()}"
 
             def write(tmp=tmp, final=final, payload=payload):
+                fault_point("registry_sidecar")
                 with open(tmp, "wb") as fh:
                     fh.write(payload)
                 os.replace(tmp, final)
@@ -366,3 +681,16 @@ class ModelRegistry:
                 f"model {name!r} v{version} has no sidecar {fname!r}")
         with open(os.path.join(d, fname), "rb") as fh:
             return fh.read()
+
+
+def save_model(base_dir: str, name: str, model: Any, *,
+               schema: Optional[FeatureSchema] = None,
+               kind: Optional[str] = None,
+               params: Optional[Dict[str, Any]] = None) -> int:
+    return ModelRegistry(base_dir).publish(name, model, schema=schema,
+                                           kind=kind, params=params)
+
+
+def load_model(base_dir: str, name: str, version: Optional[int] = None,
+               schema: Optional[FeatureSchema] = None) -> LoadedModel:
+    return ModelRegistry(base_dir).load(name, version, schema=schema)

@@ -1,6 +1,6 @@
-"""Micro-batched prediction serving, in-process transport: port of
-``avenir_tpu/serving/service.py`` (``BatchPolicy`` and ``PredictionService``'s
-submit / start / stop / predict_rows and its drain and continuous loops).
+"""Micro-batched prediction serving: port of
+``avenir_tpu/serving/service.py`` (``BatchPolicy``, ``PredictionService``
+and the RESP wire loop ``RespPredictionLoop``).
 
 Single-row requests are coalesced into device batches under a
 max-latency/max-batch policy: the first queued request opens a batch window
@@ -8,7 +8,7 @@ of ``max_wait_ms``; the batch closes when ``max_batch`` requests are queued
 or the window expires, whichever is first.  One bucketed predict then
 answers the whole batch.
 
-Batching modes (``BatchPolicy.batching``):
+Batching modes (``BatchPolicy.batching``) of the in-process transport:
 
   * ``continuous`` (default) — double-buffered over asynchronous CUDA
     launches: the loop launches batch N without waiting for its result,
@@ -22,10 +22,40 @@ Batching modes (``BatchPolicy.batching``):
 SLO-adaptive coalescing (``BatchPolicy.slo_p99_ms``) and admission control
 (``BatchPolicy.max_queue_depth``: a submit against a full queue is answered
 ``busy_label`` at once) behave as in the reference.  ``monitor=`` attaches
-the drift monitor's hook (``monitor.accumulator.ServingMonitor``): every
-answered batch's rows and labels are recorded through it, and a failing
-hook is warned, never raised into serving.  The wire transports (RESP,
-native codec), request tracing and metrics binding are not ported yet.
+the drift monitor's hook (``monitor.accumulator.ServingMonitor``).
+
+Transports:
+
+  * in-process — ``submit()`` returns a future; a daemon worker thread
+    runs the coalescing loop.
+  * the wire (:class:`RespPredictionLoop`) — RESP-list queues polled like
+    the reference's Redis spout (requests ``rpop``ed from the request
+    queue, or leased with ``ps.broker.lease.timeout.s``; replies
+    ``lpush``ed to the prediction queue, or ``ACKPUSH``ed), against
+    ``io/respq.RespServer`` or a real Redis.  Each drained batch goes
+    through :meth:`PredictionService.process_batch`: the native codec
+    (``io/native_wire``, ``ps.wire.native``) assembles it in one C pass,
+    or the Python plane does (``ps.wire.native=off``, and every batch the
+    codec's fallback verdict hands back).
+
+Message formats (delim-joined):
+  request:    'predict,<requestId>[,t=<us>:<0|1>][,d=<us>],<field0>,...'
+              (a full record; the optional request-trace and deadline
+              fields are ``telemetry/reqtrace``'s)
+              'predictq,<requestId>[,t=...][,d=...],<F>,<qv...>,<qc...>'
+              (the int8 pre-binned form, ``serving/quantized.py``; served
+              when the model carries a quantized sidecar, else answered
+              ``error``)
+  response:   '<requestId>,<predictedClass>' ('error' for an unservable
+              request, 'late' past its deadline)
+  control:    'reload' -> hot-swap to the registry's serving version, by a
+                          delta patch where the new version carries one
+                          whose parent is the served version
+              'stop'   -> end the wire loop
+
+Metrics binding (the reference's ``telemetry.metrics`` registry) is not
+ported yet: the single-worker path binds it only where a default registry
+is set.
 """
 
 from __future__ import annotations
@@ -34,22 +64,32 @@ import queue
 import threading
 import time
 import warnings
+import weakref
 from concurrent.futures import Future
 from dataclasses import dataclass
-from typing import List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
-from ..core.faults import with_retry
+from ..core.faults import fault_point, with_retry
 from ..core.metrics import Counters
+from ..io import native_wire
+from ..telemetry import instant, reqtrace, span
 from ..utils.tracing import StepTimer
 from .predictor import AMBIGUOUS, DEFAULT_BUCKETS, Predictor, make_predictor
+from .quantized import QUANTIZED_VERB, wire_decode_tokens
 from .registry import ModelRegistry
 
 # adaptive-window hysteresis band: shrink above SHRINK*slo, grow back below
 # GROW*slo, hold in between
 _SLO_SHRINK_FRACTION = 0.6
 _SLO_GROW_FRACTION = 0.35
+
+# one warning per affected batch, identical text on both data planes (the
+# differential tests compare recorded warnings too)
+_NO_PREBINNED_WARNING = (
+    "serving: predictq message(s) but the served model has no quantized "
+    "sidecar (ps.quantized); replying error")
 
 
 @dataclass
@@ -75,13 +115,57 @@ class BatchPolicy:
                              f"or 'drain', got {self.batching!r}")
 
 
-class _Request:
-    __slots__ = ("row", "t_submit", "future")
+def _stamp_dispatch(ctxs, rows: int) -> None:
+    """Stamp dispatch time + emit the flow ``t`` step for every sampled
+    context entering a device batch.  Lazy timestamp: an untraced batch
+    costs one None-check per member, no clock, no allocation."""
+    t = None
+    for tr in ctxs:
+        if tr is not None and tr.t_dispatch_us is None:
+            if t is None:
+                t = reqtrace.now_us()
+            tr.t_dispatch_us = t
+            reqtrace.emit_flow("t", tr.rid, "dispatch", ts_us=t, rows=rows)
 
-    def __init__(self, row: List[str]):
+
+def _stamp_done(ctxs) -> None:
+    """Stamp readback-complete time for every sampled context in a
+    finished batch (same lazy-clock discipline)."""
+    t = None
+    for tr in ctxs:
+        if tr is not None:
+            if t is None:
+                t = reqtrace.now_us()
+            tr.t_done_us = t
+
+
+def _mark_dispatch(batch, rows: int) -> None:
+    _stamp_dispatch((r.trace for r in batch), rows)
+
+
+def _mark_done(batch) -> None:
+    _stamp_done(r.trace for r in batch)
+
+
+def _mark_popped(req) -> None:
+    """Stamp queue-pop time for a sampled request the batch loop just
+    dequeued, so an in-process request's queue backlog reads as queue
+    wait, not coalesce time."""
+    tr = req.trace
+    if tr is not None and tr.t_pop_us is None:
+        tr.t_pop_us = reqtrace.now_us()
+        reqtrace.emit_flow("t", tr.rid, "pop", ts_us=tr.t_pop_us)
+
+
+class _Request:
+    __slots__ = ("row", "t_submit", "future", "trace")
+
+    def __init__(self, row: List[str], trace=None):
         self.row = row
         self.t_submit = time.perf_counter()
         self.future: "Future[Optional[str]]" = Future()
+        # reqtrace.RequestTrace for a head-sampled request, else None
+        self.trace = trace
 
 
 class PredictionService:
@@ -91,7 +175,9 @@ class PredictionService:
     ``model_name`` (which enables :meth:`refresh` hot-swap to the
     registry's serving version; ``quantized`` serves each loaded version's
     int8 sidecar, ``serve_mesh`` shards each loaded version's vote over a
-    device mesh)."""
+    device mesh).  ``wire_native`` (``auto`` | ``on`` | ``off``, the
+    ``ps.wire.native`` knob; ``auto`` follows ``native_wire.set_mode``)
+    selects the wire data plane of :meth:`process_batch`."""
 
     def __init__(self, predictor: Optional[Predictor] = None, *,
                  registry: Optional[ModelRegistry] = None,
@@ -104,13 +190,20 @@ class PredictionService:
                  warm: bool = True,
                  delim: str = ",",
                  ambiguous_label: str = AMBIGUOUS,
+                 error_label: str = "error",
                  busy_label: str = "busy",
+                 late_label: str = "late",
                  device=None,
                  quantized: bool = False,
                  serve_mesh=None,
-                 monitor=None):
+                 monitor=None,
+                 wire_native: str = "auto"):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
+        if wire_native not in native_wire.MODES:
+            raise ValueError(
+                f"wire_native must be one of {native_wire.MODES}, "
+                f"got {wire_native!r}")
         self.registry = registry
         self.model_name = model_name
         self._schema = schema
@@ -131,7 +224,11 @@ class PredictionService:
         self._warm = warm
         self.delim = delim
         self.ambiguous_label = ambiguous_label
+        self.error_label = error_label
         self.busy_label = busy_label
+        # deadline-aware admission: a request whose wire deadline field
+        # has passed answers this label before any device dispatch
+        self.late_label = late_label
         self.version: Optional[int] = None
         # drift/quality hook (monitor.accumulator.ServingMonitor): every
         # answered micro-batch records through it; None = unmonitored
@@ -153,6 +250,12 @@ class PredictionService:
         # adaptive coalescing state (only moves when slo_p99_ms is set)
         self._adaptive_wait_ms = self.policy.max_wait_ms
         self._hold_ema_ms = 0.0
+        # the native wire codec is built lazily per predictor (schema,
+        # buckets and pre-binned width are the predictor's) and rebuilt
+        # on hot-swap
+        self.wire_native = wire_native
+        self._wire_codec = None
+        self._wire_codec_pred = None   # weakref to the codec's predictor
 
     # ---- model lifecycle ----
     def _load(self, must: bool = False) -> Optional[Predictor]:
@@ -178,12 +281,20 @@ class PredictionService:
         """Hot-swap reload onto the registry's SERVING version (newest
         intact, or the pinned one).  The replacement predictor is built and
         warmed off the request path and swapped in atomically; in-flight
-        batches finish on the old one.  Returns whether a swap happened."""
+        batches finish on the old one.  Returns whether a swap happened.
+
+        Delta path: when the new version carries a delta sidecar whose
+        parent is the served version, the resident predictor patches the
+        changed trees (:meth:`_try_delta`) instead of loading the full
+        artifact; any mismatch in the sha chain, or a failure mid-patch,
+        takes the full load below."""
         if self.registry is None:
             return False
         latest = self.registry.serving_version(self.model_name)
         if latest is None or latest == self.version:
             return False
+        if self._try_delta(latest):
+            return True
         loaded = self.registry.load(self.model_name, latest)
         pred = make_predictor(loaded, schema=self._schema,
                               buckets=self._buckets, delim=self.delim,
@@ -199,12 +310,69 @@ class PredictionService:
         self.counters.increment("Serving", "HotSwaps")
         return True
 
+    def _try_delta(self, latest: int) -> bool:
+        """Delta patch onto the resident predictor.  True only when the
+        patch fully applied and ``latest`` is now serving; False means
+        "take the full load" (quantized serving, no delta sidecar, another
+        parent, a predictor without patch support, or a failure mid-apply —
+        ``apply_delta`` swaps nothing until every slice is on the device,
+        so the old model serves in every failure case)."""
+        pred = self.predictor
+        if (self._quantized or pred is None
+                or not hasattr(pred, "apply_delta")):
+            return False
+        dmeta = self.registry.delta_info(self.model_name, latest)
+        if dmeta is None or dmeta.get("parent_version") != self.version:
+            return False
+        try:
+            with self._swap_lock:
+                fault_point("swap_patch")
+                dmeta, arrays = self.registry.load_delta(
+                    self.model_name, latest)
+                moved = pred.apply_delta(dmeta, arrays)
+                self.version = latest
+        except Exception as exc:   # any tear -> full load
+            self.counters.increment("Serving", "DeltaSwapTorn")
+            warnings.warn(
+                f"serving: delta patch onto v{self.version} failed "
+                f"({exc}); falling back to full artifact load",
+                RuntimeWarning, stacklevel=2)
+            return False
+        self.degraded = None
+        self.counters.increment("Serving", "HotSwaps")
+        self.counters.increment("Serving", "DeltaSwaps")
+        self.counters.increment("Serving", "DeltaH2DBytes", int(moved))
+        instant("swap.patch", cat="serving", model=self.model_name or "",
+                version=int(latest), parent=int(dmeta["parent_version"]),
+                changed=len(dmeta.get("changed", ())),
+                h2d_bytes=int(moved))
+        return True
+
     def mark_degraded(self, reason: str) -> None:
         """Flag the served model as degraded (drift policy guardrail).
         Serving continues; a successful :meth:`refresh` hot-swap clears
         it."""
         self.degraded = reason
         self.counters.increment("Serving", "Degraded")
+        instant("serving.degraded", cat="serving", reason=reason,
+                model_version=self.version)
+
+    # ---- per-request trace closure ----
+    def record_request_trace(self, ctx) -> None:
+        """Close one sampled request's trace: stamp the reply time if the
+        transport has not, count it, and (with a tracer installed) emit the
+        flow ``f`` finish carrying the component decomposition.  Called by
+        :meth:`_reply` for in-process requests and by
+        :meth:`process_batch` for wire requests, as their replies go out."""
+        if ctx.t_reply_us is None:
+            ctx.t_reply_us = reqtrace.now_us()
+        self.counters.increment("Serving", "TracedRequests")
+        if reqtrace.current_tracer() is None:
+            return
+        comps = ctx.components_ms()
+        reqtrace.emit_flow("f", ctx.rid, "reply", ts_us=ctx.t_reply_us,
+                           **{f"{k}_ms": round(v, 3)
+                              for k, v in comps.items()})
 
     # ---- prediction ----
     def _label(self, pred: Optional[str]) -> str:
@@ -218,8 +386,9 @@ class PredictionService:
             with self._swap_lock:
                 _pred = self.predictor
         t0 = time.perf_counter()
-        out = with_retry(lambda: _pred.predict_rows(rows),
-                         what="serving predict batch")
+        with span("serve.predict", cat="serving", rows=len(rows)):
+            out = with_retry(lambda: _pred.predict_rows(rows),
+                             what="serving predict batch")
         self.timer.record("serve.batch", time.perf_counter() - t0)
         self.counters.increment("Serving", "Requests", len(rows))
         self.counters.increment("Serving", "Batches")
@@ -280,20 +449,358 @@ class PredictionService:
                           f"({type(exc).__name__}: {exc}); continuing "
                           f"unmonitored for this batch", RuntimeWarning)
 
+    # ---- message contract (the wire transport's) ----
+    def process(self, message: str) -> Optional[str]:
+        """Serve ONE wire message synchronously (micro-batching callers use
+        :meth:`process_batch`)."""
+        return (self.process_batch([message]) or [None])[0]
+
+    def process_batch(self, messages: List[str]) -> List[str]:
+        """Coalesce a drained message batch: the predict messages run as
+        one device batch and the predictq messages as one int8 batch,
+        reply lines returned in arrival order.  A malformed or unknown
+        message is counted + warned and skipped — it must not take down
+        the valid requests drained alongside it.  A 'reload' in the drain
+        applies AFTER the batch is answered, so the new model takes effect
+        from the next batch.
+
+        The batch runs through the native wire codec when it is on
+        (``wire_native``): one C pass classifies and assembles the whole
+        drain.  Any input the native pass is not bit-certain about re-runs
+        the WHOLE batch through the Python plane, so replies and
+        BadRequests counts are those of the Python plane by
+        construction."""
+        if not messages:
+            return []
+        with self._swap_lock:
+            pred = self.predictor
+        codec = self._wire_codec_for(pred)
+        if codec is not None:
+            out = self._process_batch_native(pred, codec, messages)
+            if out is not None:
+                return out
+        return self._process_batch_python(pred, messages)
+
+    def _process_batch_python(self, pred, messages: List[str]) -> List[str]:
+        """The Python data plane — the semantics oracle the native codec
+        defers to, and the serving path under ``ps.wire.native=off`` or a
+        drift monitor (which needs the token rows)."""
+        # (form, rid, slot): "f" float row, "q" decoded pre-binned row,
+        # "e" error reply, "l" late reply — arrival order
+        entries: List[tuple] = []
+        rows: List[List[str]] = []
+        q_rows: List[tuple] = []
+        traced = None
+        reload_requested = False
+        q_width = pred.prebinned_width \
+            if getattr(pred, "supports_prebinned", False) else 0
+        warned_no_prebinned = False
+        with span("serve.assemble", cat="serving", rows=len(messages)):
+            for message in messages:
+                parts = message.split(self.delim)
+                is_predict = parts[0] == "predict"
+                if (is_predict or parts[0] == QUANTIZED_VERB) \
+                        and len(parts) >= 3:
+                    # the optional trace and deadline fields are stripped
+                    # whether acted on or not
+                    rid, row, ctx, deadline_us = \
+                        reqtrace.split_predict_deadline(parts)
+                    if ctx is not None:
+                        ctx.t_pop_us = reqtrace.now_us()
+                        reqtrace.emit_flow("t", rid, "pop",
+                                           ts_us=ctx.t_pop_us)
+                        if traced is None:
+                            traced = []
+                        traced.append(ctx)
+                    if deadline_us is not None \
+                            and reqtrace.now_us() > deadline_us:
+                        # past deadline: answer late, never dispatch
+                        self.counters.increment("Broker", "LateShed")
+                        entries.append(("l", rid, -1))
+                        continue
+                    if is_predict:
+                        entries.append(("f", rid, len(rows)))
+                        rows.append(row)
+                    elif q_width <= 0:
+                        self.counters.increment("Serving", "BadRequests")
+                        if not warned_no_prebinned:
+                            warned_no_prebinned = True
+                            warnings.warn(_NO_PREBINNED_WARNING,
+                                          RuntimeWarning)
+                        entries.append(("e", rid, -1))
+                    else:
+                        decoded = wire_decode_tokens(row, q_width)
+                        if decoded is None:
+                            self.counters.increment("Serving",
+                                                    "BadRequests")
+                            warnings.warn(
+                                f"serving: malformed predictq payload "
+                                f"{message!r}", RuntimeWarning)
+                            entries.append(("e", rid, -1))
+                        else:
+                            entries.append(("q", rid, len(q_rows)))
+                            q_rows.append(decoded)
+                elif parts[0] == "reload":
+                    reload_requested = True
+                else:
+                    self.counters.increment("Serving", "BadRequests")
+                    warnings.warn(f"serving: dropping malformed message "
+                                  f"{message!r}", RuntimeWarning)
+        if not entries:
+            if reload_requested:
+                self.refresh()
+            return []
+        if traced:
+            _stamp_dispatch(traced, len(rows) + len(q_rows))
+        t0 = time.perf_counter()
+        results_f = self._predict_isolating(rows, pred=pred) if rows \
+            else []
+        if q_rows:
+            results_q = self._serve_prebinned(
+                pred, np.stack([v for v, _ in q_rows]),
+                np.stack([c for _, c in q_rows]))
+        else:
+            results_q = []
+        dt = time.perf_counter() - t0
+        if traced:
+            _stamp_done(traced)
+        with span("serve.reply", cat="serving", rows=len(entries)):
+            self._record_request_times(traced, dt)
+            out = []
+            for form, rid, slot in entries:
+                if form == "f":
+                    status, val = results_f[slot]
+                elif form == "q":
+                    status, val = results_q[slot]
+                elif form == "l":
+                    out.append(f"{rid}{self.delim}{self.late_label}")
+                    continue
+                else:
+                    status, val = "err", None
+                lab = val if status == "ok" else self.error_label
+                out.append(f"{rid}{self.delim}{lab}")
+        if traced:
+            # the reply lines push right after this returns: close the
+            # flows here
+            for ctx in traced:
+                self.record_request_trace(ctx)
+        if reload_requested:
+            self.refresh()
+        return out
+
+    def _process_batch_native(self, pred, codec,
+                              messages: List[str]) -> Optional[List[str]]:
+        """The native data plane: the batch was classified and assembled by
+        ONE C pass (``codec.parse``) — what remains here is per-message
+        bookkeeping (counters, trace contexts) and the reply join.  Returns
+        None when the codec declined the batch (its fallback verdict): the
+        caller re-runs the Python plane on the SAME messages."""
+        pb = codec.parse(messages)
+        if pb is None:
+            return None
+        traced = None
+        n_replies = pb.n_float + pb.n_q
+        with span("serve.assemble", cat="serving", rows=len(messages),
+                  native=1):
+            # per-message work only where the batch has exceptions: the
+            # all-clean case (every message a decoded predict/predictq)
+            # skips the scans the C pass already did
+            if n_replies + pb.n_reload != pb.n_msgs:
+                for i in np.nonzero(pb.kind == native_wire.MSG_BAD)[0]:
+                    self.counters.increment("Serving", "BadRequests")
+                    warnings.warn(f"serving: dropping malformed message "
+                                  f"{messages[i]!r}", RuntimeWarning)
+                unsup = np.nonzero((pb.kind == native_wire.MSG_PREDICTQ)
+                                   & (pb.slot < 0))[0]
+                if len(unsup):
+                    # no quantized sidecar on the served model: answered
+                    # error, never decoded — as on the Python plane
+                    n_replies += len(unsup)
+                    self.counters.increment("Serving", "BadRequests",
+                                            len(unsup))
+                    warnings.warn(_NO_PREBINNED_WARNING, RuntimeWarning)
+            if pb.trace_sampled.any():
+                traced = []
+                for i in np.nonzero(pb.trace_sampled)[0]:
+                    ctx = reqtrace.RequestTrace(pb.rids[i],
+                                                float(pb.trace_us[i]),
+                                                wire=True)
+                    ctx.t_pop_us = reqtrace.now_us()
+                    reqtrace.emit_flow("t", ctx.rid, "pop",
+                                       ts_us=ctx.t_pop_us)
+                    traced.append(ctx)
+        if n_replies == 0:
+            if pb.n_reload:
+                self.refresh()
+            return []
+        if traced:
+            _stamp_dispatch(traced, pb.n_float + pb.n_q)
+        t0 = time.perf_counter()
+        results_f = self._serve_prepared_native(
+            pred, pb.prepared, pb.n_float,
+            lambda: self._retokenize_float_rows(messages, pb)) \
+            if pb.n_float else []
+        results_q = self._serve_prebinned(pred, pb.qv, pb.qc) \
+            if pb.n_q else []
+        dt = time.perf_counter() - t0
+        if traced:
+            _stamp_done(traced)
+        with span("serve.reply", cat="serving", rows=n_replies, native=1):
+            self._record_request_times(traced, dt)
+            delim = self.delim
+            err = self.error_label
+            labs_f = [v if s == "ok" else err for s, v in results_f]
+            if pb.n_float == pb.n_msgs:
+                # all-float batch: slots ARE the arrival order
+                out = [f"{r}{delim}{lab}"
+                       for r, lab in zip(pb.rids, labs_f)]
+            else:
+                labs_q = [v if s == "ok" else err for s, v in results_q]
+                out = []
+                for i in range(pb.n_msgs):
+                    k = pb.kind[i]
+                    if k == native_wire.MSG_PREDICT:
+                        lab = labs_f[pb.slot[i]]
+                    elif k == native_wire.MSG_PREDICTQ:
+                        s = pb.slot[i]
+                        lab = labs_q[s] if s >= 0 else err
+                    else:
+                        continue
+                    out.append(f"{pb.rids[i]}{delim}{lab}")
+        if traced:
+            for ctx in traced:
+                self.record_request_trace(ctx)
+        if pb.n_reload:
+            self.refresh()
+        return out
+
+    def _retokenize_float_rows(self, messages: List[str], pb):
+        """Token rows (slot order) for the native path's per-row isolation
+        — built ONLY when a whole-batch predict failed."""
+        rows = []
+        for i in range(pb.n_msgs):
+            if pb.kind[i] == native_wire.MSG_PREDICT:
+                _, row, _ = reqtrace.split_predict(
+                    messages[i].split(self.delim))
+                rows.append(row)
+        return rows
+
+    def _serve_prepared_native(self, pred, prepared, n_rows: int,
+                               row_thunk):
+        """:meth:`_predict_isolating` for natively assembled float
+        batches: the same counters, timer and span, but the token rows are
+        materialized (``row_thunk``) only if the whole-batch predict fails
+        and per-row isolation must run."""
+        t0 = time.perf_counter()
+        try:
+            with span("serve.predict", cat="serving", rows=n_rows):
+                out = with_retry(lambda: pred.predict_prepared(prepared),
+                                 what="serving predict batch")
+        except Exception as exc:
+            warnings.warn(
+                f"serving: batch predict failed "
+                f"({type(exc).__name__}: {exc}); isolating per row",
+                RuntimeWarning)
+            return self._isolated_pass(pred, row_thunk())
+        self.timer.record("serve.batch", time.perf_counter() - t0)
+        self.counters.increment("Serving", "Requests", n_rows)
+        self.counters.increment("Serving", "Batches")
+        return [("ok", self._label(p)) for p in out]
+
+    def _serve_prebinned(self, pred, qv, qc):
+        """('ok', label) | ('err', exc) per pre-binned int8 row — BOTH data
+        planes land predictq rows here.  No per-row isolation: a decoded
+        int8 row has no per-row failure mode (arity and range were checked
+        at decode), so a predict failure fails the whole q-batch."""
+        n = len(qv)
+        t0 = time.perf_counter()
+        try:
+            with span("serve.predict", cat="serving", rows=n):
+                out = with_retry(lambda: pred.predict_prebinned(qv, qc),
+                                 what="serving predictq batch")
+        except Exception as exc:
+            warnings.warn(
+                f"serving: pre-binned batch predict failed "
+                f"({type(exc).__name__}: {exc}); failing the q-batch",
+                RuntimeWarning)
+            self.counters.increment("Serving", "BadRequests", n)
+            return [("err", exc)] * n
+        self.timer.record("serve.batch", time.perf_counter() - t0)
+        self.counters.increment("Serving", "Requests", n)
+        self.counters.increment("Serving", "Batches")
+        return [("ok", self._label(p)) for p in out]
+
+    def _record_request_times(self, traced, dt: float) -> None:
+        """``serve.request`` samples of a wire batch: traced requests
+        record their wire-derived latency (reply time minus the client's
+        enqueue stamp), one sample each; an untraced batch records ONE
+        ``dt`` sample."""
+        if traced:
+            t_now = reqtrace.now_us()
+            for ctx in traced:
+                self.timer.record("serve.request",
+                                  max(t_now - ctx.enqueue_us, 0.0) / 1e6)
+        else:
+            self.timer.record("serve.request", dt)
+
+    def _wire_codec_for(self, pred):
+        """The native batch assembler bound to the CURRENT predictor,
+        rebuilt on hot-swap.  None = the Python plane: mode off, a drift
+        monitor attached (it needs the token rows), or no usable schema
+        or delimiter.  Building the codec's library raises on a failed
+        build."""
+        mode = self.wire_native if self.wire_native != "auto" \
+            else native_wire.get_mode()
+        if mode == "off" or self.monitor is not None:
+            return None
+        schema = getattr(pred, "schema", None)
+        if schema is None or not getattr(schema, "fields", None):
+            return None
+        if self._wire_codec is not None \
+                and self._wire_codec_pred is not None \
+                and self._wire_codec_pred() is pred:
+            return self._wire_codec
+        native_wire.get_lib()
+        q_width = pred.prebinned_width \
+            if getattr(pred, "supports_prebinned", False) else 0
+        codec = native_wire.WireCodec(schema, delim=self.delim,
+                                      buckets=tuple(pred.buckets),
+                                      q_width=q_width)
+        if not codec.usable:
+            return None
+        self._wire_codec = codec
+        self._wire_codec_pred = weakref.ref(pred)
+        return codec
+
     # ---- in-process micro-batch loop ----
-    def submit(self, row) -> "Future[str]":
+    def submit(self, row, trace=None,
+               sample_local: bool = True) -> "Future[str]":
         """Queue one record (tokenized row or delim-joined line); the worker
         thread answers the future with the class label.  Past
         ``policy.max_queue_depth`` the future is answered ``busy_label`` at
-        once — backpressure the caller can see."""
+        once — backpressure the caller can see.  ``trace`` carries a wire
+        request's ``reqtrace.RequestTrace``; without one, in-process head
+        sampling applies (one global read when ``ps.trace.sample`` is
+        off).  Wire transports pass ``sample_local=False``: sampling is a
+        HEAD decision, never re-made mid-path."""
         if isinstance(row, str):
             row = row.split(self.delim)
-        req = _Request(list(row))
+        if trace is None and sample_local:
+            trace = reqtrace.maybe_sample_local()
+        req = _Request(list(row), trace=trace)
         dmax = self.policy.max_queue_depth
         if dmax and self._queue.qsize() >= dmax:
             self.counters.increment("Serving", "Rejected")
+            instant("serve.reject", cat="serving",
+                    queue_depth=self._queue.qsize())
             req.future.set_result(self.busy_label)
+            # a rejected sampled request still closes its flow (busy IS
+            # the reply); a wire context closes at the transport's push
+            if trace is not None and not trace.wire:
+                self.record_request_trace(trace)
             return req.future
+        if trace is not None:
+            instant("serve.admit", cat="serving", rid=trace.rid)
         self._queue.put(req)
         return req.future
 
@@ -321,9 +828,11 @@ class PredictionService:
         batch: List[_Request] = []
         while time.monotonic() < deadline:
             try:
-                batch.append(self._queue.get_nowait())
+                leftover = self._queue.get_nowait()
             except queue.Empty:
                 break
+            _mark_popped(leftover)
+            batch.append(leftover)
             if len(batch) >= max_b:
                 self._serve(batch)
                 batch = []
@@ -385,25 +894,34 @@ class PredictionService:
         flight) takes only what is queued."""
         pol = self.policy
         batch = [first]
-        while len(batch) < pol.max_batch:
-            try:
-                batch.append(self._queue.get_nowait())
-            except queue.Empty:
-                break
-        hold_ms = 0.0
-        if not skip_hold:
-            deadline = first.t_submit + self._effective_wait_ms() / 1000.0
-            t_hold = time.perf_counter()
+        with span("serve.assemble", cat="serving") as sp:
             while len(batch) < pol.max_batch:
-                remaining = deadline - time.perf_counter()
-                if remaining <= 0:
-                    break
                 try:
-                    batch.append(self._queue.get(timeout=remaining))
+                    batch.append(self._queue.get_nowait())
                 except queue.Empty:
                     break
-            hold_ms = (time.perf_counter() - t_hold) * 1000.0
-        self._hold_ema_ms += 0.1 * (hold_ms - self._hold_ema_ms)
+            # pop stamps BEFORE the straggler hold: queue backlog reads as
+            # queue wait, the hold as coalesce
+            for r in batch:
+                _mark_popped(r)
+            hold_ms = 0.0
+            if not skip_hold:
+                deadline = first.t_submit + \
+                    self._effective_wait_ms() / 1000.0
+                t_hold = time.perf_counter()
+                while len(batch) < pol.max_batch:
+                    remaining = deadline - time.perf_counter()
+                    if remaining <= 0:
+                        break
+                    try:
+                        straggler = self._queue.get(timeout=remaining)
+                    except queue.Empty:
+                        break
+                    _mark_popped(straggler)
+                    batch.append(straggler)
+                hold_ms = (time.perf_counter() - t_hold) * 1000.0
+            self._hold_ema_ms += 0.1 * (hold_ms - self._hold_ema_ms)
+            sp.add(rows=len(batch))
         return batch
 
     def _loop(self) -> None:
@@ -453,10 +971,14 @@ class PredictionService:
         dispatch = getattr(pred, "dispatch_prepared", None)
         if dispatch is not None:
             try:
-                handle = dispatch(pred.prepare_rows([r.row for r in batch]))
+                with span("serve.dispatch", cat="serving",
+                          rows=len(batch)):
+                    handle = dispatch(
+                        pred.prepare_rows([r.row for r in batch]))
             except Exception:
                 pass   # fall through to the sync isolating completion
             else:
+                _mark_dispatch(batch, len(batch))
                 return (batch, pred, handle, time.perf_counter())
         return (batch, pred, None, time.perf_counter())
 
@@ -469,7 +991,8 @@ class PredictionService:
             return
         rows = [r.row for r in batch]
         try:
-            out = pred.readback_dispatched(handle)
+            with span("serve.predict", cat="serving", rows=len(rows)):
+                out = pred.readback_dispatched(handle)
             results = [("ok", self._label(p)) for p in out]
             self.timer.record("serve.batch", time.perf_counter() - t0)
             self.counters.increment("Serving", "Requests", len(rows))
@@ -481,19 +1004,116 @@ class PredictionService:
                 f"({type(exc).__name__}: {exc}); isolating per row",
                 RuntimeWarning)
             results = self._isolated_pass(pred, rows)
+        _mark_done(batch)
         self._reply(batch, results)
 
     def _serve(self, batch: List[_Request], pred=None) -> None:
+        # sync path: the whole predict runs here, so dispatch == entry
+        _mark_dispatch(batch, len(batch))
         results = self._predict_isolating([r.row for r in batch], pred=pred)
+        _mark_done(batch)
         self._reply(batch, results)
 
     def _reply(self, batch: List[_Request], results) -> None:
         now = time.perf_counter()
-        for r, (status, val) in zip(batch, results):
-            if r.future.set_running_or_notify_cancel():
-                if status == "ok":
-                    self.timer.record("serve.request", now - r.t_submit)
-                    r.future.set_result(val)
-                else:  # answer with the error, don't wedge the waiter
-                    r.future.set_exception(val)
+        with span("serve.reply", cat="serving", rows=len(batch)):
+            for r, (status, val) in zip(batch, results):
+                if r.future.set_running_or_notify_cancel():
+                    if status == "ok":
+                        self.timer.record("serve.request", now - r.t_submit)
+                        r.future.set_result(val)
+                    else:  # answer with the error, don't wedge the waiter
+                        r.future.set_exception(val)
+                # in-process sampled requests close here (the future IS
+                # the reply); wire contexts close at the transport's push
+                tr = r.trace
+                if tr is not None and not tr.wire:
+                    self.record_request_trace(tr)
         self.counters.max("Serving", "MaxBatchObserved", len(batch))
+
+
+class RespPredictionLoop:
+    """The serving loop over the wire: drain up to ``policy.max_batch``
+    requests from the request queue per poll (one pipelined RPOP — the
+    wire half of micro-batching), answer them as one device batch, and
+    push the replies to the prediction queue as ONE variadic LPUSH.
+    Config keys: redis.server.host, redis.server.port,
+    redis.request.queue, redis.prediction.queue, redis.lease.timeout.s.
+    A literal 'stop' on the request queue ends :meth:`run` after the
+    requests drained alongside it are answered."""
+
+    def __init__(self, service: PredictionService,
+                 config: Optional[Dict] = None):
+        from ..io.respq import RespClient
+        cfg = dict(config or {})
+        self.service = service
+        # the service's counters ride in so this client's reconnects land
+        # as Broker/Reconnects in the job dump
+        self.client = RespClient(cfg.get("redis.server.host", "127.0.0.1"),
+                                 int(cfg.get("redis.server.port", 6379)),
+                                 delim=service.delim,
+                                 counters=service.counters)
+        self.request_q = cfg.get("redis.request.queue", "requestQueue")
+        self.prediction_q = cfg.get("redis.prediction.queue",
+                                    "predictionQueue")
+        # > 0 drains under visibility-timeout leases and acks via the
+        # reply push (ACKPUSH): a loop killed mid-batch gets its requests
+        # redelivered.  0 keeps the destructive pops
+        self.lease_timeout_s = float(
+            cfg.get("redis.lease.timeout.s", 0.0) or 0.0)
+        self.stopped = False
+
+    def poll_once(self) -> int:
+        """One spout pass; returns how many messages were consumed."""
+        if self.lease_timeout_s > 0:
+            msgs = self.client.lease_many(self.request_q,
+                                          self.service.policy.max_batch,
+                                          self.lease_timeout_s)
+        else:
+            msgs = self.client.rpop_many(self.request_q,
+                                         self.service.policy.max_batch)
+        if not msgs:
+            return 0
+        batch: List[str] = []
+        for m in msgs:
+            if m == "stop":
+                # requests drained in the same pop as the stop are off the
+                # queue already: they are still answered below
+                self.stopped = True
+            else:
+                batch.append(m)
+        if batch:
+            out = self.service.process_batch(batch)
+            if out:
+                if self.lease_timeout_s > 0:
+                    self.client.ackpush(self.prediction_q,
+                                        self.request_q, out)
+                else:
+                    self.client.lpush_many(self.prediction_q, out)
+        return len(msgs)
+
+    def run(self, max_idle_s: float = 30.0,
+            idle_sleep_s: float = 0.002,
+            max_idle_sleep_s: float = 0.05) -> None:
+        """Poll until a 'stop' message or ``max_idle_s`` without traffic.
+        While the queue stays empty the sleep backs off exponentially
+        (doubling from ``idle_sleep_s`` up to ``max_idle_sleep_s``) and
+        resets on the first drained message; ``Serving/Polls`` and
+        ``Serving/EmptyPolls`` count the polling economy."""
+        counters = self.service.counters
+        idle_since = time.monotonic()
+        sleep_s = idle_sleep_s
+        while not self.stopped:
+            counters.increment("Serving", "Polls")
+            if self.poll_once():
+                idle_since = time.monotonic()
+                sleep_s = idle_sleep_s
+            elif time.monotonic() - idle_since > max_idle_s:
+                break
+            else:
+                counters.increment("Serving", "EmptyPolls")
+                time.sleep(sleep_s)
+                sleep_s = min(sleep_s * 2.0, max_idle_sleep_s)
+
+    def close(self) -> None:
+        self.client.close()

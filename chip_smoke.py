@@ -426,6 +426,39 @@ order — any failure exits non-zero before the result line:
               model of the whole file; prints each rank's wall, join_s and
               the all-reduce ms
 
+
+ 47-50        serving over the RESP wire, launch counts zeroed before each
+              path and read after
+ 47. wire     predictionService over 100,000 rafo9 records (the fixture's
+     serve    requests tiled) from a copy of its registry: in-process, then
+              ps.transport=resp with ps.wire.native=on and =off; both
+              wire outputs byte-equal to the in-process one, and every
+              label equal to modelPredictor's on the same records; prints
+              each job's requests/s (wall of push, serve and read back)
+              and serve.request p50/p99; ensemble_vote launches = batches
+              + the 4 warm-up buckets, every one in the table form
+ 48. predictq the same records binned on the rafo9q grid as predictq lines
+              (wire_encode_rows) through a RespPredictionLoop with
+              ps.quantized: replies equal the in-process int8 serve; 3
+              malformed lines and 5 lines sent to a model without a
+              sidecar answer error and count as BadRequests;
+              quantized_vote launches = the int8 batches, no float vote
+ 49. delta    a RespPredictionLoop on a thread serving 20,000 requests on
+              v1 while publish_delta publishes v2 (trees 3 and 7 from
+              wire9's v2), then reload and 20,000 more: DeltaSwaps 1, every
+              reply after it equals a full load of v2 (and some differ
+              from v1's), the H2D bytes moved printed, every vote launch
+              after the patch in the table form; then the same reload
+              onto a tree-sharded core (every visible card, or cuda:0
+              twice): answers equal, B6 + merge-finalize after it
+ 50. durable  ps.broker.durable=commit with 5 s leases: 10,000 requests, a
+              loop that acks 20 batches and dies holding a leased batch,
+              the broker killed and restarted on its journal, a new loop:
+              one reply a request, equal to the in-process serve; then
+              driftMonitor dm.source=resp over drift9's stream pushed to
+              a RespServer: report and alert bytes equal dm.source=file's,
+              bin_counts launches = the windows
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
@@ -433,8 +466,10 @@ times, B4's 2,048-row block and empty-launch times, and each kernel's
 launches a process on the multi-process paths: ``joined_mono_*``,
 ``joined_unequal_*``, ``joined_stream_off_*``, ``joined_dt_*`` and
 ``joined_knn_*`` are phases 38-41's, one entry a rank; B5's
-``nb_pipeline_launches`` is phase 43's) and, under ``bayes``, phases
-42-46's launch counts, rows/s and layer times; the last line is
+``nb_pipeline_launches`` is phase 43's; B2's ``wire_*`` and ``delta_*``,
+B3's ``predictq_*`` and B4's ``drift_resp_*`` are phases 47-50's) and,
+under ``bayes``, phases 42-46's launch counts, rows/s and layer times, and
+under ``wire`` phases 47-50's rates and counts; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -515,6 +550,15 @@ REASON_P = (0.35, 0.2, 0.25, 0.2)
 PATIENCE = (500.0, 900.0, 420.0, 380.0)
 NB_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "nb")
 NB9 = os.path.join(ROOT, "tests", "torch_fixtures", "nb9")
+WIRE9 = os.path.join(ROOT, "tests", "torch_fixtures", "wire9")
+# phases 47-50: records served over the wire, the delta reload's rows before
+# and after the patch, the changed trees (from wire9's v2), and the durable
+# drill's records and acked batches before the kill
+WIRE_ROWS = 100_000
+DELTA_ROWS = 20_000
+DELTA_TREES = (3, 7)
+DURABLE_ROWS = 10_000
+DURABLE_ACKED_POLLS = 20
 NB_TRAIN_ROWS = 10_000_000     # the library train: two chunks
 NB_CLI_ROWS = 1_000_000
 # telecom_churn_gen's generative model (resource/gen/telecom_churn_gen.py)
@@ -4049,6 +4093,419 @@ def bayes_joined(csv):
     return out
 
 
+# --------------------------------------------------------------------------
+# serving over the RESP wire (phases 47-50)
+# --------------------------------------------------------------------------
+
+def _wire_loop(svc, server, msgs, lease_s=0.0):
+    """Push ``msgs`` (ending in ``stop``) to ``server``'s request queue,
+    run one RespPredictionLoop over ``svc`` to the stop; returns (the
+    replies in prediction-queue order, the loop's wall seconds)."""
+    from avenir_tpu_torch.io import respq
+    from avenir_tpu_torch.serving.service import RespPredictionLoop
+    feeder = respq.RespClient(port=server.port)
+    for s in range(0, len(msgs), 10_000):
+        feeder.lpush_many("requestQueue", msgs[s:s + 10_000])
+    loop = RespPredictionLoop(svc, {"redis.server.port": server.port,
+                                    "redis.lease.timeout.s": lease_s})
+    t0 = time.perf_counter()
+    loop.run(max_idle_s=30.0)
+    wall = time.perf_counter() - t0
+    loop.close()
+    replies = _drain(feeder)
+    feeder.close()
+    return replies, wall
+
+
+def _drain(client, queue="predictionQueue"):
+    out = []
+    while True:
+        got = client.rpop_many(queue, 10_000)
+        if not got:
+            return out
+        out.extend(got)
+
+
+def _reply_labels(replies, n, what):
+    from avenir_tpu_torch.io.respq import dedup_replies
+    by_id, dups = dedup_replies(replies)
+    if dups:
+        fail(f"{what}: {dups} duplicate replies")
+    missing = [i for i in range(n) if str(i) not in by_id]
+    if missing:
+        fail(f"{what}: no reply for {len(missing)} requests "
+             f"(first {missing[:5]})")
+    return by_id
+
+
+def wire_phases(dev):
+    """Phases 47-50: predictionService over the RESP wire on the card
+    (both data planes), the int8 predictq form, a delta reload under a
+    running loop, a durable leased broker with a loop and the broker
+    killed mid-batch, and driftMonitor dm.source=resp.  Launch counts are
+    zeroed just before each path and read just after."""
+    import torch
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import encode_rows
+    from avenir_tpu_torch.io import native_wire, respq
+    from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.models.tree import DecisionTreeModel, FeatureCache
+    from avenir_tpu_torch.serving.predictor import DEFAULT_BUCKETS, \
+        make_predictor
+    from avenir_tpu_torch.serving.quantized import load_quantized, \
+        wire_encode_rows
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    from avenir_tpu_torch.serving.service import BatchPolicy, \
+        PredictionService, RespPredictionLoop
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    props = os.path.join(RES, "rafo.properties")
+    fs = FeatureSchema.load(os.path.join(RES, "call_hangup.json"))
+    warm = len(DEFAULT_BUCKETS)
+    out = {}
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        base = fh.read().splitlines()
+    n = WIRE_ROWS
+    records = (base * -(-n // len(base)))[:n]
+    rec_path = os.path.join(WORK, "wire_records.csv")
+    with open(rec_path, "w") as fh:
+        fh.write("\n".join(records) + "\n")
+    reg = os.path.join(WORK, "wire_registry")
+    shutil.copytree(os.path.join(RAFO9, "registry"), reg)
+
+    phase(f"47 wire serve: predictionService ps.transport=resp over "
+          f"{n:,} rafo9 records, native and Python planes")
+    jobs = {}
+    for name, extra in (("inprocess", ("-Dps.transport=inprocess",)),
+                        ("native", ("-Dps.transport=resp",
+                                    "-Dps.wire.native=on")),
+                        ("python", ("-Dps.transport=resp",
+                                    "-Dps.wire.native=off"))):
+        dest = os.path.join(WORK, f"wire_{name}")
+        zero_launches()
+        with transfer_ledger() as ledger:
+            t0 = time.perf_counter()
+            run_cli(["org.avenir.serving.PredictionService",
+                     f"-Dconf.path={props}", f"-Dps.model.registry.dir={reg}",
+                     "-Dps.model.name=rafo9", *extra, rec_path, dest])
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        table = vote.table_launches
+        sc = read_json(dest + ".counters.json")["Serving"]
+        jobs[name] = {"wall_s": wall, "requests_per_s": n / wall,
+                      "p50_us": sc["serve.request.p50Us"],
+                      "p99_us": sc["serve.request.p99Us"],
+                      "batches": sc["Batches"], "b2_launches": counts["b2"],
+                      "b2_table_launches": table,
+                      "backends": ledger.backend_snapshot()}
+        print(f"predictionService {name}: {sc['Requests']} requests in "
+              f"{sc['Batches']} batches, wall {wall:.2f} s "
+              f"({n / wall:,.0f} requests/s, push + serve + read back), "
+              f"serve.request p50/p99 {sc['serve.request.p50Us']}/"
+              f"{sc['serve.request.p99Us']} us, ensemble_vote launches "
+              f"{counts['b2']} (table form {table}, {warm} warm-up)",
+              flush=True)
+        if counts["b2"] != sc["Batches"] + warm or table != counts["b2"]:
+            fail(f"wire serve {name}: {counts['b2']} vote launches "
+                 f"({table} table form) for {sc['Batches']} batches + "
+                 f"{warm} warm-up")
+    native_wire.set_mode("auto")
+    inproc = os.path.join(WORK, "wire_inprocess", "part-m-00000")
+    for name in ("native", "python"):
+        same_bytes(os.path.join(WORK, f"wire_{name}", "part-m-00000"),
+                   inproc, f"resp {name} plane vs inprocess")
+    run_cli(["org.avenir.model.ModelPredictor", f"-Dconf.path={props}",
+             f"-Dmop.model.dir.path={RAFO9}",
+             f"-Dmop.feature.schema.file.path="
+             f"{os.path.join(RES, 'call_hangup.json')}",
+             rec_path, os.path.join(WORK, "wire_mop")])
+    with open(os.path.join(WORK, "wire_mop", "part-m-00000")) as fh:
+        mop = [line.rsplit(",", 1)[1] for line in fh.read().splitlines()]
+    with open(inproc) as fh:
+        served = [line.split(",", 1)[1] for line in fh.read().splitlines()]
+    if mop != served:
+        fail(f"wire serve: {sum(a != b for a, b in zip(mop, served))} "
+             f"labels differ from modelPredictor's")
+    print(f"the {n:,} labels of both planes equal modelPredictor's on the "
+          f"same records", flush=True)
+    # the loop alone (the job's wall is mostly its one-LPUSH-a-record push
+    # and one-RPOP-a-reply read-back): each plane over the same messages
+    msgs = [f"predict,{i},{r}" for i, r in enumerate(records)]
+    for plane, name in (("on", "native"), ("off", "python")):
+        svc = PredictionService(registry=ModelRegistry(reg),
+                                model_name="rafo9", device=dev,
+                                wire_native=plane,
+                                policy=BatchPolicy(max_batch=64))
+        server = respq.RespServer().start()
+        try:
+            replies, wall = _wire_loop(svc, server, msgs + ["stop"])
+        finally:
+            server.stop()
+        by_id = _reply_labels(replies, n, f"{name} loop")
+        if [by_id[str(i)] for i in range(n)] != served:
+            fail(f"the {name} loop's replies differ from the in-process "
+                 f"serve")
+        jobs[name].update(
+            loop_s=wall, loop_requests_per_s=n / wall,
+            loop_batch_p50_us=svc.timer.percentile_ms("serve.batch", 50) * 1e3,
+            loop_batch_p99_us=svc.timer.percentile_ms("serve.batch", 99) * 1e3)
+        print(f"{name} plane, the loop alone: {n:,} requests in {wall:.2f} s "
+              f"({n / wall:,.0f} requests/s), serve.batch p50/p99 "
+              f"{jobs[name]['loop_batch_p50_us']:.0f}/"
+              f"{jobs[name]['loop_batch_p99_us']:.0f} us", flush=True)
+    out["serve"] = jobs
+
+    phase(f"48 predictq: {n:,} records binned on the rafo9q grid as "
+          f"predictq lines, ps.quantized, plus malformed and unservable "
+          f"lines")
+    qreg = os.path.join(WORK, "wire_qregistry")
+    shutil.copytree(os.path.join(RAFO9Q, "registry"), qreg)
+    registry = ModelRegistry(qreg)
+    qf = load_quantized(registry, "rafo9", 1)
+    trees = registry.load("rafo9", 1).model
+    vals, codes = FeatureCache().host(
+        DecisionTreeModel(trees[0], fs, device="cpu").matrix,
+        encode_rows([r.split(",") for r in records], fs))
+    qv, qc = qf.quantize_rows(vals, codes)
+    qlines = wire_encode_rows(range(n), qv, qc)
+    bad = ["predictq,m1,3,1,2,3,4,5,6", "predictq,m2,4,+1,0,0,0,0,0,0,0",
+           "predictq,m3,4,1,2"]
+    qdest = os.path.join(WORK, "wire_q_inprocess")
+    run_cli(["org.avenir.serving.PredictionService", f"-Dconf.path={props}",
+             f"-Dps.model.registry.dir={qreg}", "-Dps.model.name=rafo9",
+             "-Dps.quantized=true", "-Dps.transport=inprocess", rec_path,
+             qdest])
+    with open(os.path.join(qdest, "part-m-00000")) as fh:
+        q_inproc = [line.split(",", 1)[1] for line in fh.read().splitlines()]
+    svc = PredictionService(registry=registry, model_name="rafo9",
+                            quantized=True, device=dev,
+                            policy=BatchPolicy(max_batch=64))
+    server = respq.RespServer().start()
+    try:
+        zero_launches()
+        replies, wall = _wire_loop(svc, server, qlines + bad + ["stop"])
+        counts = launch_counts()
+    finally:
+        server.stop()
+    by_id = _reply_labels(replies, n, "predictq")
+    if [by_id[str(i)] for i in range(n)] != q_inproc:
+        fail("predictq replies differ from the in-process int8 serve")
+    if [by_id.get(m) for m in ("m1", "m2", "m3")] != ["error"] * 3 or \
+            svc.counters.get("Serving", "BadRequests") != 3:
+        fail(f"predictq: malformed lines answered "
+             f"{[by_id.get(m) for m in ('m1', 'm2', 'm3')]}, BadRequests "
+             f"{svc.counters.get('Serving', 'BadRequests')}")
+    fsvc = PredictionService(registry=ModelRegistry(reg), model_name="rafo9",
+                             device=dev)
+    import warnings
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        unserved = fsvc.process_batch(qlines[:5])
+    if unserved != [f"{i},error" for i in range(5)] or \
+            fsvc.counters.get("Serving", "BadRequests") != 5:
+        fail(f"predictq on a model without a sidecar answered {unserved}")
+    q_batches = svc.counters.get("Serving", "Batches")
+    print(f"predictq: {n:,} replies equal the in-process int8 serve; 3 "
+          f"malformed and 5 unservable lines answered error and counted; "
+          f"loop {wall:.2f} s ({n / wall:,.0f} requests/s), "
+          f"quantized_vote launches {counts['b3']} for {q_batches} batches "
+          f"(the service warmed before the count), ensemble_vote "
+          f"{counts['b2']}", flush=True)
+    if counts["b3"] != q_batches or counts["b2"]:
+        fail(f"predictq: {counts['b3']} int8 launches for {q_batches} "
+             f"batches, {counts['b2']} float")
+    out["predictq"] = {"b3_launches": counts["b3"], "batches": q_batches,
+                       "loop_s": wall, "requests_per_s": n / wall}
+
+    phase("49 delta reload on the card: publish_delta v2 (two trees) while "
+          "the wire loop serves, then reload")
+    dreg_dir = os.path.join(WORK, "wire_dregistry")
+    shutil.copytree(os.path.join(RAFO9, "registry"), dreg_dir)
+    dreg = ModelRegistry(dreg_dir)
+    v1 = dreg.load("rafo9", 1)
+    swapped = ModelRegistry(os.path.join(WIRE9, "registry")).load(
+        "rafo9", 2).model
+    child = list(v1.model)
+    for i in DELTA_TREES:
+        child[i] = swapped[i]
+    msgs = [f"predict,{i},{r}" for i, r in enumerate(records[:2 * DELTA_ROWS])]
+    a, b = msgs[:DELTA_ROWS], msgs[DELTA_ROWS:]
+    svc = PredictionService(registry=dreg, model_name="rafo9", device=dev,
+                            policy=BatchPolicy(max_batch=64))
+    server = respq.RespServer().start()
+    feeder = respq.RespClient(port=server.port)
+    loop = RespPredictionLoop(svc, {"redis.server.port": server.port})
+    runner = threading.Thread(target=loop.run, kwargs={"max_idle_s": 60.0})
+    try:
+        runner.start()
+        feeder.lpush_many("requestQueue", a)
+        dreg.publish_delta("rafo9", child, parent_version=1,
+                           schema=v1.schema)
+        feeder.lpush("requestQueue", "reload")
+        deadline = time.monotonic() + 120.0
+        while svc.version != 2 and time.monotonic() < deadline:
+            time.sleep(0.01)
+        if svc.version != 2:
+            fail("delta reload: the loop never reached v2")
+        zero_launches()
+        with transfer_ledger() as ledger:
+            feeder.lpush_many("requestQueue", b + ["stop"])
+            runner.join(timeout=300.0)
+        counts = launch_counts()
+        table = vote.table_launches
+        replies = _drain(feeder)
+    finally:
+        loop.stopped = True
+        runner.join(timeout=30.0)
+        feeder.close()
+        server.stop()
+    by_id = _reply_labels(replies, 2 * DELTA_ROWS, "delta reload")
+    fresh = make_predictor(dreg.load("rafo9", 2), device=dev)
+    want = fresh.predict_rows([r.split(",") for r in
+                               records[DELTA_ROWS:2 * DELTA_ROWS]])
+    got = [by_id[str(i)] for i in range(DELTA_ROWS, 2 * DELTA_ROWS)]
+    if got != want:
+        fail(f"delta reload: {sum(x != y for x, y in zip(got, want))} "
+             f"replies after the patch differ from a full load of v2")
+    v1_labels = [by_id[str(i)] for i in range(DELTA_ROWS)]
+    changed = sum(x != y for x, y in zip(
+        make_predictor(v1, device=dev).predict_rows(
+            [r.split(",") for r in records[DELTA_ROWS:2 * DELTA_ROWS]]),
+        want))
+    sc = svc.counters
+    h2d = sc.get("Serving", "DeltaH2DBytes")
+    form = vote.vote_form(svc.predictor.ensemble._stacked)
+    print(f"delta reload: DeltaSwaps {sc.get('Serving', 'DeltaSwaps')}, "
+          f"HotSwaps {sc.get('Serving', 'HotSwaps')}, H2D bytes moved "
+          f"{h2d} (the resident stacked form is "
+          f"{sum(x.nbytes for x in svc.predictor.ensemble._host)} bytes); "
+          f"the {DELTA_ROWS:,} replies after it equal a full load of v2 "
+          f"({changed} of them differ from v1's answer; {len(v1_labels)} "
+          f"served before); ensemble_vote launches after the patch "
+          f"{counts['b2']}, table form {table}, model form {form}; "
+          f"KernelBackends {ledger.backend_snapshot()}", flush=True)
+    if sc.get("Serving", "DeltaSwaps") != 1 or sc.get("Serving",
+                                                      "DeltaSwapTorn"):
+        fail("delta reload did not patch exactly once")
+    if counts["b2"] <= 0 or table != counts["b2"] or form != "table":
+        fail(f"delta reload: {counts['b2']} launches after the patch, "
+             f"{table} in the table form (model form {form})")
+    if not changed:
+        fail("delta reload: v2 answers every row as v1 does; the check "
+             "cannot tell the patch from no patch")
+    # the same reload onto a tree-sharded core: every shard's slice
+    # patched, B6 + merge-finalize after it (distinct cards where several
+    # are visible, else the card repeated, as phase 21 does)
+    from avenir_tpu_torch.parallel.mesh import DeviceMesh
+    n_cards = torch.cuda.device_count()
+    mesh = DeviceMesh([f"cuda:{i}" for i in range(n_cards)] if n_cards > 1
+                      else [dev] * 2)
+    dreg.pin_version("rafo9", 1)
+    sharded = PredictionService(registry=dreg, model_name="rafo9",
+                                serve_mesh=mesh)
+    dreg.clear_pin("rafo9")
+    if not sharded.refresh() or \
+            sharded.counters.get("Serving", "DeltaSwaps") != 1:
+        fail("delta reload onto the sharded core did not patch")
+    vote.partial_launches = vote.finalize_launches = 0
+    got_s = sharded.predictor.predict_rows(
+        [r.split(",") for r in records[DELTA_ROWS:2 * DELTA_ROWS]])
+    parts, fins = vote.partial_launches, vote.finalize_launches
+    if got_s != want or fins <= 0 or parts != fins * mesh.size:
+        fail(f"delta reload onto the sharded core: answers equal "
+             f"{got_s == want}, {parts} partial and {fins} merge-finalize "
+             f"launches over {mesh.size} shards")
+    print(f"delta reload onto a {mesh.size}-shard core "
+          f"({[str(d) for d in mesh.devices]}): DeltaSwaps 1, H2D bytes "
+          f"{sharded.counters.get('Serving', 'DeltaH2DBytes')}, answers "
+          f"equal a full load of v2; {parts} partial-vote and {fins} "
+          f"merge-finalize launches", flush=True)
+    out["delta"] = {"h2d_bytes": h2d, "b2_launches": counts["b2"],
+                    "b2_table_launches": table, "rows_changed": changed,
+                    "sharded_partial_launches": parts,
+                    "sharded_finalize_launches": fins}
+
+    phase("50 durable leased broker: a loop and the broker killed "
+          "mid-batch; driftMonitor dm.source=resp")
+    jdir = os.path.join(WORK, "wire_journal")
+    msgs = [f"predict,{i},{r}" for i, r in enumerate(records[:DURABLE_ROWS])]
+    cfg = {"redis.lease.timeout.s": 5.0}
+    server = respq.RespServer(durable="commit", journal_dir=jdir).start()
+    feeder = respq.RespClient(port=server.port)
+    feeder.lpush_many("requestQueue", msgs + ["stop"])
+    feeder.close()
+    svc = PredictionService(registry=ModelRegistry(reg), model_name="rafo9",
+                            device=dev, policy=BatchPolicy(max_batch=64))
+    dead = RespPredictionLoop(svc, {**cfg, "redis.server.port": server.port})
+    for _ in range(DURABLE_ACKED_POLLS):
+        dead.poll_once()
+    taken = dead.client.lease_many("requestQueue", 64, 5.0)
+    dead.close()                   # the loop dies holding a leased batch
+    server.kill()                  # and the broker dies with it
+    again = respq.RespServer(durable="commit", journal_dir=jdir).start()
+    try:
+        svc2 = PredictionService(registry=ModelRegistry(reg),
+                                 model_name="rafo9", device=dev,
+                                 policy=BatchPolicy(max_batch=64))
+        replies, _ = _wire_loop(svc2, again, [], lease_s=5.0)
+        restored = again.journal_replayed
+    finally:
+        again.stop()
+    by_id = _reply_labels(replies, DURABLE_ROWS, "durable broker")
+    if [by_id[str(i)] for i in range(DURABLE_ROWS)] != \
+            served[:DURABLE_ROWS]:
+        fail("durable broker: the reply set differs from the in-process "
+             "serve")
+    print(f"durable broker: {DURABLE_ACKED_POLLS} batches acked, a leased "
+          f"batch of {len(taken)} held by the killed loop, the broker "
+          f"killed and restarted: {restored} values replayed from the "
+          f"journal, {len(replies)} replies, one a request, equal to the "
+          f"in-process serve", flush=True)
+
+    mk = drift9_module()
+    dreg9 = os.path.join(WORK, "wire_drift_registry")
+    shutil.copytree(os.path.join(RAFO9Q, "registry"), dreg9)
+    stream = os.path.join(DRIFT9, "stream.csv")
+    with open(stream) as fh:
+        lines = fh.read().splitlines()
+    server = respq.RespServer().start()
+    try:
+        feeder = respq.RespClient(port=server.port)
+        feeder.lpush_many("driftQueue", lines + ["stop"])
+        feeder.close()
+        reports = {}
+        for source, extra in (
+                ("file", ()),
+                ("resp", ("-Ddm.source=resp",
+                          f"-Dredis.server.port={server.port}",
+                          "-Dredis.request.queue=driftQueue"))):
+            dest = os.path.join(WORK, f"wire_drift_{source}")
+            histogram.bin_counts_launches = 0
+            run_cli(["driftMonitor", f"-Ddm.model.registry.dir={dreg9}",
+                     f"-Ddm.model.name={mk.MODEL_NAME}", *mk.KEYS, *extra,
+                     stream, dest])
+            reports[source] = (dest, histogram.bin_counts_launches,
+                               read_json(dest + ".counters.json"))
+    finally:
+        server.stop()
+    for f in ("part-r-00000", "alerts.jsonl"):
+        same_bytes(os.path.join(reports["resp"][0], f),
+                   os.path.join(reports["file"][0], f),
+                   f"driftMonitor dm.source=resp {f} vs dm.source=file")
+    dest, b4, counters = reports["resp"]
+    windows = counters["Dispatches"]["monitor.absorb"]
+    print(f"driftMonitor dm.source=resp: bin_counts launches {b4} for "
+          f"{windows} windows (dm.source=file: {reports['file'][1]})",
+          flush=True)
+    if b4 != windows or b4 <= 0:
+        fail(f"drift over resp: {b4} bin-counts launches for {windows} "
+             f"windows")
+    out["durable"] = {"restored": restored, "leased_batch": len(taken),
+                      "replies": len(replies)}
+    out["drift"] = {"b4_launches": b4, "windows": windows}
+    torch.cuda.synchronize()
+    return out
+
+
 def main():
     import torch
     phase("1 device")
@@ -4070,16 +4527,18 @@ def main():
           f"device {torch.cuda.get_device_name(0)}", flush=True)
 
     phase("2 build")
-    from avenir_tpu_torch.io import native_csv
-    # the g++ reader compiles on a thread while the nvcc processes run
+    from avenir_tpu_torch.io import native_csv, native_wire
+    # the g++ reader and serving codec compile on a thread while the nvcc
+    # processes run
     native_err = []
     native_t = threading.Thread(target=lambda: native_err.extend(
-        _try(native_csv.build)))
+        _try(native_csv.build) + _try(native_wire.build)))
     native_t.start()
     secs = build.build_all()
     native_t.join()
     if native_err:
-        fail(f"native CSV reader build failed: {native_err[0]}")
+        fail(f"native CSV reader or serving codec build failed: "
+             f"{native_err[0]}")
     for name, s in secs.items():
         print(f"built {build.SOURCES[name]} in {s:.1f} s", flush=True)
         log = build.build_log.get(name, (0, ""))[1].strip()
@@ -4089,6 +4548,8 @@ def main():
     print(f"built {os.path.relpath(native_csv.SOURCE, ROOT)} with g++ in "
           f"{native_s:.1f} s into {os.path.relpath(native_csv.library_path(), ROOT)}",
           flush=True)
+    print(f"built {os.path.relpath(native_wire.SOURCE, ROOT)} with g++ into "
+          f"{os.path.relpath(native_wire.library_path(), ROOT)}", flush=True)
 
     phase("3 kernel vs plain version")
     rng = np.random.default_rng(20261016)
@@ -4631,6 +5092,7 @@ def main():
     nb_counts, nb_backends = bayes_main_path()
     nb_train, nb_cli, nb_csv = bayes_scale(dev)
     nb_joined = bayes_joined(nb_csv)
+    wire = wire_phases(dev)
 
     def per_process(run, key):
         return [g[key] for g in run["launches"]]
@@ -4658,7 +5120,13 @@ def main():
         "shard_lane_launches": per_process(lane, "b2"),
         "joined_predictor_launches": [g["b2"] for g in joined["mp"]],
         "joined_mono_launches": joined_job("mono", "b2"),
-        "joined_stream_off_launches": joined_job("soff", "b2")}, {
+        "joined_stream_off_launches": joined_job("soff", "b2"),
+        "wire_launches": {p: wire["serve"][p]["b2_launches"]
+                          for p in ("native", "python")},
+        "wire_batches": {p: wire["serve"][p]["batches"]
+                         for p in ("native", "python")},
+        "delta_launches": wire["delta"]["b2_launches"],
+        "delta_table_launches": wire["delta"]["b2_table_launches"]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -4702,7 +5170,9 @@ def main():
         "stream_launches": streamed["b3"],
         "shard_lane_launches": per_process(lane, "b3"),
         "joined_mono_launches": joined_job("mono", "b3"),
-        "joined_stream_off_launches": joined_job("soff", "b3")}, {
+        "joined_stream_off_launches": joined_job("soff", "b3"),
+        "predictq_launches": wire["predictq"]["b3_launches"],
+        "predictq_batches": wire["predictq"]["batches"]}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
@@ -4729,7 +5199,9 @@ def main():
         "two_process_scale_launches": [r["b4"] for r in scale2],
         "cache_launches": [cached[p]["b4"] for p in ("build", "use")],
         "joined_mono_launches": joined_job("mono", "b4"),
-        "joined_stream_off_launches": joined_job("soff", "b4")}, {
+        "joined_stream_off_launches": joined_job("soff", "b4"),
+        "drift_resp_launches": wire["drift"]["b4_launches"],
+        "drift_resp_windows": wire["drift"]["windows"]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -4765,7 +5237,10 @@ def main():
         "finalize_launches": fin_launches, "finalize_ms": fin_t["ms"],
         "finalize_plain_ms": fin_t["plain_ms"],
         "finalize_bound_ms": fin_t["bound_ms"],
-        "finalize_bound_by": fin_t["bound_by"]}, {
+        "finalize_bound_by": fin_t["bound_by"],
+        "delta_launches": wire["delta"]["sharded_partial_launches"],
+        "delta_finalize_launches":
+            wire["delta"]["sharded_finalize_launches"]}, {
         "name": "topk_scan_sharded", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:128",
@@ -4783,7 +5258,12 @@ def main():
         "bayes": {"main_path_launches": nb_counts,
                   "main_path_backends": nb_backends,
                   "train_10m": nb_train, "cli_1m": nb_cli,
-                  "joined": nb_joined}}), flush=True)
+                  "joined": nb_joined},
+        "wire": {"serve": {p: {k: v for k, v in wire["serve"][p].items()
+                               if k != "backends"}
+                           for p in wire["serve"]},
+                 "predictq": wire["predictq"], "delta": wire["delta"],
+                 "durable": wire["durable"]}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

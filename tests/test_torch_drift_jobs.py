@@ -9,8 +9,8 @@ strings is printed and bounded; on this fixture it is 0);
 ``alerts.jsonl``'s records equal apart from ``value`` (within the same
 tolerance); the ``BadRecords``, ``DriftMonitor`` and ``PredictDrift``
 counters equal; ``predictDriftScore``'s predictions byte-equal.  Both jobs
-refuse ``dm.source=resp`` by name, and ``predictDriftScore`` refuses the
-fused default.  A rerun of ``make.py`` into a temporary directory must
+refuse an unknown ``dm.source`` by name, and ``predictDriftScore`` refuses
+the fused default.  A rerun of ``make.py`` into a temporary directory must
 reproduce the fixture's files.
 """
 
@@ -123,8 +123,11 @@ def test_fixture_has_quiet_windows_then_warn_and_alert():
 
 @pytest.mark.parametrize("job", ["driftMonitor", "predictDriftScore"])
 def test_resp_source_is_refused_by_name(tmp_path, job):
-    with pytest.raises(JobNotPorted, match="dm.source=resp"):
-        _run(job, tmp_path, "-Ddm.source=resp", "-Ddm.pipeline.fuse=false")
+    """``dm.source=resp`` is ported (``tests/test_torch_wire_serving.py``
+    holds it against ``file``); a source that is neither is refused by
+    name."""
+    with pytest.raises(ValueError, match="dm.source 'kafka'"):
+        _run(job, tmp_path, "-Ddm.source=kafka", "-Ddm.pipeline.fuse=false")
 
 
 @pytest.mark.parametrize("fuse", [(), ("-Ddm.pipeline.fuse=true",)])

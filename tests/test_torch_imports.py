@@ -50,7 +50,16 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.models.bayes",
              "avenir_tpu_torch.models.bayes_text",
              "avenir_tpu_torch.text.wordcount",
-             "avenir_tpu_torch.cli.bayes_jobs"):
+             "avenir_tpu_torch.cli.bayes_jobs",
+             "avenir_tpu_torch.telemetry",
+             "avenir_tpu_torch.telemetry.trace",
+             "avenir_tpu_torch.telemetry.reqtrace",
+             "avenir_tpu_torch.io.qjournal",
+             "avenir_tpu_torch.io.respq",
+             "avenir_tpu_torch.io.native_wire",
+             "avenir_tpu_torch.serving.service",
+             "avenir_tpu_torch.serving.registry",
+             "avenir_tpu_torch.cli.serving_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -66,8 +75,12 @@ with tempfile.NamedTemporaryFile("w", suffix=".csv", delete=False) as fh:
     fh.write("1.5\n2.5\n")
 assert load_csv(fh.name, fs).columns[0].tolist() == [1.5, 2.5]
 os.remove(fh.name)
+# and so does the serving codec
+from avenir_tpu_torch.io import native_wire
+assert native_wire.encode_lpush("q", ["1,T"]) == \
+    b"*3\r\n$5\r\nLPUSH\r\n$1\r\nq\r\n$3\r\n1,T\r\n"
 maps = open("/proc/self/maps").read()
-assert "libcsv_native-" in maps
+assert "libcsv_native-" in maps and "libserve_native-" in maps
 assert os.sep + os.path.join("avenir_tpu", "") not in maps, \
     [l for l in maps.splitlines() if "avenir_tpu" + os.sep in l]
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)

@@ -117,7 +117,7 @@ def test_unported_jobs_and_serving_tiers_refuse_by_name(registry, tmp_path):
     req.write_text("\n".join(",".join(r) for r in _rows(3)) + "\n")
     # ps.quantized is ported: beside an unported key, that key still
     # refuses by name
-    for extra in (["-Dps.transport=resp"], ["-Dps.workers=2"],
+    for extra in (["-Dps.autoscale=true"], ["-Dps.workers=2"],
                   ["-Dps.quantized=true", "-Dps.workers=2"]):
         with pytest.raises(JobNotPorted, match="not ported"):
             port_run.main(["predictionService", f"-Dps.model.registry.dir="
