@@ -28,6 +28,14 @@ global already); process 0 prints them and shard 0 alone writes
 ``counters.json``.  A joined ``gather`` or ``partition`` job over distinct
 per-process inputs reads them from a spool directory that holds every
 process's files (:func:`_apply_dist_mode`), removed when the job ends.
+
+Run-scoped telemetry (:func:`_telemetry_setup`) comes from the
+``telemetry.*`` keys and their environment twins, as in the JAX package:
+a span tracer writing ``trace-<run id>.p<shard>.jsonl`` under
+``telemetry.trace.dir``, and a metrics registry (the serving services bind
+to it) with a ``/metrics`` + ``/healthz`` endpoint on
+``telemetry.metrics.port`` and a ``<outPath>.metrics.jsonl`` flight
+recorder every ``telemetry.metrics.snapshot.s`` seconds.
 """
 
 from __future__ import annotations
@@ -64,6 +72,87 @@ def write_counters_json(counters, out_path: Optional[str]) -> Optional[str]:
               file=sys.stderr)
         return None
     return dest
+
+
+def _telemetry_setup(cfg, job_name: str, in_path: Optional[str]):
+    """Install run-scoped telemetry from the ``telemetry.*`` keys; returns
+    ``(tracer, metrics_server, registry)``, all None when telemetry is off
+    (the default: spans are no-ops).
+
+      telemetry.trace.dir      span tracing: per-process JSONL (Chrome
+                               trace events) into this directory
+      telemetry.run.id         the trace file's run id (default under a
+                               shard spec: a hash of the job and the INPUT
+                               path, which every shard shares, so all
+                               shards agree; else the job, the time, the
+                               pid and a random tail)
+      telemetry.metrics.port   /metrics + /healthz endpoint port (0 =
+                               ephemeral, printed on stderr; shard i of a
+                               shard spec binds port + i)
+      telemetry.metrics.host   the endpoint's bind address (default
+                               127.0.0.1)
+      telemetry.metrics.snapshot.s   the snapshot thread's period (the
+                               JSONL flight recorder; 0 = off; works
+                               without a port)
+
+    Environment twins: AVENIR_TPU_TRACE_EVENTS_DIR, AVENIR_TPU_METRICS_PORT,
+    AVENIR_TPU_METRICS_HOST, AVENIR_TPU_RUN_ID (an empty value means
+    unset)."""
+    trace_dir = cfg.get("telemetry.trace.dir") or \
+        os.environ.get("AVENIR_TPU_TRACE_EVENTS_DIR") or None
+    port = cfg.get("telemetry.metrics.port") or \
+        os.environ.get("AVENIR_TPU_METRICS_PORT") or None
+    snap_s = cfg.get_float("telemetry.metrics.snapshot.s", 0.0)
+    if not trace_dir and port is None and snap_s <= 0:
+        return None, None, None
+    from .. import telemetry
+    from ..parallel.distributed import shard_spec
+    spec = shard_spec()
+    tracer = server = registry = None
+    if trace_dir:
+        run_id = cfg.get("telemetry.run.id") or \
+            os.environ.get("AVENIR_TPU_RUN_ID")
+        if not run_id:
+            short = job_name.split(".")[-1]
+            if spec.active:
+                # every shard derives the same id from what they share
+                run_id = short + "-" + hashlib.sha256(
+                    f"{job_name}|{in_path}".encode()).hexdigest()[:8]
+            else:
+                import time
+                import uuid
+                run_id = f"{short}-{time.strftime('%Y%m%d%H%M%S')}" \
+                         f"-{os.getpid()}-{uuid.uuid4().hex[:6]}"
+        tracer = telemetry.install_tracer(telemetry.Tracer(
+            trace_dir, run_id=run_id, process_index=spec.index))
+    if port is not None or snap_s > 0:
+        try:
+            registry = telemetry.MetricsRegistry()
+            telemetry.set_default_registry(registry)
+            if port is not None:
+                host = cfg.get("telemetry.metrics.host") or \
+                    os.environ.get("AVENIR_TPU_METRICS_HOST") or \
+                    "127.0.0.1"
+                bind_port = int(port)
+                if bind_port != 0 and spec.active:
+                    # one fixed port for several shards on one host would
+                    # fail every bind but one
+                    bind_port += spec.index
+                server = telemetry.MetricsServer(
+                    registry, port=bind_port, host=host).start()
+        except Exception:
+            # a failed endpoint start must not leak the process-global
+            # tracer and registry into later in-process runs
+            telemetry.set_default_registry(None)
+            if tracer is not None:
+                telemetry.uninstall_tracer()
+                tracer.close()
+            raise
+        if server is not None:
+            print(f"[telemetry] metrics endpoint "
+                  f"http://{server.host}:{server.port}/metrics "
+                  f"(+ /healthz)", file=sys.stderr)
+    return tracer, server, registry
 
 
 def parse_args(argv: List[str]):
@@ -274,11 +363,32 @@ def main(argv: Optional[List[str]] = None) -> int:
     set_default_device(platform_device(platform) if platform else None)
     own_ctx = False
     spool = None
+    tracer = metrics_server = registry = None
     try:
+        orig_in_path = in_path   # the run id's anchor, not a spool dir
         in_path, spool = _apply_dist_mode(fn, job_name, in_path, cfg)
         own_ctx = _process_device()
         timer = StepTimer()
+        tracer, metrics_server, registry = _telemetry_setup(
+            cfg, job_name, orig_in_path)
         with transfer_ledger() as ledger:
+            if registry is not None:
+                # live sources: /metrics mid-job shows the ledger and the
+                # step timer moving
+                registry.attach_ledger(ledger)
+                registry.attach_timer(timer)
+                snap_s = cfg.get_float("telemetry.metrics.snapshot.s", 0.0)
+                if snap_s > 0:
+                    # beside the output, like counters.json, and from the
+                    # owner process only under a shard spec
+                    spec = shard_spec()
+                    own = not spec.active or spec.index == 0
+                    registry.start_snapshots(
+                        snap_s,
+                        snapshot_path=(
+                            f"{out_path.rstrip('/' + os.sep)}"
+                            f".metrics.jsonl"
+                            if out_path and own else None))
             with timer.step("job"):
                 counters = fn(cfg, in_path, out_path)
         if counters is not None:
@@ -288,6 +398,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             if jobs.dist_mode(fn) != "gather":
                 counters = all_reduce_counters(counters)
             timer.export(counters)
+            if registry is not None:
+                registry.attach_counters(counters)
             spec = shard_spec()
             if process_index() == 0:
                 print(counters.render())
@@ -296,6 +408,21 @@ def main(argv: Optional[List[str]] = None) -> int:
         if joined_here:
             leave()
     finally:
+        if registry is not None:
+            registry.stop_snapshots()
+        if metrics_server is not None:
+            metrics_server.stop()
+        if registry is not None:
+            from ..telemetry import set_default_registry
+            set_default_registry(None)
+        if tracer is not None:
+            from ..telemetry import uninstall_tracer
+            uninstall_tracer()
+            try:   # flush + Chrome export; telemetry never fails a job
+                tracer.close()
+            except Exception as exc:
+                print(f"[telemetry] trace close failed: {exc}",
+                      file=sys.stderr)
         set_default_device(None)
         if own_ctx:
             set_runtime_context(None)

@@ -26,9 +26,13 @@ consumer-side :func:`dedup_replies`).  ``durable=off`` + the classic
 verbs are byte-identical to the JAX package's wire, and either package's
 client talks to the other's server.
 
-The consistent-hash ring over several brokers (``HashRing``,
-``ShardedRespClient``, ``make_queue_client``: ``ps.broker.shards``) is
-not ported yet.
+Several brokers form a consistent-hash ring (``ps.broker.shards``):
+:class:`HashRing` places request ids on shards, :class:`ShardedRespClient`
+fans one client's verbs out over the ring (a dead shard is counted as
+``Broker/BrokerShardDown`` and its keys re-route to the survivors), and
+:func:`make_queue_client` builds the plain or the sharded client from a
+serving config.  The ring hashes as the JAX package's does, so either
+package's ring places every key on the same shard.
 
 Security note: like stock Redis, there is no auth — bind to loopback
 (the default) or a trusted network only.
@@ -36,6 +40,8 @@ Security note: like stock Redis, there is no auth — bind to loopback
 
 from __future__ import annotations
 
+import bisect
+import hashlib
 import os
 import socket
 import socketserver
@@ -43,7 +49,7 @@ import threading
 import time
 import warnings
 from collections import OrderedDict, deque
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple, Union
 
 from ..core.metrics import Counters
 from ..telemetry import instant
@@ -1068,3 +1074,497 @@ class RespClient:
             self._sock.close()
         except OSError:
             pass
+
+
+# ---------------------------------------------------------------------------
+# sharded broker client
+# ---------------------------------------------------------------------------
+
+def _hash64(key: str) -> int:
+    """Stable 64-bit ring hash (md5 head): identical placement in every
+    process and across runs — python's builtin hash() is seed-randomized
+    per process, which would put each fleet host on a DIFFERENT ring."""
+    return int.from_bytes(hashlib.md5(key.encode()).digest()[:8], "big")
+
+
+Endpoint = Union[str, Tuple[str, int]]
+
+
+def _norm_endpoint(ep: Endpoint) -> str:
+    if isinstance(ep, str):
+        return ep
+    host, port = ep
+    return f"{host}:{int(port)}"
+
+
+class HashRing:
+    """Consistent-hash ring over broker endpoints, ``replicas`` virtual
+    nodes each.  The property the shard tier leans on: removing (or
+    adding) one of M endpoints remaps only the ids that hashed TO it
+    (~1/M of the key space) — every surviving assignment stays put, so a
+    shard death never reshuffles the whole fleet's queues."""
+
+    __slots__ = ("endpoints", "replicas", "_hashes", "_owners")
+
+    def __init__(self, endpoints: Sequence[str], replicas: int = 64):
+        self.endpoints = [_norm_endpoint(e) for e in endpoints]
+        if len(set(self.endpoints)) != len(self.endpoints):
+            raise ValueError(f"duplicate broker endpoints: {self.endpoints}")
+        self.replicas = int(replicas)
+        points = sorted((_hash64(f"{ep}#{r}"), ep)
+                        for ep in self.endpoints
+                        for r in range(self.replicas))
+        self._hashes = [h for h, _ in points]
+        self._owners = [ep for _, ep in points]
+
+    def lookup(self, key: str) -> str:
+        """The endpoint owning ``key`` (first ring point clockwise)."""
+        if not self._owners:
+            raise RuntimeError("broker ring is empty (every shard down)")
+        i = bisect.bisect_right(self._hashes, _hash64(str(key)))
+        return self._owners[i % len(self._owners)]
+
+    def without(self, endpoint: str) -> "HashRing":
+        return HashRing([e for e in self.endpoints if e != endpoint],
+                        self.replicas)
+
+
+class ShardedRespClient:
+    """One client over M RESP broker shards: consistent-hash fan-out.
+
+    Request ids route by :class:`HashRing` lookup, so a request
+    (``predict,<id>,...``) and its reply (``<id>,<label>``) land on the
+    SAME shard and a collector simply fans ``rpop_many`` across the ring
+    and reassembles by id.  Per-shard pipelining everywhere: one
+    variadic LPUSH per shard per push batch, one RPOP-count (or
+    pipelined) drain per shard per poll.
+
+    Degraded-ring semantics: a shard whose connection fails (after the
+    underlying :class:`RespClient`'s own reconnect attempt) is marked
+    down with a structured warning and a ``Broker/BrokerShardDown``
+    counter, and the ring shrinks to the survivors — values from the
+    failed push are RE-ROUTED onto the surviving shards, never dropped.
+    Messages already queued inside the dead shard's memory are the
+    producer's re-offer window (unanswered ids get re-sent — the bench's
+    killed-shard protocol).  When the LAST shard dies the client raises:
+    there is nowhere left to degrade to.
+
+    Like :class:`RespClient`, not thread-safe — one instance per thread
+    (each fleet worker owns its own)."""
+
+    def __init__(self, endpoints: Sequence[Endpoint],
+                 timeout: float = 10.0, replicas: int = 64,
+                 delim: str = ",", counters=None):
+        eps = [_norm_endpoint(e) for e in endpoints]
+        if not eps:
+            raise ValueError("need at least one broker endpoint")
+        self._delim = delim
+        self._timeout = float(timeout)
+        self.counters = counters
+        self._clients: Dict[str, RespClient] = {}
+        self._down: List[str] = []
+        # rid -> endpoint it was LEASED from, so the piggybacked ack
+        # reaches the shard actually holding the lease even after ring
+        # membership changed in between; bounded first-in first-evicted
+        # (an evicted entry just means the ack routes by ring lookup
+        # and the lease expires into a redelivery — dedup absorbs it)
+        self._lease_src: "OrderedDict[str, str]" = OrderedDict()
+        self._lease_src_cap = 65536
+        # a down shard is probed for REJOIN at most once per interval:
+        # the kill-and-restart drill needs the restarted shard (journal
+        # replayed) to re-enter the ring without rebuilding every client
+        self.rejoin_interval_s = 1.0
+        self._last_rejoin = 0.0
+        live: List[str] = []
+        first_err: Optional[BaseException] = None
+        for ep in eps:
+            host, _, port = ep.rpartition(":")
+            try:
+                # inner clients do NOT stamp: the ring stamps per push
+                # group below, where the owning shard is known
+                self._clients[ep] = RespClient(host or "127.0.0.1",
+                                               int(port), timeout=timeout,
+                                               delim=delim,
+                                               counters=counters,
+                                               stamp=False)
+            except OSError as exc:
+                first_err = first_err or exc
+                self._note_down(ep, exc)
+            else:
+                live.append(ep)
+        if not live:
+            raise ConnectionError(
+                f"no broker shard reachable out of {eps}") from first_err
+        self._ring = HashRing(live, replicas=replicas)
+        self._rr = 0   # rotating start index: fair drain across shards
+
+    # ---- ring state ----
+    @property
+    def live_endpoints(self) -> List[str]:
+        return list(self._ring.endpoints)
+
+    @property
+    def down_endpoints(self) -> List[str]:
+        return list(self._down)
+
+    def shard_of(self, request_id: str) -> str:
+        """Which live shard owns ``request_id`` (tests + operators)."""
+        return self._ring.lookup(request_id)
+
+    def id_of(self, value: str) -> str:
+        """The routing id of a wire message: ``predict,<id>,...`` and
+        ``reward,<id>,<value>`` route by the id field — a reward MUST
+        land on the shard holding the request it rewards, or the
+        online learner draining that shard never joins them — anything
+        else (a reply ``<id>,<label>``, a control word) by its first
+        field."""
+        parts = value.split(self._delim, 2)
+        if parts[0] in ("predict", "reward") and len(parts) > 1:
+            return parts[1]
+        if parts[0].startswith("reward:"):
+            # a reward-ack token (``reward:<id>,acked``) must chase the
+            # shard that leased ``reward,<id>,...`` — i.e. <id>'s shard
+            return parts[0][len("reward:"):]
+        return parts[0]
+
+    def _note_down(self, ep: str, exc: BaseException) -> None:
+        self._down.append(ep)
+        if self.counters is not None:
+            self.counters.increment("Broker", "BrokerShardDown")
+        survivors = sum(1 for e in self._clients if e != ep)
+        instant("broker.shard_down", cat="broker", endpoint=ep,
+                cause=f"{type(exc).__name__}: {exc}",
+                survivors=survivors)
+        warnings.warn(
+            f"broker: shard {ep} down ({type(exc).__name__}: {exc}); "
+            f"degrading to the surviving ring ({survivors} shard(s) "
+            f"left)", RuntimeWarning)
+
+    def _mark_down(self, ep: str, exc: BaseException) -> None:
+        """Shrink the ring past a dead shard; raises when it was the
+        last one (nowhere to degrade to)."""
+        if ep not in self._clients:
+            return
+        self._note_down(ep, exc)
+        cli = self._clients.pop(ep)
+        try:
+            cli.close()
+        except OSError:
+            pass
+        self._ring = self._ring.without(ep)
+        if not self._ring.endpoints:
+            raise ConnectionError(
+                f"broker: last shard {ep} is down "
+                f"({type(exc).__name__}: {exc})") from exc
+
+    def _maybe_rejoin(self) -> None:
+        """Probe down shards (rate-limited) and fold a revived one back
+        into the ring — the client half of the killed-and-restarted
+        shard drill: a shard that came back with its journal replayed
+        re-owns its id range (consistent hashing: only ids that hashed
+        to it move back; every surviving assignment stays put)."""
+        if not self._down:
+            return
+        now = time.monotonic()
+        # rate-limited while the ring still has survivors; when EVERY
+        # shard is down there is nothing left to throttle for — probe
+        # on every verb so a restarted shard is folded back the moment
+        # it binds (the fleet's broker-outage grace retry depends on
+        # this to recover from a total ring loss)
+        if self._ring.endpoints and \
+                now - self._last_rejoin < self.rejoin_interval_s:
+            return
+        self._last_rejoin = now
+        for ep in list(self._down):
+            host, _, port = ep.rpartition(":")
+            try:
+                cli = RespClient(host or "127.0.0.1", int(port),
+                                 timeout=self._timeout, delim=self._delim,
+                                 counters=self.counters, stamp=False)
+            except OSError:
+                continue
+            self._down.remove(ep)
+            self._clients[ep] = cli
+            self._ring = HashRing(self._ring.endpoints + [ep],
+                                  replicas=self._ring.replicas)
+            if self.counters is not None:
+                self.counters.increment("Broker", "BrokerShardUp")
+            instant("broker.shard_up", cat="broker", endpoint=ep,
+                    survivors=len(self._ring.endpoints))
+            warnings.warn(
+                f"broker: shard {ep} is back; rejoined the ring "
+                f"({len(self._ring.endpoints)} shard(s) live)",
+                RuntimeWarning)
+
+    def _note_leased(self, values: List[str], ep: str) -> None:
+        for v in values:
+            rid = _lease_rid(v, self._delim)
+            if rid is not None:
+                self._lease_src[rid] = ep
+        while len(self._lease_src) > self._lease_src_cap:
+            self._lease_src.popitem(last=False)
+
+    # ---- fan-out verbs ----
+    def ping(self) -> bool:
+        """True when every LIVE shard answers PONG.  Like every other
+        fan-out verb, a shard failing the probe degrades the ring
+        (warning + counter) instead of crashing the caller — a liveness
+        probe that raises on exactly the condition it probes for would
+        be useless; the last shard dying still raises."""
+        self._maybe_rejoin()
+        ok = True
+        for ep in self.live_endpoints:
+            if ep not in self._clients:
+                continue
+            try:
+                ok = self._clients[ep].ping() and ok
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+                ok = False
+        return ok
+
+    def lpush(self, queue: str, value: str) -> int:
+        return self.lpush_many(queue, [value])
+
+    def lpush_many(self, queue: str, values: List[str]) -> int:
+        """Push a batch: group by owning shard, ONE variadic LPUSH per
+        shard.  A shard failing mid-push degrades the ring and its
+        group re-routes onto the survivors (accepted values are never
+        dropped by the client).  Returns the summed post-push depth of
+        the touched shards."""
+        self._maybe_rejoin()
+        total = 0
+        pending = list(values)
+        while pending:
+            groups: Dict[str, List[str]] = {}
+            for v in pending:
+                groups.setdefault(self._ring.lookup(self.id_of(v)),
+                                  []).append(v)
+            pending = []
+            for ep, vals in groups.items():
+                # head-sampling stamp AFTER routing, so the flow start
+                # names the owning shard; a re-route keeps the original
+                # stamp (the field-present check makes re-stamping a
+                # no-op) — the enqueue time is the FIRST offer
+                vals = reqtrace.stamp_values(vals, delim=self._delim,
+                                             broker=ep)
+                try:
+                    total += self._clients[ep].lpush_many(queue, vals)
+                except (ConnectionError, OSError) as exc:
+                    self._mark_down(ep, exc)   # raises when ring empties
+                    pending.extend(vals)       # re-route on the new ring
+        return total
+
+    def broadcast(self, queue: str, value: str) -> int:
+        """Push ``value`` onto EVERY live shard (control fan-out: a
+        'reload' must be seen whichever shard a fleet drains first).
+        Returns how many shards accepted it."""
+        n = 0
+        for ep in self.live_endpoints:
+            try:
+                self._clients[ep].lpush(queue, value)
+                n += 1
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+        return n
+
+    def rpop(self, queue: str) -> Optional[str]:
+        vs = self.rpop_many(queue, 1)
+        return vs[0] if vs else None
+
+    def rpop_many(self, queue: str, n: int) -> List[str]:
+        """Drain up to ``n`` values across the ring: pipelined
+        ``rpop_many`` per shard, visiting shards from a rotating start
+        index so one busy shard cannot starve the others.  A failing
+        shard degrades the ring; the poll continues on the survivors."""
+        if n <= 0:
+            return []
+        self._maybe_rejoin()
+        out: List[str] = []
+        eps = self.live_endpoints
+        self._rr += 1
+        start = self._rr
+        for i in range(len(eps)):
+            ep = eps[(start + i) % len(eps)]
+            if ep not in self._clients:
+                continue
+            try:
+                out.extend(self._clients[ep].rpop_many(queue, n - len(out)))
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+            if len(out) >= n:
+                break
+        return out
+
+    def lease_many(self, queue: str, n: int, lease_s: float,
+                   block_s: float = 0.0) -> List[str]:
+        """Lease up to ``n`` values across the ring: one non-blocking
+        LEASE sweep from a rotating start, then (idle + ``block_s``) a
+        blocking LEASE on ONE rotating shard — the at-least-once drain.
+        Records which shard leased each id so the piggybacked ack
+        (:meth:`ackpush`) routes back to the lease holder."""
+        if n <= 0:
+            return []
+        self._maybe_rejoin()
+        out: List[str] = []
+        eps = self.live_endpoints
+        self._rr += 1
+        start = self._rr
+        for i in range(len(eps)):
+            ep = eps[(start + i) % len(eps)]
+            cli = self._clients.get(ep)
+            if cli is None:
+                continue
+            try:
+                got = cli.lease_many(queue, n - len(out), lease_s)
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+                continue
+            self._note_leased(got, ep)
+            out.extend(got)
+            if len(out) >= n:
+                break
+        if out or block_s <= 0:
+            return out
+        eps = self.live_endpoints
+        if not eps:
+            raise RuntimeError("broker ring is empty (every shard down)")
+        self._rr += 1
+        ep = eps[self._rr % len(eps)]
+        cli = self._clients.get(ep)
+        if cli is None:
+            return []
+        try:
+            got = cli.lease_many(queue, n, lease_s, block_s)
+        except (ConnectionError, OSError) as exc:
+            self._mark_down(ep, exc)
+            return []
+        self._note_leased(got, ep)
+        return got
+
+    def ackpush(self, push_queue: str, ack_queue: str,
+                values: List[str]) -> int:
+        """Reply push + lease ack, grouped by the shard each id was
+        LEASED from (falling back to ring lookup when unknown).  A
+        shard failing mid-ack degrades the ring and its replies
+        re-route to the survivors — the reply is never dropped; the
+        orphaned lease expires into a redelivery that the answered-set
+        (or the consumer-side :func:`dedup_replies`) absorbs."""
+        if not values:
+            return 0
+        self._maybe_rejoin()
+        total = 0
+        pending = list(values)
+        while pending:
+            groups: Dict[str, List[str]] = {}
+            for v in pending:
+                rid = v.split(self._delim, 1)[0]
+                ep = self._lease_src.get(rid)
+                if ep is None or ep not in self._clients:
+                    ep = self._ring.lookup(self.id_of(v))
+                groups.setdefault(ep, []).append(v)
+            pending = []
+            for ep, vals in groups.items():
+                try:
+                    total += self._clients[ep].ackpush(
+                        push_queue, ack_queue, vals)
+                except (ConnectionError, OSError) as exc:
+                    self._mark_down(ep, exc)   # raises when ring empties
+                    pending.extend(vals)
+                else:
+                    for v in vals:
+                        self._lease_src.pop(
+                            v.split(self._delim, 1)[0], None)
+        return total
+
+    def brpop(self, queue: str, timeout_s: float = 0.05) -> Optional[str]:
+        """Park-when-idle over the ring: one non-blocking sweep first,
+        then a real BRPOP on ONE rotating shard for the timeout.  A
+        value landing on a different shard during the park is picked up
+        at the next poll — bounded by ``timeout_s``, which the fleet
+        keeps in the low milliseconds."""
+        self._maybe_rejoin()
+        vs = self.rpop_many(queue, 1)
+        if vs:
+            return vs[0]
+        eps = self.live_endpoints
+        if not eps:
+            raise RuntimeError("broker ring is empty (every shard down)")
+        self._rr += 1
+        ep = eps[self._rr % len(eps)]
+        try:
+            return self._clients[ep].brpop(queue, timeout_s)
+        except (ConnectionError, OSError) as exc:
+            self._mark_down(ep, exc)
+            return None
+
+    def llen(self, queue: str) -> int:
+        """Summed depth across the live ring (down shards excluded)."""
+        total = 0
+        for ep in self.live_endpoints:
+            if ep not in self._clients:
+                continue
+            try:
+                total += self._clients[ep].llen(queue)
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+        return total
+
+    def depths(self, *queues: str) -> Dict[str, Dict[str, int]]:
+        """Per-shard per-queue depths via INFO (no popping):
+        ``{endpoint: {queue: depth}}`` — the observable the autoscaler
+        sensor and the killed-shard bench read."""
+        self._maybe_rejoin()
+        out: Dict[str, Dict[str, int]] = {}
+        for ep in self.live_endpoints:
+            if ep not in self._clients:
+                continue
+            try:
+                out[ep] = self._clients[ep].info(*queues)
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+        return out
+
+    def delete(self, *queues: str) -> int:
+        n = 0
+        for ep in self.live_endpoints:
+            if ep not in self._clients:
+                continue
+            try:
+                n += self._clients[ep].delete(*queues)
+            except (ConnectionError, OSError) as exc:
+                self._mark_down(ep, exc)
+        return n
+
+    def close(self) -> None:
+        for cli in self._clients.values():
+            cli.close()
+        self._clients.clear()
+
+
+def make_queue_client(config: Optional[Dict] = None, delim: str = ",",
+                      counters=None
+                      ) -> Union[RespClient, ShardedRespClient]:
+    """Build the right client for a serving config: the plain
+    :class:`RespClient` for one ``redis.server.host``/``port``, the
+    :class:`ShardedRespClient` when ``redis.server.endpoints`` lists a
+    ring (list of ``host:port`` / ``(host, port)``, or one
+    comma-separated string).  The single-endpoint path stays the plain
+    client on purpose — no ring hashing on the hot path when there is
+    nothing to shard."""
+    cfg = dict(config or {})
+    endpoints = cfg.get("redis.server.endpoints")
+    if endpoints:
+        if isinstance(endpoints, str):
+            endpoints = [e.strip() for e in endpoints.split(",")
+                         if e.strip()]
+        endpoints = [_norm_endpoint(e) for e in endpoints]
+        if len(endpoints) > 1:
+            return ShardedRespClient(endpoints, delim=delim,
+                                     counters=counters)
+        host, _, port = endpoints[0].rpartition(":")
+        return RespClient(host or "127.0.0.1", int(port), delim=delim,
+                          counters=counters)
+    return RespClient(cfg.get("redis.server.host", "127.0.0.1"),
+                      int(cfg.get("redis.server.port", 6379)),
+                      delim=delim, counters=counters)

@@ -49,10 +49,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .dispatch import BACKEND_CUDA, resolve_backend
+from .dispatch import BACKEND_CUDA, count_launches, resolve_backend
 
-# kernel launches since the last reset (plain integers; chip_smoke.py
-# zeroes them around the main path and reads them back): the level
+# kernel launches since the last reset (plain integers, bumped under
+# dispatch.count_launches' lock; chip_smoke.py zeroes them around the main
+# path and reads them back): the level
 # histogram's and the bin counts'
 launches = 0
 mma_launches = 0
@@ -280,7 +281,6 @@ def _check(node_ids, branches, cls, weights, n_nodes, B, C):
 
 def _launch(node_ids, branches, cls, weights, n_nodes, B, C,
             form=None) -> torch.Tensor:
-    global launches, mma_launches
     n, T = node_ids.shape
     S = branches.shape[1]
     N = int(n_nodes)
@@ -326,9 +326,8 @@ def _launch(node_ids, branches, cls, weights, n_nodes, B, C,
     if err != 0:
         raise RuntimeError(f"forest_level_counts kernel launch failed "
                            f"({form} form): CUDA error {err}")
-    launches += 1
-    if form == "mma":
-        mma_launches += 1
+    count_launches(globals(), ("launches", "mma_launches")
+                   if form == "mma" else ("launches",))
     return out
 
 
@@ -432,7 +431,6 @@ def _rows_per_launch(R: int) -> int:
 def _launch_bins(codes, B, mask, out, accumulate) -> None:
     """One kernel launch: counts of ``codes`` written into (or, with
     ``accumulate``, added into) ``out``."""
-    global bin_counts_launches
     n, R = codes.shape
     dev = codes.device
     stream = torch._C._cuda_getCurrentRawStream(dev.index)
@@ -445,7 +443,7 @@ def _launch_bins(codes, B, mask, out, accumulate) -> None:
     if err != 0:
         raise RuntimeError(f"bin_counts kernel launch failed: CUDA error "
                            f"{err}")
-    bin_counts_launches += 1
+    count_launches(globals(), ("bin_counts_launches",))
 
 
 def _launch_bins_old(codes, B, mask) -> torch.Tensor:

@@ -45,10 +45,11 @@ import torch
 
 from ..ops.distance import euclid_topk, manhattan, row_norms
 from ..parallel.mesh import MAX_SHARDS
-from .dispatch import BACKEND_CUDA, resolve_backend
+from .dispatch import BACKEND_CUDA, count_launches, resolve_backend
 
-# kernel launches since the last reset (plain integers; chip_smoke.py
-# zeroes them around the main path and reads them back): the scan's and
+# kernel launches since the last reset (plain integers, bumped under
+# dispatch.count_launches' lock; chip_smoke.py zeroes them around the main
+# path and reads them back): the scan's and
 # the sharded form's merge (:func:`topk_merge`)
 launches = 0
 merge_launches = 0
@@ -185,7 +186,6 @@ def _check(tn, toh, rn, roh, k, metric):
 
 def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale, splits,
             skip):
-    global launches
     nt, Fn = tn.shape
     nr, Fc = roh.shape
     dev = tn.device
@@ -221,7 +221,7 @@ def _launch(tn, toh, rn, roh, k, metric, n_cat, denom, fscale, splits,
     if err != 0:
         raise RuntimeError(f"topk_scan kernel launch failed: CUDA error "
                            f"{err}")
-    launches += 1
+    count_launches(globals(), ("launches",))
     if S == 1:
         return od[0], oi[0]
     return topk_merge_stacked(od, oi, step, k)
@@ -309,7 +309,6 @@ def _merge_out(nt, k, dev):
 
 def _merge_call(ds, is_, bases, k, old):
     """One launch of ``avenir_topk_merge`` over lists on one device."""
-    global merge_launches
     nt = ds[0].shape[0]
     dev = ds[0].device
     od, oi = _merge_out(nt, k, dev)
@@ -326,13 +325,12 @@ def _merge_call(ds, is_, bases, k, old):
     if err != 0:
         raise RuntimeError(f"topk_merge kernel launch failed: CUDA error "
                            f"{err}")
-    merge_launches += 1
+    count_launches(globals(), ("merge_launches",))
     return od, oi
 
 
 def _stacked_call(d, i, step, k, old):
     """One launch of ``avenir_topk_merge_stacked`` over (S, nt, k)."""
-    global split_merge_launches
     S, nt = d.shape[0], d.shape[1]
     od, oi = _merge_out(nt, k, d.device)
     if nt == 0:
@@ -344,7 +342,7 @@ def _stacked_call(d, i, step, k, old):
     if err != 0:
         raise RuntimeError(f"topk_merge_stacked kernel launch failed: CUDA "
                            f"error {err}")
-    split_merge_launches += 1
+    count_launches(globals(), ("split_merge_launches",))
     return od, oi
 
 

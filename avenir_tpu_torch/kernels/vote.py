@@ -48,10 +48,11 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .dispatch import BACKEND_CUDA, resolve_backend
+from .dispatch import BACKEND_CUDA, count_launches, resolve_backend
 
-# kernel launches since the last reset (plain integers; chip_smoke.py
-# zeroes them around the main path and reads them back): the float vote's
+# kernel launches since the last reset (plain integers, bumped under
+# dispatch.count_launches' lock; chip_smoke.py zeroes them around the main
+# path and reads them back): the float vote's
 # and the int8 vote's
 launches = 0
 quantized_launches = 0
@@ -535,14 +536,15 @@ def _smem_args(model: VoteModel):
     return (1, smem) if smem <= SMEM_LIMIT else (0, 0)
 
 
-def _count_form(model: VoteModel) -> None:
-    global table_launches
-    if model.ntab is not None:
-        table_launches += 1
+def _count(model: Optional[VoteModel], name: str) -> None:
+    """One launch of ``name``; a table-form ``model`` also counts in
+    ``table_launches``."""
+    names = (name, "table_launches") \
+        if model is not None and model.ntab is not None else (name,)
+    count_launches(globals(), names)
 
 
 def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
-    global launches, quantized_launches
     K = model.shape[4]
     n = vals.shape[0]
     entry, code_dtype, what = _FORMS[model.lo.dtype]
@@ -562,11 +564,7 @@ def _launch(vals, codes, model: VoteModel, min_odds: float) -> torch.Tensor:
                           out.data_ptr(), *_smem_args(model), stream)
     if err != 0:
         raise RuntimeError(f"{what} kernel launch failed: CUDA error {err}")
-    if model.quantized:
-        quantized_launches += 1
-    else:
-        launches += 1
-    _count_form(model)
+    _count(model, "quantized_launches" if model.quantized else "launches")
     return out
 
 
@@ -600,7 +598,6 @@ def quantized_vote(qvals: torch.Tensor, qcodes: torch.Tensor,
 # --------------------------------------------------------------------------
 
 def _launch_partial(vals, codes, model: VoteModel) -> torch.Tensor:
-    global partial_launches
     K = model.shape[4]
     n = vals.shape[0]
     _check_rows(vals, codes, model, "ensemble_partial_votes", torch.int32)
@@ -615,8 +612,7 @@ def _launch_partial(vals, codes, model: VoteModel) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"ensemble_partial_votes kernel launch failed: "
                            f"CUDA error {err}")
-    partial_launches += 1
-    _count_form(model)
+    _count(model, "partial_launches")
     return out
 
 
@@ -635,7 +631,6 @@ def ensemble_partial_votes(vals: torch.Tensor, codes: torch.Tensor,
 
 
 def _launch_merge(partials, min_odds: float) -> torch.Tensor:
-    global finalize_launches
     n, K = partials[0].shape
     dev = partials[0].device
     out = torch.empty((n,), dtype=torch.int32, device=dev)
@@ -655,7 +650,7 @@ def _launch_merge(partials, min_odds: float) -> torch.Tensor:
     if err != 0:
         raise RuntimeError(f"vote_merge_finalize kernel launch failed: CUDA "
                            f"error {err}")
-    finalize_launches += 1
+    _count(None, "finalize_launches")
     return out
 
 

@@ -53,13 +53,24 @@ Message formats (delim-joined):
                           whose parent is the served version
               'stop'   -> end the wire loop
 
-Metrics binding (the reference's ``telemetry.metrics`` registry) is not
-ported yet: the single-worker path binds it only where a default registry
-is set.
+Observability: :meth:`PredictionService.stats` and :meth:`health` are the
+``/metrics`` and ``/healthz`` sources; :meth:`bind_metrics` registers the
+service's labelled gauges (``host``, ``service``, ``model``), its health
+provider and, for head-sampled requests, the component histograms with
+request-id exemplars on a ``telemetry.MetricsRegistry`` — the ``metrics=``
+argument, else the process default registry ``cli/run.py`` installs from
+``telemetry.metrics.port``.
+
+CUDA streams: each service launches on a stream of its own
+(``own_stream``, on by default on a CUDA device): its model's H2D, warm-up,
+kernel launches and read-backs all run under ``torch.cuda.stream(s)``, so
+the read-back of one fleet worker's batch waits for that worker's work
+only, not for every launch queued on the card.
 """
 
 from __future__ import annotations
 
+import contextlib
 import queue
 import threading
 import time
@@ -75,6 +86,7 @@ from ..core.faults import fault_point, with_retry
 from ..core.metrics import Counters
 from ..io import native_wire
 from ..telemetry import instant, reqtrace, span
+from ..telemetry.metrics import get_default_registry
 from ..utils.tracing import StepTimer
 from .predictor import AMBIGUOUS, DEFAULT_BUCKETS, Predictor, make_predictor
 from .quantized import QUANTIZED_VERB, wire_decode_tokens
@@ -177,7 +189,14 @@ class PredictionService:
     int8 sidecar, ``serve_mesh`` shards each loaded version's vote over a
     device mesh).  ``wire_native`` (``auto`` | ``on`` | ``off``, the
     ``ps.wire.native`` knob; ``auto`` follows ``native_wire.set_mode``)
-    selects the wire data plane of :meth:`process_batch`."""
+    selects the wire data plane of :meth:`process_batch`.
+
+    ``name``, ``host_label`` and ``model_label`` are the service's identity
+    on a metrics registry (fleet workers are ``<model>-w<i>``).
+    ``own_stream=False`` launches on the device's current stream instead of
+    a stream of the service's own: a timing-only switch (the per-worker
+    stream's comparison run).  ``reward_sink`` (online reward intake) is
+    not ported and must stay None."""
 
     def __init__(self, predictor: Optional[Predictor] = None, *,
                  registry: Optional[ModelRegistry] = None,
@@ -197,9 +216,18 @@ class PredictionService:
                  quantized: bool = False,
                  serve_mesh=None,
                  monitor=None,
-                 wire_native: str = "auto"):
+                 wire_native: str = "auto",
+                 name: Optional[str] = None,
+                 host_label: Optional[str] = None,
+                 model_label: Optional[str] = None,
+                 metrics=None,
+                 reward_sink=None,
+                 own_stream: bool = True):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
+        if reward_sink is not None:
+            raise ValueError("reward_sink: online reward intake is not "
+                             "ported to avenir_tpu_torch")
         if wire_native not in native_wire.MODES:
             raise ValueError(
                 f"wire_native must be one of {native_wire.MODES}, "
@@ -236,11 +264,19 @@ class PredictionService:
         # set by mark_degraded (a drift policy's degrade_action); cleared
         # by a hot-swap
         self.degraded: Optional[str] = None
+        # metrics identity (defaults to the model name in bind_metrics);
+        # the host and model labels keep several fleets' and several
+        # residents' series disjoint on one registry
+        self.name = name
+        self.host_label = host_label
+        self.model_label = model_label
         self._swap_lock = threading.Lock()
+        self._stream = self._make_stream(predictor) if own_stream else None
         if predictor is None:
             predictor = self._load(must=True)
         elif warm:
-            predictor.warm()
+            with self._on_stream():
+                predictor.warm()
         self.predictor = predictor
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._stop = threading.Event()
@@ -256,6 +292,52 @@ class PredictionService:
         self.wire_native = wire_native
         self._wire_codec = None
         self._wire_codec_pred = None   # weakref to the codec's predictor
+        # rows inside a device predict right now (stats and the in-flight
+        # gauge)
+        self._inflight = 0
+        self._inflight_lock = threading.Lock()
+        # (registry, probe, health key, families, labels) while bound
+        self._metrics_binding = None
+        # (component histogram, labels) while bound; read and cleared under
+        # _comp_lock so a sampled request closing during stop() never
+        # observes into a series the unbind already swept
+        self._comp_binding = None
+        self._comp_lock = threading.Lock()
+        reg = metrics if metrics is not None else get_default_registry()
+        if reg is not None:
+            self.bind_metrics(reg)
+
+    # ---- the service's CUDA stream ----
+    def _make_stream(self, predictor):
+        """A CUDA stream of this service's own on the device it serves from
+        (a given predictor's, the mesh's first, ``device``, or the process
+        default), or None off CUDA."""
+        import torch
+        if predictor is not None:
+            dev = getattr(predictor, "device", None)
+        elif self._serve_mesh is not None:
+            from .predictor import ForestPredictor
+            dev = ForestPredictor._resolve_serve_mesh(
+                self._serve_mesh).devices[0]
+        else:
+            from ..runtime import resolve_device
+            dev = resolve_device(self._device)
+        if dev is None or torch.device(dev).type != "cuda":
+            return None
+        return torch.cuda.Stream(device=torch.device(dev))
+
+    def _on_stream(self):
+        """``torch.cuda.stream`` of the service's stream (a null context
+        without one): H2D, launches and read-backs under it are ordered on
+        that stream alone.  The registry loads, warm-ups and delta patches
+        run under it too, so a model tensor freed by a hot-swap goes back
+        to this stream's pool and is reused only after the batches already
+        launched on it.  A given predictor was built elsewhere with
+        blocking copies; it lives until the service does."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        import torch
+        return torch.cuda.stream(self._stream)
 
     # ---- model lifecycle ----
     def _load(self, must: bool = False) -> Optional[Predictor]:
@@ -267,13 +349,14 @@ class PredictionService:
                     f"{self.registry.base_dir!r}")
             return None
         loaded = self.registry.load(self.model_name, latest)
-        pred = make_predictor(loaded, schema=self._schema,
-                              buckets=self._buckets, delim=self.delim,
-                              device=self._device,
-                              quantized=self._quantized,
-                              serve_mesh=self._serve_mesh)
-        if self._warm:
-            pred.warm()
+        with self._on_stream():
+            pred = make_predictor(loaded, schema=self._schema,
+                                  buckets=self._buckets, delim=self.delim,
+                                  device=self._device,
+                                  quantized=self._quantized,
+                                  serve_mesh=self._serve_mesh)
+            if self._warm:
+                pred.warm()
         self.version = latest
         return pred
 
@@ -296,13 +379,14 @@ class PredictionService:
         if self._try_delta(latest):
             return True
         loaded = self.registry.load(self.model_name, latest)
-        pred = make_predictor(loaded, schema=self._schema,
-                              buckets=self._buckets, delim=self.delim,
-                              device=self._device,
-                              quantized=self._quantized,
-                              serve_mesh=self._serve_mesh)
-        if self._warm:
-            pred.warm()
+        with self._on_stream():
+            pred = make_predictor(loaded, schema=self._schema,
+                                  buckets=self._buckets, delim=self.delim,
+                                  device=self._device,
+                                  quantized=self._quantized,
+                                  serve_mesh=self._serve_mesh)
+            if self._warm:
+                pred.warm()
         with self._swap_lock:
             self.predictor = pred
             self.version = latest
@@ -325,7 +409,7 @@ class PredictionService:
         if dmeta is None or dmeta.get("parent_version") != self.version:
             return False
         try:
-            with self._swap_lock:
+            with self._swap_lock, self._on_stream():
                 fault_point("swap_patch")
                 dmeta, arrays = self.registry.load_delta(
                     self.model_name, latest)
@@ -357,19 +441,137 @@ class PredictionService:
         instant("serving.degraded", cat="serving", reason=reason,
                 model_version=self.version)
 
+    # ---- observability snapshot (the /healthz and /metrics source) ----
+    def stats(self) -> Dict:
+        """The serving loop's state: queue depth (accepted, not yet
+        drained), in-flight rows (inside a device predict now), served,
+        error and batch counts, hot-swaps, rejections, the coalescing
+        window, the degraded reason (None = healthy), the model version
+        and the identity labels.  Counter reads and a qsize: cheap enough
+        for every scrape."""
+        with self._inflight_lock:
+            inflight = self._inflight
+        return {
+            "queue_depth": self._queue.qsize(),
+            "in_flight": inflight,
+            "served": self.counters.get("Serving", "Requests"),
+            "errors": self.counters.get("Serving", "BadRequests"),
+            "batches": self.counters.get("Serving", "Batches"),
+            "hot_swaps": self.counters.get("Serving", "HotSwaps"),
+            "rejected": self.counters.get("Serving", "Rejected"),
+            "window_ms": self._adaptive_wait_ms,
+            "degraded": self.degraded,
+            "model_version": self.version,
+            "host": self.host_label or "",
+            "model": self.model_label or "",
+        }
+
+    def health(self):
+        """Health-provider contract (``MetricsRegistry.add_health``):
+        ``(ok, payload)``, ok == not degraded; the payload is
+        :meth:`stats`, so a 503 body says why."""
+        st = self.stats()
+        st["degraded"] = st["degraded"] or ""
+        return self.degraded is None, st
+
+    def bind_metrics(self, registry) -> None:
+        """Register this service's gauges and health on a
+        ``telemetry.MetricsRegistry``: queue depth, in-flight rows, served,
+        error, batch, hot-swap and rejection totals, the window, the
+        degraded flag, the model version and latency percentiles, every
+        series labelled ``host``, ``service`` and ``model``; plus the
+        sampled-request component histogram.  One binding at a time (a
+        rebind releases the old one first), and the service label is made
+        unique against the registry's health providers, so two services
+        never share one series."""
+        self._unbind_metrics()
+        base = self.name or self.model_name or "predictor"
+        # a host-labelled service's health key is host-qualified, so two
+        # fleets with the same worker names on one registry keep both
+        # providers; /healthz/<name> reaches them by worker name or by
+        # <host>:<name> (MetricsRegistry.health_one)
+        host = self.host_label or ""
+
+        def _health_key(label: str) -> str:
+            return f"serving:{host}:{label}" if host \
+                else f"serving:{label}"
+        svc_label, n = base, 1
+        while registry.has_health(_health_key(svc_label)):
+            svc_label = f"{base}-{n}"
+            n += 1
+        mlabel = self.model_label or ""
+        ident = {"host": host, "service": svc_label, "model": mlabel}
+        g = registry.gauge("avenir_serving", "prediction service state",
+                           labels=("host", "service", "model", "key"))
+        gl = registry.gauge("avenir_serving_latency_ms",
+                            "serving latency percentiles",
+                            labels=("host", "service", "model", "step",
+                                    "quantile"))
+
+        def probe():
+            st = self.stats()
+            for key in ("queue_depth", "in_flight", "served", "errors",
+                        "batches", "hot_swaps", "rejected", "window_ms"):
+                g.set(st[key], key=key, **ident)
+            g.set(0 if st["degraded"] is None else 1, key="degraded",
+                  **ident)
+            g.set(st["model_version"] or 0, key="model_version", **ident)
+            for step in ("serve.request", "serve.batch"):
+                if self.timer.samples.get(step):
+                    for q in (50, 95, 99):
+                        gl.set(self.timer.percentile_ms(step, q), step=step,
+                               quantile=f"p{q}", **ident)
+        registry.register_probe(probe)
+        health_key = _health_key(svc_label)
+        registry.add_health(health_key, self.health)
+        ch = registry.histogram(
+            "avenir_request_component_seconds",
+            "sampled-request latency decomposition (queue_wait/"
+            "coalesce/device/reply/total), exemplar = request id",
+            labels=("host", "service", "model", "component"))
+        self._comp_binding = (ch, ident)
+        self._metrics_binding = (registry, probe, health_key, (g, gl, ch),
+                                 ident)
+
+    def _unbind_metrics(self) -> None:
+        """Release the binding: probe, health provider and the bound series
+        (matched on host, service and model, so another host's worker of
+        the same name keeps its own)."""
+        if self._metrics_binding is None:
+            return
+        reg, probe, health_key, families, ident = self._metrics_binding
+        self._metrics_binding = None
+        with self._comp_lock:
+            self._comp_binding = None
+        reg.unregister_probe(probe)
+        reg.remove_health(health_key)
+        for fam in families:
+            fam.drop_series(**ident)
+
     # ---- per-request trace closure ----
     def record_request_trace(self, ctx) -> None:
         """Close one sampled request's trace: stamp the reply time if the
-        transport has not, count it, and (with a tracer installed) emit the
-        flow ``f`` finish carrying the component decomposition.  Called by
+        transport has not, count it, observe the component histograms with
+        the request id as exemplar (when metrics are bound) and, with a
+        tracer installed, emit the flow ``f`` finish carrying the component
+        decomposition.  Called by
         :meth:`_reply` for in-process requests and by
         :meth:`process_batch` for wire requests, as their replies go out."""
         if ctx.t_reply_us is None:
             ctx.t_reply_us = reqtrace.now_us()
         self.counters.increment("Serving", "TracedRequests")
-        if reqtrace.current_tracer() is None:
+        if self._comp_binding is None \
+                and reqtrace.current_tracer() is None:
             return
         comps = ctx.components_ms()
+        with self._comp_lock:
+            binding = self._comp_binding
+            if binding is not None:
+                hist, ident = binding
+                for comp, ms in comps.items():
+                    # clamped at 0: queue_wait crosses the client's clock
+                    hist.observe(max(ms, 0.0) / 1e3, exemplar=ctx.rid,
+                                 component=comp, **ident)
         reqtrace.emit_flow("f", ctx.rid, "reply", ts_us=ctx.t_reply_us,
                            **{f"{k}_ms": round(v, 3)
                               for k, v in comps.items()})
@@ -386,7 +588,8 @@ class PredictionService:
             with self._swap_lock:
                 _pred = self.predictor
         t0 = time.perf_counter()
-        with span("serve.predict", cat="serving", rows=len(rows)):
+        with span("serve.predict", cat="serving", rows=len(rows),
+                  model=self.model_label or ""), self._on_stream():
             out = with_retry(lambda: _pred.predict_rows(rows),
                              what="serving predict batch")
         self.timer.record("serve.batch", time.perf_counter() - t0)
@@ -399,19 +602,25 @@ class PredictionService:
         one launch when it is clean; if anything in it fails (a short
         record, a non-numeric token), fall back to per-row isolation so one
         malformed request cannot take down its batchmates."""
+        with self._inflight_lock:
+            self._inflight += len(rows)
         try:
-            results = [("ok", lab) for lab in
-                       self.predict_rows(rows, _pred=pred)]
-            self._record_monitor(rows, results)
-            return results
-        except Exception as exc:
-            warnings.warn(
-                f"serving: batch predict failed ({type(exc).__name__}: "
-                f"{exc}); isolating per row", RuntimeWarning)
-        if pred is None:
-            with self._swap_lock:
-                pred = self.predictor
-        return self._isolated_pass(pred, rows)
+            try:
+                results = [("ok", lab) for lab in
+                           self.predict_rows(rows, _pred=pred)]
+                self._record_monitor(rows, results)
+                return results
+            except Exception as exc:
+                warnings.warn(
+                    f"serving: batch predict failed ({type(exc).__name__}: "
+                    f"{exc}); isolating per row", RuntimeWarning)
+            if pred is None:
+                with self._swap_lock:
+                    pred = self.predictor
+            return self._isolated_pass(pred, rows)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= len(rows)
 
     def _isolated_pass(self, pred, rows: List[List[str]]):
         """Per-row isolation after a whole-batch failure: one launch per
@@ -420,8 +629,9 @@ class PredictionService:
         out = []
         for row in rows:
             try:
-                lab = with_retry(lambda r=row: pred.predict_rows([r]),
-                                 what="serving predict row")[0]
+                with self._on_stream():
+                    lab = with_retry(lambda r=row: pred.predict_rows([r]),
+                                     what="serving predict row")[0]
                 out.append(("ok", self._label(lab)))
             except Exception as exc:
                 self.counters.increment("Serving", "BadRequests")
@@ -691,21 +901,29 @@ class PredictionService:
         batches: the same counters, timer and span, but the token rows are
         materialized (``row_thunk``) only if the whole-batch predict fails
         and per-row isolation must run."""
-        t0 = time.perf_counter()
+        with self._inflight_lock:
+            self._inflight += n_rows
         try:
-            with span("serve.predict", cat="serving", rows=n_rows):
-                out = with_retry(lambda: pred.predict_prepared(prepared),
-                                 what="serving predict batch")
-        except Exception as exc:
-            warnings.warn(
-                f"serving: batch predict failed "
-                f"({type(exc).__name__}: {exc}); isolating per row",
-                RuntimeWarning)
-            return self._isolated_pass(pred, row_thunk())
-        self.timer.record("serve.batch", time.perf_counter() - t0)
-        self.counters.increment("Serving", "Requests", n_rows)
-        self.counters.increment("Serving", "Batches")
-        return [("ok", self._label(p)) for p in out]
+            t0 = time.perf_counter()
+            try:
+                with span("serve.predict", cat="serving", rows=n_rows,
+                          model=self.model_label or ""), self._on_stream():
+                    out = with_retry(
+                        lambda: pred.predict_prepared(prepared),
+                        what="serving predict batch")
+            except Exception as exc:
+                warnings.warn(
+                    f"serving: batch predict failed "
+                    f"({type(exc).__name__}: {exc}); isolating per row",
+                    RuntimeWarning)
+                return self._isolated_pass(pred, row_thunk())
+            self.timer.record("serve.batch", time.perf_counter() - t0)
+            self.counters.increment("Serving", "Requests", n_rows)
+            self.counters.increment("Serving", "Batches")
+            return [("ok", self._label(p)) for p in out]
+        finally:
+            with self._inflight_lock:
+                self._inflight -= n_rows
 
     def _serve_prebinned(self, pred, qv, qc):
         """('ok', label) | ('err', exc) per pre-binned int8 row — BOTH data
@@ -713,22 +931,30 @@ class PredictionService:
         int8 row has no per-row failure mode (arity and range were checked
         at decode), so a predict failure fails the whole q-batch."""
         n = len(qv)
-        t0 = time.perf_counter()
+        with self._inflight_lock:
+            self._inflight += n
         try:
-            with span("serve.predict", cat="serving", rows=n):
-                out = with_retry(lambda: pred.predict_prebinned(qv, qc),
-                                 what="serving predictq batch")
-        except Exception as exc:
-            warnings.warn(
-                f"serving: pre-binned batch predict failed "
-                f"({type(exc).__name__}: {exc}); failing the q-batch",
-                RuntimeWarning)
-            self.counters.increment("Serving", "BadRequests", n)
-            return [("err", exc)] * n
-        self.timer.record("serve.batch", time.perf_counter() - t0)
-        self.counters.increment("Serving", "Requests", n)
-        self.counters.increment("Serving", "Batches")
-        return [("ok", self._label(p)) for p in out]
+            t0 = time.perf_counter()
+            try:
+                with span("serve.predict", cat="serving", rows=n,
+                          model=self.model_label or ""), self._on_stream():
+                    out = with_retry(
+                        lambda: pred.predict_prebinned(qv, qc),
+                        what="serving predictq batch")
+            except Exception as exc:
+                warnings.warn(
+                    f"serving: pre-binned batch predict failed "
+                    f"({type(exc).__name__}: {exc}); failing the q-batch",
+                    RuntimeWarning)
+                self.counters.increment("Serving", "BadRequests", n)
+                return [("err", exc)] * n
+            self.timer.record("serve.batch", time.perf_counter() - t0)
+            self.counters.increment("Serving", "Requests", n)
+            self.counters.increment("Serving", "Batches")
+            return [("ok", self._label(p)) for p in out]
+        finally:
+            with self._inflight_lock:
+                self._inflight -= n
 
     def _record_request_times(self, traced, dt: float) -> None:
         """``serve.request`` samples of a wire batch: traced requests
@@ -818,7 +1044,9 @@ class PredictionService:
     def stop(self, drain_s: float = 5.0) -> None:
         """Stop the worker; queued requests are still served (bounded by
         ``drain_s``, in ``policy.max_batch`` chunks) so no accepted request
-        is dropped on shutdown."""
+        is dropped on shutdown.  Also unbinds the service's metrics: a
+        stopped service is not probed by later scrapes."""
+        self._unbind_metrics()
         self._stop.set()
         if self._thread is not None:
             self._thread.join(timeout=max(drain_s, 0.1) + 5.0)
@@ -972,13 +1200,15 @@ class PredictionService:
         if dispatch is not None:
             try:
                 with span("serve.dispatch", cat="serving",
-                          rows=len(batch)):
+                          rows=len(batch)), self._on_stream():
                     handle = dispatch(
                         pred.prepare_rows([r.row for r in batch]))
             except Exception:
                 pass   # fall through to the sync isolating completion
             else:
                 _mark_dispatch(batch, len(batch))
+                with self._inflight_lock:
+                    self._inflight += len(batch)
                 return (batch, pred, handle, time.perf_counter())
         return (batch, pred, None, time.perf_counter())
 
@@ -991,19 +1221,24 @@ class PredictionService:
             return
         rows = [r.row for r in batch]
         try:
-            with span("serve.predict", cat="serving", rows=len(rows)):
-                out = pred.readback_dispatched(handle)
-            results = [("ok", self._label(p)) for p in out]
-            self.timer.record("serve.batch", time.perf_counter() - t0)
-            self.counters.increment("Serving", "Requests", len(rows))
-            self.counters.increment("Serving", "Batches")
-            self._record_monitor(rows, results)
-        except Exception as exc:
-            warnings.warn(
-                f"serving: dispatched batch readback failed "
-                f"({type(exc).__name__}: {exc}); isolating per row",
-                RuntimeWarning)
-            results = self._isolated_pass(pred, rows)
+            try:
+                with span("serve.predict", cat="serving", rows=len(rows),
+                          model=self.model_label or ""), self._on_stream():
+                    out = pred.readback_dispatched(handle)
+                results = [("ok", self._label(p)) for p in out]
+                self.timer.record("serve.batch", time.perf_counter() - t0)
+                self.counters.increment("Serving", "Requests", len(rows))
+                self.counters.increment("Serving", "Batches")
+                self._record_monitor(rows, results)
+            except Exception as exc:
+                warnings.warn(
+                    f"serving: dispatched batch readback failed "
+                    f"({type(exc).__name__}: {exc}); isolating per row",
+                    RuntimeWarning)
+                results = self._isolated_pass(pred, rows)
+        finally:
+            with self._inflight_lock:
+                self._inflight -= len(batch)
         _mark_done(batch)
         self._reply(batch, results)
 

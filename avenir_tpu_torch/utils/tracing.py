@@ -113,6 +113,18 @@ class TransferLedger:
             if reason:
                 self.ingest[f"{reader}.{reason}"] += 1
 
+    def snapshot(self) -> Dict[str, int]:
+        """The scalar tallies (the key set of the JAX package's ledger,
+        which ``MetricsRegistry.attach_ledger`` renders)."""
+        with self._lock:
+            return {"h2d_bytes": self.h2d_bytes,
+                    "d2h_bytes": self.d2h_bytes,
+                    "h2d_transfers": self.h2d_transfers,
+                    "d2h_transfers": self.d2h_transfers,
+                    "dispatches": self.dispatches,
+                    "allreduces": self.allreduces,
+                    "allreduce_bytes": self.allreduce_bytes}
+
     def ingest_snapshot(self) -> Dict[str, int]:
         with self._lock:
             return dict(self.ingest)

@@ -459,6 +459,35 @@ order — any failure exits non-zero before the result line:
               a RespServer: report and alert bytes equal dm.source=file's,
               bin_counts launches = the windows
 
+
+ 51-55        the serving fleet, launch counts zeroed before each path and
+              read after
+ 51. fleet    the fleet9 fixture's cases a (2 workers, 2 broker shards), e
+              (2 workers, ps.quantized) and f (2 workers, queue depth 4)
+              through predictionService on the card: a and e byte-equal
+              with their counters, f answers every id (its class or busy);
+              the same jobs over the 300 well-formed records: launches =
+              the workers' batches + 4 warm-ups a worker, all table form
+              (B3 for e, no B2)
+ 52. loop     100,000 rafo9 requests prefilled, drained by 1, 2 and 4
+              workers over 1 and 2 broker shards, and by 2 and 4 workers
+              on the default stream: requests/s, serve.batch p50/p99,
+              OverlappedBatches, batches a worker, B2 launches = batches +
+              warm-ups; replies equal the in-process serve
+ 53. router   fleet9 cases b-d byte-equal with their counters; a 2-worker
+              fleet with device_map=sharded over the card twice: B6
+              partial = 2 x batches, merge-finalize = batches, no B2
+ 54. swap     2 workers; the pin cleared (v2, a delta) and a wire reload
+              under load: every id answered once, every worker on v2 by
+              the patch (DeltaH2DBytes a worker), launches after it all
+              table form; mark_degraded on one worker: its /healthz/<name>
+              503 on a live MetricsServer, the peer serves the next load
+ 55. hosts    predictionService ps.autoscale=true, max 3 workers, with the
+              Autoscaler counters; two fleet_host processes over 2 shards
+              building nothing, /metrics scraped mid-run with host0's
+              avenir_serving series, their served counts summing to the
+              requests
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
@@ -468,8 +497,10 @@ launches a process on the multi-process paths: ``joined_mono_*``,
 ``joined_knn_*`` are phases 38-41's, one entry a rank; B5's
 ``nb_pipeline_launches`` is phase 43's; B2's ``wire_*`` and ``delta_*``,
 B3's ``predictq_*`` and B4's ``drift_resp_*`` are phases 47-50's) and,
-under ``bayes``, phases 42-46's launch counts, rows/s and layer times, and
-under ``wire`` phases 47-50's rates and counts; the last line is
+under ``bayes``, phases 42-46's launch counts, rows/s and layer times,
+under ``wire`` phases 47-50's rates and counts, and under ``fleet`` phases
+51-55's (B2's, B3's and B6's ``fleet_*`` launches are theirs too); the
+last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -559,6 +590,15 @@ DELTA_ROWS = 20_000
 DELTA_TREES = (3, 7)
 DURABLE_ROWS = 10_000
 DURABLE_ACKED_POLLS = 20
+FLEET9 = os.path.join(ROOT, "tests", "torch_fixtures", "fleet9")
+# phases 51-55: the fleet loop's requests (phase 52), its worker counts and
+# broker shard counts, the hot-swap drill's requests a step (phase 54), and
+# the autoscaled job's and the fleet_host processes' requests (phase 55)
+FLEET_ROWS = 100_000
+FLEET_WORKERS = (1, 2, 4)
+FLEET_SHARDS = (1, 2)
+SWAP_ROWS = 10_000
+HOST_ROWS = 20_000
 NB_TRAIN_ROWS = 10_000_000     # the library train: two chunks
 NB_CLI_ROWS = 1_000_000
 # telecom_churn_gen's generative model (resource/gen/telecom_churn_gen.py)
@@ -4506,6 +4546,527 @@ def wire_phases(dev):
     return out
 
 
+# --------------------------------------------------------------------------
+# the serving fleet (phases 51-55)
+# --------------------------------------------------------------------------
+
+def fleet9_module():
+    """tests/torch_fixtures/fleet9/make.py as a module (its cases, keys and
+    run_case; it imports the JAX package only inside ``make``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "fleet9_make", os.path.join(FLEET9, "make.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def fleet_job(mk, case, records, dest, *extra):
+    """predictionService of fleet9 ``case`` through the port's CLI on the
+    card over ``records``; returns the job's counters."""
+    reg = mk.case_registry(os.path.join(FLEET9, "registry"),
+                           dest + "_registry", case)
+    run_cli(["org.avenir.serving.PredictionService",
+             f"-Dconf.path={mk.PROPS}", f"-Dps.model.registry.dir={reg}",
+             f"-Dps.model.name={mk.MODEL_NAME}", "-Dps.transport=resp",
+             *mk.CASES[case][0], *extra, records, dest])
+    return read_json(dest + ".counters.json")
+
+
+def reference_labels(registry, version, records, dev):
+    """One full load of ``version`` on the card: the labels of
+    ``records`` (the oracle the fleet's replies are held to)."""
+    from avenir_tpu_torch.serving.predictor import make_predictor
+    pred = make_predictor(registry.load("rafo9", version), device=dev)
+    rows = [r.split(",") for r in records]
+    out = []
+    for s in range(0, len(rows), 512):
+        out.extend(pred.predict_rows(rows[s:s + 512]))
+    return out
+
+
+def fleet_drain(reg_dir, msgs, workers, shards, own_stream=True):
+    """Prefill ``msgs`` and a ``stop`` on ``shards`` broker shards, then
+    drain them with a ``workers``-worker ServingFleet; launch counts zeroed
+    before the fleet starts (its warm-ups counted).  Returns the replies,
+    the drain's wall seconds (from the drain threads' start to the last
+    worker's exit), the counts and the fleet (stopped)."""
+    from avenir_tpu_torch.io import respq
+    from avenir_tpu_torch.kernels import vote
+    from avenir_tpu_torch.serving import BatchPolicy, ModelRegistry, \
+        ServingFleet
+    servers = [respq.RespServer().start() for _ in range(shards)]
+    cfg = {"redis.server.endpoints": [f"127.0.0.1:{s.port}"
+                                      for s in servers]}
+    feeder = respq.make_queue_client(cfg)
+    fleet = None
+    try:
+        for s in range(0, len(msgs), 10_000):
+            feeder.lpush_many("requestQueue", msgs[s:s + 10_000])
+        feeder.lpush("requestQueue", "stop")
+        fleet = ServingFleet(ModelRegistry(reg_dir), "rafo9",
+                             n_workers=workers, config=cfg,
+                             policy=BatchPolicy(max_batch=64),
+                             own_stream=own_stream)
+        zero_launches()
+        fleet.start()
+        t0 = time.perf_counter()
+        if not fleet.wait(timeout_s=300.0):
+            fail(f"fleet drain ({workers} workers, {shards} shards): "
+                 f"workers still draining after 300 s")
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        counts["table"] = vote.table_launches
+        replies = _drain(feeder)
+    finally:
+        if fleet is not None:
+            fleet.stop(drain_s=1.0)
+        feeder.close()
+        for srv in servers:
+            srv.stop()
+    return replies, wall, counts, fleet
+
+
+def _scrape(url, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(url + path, timeout=10) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as exc:
+        return exc.code, exc.read().decode()
+
+
+def fleet_phases(dev):
+    """Phases 51-55: the fleet tier of predictionService on the card —
+    fleet9's cases through the CLI, the fleet loop alone at 100,000
+    requests over 1, 2 and 4 workers and 1 and 2 broker shards (and the
+    default-stream comparison), the router's cases and a tree-sharded
+    fleet, a delta hot-swap and degraded parking under load, the
+    autoscaled job and two fleet_host processes.  Launch counts are zeroed
+    just before each path and read just after."""
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.io import respq
+    from avenir_tpu_torch.kernels import vote
+    from avenir_tpu_torch.parallel.mesh import (DeviceMesh, MeshContext,
+                                                set_runtime_context)
+    from avenir_tpu_torch.serving import BatchPolicy, ModelRegistry, \
+        ServingFleet
+    from avenir_tpu_torch.serving.predictor import DEFAULT_BUCKETS
+    from avenir_tpu_torch.telemetry import MetricsRegistry, MetricsServer
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    mk = fleet9_module()
+    warm = len(DEFAULT_BUCKETS)
+    fx_reg = os.path.join(FLEET9, "registry")
+    want = read_json(os.path.join(FLEET9, "counters.json"))
+    work = os.path.join(WORK, "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(mk.RECORDS) as fh:
+        f9_records = fh.read().splitlines()
+    valid = os.path.join(work, "valid.csv")
+    with open(valid, "w") as fh:
+        fh.write("\n".join(f9_records[:300]) + "\n")
+    with open(os.path.join(FLEET9, "a.csv")) as fh:
+        a_lines = fh.read().splitlines()
+    out = {}
+
+    phase("51 fleet main path: fleet9 cases a (2 workers, 2 shards), e "
+          "(2 workers, ps.quantized) and f (2 workers, depth 4) through "
+          "predictionService on the card")
+    main = {}
+    for case in ("a", "e", "f"):
+        text, counters = mk.run_case(cli_run, fx_reg, work, case)
+        if case == "f":
+            if not mk.answered_or_busy(text, "\n".join(a_lines) + "\n"):
+                fail("fleet9 f: an id unanswered, or answered neither its "
+                     "class nor busy")
+        else:
+            with open(os.path.join(FLEET9, f"{case}.csv")) as fh:
+                if fh.read() != text:
+                    fail(f"fleet9 {case}: part file differs from "
+                         f"tests/torch_fixtures/fleet9/{case}.csv")
+            if counters != want[case]:
+                fail(f"fleet9 {case}: counters {counters} != {want[case]}")
+        # the exact launch count, over the 300 well-formed records (a
+        # malformed record sends its batch through per-row isolation)
+        zero_launches()
+        with transfer_ledger() as ledger:
+            c = fleet_job(mk, case, valid, os.path.join(work, f"n_{case}"))
+        counts = launch_counts()
+        table = vote.table_launches
+        sc = c["Serving"]
+        workers = sc["Workers"]
+        kernel, other = ("b3", "b2") if case == "e" else ("b2", "b3")
+        main[case] = {"workers": workers, "batches": sc["Batches"],
+                      "rejected": sc.get("Rejected", 0),
+                      "launches": counts[kernel], "table_launches": table,
+                      "backends": ledger.backend_snapshot()}
+        said = f"every id answered ({text.count(',busy')} busy)" \
+            if case == "f" else "bytes and counters equal the fixture"
+        print(f"fleet9 {case}: {said}; over the 300 well-formed records: "
+              f"{workers} workers, "
+              f"{sc['Batches']} batches, {sc.get('Rejected', 0)} rejected, "
+              f"{'quantized_vote' if case == 'e' else 'ensemble_vote'} "
+              f"launches {counts[kernel]} (table form {table}), "
+              f"KernelBackends {ledger.backend_snapshot()}", flush=True)
+        if counts[kernel] != sc["Batches"] + warm * workers \
+                or table != counts[kernel] or counts[other]:
+            fail(f"fleet9 {case}: {counts[kernel]} {kernel} launches "
+                 f"({table} table form, {counts[other]} {other}) for "
+                 f"{sc['Batches']} batches + {warm} warm-ups x {workers} "
+                 f"workers")
+    out["main"] = main
+
+    n = FLEET_ROWS
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        base = fh.read().splitlines()
+    records = (base * -(-n // len(base)))[:n]
+    reg_dir = os.path.join(work, "registry52")
+    shutil.copytree(fx_reg, reg_dir)
+    ref = reference_labels(ModelRegistry(reg_dir), 1, records, dev)
+    msgs = [f"predict,{i},{r}" for i, r in enumerate(records)]
+
+    phase(f"52 the fleet loop alone: {n:,} rafo9 requests prefilled, then "
+          f"drained by {', '.join(map(str, FLEET_WORKERS))} workers over "
+          f"{' and '.join(map(str, FLEET_SHARDS))} broker shard(s); and "
+          f"with every worker on the default stream")
+    runs = []
+    plan = [(w, s, True) for s in FLEET_SHARDS for w in FLEET_WORKERS] + \
+        [(2, 1, False), (4, 1, False)]
+    for workers, shards, own in plan:
+        replies, wall, counts, fleet = fleet_drain(reg_dir, msgs, workers,
+                                                   shards, own)
+        by_id = _reply_labels(replies, n, f"fleet {workers}x{shards}")
+        if [by_id[str(i)] for i in range(n)] != ref:
+            fail(f"fleet {workers} workers x {shards} shards: replies "
+                 f"differ from the in-process serve")
+        merged = fleet.merged_counters()
+        timer = fleet.merged_timer()
+        per_worker = [w.service.counters.get("Serving", "Batches")
+                      for w in fleet.workers]
+        batches = merged.get("Serving", "Batches")
+        row = {"workers": workers, "shards": shards, "own_stream": own,
+               "wall_s": wall, "requests_per_s": n / wall,
+               "batch_p50_us": timer.percentile_ms("serve.batch", 50) * 1e3,
+               "batch_p99_us": timer.percentile_ms("serve.batch", 99) * 1e3,
+               "overlapped": merged.get("Serving", "OverlappedBatches"),
+               "batches": batches, "per_worker_batches": per_worker,
+               "b2_launches": counts["b2"], "table_launches": counts["table"]}
+        runs.append(row)
+        print(f"fleet {workers} worker(s) x {shards} shard(s)"
+              f"{'' if own else ', default stream'}: {n:,} requests in "
+              f"{wall:.3f} s ({n / wall:,.0f} requests/s), serve.batch "
+              f"p50/p99 {row['batch_p50_us']:.0f}/{row['batch_p99_us']:.0f}"
+              f" us, OverlappedBatches {row['overlapped']}, batches a "
+              f"worker {per_worker}, ensemble_vote launches {counts['b2']} "
+              f"(table form {counts['table']}); replies equal the "
+              f"in-process serve", flush=True)
+        if counts["b2"] != batches + warm * workers \
+                or counts["table"] != counts["b2"]:
+            fail(f"fleet {workers}x{shards}: {counts['b2']} launches "
+                 f"({counts['table']} table form) for {batches} batches + "
+                 f"{warm} warm-ups x {workers} workers")
+    out["loop"] = runs
+
+    phase("53 router: fleet9 cases b (ps.client.model=backup), c (canary "
+          "v1 at 25% while v2 serves) and d (shadow v1) on the card; a "
+          "2-worker fleet with device_map=sharded over cuda:0 twice")
+    for case in ("b", "c", "d"):
+        text, counters = mk.run_case(cli_run, fx_reg, work, case)
+        with open(os.path.join(FLEET9, f"{case}.csv")) as fh:
+            if fh.read() != text:
+                fail(f"fleet9 {case}: part file differs from the fixture")
+        if counters != want[case]:
+            fail(f"fleet9 {case}: counters {counters} != {want[case]}")
+        print(f"fleet9 {case}: bytes and counters {counters} equal the "
+              f"fixture", flush=True)
+    reg53 = os.path.join(work, "registry53")
+    shutil.copytree(fx_reg, reg53)
+    mesh = DeviceMesh([dev, dev])
+    set_runtime_context(MeshContext(mesh))
+    server = respq.RespServer().start()
+    feeder = respq.RespClient(port=server.port)
+    fleet = None
+    try:
+        fleet = ServingFleet(ModelRegistry(reg53), "rafo9", n_workers=2,
+                             device_map="sharded",
+                             config={"redis.server.port": server.port},
+                             policy=BatchPolicy(max_batch=64))
+        fleet.start()
+        zero_launches()
+        vote.partial_launches = vote.finalize_launches = 0
+        feeder.lpush_many("requestQueue",
+                          [f"predict,{i},{r}" for i, r in
+                           enumerate(f9_records[:300])] + ["stop"])
+        if not fleet.wait(timeout_s=120.0):
+            fail("sharded fleet: workers still draining after 120 s")
+        counts = launch_counts()
+        parts, fins = vote.partial_launches, vote.finalize_launches
+        replies = _drain(feeder)
+        batches = fleet.merged_counters().get("Serving", "Batches")
+    finally:
+        if fleet is not None:
+            fleet.stop(drain_s=1.0)
+        feeder.close()
+        server.stop()
+        set_runtime_context(None)
+    by_id = _reply_labels(replies, 300, "sharded fleet")
+    if [f"{i},{by_id[str(i)]}" for i in range(300)] != a_lines[:300]:
+        fail("sharded fleet: replies differ from fleet9 a.csv")
+    print(f"sharded fleet ({mesh.size} shards on {dev} repeated, 2 workers):"
+          f" 300 replies equal fleet9 a.csv; {batches} batches, "
+          f"partial-vote launches {parts}, merge-finalize {fins}, "
+          f"ensemble_vote {counts['b2']}", flush=True)
+    if parts != mesh.size * batches or fins != batches or counts["b2"]:
+        fail(f"sharded fleet: {parts} partial and {fins} merge-finalize "
+             f"launches, {counts['b2']} float votes, for {batches} batches "
+             f"over {mesh.size} shards")
+    out["sharded"] = {"batches": batches, "partial_launches": parts,
+                      "finalize_launches": fins}
+
+    phase(f"54 hot-swap and degraded parking under load: 2 workers, "
+          f"{SWAP_ROWS:,} requests on v1, the pin cleared (v2, a delta of "
+          f"v1) and a wire reload, {SWAP_ROWS:,} more; then mark_degraded "
+          f"on one worker")
+    reg54 = os.path.join(work, "registry54")
+    shutil.copytree(fx_reg, reg54)
+    registry = ModelRegistry(reg54)
+    ref2 = reference_labels(registry, 2, records[:3 * SWAP_ROWS], dev)
+    mreg = MetricsRegistry()
+    msrv = MetricsServer(mreg, port=0).start()
+    server = respq.RespServer().start()
+    feeder = respq.RespClient(port=server.port)
+    fleet = ServingFleet(registry, "rafo9", n_workers=2, metrics=mreg,
+                         config={"redis.server.port": server.port},
+                         policy=BatchPolicy(max_batch=64))
+    try:
+        fleet.start()
+        feeder.lpush_many("requestQueue", msgs[:SWAP_ROWS])
+        registry.clear_pin("rafo9")
+        feeder.lpush("requestQueue", "reload")
+        feeder.lpush_many("requestQueue", msgs[SWAP_ROWS:2 * SWAP_ROWS])
+        got = {}
+        deadline = time.monotonic() + 120.0
+        while len(got) < 2 * SWAP_ROWS and time.monotonic() < deadline:
+            vs = feeder.rpop_many("predictionQueue", 10_000)
+            if not vs:
+                time.sleep(0.005)
+            for v in vs:
+                rid, lab = v.split(",", 1)
+                if rid in got:
+                    fail(f"hot-swap: request {rid} answered twice")
+                got[rid] = lab
+        if len(got) != 2 * SWAP_ROWS:
+            fail(f"hot-swap: {len(got)} of {2 * SWAP_ROWS} answered")
+        if any(got[str(i)] not in (ref[i], ref2[i])
+               for i in range(2 * SWAP_ROWS)):
+            fail("hot-swap: a reply is neither v1's nor v2's class")
+        while fleet.converged_version() != 2 and \
+                time.monotonic() < deadline:
+            time.sleep(0.01)
+        if fleet.converged_version() != 2:
+            fail("hot-swap: the workers never converged on v2")
+        delta = [w.service.counters.get("Serving", "DeltaH2DBytes")
+                 for w in fleet.workers]
+        swaps = [w.service.counters.get("Serving", "DeltaSwaps")
+                 for w in fleet.workers]
+        zero_launches()
+        feeder.lpush_many("requestQueue", msgs[2 * SWAP_ROWS:3 * SWAP_ROWS])
+        after = _collect_replies(feeder, SWAP_ROWS, "hot-swap after")
+        counts = launch_counts()
+        table = vote.table_launches
+        if [after[str(i)] for i in range(2 * SWAP_ROWS, 3 * SWAP_ROWS)] != \
+                ref2[2 * SWAP_ROWS:]:
+            fail("hot-swap: replies after the swap differ from a full "
+                 "load of v2")
+        print(f"hot-swap: {2 * SWAP_ROWS:,} ids answered once each across "
+              f"the reload; every worker on v2 by the delta patch "
+              f"(DeltaSwaps {swaps}, DeltaH2DBytes a worker {delta}); "
+              f"{SWAP_ROWS:,} replies after it equal a full load of v2, "
+              f"ensemble_vote launches {counts['b2']}, table form {table}",
+              flush=True)
+        if swaps != [1, 1] or counts["b2"] <= 0 or table != counts["b2"]:
+            fail(f"hot-swap: DeltaSwaps {swaps}, {counts['b2']} launches "
+                 f"after it, {table} in the table form")
+        w0, w1 = (w.service for w in fleet.workers)
+        w0.mark_degraded("drift: psi over threshold")
+        code0, _ = _scrape(msrv.url, "/healthz/rafo9-w0")
+        code1, _ = _scrape(msrv.url, "/healthz/rafo9-w1")
+        deadline = time.monotonic() + 30.0
+        while w0.counters.get("Serving", "ParkedPolls") == 0 and \
+                time.monotonic() < deadline:
+            time.sleep(0.005)
+        served0 = w0.counters.get("Serving", "Requests")
+        served1 = w1.counters.get("Serving", "Requests")
+        feeder.lpush_many("requestQueue",
+                          [f"predict,p{i},{records[i]}"
+                           for i in range(SWAP_ROWS)])
+        parked = _collect_replies(feeder, SWAP_ROWS, "degraded parking")
+        if [parked[f"p{i}"] for i in range(SWAP_ROWS)] != ref2[:SWAP_ROWS]:
+            fail("degraded parking: the peer's replies differ from v2's")
+        moved0 = w0.counters.get("Serving", "Requests") - served0
+        moved1 = w1.counters.get("Serving", "Requests") - served1
+        print(f"degraded parking: /healthz/rafo9-w0 {code0}, "
+              f"/healthz/rafo9-w1 {code1} (live MetricsServer); "
+              f"ParkedPolls {w0.counters.get('Serving', 'ParkedPolls')}; "
+              f"the next {SWAP_ROWS:,} requests served {moved1} by the peer "
+              f"and {moved0} by the degraded worker", flush=True)
+        if code0 != 503 or code1 != 200 or moved0 or moved1 != SWAP_ROWS:
+            fail(f"degraded parking: healthz {code0}/{code1}, degraded "
+                 f"worker served {moved0}, peer {moved1}")
+        out["swap"] = {"delta_h2d_bytes": delta, "b2_after": counts["b2"],
+                       "table_after": table}
+    finally:
+        fleet.stop(drain_s=1.0)
+        feeder.close()
+        server.stop()
+        msrv.stop()
+
+    phase(f"55 autoscale and fleet_host: predictionService ps.autoscale="
+          f"true (max 3 workers) over {HOST_ROWS:,} records; then two "
+          f"fleet_host processes over 2 shards")
+    rec55 = os.path.join(work, "records55.csv")
+    with open(rec55, "w") as fh:
+        fh.write("\n".join(records[:HOST_ROWS]) + "\n")
+    dest = os.path.join(work, "autoscale")
+    reg55 = mk.case_registry(fx_reg, dest + "_registry", "a")
+    zero_launches()
+    run_cli(["org.avenir.serving.PredictionService",
+             f"-Dconf.path={mk.PROPS}", f"-Dps.model.registry.dir={reg55}",
+             "-Dps.model.name=rafo9", "-Dps.transport=resp",
+             "-Dps.autoscale=true", "-Dps.autoscale.max.workers=3",
+             "-Dps.autoscale.interval.ms=50", rec55, dest])
+    counts = launch_counts()
+    c = read_json(dest + ".counters.json")
+    with open(os.path.join(dest, "part-m-00000")) as fh:
+        labels = [line.split(",", 1)[1] for line in fh.read().splitlines()]
+    if labels != ref[:HOST_ROWS]:
+        fail("autoscaled job: labels differ from the in-process serve")
+    sc = c["Serving"]
+    print(f"autoscaled job: Autoscaler {c.get('Autoscaler')}, workers "
+          f"started {sc['Workers']}, {sc['Batches']} batches, "
+          f"ensemble_vote launches {counts['b2']}", flush=True)
+    if counts["b2"] != sc["Batches"] + warm * sc["Workers"] or \
+            c.get("Autoscaler", {}).get("Ticks", 0) <= 0:
+        fail(f"autoscaled job: {counts['b2']} launches for {sc['Batches']}"
+             f" batches + {warm} x {sc['Workers']} warm-ups, Autoscaler "
+             f"{c.get('Autoscaler')}")
+    out["autoscale"] = {"counters": c.get("Autoscaler"),
+                        "workers": sc["Workers"], "b2": counts["b2"],
+                        "batches": sc["Batches"]}
+    out["hosts"] = fleet_hosts(reg55, records[:HOST_ROWS], ref[:HOST_ROWS])
+    return out
+
+
+def _collect_replies(feeder, n, what, timeout_s=120.0):
+    """{id: label} of ``n`` replies, each id once."""
+    got = {}
+    deadline = time.monotonic() + timeout_s
+    while len(got) < n and time.monotonic() < deadline:
+        vs = feeder.rpop_many("predictionQueue", 10_000)
+        if not vs:
+            time.sleep(0.005)
+        for v in vs:
+            rid, lab = v.split(",", 1)
+            if rid in got:
+                fail(f"{what}: request {rid} answered twice")
+            got[rid] = lab
+    if len(got) != n:
+        fail(f"{what}: {len(got)} of {n} requests answered")
+    return got
+
+
+def fleet_hosts(reg_dir, records, ref):
+    """Phase 55's second half: two fleet_host OS processes (2 workers
+    each, on the card) against 2 broker shards, building nothing; /metrics
+    of one scraped while they serve; each prints one JSON stats line."""
+    from avenir_tpu_torch.io import respq
+    build_dir = os.path.join(ROOT, "build", "avenir_tpu_torch")
+
+    def listing():
+        return sorted((f, os.stat(os.path.join(build_dir, f)).st_mtime_ns)
+                      for f in os.listdir(build_dir))
+    before = listing()
+    servers = [respq.RespServer().start() for _ in range(2)]
+    eps = ",".join(f"127.0.0.1:{s.port}" for s in servers)
+    work = os.path.join(WORK, "fleet")
+    procs, errs, urls = [], [], {}
+    feeder = None
+    try:
+        for k in range(2):
+            ready = os.path.join(work, f"host{k}.ready")
+            p = subprocess.Popen(
+                [sys.executable, "-W", "ignore", "-m",
+                 "avenir_tpu_torch.serving.fleet_host", "--registry",
+                 reg_dir, "--model", "rafo9", "--endpoints", eps,
+                 "--workers", "2", "--host-label", f"host{k}",
+                 "--buckets", ",".join(map(str, (1, 8, 64, 512))),
+                 "--metrics-port", "0", "--max-idle-s", "120",
+                 "--ready-file", ready],
+                cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)
+            procs.append((p, ready))
+            lines = []
+            errs.append(lines)
+
+            def read_err(p=p, lines=lines, k=k):
+                for line in p.stderr:
+                    lines.append(line)
+                    if "/metrics on " in line:
+                        urls[k] = line.rsplit(" ", 1)[1].strip()
+            threading.Thread(target=read_err, daemon=True).start()
+        deadline = time.monotonic() + 180.0
+        while not all(os.path.exists(r) for _, r in procs):
+            if time.monotonic() > deadline or \
+                    any(p.poll() is not None for p, _ in procs):
+                fail(f"fleet_host processes did not come up: "
+                     f"{[''.join(e)[-1500:] for e in errs]}")
+            time.sleep(0.05)
+        feeder = respq.ShardedRespClient(eps.split(","))
+        n = len(records)
+        t0 = time.perf_counter()
+        feeder.lpush_many("requestQueue", [f"predict,{i},{r}"
+                                           for i, r in enumerate(records)])
+        code, text = _scrape(urls[0], "/metrics")
+        got = _collect_replies(feeder, n, "fleet_host")
+        wall = time.perf_counter() - t0
+        if [got[str(i)] for i in range(n)] != ref:
+            fail("fleet_host: replies differ from the in-process serve")
+        feeder.lpush_many("requestQueue", ["stop", "stop"])
+        stats = []
+        for p, _ in procs:
+            so, _ = p.communicate(timeout=120)
+            if p.returncode != 0:
+                fail(f"fleet_host exited {p.returncode}: "
+                     f"{''.join(errs[len(stats)])[-1500:]}")
+            stats.append(json.loads(so.strip().splitlines()[-1]))
+    finally:
+        for p, _ in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate(timeout=30)
+        if feeder is not None:
+            feeder.close()
+        for srv in servers:
+            srv.stop()
+    served = [s["served"] for s in stats]
+    series = 'avenir_serving{host="host0",service="rafo9-w0",model="rafo9",'
+    print(f"fleet_host x2: {n:,} requests answered in {wall:.2f} s "
+          f"({n / wall:,.0f} requests/s, push to last reply), served "
+          f"{served} (sum {sum(served)}), hosts "
+          f"{[s['host'] for s in stats]}; /metrics mid-run {code}, "
+          f"{text.count(chr(10))} lines, host0 series "
+          f"{series in text}; build/avenir_tpu_torch unchanged "
+          f"{listing() == before}", flush=True)
+    if sum(served) != n or code != 200 or series not in text or \
+            listing() != before:
+        fail(f"fleet_host: served {served} for {n}, /metrics {code} "
+             f"(host0 series {series in text}), build dir unchanged "
+             f"{listing() == before}")
+    return {"served": served, "wall_s": wall, "requests_per_s": n / wall}
+
+
 def main():
     import torch
     phase("1 device")
@@ -5093,6 +5654,7 @@ def main():
     nb_train, nb_cli, nb_csv = bayes_scale(dev)
     nb_joined = bayes_joined(nb_csv)
     wire = wire_phases(dev)
+    fleet = fleet_phases(dev)
 
     def per_process(run, key):
         return [g[key] for g in run["launches"]]
@@ -5126,7 +5688,14 @@ def main():
         "wire_batches": {p: wire["serve"][p]["batches"]
                          for p in ("native", "python")},
         "delta_launches": wire["delta"]["b2_launches"],
-        "delta_table_launches": wire["delta"]["b2_table_launches"]}, {
+        "delta_table_launches": wire["delta"]["b2_table_launches"],
+        "fleet_launches": {c: fleet["main"][c]["launches"]
+                           for c in ("a", "f")},
+        "fleet_batches": {c: fleet["main"][c]["batches"]
+                          for c in ("a", "f")},
+        "fleet_loop_launches": [r["b2_launches"] for r in fleet["loop"]],
+        "fleet_swap_launches": fleet["swap"]["b2_after"],
+        "fleet_autoscale_launches": fleet["autoscale"]["b2"]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -5172,7 +5741,9 @@ def main():
         "joined_mono_launches": joined_job("mono", "b3"),
         "joined_stream_off_launches": joined_job("soff", "b3"),
         "predictq_launches": wire["predictq"]["b3_launches"],
-        "predictq_batches": wire["predictq"]["batches"]}, {
+        "predictq_batches": wire["predictq"]["batches"],
+        "fleet_launches": fleet["main"]["e"]["launches"],
+        "fleet_batches": fleet["main"]["e"]["batches"]}, {
         "name": "bin_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/bin_counts.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:94",
@@ -5240,7 +5811,10 @@ def main():
         "finalize_bound_by": fin_t["bound_by"],
         "delta_launches": wire["delta"]["sharded_partial_launches"],
         "delta_finalize_launches":
-            wire["delta"]["sharded_finalize_launches"]}, {
+            wire["delta"]["sharded_finalize_launches"],
+        "fleet_launches": fleet["sharded"]["partial_launches"],
+        "fleet_finalize_launches": fleet["sharded"]["finalize_launches"],
+        "fleet_batches": fleet["sharded"]["batches"]}, {
         "name": "topk_scan_sharded", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:128",
@@ -5263,7 +5837,13 @@ def main():
                                if k != "backends"}
                            for p in wire["serve"]},
                  "predictq": wire["predictq"], "delta": wire["delta"],
-                 "durable": wire["durable"]}}), flush=True)
+                 "durable": wire["durable"]},
+        "fleet": {"main": {c: {k: v for k, v in r.items()
+                               if k != "backends"}
+                           for c, r in fleet["main"].items()},
+                  "loop": fleet["loop"], "sharded": fleet["sharded"],
+                  "swap": fleet["swap"], "autoscale": fleet["autoscale"],
+                  "hosts": fleet["hosts"]}}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -59,7 +59,13 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.io.native_wire",
              "avenir_tpu_torch.serving.service",
              "avenir_tpu_torch.serving.registry",
-             "avenir_tpu_torch.cli.serving_jobs"):
+             "avenir_tpu_torch.cli.serving_jobs",
+             "avenir_tpu_torch.telemetry.metrics",
+             "avenir_tpu_torch.telemetry.server",
+             "avenir_tpu_torch.serving.router",
+             "avenir_tpu_torch.serving.fleet",
+             "avenir_tpu_torch.serving.autoscaler",
+             "avenir_tpu_torch.serving.fleet_host"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -94,6 +100,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x7, utils x3, kernels x6, models x4,
-    # serving x5, monitor x5, stats x2, ops x2, cli x6, parallel x4, io x3
-    # and the package
-    assert int(res.stdout.strip()) >= 45
+    # serving x9, monitor x5, stats x2, ops x2, cli x6, parallel x4, io x3,
+    # telemetry x5 and the package
+    assert int(res.stdout.strip()) >= 55

@@ -115,11 +115,12 @@ def test_unported_jobs_and_serving_tiers_refuse_by_name(registry, tmp_path):
                        "-Dplatform=cpu", "in.csv", str(tmp_path / "o")])
     req = tmp_path / "req.csv"
     req.write_text("\n".join(",".join(r) for r in _rows(3)) + "\n")
-    # ps.quantized is ported: beside an unported key, that key still
-    # refuses by name
+    # the fleet keys are ported; without ps.transport=resp they refuse by
+    # name, as the JAX package does
     for extra in (["-Dps.autoscale=true"], ["-Dps.workers=2"],
                   ["-Dps.quantized=true", "-Dps.workers=2"]):
-        with pytest.raises(JobNotPorted, match="not ported"):
+        with pytest.raises(ValueError, match=r"ps\.(autoscale|workers).*"
+                                             r"require"):
             port_run.main(["predictionService", f"-Dps.model.registry.dir="
                            f"{registry}", "-Dps.model.name=m",
                            "-Dplatform=cpu", *extra, str(req),

@@ -11,8 +11,9 @@ fixture's counters, and its job replies from the port's
 ``predictionService ps.transport=resp``; the port's ``dm.source=resp``
 drift report against its ``dm.source=file`` one.  The TTL answers
 ``late`` before any dispatch, head-sampled requests leave flow events that
-pass ``validate_trace_events``, and the serving keys of the tiers not
-ported yet are refused by name.
+pass ``validate_trace_events``, and the fleet-tier keys that the
+single-worker slice refused by name are accepted, each giving the
+single-worker bytes on this registry.
 """
 
 import importlib.util
@@ -25,7 +26,6 @@ import numpy as np
 import pytest
 
 from avenir_tpu_torch.cli import run as port_run
-from avenir_tpu_torch.cli.jobs import JobNotPorted
 from avenir_tpu_torch.io import native_wire, respq
 from avenir_tpu_torch.io.respq import _encode_command
 from avenir_tpu_torch.serving import service
@@ -302,9 +302,16 @@ def test_drift_monitor_resp_source_equals_file(tmp_path):
     "-Dps.canary.rafo9.version=2", "-Dps.shadow.rafo9.version=2",
     "-Dps.model.rafo9.queue.max.depth=8"])
 def test_unported_serving_tiers_refuse_by_name(registry, tmp_path, key):
-    name = key[2:].split("=")[0]
-    with pytest.raises(JobNotPorted, match=name.replace(".", r"\.")):
-        _job(registry.base_dir, tmp_path / "o", "-Dps.transport=resp", key)
+    """Each key this test once saw refused by name is ported: the job runs
+    (the fleet tier for the fleet keys; the canary, shadow and per-model
+    depth keys act only under ps.models, as in the JAX package) and gives
+    the single-worker replies."""
+    out = tmp_path / "o"
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        _job(registry.base_dir, out, "-Dps.transport=resp", key)
+    assert _read(out / "part-m-00000") == \
+        _read(os.path.join(WIRE9, "job_replies.csv"))
 
 
 @pytest.mark.parametrize("key", [
