@@ -28,5 +28,10 @@ merge-finalize and top-k merge kernels — and Naive Bayes
 (``models/bayes.py``, ``models/bayes_text.py``, ``ops/histogram.py``: the
 train and predict jobs, tabular and text, ``featureCondProbJoiner``, the
 registry's ``bayes`` kind and its serving), composed torch ops, since the
-JAX package's Bayes path reaches no Pallas kernel.
+JAX package's Bayes path reaches no Pallas kernel — and the forest's
+retrain loop (``control/``: drift alert, streamed retrain, validation,
+publish, pin, fleet swap, probation and rollback) — and logistic
+regression (``regress/logistic.py``: the trainer, its predictor job, the
+registry's ``logistic`` kind and ``LogisticPredictor``), plain torch
+products.
 """

@@ -13,7 +13,9 @@ its baseline and int8 sidecars), ``sameTypeSimilarity``,
 ``nearestNeighbor``, ``groupedRecordSimilarity``, ``featureCondProbJoiner``
 and ``knnPipeline`` (``knn_jobs.py``), ``bayesianDistribution`` and
 ``bayesianPredictor`` (``bayes_jobs.py``), ``driftMonitor`` and
-``predictDriftScore`` (``monitor_jobs.py``).
+``predictDriftScore`` (``monitor_jobs.py``), ``retrainController``
+(``control_jobs.py``), ``logisticRegression`` and
+``logisticRegressionPredictor`` (``regress_jobs.py``).
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
 package's classes), which ``cli.run`` enforces in a joined
@@ -22,9 +24,11 @@ package's classes), which ``cli.run`` enforces in a joined
 * ``sharded`` — the job reads its own shard and makes global results with
   explicit collectives (both tree builders: the streamed
   ``randomForestBuilder`` row-range sharded over one shared file, the
-  others over per-process files; ``bayesianDistribution``);
+  others over per-process files; ``bayesianDistribution``;
+  ``logisticRegression``, one gradient all-reduce an iteration);
 * ``map`` — a per-record transform of the local input; each process writes
-  its own part file (``modelPredictor``, ``bayesianPredictor``);
+  its own part file (``modelPredictor``, ``bayesianPredictor``,
+  ``logisticRegressionPredictor``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
   with ``nen.train.shard=true``);
@@ -33,7 +37,7 @@ package's classes), which ``cli.run`` enforces in a joined
   ``groupedRecordSimilarity``, ``featureCondProbJoiner``), read from
   ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
-  ``driftMonitor``, ``predictDriftScore``).
+  ``driftMonitor``, ``predictDriftScore``, ``retrainController``).
 """
 
 from __future__ import annotations

@@ -51,8 +51,10 @@ from typing import List, Optional, Tuple
 from ..core.config import Config, load_config
 from . import jobs
 from . import bayes_jobs  # noqa: F401  (registers the Naive Bayes jobs)
+from . import control_jobs  # noqa: F401  (registers retrainController)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
 from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
+from . import regress_jobs  # noqa: F401  (registers the logistic jobs)
 from . import serving_jobs  # noqa: F401  (registers predictionService)
 
 

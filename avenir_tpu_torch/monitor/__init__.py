@@ -12,8 +12,8 @@
     alert records, the refresh / degrade guardrails, delayed-label
     accuracy.
 
-``tee_blocks`` feeds a baseline from a streamed training ingest.  The
-reference's ``retrain_action`` (its ``control`` package) is not ported.
+``tee_blocks`` feeds a baseline from a streamed training ingest;
+``retrain_action`` hands alerts to ``control.RetrainController``.
 CLI: ``driftMonitor`` and ``predictDriftScore`` (``cli/monitor_jobs.py``).
 """
 
@@ -26,7 +26,7 @@ from .accumulator import (DriftAccumulator, ServingMonitor,
 from .drift import STATS, DriftReport, DriftScorer, RowScore
 from .policy import (AccuracyTracker, AlertRecord, DriftPolicy,
                      DEFAULT_ALERT, DEFAULT_WARN, degrade_action,
-                     refresh_action)
+                     refresh_action, retrain_action)
 
 __all__ = [
     "BASELINE_JSON", "BASELINE_NPZ", "Baseline", "BaselineBuilder",
@@ -35,5 +35,5 @@ __all__ = [
     "ServingMonitor", "StreamDriftMonitor", "STATS", "DriftReport",
     "DriftScorer", "RowScore", "AccuracyTracker", "AlertRecord",
     "DriftPolicy", "DEFAULT_ALERT", "DEFAULT_WARN", "degrade_action",
-    "refresh_action",
+    "refresh_action", "retrain_action",
 ]

@@ -12,11 +12,9 @@ callback — the serving guardrails:
   * :func:`refresh_action` — re-probe the registry for a newer intact
     version (``PredictionService.refresh``);
   * :func:`degrade_action` — ``PredictionService.mark_degraded``: keep
-    answering but flag the model.
-
-The reference's third guardrail, ``retrain_action``, hands alerts to its
-``control.RetrainController``; the port has no ``control/`` package yet,
-so it is not here.
+    answering but flag the model;
+  * :func:`retrain_action` — hand the alert to a
+    ``control.RetrainController``'s intake (the closed retrain loop).
 
 Delayed-label model quality rides the same policy: :class:`AccuracyTracker`
 folds (predicted, actual) label pairs through
@@ -192,6 +190,21 @@ def degrade_action(service, counters: Optional[Counters] = None
                               f">= {rec.threshold:.4g}")
         if counters is not None:
             counters.increment("DriftMonitor", "Degradations")
+    return act
+
+
+def retrain_action(controller, counters: Optional[Counters] = None
+                   ) -> Callable[[AlertRecord], None]:
+    """On alert, hand the record to the retrain controller's
+    control-plane intake (``RetrainController.submit_alert``) — the
+    policy -> controller wiring that closes the loop.  The handoff is a
+    queue append: a retrain NEVER runs inline on the serving/monitor
+    thread (the controller's own loop — ``run_pending``/``start()`` —
+    picks the alert up)."""
+    def act(rec: AlertRecord) -> None:
+        controller.submit_alert(rec)
+        if counters is not None:
+            counters.increment("DriftMonitor", "RetrainRequests")
     return act
 
 

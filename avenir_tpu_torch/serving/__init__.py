@@ -19,14 +19,15 @@ patch), the micro-batched serving loop in-process and over the RESP wire
 from .autoscaler import AutoscalePolicy, FleetAutoscaler
 from .fleet import ServingFleet
 from .predictor import (DEFAULT_BUCKETS, BayesPredictor, ForestPredictor,
-                        Predictor, make_predictor)
+                        LogisticPredictor, Predictor, make_predictor)
 from .registry import ModelRegistry
 from .router import ModelRouter, canary_split, parse_model_spec
 from .service import BatchPolicy, PredictionService, RespPredictionLoop
 
 __all__ = [
     "ModelRegistry", "DEFAULT_BUCKETS", "BayesPredictor", "ForestPredictor",
-    "Predictor", "make_predictor", "BatchPolicy", "PredictionService",
-    "RespPredictionLoop", "ModelRouter", "canary_split", "parse_model_spec",
+    "LogisticPredictor", "Predictor", "make_predictor", "BatchPolicy",
+    "PredictionService", "RespPredictionLoop", "ModelRouter",
+    "canary_split", "parse_model_spec",
     "ServingFleet", "AutoscalePolicy", "FleetAutoscaler",
 ]

@@ -1,6 +1,7 @@
 """Warm, shape-bucketed predictors: port of
 ``avenir_tpu/serving/predictor.py`` (the ``Predictor`` base, the
-``ForestPredictor`` and the ``BayesPredictor``).
+``ForestPredictor``, the ``BayesPredictor`` and the
+``LogisticPredictor``).
 
 Every ``Predictor`` pads incoming micro-batches up to a fixed bucket size
 with copies of the batch's last row (per-row prediction is independent, so
@@ -22,7 +23,9 @@ serves client-binned int8 rows (``predict_prebinned``, the ``predictq``
 wire form), and a float one patches the trees a registry delta changed
 (``apply_delta``) in place of a full reload.  A ``BayesPredictor`` scores
 each bucket-padded table with ``models/bayes.predict``, the offline
-``bayesianPredictor``'s argmax.
+``bayesianPredictor``'s argmax.  A ``LogisticPredictor`` computes
+``sigmoid([1, x...] @ w)`` in float32 over each bucket-padded table, the
+trainer's own predict math (``regress/logistic.py``).
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from ..kernels.dispatch import BACKEND_CUDA, note_backend
 from ..kernels.vote import patch_vote_model, vote_form
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, note_dispatch, note_h2d
-from .registry import BAYES, FOREST, LoadedModel
+from .registry import BAYES, FOREST, LOGISTIC, LoadedModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 # the stacked arrays a delta sidecar carries slices of, in stacked order
@@ -459,14 +462,55 @@ class BayesPredictor(Predictor):
                                   self.device).pred_class)
 
 
+class LogisticPredictor(Predictor):
+    """Binary logistic serving: the trainer's exact predict math (sigmoid
+    of the float32 [1, x...] design row dotted with float32 weights,
+    ``regress.logistic.predict``) on ``device`` (default: the process
+    device), over bucket-padded tables."""
+
+    def __init__(self, w, schema: FeatureSchema, pos_class_value: str,
+                 threshold: float = 0.5, device=None, **kw):
+        super().__init__(schema, **kw)
+        from ..regress.logistic import pos_neg_codes
+        self.w = np.asarray(w, np.float64)
+        self.threshold = float(threshold)
+        self.device = resolve_device(device)
+        cf = schema.class_attr_field
+        self.card = list(cf.cardinality or [])
+        self.pos_code, self.neg_code = pos_neg_codes(cf, pos_class_value)
+
+    def _proba_table(self, table: ColumnarTable) -> np.ndarray:
+        from ..regress.logistic import design_matrix, proba_from_design
+        X, _ = design_matrix(table, self.schema)
+        return proba_from_design(X, self.w, self.device)
+
+    def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
+        from ..regress.logistic import threshold_codes
+        codes = threshold_codes(self._proba_table(table), self.threshold,
+                                self.pos_code, self.neg_code)
+        if self.card:
+            return [self.card[int(c)] for c in codes]
+        return [str(int(c)) for c in codes]
+
+    def predict_proba_rows(self, rows: List[List[str]]) -> np.ndarray:
+        """Bucketed positive-class probabilities (the same bucketing as
+        predict_rows)."""
+        if not rows:
+            return np.zeros((0,), np.float32)
+        return np.concatenate([self._proba_table(t)[:n]
+                               for t, n in self._bucketed_tables(rows)])
+
+
 def make_predictor(loaded: LoadedModel,
                    schema: Optional[FeatureSchema] = None,
                    buckets: Sequence[int] = DEFAULT_BUCKETS,
                    delim: str = ",", device=None,
                    quantized: bool = False, serve_mesh=None) -> Predictor:
-    """Registry artifact -> a Predictor of its kind (``forest`` or
-    ``bayes``), using the artifact's embedded schema unless one is passed
-    explicitly.
+    """Registry artifact -> a Predictor of its kind (``forest``,
+    ``bayes`` or ``logistic``), using the artifact's embedded schema
+    unless one is passed explicitly.  A logistic version names its
+    positive class in its ``pos_class_value`` param (and may set
+    ``threshold``).
 
     ``quantized=True`` (the ``ps.quantized`` knob) loads a forest
     version's int8 sidecar and serves the budget-pinned quantized vote; a
@@ -479,10 +523,11 @@ def make_predictor(loaded: LoadedModel,
         raise ValueError(
             f"model {loaded.name!r} v{loaded.version} has no embedded "
             "schema; pass schema= to make_predictor")
-    if loaded.kind not in (FOREST, BAYES):
+    if loaded.kind not in (FOREST, BAYES, LOGISTIC):
         raise NotImplementedError(
             f"serving model kind {loaded.kind!r} is not ported to "
-            f"avenir_tpu_torch yet (ported: {FOREST!r}, {BAYES!r})")
+            f"avenir_tpu_torch yet (ported: {FOREST!r}, {BAYES!r}, "
+            f"{LOGISTIC!r})")
     if quantized and loaded.kind != FOREST:
         warnings.warn(
             f"ps.quantized: only forest artifacts have a quantized "
@@ -496,6 +541,16 @@ def make_predictor(loaded: LoadedModel,
     if loaded.kind == BAYES:
         return BayesPredictor(loaded.model, schema, device=device,
                               buckets=buckets, delim=delim)
+    if loaded.kind == LOGISTIC:
+        p = loaded.params
+        if "pos_class_value" not in p:
+            raise ValueError("logistic artifact is missing the "
+                             "pos_class_value param (publish with "
+                             "params={'pos_class_value': ...})")
+        return LogisticPredictor(
+            loaded.model, schema, p["pos_class_value"],
+            threshold=float(p.get("threshold", 0.5)), device=device,
+            buckets=buckets, delim=delim)
     p = loaded.params
     qf = None
     if quantized:

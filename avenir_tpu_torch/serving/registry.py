@@ -1,6 +1,7 @@
 """Model registry: port of ``avenir_tpu/serving/registry.py`` for the
-``forest`` and ``bayes`` kinds — reading versions, publishing them (whole or as a delta
-over a parent), the serving pin and retention.
+``forest``, ``bayes`` and ``logistic`` kinds — reading versions,
+publishing them (whole or as a delta over a parent), the serving pin and
+retention.
 
 It reads the versions the JAX package's ``ModelRegistry.publish`` writes,
 and ``publish`` writes them byte for byte as that one does:
@@ -21,7 +22,8 @@ skips torn version directories with a warning, and ``serving_version``
 honours a pin whose target is intact.  A forest's payload is its trees'
 JSON in ``meta.json`` (an empty ``arrays.npz``); a Naive Bayes model's is
 its count tables and Gaussian parameters in ``arrays.npz`` and its record
-total in ``meta.json``.
+total in ``meta.json``; a logistic model's is its weight vector ``w``
+in ``arrays.npz``.
 
 ``pin_version`` / ``clear_pin`` write and remove the serving pin
 (tmp-then-rename), ``retire`` keeps the newest versions plus the pinned,
@@ -31,7 +33,7 @@ publishers.  ``publish_delta`` publishes a forest in full and attaches a
 changed against a parent version, in the parent's stacked layout: a
 serving tier resident on the parent patches those trees
 (``ForestPredictor.apply_delta``) instead of reloading the forest.  The
-``logistic`` and ``mlp`` kinds are not ported yet.
+``mlp`` kind is not ported yet.
 """
 
 from __future__ import annotations
@@ -143,7 +145,8 @@ def _pad_stacked_to(c_host, p_host):
 
 def _detect_kind(model: Any) -> str:
     """The registry kind of a model object: a forest (a
-    ``DecisionPathList`` or a list of them) or a ``NaiveBayesModel``."""
+    ``DecisionPathList`` or a list of them), a ``NaiveBayesModel``, or a
+    logistic model's 1-D weight vector."""
     from ..models.bayes import NaiveBayesModel
     from ..models.tree import DecisionPathList
     if isinstance(model, NaiveBayesModel):
@@ -152,11 +155,13 @@ def _detect_kind(model: Any) -> str:
             isinstance(model, (list, tuple)) and model
             and all(isinstance(m, DecisionPathList) for m in model)):
         return FOREST
+    if isinstance(model, np.ndarray) and model.ndim == 1:
+        return LOGISTIC
     raise NotImplementedError(
         f"publishing {type(model).__name__} is not ported to "
         f"avenir_tpu_torch yet (ported kinds: {FOREST!r}, a "
-        f"DecisionPathList or a list of them, and {BAYES!r}, a "
-        f"NaiveBayesModel)")
+        f"DecisionPathList or a list of them, {BAYES!r}, a "
+        f"NaiveBayesModel, and {LOGISTIC!r}, a 1-D weight array)")
 
 
 def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
@@ -165,7 +170,7 @@ def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
     """A model of a detected kind -> (arrays, model_json, class_values),
     as the JAX package encodes it: a forest's arrays are empty, a Naive
     Bayes model's are its tables with their dtypes (the ordinals and bin
-    counts int64)."""
+    counts int64), a logistic model's its weights in their own dtype."""
     if kind == FOREST:
         from ..models.tree import DecisionPathList
         trees = [model] if isinstance(model, DecisionPathList) \
@@ -174,6 +179,10 @@ def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
         cls = list(schema.class_attr_field.cardinality or []) if schema \
             else None
         return {}, model_json, cls
+    if kind == LOGISTIC:
+        cls = list(schema.class_attr_field.cardinality or []) if schema \
+            else None
+        return {"w": np.asarray(model)}, None, cls
     arrays = {
         "post_counts": np.asarray(model.post_counts),
         "class_counts": np.asarray(model.class_counts),
@@ -214,9 +223,11 @@ def _decode(kind: str, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
             cont_post_std=arrays["cont_post_std"],
             cont_prior_mean=arrays["cont_prior_mean"],
             cont_prior_std=arrays["cont_prior_std"])
+    if kind == LOGISTIC:
+        return arrays["w"]
     raise NotImplementedError(
         f"model kind {kind!r} is not ported to avenir_tpu_torch yet "
-        f"(ported: {FOREST!r}, {BAYES!r})")
+        f"(ported: {FOREST!r}, {BAYES!r}, {LOGISTIC!r})")
 
 
 class ModelRegistry:
@@ -454,8 +465,9 @@ class ModelRegistry:
                 schema: Optional[FeatureSchema] = None,
                 kind: Optional[str] = None,
                 params: Optional[Dict[str, Any]] = None) -> int:
-        """Write the model (a forest: a list of ``DecisionPathList``; or a
-        ``NaiveBayesModel``) as the next version and atomically commit it;
+        """Write the model (a forest: a list of ``DecisionPathList``; a
+        ``NaiveBayesModel``; or a logistic 1-D weight array) as the next
+        version and atomically commit it;
         returns the version number.  ``meta.json`` and ``arrays.npz`` hold
         what the JAX package's ``publish`` writes for the same model (the
         JSON byte for byte, the arrays array for array), so either package

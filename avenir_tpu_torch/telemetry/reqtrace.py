@@ -70,6 +70,13 @@ def set_sample_rate(n) -> int:
     return _sample_n
 
 
+def reset_sampling() -> None:
+    """Restart the head-sampling counter, so the next predict push is the
+    first one counted (``set_sample_rate`` keeps the count running)."""
+    global _counter
+    _counter = itertools.count(1)
+
+
 def sample_rate() -> int:
     return _sample_n
 

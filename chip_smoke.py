@@ -414,14 +414,14 @@ order — any failure exits non-zero before the result line:
               rows; prints rows/s and the layers (host wire pack, H2D,
               device counts, D2H, model write)
  45. scale    bayesianDistribution and bayesianPredictor (argmax, then the
-              feature-prob mode) over a 1,000,000-row CSV of the same model,
+              feature-prob mode) over a 400,000-row CSV of the same model,
               on the card and with -Dplatform=cpu: model, pred and
               feature-prob files byte-equal (the differing feature-prob
               strings are counted, target 0); prints each job's rows/s and
               the library predict's layers (host pack, table upload,
               scoring, read-back) and train's over the loaded rows
- 46. joined   bayesianDistribution over that CSV split 500,000 + 500,000
-     nb       and 600,000 + 400,000 rows on two gloo ranks (--joined-child,
+ 46. joined   bayesianDistribution over that CSV split in halves and at
+     nb       60/40 between two gloo ranks (--joined-child,
               one card): every rank's model equals phase 45's one-process
               model of the whole file; prints each rank's wall, join_s and
               the all-reduce ms
@@ -429,7 +429,7 @@ order — any failure exits non-zero before the result line:
 
  47-50        serving over the RESP wire, launch counts zeroed before each
               path and read after
- 47. wire     predictionService over 100,000 rafo9 records (the fixture's
+ 47. wire     predictionService over 30,000 rafo9 records (the fixture's
      serve    requests tiled) from a copy of its registry: in-process, then
               ps.transport=resp with ps.wire.native=on and =off; both
               wire outputs byte-equal to the in-process one, and every
@@ -443,9 +443,9 @@ order — any failure exits non-zero before the result line:
               malformed lines and 5 lines sent to a model without a
               sidecar answer error and count as BadRequests;
               quantized_vote launches = the int8 batches, no float vote
- 49. delta    a RespPredictionLoop on a thread serving 20,000 requests on
+ 49. delta    a RespPredictionLoop on a thread serving 15,000 requests on
               v1 while publish_delta publishes v2 (trees 3 and 7 from
-              wire9's v2), then reload and 20,000 more: DeltaSwaps 1, every
+              wire9's v2), then reload and 15,000 more: DeltaSwaps 1, every
               reply after it equals a full load of v2 (and some differ
               from v1's), the H2D bytes moved printed, every vote launch
               after the patch in the table form; then the same reload
@@ -469,9 +469,9 @@ order — any failure exits non-zero before the result line:
               the same jobs over the 300 well-formed records: launches =
               the workers' batches + 4 warm-ups a worker, all table form
               (B3 for e, no B2)
- 52. loop     100,000 rafo9 requests prefilled, drained by 1, 2 and 4
-              workers over 1 and 2 broker shards, and by 2 and 4 workers
-              on the default stream: requests/s, serve.batch p50/p99,
+ 52. loop     30,000 rafo9 requests prefilled, drained by 1, 2 and 4
+              workers over 1 and 2 broker shards, and by 2 workers on
+              the default stream: requests/s, serve.batch p50/p99,
               OverlappedBatches, batches a worker, B2 launches = batches +
               warm-ups; replies equal the in-process serve
  53. router   fleet9 cases b-d byte-equal with their counters; a 2-worker
@@ -488,6 +488,35 @@ order — any failure exits non-zero before the result line:
               avenir_serving series, their served counts summing to the
               requests
 
+
+ 56-59        the retrain loop and logistic regression, launch counts
+              zeroed before each phase and read after
+ 56. retrain9 the retrain9 fixture's retrainController cases a (forced),
+              b (alerts.jsonl), c (probation replay, rolled back) and d
+              (killed at registry_publish@2, resumed) through the port's
+              CLI on the card: every kept file equal to the fixture's
+              outside the journal's opened_unix and the pin's
+              pinned_unix; per case every B1 launch in the mma form, B4 =
+              the baseline's blocks + the 2 drift re-scores, B2 >= 2
+ 57. retrain  one cycle at the rafo forest's widths (9 trees): champion
+     scale    phase 30's 1,000,000-row model with its baseline, a
+              1,000,000-row drifted window drawn like phase 26's, a
+              2-worker fleet answering live requests throughout; the
+              seconds of the build, validate, publish and swap stages, the
+              requests answered during the swap (every request answered,
+              none error or busy), the fleet converged on v2 by a delta
+              (DeltaSwaps 1 a worker) of at most the changed trees
+ 58. drill    the same cycle killed at registry_publish@2 and resumed:
+              exactly one new version, PublishDeduped 1, phase 57's
+              candidate
+ 59. logistic lr9 on the card: the coefficient history within 1e-5 of
+              the JAX package's fixture (per line, relative to its
+              largest coefficient), predictor labels equal, the served
+              lines byte-equal; then logisticRegression (10 iterations)
+              and logisticRegressionPredictor over a 1,000,000-row churn
+              CSV: ms an iteration and rows/s, the card's history within
+              1e-4 of the CPU's over the same rows
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
@@ -499,14 +528,17 @@ launches a process on the multi-process paths: ``joined_mono_*``,
 B3's ``predictq_*`` and B4's ``drift_resp_*`` are phases 47-50's) and,
 under ``bayes``, phases 42-46's launch counts, rows/s and layer times,
 under ``wire`` phases 47-50's rates and counts, and under ``fleet`` phases
-51-55's (B2's, B3's and B6's ``fleet_*`` launches are theirs too); the
-last line is
+51-55's (B2's, B3's and B6's ``fleet_*`` launches are theirs too),
+under ``retrain`` phases 56-58's (B1's, B2's and B4's ``retrain*``
+launches are theirs too), under ``logistic`` phase 59's, and under
+``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -585,8 +617,8 @@ WIRE9 = os.path.join(ROOT, "tests", "torch_fixtures", "wire9")
 # phases 47-50: records served over the wire, the delta reload's rows before
 # and after the patch, the changed trees (from wire9's v2), and the durable
 # drill's records and acked batches before the kill
-WIRE_ROWS = 100_000
-DELTA_ROWS = 20_000
+WIRE_ROWS = 30_000
+DELTA_ROWS = 15_000
 DELTA_TREES = (3, 7)
 DURABLE_ROWS = 10_000
 DURABLE_ACKED_POLLS = 20
@@ -594,13 +626,13 @@ FLEET9 = os.path.join(ROOT, "tests", "torch_fixtures", "fleet9")
 # phases 51-55: the fleet loop's requests (phase 52), its worker counts and
 # broker shard counts, the hot-swap drill's requests a step (phase 54), and
 # the autoscaled job's and the fleet_host processes' requests (phase 55)
-FLEET_ROWS = 100_000
+FLEET_ROWS = 30_000
 FLEET_WORKERS = (1, 2, 4)
 FLEET_SHARDS = (1, 2)
 SWAP_ROWS = 10_000
 HOST_ROWS = 20_000
 NB_TRAIN_ROWS = 10_000_000     # the library train: two chunks
-NB_CLI_ROWS = 1_000_000
+NB_CLI_ROWS = 400_000
 # telecom_churn_gen's generative model (resource/gen/telecom_churn_gen.py)
 CHURN_PLAN_P = (0.25, 0.4, 0.2, 0.15)
 CHURN_USAGE = ((250, 1200), (600, 3000), (900, 5000), (1300, 7000))
@@ -621,8 +653,22 @@ def _try(fn):
     return []
 
 
-def phase(name):
-    print(f"== {name}", flush=True)
+# phase label -> wall seconds, in the order the phases ran
+PHASE_SECONDS = {}
+_PHASE_OPEN = []
+
+
+def phase(name=None):
+    """Close the running phase (printing its wall seconds) and open
+    ``name``; ``phase()`` only closes."""
+    now = time.perf_counter()
+    if _PHASE_OPEN:
+        label, t0 = _PHASE_OPEN.pop()
+        PHASE_SECONDS[label] = round(now - t0, 1)
+        print(f"-- {label}: {now - t0:.1f} s", flush=True)
+    if name is not None:
+        print(f"== {name}", flush=True)
+        _PHASE_OPEN.append((name.split(" ", 1)[0], now))
 
 
 def random_forest_inputs(rng, shape, n):
@@ -2041,12 +2087,14 @@ def b4_phase(dev, rng):
     return 0.0
 
 
-def drift9_module():
-    """tests/torch_fixtures/drift9/make.py as a module (its job keys and
-    constants; it imports the JAX package only inside ``make``)."""
+def fixture_module(name):
+    """tests/torch_fixtures/<name>/make.py as a module (its job keys,
+    constants and case runners; it imports the JAX package only inside
+    ``make``)."""
     import importlib.util
     spec = importlib.util.spec_from_file_location(
-        "drift9_make", os.path.join(DRIFT9, "make.py"))
+        f"{name}_make",
+        os.path.join(ROOT, "tests", "torch_fixtures", name, "make.py"))
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
@@ -2100,7 +2148,7 @@ def drift_main_path(dev):
     from avenir_tpu_torch.serving.service import BatchPolicy, \
         PredictionService
     from avenir_tpu_torch.utils.tracing import transfer_ledger
-    mk = drift9_module()
+    mk = fixture_module("drift9")
     reg = os.path.join(WORK, "drift9_registry")
     shutil.copytree(os.path.join(RAFO9Q, "registry"), reg)
     stream = os.path.join(DRIFT9, "stream.csv")
@@ -3727,17 +3775,6 @@ def multi_process_phases(scale_csv, single, trees, counts):
 # Naive Bayes (phases 42-46)
 # --------------------------------------------------------------------------
 
-def nb9_module():
-    """tests/torch_fixtures/nb9/make.py as a module (its job keys and
-    constants; it imports the JAX package only inside ``make``)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "nb9_make", os.path.join(NB9, "make.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
 def nb9_flow(work, plat=()):
     """The nb9 fixture's jobs through the port's CLI into ``work`` (``plat``
     e.g. ``["-Dplatform=cpu"]``; none: the card): bayesianDistribution,
@@ -3746,7 +3783,7 @@ def nb9_flow(work, plat=()):
     knnPipeline, the text mode, and predictionService over a copy of the
     fixture's registry.  Returns ({name: output file}, {name: the
     fixture's counter groups of its counters.json})."""
-    mk = nb9_module()
+    mk = fixture_module("nb9")
     schema = os.path.join(NB9, "schema.json")
     data = os.path.join(NB9, "data")
     train, test = os.path.join(data, "tr_part"), os.path.join(data,
@@ -3917,7 +3954,7 @@ def bayes_main_path():
         fs = FeatureSchema.load(os.path.join(NB9, "schema.json"))
         m = bayes.train(load_csv(os.path.join(NB9, "data", "tr_part"), fs))
         reg = ModelRegistry(os.path.join(work, "nb9_publish"))
-        v = reg.publish(nb9_module().MODEL_NAME, m, schema=fs)
+        v = reg.publish(fixture_module("nb9").MODEL_NAME, m, schema=fs)
         want = os.path.join(NB9, "registry", "nb9", "v_000001")
         same_bytes(os.path.join(reg.version_dir("nb9", v), "meta.json"),
                    os.path.join(want, "meta.json"), "nb9 port publish")
@@ -4077,8 +4114,8 @@ def bayes_scale(dev):
 
 def bayes_joined(csv):
     """Phase 46: bayesianDistribution over per-process files on two gloo
-    ranks on the card (--joined-child), 500,000 + 500,000 and 600,000 +
-    400,000 rows of phase 45's CSV: every rank's model equals phase 45's
+    ranks on the card (--joined-child), phase 45's CSV split in halves and
+    at 60/40 between the ranks: every rank's model equals phase 45's
     one-process model of the whole file."""
     n = NB_CLI_ROWS
     t_phase = time.perf_counter()
@@ -4501,7 +4538,7 @@ def wire_phases(dev):
           f"journal, {len(replies)} replies, one a request, equal to the "
           f"in-process serve", flush=True)
 
-    mk = drift9_module()
+    mk = fixture_module("drift9")
     dreg9 = os.path.join(WORK, "wire_drift_registry")
     shutil.copytree(os.path.join(RAFO9Q, "registry"), dreg9)
     stream = os.path.join(DRIFT9, "stream.csv")
@@ -4549,17 +4586,6 @@ def wire_phases(dev):
 # --------------------------------------------------------------------------
 # the serving fleet (phases 51-55)
 # --------------------------------------------------------------------------
-
-def fleet9_module():
-    """tests/torch_fixtures/fleet9/make.py as a module (its cases, keys and
-    run_case; it imports the JAX package only inside ``make``)."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location(
-        "fleet9_make", os.path.join(FLEET9, "make.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
 
 def fleet_job(mk, case, records, dest, *extra):
     """predictionService of fleet9 ``case`` through the port's CLI on the
@@ -4639,7 +4665,7 @@ def _scrape(url, path):
 
 def fleet_phases(dev):
     """Phases 51-55: the fleet tier of predictionService on the card —
-    fleet9's cases through the CLI, the fleet loop alone at 100,000
+    fleet9's cases through the CLI, the fleet loop alone at 30,000
     requests over 1, 2 and 4 workers and 1 and 2 broker shards (and the
     default-stream comparison), the router's cases and a tree-sharded
     fleet, a delta hot-swap and degraded parking under load, the
@@ -4655,7 +4681,7 @@ def fleet_phases(dev):
     from avenir_tpu_torch.serving.predictor import DEFAULT_BUCKETS
     from avenir_tpu_torch.telemetry import MetricsRegistry, MetricsServer
     from avenir_tpu_torch.utils.tracing import transfer_ledger
-    mk = fleet9_module()
+    mk = fixture_module("fleet9")
     warm = len(DEFAULT_BUCKETS)
     fx_reg = os.path.join(FLEET9, "registry")
     want = read_json(os.path.join(FLEET9, "counters.json"))
@@ -4730,10 +4756,10 @@ def fleet_phases(dev):
     phase(f"52 the fleet loop alone: {n:,} rafo9 requests prefilled, then "
           f"drained by {', '.join(map(str, FLEET_WORKERS))} workers over "
           f"{' and '.join(map(str, FLEET_SHARDS))} broker shard(s); and "
-          f"with every worker on the default stream")
+          f"2 workers on the default stream")
     runs = []
     plan = [(w, s, True) for s in FLEET_SHARDS for w in FLEET_WORKERS] + \
-        [(2, 1, False), (4, 1, False)]
+        [(2, 1, False)]
     for workers, shards, own in plan:
         replies, wall, counts, fleet = fleet_drain(reg_dir, msgs, workers,
                                                    shards, own)
@@ -5065,6 +5091,471 @@ def fleet_hosts(reg_dir, records, ref):
              f"(host0 series {series in text}), build dir unchanged "
              f"{listing() == before}")
     return {"served": served, "wall_s": wall, "requests_per_s": n / wall}
+
+
+# --------------------------------------------------------------------------
+# phases 56-59: the retrain loop and logistic regression
+# --------------------------------------------------------------------------
+
+RETRAIN9 = os.path.join(ROOT, "tests", "torch_fixtures", "retrain9")
+LR9 = os.path.join(ROOT, "tests", "torch_fixtures", "lr9")
+RETRAIN_SCALE_ROWS = 1_000_000
+LR_SCALE_ROWS = 1_000_000
+LR_SCALE_ITERS = 10
+# a coefficient history line against another: max |a - b| over max |b|
+LR9_RTOL = 1e-5          # the card's lr9 history against the JAX fixture
+LR_CPU_RTOL = 1e-4       # the card's 1M-row history against the CPU's
+LR_PROBA_ATOL = 1e-6
+# the wall-clock fields left out of the byte comparisons
+CLOCK_FIELDS = re.compile(rb'"(opened_unix|pinned_unix)": [0-9.e+-]+')
+
+
+def same_files(got_root, want_root, what, versions=True):
+    """Every file under ``want_root`` equals ``got_root``'s: bytes outside
+    the CLOCK_FIELDS, ``.npz`` files array for array; with
+    ``versions=False`` the registry's version directories are left out."""
+    def rels(root):
+        out = (os.path.relpath(os.path.join(d, f), root)
+               for d, _, fs in os.walk(root) for f in fs)
+        return sorted(r for r in out
+                      if versions or not r.startswith("registry/v_"))
+    if rels(got_root) != rels(want_root):
+        fail(f"{what}: files {rels(got_root)} != {rels(want_root)}")
+    for rel in rels(want_root):
+        got, want = os.path.join(got_root, rel), os.path.join(want_root, rel)
+        if rel.endswith(".npz"):
+            with np.load(got) as a, np.load(want) as b:
+                if sorted(a.files) != sorted(b.files) or any(
+                        a[k].dtype != b[k].dtype or not np.array_equal(
+                            a[k], b[k], equal_nan=a[k].dtype.kind in "fc")
+                        for k in a.files):
+                    fail(f"{what}: {rel} arrays differ")
+            continue
+        with open(got, "rb") as a, open(want, "rb") as b:
+            if CLOCK_FIELDS.sub(rb'"\1": T', a.read()) != \
+                    CLOCK_FIELDS.sub(rb'"\1": T', b.read()):
+                fail(f"{what}: {rel} differs from the fixture's")
+
+
+def history_rel(got, want):
+    """Largest per-line relative difference of two coefficient
+    histories (lists of arrays) and the count of differing .9g strings."""
+    if len(got) != len(want):
+        fail(f"histories of {len(got)} and {len(want)} lines")
+    a, b = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    rel = float((np.abs(a - b).max(axis=1) / np.abs(b).max(axis=1)).max())
+    strings = sum(f"{x:.9g}" != f"{y:.9g}"
+                  for x, y in zip(a.ravel(), b.ravel()))
+    return rel, strings
+
+
+def retrain9_phase():
+    """Phase 56: retrain9 cases a-d through the port's CLI on the card,
+    every kept file equal to the JAX package's fixture; per case the
+    launches of B1 (all in the mma form), B4 (the baseline's blocks plus
+    the two drift re-scores of a validation) and B2 (at least two a
+    validation)."""
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.core import faults
+    mk = fixture_module("retrain9")
+    with open(mk.STREAM) as fh:
+        blocks = -(-sum(1 for line in fh if line.strip()) // mk.BLOCK_ROWS)
+    phase("56 retrain9 on the card: retrainController cases a (forced), b "
+          "(alerts.jsonl), c (probation rollback) and d (registry_publish@2 "
+          "then a resume) == the JAX package's fixture")
+    zero_launches()
+    total = {}
+    for case in mk.CASES:
+        work = os.path.join(WORK, f"retrain9_{case}")
+        shutil.rmtree(work, ignore_errors=True)
+        os.makedirs(work)
+        before = launch_counts()
+        t0 = time.perf_counter()
+        mk.run_case(cli_run.main, faults, case, work)
+        wall = time.perf_counter() - t0
+        got = os.path.join(work, "kept")
+        mk.keep(work, got, versions=True)
+        same_files(os.path.join(got, "registry", "v_000002"),
+                   os.path.join(RETRAIN9, "a", "registry", "v_000002"),
+                   f"retrain9 {case} v2")
+        same_files(got, os.path.join(RETRAIN9, case), f"retrain9 {case}",
+                   versions=False)
+        c = {k: v - before[k] for k, v in launch_counts().items()}
+        # every case validates once (d in its killed run), c replays its
+        # probation input once more through B2
+        want_b4 = blocks + 2
+        if c["b1"] <= 0 or c["b1_mma"] != c["b1"] or c["b4"] != want_b4 \
+                or c["b2"] < 2:
+            fail(f"retrain9 {case}: launches {c}; want every B1 in the mma "
+                 f"form, B4 = {blocks} blocks + 2 re-scores, B2 >= 2")
+        print(f"retrain9 {case}: equal to the fixture outside "
+              f"opened_unix/pinned_unix ({wall:.2f} s); launches B1 "
+              f"{c['b1']} (mma {c['b1_mma']}), B4 {c['b4']}, B2 {c['b2']}",
+              flush=True)
+        total[case] = {k: c[k] for k in ("b1", "b1_mma", "b4", "b2")}
+    return total
+
+
+def timed_stages(ctl, stage_at):
+    """Wrap the controller's stage methods so each records its start and
+    end on the host clock (the device synchronised) into ``stage_at``."""
+    import torch
+    for name in ("_stage_build", "_stage_validate", "_stage_publish",
+                 "_stage_swap"):
+        def run(*a, _fn=getattr(ctl, name), _name=name[7:], **k):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **k)
+            finally:
+                torch.cuda.synchronize()
+                stage_at[_name] = (t0, time.perf_counter())
+        setattr(ctl, name, run)
+
+
+class LiveFeed:
+    """A thread pushing rafo request batches onto a fleet's queue and one
+    collecting the replies, each reply stamped with its arrival time."""
+
+    def __init__(self, port, records, batch=64, pause_s=0.005):
+        from avenir_tpu_torch.io import respq
+        self.push = respq.RespClient(port=port)
+        self.pull = respq.RespClient(port=port)
+        self.records, self.batch, self.pause_s = records, batch, pause_s
+        self.sent = 0
+        self.replies = {}
+        self.stop_ev = threading.Event()
+        self.threads = [threading.Thread(target=self._feed, daemon=True),
+                        threading.Thread(target=self._collect, daemon=True)]
+
+    def start(self):
+        for t in self.threads:
+            t.start()
+        return self
+
+    def _feed(self):
+        n = len(self.records)
+        while not self.stop_ev.is_set():
+            msgs = [f"predict,q{self.sent + i},"
+                    f"{self.records[(self.sent + i) % n]}"
+                    for i in range(self.batch)]
+            self.push.lpush_many("requestQueue", msgs)
+            self.sent += self.batch
+            time.sleep(self.pause_s)
+
+    def _collect(self):
+        while not self.stop_ev.is_set() or len(self.replies) < self.sent:
+            vs = self.pull.rpop_many("predictionQueue", 4096)
+            now = time.perf_counter()
+            for v in vs:
+                rid, label = v.split(",", 1)
+                if rid in self.replies:
+                    fail(f"live feed: request {rid} answered twice")
+                self.replies[rid] = (label, now)
+            if not vs:
+                if self.stop_ev.is_set() and \
+                        time.perf_counter() > self.deadline:
+                    return
+                time.sleep(0.002)
+
+    def finish(self, timeout_s=60.0):
+        self.deadline = time.perf_counter() + timeout_s
+        self.stop_ev.set()
+        for t in self.threads:
+            t.join(timeout_s + 5.0)
+        self.push.close()
+        self.pull.close()
+        if len(self.replies) != self.sent:
+            fail(f"live feed: {len(self.replies)} of {self.sent} requests "
+                 f"answered")
+        bad = [r for r, (lab, _) in self.replies.items()
+               if lab in ("error", "busy")]
+        if bad:
+            fail(f"live feed: {len(bad)} requests answered error or busy")
+
+
+def retrain_scale(dev, fs, scale_csv, scale_trees):
+    """Phase 57: one cycle at the rafo forest's full width over a
+    1,000,000-row drifted window while a 2-worker fleet answers live
+    requests; phase 58: the same cycle killed after its publish committed
+    and resumed.  Returns the printed numbers."""
+    import torch
+    from avenir_tpu_torch.cli.jobs import _tree_params
+    from avenir_tpu_torch.control import RetrainController, RetrainPolicy
+    from avenir_tpu_torch.core import faults
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.io import respq
+    from avenir_tpu_torch.models.forest import ForestParams
+    from avenir_tpu_torch.models.tree import DecisionPathList
+    from avenir_tpu_torch.monitor.baseline import (compute_baseline,
+                                                   publish_baseline)
+    from avenir_tpu_torch.serving import (BatchPolicy, ModelRegistry,
+                                          ServingFleet)
+    cfg = load_config(os.path.join(RES, "rafo.properties"))
+    params = ForestParams(tree=_tree_params(cfg),
+                          num_trees=cfg.get_int("dtb.num.trees"),
+                          seed=cfg.get_int("dtb.random.seed"))
+    window = os.path.join(WORK, "retrain_window.csv")
+    write_hangup_csv(hangup_table(np.random.default_rng(20261057),
+                                  RETRAIN_SCALE_ROWS, fs,
+                                  reason_p=(0.1, 0.1, 0.1, 0.7),
+                                  queue_shift=600), window)
+    champion = os.path.join(WORK, "retrain_champion")
+    shutil.rmtree(champion, ignore_errors=True)
+    reg = ModelRegistry(champion)
+    trees = [DecisionPathList.from_json(t) for t in json.loads(scale_trees)]
+    reg.publish("rafo", trees, schema=fs)
+    publish_baseline(reg, "rafo", 1, compute_baseline(
+        load_csv(scale_csv, fs), device=dev))
+    with open(os.path.join(RAFO9, "requests.csv")) as fh:
+        records = fh.read().splitlines()
+    out = {}
+
+    def controller(registry, state, fleet=None):
+        return RetrainController(
+            registry, "rafo", fs, state_dir=state, train_source=window,
+            forest_params=params, fleet=fleet,
+            policy=RetrainPolicy(chunk_rows=STREAM_SCALE_BLOCK,
+                                 swap_ack_timeout_s=60.0))
+
+    phase(f"57 scale: one retrain cycle of the rafo forest (9 trees) over "
+          f"a {RETRAIN_SCALE_ROWS:,}-row drifted window, champion phase "
+          f"30's {STREAM_SCALE_ROWS:,}-row model, while a 2-worker fleet "
+          f"answers")
+    reg57 = os.path.join(WORK, "retrain_registry57")
+    shutil.rmtree(reg57, ignore_errors=True)
+    shutil.copytree(champion, reg57)
+    registry = ModelRegistry(reg57)
+    server = respq.RespServer().start()
+    fleet = ServingFleet(registry, "rafo", n_workers=2,
+                         config={"redis.server.port": server.port},
+                         policy=BatchPolicy(max_batch=64))
+    feed = None
+    try:
+        fleet.start()
+        feed = LiveFeed(server.port, records).start()
+        ctl = controller(registry, os.path.join(WORK, "retrain_state57"),
+                         fleet)
+        stage_at = {}
+        timed_stages(ctl, stage_at)
+        zero_launches()
+        t0 = time.perf_counter()
+        summary = ctl.force_cycle()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        stage_s = {k: b - a for k, (a, b) in stage_at.items()}
+        swap_start, swap_end = stage_at["swap"]
+        time.sleep(0.5)
+        feed.finish()
+        during = sum(1 for _, at in feed.replies.values()
+                     if swap_start <= at <= swap_end)
+        stats = fleet.stats()
+        swaps = [w.service.counters.get("Serving", "DeltaSwaps")
+                 for w in fleet.workers]
+    finally:
+        if feed is not None and not feed.stop_ev.is_set():
+            feed.finish()
+        fleet.stop(drain_s=1.0)
+        server.stop()
+    delta = registry.delta_info("rafo", 2)
+    changed = len(delta.get("changed", [])) if delta else None
+    print(f"cycle: {summary}; wall {wall:.2f} s; stage seconds "
+          f"{ {k: round(v, 3) for k, v in stage_s.items()} }; "
+          f"{feed.sent:,} requests answered by the fleet, {during} of them "
+          f"during the swap stage; fleet errors {stats['errors']}, model "
+          f"versions {stats['model_versions']}, DeltaSwaps {swaps}; delta "
+          f"of {changed} of {params.num_trees} trees; launches B1 "
+          f"{counts['b1']} (mma {counts['b1_mma']}), B4 {counts['b4']}, "
+          f"B2 {counts['b2']} (validation and the fleet's batches)",
+          flush=True)
+    blocks = -(-RETRAIN_SCALE_ROWS // STREAM_SCALE_BLOCK)
+    if summary.get("outcome") != "published" \
+            or set(stats["model_versions"].values()) != {2} \
+            or stats["errors"] or during <= 0 or swaps != [1, 1] \
+            or changed is None or changed > params.num_trees:
+        fail("phase 57: the cycle did not publish and swap the live fleet "
+             "onto v2 by a delta while it answered")
+    if counts["b1"] <= 0 or counts["b1_mma"] != counts["b1"] \
+            or counts["b4"] != blocks + 2 or counts["b2"] < 2:
+        fail(f"phase 57: launches {counts}; want every B1 in the mma "
+             f"form, B4 = {blocks} blocks + 2 re-scores, B2 >= 2")
+    out["scale"] = {"stage_s": stage_s, "wall_s": wall,
+                    "requests": feed.sent, "during_swap": during,
+                    "changed_trees": changed,
+                    "launches": {k: counts[k] for k in
+                                 ("b1", "b1_mma", "b4", "b2")},
+                    "candidate_sha": ctl.journal["candidate_sha"]}
+
+    phase("58 crash drill on the card: the phase-57 cycle killed at "
+          "registry_publish@2 (after the commit), then resumed")
+    reg58 = os.path.join(WORK, "retrain_registry58")
+    shutil.rmtree(reg58, ignore_errors=True)
+    shutil.copytree(champion, reg58)
+    registry = ModelRegistry(reg58)
+    state = os.path.join(WORK, "retrain_state58")
+    shutil.rmtree(state, ignore_errors=True)
+    faults.install(faults.FaultInjector.parse(
+        "registry_publish@2=raise:RuntimeError"))
+    try:
+        controller(registry, state).force_cycle()
+    except RuntimeError as exc:
+        if "injected fault" not in str(exc):
+            raise
+    else:
+        fail("phase 58: the injected publish fault did not fire")
+    finally:
+        faults.uninstall()
+    ctl = controller(registry, state)
+    summary = ctl.run_pending()
+    dedup = ctl.counters.get("Controller", "PublishDeduped")
+    print(f"killed after the commit, resumed: {summary}; versions "
+          f"{registry.versions('rafo')}, PublishDeduped {dedup}; candidate "
+          f"sha equal to phase 57's: "
+          f"{ctl.journal['candidate_sha'] == out['scale']['candidate_sha']}",
+          flush=True)
+    if summary.get("outcome") != "published" or \
+            registry.versions("rafo") != [1, 2] or dedup != 1 or \
+            ctl.journal["candidate_sha"] != out["scale"]["candidate_sha"]:
+        fail("phase 58: the resumed cycle did not adopt exactly one new "
+             "version, phase 57's")
+    return out
+
+
+def churn_svm_csv(rng, n, path):
+    """n rows of resource/gen/churn_svm_gen.py's model under
+    churn_svm.json, drawn vectorised."""
+    minutes = np.clip(rng.normal(90, 40, n), 0, 199).astype(np.int64)
+    data_gb = np.clip(rng.normal(40, 20, n), 0, 99).astype(np.int64)
+    calls = np.clip(rng.poisson(2.0, n), 0, 9)
+    score = 1.2 * calls - 0.03 * minutes - 0.05 * data_gb + 1.5 \
+        + rng.normal(0, 1.0, n)
+    plans = np.asarray(["prepaid", "standard", "family", "business"])
+    pays = np.asarray(["poor", "average", "good"])
+    cols = [np.char.add("C", np.char.zfill(np.arange(n).astype(str), 7)),
+            plans[rng.integers(0, 4, n)], minutes.astype(str),
+            data_gb.astype(str), calls.astype(str),
+            pays[rng.integers(0, 3, n)],
+            np.where(score > 0, "churned", "active")]
+    rows = cols[0]
+    for c in cols[1:]:
+        rows = np.char.add(np.char.add(rows, ","), c)
+    with open(path, "w") as fh:
+        fh.write("\n".join(rows.tolist()) + "\n")
+
+
+def logistic_phase(dev):
+    """Phase 59: lr9 on the card against the JAX package's fixture, then
+    logisticRegression and its predictor over a 1,000,000-row churn CSV,
+    the card's history against the CPU's over the same rows."""
+    import torch
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.regress import logistic as LR
+    mk = fixture_module("lr9")
+    phase(f"59 logistic: lr9 on the card == the JAX package's fixture "
+          f"within {LR9_RTOL:g}; logisticRegression ({LR_SCALE_ITERS} "
+          f"iterations) and logisticRegressionPredictor over "
+          f"{LR_SCALE_ROWS:,} churn rows, the card against the CPU")
+    work = os.path.join(WORK, "lr9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    coeff = os.path.join(work, "coeff.txt")
+    run_cli(["logisticRegression", *mk.KEYS, f"-Dcoeff.file.path={coeff}",
+             os.path.join(LR9, "train.csv"), os.path.join(work, "train")])
+    with open(coeff) as fh:
+        got = LR.parse_history(fh.read().splitlines())
+    with open(os.path.join(LR9, "coeff.txt")) as fh:
+        want = LR.parse_history(fh.read().splitlines())
+    rel, strings = history_rel(got, want)
+    if rel > LR9_RTOL:
+        fail(f"lr9 history on the card: relative difference {rel:.3g} "
+             f"over {LR9_RTOL:g}")
+    pred = os.path.join(work, "pred")
+    run_cli(["logisticRegressionPredictor", *mk.KEYS,
+             f"-Dcoeff.file.path={os.path.join(LR9, 'coeff.txt')}",
+             "-Dvalidation.mode=true", os.path.join(LR9, "test.csv"), pred])
+    with open(os.path.join(pred, "part-m-00000")) as a, \
+            open(os.path.join(LR9, "pred", "part-m-00000")) as b:
+        gl = [ln.split(",") for ln in a.read().splitlines()]
+        wl = [ln.split(",") for ln in b.read().splitlines()]
+    probs = sum(g[-1] != w[-1] for g, w in zip(gl, wl))
+    labels = sum(g[-2] != w[-2] for g, w in zip(gl, wl)
+                 if abs(float(w[-1]) - 0.5) > LR_PROBA_ATOL)
+    if len(gl) != len(wl) or labels or \
+            any(abs(float(g[-1]) - float(w[-1])) > 1e-3 + LR_PROBA_ATOL
+                for g, w in zip(gl, wl)):
+        fail(f"lr9 predictor on the card: {labels} labels apart")
+    reg = os.path.join(work, "registry")
+    shutil.copytree(os.path.join(LR9, "registry"), reg)
+    served = os.path.join(work, "served")
+    run_cli(["org.avenir.serving.PredictionService",
+             f"-Dps.model.registry.dir={reg}",
+             f"-Dps.model.name={mk.MODEL_NAME}", "-Dps.transport=inprocess",
+             os.path.join(LR9, "test.csv"), served])
+    same_bytes(os.path.join(served, "part-m-00000"),
+               os.path.join(LR9, "served", "part-m-00000"),
+               "lr9 served on the card")
+    print(f"lr9 on the card: history of {len(got)} lines within {rel:.3g} "
+          f"of the JAX package's ({strings} of {4 * len(got)} .9g strings "
+          f"differ); predictor labels equal, {probs} of {len(gl)} .3f "
+          f"probabilities differ", flush=True)
+
+    csv = os.path.join(WORK, "churn_scale.csv")
+    churn_svm_csv(np.random.default_rng(20261059), LR_SCALE_ROWS, csv)
+    keys = [f"-Dfeature.schema.file.path={mk.SCHEMA}",
+            f"-Dpositive.class.value={mk.POSITIVE}", "-Dlearning.rate=0.001",
+            "-Dconvergence.criteria=iterLimit",
+            f"-Diteration.limit={LR_SCALE_ITERS}"]
+    scale_coeff = os.path.join(WORK, "churn_scale_coeff.txt")
+    if os.path.exists(scale_coeff):
+        os.remove(scale_coeff)
+    t0 = time.perf_counter()
+    run_cli(["logisticRegression", *keys,
+             f"-Dcoeff.file.path={scale_coeff}", csv,
+             os.path.join(WORK, "churn_scale_train")])
+    job_s = time.perf_counter() - t0
+    with open(scale_coeff) as fh:
+        card_hist = LR.parse_history(fh.read().splitlines())
+    schema = FeatureSchema.load(mk.SCHEMA)
+    table = load_csv(csv, schema)
+    params = LR.LogisticParams(mk.POSITIVE, learning_rate=0.001,
+                               iteration_limit=LR_SCALE_ITERS)
+    LR.train(table, schema, params, device=dev)       # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    LR.train(table, schema, params, device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    _, cpu_hist, _ = LR.train(table, schema, params, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    rel_cpu, strings_cpu = history_rel(card_hist, cpu_hist)
+    if rel_cpu > LR_CPU_RTOL:
+        fail(f"1M-row history: the card's within {rel_cpu:.3g} of the "
+             f"CPU's, over {LR_CPU_RTOL:g}")
+    t0 = time.perf_counter()
+    run_cli(["logisticRegressionPredictor", *keys,
+             f"-Dcoeff.file.path={scale_coeff}", "-Dvalidation.mode=true",
+             csv, os.path.join(WORK, "churn_scale_pred")])
+    pred_s = time.perf_counter() - t0
+    acc = read_json(os.path.join(WORK, "churn_scale_pred") +
+                    ".counters.json")["Validation"]["Accuracy"]
+    ms_iter = train_s / LR_SCALE_ITERS * 1e3
+    print(f"logisticRegression over {LR_SCALE_ROWS:,} rows: job {job_s:.2f}"
+          f" s (CSV load included); the training loop {ms_iter:.3f} ms an "
+          f"iteration, {LR_SCALE_ROWS * LR_SCALE_ITERS / train_s:,.0f} "
+          f"rows/s (the CPU's {cpu_s / LR_SCALE_ITERS * 1e3:.1f} ms an "
+          f"iteration); history within {rel_cpu:.3g} of the CPU's "
+          f"({strings_cpu} of {4 * len(card_hist)} .9g strings differ); "
+          f"predictor {pred_s:.2f} s ({LR_SCALE_ROWS / pred_s:,.0f} rows/s, "
+          f"validation accuracy {acc})", flush=True)
+    return {"lr9_rel": rel, "lr9_strings": strings, "lr9_prob_strings": probs,
+            "job_s": job_s, "ms_per_iter": ms_iter,
+            "rows_per_s": LR_SCALE_ROWS * LR_SCALE_ITERS / train_s,
+            "cpu_ms_per_iter": cpu_s / LR_SCALE_ITERS * 1e3,
+            "cpu_rel": rel_cpu, "cpu_strings": strings_cpu,
+            "predict_s": pred_s, "accuracy": acc}
 
 
 def main():
@@ -5655,6 +6146,12 @@ def main():
     nb_joined = bayes_joined(nb_csv)
     wire = wire_phases(dev)
     fleet = fleet_phases(dev)
+    retrain9 = retrain9_phase()
+    retrain = retrain_scale(dev, fs, scale_csv, scale_trees)
+    logistic = logistic_phase(dev)
+    phase()
+    print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
+          f"{sum(PHASE_SECONDS.values()):.1f} s", flush=True)
 
     def per_process(run, key):
         return [g[key] for g in run["launches"]]
@@ -5695,7 +6192,9 @@ def main():
                           for c in ("a", "f")},
         "fleet_loop_launches": [r["b2_launches"] for r in fleet["loop"]],
         "fleet_swap_launches": fleet["swap"]["b2_after"],
-        "fleet_autoscale_launches": fleet["autoscale"]["b2"]}, {
+        "fleet_autoscale_launches": fleet["autoscale"]["b2"],
+        "retrain9_launches": {k: v["b2"] for k, v in retrain9.items()},
+        "retrain_scale_launches": retrain["scale"]["launches"]["b2"]}, {
         "name": "forest_level_counts", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/histogram.cu",
         "replaces": "avenir_tpu/ops/pallas/histogram.py:40",
@@ -5726,7 +6225,13 @@ def main():
         "joined_stream_off_launches": joined_job("soff", "b1"),
         "joined_dt_launches": [sum(rank[f"dt{lv}"]["b1"]
                                    for lv in range(JOINED_DT_LEVELS))
-                               for rank in ranks]}, {
+                               for rank in ranks],
+        "retrain9_launches": {k: v["b1"] for k, v in retrain9.items()},
+        "retrain9_mma_launches": {k: v["b1_mma"]
+                                  for k, v in retrain9.items()},
+        "retrain_scale_launches": retrain["scale"]["launches"]["b1"],
+        "retrain_scale_mma_launches":
+            retrain["scale"]["launches"]["b1_mma"]}, {
         "name": "quantized_vote", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/vote.cu",
         "replaces": "avenir_tpu/ops/pallas/vote.py:129",
@@ -5772,7 +6277,9 @@ def main():
         "joined_mono_launches": joined_job("mono", "b4"),
         "joined_stream_off_launches": joined_job("soff", "b4"),
         "drift_resp_launches": wire["drift"]["b4_launches"],
-        "drift_resp_windows": wire["drift"]["windows"]}, {
+        "drift_resp_windows": wire["drift"]["windows"],
+        "retrain9_launches": {k: v["b4"] for k, v in retrain9.items()},
+        "retrain_scale_launches": retrain["scale"]["launches"]["b4"]}, {
         "name": "topk_scan", "route": "cuda",
         "source": "avenir_tpu_torch/csrc/topk.cu",
         "replaces": "avenir_tpu/ops/pallas/topk.py:39",
@@ -5843,7 +6350,10 @@ def main():
                            for c, r in fleet["main"].items()},
                   "loop": fleet["loop"], "sharded": fleet["sharded"],
                   "swap": fleet["swap"], "autoscale": fleet["autoscale"],
-                  "hosts": fleet["hosts"]}}), flush=True)
+                  "hosts": fleet["hosts"]},
+        "retrain": {"retrain9": retrain9, **retrain},
+        "logistic": logistic,
+        "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -368,13 +368,13 @@ def test_registry_bayes_kind_both_ways(tmp_path):
 
 def test_registry_refuses_unported_kinds_by_name(tmp_path):
     reg = ModelRegistry(str(tmp_path))
+    mlp = {"W1": np.zeros((3, 2), np.float32), "b1": np.zeros(2, np.float32),
+           "W2": np.zeros((2, 2), np.float32), "b2": np.zeros(2, np.float32)}
     with pytest.raises(NotImplementedError, match="not ported"):
-        reg.publish("w", np.zeros(3))
-    JaxRegistry(str(tmp_path)).publish(
-        "lr", np.zeros(3, np.float32), kind="logistic",
-        params={"pos_class_value": "k1"})
-    with pytest.raises(NotImplementedError, match="'logistic'"):
-        reg.load("lr")
+        reg.publish("w", mlp)
+    JaxRegistry(str(tmp_path)).publish("nn", mlp, kind="mlp")
+    with pytest.raises(NotImplementedError, match="'mlp'"):
+        reg.load("nn")
 
 
 def test_prediction_service_over_a_bayes_version(tmp_path):

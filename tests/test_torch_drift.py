@@ -388,4 +388,14 @@ def test_guardrail_actions():
     assert svc.reason == "x psi=0.5 >= 0.25"
     assert counters.as_dict()["DriftMonitor"] == {
         "RefreshProbes": 1, "RefreshSwaps": 1, "Degradations": 1}
-    assert not hasattr(pp, "retrain_action")
+
+    class Controller:
+        def __init__(self):
+            self.alerts = []
+
+        def submit_alert(self, rec):
+            self.alerts.append(rec)
+    ctl = Controller()
+    pp.retrain_action(ctl, counters)(rec)
+    assert ctl.alerts == [rec]
+    assert counters.get("DriftMonitor", "RetrainRequests") == 1

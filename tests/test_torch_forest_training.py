@@ -405,8 +405,10 @@ def test_port_publish_is_byte_identical_and_loads_in_both(tmp_path):
     back = ModelRegistry(ref.base_dir).load("m")
     assert back.version == 2 and [t.to_json() for t in back.model] == \
         [t.to_json() for t in trees[:3]]
+    mlp = {"W1": np.zeros((3, 2), np.float32), "b1": np.zeros(2, np.float32),
+           "W2": np.zeros((2, 2), np.float32), "b2": np.zeros(2, np.float32)}
     with pytest.raises(NotImplementedError, match="not ported"):
-        ours.publish("b", np.zeros(3))
+        ours.publish("b", mlp)
 
 
 @pytest.mark.parametrize("key", [

@@ -65,7 +65,14 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.serving.router",
              "avenir_tpu_torch.serving.fleet",
              "avenir_tpu_torch.serving.autoscaler",
-             "avenir_tpu_torch.serving.fleet_host"):
+             "avenir_tpu_torch.serving.fleet_host",
+             "avenir_tpu_torch.control",
+             "avenir_tpu_torch.control.journal",
+             "avenir_tpu_torch.control.controller",
+             "avenir_tpu_torch.cli.control_jobs",
+             "avenir_tpu_torch.regress",
+             "avenir_tpu_torch.regress.logistic",
+             "avenir_tpu_torch.cli.regress_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)

@@ -149,7 +149,7 @@ def test_job_names_resolve(names):
 
 def test_unported_knn_neighbours_stay_unported():
     with pytest.raises(port_jobs.JobNotPorted):
-        port_jobs.resolve("logisticRegression")
+        port_jobs.resolve("neuralNetwork")
 
 
 def test_intra_set_votes_sum_to_k(tmp_path):

@@ -29,6 +29,7 @@ from avenir_tpu_torch.io import native_wire
 from avenir_tpu_torch.telemetry import current_tracer, metrics, reqtrace
 from avenir_tpu_torch.telemetry import server as port_server
 from avenir_tpu_torch.telemetry.trace import read_trace_file
+from tests.test_torch_wire_serving import restart_sampling_counters
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(TESTS)
@@ -38,6 +39,7 @@ PROPS = os.path.join(ROOT, "resource", "rafo.properties")
 
 @pytest.fixture(autouse=True)
 def restore_modes():
+    restart_sampling_counters()
     yield
     native_wire.set_mode("auto")
     reqtrace.set_sample_rate(0)

@@ -65,10 +65,21 @@ def _lines(path):
     return _read(path).splitlines()
 
 
+def restart_sampling_counters():
+    """Both packages count predict pushes for head sampling in a
+    process-global counter; restart them, so the ids a test samples do
+    not depend on the tests run before it in the same process."""
+    import itertools
+    from avenir_tpu.telemetry import reqtrace as jax_reqtrace
+    reqtrace.reset_sampling()
+    jax_reqtrace._counter = itertools.count(1)
+
+
 @pytest.fixture(autouse=True)
 def cpu_default():
     from avenir_tpu_torch.runtime import set_default_device
     set_default_device("cpu")
+    restart_sampling_counters()
     yield
     set_default_device(None)
     native_wire.set_mode("auto")
