@@ -15,7 +15,11 @@ and ``knnPipeline`` (``knn_jobs.py``), ``bayesianDistribution`` and
 ``bayesianPredictor`` (``bayes_jobs.py``), ``driftMonitor`` and
 ``predictDriftScore`` (``monitor_jobs.py``), ``retrainController``
 (``control_jobs.py``), ``logisticRegression`` and
-``logisticRegressionPredictor`` (``regress_jobs.py``).
+``logisticRegressionPredictor`` (``regress_jobs.py``), ``neuralNetwork``
+and ``neuralNetworkPredictor`` (``nn_jobs.py``), ``simulatedAnnealing``
+and ``geneticAlgorithm`` (``optimize_jobs.py``), ``multiArmBandit``,
+``greedyRandomBandit``, ``softMaxBandit``, ``auerDeterministic`` and
+``randomFirstGreedyBandit`` (``reinforce_jobs.py``).
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
 package's classes), which ``cli.run`` enforces in a joined
@@ -28,14 +32,15 @@ package's classes), which ``cli.run`` enforces in a joined
   ``logisticRegression``, one gradient all-reduce an iteration);
 * ``map`` — a per-record transform of the local input; each process writes
   its own part file (``modelPredictor``, ``bayesianPredictor``,
-  ``logisticRegressionPredictor``);
+  ``logisticRegressionPredictor``, ``neuralNetworkPredictor``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
-  with ``nen.train.shard=true``);
+  with ``nen.train.shard=true``; ``simulatedAnnealing`` its chains and
+  ``geneticAlgorithm`` its islands, merged by ``allgather_object``);
 * ``gather`` — host-side global computation over every process's input
   files (``sameTypeSimilarity``, ``nearestNeighbor``,
-  ``groupedRecordSimilarity``, ``featureCondProbJoiner``), read from
-  ``cli.run``'s spool;
+  ``groupedRecordSimilarity``, ``featureCondProbJoiner``,
+  ``neuralNetwork`` and the bandit jobs), read from ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
   ``driftMonitor``, ``predictDriftScore``, ``retrainController``).
 """

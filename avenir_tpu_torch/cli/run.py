@@ -54,7 +54,10 @@ from . import bayes_jobs  # noqa: F401  (registers the Naive Bayes jobs)
 from . import control_jobs  # noqa: F401  (registers retrainController)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
 from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
+from . import nn_jobs  # noqa: F401  (registers the MLP jobs)
+from . import optimize_jobs  # noqa: F401  (registers the SA and GA jobs)
 from . import regress_jobs  # noqa: F401  (registers the logistic jobs)
+from . import reinforce_jobs  # noqa: F401  (registers the bandit jobs)
 from . import serving_jobs  # noqa: F401  (registers predictionService)
 
 

@@ -214,6 +214,16 @@ class ColumnarTable:
     def class_codes(self) -> np.ndarray:
         return self.columns[self.schema.class_attr_field.ordinal]
 
+    def feature_matrix(self, fields=None, dtype=np.float64) -> np.ndarray:
+        """(n_rows, F) dense matrix of the feature fields' values
+        (categorical fields as their codes)."""
+        fields = list(fields if fields is not None
+                      else self.schema.feature_fields)
+        if not fields:
+            return np.zeros((self.n_rows, 0), dtype=dtype)
+        return np.stack([self.columns[f.ordinal].astype(dtype)
+                         for f in fields], axis=1)
+
     def take_rows(self, lo: int, hi: int) -> "ColumnarTable":
         """Contiguous row slice [lo, hi) as a new table: encoded columns
         are numpy views, string columns materialize the slice."""

@@ -9,6 +9,9 @@
   (replace the Pallas ``ops/pallas/histogram.py`` ``forest_level_counts``
   and ``bin_counts``).
 
+``csrc/threefry.cu``, the counter hash under ``jax.random``'s streams,
+replaces no Pallas kernel; its wrapper is ``utils/threefry.py``.
+
 Nothing here imports ``ctypes`` libraries or runs ``nvcc`` at import time:
 the CPU tests import every module on a machine with neither.
 """

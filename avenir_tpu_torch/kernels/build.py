@@ -32,7 +32,8 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "avenir_tpu_torch"
 
 # kernel library name -> source file under csrc/
 SOURCES: Dict[str, str] = {"vote": "vote.cu", "histogram": "histogram.cu",
-                           "bin_counts": "bin_counts.cu", "topk": "topk.cu"}
+                           "bin_counts": "bin_counts.cu", "topk": "topk.cu",
+                           "threefry": "threefry.cu"}
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")

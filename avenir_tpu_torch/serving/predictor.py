@@ -1,7 +1,7 @@
 """Warm, shape-bucketed predictors: port of
 ``avenir_tpu/serving/predictor.py`` (the ``Predictor`` base, the
-``ForestPredictor``, the ``BayesPredictor`` and the
-``LogisticPredictor``).
+``ForestPredictor``, the ``BayesPredictor``, the ``LogisticPredictor``
+and the ``MLPPredictor``).
 
 Every ``Predictor`` pads incoming micro-batches up to a fixed bucket size
 with copies of the batch's last row (per-row prediction is independent, so
@@ -25,7 +25,9 @@ wire form), and a float one patches the trees a registry delta changed
 each bucket-padded table with ``models/bayes.predict``, the offline
 ``bayesianPredictor``'s argmax.  A ``LogisticPredictor`` computes
 ``sigmoid([1, x...] @ w)`` in float32 over each bucket-padded table, the
-trainer's own predict math (``regress/logistic.py``).
+trainer's own predict math (``regress/logistic.py``).  An
+``MLPPredictor`` answers the argmax of ``nn/mlp.forward_logits`` over each
+bucket-padded table, the offline ``neuralNetworkPredictor``'s label.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ from ..kernels.dispatch import BACKEND_CUDA, note_backend
 from ..kernels.vote import patch_vote_model, vote_form
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, note_dispatch, note_h2d
-from .registry import BAYES, FOREST, LOGISTIC, LoadedModel
+from .registry import BAYES, FOREST, LOGISTIC, MLP, LoadedModel
 
 DEFAULT_BUCKETS = (1, 8, 64, 512)
 # the stacked arrays a delta sidecar carries slices of, in stacked order
@@ -501,13 +503,39 @@ class LogisticPredictor(Predictor):
                                for t, n in self._bucketed_tables(rows)])
 
 
+class MLPPredictor(Predictor):
+    """MLP serving: ``nn/mlp.forward_logits`` argmax (``mlp.predict``)
+    on ``device`` (default: the process device) over bucket-padded
+    tables; the parameters are placed on the device once."""
+
+    def __init__(self, params: Dict[str, Any], schema: FeatureSchema,
+                 class_values: Optional[Sequence[str]] = None, device=None,
+                 **kw):
+        super().__init__(schema, **kw)
+        import torch
+        self.device = resolve_device(device)
+        self.params = {k: torch.as_tensor(np.asarray(v, np.float32)).to(
+            self.device) for k, v in params.items()}
+        cf = schema.class_attr_field
+        self.class_values = list(class_values or cf.cardinality or [])
+
+    def _predict_table(self, table: ColumnarTable) -> List[Optional[str]]:
+        import torch
+        from ..nn import mlp
+        X = torch.from_numpy(table.feature_matrix(dtype=np.float32)).to(
+            self.device)
+        idx = mlp.predict(self.params, X).cpu().numpy()
+        cv = self.class_values
+        return [cv[i] if i < len(cv) else str(int(i)) for i in idx]
+
+
 def make_predictor(loaded: LoadedModel,
                    schema: Optional[FeatureSchema] = None,
                    buckets: Sequence[int] = DEFAULT_BUCKETS,
                    delim: str = ",", device=None,
                    quantized: bool = False, serve_mesh=None) -> Predictor:
     """Registry artifact -> a Predictor of its kind (``forest``,
-    ``bayes`` or ``logistic``), using the artifact's embedded schema
+    ``bayes``, ``logistic`` or ``mlp``), using the artifact's embedded schema
     unless one is passed explicitly.  A logistic version names its
     positive class in its ``pos_class_value`` param (and may set
     ``threshold``).
@@ -523,11 +551,8 @@ def make_predictor(loaded: LoadedModel,
         raise ValueError(
             f"model {loaded.name!r} v{loaded.version} has no embedded "
             "schema; pass schema= to make_predictor")
-    if loaded.kind not in (FOREST, BAYES, LOGISTIC):
-        raise NotImplementedError(
-            f"serving model kind {loaded.kind!r} is not ported to "
-            f"avenir_tpu_torch yet (ported: {FOREST!r}, {BAYES!r}, "
-            f"{LOGISTIC!r})")
+    if loaded.kind not in (FOREST, BAYES, LOGISTIC, MLP):
+        raise ValueError(f"unknown model kind {loaded.kind!r}")
     if quantized and loaded.kind != FOREST:
         warnings.warn(
             f"ps.quantized: only forest artifacts have a quantized "
@@ -551,6 +576,10 @@ def make_predictor(loaded: LoadedModel,
             loaded.model, schema, p["pos_class_value"],
             threshold=float(p.get("threshold", 0.5)), device=device,
             buckets=buckets, delim=delim)
+    if loaded.kind == MLP:
+        return MLPPredictor(loaded.model, schema,
+                            class_values=loaded.class_values or None,
+                            device=device, buckets=buckets, delim=delim)
     p = loaded.params
     qf = None
     if quantized:

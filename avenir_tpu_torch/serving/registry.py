@@ -1,5 +1,5 @@
 """Model registry: port of ``avenir_tpu/serving/registry.py`` for the
-``forest``, ``bayes`` and ``logistic`` kinds — reading versions,
+``forest``, ``bayes``, ``logistic`` and ``mlp`` kinds — reading versions,
 publishing them (whole or as a delta over a parent), the serving pin and
 retention.
 
@@ -23,7 +23,8 @@ honours a pin whose target is intact.  A forest's payload is its trees'
 JSON in ``meta.json`` (an empty ``arrays.npz``); a Naive Bayes model's is
 its count tables and Gaussian parameters in ``arrays.npz`` and its record
 total in ``meta.json``; a logistic model's is its weight vector ``w``
-in ``arrays.npz``.
+in ``arrays.npz``; an MLP's is its four parameter arrays (``W1``,
+``b1``, ``W2``, ``b2``, float32) in ``arrays.npz``.
 
 ``pin_version`` / ``clear_pin`` write and remove the serving pin
 (tmp-then-rename), ``retire`` keeps the newest versions plus the pinned,
@@ -32,8 +33,7 @@ publishers.  ``publish_delta`` publishes a forest in full and attaches a
 ``delta.json`` + ``delta.npz`` sidecar pair holding only the trees that
 changed against a parent version, in the parent's stacked layout: a
 serving tier resident on the parent patches those trees
-(``ForestPredictor.apply_delta``) instead of reloading the forest.  The
-``mlp`` kind is not ported yet.
+(``ForestPredictor.apply_delta``) instead of reloading the forest.
 """
 
 from __future__ import annotations
@@ -145,8 +145,8 @@ def _pad_stacked_to(c_host, p_host):
 
 def _detect_kind(model: Any) -> str:
     """The registry kind of a model object: a forest (a
-    ``DecisionPathList`` or a list of them), a ``NaiveBayesModel``, or a
-    logistic model's 1-D weight vector."""
+    ``DecisionPathList`` or a list of them), a ``NaiveBayesModel``, a
+    logistic model's 1-D weight vector, or an MLP's parameter dict."""
     from ..models.bayes import NaiveBayesModel
     from ..models.tree import DecisionPathList
     if isinstance(model, NaiveBayesModel):
@@ -157,11 +157,10 @@ def _detect_kind(model: Any) -> str:
         return FOREST
     if isinstance(model, np.ndarray) and model.ndim == 1:
         return LOGISTIC
-    raise NotImplementedError(
-        f"publishing {type(model).__name__} is not ported to "
-        f"avenir_tpu_torch yet (ported kinds: {FOREST!r}, a "
-        f"DecisionPathList or a list of them, {BAYES!r}, a "
-        f"NaiveBayesModel, and {LOGISTIC!r}, a 1-D weight array)")
+    if isinstance(model, dict) and {"W1", "b1", "W2", "b2"} <= set(model):
+        return MLP
+    raise TypeError(f"cannot infer model kind for {type(model).__name__}; "
+                    f"pass kind= explicitly (one of {KINDS})")
 
 
 def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
@@ -170,7 +169,8 @@ def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
     """A model of a detected kind -> (arrays, model_json, class_values),
     as the JAX package encodes it: a forest's arrays are empty, a Naive
     Bayes model's are its tables with their dtypes (the ordinals and bin
-    counts int64), a logistic model's its weights in their own dtype."""
+    counts int64), a logistic model's its weights in their own dtype, an
+    MLP's its parameters in the dict's order."""
     if kind == FOREST:
         from ..models.tree import DecisionPathList
         trees = [model] if isinstance(model, DecisionPathList) \
@@ -183,6 +183,12 @@ def _encode(model: Any, kind: str, schema: Optional[FeatureSchema]
         cls = list(schema.class_attr_field.cardinality or []) if schema \
             else None
         return {"w": np.asarray(model)}, None, cls
+    if kind == MLP:
+        cls = list(schema.class_attr_field.cardinality or []) if schema \
+            else None
+        return {k: np.asarray(v.detach().cpu().numpy()
+                              if hasattr(v, "detach") else v)
+                for k, v in model.items()}, None, cls
     arrays = {
         "post_counts": np.asarray(model.post_counts),
         "class_counts": np.asarray(model.class_counts),
@@ -225,9 +231,9 @@ def _decode(kind: str, arrays: Dict[str, np.ndarray], meta: Dict[str, Any],
             cont_prior_std=arrays["cont_prior_std"])
     if kind == LOGISTIC:
         return arrays["w"]
-    raise NotImplementedError(
-        f"model kind {kind!r} is not ported to avenir_tpu_torch yet "
-        f"(ported: {FOREST!r}, {BAYES!r}, {LOGISTIC!r})")
+    if kind == MLP:
+        return {k: v for k, v in arrays.items()}
+    raise ValueError(f"unknown model kind {kind!r}; known: {KINDS}")
 
 
 class ModelRegistry:
@@ -466,7 +472,8 @@ class ModelRegistry:
                 kind: Optional[str] = None,
                 params: Optional[Dict[str, Any]] = None) -> int:
         """Write the model (a forest: a list of ``DecisionPathList``; a
-        ``NaiveBayesModel``; or a logistic 1-D weight array) as the next
+        ``NaiveBayesModel``; a logistic 1-D weight array; or an MLP's
+        ``W1``/``b1``/``W2``/``b2`` dict) as the next
         version and atomically commit it;
         returns the version number.  ``meta.json`` and ``arrays.npz`` hold
         what the JAX package's ``publish`` writes for the same model (the

@@ -182,3 +182,77 @@ def seq_cumsum(x: torch.Tensor) -> torch.Tensor:
         acc = acc + x[..., j]
         out[..., j] = acc
     return out
+
+
+# XLA's log1p (the elemental emitter's Cephes rational approximation below
+# |x| < sqrt(2) - 1, log(1 + x) above), coefficients rounded to float32
+_LOG1P_SMALL = _f32(0.41421356237309504880)
+_LOG1P_DEN = tuple(_f32(v) for v in (
+    1.5062909083469192043167e1, 8.3047565967967209469434e1,
+    2.2176239823732856465394e2, 3.0909872225312059774938e2,
+    2.1642788614495947685003e2, 6.0118660497603843919306e1))
+_LOG1P_NUM = tuple(_f32(v) for v in (
+    4.5270000862445199635215e-5, 4.9854102823193375972212e-1,
+    6.5787325942061044846969e0, 2.9911919328553073277375e1,
+    6.0949667980987787057556e1, 5.7112963590585538103336e1,
+    2.0039553499201281259648e1))
+
+
+def xla_log1p_f32(x: torch.Tensor) -> torch.Tensor:
+    """``log(1 + x)`` of float32 ``x`` as XLA's CPU backend computes it.
+
+    Below ``|x| < sqrt(2) - 1``: numerator and denominator polynomials
+    in ``x`` by FMAs (Horner, the denominator's leading 1 exact), their
+    quotient, then ``x + fma(x^2, -1/2, (x * x^2) * q)``; above it
+    :func:`xla_log_f32` of the rounded ``1 + x``."""
+    x = x.float()
+    large = xla_log_f32(x + 1.0)
+    den = torch.ones_like(x)
+    for c in _LOG1P_DEN:
+        den = fma_f32(den, x, c)
+    num = torch.full_like(x, _LOG1P_NUM[0])
+    for c in _LOG1P_NUM[1:]:
+        num = fma_f32(num, x, c)
+    x2 = x * x
+    small = fma_f32(x2, -0.5, (x * x2) * (num / den))
+    small = x + small
+    return torch.where(x.abs() < _LOG1P_SMALL, small, large)
+
+
+def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 square root (XLA's ``vsqrtps``),
+    through float64: ``torch.sqrt`` of a float32 tensor on the CPU is
+    within half an ulp plus a little, and misses it in about one input
+    in a thousand."""
+    return torch.sqrt(x.double()).float()
+
+
+# Giles' single-precision erfinv as XLA states it: the polynomial for
+# w = -log1p(-x^2) < 5 and the one for w >= 5, highest degree first
+_ERFINV_LT5 = tuple(_f32(v) for v in (
+    2.81022636e-08, 3.43273939e-07, -3.5233877e-06, -4.39150654e-06,
+    0.00021858087, -0.00125372503, -0.00417768164, 0.246640727,
+    1.50140941))
+_ERFINV_GE5 = tuple(_f32(v) for v in (
+    -0.000200214257, 0.000100950558, 0.00134934322, -0.00367342844,
+    0.00573950773, -0.0076224613, 0.00943887047, 1.00167406, 2.83297682))
+
+
+def xla_erf_inv_f32(x: torch.Tensor) -> torch.Tensor:
+    """``erfinv`` of float32 ``x`` as XLA's CPU backend computes
+    ``chlo.erf_inv``: ``l = log1p(-(x*x))`` (:func:`xla_log1p_f32`), the
+    argument ``-l - 2.5`` or ``sqrt(-l) - 3`` (:func:`sqrt_f32`), the degree-8 polynomial by
+    FMAs, times ``x``; ``+-1`` gives ``+-inf``."""
+    x = x.float()
+    lg = xla_log1p_f32(x * -x)
+    lt = lg > -5.0
+    w = torch.where(lt, -2.5 - lg, sqrt_f32(-lg) - 3.0)
+    zero = torch.zeros_like(x)
+
+    def coef(i):
+        return torch.where(lt, zero + _ERFINV_LT5[i], zero + _ERFINV_GE5[i])
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = fma_f32(p, w, coef(i))
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)

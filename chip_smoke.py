@@ -11,9 +11,11 @@ order — any failure exits non-zero before the result line:
   1. device   require torch.cuda.is_available(); print the card's name and
               power limit (nvidia-smi)
   2. build    build every CUDA kernel from csrc/ (one nvcc per source, all
-              started together: vote.cu, histogram.cu, bin_counts.cu and
-              topk.cu) and, on a thread meanwhile, the native CSV reader
-              (io/csv_native.cpp, g++) into build/avenir_tpu_torch/
+              started together: vote.cu, histogram.cu, bin_counts.cu,
+              topk.cu and threefry.cu; topk.cu, the slowest, is waited
+              for just before phase 15, which first needs it) and, on a
+              thread meanwhile, the native CSV reader (io/csv_native.cpp,
+              g++) into build/avenir_tpu_torch/
   3. kernel   the ensemble-vote kernel against its plain PyTorch version on
               the card: random stacked forests (NaNs, negative and
               out-of-range codes, negative integer weights, ties, min_odds
@@ -22,7 +24,8 @@ order — any failure exits non-zero before the result line:
               in the scan form, and a wide one whose tables and predicates
               do not fit in shared memory (T=64, P=257, F=16, C=16, K=8),
               which must select the scan form, each at n = 1, 7, 513 and
-              1,000,000 rows; the int32 votes must be EXACTLY equal
+              1,000,000 rows (262,144 at the wide shape); the int32 votes
+              must be EXACTLY equal
   4. golden   the port's modelPredictor CLI over the golden rf forest
               (tests/golden/fixtures/rf) must reproduce its pred.csv byte for
               byte
@@ -93,8 +96,8 @@ order — any failure exits non-zero before the result line:
               -128 / 127 sentinels, pad paths q_lo = 127, codes of -1 and
               >= C) at the published shape (table and scan form) and the
               wide one (scan form, predicates from global memory), n = 1, 7,
-              513 and 1,000,000, min_odds 1.0 and 1.5; the votes must be
-              EXACTLY equal
+              513 and 1,000,000 (262,144 at the wide shape), min_odds 1.0
+              and 1.5; the votes must be EXACTLY equal
  12. b4       the bin-counts kernel against its plain PyTorch version: the
               rafo baseline (R=5, B=7), the default 32-bin shape (R=33,
               B=33) and a wide one whose per-warp accumulators do not fit
@@ -126,7 +129,7 @@ order — any failure exits non-zero before the result line:
               memory), the second half of the train rows duplicating the
               first (ties), both metrics, k = 1, 7, 10, 64 and 100 (above
               the largest register list: the list in global memory), each
-              clamped to the train count, at n_test = 1, 7, 513 x n_train
+              clamped to the train count, at n_test = 1, 513 x n_train
               = 5, 1000, 200,000, each with the planned train split count
               and the count forced to 1, 2 and 7, the tail skip on and off;
               distances and indices must be EXACTLY equal (at 200,000
@@ -167,8 +170,8 @@ order — any failure exits non-zero before the result line:
               table and scan; wide: scan), over the
               tree slices of S = 1, 2, 3 and 4 shards (zero-weight pad
               members as the sharded serve makes them), n = 1, 7, 513 and
-              1,000,000 (the wide shape's plain tallies at 1M rows from one
-              plain first-match pass); then the merge-finalize kernel
+              1,000,000 (262,144 at the wide shape, its plain tallies from
+              one plain first-match pass); then the merge-finalize kernel
               against its plain version on those partials, min_odds 1.0
               and 1.5, and against B2 on the same rows: equal votes
  20. b7       the top-k merge kernel against topk_merge_torch, exactly,
@@ -314,7 +317,7 @@ order — any failure exits non-zero before the result line:
               native, chunk_encode@2 Python): shard 0 must fail at its
               next collective within AVENIR_TPU_ALLREDUCE_TIMEOUT_S=5;
               --resume on both must give the fixture's trees, read by the
-              same reader
+              same reader (the two readers' lanes side by side)
  33. scale    phase 30's 1,000,000-row CSV over two --shard-child
               processes (row-range shards, 262,144-row blocks, a teed
               baseline, the file transport), on the native reader, then
@@ -414,7 +417,7 @@ order — any failure exits non-zero before the result line:
               rows; prints rows/s and the layers (host wire pack, H2D,
               device counts, D2H, model write)
  45. scale    bayesianDistribution and bayesianPredictor (argmax, then the
-              feature-prob mode) over a 400,000-row CSV of the same model,
+              feature-prob mode) over a 200,000-row CSV of the same model,
               on the card and with -Dplatform=cpu: model, pred and
               feature-prob files byte-equal (the differing feature-prob
               strings are counted, target 0); prints each job's rows/s and
@@ -469,7 +472,7 @@ order — any failure exits non-zero before the result line:
               the same jobs over the 300 well-formed records: launches =
               the workers' batches + 4 warm-ups a worker, all table form
               (B3 for e, no B2)
- 52. loop     30,000 rafo9 requests prefilled, drained by 1, 2 and 4
+ 52. loop     15,000 rafo9 requests prefilled, drained by 1, 2 and 4
               workers over 1 and 2 broker shards, and by 2 workers on
               the default stream: requests/s, serve.batch p50/p99,
               OverlappedBatches, batches a worker, B2 launches = batches +
@@ -517,6 +520,45 @@ order — any failure exits non-zero before the result line:
               CSV: ms an iteration and rows/s, the card's history within
               1e-4 of the CPU's over the same rows
 
+ 60-63        the threefry twin of jax.random and its consumers; the
+              threefry count is zeroed before each of 61-63 (their main
+              paths, launched through the port's CLI) and read after, and
+              each must have launched the kernel
+ 60. threefry the threefry2x32 kernel (csrc/threefry.cu) bit-equal to its
+              plain version over 2^24 explicit and flat-index counters
+              under three keys, both output modes; every threefry9 case
+              (jax.random's draws, made on the CPU) reproduced on the
+              card; random_bits and normal over 2^24 values: call and
+              device ms, the plain version's, the bound (the larger of 4
+              bytes written a value over 3.35 TB/s and the 41 operations
+              a value that only the integer ALU pipe issues, 20 rotates
+              and 21 xors, at its 64 lanes a clock an SM, 16.75 T/s)
+ 61. mlp      mlp9 on the card: init_params and the first permutations
+              bit-equal, 5 batch iterations and the short incr and
+              minibatch runs (3 epochs over 48 and 120 rows) within 1e-4
+              of the JAX package's, cases a-c on the
+              JAX package's grid (model strings apart counted: the
+              1,000-iteration descent is chaotic), d (resumed) == a,
+              neuralNetworkPredictor over the JAX models (labels equal
+              wherever the top two logits are 1e-4 apart), the mlp
+              version's served lines byte-equal; neuralNetwork over
+              1,000,000 churn rows (batch, 1,000 iterations) and its
+              predictor, ms an iteration and rows/s, the card's weights
+              after 100 iterations against the CPU's; one minibatch epoch
+              (batch 64) and one incr epoch over 20,000 rows, ms a step
+ 62. optimize golden sa and every opt9 case byte-equal (lines and
+              counters; the two 2-process cases over two gloo ranks on
+              the card); SA with 8,192 chains over a 64 x 32
+              task_sched_gen domain, 2,000 iterations + 100 of local
+              descent: chain-steps/s and threefry launches a step; the
+              same at 50 iterations byte-equal to the port's CPU run; GA
+              64 islands x 256, 120 generations
+ 63. bandits  golden bandit and price, every mab9 round and the mab9
+              VectorBandits selections byte-equal; VectorBandits at
+              1,000,000 groups x 4 actions, every algorithm, 3 calls,
+              each call's selections equal to the port's CPU twin's;
+              selections/s
+
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
 kernel's ``old_ms`` and ``old_device_ms``, B1's root and bench device
@@ -530,7 +572,9 @@ under ``bayes``, phases 42-46's launch counts, rows/s and layer times,
 under ``wire`` phases 47-50's rates and counts, and under ``fleet`` phases
 51-55's (B2's, B3's and B6's ``fleet_*`` launches are theirs too),
 under ``retrain`` phases 56-58's (B1's, B2's and B4's ``retrain*``
-launches are theirs too), under ``logistic`` phase 59's, and under
+launches are theirs too), under ``logistic`` phase 59's, under ``mlp``,
+``optimize`` and ``bandits`` phases 61-63's (the ``threefry2x32`` entry's
+launches are theirs), and under
 ``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -573,6 +617,15 @@ TESTS_PER_S = 67e12 / 2
 RAFO_SHAPE = (9, 17, 4, 4, 3)    # T, P, F, C, K
 WIDE_SHAPE = (64, 257, 16, 16, 8)
 ROW_COUNTS = (1, 7, 513, 1_000_000)
+# the wide shape's largest check (its scan is ~100x the published one's)
+WIDE_BIG_ROWS = 262_144
+
+
+def row_counts(shape):
+    """ROW_COUNTS for ``shape``; the wide shape's largest is
+    WIDE_BIG_ROWS."""
+    return ROW_COUNTS if shape != WIDE_SHAPE else \
+        ROW_COUNTS[:-1] + (WIDE_BIG_ROWS,)
 # level-histogram shapes (T, N, S, B, C) and the row counts each is held
 # at against its plain version
 B1_SHAPES = {"rafo": (9, 8, 19, 2, 2), "rafo_root": (9, 1, 19, 2, 2),
@@ -596,7 +649,7 @@ ELEARN_KNN = os.path.join(ROOT, "tests", "torch_fixtures", "elearn_knn")
 B5_SCHEMAS = {"elearn": (4, ()), "bench": (2, (3, 4)),
               "allcat": (0, (3, 5, 2)), "wide": (16, (16, 16, 16, 16))}
 B5_KS = (1, 7, 10, 64, 100)
-B5_TEST_ROWS = (1, 7, 513)
+B5_TEST_ROWS = (1, 513)
 B5_TRAIN_ROWS = (5, 1000, 200_000)
 KNN_SCALE = (20_000, 200_000, 10)         # test rows, train rows, k
 # list counts the top-k merge is held at (lane groups of 1 to 32 lanes, and
@@ -627,12 +680,14 @@ FLEET9 = os.path.join(ROOT, "tests", "torch_fixtures", "fleet9")
 # broker shard counts, the hot-swap drill's requests a step (phase 54), and
 # the autoscaled job's and the fleet_host processes' requests (phase 55)
 FLEET_ROWS = 30_000
+# phase 52 drains the first FLEET_LOOP_ROWS of them (54-55 use the rest)
+FLEET_LOOP_ROWS = 15_000
 FLEET_WORKERS = (1, 2, 4)
 FLEET_SHARDS = (1, 2)
 SWAP_ROWS = 10_000
 HOST_ROWS = 20_000
 NB_TRAIN_ROWS = 10_000_000     # the library train: two chunks
-NB_CLI_ROWS = 400_000
+NB_CLI_ROWS = 200_000
 # telecom_churn_gen's generative model (resource/gen/telecom_churn_gen.py)
 CHURN_PLAN_P = (0.25, 0.4, 0.2, 0.15)
 CHURN_USAGE = ((250, 1200), (600, 3000), (900, 5000), (1300, 7000))
@@ -739,11 +794,13 @@ def vote_forms(model, want):
         if got == "table" else [("scan", model)]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm=True):
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed runs
-    (after one warm-up run)."""
+    (after one warm-up run, unless ``warm`` is False: a call of seconds
+    whose operations earlier phases already ran)."""
     import torch
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
@@ -1385,7 +1442,7 @@ def knn_phases(dev, rng):
                  "ms": cuda_ms(lambda: chunked(metric), 5)}
         res_t["old_ms"] = cuda_ms(lambda: chunked(metric, 1, False), 3)
         res_t["plain_ms"] = cuda_ms(lambda: topk.topk_scan_torch(
-            tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 2)
+            tn_d, toh_d, rn_d, roh_d, k, metric, *consts), 1, warm=False)
         res_t["ms_again"] = cuda_ms(lambda: chunked(metric), 5)
         res_t["old_ms_again"] = cuda_ms(lambda: chunked(metric, 1, False), 3)
         res_t["skip_off_ms"] = cuda_ms(lambda: chunked(metric, None, False),
@@ -1467,7 +1524,7 @@ def b6_phase(dev, rng):
     err = 0.0
     for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
         T, P, F, C, K = shape
-        for n in ROW_COUNTS:
+        for n in row_counts(shape):
             stacked, vals, codes = random_forest_inputs(rng, shape, n)
             v = torch.from_numpy(vals).to(dev)
             c = torch.from_numpy(codes).to(dev)
@@ -2466,8 +2523,9 @@ def stream_main_path(dev):
 def stream_resume(dev):
     """Phase 29, on each reader: a crash at block 3 in a subprocess (the
     native reader's ``chunk_read``, the Python reader's ``chunk_encode``;
-    the other point armed too, so it must never fire), then --resume on
-    the same reader, against the rafo9s fixture."""
+    the other point armed too, so it must never fire; the two readers'
+    subprocesses side by side), then --resume on the same reader, against
+    the rafo9s fixture."""
     from avenir_tpu_torch.core.checkpoint import CheckpointManager
     from avenir_tpu_torch.monitor.baseline import load_baseline
     from avenir_tpu_torch.serving.registry import ModelRegistry
@@ -2475,6 +2533,7 @@ def stream_resume(dev):
           "and --resume == rafo9s")
     with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
         total = json.load(fh)["Random forest"]["BaselineRows"]
+    lanes, cmds = [], []
     for reader, point, other in (("native", "chunk_read", "chunk_encode"),
                                  ("python", "chunk_encode", "chunk_read")):
         out = os.path.join(WORK, f"rafo9s_resumed_{reader}")
@@ -2487,16 +2546,16 @@ def stream_resume(dev):
         flag = ["--python-reader"] if reader == "python" else []
         env = dict(os.environ, AVENIR_TPU_FAULTS=f"{point}@3=raise:"
                    f"RuntimeError,{other}@*=raise:RuntimeError")
-        t0 = time.perf_counter()
-        crash = subprocess.run(
-            cli_cmd(os.path.join(WORK, f"crash_{reader}.json"),
-                    flag + args), env=env, cwd=ROOT, capture_output=True,
-            text=True, timeout=300)
-        crash_s = time.perf_counter() - t0
-        if crash.returncode == 0 or \
-                f"injected fault: {point}@3" not in crash.stderr:
+        cmds.append((cli_cmd(os.path.join(WORK, f"crash_{reader}.json"),
+                             flag + args), env))
+        lanes.append((reader, point, out, reg, ck, args))
+    # the two readers' crashing subprocesses run side by side
+    crashes = run_children(cmds)
+    for (reader, point, out, reg, ck, args), crash in zip(lanes, crashes):
+        rc, _, stderr, crash_s = crash
+        if rc == 0 or f"injected fault: {point}@3" not in stderr:
             fail(f"the faulted {reader} run did not crash at {point}@3 (rc "
-                 f"{crash.returncode}): {crash.stderr[-2000:]}")
+                 f"{rc}): {stderr[-2000:]}")
         step, _, meta = CheckpointManager(ck).restore()
         if meta["ingest_complete"] or step != 3:
             fail(f"the crashed {reader} run's newest checkpoint is step "
@@ -2530,7 +2589,7 @@ def stream_resume(dev):
             fail(f"resumed {reader} run read with another reader: "
                  f"{readers}")
         print(f"{reader} reader: crashed subprocess {crash_s:.2f} s wall "
-              f"(rc {crash.returncode}, newest step 3, {meta['n_rows']} "
+              f"(rc {rc}, newest step 3, {meta['n_rows']} "
               f"rows); resumed run {resume_s:.2f} s wall from source row "
               f"{meta['source_rows_done']}; baseline of the {tail} re-read "
               f"rows; IngestReaders {readers}", flush=True)
@@ -2762,6 +2821,8 @@ def cli_child(counts_path, *args):
 def zero_launches():
     """Every kernel wrapper's launch count set to 0."""
     from avenir_tpu_torch.kernels import histogram, topk, vote
+    from avenir_tpu_torch.utils import threefry
+    threefry.launches = 0
     histogram.launches = histogram.mma_launches = 0
     histogram.bin_counts_launches = 0
     vote.launches = vote.quantized_launches = vote.table_launches = 0
@@ -2771,7 +2832,9 @@ def zero_launches():
 def launch_counts():
     """The kernel wrappers' launch counts since :func:`zero_launches`."""
     from avenir_tpu_torch.kernels import histogram, topk, vote
-    return {"b1": histogram.launches, "b1_mma": histogram.mma_launches,
+    from avenir_tpu_torch.utils import threefry
+    return {"threefry": threefry.launches,
+            "b1": histogram.launches, "b1_mma": histogram.mma_launches,
             "b4": histogram.bin_counts_launches,
             "b2": vote.launches, "b3": vote.quantized_launches,
             "b5": topk.launches, "b7_merge": topk.merge_launches,
@@ -2907,9 +2970,12 @@ def shard_resume():
     """Phase 32, on each reader: shard 1 crashes at its third block (the
     native reader's ``chunk_read@2``, the Python reader's
     ``chunk_encode@2``); shard 0 fails at the next collective within a 5 s
-    deadline; --resume on both gives the fixture's trees."""
+    deadline; --resume on both gives the fixture's trees.  The two
+    readers' lanes run side by side (their own directories and reduce
+    dirs): four processes for the crashes, then four for the resumes."""
     phase("32 shard lane crash (shard 1 at chunk_read@2 native, "
           "chunk_encode@2 python) and --resume")
+    lanes = []
     for reader, point in (("native", "chunk_read"),
                           ("python", "chunk_encode")):
         base = os.path.join(WORK, f"lane_resume_{reader}")
@@ -2918,16 +2984,21 @@ def shard_resume():
                          for d in ("reg", "ck", "reduce"))
         outs = [os.path.join(base, f"out{i}") for i in range(2)]
         counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
-        every = ("-Ddtb.streaming.checkpoint.blocks=1",)
         flag = ["--python-reader"] if reader == "python" else []
+        lanes.append((reader, point, reg, ck, rdir, outs, counts, flag))
+    every = ("-Ddtb.streaming.checkpoint.blocks=1",)
+    cmds = []
+    for reader, point, reg, ck, rdir, outs, counts, flag in lanes:
         envs = [{"AVENIR_TPU_SHARD": f"{i}/2",
                  "AVENIR_TPU_ALLREDUCE_DIR": rdir,
                  "AVENIR_TPU_ALLREDUCE_TIMEOUT_S": "5"} for i in range(2)]
         envs[1]["AVENIR_TPU_FAULTS"] = f"{point}@2=raise:RuntimeError"
-        res = run_children([
-            (cli_cmd(counts[i], flag + rafo9s_job(reg, ck, outs[i], every)),
-             lane_env(envs[i], True)) for i in range(2)], timeout=120)
-        (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res
+        cmds += [(cli_cmd(counts[i], flag + rafo9s_job(reg, ck, outs[i],
+                                                        every)),
+                  lane_env(envs[i], True)) for i in range(2)]
+    res = run_children(cmds, timeout=120)
+    for j, (reader, point, *_rest) in enumerate(lanes):
+        (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res[2 * j:2 * j + 2]
         if rc1 == 0 or f"injected fault: {point}@2" not in se1:
             fail(f"shard 1 ({reader}) did not crash at {point}@2 (rc "
                  f"{rc1}): {se1[-2000:]}")
@@ -2938,12 +3009,17 @@ def shard_resume():
               f"launch (injected fault), shard 0 exited {rc0} "
               f"{t0_s - t1_s:.2f} s after it (missing peer past the 5 s "
               f"deadline)", flush=True)
-        res = run_children([
-            (cli_cmd(counts[i], flag + rafo9s_job(
-                reg, ck, outs[i], every + ("--resume",))),
-             lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
-                       "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
-            for i in range(2)])
+    cmds = []
+    for reader, point, reg, ck, rdir, outs, counts, flag in lanes:
+        cmds += [(cli_cmd(counts[i], flag + rafo9s_job(
+            reg, ck, outs[i], every + ("--resume",))),
+            lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                      "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+            for i in range(2)]
+    res_all = run_children(cmds)
+    for j, (reader, point, reg, ck, rdir, outs, counts, flag) in \
+            enumerate(lanes):
+        res = res_all[2 * j:2 * j + 2]
         all_ok(res, f"shard lane --resume ({reader})")
         for i in range(2):
             same_trees(outs[i], f"resumed shard {i}/2 ({reader})")
@@ -4665,7 +4741,7 @@ def _scrape(url, path):
 
 def fleet_phases(dev):
     """Phases 51-55: the fleet tier of predictionService on the card —
-    fleet9's cases through the CLI, the fleet loop alone at 30,000
+    fleet9's cases through the CLI, the fleet loop alone at 15,000
     requests over 1, 2 and 4 workers and 1 and 2 broker shards (and the
     default-stream comparison), the router's cases and a tree-sharded
     fleet, a delta hot-swap and degraded parking under load, the
@@ -4752,6 +4828,8 @@ def fleet_phases(dev):
     shutil.copytree(fx_reg, reg_dir)
     ref = reference_labels(ModelRegistry(reg_dir), 1, records, dev)
     msgs = [f"predict,{i},{r}" for i, r in enumerate(records)]
+    n = FLEET_LOOP_ROWS
+    loop_msgs, loop_ref = msgs[:n], ref[:n]
 
     phase(f"52 the fleet loop alone: {n:,} rafo9 requests prefilled, then "
           f"drained by {', '.join(map(str, FLEET_WORKERS))} workers over "
@@ -4761,10 +4839,10 @@ def fleet_phases(dev):
     plan = [(w, s, True) for s in FLEET_SHARDS for w in FLEET_WORKERS] + \
         [(2, 1, False)]
     for workers, shards, own in plan:
-        replies, wall, counts, fleet = fleet_drain(reg_dir, msgs, workers,
-                                                   shards, own)
+        replies, wall, counts, fleet = fleet_drain(reg_dir, loop_msgs,
+                                                   workers, shards, own)
         by_id = _reply_labels(replies, n, f"fleet {workers}x{shards}")
-        if [by_id[str(i)] for i in range(n)] != ref:
+        if [by_id[str(i)] for i in range(n)] != loop_ref:
             fail(f"fleet {workers} workers x {shards} shards: replies "
                  f"differ from the in-process serve")
         merged = fleet.merged_counters()
@@ -5558,6 +5636,610 @@ def logistic_phase(dev):
             "predict_s": pred_s, "accuracy": acc}
 
 
+# --------------------------------------------------------------------------
+# phases 60-63: the threefry twin and its consumers (the MLP, simulated
+# annealing and the genetic algorithm, the batch bandits)
+# --------------------------------------------------------------------------
+
+THREEFRY_N = 1 << 24
+# the operations of a value that only Hopper's integer ALU pipe issues:
+# 20 rotates (SHF.L.W) and 20 xors plus the final one (LOP3); the adds
+# may issue as IMAD on the FMA pipe and overlap them.  That pipe has half
+# the FMA pipe's 128 lanes a clock an SM, so a quarter of the float32
+# FLOP/s, which counts an FMA as two
+THREEFRY_ALU_OPS = 20 + 21
+INT_ALU_PER_S = 67e12 / 4
+THREEFRY_KEYS = (0, 11, 2 ** 32 - 1)
+MLP9 = os.path.join(ROOT, "tests", "torch_fixtures", "mlp9")
+OPT9 = os.path.join(ROOT, "tests", "torch_fixtures", "opt9")
+MAB9 = os.path.join(ROOT, "tests", "torch_fixtures", "mab9")
+SA_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "sa")
+MLP_A5_RTOL = 1e-4       # mlp9's first iterations on the card (as the CPU)
+MLP_LOGIT_ATOL = 1e-4    # a predictor label may differ below this gap
+MLP_SCALE_ROWS = 1_000_000
+MLP_INCR_ROWS = 20_000
+MLP_GAP_ITERS = 100      # the card's batch run against the CPU's
+SA_SCALE = (64, 32, 8192, 2000)     # tasks, employees, chains, iterations
+SA_CPU_ITERS = 50
+GA_SCALE = (64, 256, 120)           # islands, population, generations
+VB_GROUPS = 1_000_000
+VB_REWARD_EVENTS = 10_000
+
+
+def threefry_phase(dev):
+    """Phase 60: the threefry kernel against its plain version (bit-equal
+    over 2^24 counters under three keys, both output modes), every
+    threefry9 case on the card, and the draw times."""
+    import torch
+    from avenir_tpu_torch.utils import threefry as tf
+    mk = fixture_module("threefry9")
+    phase(f"60 threefry: kernel == plain over {THREEFRY_N:,} counters x "
+          f"{len(THREEFRY_KEYS)} keys; the {len(mk.CASES)} threefry9 cases "
+          f"on the card == jax.random's")
+    rng = np.random.default_rng(20261060)
+    for seed in THREEFRY_KEYS:
+        keys = tf.PRNGKey(seed, dev).reshape(1, 2)
+        c0 = torch.from_numpy(rng.integers(0, 2 ** 32, THREEFRY_N)).to(dev)
+        c1 = torch.from_numpy(rng.integers(0, 2 ** 32, THREEFRY_N)).to(dev)
+        for mode, counters in ((1, (c0, c1)), (0, (None, None)),
+                               (1, (None, None))):
+            got = tf.threefry_hash(keys, THREEFRY_N, mode, *counters)
+            want = tf._hash_torch(keys, *counters, THREEFRY_N, mode)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"threefry kernel != plain version (key seed {seed}, "
+                     f"mode {mode}): {int((got != want).sum())} words")
+    print(f"threefry kernel: bit-equal to the plain version over "
+          f"{THREEFRY_N:,} explicit and flat-index counters under seeds "
+          f"{THREEFRY_KEYS}", flush=True)
+    for case in mk.CASES:
+        bad = mk.held(case, mk.twin_case(case, dev))
+        if bad:
+            fail(f"threefry9 on the card: {bad}")
+    print(f"threefry9: all {len(mk.CASES)} cases equal on the card",
+          flush=True)
+    key = tf.PRNGKey(7, dev)
+    keys = key.reshape(1, 2)
+    t = {"ms": cuda_ms(lambda: tf.threefry_hash(keys, THREEFRY_N, 0), 20),
+         "device_ms": device_ms(lambda: tf.threefry_hash(keys, THREEFRY_N,
+                                                         0)),
+         "plain_ms": cuda_ms(lambda: tf._hash_torch(keys, None, None,
+                                                    THREEFRY_N, 0), 5),
+         "normal_ms": cuda_ms(lambda: tf.normal(key, (THREEFRY_N,)), 10),
+         "normal_device_ms": device_ms(lambda: tf.normal(key,
+                                                         (THREEFRY_N,))),
+         "n": THREEFRY_N}
+    # the bound: 4 bytes written a value, or its ALU-pipe operations,
+    # whichever is larger
+    by = {"bytes": 4 * THREEFRY_N / HBM_BYTES_PER_S * 1e3,
+          "operations": THREEFRY_ALU_OPS * THREEFRY_N / INT_ALU_PER_S
+          * 1e3}
+    t["bound_by"] = max(by, key=by.get)
+    t["bound_ms"] = by[t["bound_by"]]
+    print(f"threefry over {THREEFRY_N:,} values: random_bits {t['ms']:.4f} "
+          f"ms call, {t['device_ms']:.4f} device (bound {t['bound_ms']:.4f}"
+          f" by {t['bound_by']}: {by}); plain version {t['plain_ms']:.2f};"
+          f" normal {t['normal_ms']:.3f} call, {t['normal_device_ms']:.3f} "
+          f"device", flush=True)
+    return t
+
+
+def _mlp_model_rel(got_lines, want_lines):
+    from avenir_tpu_torch.nn import mlp
+    g = mlp.from_lines(got_lines, device="cpu")
+    w = mlp.from_lines(want_lines, device="cpu")
+    return max(float((g[k] - w[k]).abs().max() / w[k].abs().max().clamp(
+        min=1e-30)) for k in mlp.NAMES)
+
+
+def mlp_phase(dev):
+    """Phase 61: mlp9 on the card through the port's CLI (draws
+    bit-equal, the first batch iterations and the short incr and
+    minibatch runs within MLP_A5_RTOL, the chaotic
+    1,000-iteration cases on the JAX grid, the resumed run equal to the
+    unchunked one, the predictor and the served version over the JAX
+    package's models), then the scale runs."""
+    import torch
+    from avenir_tpu_torch.core.schema import FeatureSchema
+    from avenir_tpu_torch.core.table import load_csv
+    from avenir_tpu_torch.nn import mlp
+    from avenir_tpu_torch.utils import threefry as tf
+    mk = fixture_module("mlp9")
+    phase(f"61 mlp: mlp9 a-d through the port's CLI on the card; "
+          f"neuralNetwork over {MLP_SCALE_ROWS:,} churn rows (batch, 1,000 "
+          f"iterations) and its predictor; minibatch and incr epochs")
+    schema = FeatureSchema.load(mk.SCHEMA)
+
+    def xy(path):
+        t = load_csv(path, schema)
+        X = t.feature_matrix(dtype=np.float32)
+        y = np.asarray(t.class_codes()).astype(np.int64)
+        return X[y >= 0], y[y >= 0]
+    with np.load(os.path.join(MLP9, "draws.npz")) as z:
+        draws = {k: z[k] for k in z.files}
+    X, y = xy(mk.TRAIN)
+    tf.launches = 0
+    p = mlp.init_params(X.shape[1], mlp.MLPConfig(), device=dev)
+    for k in mlp.NAMES:
+        if not np.array_equal(p[k].cpu().numpy().view(np.int32),
+                              draws[f"init_{k}"].view(np.int32)):
+            fail(f"mlp9 init_params {k} on the card != the JAX package's")
+    key = tf.PRNGKey(1, dev)
+    for e in range(2):
+        key, sub = tf.split(key, 2)
+        if not np.array_equal(tf.permutation(sub, len(y)).cpu().numpy(),
+                              draws[f"perm_{e}"]):
+            fail(f"mlp9 epoch {e} permutation on the card differs")
+    a5, _ = mlp.train(X, y, mlp.MLPConfig(iterations=mk.A5_ITERS),
+                      device=dev)
+    a5_rel = max(float(np.abs(a5[k].cpu().numpy() - draws[f"a5_{k}"]).max()
+                       / np.abs(draws[f"a5_{k}"]).max()) for k in mlp.NAMES)
+    if a5_rel > MLP_A5_RTOL:
+        fail(f"mlp9 after {mk.A5_ITERS} iterations on the card: {a5_rel:.3g}"
+             f" over {MLP_A5_RTOL:g}")
+    Xv, yv = xy(mk.TEST)
+    short_rel = {}
+    for mode, (rows, kw) in mk.SHORT.items():
+        p, hist = mlp.train(X[:rows], y[:rows], mlp.MLPConfig(**kw),
+                            X_val=Xv, y_val=yv, device=dev)
+        got = {k: p[k].cpu().numpy() for k in mlp.NAMES}
+        got["loss"] = hist
+        short_rel[mode] = max(
+            float(np.abs(got[k] - draws[f"{mode}_{k}"]).max()
+                  / np.abs(draws[f"{mode}_{k}"]).max()) for k in got)
+        if len(hist) != len(draws[f"{mode}_loss"]) or \
+                short_rel[mode] > MLP_A5_RTOL:
+            fail(f"mlp9 short {mode} run on the card: {short_rel[mode]:.3g}"
+                 f" over {MLP_A5_RTOL:g} ({len(hist)} losses)")
+    work = os.path.join(WORK, "mlp9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(MLP9, "counters.json")) as fh:
+        jc = json.load(fh)
+    cases = {}
+    for case, runs in (("a", [mk.CASES["a"]]), ("b", [mk.CASES["b"]]),
+                       ("c", [mk.CASES["c"]]),
+                       ("d", mk.case_d_runs(os.path.join(work, "ckpt")))):
+        out = os.path.join(work, case)
+        for args in runs:
+            shutil.rmtree(out, ignore_errors=True)
+            run_cli(["neuralNetwork", *mk.KEYS, *args, mk.TRAIN, out])
+        with open(os.path.join(out, "part-r-00000")) as fh:
+            got = fh.read().splitlines()
+        with open(os.path.join(MLP9, case, "model.csv")) as fh:
+            want = fh.read().splitlines()
+        heads = [ln for ln in got if ln.startswith("#")]
+        if heads != [ln for ln in want if ln.startswith("#")]:
+            fail(f"mlp9 {case}: model layout {heads}")
+        nn = read_json(out + ".counters.json")["NeuralNetwork"]
+        if nn["lossEvaluations"] != \
+                jc[f"{case}/train"]["NeuralNetwork"]["lossEvaluations"]:
+            fail(f"mlp9 {case}: lossEvaluations {nn['lossEvaluations']}")
+        strings = sum(a != b for g, w in zip(got, want)
+                      for a, b in zip(g.split(","), w.split(",")))
+        cases[case] = {"strings": strings, "rel": _mlp_model_rel(got, want),
+                       "lines": got}
+    if cases["d"]["lines"] != cases["a"]["lines"]:
+        fail("mlp9 d (resumed) on the card != a (unchunked)")
+    Xt = load_csv(mk.TEST, schema).feature_matrix(dtype=np.float32)
+    for case in "abcd":
+        model = os.path.join(MLP9, case, "model.csv")
+        out = os.path.join(work, case + "_pred")
+        run_cli(["neuralNetworkPredictor", *mk.KEYS,
+                 f"-Dnn.model.file.path={model}", mk.TEST, out])
+        with open(model) as fh:
+            params = mlp.from_lines(fh.read().splitlines(), device="cpu")
+        logits = np.sort(mlp.forward_logits(params, torch.from_numpy(Xt))
+                         .numpy(), axis=1)
+        gap = logits[:, -1] - logits[:, -2]
+        with open(os.path.join(out, "part-m-00000")) as a, \
+                open(os.path.join(MLP9, case, "pred.csv")) as b:
+            gl = [ln.split(",") for ln in a.read().splitlines()]
+            wl = [ln.split(",") for ln in b.read().splitlines()]
+        labels = [i for i, (g, w) in enumerate(zip(gl, wl)) if g[-2] != w[-2]]
+        if len(gl) != len(wl) or any(gap[i] > MLP_LOGIT_ATOL for i in labels):
+            fail(f"mlp9 {case} predictor on the card: labels {labels[:5]}")
+        cases[case]["pred_labels"] = len(labels)
+        cases[case]["pred_percent_strings"] = sum(
+            g[-1] != w[-1] for g, w in zip(gl, wl))
+    reg = os.path.join(work, "registry")
+    shutil.copytree(os.path.join(MLP9, "registry"), reg)
+    served = os.path.join(work, "served")
+    run_cli(["org.avenir.serving.PredictionService",
+             f"-Dps.model.registry.dir={reg}",
+             f"-Dps.model.name={mk.MODEL_NAME}", "-Dps.transport=inprocess",
+             mk.TEST, served])
+    same_bytes(os.path.join(served, "part-m-00000"),
+               os.path.join(MLP9, "served.csv"), "mlp9 served on the card")
+    fixture_launches = tf.launches
+    for c in cases.values():
+        c.pop("lines")
+    print(f"mlp9 on the card: draws bit-equal; {mk.A5_ITERS} iterations "
+          f"within {a5_rel:.3g}; short incr and minibatch runs within "
+          f"{short_rel}; d == a; per case (model strings apart of "
+          f"32, rel, predictor labels / percent strings apart): "
+          f"{ {k: (v['strings'], round(v['rel'], 4), v['pred_labels'], v['pred_percent_strings']) for k, v in cases.items()} }; "
+          f"threefry launches {fixture_launches}", flush=True)
+
+    csv = os.path.join(WORK, "churn_scale.csv")
+    if not os.path.exists(csv):
+        churn_svm_csv(np.random.default_rng(20261059), MLP_SCALE_ROWS, csv)
+    t0 = time.perf_counter()
+    run_cli(["neuralNetwork", *mk.KEYS, "-Dnn.training.mode=batch",
+             "-Dnn.iteration.count=1000", "-Dnn.validation.interval=50",
+             f"-Dnn.model.file.path={os.path.join(WORK, 'mlp_scale.csv')}",
+             csv, os.path.join(WORK, "mlp_scale_train")])
+    job_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    run_cli(["neuralNetworkPredictor", *mk.KEYS,
+             f"-Dnn.model.file.path={os.path.join(WORK, 'mlp_scale.csv')}",
+             csv, os.path.join(WORK, "mlp_scale_pred")])
+    pred_s = time.perf_counter() - t0
+    Xs, ys = xy(csv)
+    cfg = mlp.MLPConfig(iterations=MLP_GAP_ITERS, validation_interval=50)
+    mlp.train(Xs[:1000], ys[:1000], cfg, device=dev)          # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card, _ = mlp.train(Xs, ys, cfg, device=dev)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) / MLP_GAP_ITERS * 1e3
+    t0 = time.perf_counter()
+    cpu, _ = mlp.train(Xs, ys, cfg, device="cpu")
+    cpu_ms = (time.perf_counter() - t0) / MLP_GAP_ITERS * 1e3
+    gap = max(float((card[k].cpu() - cpu[k]).abs().max()
+                    / cpu[k].abs().max().clamp(min=1e-30))
+              for k in mlp.NAMES)
+    one = dict(iterations=1, batch_size=64)
+    t0 = time.perf_counter()
+    mlp.train(Xs, ys, mlp.MLPConfig(mode="minibatch", **one), device=dev)
+    torch.cuda.synchronize()
+    mb_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mlp.train(Xs[:MLP_INCR_ROWS], ys[:MLP_INCR_ROWS],
+              mlp.MLPConfig(mode="incr", **one), device=dev)
+    torch.cuda.synchronize()
+    incr_s = time.perf_counter() - t0
+    n_mb = len(ys) // 64
+    res = {"mlp9": cases, "a5_rel": a5_rel, "short_rel": short_rel,
+           "job_s": job_s,
+           "predict_s": pred_s, "predict_rows_per_s": len(ys) / pred_s,
+           "batch_ms_per_iter": batch_ms, "cpu_batch_ms_per_iter": cpu_ms,
+           "card_cpu_gap_100": gap, "minibatch_epoch_s": mb_s,
+           "minibatch_ms_per_step": mb_s / n_mb * 1e3,
+           "incr_epoch_s": incr_s,
+           "incr_ms_per_step": incr_s / MLP_INCR_ROWS * 1e3,
+           "fixture_launches": fixture_launches}
+    print(f"neuralNetwork over {len(ys):,} rows: job {job_s:.2f} s (1,000 "
+          f"batch iterations, CSV load included); the batch step "
+          f"{batch_ms:.3f} ms an iteration (CPU {cpu_ms:.1f}); the card's "
+          f"weights after {MLP_GAP_ITERS} iterations within {gap:.3g} of "
+          f"the CPU's; predictor {pred_s:.2f} s ({len(ys) / pred_s:,.0f} "
+          f"rows/s); minibatch epoch {mb_s:.2f} s ({n_mb:,} steps, "
+          f"{res['minibatch_ms_per_step']:.3f} ms a step); incr epoch over "
+          f"{MLP_INCR_ROWS:,} rows {incr_s:.2f} s "
+          f"({res['incr_ms_per_step']:.3f} ms a step)", flush=True)
+    return res
+
+
+def sa_scale_setup():
+    """Phase 62's scale domain and SA parameters (the parent and the
+    ``--sa-cpu-child`` build the same ones)."""
+    from avenir_tpu_torch.optimize.annealing import AnnealingParams
+    from avenir_tpu_torch.optimize.task_schedule import TaskScheduleDomain
+    if RES not in sys.path:
+        sys.path.insert(0, RES)
+    from gen.task_sched_gen import generate
+    T, E, K, ITERS = SA_SCALE
+    domain = TaskScheduleDomain(generate(T, E, 4))
+    params = AnnealingParams(max_num_iterations=ITERS, num_optimizers=K,
+                             initial_temp=50.0, cooling_rate=0.98,
+                             temp_update_interval=5, max_step_size=2,
+                             locally_optimize=True,
+                             max_num_local_iterations=100, seed=11)
+    return domain, params
+
+
+def sa_cpu_child(path):
+    """``--sa-cpu-child``: phase 62's short SA run on the CPU, its output
+    lines written to ``path`` as JSON with the wall seconds."""
+    from avenir_tpu_torch.optimize.annealing import simulated_annealing
+    domain, params = sa_scale_setup()
+    short = dataclasses.replace(params, max_num_iterations=SA_CPU_ITERS,
+                                locally_optimize=False)
+    t0 = time.perf_counter()
+    lines = _sa_lines(domain, simulated_annealing(domain, short,
+                                                  device="cpu"))
+    with open(path, "w") as fh:
+        json.dump({"lines": lines, "s": time.perf_counter() - t0}, fh)
+
+
+def optimize_phase(dev):
+    """Phase 62: the golden sa fixture and opt9 byte-equal through the
+    port's CLI on the card (every opt9 case a child process, all started
+    together; the 2-process cases two gloo ranks each), then SA and GA at
+    scale, and the card against the CPU (a child process started with the
+    opt9 children)."""
+    import torch
+    from avenir_tpu_torch.optimize.annealing import simulated_annealing
+    from avenir_tpu_torch.optimize.genetic import (GeneticParams,
+                                                   genetic_algorithm)
+    from avenir_tpu_torch.utils import threefry as tf
+    mk = fixture_module("opt9")
+    T, E, K, ITERS = SA_SCALE
+    phase(f"62 optimize: golden sa and opt9 byte-equal on the card; SA with "
+          f"{K:,} chains over {T} tasks x {E} employees, {ITERS:,} "
+          f"iterations + local descent; GA {GA_SCALE[0]} islands x "
+          f"{GA_SCALE[1]}, {GA_SCALE[2]} generations")
+    work = os.path.join(WORK, "opt9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    if RES not in sys.path:
+        sys.path.insert(0, RES)
+    from gen.task_sched_gen import generate
+    tf.launches = 0
+    dom8 = os.path.join(work, "ts8.json")
+    with open(dom8, "w") as fh:
+        fh.write(json.dumps(generate(8, 5, 4)))
+    conf = os.path.join(work, "golden.conf")
+    with open(os.path.join(RES, "opt.conf")) as fh:
+        text = fh.read()
+    with open(conf, "w") as fh:
+        fh.write(text.replace('"taskSched.json"', json.dumps(dom8))
+                 .replace("max.num.iterations = 2000",
+                          "max.num.iterations = 200"))
+    run_cli(["org.avenir.spark.optimize.SimulatedAnnealing",
+             os.path.join(work, "golden"), conf])
+    same_bytes(os.path.join(work, "golden", "part-r-00000"),
+               os.path.join(SA_GOLDEN, "solutions.csv"), "golden sa")
+    cmds, runs = [], []
+    for case, (job, changes) in mk.CASES.items():
+        c = mk.write_conf(os.path.join(work, case + ".conf"), changes)
+        out = os.path.join(work, case)
+        args = [job, out, c]
+        if case == "sa_starts":
+            args = [job, os.path.join(OPT9, "sa", "out.csv"), out, c]
+        cmds.append((cli_cmd(out + ".launches.json", args),
+                     lane_env({}, True)))
+        runs.append((case, job, [out]))
+    port = free_port()
+    for case, job in mk.JOINED.items():
+        c = mk.write_conf(os.path.join(work, case + ".conf"))
+        outs = [os.path.join(work, f"{case}_{i}") for i in range(2)]
+        cmds += [(cli_cmd(outs[i] + ".launches.json", [job, outs[i], c]),
+                  lane_env({"RANK": str(i), "WORLD_SIZE": "2",
+                            "LOCAL_RANK": str(i), "MASTER_ADDR": "127.0.0.1",
+                            "MASTER_PORT": str(port)}, True))
+                 for i in range(2)]
+        runs.append((case, job, outs))
+        port = free_port()
+    # the CPU's 50-iteration SA at scale needs no card: its child starts
+    # with the opt9 children and is read after the card's own runs
+    domain, params = sa_scale_setup()
+    cpu_out = os.path.join(work, "sa_cpu.json")
+    cpu_child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--sa-cpu-child",
+         cpu_out], cwd=ROOT, env=lane_env({}, True),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    t0 = time.perf_counter()
+    res = run_children(cmds)
+    cases_s = time.perf_counter() - t0
+    all_ok(res, "opt9 children")
+    fixture_launches = tf.launches
+    at = 0
+    for case, job, outs in runs:
+        group = mk.GROUP[job]
+        for i, out in enumerate(outs):
+            same_bytes(os.path.join(out, "part-r-00000"),
+                       os.path.join(OPT9, case, "out.csv"),
+                       f"opt9 {case}" + (f" rank {i}" if len(outs) > 1
+                                         else ""))
+            fixture_launches += read_json(out + ".launches.json")["threefry"]
+        got = read_json(outs[0] + ".counters.json")[group] \
+            if len(outs) == 1 else counter_dump(res[at][1])[group]
+        if {group: got} != read_json(os.path.join(OPT9, case,
+                                                  "counters.json")):
+            fail(f"opt9 {case}: counters {got} differ from the fixture's")
+        at += len(outs)
+
+    simulated_annealing(domain, dataclasses.replace(
+        params, max_num_iterations=5, locally_optimize=False), device=dev)
+    torch.cuda.synchronize()
+    tf.launches = 0
+    t0 = time.perf_counter()
+    res = simulated_annealing(domain, params, device=dev)
+    torch.cuda.synchronize()
+    sa_s = time.perf_counter() - t0
+    sa_launches = tf.launches
+    short = dataclasses.replace(params, max_num_iterations=SA_CPU_ITERS,
+                                locally_optimize=False)
+    card_lines = _sa_lines(domain, simulated_annealing(domain, short,
+                                                       device=dev))
+    I, P, GENS = GA_SCALE
+    gparams = GeneticParams(num_generations=GENS, population_size=P,
+                            num_islands=I, crossover_prob=0.8,
+                            mutation_prob=0.15, seed=11)
+    genetic_algorithm(domain, dataclasses.replace(gparams, num_generations=2),
+                      device=dev)
+    torch.cuda.synchronize()
+    tf.launches = 0
+    t0 = time.perf_counter()
+    gres = genetic_algorithm(domain, gparams, device=dev)
+    torch.cuda.synchronize()
+    ga_s = time.perf_counter() - t0
+    ga_launches = tf.launches
+    _, se = cpu_child.communicate(timeout=600)
+    if cpu_child.returncode != 0:
+        fail(f"the SA CPU child failed: {se[-2000:]}")
+    cpu = read_json(cpu_out)
+    if card_lines != cpu["lines"]:
+        bad = sum(a != b for a, b in zip(card_lines, cpu["lines"]))
+        fail(f"SA at {K:,} chains, {SA_CPU_ITERS} iterations: {bad} lines "
+             f"differ between the card and the CPU")
+    steps = ITERS + params.max_num_local_iterations
+    out = {"fixture_launches": fixture_launches, "opt9_children_s": cases_s,
+           "sa_s": sa_s, "sa_chain_steps_per_s": K * steps / sa_s,
+           "sa_launches": sa_launches,
+           "sa_launches_per_step": sa_launches / steps,
+           "sa_best": float(res.best_costs.min()),
+           "sa_cpu_50_s": cpu["s"], "ga_s": ga_s,
+           "ga_member_generations_per_s": I * P * GENS / ga_s,
+           "ga_launches": ga_launches, "ga_best": gres.best_cost}
+    print(f"opt9 on the card: every case byte-equal ({len(cmds)} children "
+          f"in {cases_s:.1f} s; threefry launches {fixture_launches}); SA "
+          f"{K:,} chains x {steps:,} steps ({ITERS:,} + "
+          f"{params.max_num_local_iterations} descent) in {sa_s:.2f} s: "
+          f"{out['sa_chain_steps_per_s']:,.0f} chain-steps/s, "
+          f"{out['sa_launches_per_step']:.1f} threefry launches a step, best "
+          f"{out['sa_best']:.3f}; {SA_CPU_ITERS} iterations: the card's "
+          f"{K:,} lines == the CPU's (CPU {cpu['s']:.2f} s); GA {I} x {P} x "
+          f"{GENS} in {ga_s:.2f} s ({out['ga_member_generations_per_s']:,.0f}"
+          f" member-generations/s, {ga_launches} threefry launches, best "
+          f"{gres.best_cost:.3f})", flush=True)
+    return out
+
+
+def _sa_lines(domain, res):
+    return [f"{domain.to_string(s)},{c:.3f}"
+            for s, c in zip(res.best_solutions, res.best_costs)]
+
+
+def vector_scale_run(device, algorithms=None):
+    """VectorBandits at VB_GROUPS groups on ``device``: each algorithm
+    (all by default), three calls, rewards for VB_REWARD_EVENTS random
+    groups' chosen actions after each (drawn from a stream seeded by the
+    algorithm, so a run on the card and one on the CPU that select alike
+    get the same rewards).  Returns ({algorithm: (3, G) actions},
+    {algorithm: seconds in the selecting calls}, {algorithm: threefry
+    launches})."""
+    import torch
+    from avenir_tpu_torch.reinforce.batch import VectorBandits
+    from avenir_tpu_torch.utils import threefry as tf
+    cuda = torch.device(device).type == "cuda"
+    got, secs, launches = {}, {}, {}
+    for algo in algorithms or VectorBandits.ALGORITHMS:
+        rng = np.random.default_rng(
+            [20261063, VectorBandits.ALGORITHMS.index(algo)])
+        if cuda:       # warm: one call on a throwaway instance
+            VectorBandits(algo, VB_GROUPS, 4, seed=3,
+                          device=device).next_actions()
+        vb = VectorBandits(algo, VB_GROUPS, 4, seed=3, device=device)
+        calls, secs[algo] = [], 0.0
+        tf.launches = 0
+        for _ in range(3):
+            if cuda:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a = vb.next_actions()
+            secs[algo] += time.perf_counter() - t0
+            calls.append(a)
+            gi = rng.integers(0, VB_GROUPS, VB_REWARD_EVENTS)
+            r = rng.normal(1.0, 0.5, VB_REWARD_EVENTS).astype(np.float32)
+            vb.set_rewards(gi, a[gi], r)
+        got[algo] = np.stack(calls)
+        launches[algo] = tf.launches
+    return got, secs, launches
+
+
+VB_CPU_CHILDREN = 3
+
+
+def bandit_cpu_child(path, algorithms):
+    """``--bandit-cpu-child``: :func:`vector_scale_run` on the CPU for the
+    comma-separated ``algorithms``, the selections saved to ``path``."""
+    got, _, _ = vector_scale_run("cpu", algorithms.split(","))
+    np.savez(path, **got)
+
+
+def bandit_phase(dev):
+    """Phase 63: golden bandit and price and every mab9 case through the
+    port's CLI on the card; VectorBandits at VB_GROUPS groups, every
+    algorithm, three calls, the card against the CPU (child processes
+    started at the phase's beginning)."""
+    import torch
+    from avenir_tpu_torch.reinforce.batch import VectorBandits
+    from avenir_tpu_torch.utils import threefry as tf
+    mk = fixture_module("mab9")
+    phase(f"63 bandits: golden bandit/price and mab9 on the card; "
+          f"VectorBandits {VB_GROUPS:,} groups x {mk.A} actions, "
+          f"{len(mk.ALGORITHMS)} algorithms x 3 calls, card == CPU")
+    work = os.path.join(WORK, "mab9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    sys.path.insert(0, RES)
+    import importlib
+    # the CPU twin's 1M-group runs: children started now, an algorithm
+    # subset each, read at the end
+    algos = VectorBandits.ALGORITHMS
+    cpu_children = []
+    for j in range(VB_CPU_CHILDREN):
+        path = os.path.join(work, f"vector_cpu{j}.npz")
+        cpu_children.append((path, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--bandit-cpu-child",
+             path, ",".join(algos[j::VB_CPU_CHILDREN])], cwd=ROOT,
+            env=lane_env({}, True), stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True)))
+    tf.launches = 0
+    for name, gen, args, props, akey in (
+            ("bandit", "bandit_rewards_gen", (600, 22, 4),
+             "bandit.properties", "actions.csv"),
+            ("price", "price_revenue_gen", (1000, 44, 5),
+             "price_opt.properties", "prices.csv")):
+        rw = os.path.join(work, name + "_rewards.csv")
+        with open(rw, "w") as fh:
+            fh.write("\n".join(importlib.import_module(
+                f"gen.{gen}").generate(*args)))
+        out = os.path.join(work, name)
+        run_cli(["org.avenir.spark.reinforce.MultiArmBandit",
+                 f"-Dconf.path={os.path.join(RES, props)}",
+                 "-Dmab.model.state.file.in=/nonexistent",
+                 f"-Dmab.model.state.file.out={out}_state/part", rw, out])
+        golden = os.path.join(ROOT, "tests", "golden", "fixtures", name)
+        same_bytes(os.path.join(out, "part-r-00000"),
+                   os.path.join(golden, akey), f"golden {name} actions")
+        same_bytes(os.path.join(out + "_state", "part", "part-r-00000"),
+                   os.path.join(golden, "state.csv"), f"golden {name} state")
+    want = read_json(os.path.join(MAB9, "rounds.json"))
+    for case, (job, extra) in mk.cases().items():
+        d = os.path.join(work, case)
+        os.makedirs(d)
+        got = mk.run_rounds(lambda a: 0 if run_cli(a) is None else 1, job,
+                            extra, d)
+        if got != want[case]:
+            fail(f"mab9 {case} on the card differs from the fixture")
+    got = mk.run_vector(VectorBandits, device=dev)
+    with np.load(os.path.join(MAB9, "vector.npz")) as z:
+        for algo in z.files:
+            if not np.array_equal(got[algo], z[algo]):
+                fail(f"mab9 VectorBandits {algo} on the card differs")
+    fixture_launches = tf.launches
+    print(f"mab9 on the card: {len(want)} cases x 3 rounds and "
+          f"VectorBandits byte-equal (threefry launches {fixture_launches})",
+          flush=True)
+    got, secs, launches = vector_scale_run(dev)
+    seen = []
+    for path, child in cpu_children:
+        _, se = child.communicate(timeout=900)
+        if child.returncode != 0:
+            fail(f"a VectorBandits CPU child failed: {se[-2000:]}")
+        with np.load(path) as z:
+            for algo in z.files:
+                seen.append(algo)
+                bad = int((got[algo] != z[algo]).sum())
+                if bad:
+                    fail(f"VectorBandits {algo} at {VB_GROUPS:,} groups: "
+                         f"{bad} selections differ between the card and "
+                         f"the CPU")
+    if sorted(seen) != sorted(algos):
+        fail(f"the CPU children ran {sorted(seen)}")
+    rates = {a: 3 * VB_GROUPS / s for a, s in secs.items()}
+    print(f"VectorBandits over {VB_GROUPS:,} groups: card == CPU for every "
+          f"algorithm, 3 calls; selections/s (call incl. H2D and read-back):"
+          f" { {k: round(v) for k, v in rates.items()} }; threefry "
+          f"launches {launches}", flush=True)
+    return {"fixture_launches": fixture_launches,
+            "selections_per_s": rates, "launches": launches}
+
+
 def main():
     import torch
     phase("1 device")
@@ -5586,7 +6268,13 @@ def main():
     native_t = threading.Thread(target=lambda: native_err.extend(
         _try(native_csv.build) + _try(native_wire.build)))
     native_t.start()
-    secs = build.build_all()
+    # topk.cu compiles longest and is first needed in phase 15: it builds
+    # on a thread started with the others and is waited for there
+    topk_err, topk_secs = [], {}
+    topk_t = threading.Thread(target=lambda: topk_err.extend(_try(
+        lambda: topk_secs.update(build.build_all(["topk"])))))
+    topk_t.start()
+    secs = build.build_all([n for n in build.SOURCES if n != "topk"])
     native_t.join()
     if native_err:
         fail(f"native CSV reader or serving codec build failed: "
@@ -5607,7 +6295,7 @@ def main():
     rng = np.random.default_rng(20261016)
     max_err = 0
     for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
-        for n in ROW_COUNTS:
+        for n in row_counts(shape):
             stacked, vals, codes = random_forest_inputs(rng, shape, n)
             model = vote.prepare_vote_model(*stacked, dev)
             d_vals = torch.from_numpy(vals).to(dev)
@@ -5946,7 +6634,7 @@ def main():
     phase("11 int8 vote kernel vs plain version")
     b3_err = 0
     for shape, want_form in ((RAFO_SHAPE, "table"), (WIDE_SHAPE, "scan")):
-        for n in ROW_COUNTS:
+        for n in row_counts(shape):
             stacked, qv, qc = random_quantized_inputs(rng, shape, n)
             model = vote.prepare_quantized_vote_model(*stacked, dev)
             d_qv = torch.from_numpy(qv).to(dev)
@@ -6103,6 +6791,14 @@ def main():
     print("no single PyTorch call computes the int8 vote: library_ms is "
           "null", flush=True)
 
+    topk_t.join()
+    if topk_err:
+        fail(f"topk.cu build failed: {topk_err[0]}")
+    print(f"built topk.cu in {topk_secs.get('topk', 0.0):.1f} s (on a "
+          f"thread since phase 2)", flush=True)
+    log = build.build_log.get("topk", (0, ""))[1].strip()
+    if log:
+        print(log, flush=True)
     b5_err, b5_launches, b5_scale, b5_t, knn_scale = knn_phases(dev, rng)
 
     b6_err = b6_phase(dev, rng)
@@ -6149,7 +6845,17 @@ def main():
     retrain9 = retrain9_phase()
     retrain = retrain_scale(dev, fs, scale_csv, scale_trees)
     logistic = logistic_phase(dev)
+    threefry_t = threefry_phase(dev)
+    mlp_r = mlp_phase(dev)
+    opt_r = optimize_phase(dev)
+    bandit_r = bandit_phase(dev)
     phase()
+    tf_main = {"mlp": mlp_r["fixture_launches"],
+               "optimize": opt_r["fixture_launches"],
+               "bandits": bandit_r["fixture_launches"]}
+    if min(tf_main.values()) <= 0:
+        fail(f"a main path of phases 61-63 never launched the threefry "
+             f"kernel: {tf_main}")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
           f"{sum(PHASE_SECONDS.values()):.1f} s", flush=True)
 
@@ -6335,7 +7041,22 @@ def main():
         "process_merge_launches": per_process(multi["knn2"],
                                               "b7_merge"),
         "round_merge_lists": ROUND_LISTS,
-        "round_merge_launches": round_launches}],
+        "round_merge_launches": round_launches}, {
+        "name": "threefry2x32", "route": "cuda",
+        "source": "avenir_tpu_torch/csrc/threefry.cu",
+        "replaces": "none: jax.random's threefry2x32 (no pl.pallas_call), "
+                    "drawn at avenir_tpu/optimize/annealing.py:103",
+        "launches": sum(tf_main.values()), "max_abs_err": 0,
+        "ms": threefry_t["ms"], "plain_ms": threefry_t["plain_ms"],
+        "bound_ms": threefry_t["bound_ms"],
+        "bound_by": threefry_t["bound_by"], "library_ms": None,
+        "device_ms": threefry_t["device_ms"], "n": threefry_t["n"],
+        "normal_ms": threefry_t["normal_ms"],
+        "normal_device_ms": threefry_t["normal_device_ms"],
+        "main_path_launches": tf_main,
+        "sa_scale_launches": opt_r["sa_launches"],
+        "ga_scale_launches": opt_r["ga_launches"],
+        "vector_bandit_launches": bandit_r["launches"]}],
         "bayes": {"main_path_launches": nb_counts,
                   "main_path_backends": nb_backends,
                   "train_10m": nb_train, "cli_1m": nb_cli,
@@ -6353,6 +7074,8 @@ def main():
                   "hosts": fleet["hosts"]},
         "retrain": {"retrain9": retrain9, **retrain},
         "logistic": logistic,
+        "mlp": mlp_r, "optimize": opt_r,
+        "bandits": {k: v for k, v in bandit_r.items() if k != "launches"},
         "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -6370,5 +7093,9 @@ if __name__ == "__main__":
         cache_child(*sys.argv[2:5])
     elif sys.argv[1:2] == ["--joined-child"]:
         joined_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--sa-cpu-child"]:
+        sa_cpu_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--bandit-cpu-child"]:
+        bandit_cpu_child(*sys.argv[2:4])
     else:
         main()

@@ -367,14 +367,21 @@ def test_registry_bayes_kind_both_ways(tmp_path):
 
 
 def test_registry_refuses_unported_kinds_by_name(tmp_path):
+    """An mlp version (ported) loads; a kind neither package knows is
+    refused by name."""
     reg = ModelRegistry(str(tmp_path))
     mlp = {"W1": np.zeros((3, 2), np.float32), "b1": np.zeros(2, np.float32),
            "W2": np.zeros((2, 2), np.float32), "b2": np.zeros(2, np.float32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        reg.publish("w", mlp)
     JaxRegistry(str(tmp_path)).publish("nn", mlp, kind="mlp")
-    with pytest.raises(NotImplementedError, match="'mlp'"):
-        reg.load("nn")
+    loaded = reg.load("nn")
+    assert loaded.kind == "mlp"
+    for k, v in mlp.items():
+        np.testing.assert_array_equal(loaded.model[k], v)
+    assert reg.publish("w", mlp) == 1
+    with pytest.raises(TypeError, match="cannot infer model kind"):
+        reg.publish("x", {"weights": np.zeros(3)})
+    with pytest.raises(ValueError, match="'svm'"):
+        reg.publish("x", mlp, kind="svm")
 
 
 def test_prediction_service_over_a_bayes_version(tmp_path):

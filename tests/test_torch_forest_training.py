@@ -405,10 +405,22 @@ def test_port_publish_is_byte_identical_and_loads_in_both(tmp_path):
     back = ModelRegistry(ref.base_dir).load("m")
     assert back.version == 2 and [t.to_json() for t in back.model] == \
         [t.to_json() for t in trees[:3]]
+    # an MLP's parameter dict publishes as the JAX package's mlp kind
+    # does; an object of no known kind is refused
     mlp = {"W1": np.zeros((3, 2), np.float32), "b1": np.zeros(2, np.float32),
            "W2": np.zeros((2, 2), np.float32), "b2": np.zeros(2, np.float32)}
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ours.publish("b", mlp)
+    assert ours.publish("b", mlp) == ref.publish("b", mlp) == 1
+    assert _read(os.path.join(ours.version_dir("b", 1), "meta.json")) == \
+        _read(os.path.join(ref.version_dir("b", 1), "meta.json"))
+    # the npz members carry their write time: compare array for array
+    with np.load(os.path.join(ours.version_dir("b", 1), "arrays.npz")) as a, \
+            np.load(os.path.join(ref.version_dir("b", 1), "arrays.npz")) as b:
+        assert a.files == b.files
+        for k in a.files:
+            assert a[k].dtype == b[k].dtype
+            np.testing.assert_array_equal(a[k], b[k])
+    with pytest.raises(TypeError, match="cannot infer model kind"):
+        ours.publish("c", {"weights": np.zeros(3)})
 
 
 @pytest.mark.parametrize("key", [

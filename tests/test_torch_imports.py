@@ -72,7 +72,23 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.cli.control_jobs",
              "avenir_tpu_torch.regress",
              "avenir_tpu_torch.regress.logistic",
-             "avenir_tpu_torch.cli.regress_jobs"):
+             "avenir_tpu_torch.cli.regress_jobs",
+             "avenir_tpu_torch.utils.threefry",
+             "avenir_tpu_torch.utils.timefmt",
+             "avenir_tpu_torch.nn",
+             "avenir_tpu_torch.nn.mlp",
+             "avenir_tpu_torch.cli.nn_jobs",
+             "avenir_tpu_torch.optimize",
+             "avenir_tpu_torch.optimize.domain",
+             "avenir_tpu_torch.optimize.task_schedule",
+             "avenir_tpu_torch.optimize.annealing",
+             "avenir_tpu_torch.optimize.genetic",
+             "avenir_tpu_torch.cli.optimize_jobs",
+             "avenir_tpu_torch.reinforce",
+             "avenir_tpu_torch.reinforce.learners",
+             "avenir_tpu_torch.reinforce.batch",
+             "avenir_tpu_torch.reinforce.serving",
+             "avenir_tpu_torch.cli.reinforce_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -106,7 +122,7 @@ def test_port_imports_without_jax_or_avenir_tpu():
     res = subprocess.run([sys.executable, "-I", "-c", _PROBE, ROOT],
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    # runtime, weights, core x7, utils x3, kernels x6, models x4,
-    # serving x9, monitor x5, stats x2, ops x2, cli x6, parallel x4, io x3,
-    # telemetry x5 and the package
-    assert int(res.stdout.strip()) >= 55
+    # runtime, weights, core x7, utils x5, kernels x6, models x4,
+    # serving x9, monitor x5, stats x2, ops x2, cli x9, parallel x4, io x3,
+    # telemetry x5, nn x2, optimize x5, reinforce x4 and the package
+    assert int(res.stdout.strip()) >= 71
