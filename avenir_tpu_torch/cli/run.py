@@ -55,6 +55,7 @@ from . import control_jobs  # noqa: F401  (registers retrainController)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
 from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
 from . import nn_jobs  # noqa: F401  (registers the MLP jobs)
+from . import online_jobs  # noqa: F401  (registers onlineLearner)
 from . import optimize_jobs  # noqa: F401  (registers the SA and GA jobs)
 from . import regress_jobs  # noqa: F401  (registers the logistic jobs)
 from . import reinforce_jobs  # noqa: F401  (registers the bandit jobs)

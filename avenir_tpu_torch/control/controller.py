@@ -1,6 +1,6 @@
 """The closed loop: drift alert -> retrain -> validate -> publish -> swap
--> probation -> (rollback); port of ``avenir_tpu/control/controller.py``
-(everything but the online plane's ``OnlineSupervisor``).
+-> probation -> (rollback); port of ``avenir_tpu/control/controller.py``,
+with the online plane's ``OnlineSupervisor`` at the end.
 
 ``RetrainController`` is a crash-resumable state machine over pieces the
 port already has: ``DriftPolicy`` fires debounced AlertRecords,
@@ -1204,3 +1204,191 @@ def _models_sha(models) -> str:
     for m in models:
         h.update(m.to_json().encode())
     return h.hexdigest()
+
+
+# ---- the online supervisor ---------------------------------------------
+
+ONLINE_STATE_FILE = "online_state.bin"
+
+
+@dataclass
+class OnlineSupervisorPolicy:
+    """Knobs of the online learning plane's supervisor (CLI twin: the
+    ``ps.online.*`` keys)."""
+    snapshot_every: int = 32      # windows between registry snapshots
+    accuracy_floor: int = 0       # integer percent; 0 disables rollback
+    floor_window: int = 256      # labeled outcomes per probation window
+    floor_consecutive: int = 2    # breached windows before rollback
+    pos_class: str = "1"
+    neg_class: str = "0"
+
+
+class OnlineSupervisor:
+    """The RetrainController's role for the online plane
+    (``online.plane.OnlineWindowPlane``): not a rebuilder (the plane
+    learns every window) but a guardian.
+
+    Duties, all journaled (``OnlineJournal``) and chaos-drillable at
+    the ``online_snapshot`` / ``online_restore`` fault points:
+
+    * **snapshot cadence** — every ``snapshot_every`` supervised
+      windows, serialize the plane's device state and publish it to the
+      registry as a versioned model (the logistic coefficients are the
+      payload, kind ``logistic``) with the FULL state bytes as a
+      ``online_state.bin`` sidecar, then pin the version: the pin IS
+      the rollback target, exactly the registry's pin and rollback.
+    * **probation, permanently** — every supervised window's labeled
+      outcomes feed an :class:`AccuracyTracker`; ``accuracy_floor``
+      breached for ``floor_consecutive`` probation windows triggers
+      the rollback actuator.
+    * **rollback** — restore the pinned snapshot's sidecar bytes into
+      the plane's donated carries, bit-identical, without a process
+      restart.
+    * **resume** — on attach (service start, or restart after a kill),
+      restore from the pinned snapshot if one exists; an interrupted
+      snapshot/rollback found in the journal resumes through the SAME
+      path, because the registry pin — not the journal — is the state
+      source of truth.
+    """
+
+    def __init__(self, registry, model_name: str, state_dir: str,
+                 policy: Optional[OnlineSupervisorPolicy] = None,
+                 counters: Optional[Counters] = None):
+        from .journal import (ONLINE_PROBATION, ONLINE_ROLLBACK,
+                              ONLINE_SNAPSHOT, OnlineJournal)
+        self._stages = (ONLINE_PROBATION, ONLINE_SNAPSHOT,
+                        ONLINE_ROLLBACK)
+        self.registry = registry
+        self.model_name = model_name
+        self.policy = policy or OnlineSupervisorPolicy()
+        self.counters = counters if counters is not None else Counters()
+        self.journal = OnlineJournal(state_dir)
+        self.plane = None
+        self.windows = int(self.journal.get("windows") or 0)
+        self._since_snapshot = 0
+        self._tracker = self._fresh_tracker()
+
+    def _fresh_tracker(self) -> Optional[AccuracyTracker]:
+        p = self.policy
+        if p.accuracy_floor <= 0:
+            return None
+        dp = DriftPolicy(consecutive=p.floor_consecutive,
+                         accuracy_alert=p.accuracy_floor,
+                         counters=self.counters)
+        return AccuracyTracker(pos_class=p.pos_class,
+                               neg_class=p.neg_class, policy=dp,
+                               window=p.floor_window)
+
+    # ---- lifecycle -----------------------------------------------------
+    def attach(self, plane) -> None:
+        """Bind the plane and resume: restore the pinned snapshot (if
+        any), complete any interrupted journal stage, and guarantee a
+        rollback target exists by taking snapshot #1 on a fresh start."""
+        self.plane = plane
+        interrupted = self.journal.interrupted
+        v = self.registry.pinned_version(self.model_name)
+        if v is not None:
+            self._restore(v)
+            if interrupted:
+                # the crash window re-enters probation through the same
+                # restore path a rollback uses; the half-done snapshot
+                # (published, unpinned) is abandoned to registry gc
+                self.counters.increment("Online", "ResumedInterrupted")
+        elif self.journal.stage != "idle" and interrupted:
+            self.counters.increment("Online", "ResumedInterrupted")
+        self.journal.advance(self._stages[0],
+                             windows=self.windows)
+        if v is None:
+            self.snapshot()     # the first rollback target
+
+    def on_window(self, pred_labels, actual_labels) -> Dict[str, Any]:
+        """One supervised window: feed the probation tracker, enforce
+        the floor, keep the snapshot cadence.  Returns the window's
+        events (``snapshot``/``rollback`` -> version)."""
+        if self.plane is None:
+            raise RuntimeError("supervisor has no attached plane")
+        events: Dict[str, Any] = {}
+        self.windows += 1
+        self._since_snapshot += 1
+        if self._tracker is not None and pred_labels:
+            fired = self._tracker.record(list(pred_labels),
+                                         list(actual_labels))
+            if any(r.level == ALERT for r in fired):
+                worst = min(r.value for r in fired)
+                instant("online.floor_breach", cat="online",
+                        model=self.model_name, accuracy=worst,
+                        floor=self.policy.accuracy_floor,
+                        window=self.windows)
+                self.counters.increment("Online", "FloorBreaches")
+                events["rollback"] = self.rollback()
+                return events
+        if self.policy.snapshot_every > 0 \
+                and self._since_snapshot >= self.policy.snapshot_every:
+            events["snapshot"] = self.snapshot()
+        return events
+
+    # ---- actuators -----------------------------------------------------
+    def snapshot(self) -> int:
+        """Publish the plane's state as the next pinned version."""
+        probation, snapshot_stage, _ = self._stages
+        self.journal.advance(snapshot_stage, windows=self.windows)
+        fault_point("online_snapshot")
+        payload = self.plane.state_bytes()
+        version = self.registry.publish(
+            self.model_name, self.plane.logistic_w(), kind="logistic",
+            params={"online": True, "window": self.windows,
+                    "algorithm": self.plane.config.algorithm})
+        self.registry.add_sidecar(self.model_name, version,
+                                  {ONLINE_STATE_FILE: payload})
+        self.registry.pin_version(self.model_name, version)
+        self.journal.advance(
+            probation, windows=self.windows,
+            last_snapshot_version=version,
+            last_snapshot_window=self.windows,
+            snapshots=int(self.journal.get("snapshots") or 0) + 1)
+        instant("online.snapshot", cat="online", model=self.model_name,
+                version=version, window=self.windows,
+                bytes=len(payload))
+        self.counters.increment("Online", "Snapshots")
+        self._since_snapshot = 0
+        return version
+
+    def rollback(self) -> int:
+        """Restore the pinned snapshot into the plane, bit-identical."""
+        probation, _, rollback_stage = self._stages
+        self.journal.advance(rollback_stage, windows=self.windows)
+        fault_point("online_restore")
+        version = self.journal.get("last_snapshot_version")
+        if version is None:
+            version = self.registry.pinned_version(self.model_name)
+        if version is None:
+            raise RuntimeError(
+                f"online rollback for {self.model_name!r} has no "
+                f"snapshot to restore")
+        self._restore(int(version))
+        self.journal.advance(
+            probation, windows=self.windows,
+            rollbacks=int(self.journal.get("rollbacks") or 0) + 1)
+        instant("online.rollback", cat="online", model=self.model_name,
+                version=int(version), window=self.windows)
+        self.counters.increment("Online", "Rollbacks")
+        # the restored learner starts a fresh probation record — stale
+        # pre-rollback outcomes must not instantly re-breach the floor
+        self._tracker = self._fresh_tracker()
+        self._since_snapshot = 0
+        return int(version)
+
+    def _restore(self, version: int) -> None:
+        payload = self.registry.read_sidecar(self.model_name, version,
+                                             ONLINE_STATE_FILE)
+        self.plane.restore(payload)
+
+    # ---- observability -------------------------------------------------
+    def stats(self) -> Dict[str, Any]:
+        return {
+            "supervised_windows": self.windows,
+            "snapshots": int(self.journal.get("snapshots") or 0),
+            "rollbacks": int(self.journal.get("rollbacks") or 0),
+            "last_snapshot_version":
+                self.journal.get("last_snapshot_version") or 0,
+        }

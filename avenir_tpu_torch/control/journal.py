@@ -1,6 +1,6 @@
-"""The retrain controller's crash journal: port of
-``avenir_tpu/control/journal.py`` (the cycle journal; the online plane's
-``OnlineJournal`` comes with the online plane).
+"""The controllers' crash journals: port of
+``avenir_tpu/control/journal.py`` (the retrain cycle's ``CycleJournal``
+and the online supervisor's ``OnlineJournal``, at the end).
 
 The controller is a state machine whose every transition must survive a
 kill at any instant.  This journal is the whole durability story: ONE
@@ -202,4 +202,104 @@ class CycleJournal:
         hist = list(self._state.get("history") or [])
         hist.append(summary)
         self._state["history"] = hist[-_KEEP_HISTORY:]
+        self.write()
+
+
+# ---- the online supervision journal -------------------------------------
+#
+# The online learning plane is not a cycle machine — it is ALWAYS in
+# probation.  Its journal is the same tmp-then-rename single JSON file,
+# but the state machine is a loop, not a ladder::
+#
+#     idle -> probation <-> snapshot
+#                  \\-> rollback -> probation
+#
+# ``snapshot`` / ``rollback`` are advanced into BEFORE their side
+# effects (the CycleJournal rule), so a kill at the ``online_snapshot``
+# or ``online_restore`` fault point resumes knowing exactly what was in
+# flight; resume itself is uniform — restore device state from the last
+# pinned registry snapshot and re-enter probation — because the
+# registry pin, not the journal, is the state source of truth.
+
+ONLINE_IDLE = "idle"
+ONLINE_PROBATION = "probation"
+ONLINE_SNAPSHOT = "snapshot"
+ONLINE_ROLLBACK = "rollback"
+ONLINE_STAGES = (ONLINE_IDLE, ONLINE_PROBATION, ONLINE_SNAPSHOT,
+                 ONLINE_ROLLBACK)
+ONLINE_JOURNAL_FILE = "online.json"
+
+
+class OnlineJournal:
+    """Crash journal for the online supervisor: one small JSON file,
+    rewritten atomically before every stage's side effects."""
+
+    def __init__(self, state_dir: str):
+        self.state_dir = state_dir
+        os.makedirs(state_dir, exist_ok=True)
+        self.path = os.path.join(state_dir, ONLINE_JOURNAL_FILE)
+        self._state: Dict[str, Any] = self._fresh()
+        self._load()
+
+    @staticmethod
+    def _fresh() -> Dict[str, Any]:
+        return {
+            "format_version": FORMAT_VERSION,
+            "stage": ONLINE_IDLE,
+            "windows": 0,                 # windows supervised, ever
+            "snapshots": 0,
+            "rollbacks": 0,
+            "last_snapshot_version": None,   # the rollback target
+            "last_snapshot_window": None,
+        }
+
+    def _load(self) -> None:
+        try:
+            with open(self.path) as fh:
+                state = json.load(fh)
+        except FileNotFoundError:
+            return
+        except Exception:
+            import warnings
+            warnings.warn(
+                f"online journal {self.path!r} is unreadable; starting "
+                f"idle (the registry pin is the state source of truth)",
+                RuntimeWarning)
+            return
+        if isinstance(state, dict) and state.get("stage") in ONLINE_STAGES:
+            base = self._fresh()
+            base.update(state)
+            self._state = base
+
+    def write(self) -> None:
+        tmp = self.path + f".tmp.{os.getpid()}"
+        with open(tmp, "w") as fh:
+            json.dump(self._state, fh, indent=2, sort_keys=True)
+        os.replace(tmp, self.path)
+
+    def __getitem__(self, key: str) -> Any:
+        return self._state[key]
+
+    def get(self, key: str, default: Any = None) -> Any:
+        return self._state.get(key, default)
+
+    @property
+    def stage(self) -> str:
+        return self._state["stage"]
+
+    @property
+    def interrupted(self) -> bool:
+        """True when a crash left a snapshot or rollback in flight."""
+        return self.stage in (ONLINE_SNAPSHOT, ONLINE_ROLLBACK)
+
+    def advance(self, stage: str, **fields: Any) -> None:
+        """Record entering ``stage`` (ALWAYS before side effects)."""
+        if stage not in ONLINE_STAGES:
+            raise ValueError(f"unknown online stage {stage!r}")
+        self._state["stage"] = stage
+        self._state.update(fields)
+        self.write()
+
+    def update(self, **fields: Any) -> None:
+        self._state.update(fields)
         self.write()

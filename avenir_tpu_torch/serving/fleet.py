@@ -43,8 +43,8 @@ Placement (``device_map``): None = every worker on the process device;
 ``round_robin`` = worker i on ``parallel.mesh.worker_device(i)``;
 ``sharded`` = every worker's forest tree-sharded over the runtime
 context's mesh (``parallel.mesh.runtime_context``: every visible card, or
-the mesh a caller installed).  Online reward intake (``reward_sink``) is
-not ported.
+the mesh a caller installed).  ``reward_sink`` (online reward intake)
+passes to every worker's service; it does not combine with ``models=``.
 """
 
 from __future__ import annotations
@@ -165,14 +165,11 @@ class ServingFleet:
         # config) — fleet _ingest keeps its python parse, the codec
         # rides inside each worker's process_batch
         self._wire_native = wire_native
-        # online reward intake (the JAX package's reward_sink) belongs to
-        # the online plane, which is not ported: refused by name, after
-        # the JAX package's own refusal of reward_sink with models=
+        # online reward intake: every worker's service hands
+        # ``reward,<id>,<v>`` rows to the sink
         if reward_sink is not None and models:
             raise ValueError("reward_sink= does not combine with models=")
-        if reward_sink is not None:
-            raise ValueError("reward_sink: online reward intake is not "
-                             "ported to avenir_tpu_torch")
+        self._reward_sink = reward_sink
         # device placement (registry-built predictors only: a
         # predictor_factory owns its own placement)
         if device_map not in (None, "round_robin", "sharded"):
@@ -265,6 +262,7 @@ class ServingFleet:
                       timer=StepTimer(keep_samples=self._latency_window),
                       metrics=self._metrics,
                       wire_native=self._wire_native,
+                      reward_sink=self._reward_sink,
                       own_stream=self._own_stream)
         if self.predictor_factory is not None:
             return PredictionService(self.predictor_factory(), **common)

@@ -195,8 +195,11 @@ class PredictionService:
     on a metrics registry (fleet workers are ``<model>-w<i>``).
     ``own_stream=False`` launches on the device's current stream instead of
     a stream of the service's own: a timing-only switch (the per-worker
-    stream's comparison run).  ``reward_sink`` (online reward intake) is
-    not ported and must stay None."""
+    stream's comparison run).  ``reward_sink`` (online reward intake): a
+    callable taking a list of raw ``reward,<id>,<value>`` messages; with
+    one set, the reward rows drained alongside predicts go to it (counted
+    in ``Serving/RewardsRouted``, no reply) instead of counting as bad
+    requests."""
 
     def __init__(self, predictor: Optional[Predictor] = None, *,
                  registry: Optional[ModelRegistry] = None,
@@ -225,9 +228,6 @@ class PredictionService:
                  own_stream: bool = True):
         if predictor is None and (registry is None or model_name is None):
             raise ValueError("need a predictor, or registry= + model_name=")
-        if reward_sink is not None:
-            raise ValueError("reward_sink: online reward intake is not "
-                             "ported to avenir_tpu_torch")
         if wire_native not in native_wire.MODES:
             raise ValueError(
                 f"wire_native must be one of {native_wire.MODES}, "
@@ -261,6 +261,9 @@ class PredictionService:
         # drift/quality hook (monitor.accumulator.ServingMonitor): every
         # answered micro-batch records through it; None = unmonitored
         self.monitor = monitor
+        # online reward intake: the native codec declines any batch
+        # holding the verb, so the sink only fires from the Python plane
+        self.reward_sink = reward_sink
         # set by mark_degraded (a drift policy's degrade_action); cleared
         # by a hot-swap
         self.degraded: Optional[str] = None
@@ -702,6 +705,7 @@ class PredictionService:
         q_rows: List[tuple] = []
         traced = None
         reload_requested = False
+        reward_msgs: List[str] = []
         q_width = pred.prebinned_width \
             if getattr(pred, "supports_prebinned", False) else 0
         warned_no_prebinned = False
@@ -752,10 +756,18 @@ class PredictionService:
                             q_rows.append(decoded)
                 elif parts[0] == "reload":
                     reload_requested = True
+                elif parts[0] == "reward" and self.reward_sink is not None:
+                    # the sink owns the reward's parse and join; a reward
+                    # gets no reply line
+                    reward_msgs.append(message)
                 else:
                     self.counters.increment("Serving", "BadRequests")
                     warnings.warn(f"serving: dropping malformed message "
                                   f"{message!r}", RuntimeWarning)
+        if reward_msgs:
+            self.counters.increment("Serving", "RewardsRouted",
+                                    len(reward_msgs))
+            self.reward_sink(reward_msgs)
         if not entries:
             if reload_requested:
                 self.refresh()

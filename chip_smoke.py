@@ -432,7 +432,7 @@ order — any failure exits non-zero before the result line:
 
  47-50        serving over the RESP wire, launch counts zeroed before each
               path and read after
- 47. wire     predictionService over 30,000 rafo9 records (the fixture's
+ 47. wire     predictionService over 15,000 rafo9 records (the fixture's
      serve    requests tiled) from a copy of its registry: in-process, then
               ps.transport=resp with ps.wire.native=on and =off; both
               wire outputs byte-equal to the in-process one, and every
@@ -446,9 +446,9 @@ order — any failure exits non-zero before the result line:
               malformed lines and 5 lines sent to a model without a
               sidecar answer error and count as BadRequests;
               quantized_vote launches = the int8 batches, no float vote
- 49. delta    a RespPredictionLoop on a thread serving 15,000 requests on
+ 49. delta    a RespPredictionLoop on a thread serving 7,500 requests on
               v1 while publish_delta publishes v2 (trees 3 and 7 from
-              wire9's v2), then reload and 15,000 more: DeltaSwaps 1, every
+              wire9's v2), then reload and 7,500 more: DeltaSwaps 1, every
               reply after it equals a full load of v2 (and some differ
               from v1's), the H2D bytes moved printed, every vote launch
               after the patch in the table form; then the same reload
@@ -503,7 +503,7 @@ order — any failure exits non-zero before the result line:
               the baseline's blocks + the 2 drift re-scores, B2 >= 2
  57. retrain  one cycle at the rafo forest's widths (9 trees): champion
      scale    phase 30's 1,000,000-row model with its baseline, a
-              1,000,000-row drifted window drawn like phase 26's, a
+              500,000-row drifted window drawn like phase 26's, a
               2-worker fleet answering live requests throughout; the
               seconds of the build, validate, publish and swap stages, the
               requests answered during the swap (every request answered,
@@ -520,10 +520,10 @@ order — any failure exits non-zero before the result line:
               CSV: ms an iteration and rows/s, the card's history within
               1e-4 of the CPU's over the same rows
 
- 60-63        the threefry twin of jax.random and its consumers; the
-              threefry count is zeroed before each of 61-63 (their main
-              paths, launched through the port's CLI) and read after, and
-              each must have launched the kernel
+ 60-66        the threefry twin of jax.random and its consumers; the
+              threefry count is zeroed before each of 61-66 (their main
+              paths, launched through the port's CLI and entry points)
+              and read after, and each must have launched the kernel
  60. threefry the threefry2x32 kernel (csrc/threefry.cu) bit-equal to its
               plain version over 2^24 explicit and flat-index counters
               under three keys, both output modes; every threefry9 case
@@ -544,20 +544,44 @@ order — any failure exits non-zero before the result line:
               version's served lines byte-equal; neuralNetwork over
               1,000,000 churn rows (batch, 1,000 iterations) and its
               predictor, ms an iteration and rows/s, the card's weights
-              after 100 iterations against the CPU's; one minibatch epoch
-              (batch 64) and one incr epoch over 20,000 rows, ms a step
+              after 50 iterations against the CPU's; one minibatch epoch
+              (batch 64) over 250,000 rows and one incr epoch over 5,000
+              rows, ms a step
  62. optimize golden sa and every opt9 case byte-equal (lines and
               counters; the two 2-process cases over two gloo ranks on
               the card); SA with 8,192 chains over a 64 x 32
-              task_sched_gen domain, 2,000 iterations + 100 of local
+              task_sched_gen domain, 1,000 iterations + 100 of local
               descent: chain-steps/s and threefry launches a step; the
               same at 50 iterations byte-equal to the port's CPU run; GA
               64 islands x 256, 120 generations
  63. bandits  golden bandit and price, every mab9 round and the mab9
               VectorBandits selections byte-equal; VectorBandits at
-              1,000,000 groups x 4 actions, every algorithm, 3 calls,
+              250,000 groups x 4 actions, every algorithm, 3 calls,
               each call's selections equal to the port's CPU twin's;
               selections/s
+ 64. online9  every online9 case (ucb1, softMax, sampsonSampler, the
+              logistic and MLP heads, the supervised wire run with a
+              rollback, its resume after a kill at online_snapshot, an
+              evicting pending table) through onlineLearner on the card:
+              replies, counters, journals and every registry snapshot
+              byte-equal to the JAX fixture (the pin's clock aside); the
+              MLP head's parameters within 1e-5, its differing labels
+              counted
+ 65. online   an ad server's stream (200,000 predicts x 32 features, 8
+              arms, 80% rewarded 1-3 windows late, 1% orphans) in windows
+              of 256 through the plane on the card: ucb1/bandit,
+              softMax/logistic, and sampsonSampler/MLP (hidden 64) over
+              the RESP wire with a supervisor snapshotting every 32
+              windows; windows/s, requests/s, ms a window (parse, join,
+              upload, device, read-back), threefry launches a window, each
+              run alone on the card (in this process, after phase 64; only
+              the CPU reference's child shares the host); the first run's
+              replies byte-equal to the CPU port's (that child)
+ 66. samplers MetropolisSampler with 1,000,000 chains x 100 transitions
+              and weighted_indices with 1,000,000 draws over 1,000
+              weights on the card, bit-equal to the CPU port on the first
+              65,536 chains and 20,000 draws; seconds and threefry
+              launches a transition
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -573,8 +597,9 @@ under ``wire`` phases 47-50's rates and counts, and under ``fleet`` phases
 51-55's (B2's, B3's and B6's ``fleet_*`` launches are theirs too),
 under ``retrain`` phases 56-58's (B1's, B2's and B4's ``retrain*``
 launches are theirs too), under ``logistic`` phase 59's, under ``mlp``,
-``optimize`` and ``bandits`` phases 61-63's (the ``threefry2x32`` entry's
-launches are theirs), and under
+``optimize`` and ``bandits`` phases 61-63's, under ``online`` phases
+64-66's (the ``threefry2x32`` entry's launches are those of 61-66), and
+under
 ``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
@@ -670,8 +695,8 @@ WIRE9 = os.path.join(ROOT, "tests", "torch_fixtures", "wire9")
 # phases 47-50: records served over the wire, the delta reload's rows before
 # and after the patch, the changed trees (from wire9's v2), and the durable
 # drill's records and acked batches before the kill
-WIRE_ROWS = 30_000
-DELTA_ROWS = 15_000
+WIRE_ROWS = 15_000
+DELTA_ROWS = 7_500
 DELTA_TREES = (3, 7)
 DURABLE_ROWS = 10_000
 DURABLE_ACKED_POLLS = 20
@@ -5177,7 +5202,7 @@ def fleet_hosts(reg_dir, records, ref):
 
 RETRAIN9 = os.path.join(ROOT, "tests", "torch_fixtures", "retrain9")
 LR9 = os.path.join(ROOT, "tests", "torch_fixtures", "lr9")
-RETRAIN_SCALE_ROWS = 1_000_000
+RETRAIN_SCALE_ROWS = 500_000
 LR_SCALE_ROWS = 1_000_000
 LR_SCALE_ITERS = 10
 # a coefficient history line against another: max |a - b| over max |b|
@@ -5353,7 +5378,7 @@ class LiveFeed:
 
 def retrain_scale(dev, fs, scale_csv, scale_trees):
     """Phase 57: one cycle at the rafo forest's full width over a
-    1,000,000-row drifted window while a 2-worker fleet answers live
+    500,000-row drifted window while a 2-worker fleet answers live
     requests; phase 58: the same cycle killed after its publish committed
     and resumed.  Returns the printed numbers."""
     import torch
@@ -5657,12 +5682,13 @@ SA_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "sa")
 MLP_A5_RTOL = 1e-4       # mlp9's first iterations on the card (as the CPU)
 MLP_LOGIT_ATOL = 1e-4    # a predictor label may differ below this gap
 MLP_SCALE_ROWS = 1_000_000
-MLP_INCR_ROWS = 20_000
-MLP_GAP_ITERS = 100      # the card's batch run against the CPU's
-SA_SCALE = (64, 32, 8192, 2000)     # tasks, employees, chains, iterations
+MLP_INCR_ROWS = 5_000
+MLP_GAP_ITERS = 50       # the card's batch run against the CPU's
+MLP_MINIBATCH_ROWS = 250_000     # the timed minibatch epoch's rows
+SA_SCALE = (64, 32, 8192, 1000)     # tasks, employees, chains, iterations
 SA_CPU_ITERS = 50
 GA_SCALE = (64, 256, 120)           # islands, population, generations
-VB_GROUPS = 1_000_000
+VB_GROUPS = 250_000
 VB_REWARD_EVENTS = 10_000
 
 
@@ -5891,7 +5917,8 @@ def mlp_phase(dev):
               for k in mlp.NAMES)
     one = dict(iterations=1, batch_size=64)
     t0 = time.perf_counter()
-    mlp.train(Xs, ys, mlp.MLPConfig(mode="minibatch", **one), device=dev)
+    mlp.train(Xs[:MLP_MINIBATCH_ROWS], ys[:MLP_MINIBATCH_ROWS],
+              mlp.MLPConfig(mode="minibatch", **one), device=dev)
     torch.cuda.synchronize()
     mb_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -5899,7 +5926,7 @@ def mlp_phase(dev):
               mlp.MLPConfig(mode="incr", **one), device=dev)
     torch.cuda.synchronize()
     incr_s = time.perf_counter() - t0
-    n_mb = len(ys) // 64
+    n_mb = min(len(ys), MLP_MINIBATCH_ROWS) // 64
     res = {"mlp9": cases, "a5_rel": a5_rel, "short_rel": short_rel,
            "job_s": job_s,
            "predict_s": pred_s, "predict_rows_per_s": len(ys) / pred_s,
@@ -6238,6 +6265,382 @@ def bandit_phase(dev):
           f"launches {launches}", flush=True)
     return {"fixture_launches": fixture_launches,
             "selections_per_s": rates, "launches": launches}
+
+
+# --------------------------------------------------------------------------
+# phases 64-66: the online learning plane (online9 on the card, an ad
+# server's stream at scale) and the samplers through the threefry twin
+# --------------------------------------------------------------------------
+
+ONLINE9 = os.path.join(ROOT, "tests", "torch_fixtures", "online9")
+ONLINE_MLP_ATOL = 1e-5        # case e's MLP parameters, card against JAX
+ONLINE_SCALE_PREDICTS = 200_000
+ONLINE_SCALE_FEATURES = 32
+ONLINE_SCALE_ARMS = 8
+ONLINE_SCALE_WINDOW = 256
+ONLINE_SCALE_BUCKETS = (8, 64, 256)
+ONLINE_SCALE_MLP_HIDDEN = 64
+ONLINE_SCALE_SNAPSHOT_EVERY = 32
+# (algorithm, head, transport): the third run supervised over the wire
+ONLINE_SCALE_RUNS = (("ucb1", "bandit", "inprocess"),
+                     ("softMax", "logistic", "inprocess"),
+                     ("sampsonSampler", "mlp", "resp"))
+METRO_CHAINS = 1_000_000
+METRO_TRANSITIONS = 100
+METRO_CPU_CHAINS = 65_536
+WEIGHTED_DRAWS = 1_000_000
+WEIGHTED_N = 1_000
+WEIGHTED_CPU_DRAWS = 20_000
+METRO_TARGET = (1.0, 2.0, 4.0, 8.0, 6.0, 3.0, 2.0, 1.0, 0.5)
+
+
+def online_scale_stream():
+    """An ad server's stream: ONLINE_SCALE_PREDICTS predict rows of 32
+    features; a reward for 80% of them 1-3 windows later, 4-decimal values
+    tied to the features; 1% orphan rewards (ids never served)."""
+    rng = np.random.default_rng(20261065)
+    n, F = ONLINE_SCALE_PREDICTS, ONLINE_SCALE_FEATURES
+    X = rng.normal(size=(n, F)).round(4)
+    beta = rng.normal(size=F) / np.sqrt(F)
+    p = 1.0 / (1.0 + np.exp(-(X @ beta)))
+    rewarded = rng.random(n) < 0.8
+    vals = np.clip(p + 0.5 * (rng.random(n) - 0.5), 0.0, 1.9999).round(4)
+    pos = np.arange(n, dtype=np.float64) * 1.8
+    lag = rng.uniform(1.0, 3.0, n) * ONLINE_SCALE_WINDOW
+    n_orph = n // 100
+    lines = [f"predict,q{i}," + ",".join(f"{v:.4f}" for v in X[i])
+             for i in range(n)]
+    ids = np.nonzero(rewarded)[0]
+    lines += [f"reward,q{i},{vals[i]:.4f}" for i in ids]
+    lines += [f"reward,orphan{j},{v:.4f}"
+              for j, v in enumerate(rng.random(n_orph).round(4))]
+    at = np.concatenate([pos, pos[ids] + lag[ids],
+                         rng.uniform(0, pos[-1], n_orph)])
+    order = np.argsort(at, kind="stable")
+    return [lines[i] for i in order]
+
+
+def online_scale_config(algorithm, head):
+    from avenir_tpu_torch.online import OnlineLearnerConfig
+    return OnlineLearnerConfig(
+        actions=tuple(str(a) for a in range(ONLINE_SCALE_ARMS)),
+        n_features=ONLINE_SCALE_FEATURES, algorithm=algorithm, head=head,
+        mlp_hidden=ONLINE_SCALE_MLP_HIDDEN if head == "mlp" else 0,
+        learning_rate=0.05, temp_constant=0.3, seed=11)
+
+
+def online_scale_run(device, msgs, algorithm, head, transport, work=None):
+    """One run of the stream on ``device`` (in-process windows of
+    ONLINE_SCALE_WINDOW messages, or over an embedded RESP broker with a
+    supervisor snapshotting every ONLINE_SCALE_SNAPSHOT_EVERY windows).
+    Returns (replies, stats)."""
+    import torch
+    from avenir_tpu_torch.core.metrics import Counters
+    from avenir_tpu_torch.online import (OnlineLearnerService,
+                                         OnlineWindowPlane)
+    from avenir_tpu_torch.parallel.mesh import DeviceMesh, MeshContext
+    from avenir_tpu_torch.pipeline.cache import program_cache
+    from avenir_tpu_torch.utils import threefry as tf
+    program_cache().clear()
+    cfg = online_scale_config(algorithm, head)
+    plane = OnlineWindowPlane(cfg, ctx=MeshContext(DeviceMesh([device])),
+                              buckets=ONLINE_SCALE_BUCKETS,
+                              pending_capacity=1 << 20)
+    plane.profile = True
+    counters = Counters()
+    sup = None
+    if transport == "resp":
+        from avenir_tpu_torch.control.controller import (
+            OnlineSupervisor, OnlineSupervisorPolicy)
+        from avenir_tpu_torch.serving.registry import ModelRegistry
+        shutil.rmtree(work, ignore_errors=True)
+        sup = OnlineSupervisor(
+            ModelRegistry(os.path.join(work, "registry")), "onl",
+            os.path.join(work, "state"),
+            policy=OnlineSupervisorPolicy(
+                snapshot_every=ONLINE_SCALE_SNAPSHOT_EVERY),
+            counters=counters)
+    svc = OnlineLearnerService(plane, counters=counters, supervisor=sup)
+    tf.launches = 0
+    t0 = time.perf_counter()
+    if transport == "resp":
+        from avenir_tpu_torch.io import respq
+        from avenir_tpu_torch.online.service import OnlineRespLoop
+        server = respq.RespServer().start()
+        feeder = respq.RespClient(port=server.port)
+        for s in range(0, len(msgs), 10_000):
+            feeder.lpush_many("requestQueue", msgs[s:s + 10_000])
+        t0 = time.perf_counter()
+        loop = OnlineRespLoop(svc, respq.RespClient(port=server.port),
+                              batch=ONLINE_SCALE_WINDOW)
+        loop.run()
+        if device != "cpu":
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        replies = _drain(feeder)
+        feeder.close()
+        loop.client.close()
+        server.stop()
+    else:
+        replies = []
+        for i in range(0, len(msgs), ONLINE_SCALE_WINDOW):
+            out, _ = svc.process_window(msgs[i:i + ONLINE_SCALE_WINDOW])
+            replies.extend(out)
+        wall = time.perf_counter() - t0
+    st = plane.run_stats()
+    w = max(st["windows"], 1)
+    stats = {"windows": st["windows"], "wall_s": wall,
+             "windows_per_s": st["windows"] / wall,
+             "requests_per_s": counters.get("Online", "Requests") / wall,
+             "ms_per_window": {k[:-2]: v / w * 1e3
+                               for k, v in plane.timings.items()},
+             "threefry_launches": tf.launches,
+             "threefry_per_window": tf.launches / w,
+             "joined": st["joined"], "orphans": st["orphans"],
+             "retraces": st["retraces"], "hits": st["hits"]}
+    if sup is not None:
+        stats["snapshots"] = counters.get("Online", "Snapshots")
+    return replies, stats
+
+
+def samplers_subset(device, chains, draws):
+    """The phase-66 draws on ``device`` for the first ``chains`` chains
+    and ``draws`` rows (chain c and row i draw at counters that do not
+    depend on the counts)."""
+    from avenir_tpu_torch.stats import samplers
+    from avenir_tpu_torch.utils import threefry as tf
+    m = samplers.MetropolisSampler(1.5, 0.0, 1.0, METRO_TARGET,
+                                   n_chains=chains, seed=66, device=device)
+    cur = m.sub_sample(METRO_TRANSITIONS)
+    w = np.random.default_rng(20261066).uniform(0.0, 5.0, WEIGHTED_N)
+    idx = samplers.weighted_indices(tf.PRNGKey(66, device), w, draws)
+    return cur, idx, m.trans_count
+
+
+def online_cpu_child(stream_path, path):
+    """``--online-cpu-child``: the first scale run and the sampler subsets
+    on the CPU, saved to ``path``."""
+    from avenir_tpu_torch.runtime import set_default_device
+    set_default_device("cpu")
+    with open(stream_path) as fh:
+        msgs = fh.read().splitlines()
+    replies, _ = online_scale_run("cpu", msgs, *ONLINE_SCALE_RUNS[0])
+    cur, idx, _ = samplers_subset("cpu", METRO_CPU_CHAINS,
+                                  WEIGHTED_CPU_DRAWS)
+    np.savez(path, replies=np.asarray(replies), metro=cur, weighted=idx)
+
+
+def online9_phase(dev):
+    """Phase 64: every online9 case through ``onlineLearner`` on the card:
+    replies, counters, journals and registry files equal the fixture's
+    (the pin's clock aside); case e's MLP parameters within
+    ONLINE_MLP_ATOL, its differing labels counted."""
+    import contextlib
+    import io
+    from avenir_tpu_torch.cli import run as cli_run
+    from avenir_tpu_torch.core import faults
+    from avenir_tpu_torch.online.state import (OnlineLearnerConfig,
+                                               _flatten, init_state,
+                                               state_from_bytes)
+    from avenir_tpu_torch.pipeline.cache import program_cache
+    from avenir_tpu_torch.utils import threefry as tf
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    mk = fixture_module("online9")
+    phase(f"64 online9 on the card: onlineLearner cases "
+          f"{','.join(mk.CASES)} == the JAX fixture")
+
+    def main(args):
+        with contextlib.redirect_stdout(io.StringIO()):
+            return cli_run.main(args)
+    tf.launches = 0
+    mlp_gap, label_diffs = 0.0, 0
+    t_cfg = init_state(OnlineLearnerConfig(
+        actions=tuple(mk.ACTIONS.split(",")), n_features=mk.N_FEATURES,
+        head="mlp", mlp_hidden=8))
+    with transfer_ledger() as led:
+        for case in mk.CASES:
+            work = os.path.join(WORK, "online9", case)
+            shutil.rmtree(work, ignore_errors=True)
+            os.makedirs(work)
+            mk.run_case(main, faults, program_cache().clear, case, work)
+            got = os.path.join(work, "got")
+            mk.keep(work, got, case)
+            want = os.path.join(ONLINE9, case)
+            rels = sorted(os.path.relpath(os.path.join(d, f), want)
+                          for d, _, fs in os.walk(want) for f in fs)
+            for rel in rels:
+                g, w = os.path.join(got, rel), os.path.join(want, rel)
+                if not os.path.exists(g):
+                    fail(f"online9 {case}: {rel} missing on the card")
+                with open(g, "rb") as a, open(w, "rb") as b:
+                    ga, wb = a.read(), b.read()
+                if case == "e" and rel.endswith("online_state.bin"):
+                    hdr = 11 + int.from_bytes(wb[7:11], "little")
+                    gs = dict(_flatten(state_from_bytes(ga, t_cfg)))
+                    ws = dict(_flatten(state_from_bytes(wb, t_cfg)))
+                    gap = max(float(np.abs(gs[k] - ws[k]).max())
+                              for k in gs if "/mlp/" in k)
+                    mlp_gap = max(mlp_gap, gap)
+                    same = all(np.array_equal(gs[k], ws[k])
+                               for k in gs if "/mlp/" not in k)
+                    if ga[:hdr] != wb[:hdr] or not same or \
+                            gap > ONLINE_MLP_ATOL:
+                        fail(f"online9 e {rel}: header/bandit leaves "
+                             f"differ or MLP gap {gap} > {ONLINE_MLP_ATOL}")
+                    continue
+                if case == "e" and rel == "replies.txt":
+                    label_diffs = sum(x != y for x, y in zip(
+                        ga.decode().splitlines(), wb.decode().splitlines()))
+                    continue
+                if CLOCK_FIELDS.sub(rb'"\1": T', ga) != \
+                        CLOCK_FIELDS.sub(rb'"\1": T', wb):
+                    fail(f"online9 {case}: {rel} differs from the fixture")
+    backends = led.backend_snapshot()
+    if not backends.get("threefry.cuda") or backends.get("threefry.torch"):
+        fail(f"online9: the ledger shows threefry forms {backends}")
+    print(f"online9 on the card: cases {list(mk.CASES)} byte-equal to the "
+          f"fixture (bandit and logistic heads: replies, counters, "
+          f"journals, every snapshot); case e's MLP parameters within "
+          f"{mlp_gap:.3g} (limit {ONLINE_MLP_ATOL}), {label_diffs} reply "
+          f"labels differ; threefry launches {tf.launches}", flush=True)
+    return {"fixture_launches": tf.launches, "mlp_max_gap": mlp_gap,
+            "mlp_label_diffs": label_diffs}
+
+
+def online_scale_phase(dev, stream, cpu_child, gen_s):
+    """Phase 65: the ad server's stream, its three runs on the card one
+    after another in this process, each alone on the card (the CPU
+    reference's child, started before phase 64, is the only other work on
+    the host); the first run's replies byte-equal to that child's."""
+    phase(f"65 online plane at scale: {ONLINE_SCALE_PREDICTS:,} predicts x "
+          f"{ONLINE_SCALE_FEATURES} features, {ONLINE_SCALE_ARMS} arms, "
+          f"windows of {ONLINE_SCALE_WINDOW}, runs {ONLINE_SCALE_RUNS}, "
+          f"each alone on the card")
+    with open(stream) as fh:
+        msgs = fh.read().splitlines()
+    runs, first = {}, None
+    for i, (algo, head, transport) in enumerate(ONLINE_SCALE_RUNS):
+        replies, st = online_scale_run(
+            dev, msgs, algo, head, transport,
+            work=os.path.join(WORK, "online", f"run{i}"))
+        if len(replies) != ONLINE_SCALE_PREDICTS:
+            fail(f"online scale {algo}/{head}: {len(replies)} replies for "
+                 f"{ONLINE_SCALE_PREDICTS} predicts")
+        if first is None:
+            first = replies
+        runs[f"{algo}/{head}/{transport}"] = st
+        print(f"online {algo}/{head} ({transport}): {st['windows']} windows"
+              f" in {st['wall_s']:.2f} s = {st['windows_per_s']:.1f} "
+              f"windows/s, {st['requests_per_s']:.0f} requests/s; ms a "
+              f"window {json.dumps({k: round(v, 4) for k, v in st['ms_per_window'].items()})}"
+              f"; threefry launches a window {st['threefry_per_window']:.2f}"
+              f"; joined {st['joined']}, orphans {st['orphans']}"
+              + (f", snapshots {st['snapshots']}" if "snapshots" in st
+                 else "") + f"; staging buffers allocated for "
+              f"{st['retraces']} (request, reward) bucket pairs",
+              flush=True)
+        if st["retraces"] > len(ONLINE_SCALE_BUCKETS) ** 2:
+            fail(f"online scale {algo}/{head}: {st['retraces']} buffer "
+                 f"allocations for {len(ONLINE_SCALE_BUCKETS) ** 2} "
+                 f"bucket pairs")
+    path, child = cpu_child
+    _, se = child.communicate(timeout=900)
+    if child.returncode != 0:
+        fail(f"the online CPU child failed: {se[-2000:]}")
+    with np.load(path) as z:
+        cpu_replies = list(z["replies"])
+    bad = sum(a != b for a, b in zip(first, cpu_replies))
+    if bad or len(first) != len(cpu_replies):
+        fail(f"online scale ucb1/bandit: {bad} of {len(first)} replies "
+             f"differ between the card and the CPU port")
+    print(f"online scale ucb1/bandit: the card's {len(first):,} replies "
+          f"byte-equal to the CPU port's; stream made in {gen_s:.1f} s",
+          flush=True)
+    return {"runs": runs, "stream_s": gen_s,
+            "scale_launches": sum(r["threefry_launches"]
+                                  for r in runs.values())}
+
+
+def samplers_phase(dev, cpu_path):
+    """Phase 66: MetropolisSampler at METRO_CHAINS x METRO_TRANSITIONS and
+    weighted_indices at WEIGHTED_DRAWS over WEIGHTED_N weights on the card,
+    bit-equal to the CPU port on the first chains and rows."""
+    import torch
+    from avenir_tpu_torch.utils import threefry as tf
+    phase(f"66 samplers: Metropolis {METRO_CHAINS:,} chains x "
+          f"{METRO_TRANSITIONS} transitions, weighted_indices "
+          f"{WEIGHTED_DRAWS:,} draws over {WEIGHTED_N:,} weights; card == "
+          f"CPU")
+    samplers_subset(dev, 4096, 1000)            # warm the kernels
+    tf.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    from avenir_tpu_torch.stats import samplers
+    m = samplers.MetropolisSampler(1.5, 0.0, 1.0, METRO_TARGET,
+                                   n_chains=METRO_CHAINS, seed=66,
+                                   device=dev)
+    cur = m.sub_sample(METRO_TRANSITIONS)
+    metro_s = time.perf_counter() - t0
+    metro_launches = tf.launches
+    w = np.random.default_rng(20261066).uniform(0.0, 5.0, WEIGHTED_N)
+    t0 = time.perf_counter()
+    idx = samplers.weighted_indices(tf.PRNGKey(66, dev), w, WEIGHTED_DRAWS)
+    weighted_s = time.perf_counter() - t0
+    with np.load(cpu_path) as z:
+        if not np.array_equal(cur[:METRO_CPU_CHAINS], z["metro"]):
+            fail(f"Metropolis: {int((cur[:METRO_CPU_CHAINS] != z['metro']).sum())}"
+                 f" of the first {METRO_CPU_CHAINS:,} chains differ from the "
+                 f"CPU port's")
+        if not np.array_equal(idx[:WEIGHTED_CPU_DRAWS], z["weighted"]):
+            fail("weighted_indices: the card's first draws differ from the "
+                 "CPU port's")
+    frac = np.bincount(idx, minlength=WEIGHTED_N) / WEIGHTED_DRAWS
+    err = float(np.abs(frac - w / w.sum()).max())
+    if err > 0.002:
+        fail(f"weighted_indices frequencies off by {err}")
+    out = {"metro_s": metro_s,
+           "metro_ms_per_transition": metro_s / METRO_TRANSITIONS * 1e3,
+           "metro_launches": metro_launches,
+           "metro_launches_per_transition":
+               metro_launches / METRO_TRANSITIONS,
+           "metro_accepted": m.trans_count,
+           "weighted_s": weighted_s,
+           "weighted_launches": tf.launches - metro_launches,
+           "weighted_max_freq_err": err}
+    print(f"samplers on the card == the CPU port on the first "
+          f"{METRO_CPU_CHAINS:,} chains and {WEIGHTED_CPU_DRAWS:,} draws: "
+          f"{json.dumps({k: round(v, 5) if isinstance(v, float) else v for k, v in out.items()})}",
+          flush=True)
+    return out
+
+
+def online_phases(dev):
+    """Phases 64-66.  The scale stream is written first and the CPU
+    reference's child (phase 65's first run and phase 66's subsets on the
+    CPU) starts before phase 64; phases 64-66 run in this process, one
+    after another."""
+    work = os.path.join(WORK, "online")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    t0 = time.perf_counter()
+    stream = os.path.join(work, "stream.txt")
+    with open(stream, "w") as fh:
+        fh.write("\n".join(online_scale_stream()) + "\n")
+    gen_s = time.perf_counter() - t0
+    cpu_path = os.path.join(work, "cpu.npz")
+    child = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--online-cpu-child",
+         stream, cpu_path], cwd=ROOT,
+        env=lane_env({"CUDA_VISIBLE_DEVICES": ""}, False),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        o9 = online9_phase(dev)
+        scale = online_scale_phase(dev, stream, (cpu_path, child), gen_s)
+        samp = samplers_phase(dev, cpu_path)
+    finally:
+        if child.poll() is None:
+            child.kill()
+    return {"online9": o9, "scale": scale, "samplers": samp}
 
 
 def main():
@@ -6849,12 +7252,17 @@ def main():
     mlp_r = mlp_phase(dev)
     opt_r = optimize_phase(dev)
     bandit_r = bandit_phase(dev)
+    online_r = online_phases(dev)
     phase()
     tf_main = {"mlp": mlp_r["fixture_launches"],
                "optimize": opt_r["fixture_launches"],
-               "bandits": bandit_r["fixture_launches"]}
+               "bandits": bandit_r["fixture_launches"],
+               "online9": online_r["online9"]["fixture_launches"],
+               "online_scale": online_r["scale"]["scale_launches"],
+               "samplers": online_r["samplers"]["metro_launches"]
+               + online_r["samplers"]["weighted_launches"]}
     if min(tf_main.values()) <= 0:
-        fail(f"a main path of phases 61-63 never launched the threefry "
+        fail(f"a main path of phases 61-66 never launched the threefry "
              f"kernel: {tf_main}")
     print(f"phase seconds: {json.dumps(PHASE_SECONDS)}; total "
           f"{sum(PHASE_SECONDS.values()):.1f} s", flush=True)
@@ -7056,7 +7464,12 @@ def main():
         "main_path_launches": tf_main,
         "sa_scale_launches": opt_r["sa_launches"],
         "ga_scale_launches": opt_r["ga_launches"],
-        "vector_bandit_launches": bandit_r["launches"]}],
+        "vector_bandit_launches": bandit_r["launches"],
+        "online_scale_launches_per_window": {
+            k: r["threefry_per_window"]
+            for k, r in online_r["scale"]["runs"].items()},
+        "metropolis_launches_per_transition":
+            online_r["samplers"]["metro_launches_per_transition"]}],
         "bayes": {"main_path_launches": nb_counts,
                   "main_path_backends": nb_backends,
                   "train_10m": nb_train, "cli_1m": nb_cli,
@@ -7076,6 +7489,7 @@ def main():
         "logistic": logistic,
         "mlp": mlp_r, "optimize": opt_r,
         "bandits": {k: v for k, v in bandit_r.items() if k != "launches"},
+        "online": online_r,
         "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7097,5 +7511,7 @@ if __name__ == "__main__":
         sa_cpu_child(sys.argv[2])
     elif sys.argv[1:2] == ["--bandit-cpu-child"]:
         bandit_cpu_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--online-cpu-child"]:
+        online_cpu_child(*sys.argv[2:4])
     else:
         main()

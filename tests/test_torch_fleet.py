@@ -294,13 +294,101 @@ def test_two_fleets_host_labels_keep_series_apart(registry, server,
 
 
 def test_fleet_refuses_what_is_not_ported(registry):
-    with pytest.raises(ValueError, match="reward_sink"):
-        ServingFleet(registry, "rafo9", reward_sink=lambda msgs: None)
     with pytest.raises(ValueError, match="does not combine with models"):
         ServingFleet(registry, "rafo9", models=["rafo9"],
                      reward_sink=lambda msgs: None)
     with pytest.raises(ValueError, match="device_map"):
         ServingFleet(registry, "rafo9", device_map="everywhere")
+
+
+def _reward_batch():
+    """Predicts of fleet9's records with reward rows between them: valid
+    ones, a malformed one (the sink judges it) and a ghost."""
+    recs = _records()[:6]
+    msgs = []
+    for i, rec in enumerate(recs):
+        msgs.append(f"predict,p{i},{rec}")
+        msgs.append(f"reward,p{i},0.{i}25")
+    return msgs + ["reward,p0", "reward,ghost,1.5"]
+
+
+def _jax_service(path, sink):
+    from avenir_tpu.serving.registry import ModelRegistry as JRegistry
+    from avenir_tpu.serving.service import PredictionService as JService
+    return JService(registry=JRegistry(path), model_name="rafo9",
+                    reward_sink=sink, wire_native="off")
+
+
+@pytest.mark.parametrize("wire_native", ["off", "auto"])
+def test_reward_intake_matches_the_jax_service(registry, cpu_default,
+                                               wire_native):
+    """PredictionService(reward_sink=): the sink gets the raw reward rows
+    in arrival order, Serving/RewardsRouted counts them, and only the
+    predicts are answered — as the JAX package's service does on the same
+    messages (on either wire plane: the native codec declines the
+    batch)."""
+    from avenir_tpu_torch.serving.service import PredictionService
+    msgs = _reward_batch()
+    got_rows, want_rows = [], []
+    svc = PredictionService(registry=registry, model_name="rafo9",
+                            reward_sink=got_rows.extend,
+                            wire_native=wire_native)
+    want_svc = _jax_service(registry.base_dir, want_rows.extend)
+    got = svc.process_batch(msgs)
+    want = want_svc.process_batch(msgs)
+    assert got == want and len(got) == 6
+    assert all(r.split(",")[0].startswith("p") for r in got)
+    assert got_rows == want_rows == [m for m in msgs
+                                     if m.startswith("reward,")]
+    for c in (svc.counters, want_svc.counters):
+        assert c.get("Serving", "RewardsRouted") == 8
+        assert c.get("Serving", "BadRequests") == 0
+
+
+def test_rewards_without_a_sink_stay_bad_requests(registry, cpu_default):
+    from avenir_tpu_torch.serving.service import PredictionService
+    svc = PredictionService(registry=registry, model_name="rafo9",
+                            wire_native="off")
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        got = svc.process_batch(_reward_batch())
+    assert len(got) == 6
+    assert svc.counters.get("Serving", "BadRequests") == 8
+    assert svc.counters.get("Serving", "RewardsRouted") == 0
+
+
+def test_fleet_hands_the_sink_to_every_worker(registry, cpu_default):
+    """ServingFleet(reward_sink=): each worker's service routes the reward
+    rows of its own batches to the one sink."""
+    rows = []
+    fleet = ServingFleet(registry, "rafo9", n_workers=2,
+                         reward_sink=rows.extend)
+    services = [fleet._make_service(f"rafo9-w{i}", i) for i in range(2)]
+    msgs = _reward_batch()
+    for svc in services:
+        assert svc.reward_sink == rows.extend
+        assert len(svc.process_batch(msgs)) == 6
+    assert rows == 2 * [m for m in msgs if m.startswith("reward,")]
+
+
+def test_fleet_rewards_feed_an_online_learner(registry, cpu_default):
+    """The intake's end to end: a fleet worker's reward rows, handed to an
+    online learner service, join the decisions it answered and land in its
+    arm statistics."""
+    from avenir_tpu_torch.online import (OnlineLearnerConfig,
+                                         OnlineLearnerService,
+                                         OnlineWindowPlane)
+    learner = OnlineLearnerService(OnlineWindowPlane(
+        OnlineLearnerConfig(actions=("x", "y")), buckets=(8,)))
+    learner.process_window([f"predict,p{i}" for i in range(6)])
+    fleet = ServingFleet(registry, "rafo9", n_workers=1,
+                         reward_sink=learner.process_window)
+    svc = fleet._make_service("rafo9-w0", 0)
+    svc.process_batch(_reward_batch())
+    stats = learner.stats()
+    assert stats["joined"] == 6 and stats["orphans"] == 1
+    assert float(learner.plane.carries[0]["counts"].sum()) == 6.0
+    assert learner.counters.get("Online", "BadRequests") == 1
 
 
 def test_launch_counters_are_exact_across_threads():

@@ -88,10 +88,24 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.reinforce.learners",
              "avenir_tpu_torch.reinforce.batch",
              "avenir_tpu_torch.reinforce.serving",
-             "avenir_tpu_torch.cli.reinforce_jobs"):
+             "avenir_tpu_torch.cli.reinforce_jobs",
+             "avenir_tpu_torch.pipeline",
+             "avenir_tpu_torch.pipeline.cache",
+             "avenir_tpu_torch.pipeline.compiler",
+             "avenir_tpu_torch.reinforce.online_forms",
+             "avenir_tpu_torch.online",
+             "avenir_tpu_torch.online.state",
+             "avenir_tpu_torch.online.plane",
+             "avenir_tpu_torch.online.service",
+             "avenir_tpu_torch.cli.online_jobs",
+             "avenir_tpu_torch.stats.samplers"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
+# onlineLearner resolves by both names with the CLI's job modules loaded
+from avenir_tpu_torch.cli import run as _run
+from avenir_tpu_torch.cli.jobs import resolve
+assert resolve("onlineLearner") is resolve("org.avenir.online.OnlineLearner")
 importlib.import_module("chip_smoke")
 # the native reader builds and loads the port's own library, never one
 # of the JAX package's
@@ -123,6 +137,7 @@ def test_port_imports_without_jax_or_avenir_tpu():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x7, utils x5, kernels x6, models x4,
-    # serving x9, monitor x5, stats x2, ops x2, cli x9, parallel x4, io x3,
-    # telemetry x5, nn x2, optimize x5, reinforce x4 and the package
-    assert int(res.stdout.strip()) >= 71
+    # serving x9, monitor x5, stats x3, ops x2, cli x10, parallel x4, io x3,
+    # telemetry x5, nn x2, optimize x5, reinforce x5, pipeline x3, online x4
+    # and the package
+    assert int(res.stdout.strip()) >= 81
