@@ -19,7 +19,14 @@ and ``knnPipeline`` (``knn_jobs.py``), ``bayesianDistribution`` and
 and ``neuralNetworkPredictor`` (``nn_jobs.py``), ``simulatedAnnealing``
 and ``geneticAlgorithm`` (``optimize_jobs.py``), ``multiArmBandit``,
 ``greedyRandomBandit``, ``softMaxBandit``, ``auerDeterministic`` and
-``randomFirstGreedyBandit`` (``reinforce_jobs.py``).
+``randomFirstGreedyBandit`` (``reinforce_jobs.py``), ``onlineLearner``
+(``online_jobs.py``), the eleven sequence jobs (``sequence_jobs.py``:
+the Markov model and classifier, the HMM builder and Viterbi, the PST, GSP
+candidates, positional clusters, CTMC rates and statistics, event-time
+histograms, ``sequenceGenerator``), ``frequentItemsApriori``,
+``infrequentItemMarker`` and ``associationRuleMiner``
+(``association_jobs.py``), ``wordCounter``, ``ruleEvaluator`` and
+``temporalFilter`` (``text_jobs.py``).
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
 package's classes), which ``cli.run`` enforces in a joined
@@ -29,10 +36,14 @@ package's classes), which ``cli.run`` enforces in a joined
   explicit collectives (both tree builders: the streamed
   ``randomForestBuilder`` row-range sharded over one shared file, the
   others over per-process files; ``bayesianDistribution``;
-  ``logisticRegression``, one gradient all-reduce an iteration);
+  ``logisticRegression``, one gradient all-reduce an iteration;
+  ``frequentItemsApriori``, the vocabulary and candidates unioned and the
+  counts summed);
 * ``map`` — a per-record transform of the local input; each process writes
   its own part file (``modelPredictor``, ``bayesianPredictor``,
-  ``logisticRegressionPredictor``, ``neuralNetworkPredictor``);
+  ``logisticRegressionPredictor``, ``neuralNetworkPredictor``,
+  ``markovModelClassifier``, ``viterbiStatePredictor``,
+  ``infrequentItemMarker``, ``temporalFilter``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
   with ``nen.train.shard=true``; ``simulatedAnnealing`` its chains and
@@ -40,7 +51,9 @@ package's classes), which ``cli.run`` enforces in a joined
 * ``gather`` — host-side global computation over every process's input
   files (``sameTypeSimilarity``, ``nearestNeighbor``,
   ``groupedRecordSimilarity``, ``featureCondProbJoiner``,
-  ``neuralNetwork`` and the bandit jobs), read from ``cli.run``'s spool;
+  ``neuralNetwork``, the bandit jobs, the other sequence jobs,
+  ``associationRuleMiner``, ``wordCounter`` and ``ruleEvaluator``), read
+  from ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
   ``driftMonitor``, ``predictDriftScore``, ``retrainController``).
 """

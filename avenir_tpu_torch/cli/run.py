@@ -50,6 +50,7 @@ from typing import List, Optional, Tuple
 
 from ..core.config import Config, load_config
 from . import jobs
+from . import association_jobs  # noqa: F401  (registers the Apriori jobs)
 from . import bayes_jobs  # noqa: F401  (registers the Naive Bayes jobs)
 from . import control_jobs  # noqa: F401  (registers retrainController)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
@@ -59,7 +60,9 @@ from . import online_jobs  # noqa: F401  (registers onlineLearner)
 from . import optimize_jobs  # noqa: F401  (registers the SA and GA jobs)
 from . import regress_jobs  # noqa: F401  (registers the logistic jobs)
 from . import reinforce_jobs  # noqa: F401  (registers the bandit jobs)
+from . import sequence_jobs  # noqa: F401  (registers the sequence jobs)
 from . import serving_jobs  # noqa: F401  (registers predictionService)
+from . import text_jobs  # noqa: F401  (registers the text and rule jobs)
 
 
 def write_counters_json(counters, out_path: Optional[str]) -> Optional[str]:

@@ -40,49 +40,7 @@ import numpy as np
 import torch
 
 from ..utils import threefry as tf
-from ..utils.xla_math import seq_row_sum
-
-
-def lane_sum(x: torch.Tensor, width: int) -> torch.Tensor:
-    """Row sums of float32 ``x`` as a ``width``-lane vectorised loop adds
-    them: lane j accumulates columns j, j + width, ... of the first
-    ``width * (n // width)`` columns, the lanes add as a tree of halves
-    (``((l0+l4)+(l2+l6))+((l1+l5)+(l3+l7))`` for 8), and the remaining
-    columns add to that left to right.  ``width`` 1 is left to right."""
-    n = x.shape[1] // width * width if width > 1 else 0
-    if n == 0:
-        return seq_row_sum(x)
-    acc = x[:, 0:width]
-    for s in range(width, n, width):
-        acc = acc + x[:, s:s + width]
-    while acc.shape[1] > 1:
-        h = acc.shape[1] // 2
-        acc = acc[:, :h] + acc[:, h:]
-    total = acc[:, 0]
-    for j in range(n, x.shape[1]):
-        total = total + x[:, j]
-    return total
-
-
-WINDOW = 32
-
-
-def window_sum(x: torch.Tensor, width: int = 1) -> torch.Tensor:
-    """Row sums of float32 ``x`` in the order of XLA's CPU tree-reduction
-    rewrite of a long reduction: a row of more than WINDOW columns is
-    padded with zeros at both ends (half the padding, rounded down, in
-    front) to whole windows of WINDOW, each window summed (in ``width``
-    lanes when there is no padding, else left to right), and the window
-    sums reduced the same way in turn; WINDOW or fewer add left to
-    right."""
-    while x.shape[1] > WINDOW:
-        n = x.shape[1]
-        off = (-n % WINDOW) // 2
-        w = width if n % WINDOW == 0 else 1
-        x = torch.stack([lane_sum(x[:, max(lo, 0):lo + WINDOW], w)
-                         for lo in range(-off, n, WINDOW)], dim=1)
-        width = 1
-    return seq_row_sum(x)
+from ..utils.xla_math import WINDOW, lane_sum, seq_row_sum, window_sum
 
 
 def fused_sum_width(L: int, C: int) -> Optional[int]:

@@ -1,6 +1,7 @@
 """The merges between shards: the in-process gather onto a mesh's merge
 device (:func:`gather_to`, the port's counterpart of the ``psum`` /
 ``all_gather`` the JAX package's sharded paths run inside ``shard_map``),
+the keyed sum of a reducer (:func:`keyed_reduce`, :func:`keyed_count`),
 and the cross-process :class:`AllReducer` of the sharded streamed builds
 and the train-sharded KNN (``avenir_tpu/parallel/collectives.py``).
 """
@@ -40,6 +41,34 @@ def gather_to(tensors: Sequence[torch.Tensor], device) -> List[torch.Tensor]:
             moved += t.element_size() * t.nelement()
     note_gather(moved)
     return out
+
+
+def keyed_reduce(values: torch.Tensor, keys: torch.Tensor, num_keys: int,
+                 mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The shuffle: ``values`` (n, ...) summed into ``num_keys`` groups by
+    ``keys`` (n,), on their device; rows with ``mask`` False and keys
+    outside [0, num_keys) add nothing (the JAX package's one-hot drops
+    them too).  A scatter-add in ``values``' dtype: exact for the integer
+    counts every caller sums (its order is the device's, so a float sum
+    of non-integers may differ from the JAX package's one-hot matmul in
+    the last bits)."""
+    k = keys.long()
+    valid = (k >= 0) & (k < num_keys)
+    if mask is not None:
+        valid = valid & mask.bool()
+    out = torch.zeros((num_keys,) + tuple(values.shape[1:]),
+                      dtype=values.dtype, device=values.device)
+    return out.index_add_(0, k[valid], values[valid])
+
+
+def keyed_count(keys: torch.Tensor, num_keys: int,
+                mask: Optional[torch.Tensor] = None,
+                dtype=torch.float32) -> torch.Tensor:
+    """Histogram of ``keys`` over [0, num_keys) in ``dtype``: the
+    degenerate :func:`keyed_reduce` with values 1, summed as exact int64
+    counts and cast at the end."""
+    ones = torch.ones(keys.shape[0], dtype=torch.int64, device=keys.device)
+    return keyed_reduce(ones, keys, num_keys, mask).to(dtype)
 
 
 # dtypes the torch transport sums with dist.all_reduce (exact in any order)

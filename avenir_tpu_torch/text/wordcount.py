@@ -1,17 +1,20 @@
-"""Analyzer-style tokenization: the port's copy of ``tokenize`` and
-``STANDARD_STOPWORDS`` from ``avenir_tpu/text/wordcount.py``, the part the
-text-mode Naive Bayes needs (the ``wordCounter`` job is not ported).
+"""Word counting with analyzer-style tokenization: the port of
+``avenir_tpu/text/wordcount.py`` (``tokenize``, ``STANDARD_STOPWORDS``,
+``word_count``), read by the text-mode Naive Bayes and ``wordCounter``.
 
 The reference's text path analyzes with Lucene's StandardAnalyzer
 (text/WordCounter.java:93, bayesian/BayesianDistribution.java:124-130):
-UAX#29 word segmentation, lowercasing and the English stop set.
-Tokenization is host-side string work, as in the reference's mapper.
+UAX#29 word segmentation, lowercasing and the English stop set; its
+reducer counts each word and emits ``word<delim>count`` in word order.
+Tokenization and the count are host-side work, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import re
-from typing import List
+from typing import List, Sequence, Tuple
+
+import numpy as np
 
 # Lucene's ENGLISH_STOP_WORDS_SET, the default for StandardAnalyzer
 STANDARD_STOPWORDS = frozenset((
@@ -46,3 +49,18 @@ def tokenize(text: str, stopwords: frozenset = STANDARD_STOPWORDS
     scope."""
     tokens = _TOKEN_RE.findall(text.lower())
     return [t for t in tokens if t not in stopwords]
+
+
+def word_count(texts: Sequence[str],
+               stopwords: frozenset = STANDARD_STOPWORDS
+               ) -> List[Tuple[str, int]]:
+    """(word, count) sorted by word (the shuffle's key order): one
+    ``np.unique`` over every text's tokens."""
+    all_tokens: List[str] = []
+    for text in texts:
+        all_tokens.extend(tokenize(text, stopwords))
+    if not all_tokens:
+        return []
+    words, counts = np.unique(np.asarray(all_tokens, dtype=object),
+                              return_counts=True)
+    return [(str(w), int(c)) for w, c in zip(words, counts)]

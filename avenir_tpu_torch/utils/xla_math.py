@@ -15,8 +15,10 @@ differ from what ``torch.log`` / ``torch.sum`` give:
 * A reduction over a row runs left to right, one element at a time
   (:func:`seq_row_sum`, :func:`seq_cumsum`); a product that feeds it is
   fused into the accumulation, ``acc = fma(a, b, acc)``
-  (:func:`fma_row_sum`).  ``torch.sum`` and ``torch.cumsum`` add in other
-  orders.
+  (:func:`fma_row_sum`, and :func:`fma_matmul` for a small dot).  Longer
+  rows add in vector lanes (:func:`lane_sum`) or in windows of 32
+  (:func:`window_sum`), by their length (:func:`reduce_row_sum`).
+  ``torch.sum`` and ``torch.cumsum`` add in other orders.
 * Operands that depend only on compile-time constants are folded by XLA
   before the kernel runs (a log correctly rounded, a division by a
   constant turned into a multiply by its folded reciprocal); callers
@@ -160,6 +162,73 @@ def seq_row_sum(x: torch.Tensor) -> torch.Tensor:
     acc = torch.zeros(x.shape[:-1], dtype=torch.float32, device=x.device)
     for j in range(x.shape[-1]):
         acc = acc + x[..., j]
+    return acc
+
+
+def lane_sum(x: torch.Tensor, width: int) -> torch.Tensor:
+    """Row sums of float32 ``x`` as a ``width``-lane vectorised loop adds
+    them: lane j accumulates columns j, j + width, ... of the first
+    ``width * (n // width)`` columns, the lanes add as a tree of halves
+    (``((l0+l4)+(l2+l6))+((l1+l5)+(l3+l7))`` for 8), and the remaining
+    columns add to that left to right.  ``width`` 1 is left to right."""
+    n = x.shape[1] // width * width if width > 1 else 0
+    if n == 0:
+        return seq_row_sum(x)
+    acc = x[:, 0:width]
+    for s in range(width, n, width):
+        acc = acc + x[:, s:s + width]
+    while acc.shape[1] > 1:
+        h = acc.shape[1] // 2
+        acc = acc[:, :h] + acc[:, h:]
+    total = acc[:, 0]
+    for j in range(n, x.shape[1]):
+        total = total + x[:, j]
+    return total
+
+
+WINDOW = 32
+
+
+def window_sum(x: torch.Tensor, width: int = 1) -> torch.Tensor:
+    """Row sums of float32 ``x`` in the order of XLA's CPU tree-reduction
+    rewrite of a long reduction: a row of more than WINDOW columns is
+    padded with zeros at both ends (half the padding, rounded down, in
+    front) to whole windows of WINDOW, each window summed (in ``width``
+    lanes when there is no padding, else left to right), and the window
+    sums reduced the same way in turn; WINDOW or fewer add left to
+    right."""
+    while x.shape[1] > WINDOW:
+        n = x.shape[1]
+        off = (-n % WINDOW) // 2
+        w = width if n % WINDOW == 0 else 1
+        x = torch.stack([lane_sum(x[:, max(lo, 0):lo + WINDOW], w)
+                         for lo in range(-off, n, WINDOW)], dim=1)
+        width = 1
+    return seq_row_sum(x)
+
+
+def reduce_row_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sums over the last axis of a 2-D ``x`` as XLA's CPU backend
+    emits a reduce of the minor axis by itself (read off the compiled
+    ``avenir_tpu/sequence/markov.py`` ``_log_odds_kernel`` for row lengths
+    1-256 and 1-1000 rows): up to 29 columns left to right, 30-32 in 8
+    lanes (:func:`lane_sum`), more in windows of WINDOW each added left to
+    right (:func:`window_sum`)."""
+    T = x.shape[-1]
+    if T <= 29:
+        return seq_row_sum(x)
+    return lane_sum(x, 8) if T <= WINDOW else window_sum(x, 1)
+
+
+def fma_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """float32 ``a @ b`` of small matrices as XLA's CPU dot emitter
+    computes it: each output an FMA chain over the contracted index from
+    0 (:func:`fma_f32`).  One float64 pass an index over every output."""
+    a64, b64 = a.double(), b.double()
+    acc = torch.zeros((a.shape[0], b.shape[1]), dtype=torch.float32,
+                      device=a.device)
+    for k in range(a.shape[1]):
+        acc = (a64[:, k:k + 1] * b64[k:k + 1, :] + acc.double()).float()
     return acc
 
 

@@ -287,8 +287,9 @@ order — any failure exits non-zero before the result line:
               same reader must give the fixture's trees, part-q-00000,
               meta.json and quantized sidecar, and a baseline of the
               re-read rows only (the reference's resume contract)
- 30. scale    a 1,000,000-row CSV (numpy draws from call_hangup_gen's
-              model), trained in three subprocesses: streamed at
+ 30. scale    a 500,000-row CSV (numpy draws from call_hangup_gen's
+              model), trained in three subprocesses (started up
+              together, each let go alone in turn): streamed at
               262,144-row blocks (iter_csv_chunks -> prefetch_chunks ->
               build_forest_from_stream with a BaselineBuilder) on the
               native reader and on the Python reader, and monolithic
@@ -317,35 +318,41 @@ order — any failure exits non-zero before the result line:
               native, chunk_encode@2 Python): shard 0 must fail at its
               next collective within AVENIR_TPU_ALLREDUCE_TIMEOUT_S=5;
               --resume on both must give the fixture's trees, read by the
-              same reader (the two readers' lanes side by side)
- 33. scale    phase 30's 1,000,000-row CSV over two --shard-child
+              same reader (the two readers' lanes side by side; the four
+              resumes start up with the crashes and wait at a gate)
+ 33. scale    phase 30's 500,000-row CSV over two --shard-child
               processes (row-range shards, 262,144-row blocks, a teed
               baseline, the file transport), on the native reader, then
-              on the Python reader: trees and baseline counts identical to
-              phase 30's streamed process; B1 all mma, B4 launches sum to
-              the 4 blocks, every block read by the reader asked for;
-              prints rows/s against phase 30's on the same reader, each
-              shard's parse_s and the all-reduce wall a level
+              on the Python reader (all four processes started together,
+              each pair let go alone): trees and baseline counts
+              identical to phase 30's streamed process; B1 all mma, B4
+              launches sum to the 2 blocks, every block read by the
+              reader asked for; prints rows/s against phase 30's on the
+              same reader, each shard's parse_s and the all-reduce wall
+              a level
  34. knn      knnPipeline nen.train.shard=true over 20,000 test x 200,000
               train e-learning rows (numpy draws from elearn_gen's model),
               k = 10, in two shard-lane processes: predictions byte-equal
-              to the single-process job's; B5 and B7's merge one launch a
-              test chunk in each process
+              to the single-process job's (run in the main process); B5
+              and B7's merge one launch a test chunk in each process
  35. joined   two torch.distributed ranks (gloo, torchrun's environment,
-              one card): the streamed rafo9s build gives the fixture's
-              trees on both ranks and its meta.json, B1 all mma; then
-              modelPredictor over two halves of the rafo9 requests writes
-              part-m-00000 and part-m-00001, which concatenate to pred.csv
+              one card), one --joined-child process a rank running two
+              joined jobs in turn: the streamed rafo9s build gives the
+              fixture's trees on both ranks and its meta.json, B1 all
+              mma; then modelPredictor over two halves of the rafo9
+              requests writes part-m-00000 and part-m-00001, which
+              concatenate to pred.csv
  36. cards    with several GPUs visible, phases 31 and 35 again with each
               process on its own card (with one, a line says so)
  38-41        the joined run over per-process inputs, each process a
               --joined-child on the card running its jobs in order with
               the launch counts zeroed before each job and read after:
               one child runs one process's jobs, then two gloo ranks
-              (torchrun's environment, one card) run theirs; no rank may
-              leave a gather spool in its TMPDIR
- 38. joined   phase 30's CSV split 500,000 + 500,000 and 600,000 +
-     mono     400,000 rows, randomForestBuilder monolithic with the rafo
+              (torchrun's environment, one card; started up with it and
+              held at a gate) run theirs; no rank may leave a gather
+              spool in its TMPDIR
+ 38. joined   phase 30's CSV split 250,000 + 250,000 and 300,000 +
+     mono     200,000 rows, randomForestBuilder monolithic with the rafo
               keys (withReplace), a published baseline and the int8
               sidecar, then dtb.streaming.shard=off over the halves at
               262,144-row blocks: every rank writes the trees of one
@@ -357,7 +364,7 @@ order — any failure exits non-zero before the result line:
               on each rank, B4 1 a rank (2 streamed), B2 and B3 on rank 0
               only; prints rows/s against the one-process job, each
               rank's load_s and build_s and the all-reduce ms a level
- 39. joined   four levels of the detr.sh rotation over the first 200,000
+ 39. joined   four levels of the detr.sh rotation over the first 100,000
      dt       rows split in halves: every rank writes one process's
               decision paths at every level, the ranks' record parts
               concatenate to its part file, B1 one mma launch a level a
@@ -373,17 +380,17 @@ order — any failure exits non-zero before the result line:
      knn      split between the ranks as distinct files: the two part
               files concatenate to phase 34's one-process predictions; B5
               one launch a test chunk on each rank
- 37. cache    phase 30's CSV through the randomForestBuilder job in two
-              --cache-child processes (streamed, 262,144-row blocks, a
-              published baseline): cold with
+ 37. cache    phase 30's CSV through the randomForestBuilder job in one
+              --cache-child process, one job after another (streamed,
+              262,144-row blocks, a published baseline): cold with
               dtb.streaming.cache.policy=build, then warm with use.  Both
               give phase 30's trees, B1 all mma and B4 one launch a block;
               the cold job reads every block natively and builds the
               sidecar (ColumnarCache Built=1), the warm one serves every
               block from it (Hit=1, BytesRead == the cold BytesWritten,
-              IngestReaders all cache); prints both jobs' rows/s.  Then
-              phase 30's streamed build over the sidecar (--scale-child
-              stream_cache): the same trees, every block from the
+              IngestReaders all cache); prints both jobs' rows/s.  Then,
+              in the same process, phase 30's streamed build over the
+              sidecar (stream_cache): the same trees, every block from the
               sidecar; prints its parse_s (the sidecar read) beside
               phase 30's native parse
 
@@ -472,7 +479,7 @@ order — any failure exits non-zero before the result line:
               the same jobs over the 300 well-formed records: launches =
               the workers' batches + 4 warm-ups a worker, all table form
               (B3 for e, no B2)
- 52. loop     15,000 rafo9 requests prefilled, drained by 1, 2 and 4
+ 52. loop     10,000 rafo9 requests prefilled, drained by 1, 2 and 4
               workers over 1 and 2 broker shards, and by 2 workers on
               the default stream: requests/s, serve.batch p50/p99,
               OverlappedBatches, batches a worker, B2 launches = batches +
@@ -516,7 +523,7 @@ order — any failure exits non-zero before the result line:
               the JAX package's fixture (per line, relative to its
               largest coefficient), predictor labels equal, the served
               lines byte-equal; then logisticRegression (10 iterations)
-              and logisticRegressionPredictor over a 1,000,000-row churn
+              and logisticRegressionPredictor over a 500,000-row churn
               CSV: ms an iteration and rows/s, the card's history within
               1e-4 of the CPU's over the same rows
 
@@ -542,7 +549,7 @@ order — any failure exits non-zero before the result line:
               neuralNetworkPredictor over the JAX models (labels equal
               wherever the top two logits are 1e-4 apart), the mlp
               version's served lines byte-equal; neuralNetwork over
-              1,000,000 churn rows (batch, 1,000 iterations) and its
+              500,000 churn rows (batch, 300 iterations) and its
               predictor, ms an iteration and rows/s, the card's weights
               after 50 iterations against the CPU's; one minibatch epoch
               (batch 64) over 250,000 rows and one incr epoch over 5,000
@@ -550,13 +557,13 @@ order — any failure exits non-zero before the result line:
  62. optimize golden sa and every opt9 case byte-equal (lines and
               counters; the two 2-process cases over two gloo ranks on
               the card); SA with 8,192 chains over a 64 x 32
-              task_sched_gen domain, 1,000 iterations + 100 of local
+              task_sched_gen domain, 500 iterations + 100 of local
               descent: chain-steps/s and threefry launches a step; the
-              same at 50 iterations byte-equal to the port's CPU run; GA
+              same at 20 iterations byte-equal to the port's CPU run; GA
               64 islands x 256, 120 generations
  63. bandits  golden bandit and price, every mab9 round and the mab9
               VectorBandits selections byte-equal; VectorBandits at
-              250,000 groups x 4 actions, every algorithm, 3 calls,
+              100,000 groups x 4 actions, every algorithm, 3 calls,
               each call's selections equal to the port's CPU twin's;
               selections/s
  64. online9  every online9 case (ucb1, softMax, sampsonSampler, the
@@ -567,7 +574,7 @@ order — any failure exits non-zero before the result line:
               byte-equal to the JAX fixture (the pin's clock aside); the
               MLP head's parameters within 1e-5, its differing labels
               counted
- 65. online   an ad server's stream (200,000 predicts x 32 features, 8
+ 65. online   an ad server's stream (16,000 predicts x 32 features, 8
               arms, 80% rewarded 1-3 windows late, 1% orphans) in windows
               of 256 through the plane on the card: ucb1/bandit,
               softMax/logistic, and sampsonSampler/MLP (hidden 64) over
@@ -582,6 +589,28 @@ order — any failure exits non-zero before the result line:
               weights on the card, bit-equal to the CPU port on the first
               65,536 chains and 20,000 draws; seconds and threefry
               launches a transition
+ 67. sequence the golden markov, conv, buyhist, sup, visit and apriori
+              flows (tests/golden/flows.py's generator calls and keys) and
+              every seq9 case (tests/torch_fixtures/seq9: PST, GSP,
+              positional clusters, sequenceGenerator, CTMC stats, event
+              time, HMM and Viterbi with unknown symbols and ties, the
+              classifier at padded lengths 33-64, Apriori levels 1-3, the
+              infrequent-item marker, wordCounter, temporalFilter,
+              ruleEvaluator) through the port's CLI on the card, byte for
+              byte (seq9's counters too); each job's wall; no kernel
+              launch (counts zeroed before, read after)
+ 68. seq scale the Markov model and classifier over 125,000 event
+              sequences, the HMM over 10,000 tagged and Viterbi over
+              50,000 plain loyalty sequences, Apriori levels 1-3 over
+              250,000 transactions and the event-time histogram over
+              500,000 visits of 2,000 users (drawn vectorised from the
+              generators' models), each job on the card (its registered
+              function with a LayerProfile: parse, encode, h2d, device,
+              readback, write) and in a child with -Dplatform=cpu, the
+              children started as their inputs are drawn and waited for
+              before the card's runs, which are timed alone: every
+              output byte-equal; sequences/s, transactions/s a level,
+              events/s
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -598,9 +627,9 @@ under ``wire`` phases 47-50's rates and counts, and under ``fleet`` phases
 under ``retrain`` phases 56-58's (B1's, B2's and B4's ``retrain*``
 launches are theirs too), under ``logistic`` phase 59's, under ``mlp``,
 ``optimize`` and ``bandits`` phases 61-63's, under ``online`` phases
-64-66's (the ``threefry2x32`` entry's launches are those of 61-66), and
-under
-``phase_seconds`` each phase's wall seconds; the last line is
+64-66's (the ``threefry2x32`` entry's launches are those of 61-66), under
+``sequence`` phases 67-68's (job walls, rates, layers, launch counts: 0),
+and under ``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -631,7 +660,7 @@ STREAM_KEYS = ("-Ddtb.streaming.ingest=true",
                "-Ddtb.streaming.checkpoint.blocks=2",
                "-Dbadrecords.policy=quarantine",
                "-Ddtb.model.quantize=true", "-Ddtb.baseline.publish=true")
-STREAM_SCALE_ROWS = 1_000_000
+STREAM_SCALE_ROWS = 500_000
 STREAM_SCALE_BLOCK = 262_144
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, published
@@ -706,7 +735,7 @@ FLEET9 = os.path.join(ROOT, "tests", "torch_fixtures", "fleet9")
 # the autoscaled job's and the fleet_host processes' requests (phase 55)
 FLEET_ROWS = 30_000
 # phase 52 drains the first FLEET_LOOP_ROWS of them (54-55 use the rest)
-FLEET_LOOP_ROWS = 15_000
+FLEET_LOOP_ROWS = 10_000
 FLEET_WORKERS = (1, 2, 4)
 FLEET_SHARDS = (1, 2)
 SWAP_ROWS = 10_000
@@ -719,8 +748,15 @@ CHURN_USAGE = ((250, 1200), (600, 3000), (900, 5000), (1300, 7000))
 CHURN_PAY_P = (0.2, 0.4, 0.4)
 
 
+# every process a Children started, for fail() to stop
+_CHILD_PROCS = []
+
+
 def fail(msg):
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    for p in _CHILD_PROCS:             # gated children still waiting
+        if p.poll() is None:
+            p.kill()
     sys.exit(1)
 
 
@@ -2545,19 +2581,8 @@ def stream_main_path(dev):
     return got
 
 
-def stream_resume(dev):
-    """Phase 29, on each reader: a crash at block 3 in a subprocess (the
-    native reader's ``chunk_read``, the Python reader's ``chunk_encode``;
-    the other point armed too, so it must never fire; the two readers'
-    subprocesses side by side), then --resume on the same reader, against
-    the rafo9s fixture."""
-    from avenir_tpu_torch.core.checkpoint import CheckpointManager
-    from avenir_tpu_torch.monitor.baseline import load_baseline
-    from avenir_tpu_torch.serving.registry import ModelRegistry
-    phase("29 streamed crash (chunk_read@3 native, chunk_encode@3 python) "
-          "and --resume == rafo9s")
-    with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
-        total = json.load(fh)["Random forest"]["BaselineRows"]
+def crash_plan():
+    """Phase 29's two crashing subprocesses, one a reader."""
     lanes, cmds = [], []
     for reader, point, other in (("native", "chunk_read", "chunk_encode"),
                                  ("python", "chunk_encode", "chunk_read")):
@@ -2574,8 +2599,27 @@ def stream_resume(dev):
         cmds.append((cli_cmd(os.path.join(WORK, f"crash_{reader}.json"),
                              flag + args), env))
         lanes.append((reader, point, out, reg, ck, args))
+    return {"lanes": lanes, "cmds": cmds,
+            "gates": [os.path.join(WORK, f"gate_crash_{reader}")
+                      for reader, *_ in lanes]}
+
+
+def stream_resume(plan, stage):
+    """Phase 29, on each reader: a crash at block 3 in a subprocess (the
+    native reader's ``chunk_read``, the Python reader's ``chunk_encode``;
+    the other point armed too, so it must never fire; the two readers'
+    subprocesses side by side, :func:`crash_plan`), then --resume on the
+    same reader, against the rafo9s fixture."""
+    from avenir_tpu_torch.core.checkpoint import CheckpointManager
+    from avenir_tpu_torch.monitor.baseline import load_baseline
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    phase("29 streamed crash (chunk_read@3 native, chunk_encode@3 python) "
+          "and --resume == rafo9s")
+    with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
+        total = json.load(fh)["Random forest"]["BaselineRows"]
+    lanes = plan["lanes"]
     # the two readers' crashing subprocesses run side by side
-    crashes = run_children(cmds)
+    crashes = stage.run()
     for (reader, point, out, reg, ck, args), crash in zip(lanes, crashes):
         rc, _, stderr, crash_s = crash
         if rc == 0 or f"injected fault: {point}@3" not in stderr:
@@ -2675,6 +2719,7 @@ def scale_child(mode, csv, out):
     build_forest(warm, params, device=dev)
     BaselineBuilder(fs, device=dev).update(warm).finalize()
     torch.cuda.synchronize()
+    await_gate()
     rss_before = proc_status_kb("VmRSS")
     # the job's peak RSS, sampled every 5 ms (ru_maxrss is the CUDA
     # start-up's peak, the same in both children)
@@ -2727,15 +2772,31 @@ def scale_child(mode, csv, out):
                           resource.RUSAGE_SELF).ru_maxrss}), flush=True)
 
 
-def stream_scale(dev, fs):
-    """Phase 30: one 1,000,000-row CSV trained streamed on the native
+STREAM_SCALE_MODES = ("stream", "stream_python", "mono")
+
+
+def scale_plan(csv):
+    """Phase 30's three ``--scale-child`` processes over ``csv``."""
+    outs = {mode: os.path.join(WORK, f"stream_scale_{mode}")
+            for mode in STREAM_SCALE_MODES}
+    return {"csv": csv, "outs": outs,
+            "cmds": [([sys.executable, os.path.abspath(__file__),
+                       "--scale-child", mode, csv, outs[mode]],
+                      dict(os.environ)) for mode in STREAM_SCALE_MODES],
+            "gates": [os.path.join(WORK, f"gate_scale_{mode}")
+                      for mode in STREAM_SCALE_MODES]}
+
+
+def stream_scale(fs, plan, stage):
+    """Phase 30: one STREAM_SCALE_ROWS-row CSV trained streamed on the native
     reader, streamed on the Python reader and monolithic (the native
-    whole-file load), each in its own process.  Returns the printed
-    numbers, the trees, the baseline counts and the CSV's path."""
+    whole-file load), each in its own process (:func:`scale_plan`), one
+    after another.  Returns the printed numbers, the trees, the baseline
+    counts and the CSV's path."""
     import resource
     phase(f"30 scale: streamed (native and Python reader) vs monolithic "
           f"rafo forest over a {STREAM_SCALE_ROWS:,}-row CSV")
-    csv = os.path.join(WORK, "stream_scale.csv")
+    csv = plan["csv"]
     t0 = time.perf_counter()
     write_hangup_csv(hangup_table(np.random.default_rng(20261018),
                                   STREAM_SCALE_ROWS, fs), csv)
@@ -2743,15 +2804,12 @@ def stream_scale(dev, fs):
           f"({os.path.getsize(csv) / 1e6:.1f} MB) in "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     runs = {}
-    for mode in ("stream", "stream_python", "mono"):
-        out = os.path.join(WORK, f"stream_scale_{mode}")
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--scale-child", mode, csv, out], cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"phase 30 {mode} child failed (rc {r.returncode}): "
-                 f"{r.stderr[-3000:]}")
-        runs[mode] = json.loads(r.stdout.strip().splitlines()[-1])
+    for j, mode in enumerate(STREAM_SCALE_MODES):
+        out = plan["outs"][mode]
+        rc, so, se, _ = stage.run([j])[0]
+        if rc != 0:
+            fail(f"phase 30 {mode} child failed (rc {rc}): {se[-3000:]}")
+        runs[mode] = json.loads(so.strip().splitlines()[-1])
         runs[mode]["children_max_rss_kb"] = resource.getrusage(
             resource.RUSAGE_CHILDREN).ru_maxrss
         runs[mode]["rows_per_s"] = STREAM_SCALE_ROWS / runs[mode]["wall_s"]
@@ -2802,9 +2860,10 @@ def stream_scale(dev, fs):
 # phases 31-36: the multi-process lanes (each process a subprocess)
 # --------------------------------------------------------------------------
 
+GATE_KEY = "CHIP_SMOKE_GATE"
 LANE_KEYS = ("AVENIR_TPU_SHARD", "AVENIR_TPU_ALLREDUCE_DIR",
              "AVENIR_TPU_FAULTS", "RANK", "WORLD_SIZE", "LOCAL_RANK",
-             "MASTER_ADDR", "MASTER_PORT")
+             "MASTER_ADDR", "MASTER_PORT", GATE_KEY)
 
 
 def lane_env(extra, one_card):
@@ -2830,6 +2889,7 @@ def cli_child(counts_path, *args):
     python = args[:1] == ["--python-reader"]
     if python:
         args = args[1:]
+    await_gate(cuda=True)
     zero_launches()
     t0 = time.perf_counter()
     if python:
@@ -2866,32 +2926,140 @@ def launch_counts():
             "b5_split_merge": topk.split_merge_launches}
 
 
-def run_children(cmds, timeout=300):
-    """Start every (argv, env) at once and wait for all, each on its own
-    thread; returns their (returncode, stdout, stderr, seconds from the
-    start to that process's exit).  A process still running after
-    ``timeout`` seconds is killed and reported with a non-zero code."""
-    t0 = time.perf_counter()
-    procs = [subprocess.Popen(argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.PIPE, text=True)
-             for argv, env in cmds]
-    out = [None] * len(procs)
+def await_gate(cuda=False):
+    """In a child started with a gate (``CHIP_SMOKE_GATE=<path>``, see
+    :class:`Children`): with ``cuda`` the card's context made first; then
+    ``<path>.ready`` written and the parent's ``<path>.go`` waited for, so
+    that what the child does next runs beside no other process's start-up.
+    The child exits if its parent goes away first.  Without a gate it
+    returns at once."""
+    gate = os.environ.get(GATE_KEY)
+    if not gate:
+        return
+    if cuda:
+        import torch
+        if torch.cuda.is_available():
+            torch.zeros(1, device="cuda")
+            torch.cuda.synchronize()
+    parent = os.getppid()
+    open(gate + ".ready", "w").close()
+    deadline = time.monotonic() + 900
+    while not os.path.exists(gate + ".go"):
+        if os.getppid() != parent or time.monotonic() > deadline:
+            sys.exit(f"no go at {gate}")
+        time.sleep(0.005)
 
-    def wait(i, p):
+
+class Children:
+    """Processes started at once, each waited for on its own thread.  A
+    process given a gate (a path; the child calls :func:`await_gate` once
+    it has started up) holds there until :meth:`release` lets it go: a
+    phase starts the processes of all its stages together and lets each
+    stage go when the one before it has exited, so a stage pays no
+    start-up of its own and runs beside no other process's start-up."""
+
+    def __init__(self, cmds, timeout=300, gates=None):
+        self.gates = list(gates) if gates else [None] * len(cmds)
+        self.t0 = time.perf_counter()
+        self.procs = []
+        for (argv, env), gate in zip(cmds, self.gates):
+            if gate is not None:
+                for f in (gate + ".ready", gate + ".go"):
+                    if os.path.exists(f):
+                        os.remove(f)
+                env = {**env, GATE_KEY: gate}
+            self.procs.append(subprocess.Popen(
+                argv, env=env, cwd=ROOT, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        _CHILD_PROCS.extend(self.procs)
+        self.out = [None] * len(self.procs)
+        self.waiters = [threading.Thread(target=self._wait, args=(i, timeout),
+                                         daemon=True)
+                        for i in range(len(self.procs))]
+        for w in self.waiters:
+            w.start()
+
+    def _wait(self, i, timeout):
+        p = self.procs[i]
         try:
             so, se = p.communicate(timeout=timeout)
         except subprocess.TimeoutExpired:
             p.kill()
             so, se = p.communicate()
             se += f"\n[killed after {timeout} s]"
-        out[i] = (p.returncode, so, se, time.perf_counter() - t0)
-    waiters = [threading.Thread(target=wait, args=(i, p))
-               for i, p in enumerate(procs)]
-    for w in waiters:
-        w.start()
-    for w in waiters:
-        w.join()
-    return out
+        self.out[i] = (p.returncode, so, se, time.perf_counter())
+
+    def release(self, idx):
+        """Once every gated process is ready (or has exited), let the
+        processes ``idx`` go; returns the moment they went."""
+        deadline = time.monotonic() + 600
+        while not all(g is None or os.path.exists(g + ".ready")
+                      or p.poll() is not None
+                      for g, p in zip(self.gates, self.procs)):
+            if time.monotonic() > deadline:
+                fail("a gated child process never became ready")
+            time.sleep(0.005)
+        t = time.perf_counter()
+        for i in idx:
+            open(self.gates[i] + ".go", "w").close()
+        return t
+
+    def wait(self, idx=None, since=None):
+        """(returncode, stdout, stderr, seconds from ``since`` — the start
+        unless given — to the exit) of the processes ``idx`` (all unless
+        given), once they have exited."""
+        idx = range(len(self.procs)) if idx is None else idx
+        for i in idx:
+            self.waiters[i].join()
+        base = self.t0 if since is None else since
+        return [(*self.out[i][:3], self.out[i][3] - base) for i in idx]
+
+
+def run_children(cmds, timeout=300):
+    """Start every (argv, env) at once and wait for all, each on its own
+    thread; returns their (returncode, stdout, stderr, seconds from the
+    start to that process's exit).  A process still running after
+    ``timeout`` seconds is killed and reported with a non-zero code."""
+    return Children(cmds, timeout).wait()
+
+
+class Stage:
+    """Some of a :class:`Children`'s gated processes: one phase's."""
+
+    def __init__(self, kids, idx):
+        self.kids, self.idx = kids, idx
+
+    def run(self, sub=None):
+        """Let the processes go (all, or those at the positions ``sub``)
+        and wait for them: their (returncode, stdout, stderr, seconds from
+        the go to the exit)."""
+        idx = self.idx if sub is None else [self.idx[j] for j in sub]
+        went = self.kids.release(idx)
+        return self.kids.wait(idx, since=went)
+
+
+def held(stage, what):
+    """Wait until every process of ``stage``'s group is at its gate and
+    print how many there are and the host memory still available."""
+    stage.kids.release([])
+    with open("/proc/meminfo") as fh:
+        avail = next(int(ln.split()[1]) for ln in fh
+                     if ln.startswith("MemAvailable:"))
+    print(f"{what}: {len(stage.kids.procs)} processes at their gates, "
+          f"{avail / 2 ** 20:.1f} GiB of host memory available", flush=True)
+
+
+def start_stages(plans, timeout=900):
+    """Start every plan's processes (a plan: a dict with ``cmds`` and
+    their ``gates``) at once, each held at its gate; one :class:`Stage` a
+    plan."""
+    kids = Children([c for p in plans for c in p["cmds"]], timeout,
+                    [g for p in plans for g in p["gates"]])
+    stages, at = [], 0
+    for p in plans:
+        stages.append(Stage(kids, list(range(at, at + len(p["cmds"])))))
+        at += len(p["cmds"])
+    return stages
 
 
 def cli_cmd(counts, args):
@@ -2929,21 +3097,30 @@ def same_trees(out, what):
                    os.path.join(RAFO9S, f"tree_{t}.json"), f"{what} tree {t}")
 
 
-def shard_lane(layout, one_card):
-    """Phase 31: the rafo9s job over two AVENIR_TPU_SHARD processes on the
-    card and a file transport.  Returns the per-process launch counts."""
-    phase(f"31 shard lane ({layout}): randomForestBuilder over "
-          f"AVENIR_TPU_SHARD=i/2 == the rafo9s fixture")
+def lane_plan(layout, one_card):
+    """Phase 31's two processes: the rafo9s job over AVENIR_TPU_SHARD=i/2
+    and a file transport."""
     base = os.path.join(WORK, f"lane_{layout.replace(' ', '_')}")
     shutil.rmtree(base, ignore_errors=True)
+    os.makedirs(base)
     reg, ck, rdir = (os.path.join(base, d) for d in ("reg", "ck", "reduce"))
     outs = [os.path.join(base, f"out{i}") for i in range(2)]
     counts = [os.path.join(base, f"counts{i}.json") for i in range(2)]
-    res = run_children([
-        (cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i])),
-         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
-                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, one_card))
-        for i in range(2)])
+    return {"layout": layout, "reg": reg, "outs": outs, "counts": counts,
+            "cmds": [(cli_cmd(counts[i], rafo9s_job(reg, ck, outs[i])),
+                      lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                                "AVENIR_TPU_ALLREDUCE_DIR": rdir},
+                               one_card)) for i in range(2)],
+            "gates": [os.path.join(base, f"gate{i}") for i in range(2)]}
+
+
+def shard_lane(plan, stage):
+    """Phase 31: the rafo9s job over two AVENIR_TPU_SHARD processes on the
+    card and a file transport (:func:`lane_plan`).  Returns the
+    per-process launch counts."""
+    layout, reg, outs, counts = (plan[k] for k in ("layout", "reg", "outs",
+                                                   "counts"))
+    res = stage.run()
     all_ok(res, "shard lane")
     got = [read_json(c) for c in counts]
     dumps = [counter_dump(so) for _, so, _, _ in res]
@@ -2991,20 +3168,15 @@ def shard_lane(layout, one_card):
             "wall_s": [r[3] for r in res]}
 
 
-def shard_resume():
-    """Phase 32, on each reader: shard 1 crashes at its third block (the
-    native reader's ``chunk_read@2``, the Python reader's
-    ``chunk_encode@2``); shard 0 fails at the next collective within a 5 s
-    deadline; --resume on both gives the fixture's trees.  The two
-    readers' lanes run side by side (their own directories and reduce
-    dirs): four processes for the crashes, then four for the resumes."""
-    phase("32 shard lane crash (shard 1 at chunk_read@2 native, "
-          "chunk_encode@2 python) and --resume")
+def resume_plan():
+    """Phase 32's eight processes (:func:`shard_resume`): each reader's
+    two crashing shards, then its two resumed ones."""
     lanes = []
     for reader, point in (("native", "chunk_read"),
                           ("python", "chunk_encode")):
         base = os.path.join(WORK, f"lane_resume_{reader}")
         shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
         reg, ck, rdir = (os.path.join(base, d)
                          for d in ("reg", "ck", "reduce"))
         outs = [os.path.join(base, f"out{i}") for i in range(2)]
@@ -3012,7 +3184,7 @@ def shard_resume():
         flag = ["--python-reader"] if reader == "python" else []
         lanes.append((reader, point, reg, ck, rdir, outs, counts, flag))
     every = ("-Ddtb.streaming.checkpoint.blocks=1",)
-    cmds = []
+    cmds, gates = [], []
     for reader, point, reg, ck, rdir, outs, counts, flag in lanes:
         envs = [{"AVENIR_TPU_SHARD": f"{i}/2",
                  "AVENIR_TPU_ALLREDUCE_DIR": rdir,
@@ -3021,7 +3193,31 @@ def shard_resume():
         cmds += [(cli_cmd(counts[i], flag + rafo9s_job(reg, ck, outs[i],
                                                         every)),
                   lane_env(envs[i], True)) for i in range(2)]
-    res = run_children(cmds, timeout=120)
+        gates += [os.path.join(WORK, f"lane_resume_{reader}", f"gate_crash{i}")
+                  for i in range(2)]
+    for reader, point, reg, ck, rdir, outs, counts, flag in lanes:
+        cmds += [(cli_cmd(counts[i], flag + rafo9s_job(
+            reg, ck, outs[i], every + ("--resume",))),
+            lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                      "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+            for i in range(2)]
+        gates += [os.path.join(WORK, f"lane_resume_{reader}",
+                               f"gate_resume{i}") for i in range(2)]
+    return {"lanes": lanes, "cmds": cmds, "gates": gates}
+
+
+def shard_resume(plan, stage):
+    """Phase 32, on each reader: shard 1 crashes at its third block (the
+    native reader's ``chunk_read@2``, the Python reader's
+    ``chunk_encode@2``); shard 0 fails at the next collective within a 5 s
+    deadline; --resume on both gives the fixture's trees.  The two
+    readers' lanes run side by side (their own directories and reduce
+    dirs): four processes for the crashes, then four for the resumes
+    (:func:`resume_plan`)."""
+    phase("32 shard lane crash (shard 1 at chunk_read@2 native, "
+          "chunk_encode@2 python) and --resume")
+    lanes = plan["lanes"]
+    res = stage.run(range(2 * len(lanes)))
     for j, (reader, point, *_rest) in enumerate(lanes):
         (rc0, _, se0, t0_s), (rc1, _, se1, t1_s) = res[2 * j:2 * j + 2]
         if rc1 == 0 or f"injected fault: {point}@2" not in se1:
@@ -3030,18 +3226,11 @@ def shard_resume():
         if rc0 == 0 or "within 5.0s" not in se0:
             fail(f"shard 0 ({reader}) did not fail at its collective within "
                  f"the 5 s deadline (rc {rc0}): {se0[-2000:]}")
-        print(f"{reader} crash: shard 1 exited {rc1} {t1_s:.2f} s after the "
-              f"launch (injected fault), shard 0 exited {rc0} "
+        print(f"{reader} crash: shard 1 exited {rc1} {t1_s:.2f} s after its "
+              f"go (injected fault), shard 0 exited {rc0} "
               f"{t0_s - t1_s:.2f} s after it (missing peer past the 5 s "
               f"deadline)", flush=True)
-    cmds = []
-    for reader, point, reg, ck, rdir, outs, counts, flag in lanes:
-        cmds += [(cli_cmd(counts[i], flag + rafo9s_job(
-            reg, ck, outs[i], every + ("--resume",))),
-            lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
-                      "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
-            for i in range(2)]
-    res_all = run_children(cmds)
+    res_all = stage.run(range(2 * len(lanes), 4 * len(lanes)))
     for j, (reader, point, reg, ck, rdir, outs, counts, flag) in \
             enumerate(lanes):
         res = res_all[2 * j:2 * j + 2]
@@ -3063,7 +3252,7 @@ def shard_resume():
 
 
 def shard_child(index, count, csv, out, rdir, reader="native"):
-    """One process of phase 33 (``--shard-child``): the 1,000,000-row CSV's
+    """One process of phase 33 (``--shard-child``): the scale CSV's
     row-range shard trained streamed on ``reader`` (native or python) with
     a teed baseline, the counts summed with the peer through the file
     transport.  Prints one JSON line and writes the trees and baseline
@@ -3092,6 +3281,7 @@ def shard_child(index, count, csv, out, rdir, reader="native"):
     build_forest(warm, params, device=dev)
     BaselineBuilder(fs, device=dev).update(warm).finalize()
     torch.cuda.synchronize()
+    await_gate()
     histogram.launches = histogram.mma_launches = 0
     histogram.bin_counts_launches = 0
     stats = {}
@@ -3127,24 +3317,37 @@ def shard_child(index, count, csv, out, rdir, reader="native"):
                       "levels": len(profile.levels)}), flush=True)
 
 
-def shard_scale(csv, single, trees, counts):
-    """Phase 33: phase 30's 1,000,000-row CSV over two processes on the
-    card, on the native reader and then on the Python reader, against
-    phase 30's one streamed process on the same reader."""
+def scale2_plan(csv):
+    """Phase 33's four processes: on each reader two row-range shards of
+    the scale CSV (``--shard-child``)."""
+    cmds, gates = [], []
+    for reader in ("native", "python"):
+        base = os.path.join(WORK, f"shard_scale_{reader}")
+        shutil.rmtree(base, ignore_errors=True)
+        os.makedirs(base)
+        rdir = os.path.join(base, "reduce")
+        cmds += [([sys.executable, os.path.abspath(__file__), "--shard-child",
+                   str(i), "2", csv, os.path.join(base, f"out{i}"), rdir,
+                   reader], lane_env({}, True)) for i in range(2)]
+        gates += [os.path.join(base, f"gate{i}") for i in range(2)]
+    return {"cmds": cmds, "gates": gates}
+
+
+def shard_scale(single, trees, counts, stage):
+    """Phase 33: phase 30's CSV over two processes on the card, on the
+    native reader and then on the Python reader, against phase 30's one
+    streamed process on the same reader; each reader's pair is let go
+    alone (:func:`scale2_plan`)."""
     phase(f"33 scale: the {STREAM_SCALE_ROWS:,}-row CSV over 2 processes "
           f"(row-range shards, {STREAM_SCALE_BLOCK:,}-row blocks), native "
           f"and Python reader")
+    held(stage, "phases 33-35 and 37-41")
     blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
     summary = {}
-    for reader, one in (("native", single["stream"]),
-                        ("python", single["stream_python"])):
+    lanes = (("native", single["stream"]), ("python", single["stream_python"]))
+    for j, (reader, one) in enumerate(lanes):
         base = os.path.join(WORK, f"shard_scale_{reader}")
-        shutil.rmtree(base, ignore_errors=True)
-        rdir = os.path.join(base, "reduce")
-        res = run_children([
-            ([sys.executable, os.path.abspath(__file__), "--shard-child",
-              str(i), "2", csv, os.path.join(base, f"out{i}"), rdir, reader],
-             lane_env({}, True)) for i in range(2)], timeout=600)
+        res = stage.run([2 * j, 2 * j + 1])
         all_ok(res, f"phase 33 ({reader})")
         runs = [json.loads(so.strip().splitlines()[-1])
                 for _, so, _, _ in res]
@@ -3181,13 +3384,16 @@ def shard_scale(csv, single, trees, counts):
     return summary
 
 
-def cache_child(policy, csv, out):
-    """One phase-37 job in its own process (``--cache-child``): after a
-    warm-up, the randomForestBuilder CLI over phase 30's CSV, streamed at
-    262,144-row blocks with a published baseline (B4 every block) and
-    ``dtb.streaming.cache.policy=policy``, launch counts zeroed just
-    before and read just after.  Prints one JSON line: wall, launches and
-    the job's counters."""
+def cache_child(steps, csv, out):
+    """Phase 37's jobs in one process (``--cache-child``), one after
+    another, ``steps`` a comma list: each policy (after a warm-up) the
+    randomForestBuilder CLI over phase 30's CSV, streamed at 262,144-row
+    blocks with a published baseline (B4 every block) and
+    ``dtb.streaming.cache.policy=<policy>`` into ``<out>_<policy>``,
+    launch counts zeroed just before and read just after; the step
+    ``stream_cache`` phase 30's streamed build over the sidecar
+    (:func:`scale_child`, into ``<out>_stream``).  Prints one JSON line a
+    step: wall, launches and the job's counters."""
     import torch
     from avenir_tpu_torch.cli import run as cli_run
     from avenir_tpu_torch.cli.jobs import _tree_params
@@ -3206,37 +3412,55 @@ def cache_child(policy, csv, out):
     build_forest(warm, params, device=dev)
     BaselineBuilder(fs, device=dev).update(warm).finalize()
     torch.cuda.synchronize()
-    histogram.launches = histogram.mma_launches = 0
-    histogram.bin_counts_launches = 0
-    t0 = time.perf_counter()
-    rc = cli_run.main([
-        "randomForestBuilder",
-        f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
-        f"-Ddtb.feature.schema.file.path="
-        f"{os.path.join(RES, 'call_hangup.json')}",
-        "-Ddtb.streaming.ingest=true",
-        f"-Ddtb.streaming.block.rows={STREAM_SCALE_BLOCK}",
-        f"-Ddtb.streaming.cache.policy={policy}",
-        f"-Ddtb.model.registry.dir={out}_registry",
-        "-Ddtb.baseline.publish=true", csv, out])
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    if rc != 0:
-        sys.exit(rc)
-    with open(out + ".counters.json") as fh:
-        counters = json.load(fh)
-    print(json.dumps({"policy": policy, "wall_s": wall,
-                      "b1": histogram.launches,
-                      "b1_mma": histogram.mma_launches,
-                      "b4": histogram.bin_counts_launches,
-                      "counters": {g: counters.get(g) for g in (
-                          "ColumnarCache", "IngestReaders",
-                          "Random forest")}}), flush=True)
+    await_gate()
+    for policy in steps.split(","):
+        if policy == "stream_cache":
+            scale_child(policy, csv, out + "_stream")
+            continue
+        dest = f"{out}_{policy}"
+        histogram.launches = histogram.mma_launches = 0
+        histogram.bin_counts_launches = 0
+        t0 = time.perf_counter()
+        rc = cli_run.main([
+            "randomForestBuilder",
+            f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
+            f"-Ddtb.feature.schema.file.path="
+            f"{os.path.join(RES, 'call_hangup.json')}",
+            "-Ddtb.streaming.ingest=true",
+            f"-Ddtb.streaming.block.rows={STREAM_SCALE_BLOCK}",
+            f"-Ddtb.streaming.cache.policy={policy}",
+            f"-Ddtb.model.registry.dir={dest}_registry",
+            "-Ddtb.baseline.publish=true", csv, dest])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            sys.exit(rc)
+        with open(dest + ".counters.json") as fh:
+            counters = json.load(fh)
+        print(json.dumps({"policy": policy, "wall_s": wall,
+                          "b1": histogram.launches,
+                          "b1_mma": histogram.mma_launches,
+                          "b4": histogram.bin_counts_launches,
+                          "counters": {g: counters.get(g) for g in (
+                              "ColumnarCache", "IngestReaders",
+                              "Random forest")}}), flush=True)
 
 
-def cache_scale(csv, single, trees):
+def cache_plan(csv):
+    """Phase 37's one ``--cache-child`` process."""
+    base = os.path.join(WORK, "cache")
+    return {"base": base,
+            "cmds": [([sys.executable, os.path.abspath(__file__),
+                       "--cache-child", "build,use,stream_cache", csv, base],
+                      dict(os.environ))],
+            "gates": [base + "_gate"]}
+
+
+def cache_scale(csv, single, trees, plan, stage):
     """Phase 37: phase 30's CSV trained through the job cold with
-    ``dtb.streaming.cache.policy=build``, then warm with ``use``."""
+    ``dtb.streaming.cache.policy=build``, then warm with ``use``, then
+    phase 30's streamed build over the sidecar, one after another in one
+    child process (:func:`cache_plan`)."""
     phase(f"37 columnar cache: the {STREAM_SCALE_ROWS:,}-row CSV cold "
           f"(cache.policy=build) then warm (cache.policy=use)")
     drop = csv + ".avtc"
@@ -3244,15 +3468,16 @@ def cache_scale(csv, single, trees):
     blocks = -(-STREAM_SCALE_ROWS // STREAM_SCALE_BLOCK)
     want_trees = json.loads(trees)
     runs = {}
-    for policy in ("build", "use"):
-        out = os.path.join(WORK, f"cache_{policy}")
-        r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                            "--cache-child", policy, csv, out], cwd=ROOT,
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            fail(f"phase 37 {policy} job failed (rc {r.returncode}): "
-                 f"{r.stderr[-3000:]}")
-        run = json.loads(r.stdout.strip().splitlines()[-1])
+    base = plan["base"]
+    rc, so, se, _ = stage.run()[0]
+    if rc != 0:
+        fail(f"phase 37 child failed (rc {rc}): {se[-3000:]}")
+    steps = [json.loads(ln) for ln in so.splitlines()
+             if ln.startswith(('{"policy"', '{"mode"'))]
+    if len(steps) != 3:
+        fail(f"phase 37 child printed {len(steps)} results, want 3")
+    for policy, run in zip(("build", "use"), steps):
+        out = f"{base}_{policy}"
         got = [open(os.path.join(out, f"tree_{i}.json")).read()
                for i in range(len(want_trees))]
         if got != want_trees:
@@ -3286,15 +3511,8 @@ def cache_scale(csv, single, trees):
           f"B4 {blocks} launches a job", flush=True)
     # phase 30's streamed build over the sidecar: its parse_s is the
     # sidecar read, beside phase 30's native parse
-    out = os.path.join(WORK, "cache_stream")
-    r = subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--scale-child", "stream_cache", csv, out], cwd=ROOT,
-                       capture_output=True, text=True, timeout=600)
-    if r.returncode != 0:
-        fail(f"phase 37 stream_cache child failed (rc {r.returncode}): "
-             f"{r.stderr[-3000:]}")
-    stream = json.loads(r.stdout.strip().splitlines()[-1])
-    with open(os.path.join(out, "trees.json")) as fh:
+    stream = steps[2]
+    with open(os.path.join(base + "_stream", "trees.json")) as fh:
         if fh.read() != trees:
             fail("phase 37: the stream over the sidecar gave other trees")
     if stream["ingest"] != {"cache.blocks": blocks,
@@ -3331,12 +3549,10 @@ def write_elearn_csv(cols, prefix, path):
         fh.write("\n".join(rows.tolist()) + "\n")
 
 
-def knn_two_process():
-    """Phase 34: knnPipeline nen.train.shard=true at 20,000 x 200,000, k =
-    10, over two processes, against the single-process job."""
+def knn2_plan():
+    """Phase 34's inputs (20,000 test x 200,000 train e-learning rows) and
+    its two nen.train.shard=true processes."""
     n_test, n_train, k = KNN_SCALE
-    phase(f"34 knnPipeline nen.train.shard=true at {n_test:,} x "
-          f"{n_train:,}, k = {k}, over 2 processes")
     base = os.path.join(WORK, "knn_2p")
     shutil.rmtree(base, ignore_errors=True)
     data = os.path.join(base, "data")
@@ -3349,25 +3565,37 @@ def knn_two_process():
     job = ["knnPipeline", f"-Dconf.path={os.path.join(RES, 'knn.properties')}",
            f"-Dsts.same.schema.file.path={os.path.join(RES, 'elearn.json')}",
            f"-Dnen.top.match.count={k}"]
-    single = run_children([(cli_cmd(os.path.join(base, "c_single.json"),
-                                    job + [data, os.path.join(base, "one")]),
-                            lane_env({}, True))])
-    all_ok(single, "single-process knnPipeline")
     rdir = os.path.join(base, "reduce")
-    res = run_children([
-        (cli_cmd(os.path.join(base, f"c{i}.json"),
-                 job + ["-Dnen.train.shard=true", data,
-                        os.path.join(base, f"out{i}")]),
-         lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
-                   "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
-        for i in range(2)])
+    return {"base": base, "data": data, "job": job,
+            "cmds": [(cli_cmd(os.path.join(base, f"c{i}.json"),
+                              job + ["-Dnen.train.shard=true", data,
+                                     os.path.join(base, f"out{i}")]),
+                      lane_env({"AVENIR_TPU_SHARD": f"{i}/2",
+                                "AVENIR_TPU_ALLREDUCE_DIR": rdir}, True))
+                     for i in range(2)],
+            "gates": [os.path.join(base, f"gate{i}") for i in range(2)]}
+
+
+def knn_two_process(plan, stage):
+    """Phase 34: knnPipeline nen.train.shard=true at 20,000 x 200,000, k =
+    10, over two processes (:func:`knn2_plan`), against the
+    single-process job (run in this process)."""
+    n_test, n_train, k = KNN_SCALE
+    phase(f"34 knnPipeline nen.train.shard=true at {n_test:,} x "
+          f"{n_train:,}, k = {k}, over 2 processes")
+    base, data, job = plan["base"], plan["data"], plan["job"]
+    # the single-process job in this process, its launches counted alone
+    zero_launches()
+    t0 = time.perf_counter()
+    run_cli(job + [data, os.path.join(base, "one")])
+    one = {**launch_counts(), "wall_s": time.perf_counter() - t0}
+    res = stage.run()
     all_ok(res, "2-process knnPipeline")
     for i in range(2):
         same_bytes(os.path.join(base, f"out{i}", "part-r-00000"),
                    os.path.join(base, "one", "part-r-00000"),
                    f"knnPipeline shard {i}/2 predictions vs one process")
     got = [read_json(os.path.join(base, f"c{i}.json")) for i in range(2)]
-    one = read_json(os.path.join(base, "c_single.json"))
     chunks = -(-n_test // 8192)
     for i, g in enumerate(got):
         if g["b5"] != chunks or g["b7_merge"] != chunks:
@@ -3390,53 +3618,75 @@ def free_port():
         return s.getsockname()[1]
 
 
-def joined_lane(layout, one_card):
-    """Phase 35: two gloo ranks from torchrun's environment: the streamed
-    sharded rafo9s build, then modelPredictor over two halves of the
-    rafo9 requests."""
-    phase(f"35 torch.distributed lane ({layout}): gloo, 2 ranks")
+def joined_plan(layout, one_card):
+    """Phase 35's two gloo ranks, each one ``--joined-child`` process with
+    its spec of two joined jobs."""
     base = os.path.join(WORK, f"joined_{layout.replace(' ', '_')}")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
     reg, ck = os.path.join(base, "reg"), os.path.join(base, "ck")
     outs = [os.path.join(base, f"out{i}") for i in range(2)]
-
-    def ranks(port, i):
-        return lane_env({"RANK": str(i), "WORLD_SIZE": "2",
-                         "LOCAL_RANK": str(i), "MASTER_ADDR": "127.0.0.1",
-                         "MASTER_PORT": str(port)}, one_card)
-    port = free_port()
-    res = run_children([
-        (cli_cmd(os.path.join(base, f"rf{i}.json"),
-                 rafo9s_job(reg, ck, outs[i])), ranks(port, i))
-        for i in range(2)])
-    all_ok(res, "joined streamed randomForestBuilder")
-    for i in range(2):
-        same_trees(outs[i], f"joined rank {i}")
-    same_bytes(os.path.join(reg, "rafo9s", "v_000001", "meta.json"),
-               os.path.join(RAFO9S, "registry", "rafo9s", "v_000001",
-                            "meta.json"), "joined published meta.json")
-    rf = [read_json(os.path.join(base, f"rf{i}.json")) for i in range(2)]
-    for i, g in enumerate(rf):
-        if g["b1"] <= 0 or g["b1_mma"] != g["b1"]:
-            fail(f"joined rank {i}: {g['b1']} B1 launches, {g['b1_mma']} mma")
-    dump = counter_dump(res[0][1])
     with open(os.path.join(RAFO9, "requests.csv")) as fh:
         requests = fh.read().splitlines(True)
     for i, part in enumerate((requests[:1000], requests[1000:])):
         with open(os.path.join(base, f"req{i}.csv"), "w") as fh:
             fh.write("".join(part))
     pred = os.path.join(base, "pred")
-    port = free_port()
-    res = run_children([
-        (cli_cmd(os.path.join(base, f"mp{i}.json"), [
-            "modelPredictor", f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
-            f"-Dmop.model.dir.path={RAFO9}",
-            f"-Dmop.feature.schema.file.path="
-            f"{os.path.join(RES, 'call_hangup.json')}",
-            os.path.join(base, f"req{i}.csv"), pred]), ranks(port, i))
-        for i in range(2)])
-    all_ok(res, "joined modelPredictor")
+    ports = [free_port(), free_port()]
+    cmds = []
+    for i in range(2):
+        spec = os.path.join(base, f"spec{i}.json")
+        with open(spec, "w") as fh:
+            json.dump({"runs": [
+                {"name": "rf", "argv": rafo9s_job(reg, ck, outs[i]),
+                 "port": ports[0]},
+                {"name": "mp", "argv": [
+                    "modelPredictor",
+                    f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
+                    f"-Dmop.model.dir.path={RAFO9}",
+                    f"-Dmop.feature.schema.file.path="
+                    f"{os.path.join(RES, 'call_hangup.json')}",
+                    os.path.join(base, f"req{i}.csv"), pred],
+                 "port": ports[1]}]}, fh)
+        cmds.append(([sys.executable, os.path.abspath(__file__),
+                      "--joined-child", spec,
+                      os.path.join(base, f"result{i}.json")],
+                     lane_env({"RANK": str(i), "WORLD_SIZE": "2",
+                               "LOCAL_RANK": str(i),
+                               "MASTER_ADDR": "127.0.0.1"}, one_card)))
+    return {"layout": layout, "base": base, "reg": reg, "outs": outs,
+            "pred": pred, "cmds": cmds,
+            "gates": [os.path.join(base, f"gate{i}") for i in range(2)]}
+
+
+def joined_lane(plan, stage):
+    """Phase 35: two gloo ranks from torchrun's environment, each one
+    ``--joined-child`` process running two joined jobs in turn
+    (:func:`joined_plan`): the streamed sharded rafo9s build, then
+    modelPredictor over two halves of the rafo9 requests."""
+    layout, base, reg, outs, pred = (plan[k] for k in (
+        "layout", "base", "reg", "outs", "pred"))
+    phase(f"35 torch.distributed lane ({layout}): gloo, 2 ranks")
+    res = stage.run()
+    all_ok(res, "joined rafo9s build and modelPredictor")
+    results = [read_json(os.path.join(base, f"result{i}.json"))
+               for i in range(2)]
+    for r in (r for rank in results for r in rank):
+        if r["rc"] != 0:
+            fail(f"joined lane: job {r['name']} exited {r['rc']}")
+    rf = [rank[0] for rank in results]
+    mp = [rank[1] for rank in results]
+    for i in range(2):
+        same_trees(outs[i], f"joined rank {i}")
+    same_bytes(os.path.join(reg, "rafo9s", "v_000001", "meta.json"),
+               os.path.join(RAFO9S, "registry", "rafo9s", "v_000001",
+                            "meta.json"), "joined published meta.json")
+    for i, g in enumerate(rf):
+        if g["b1"] <= 0 or g["b1_mma"] != g["b1"]:
+            fail(f"joined rank {i}: {g['b1']} B1 launches, {g['b1_mma']} mma")
+    # rank 0 prints the summed counters of each job; the build's come
+    # first, and only the build all-reduces
+    dump = counter_dump(res[0][1])
     if sorted(os.listdir(pred)) != ["part-m-00000", "part-m-00001"]:
         fail(f"joined modelPredictor wrote {sorted(os.listdir(pred))}")
     parts = b"".join(open(os.path.join(pred, p), "rb").read()
@@ -3444,7 +3694,6 @@ def joined_lane(layout, one_card):
     if parts != open(os.path.join(RAFO9, "pred.csv"), "rb").read():
         fail("joined modelPredictor: part-m-00000 + part-m-00001 != the "
              "single-process pred.csv")
-    mp = [read_json(os.path.join(base, f"mp{i}.json")) for i in range(2)]
     if any(g["b2"] <= 0 for g in mp):
         fail(f"joined modelPredictor: a rank never launched B2: {mp}")
     print(f"joined lane ({layout}): trees == rafo9s on both ranks, B1 "
@@ -3461,7 +3710,7 @@ def joined_lane(layout, one_card):
 # phases 38-41: the joined run over per-process inputs
 # --------------------------------------------------------------------------
 
-JOINED_DT_ROWS = 200_000
+JOINED_DT_ROWS = 100_000
 JOINED_DT_LEVELS = 4
 JOINED_MONO_KEYS = ("-Ddtb.model.name=hangup", "-Ddtb.baseline.publish=true",
                     "-Ddtb.model.quantize=true")
@@ -3497,6 +3746,7 @@ def joined_child(spec_path, result_path):
     forest.build_forest(warm, params, device=dev)
     BaselineBuilder(fs, device=dev).update(warm).finalize()
     torch.cuda.synchronize()
+    await_gate()
     times = {}
 
     def timed(key, fn):
@@ -3576,16 +3826,11 @@ def spool_layout(dest, per_rank):
     return dest
 
 
-def joined_phases(scale_csv, single_trees, knn_base):
-    """Phases 38-41: jobs over per-process inputs on two gloo ranks (one
-    card), each held against one process's job on the concatenated input
-    or on a directory laid out as the spool; one child runs every
-    single-process job, then two joined children run the ranks' jobs.
-    Returns their launch counts for the kernels line."""
-    import torch
-    phase("38-41 joined run over per-process inputs: preparing inputs and "
-          "running one process's jobs, then two ranks'")
-    t_start = time.perf_counter()
+def joined_inputs_plan(scale_csv, knn_base):
+    """Phases 38-41's per-process inputs (phase 30's CSV split, e-learning
+    rows, the golden distances split, phase 34's KNN inputs split, the
+    spool layouts) and their three ``--joined-child`` processes: one
+    process's jobs, then the two gloo ranks' (one card)."""
     base = os.path.join(WORK, "joined_inputs")
     shutil.rmtree(base, ignore_errors=True)
     os.makedirs(base)
@@ -3689,11 +3934,29 @@ def joined_phases(scale_csv, single_trees, knn_base):
         return ([sys.executable, os.path.abspath(__file__), "--joined-child",
                  spec, os.path.join(base, f"result_{name}.json")],
                 lane_env({"TMPDIR": tmp, **env}, True))
-    res = run_children([child("one", one, {})], timeout=600)
-    all_ok(res, "phases 38-41: one process's jobs")
-    res = run_children([child(f"rank{i}", ranks[i], {
-        "RANK": str(i), "WORLD_SIZE": "2", "LOCAL_RANK": str(i),
-        "MASTER_ADDR": "127.0.0.1"}) for i in range(2)], timeout=600)
+    return {"base": base, "out": out,
+            "cmds": [child("one", one, {})] + [child(f"rank{i}", ranks[i], {
+                "RANK": str(i), "WORLD_SIZE": "2", "LOCAL_RANK": str(i),
+                "MASTER_ADDR": "127.0.0.1"}) for i in range(2)],
+            "gates": [os.path.join(base, f"gate_{name}")
+                      for name in ("one", "rank0", "rank1")]}
+
+
+def joined_phases(plan, stage, single_trees, knn_base):
+    """Phases 38-41: jobs over per-process inputs on two gloo ranks (one
+    card), each held against one process's job on the concatenated input
+    or on a directory laid out as the spool (:func:`joined_inputs_plan`);
+    one child runs every single-process job, then the two joined children
+    run the ranks' jobs.  Returns their launch counts for the kernels
+    line."""
+    phase("38-41 joined run over per-process inputs: one process's jobs, "
+          "then two ranks'")
+    t_start = time.perf_counter()
+    base, out = plan["base"], plan["out"]
+    n = STREAM_SCALE_ROWS
+    n_test, n_train, _ = KNN_SCALE
+    all_ok(stage.run([0]), "phases 38-41: one process's jobs")
+    res = stage.run([1, 2])
     all_ok(res, "phases 38-41: the joined ranks' jobs")
     single = {r["name"]: r for r in read_json(
         os.path.join(base, "result_one.json"))}
@@ -3851,25 +4114,42 @@ def same_trees_as(out, want, what):
 
 
 def multi_process_phases(scale_csv, single, trees, counts):
-    """Phases 31-36 and 38-41.  Returns the launch counts for the kernels
-    line."""
+    """Phases 31-41.  The processes of phases 31-32 (ten) start up
+    together at phase 31, and those of phases 33-35 and 37-41 (twelve) at
+    phase 33, each held at its gate until its own phase lets it go: those
+    phases pay two start-ups between them, and no timed run shares the
+    host with another process's start-up.  Returns the launch counts for
+    the kernels line."""
     import torch
-    lane = shard_lane("one card", True)
-    shard_resume()
-    scale2 = shard_scale(scale_csv, single, trees, counts)
-    knn2 = knn_two_process()
-    joined = joined_lane("one card", True)
-    joined_inputs = joined_phases(scale_csv, trees,
-                                  os.path.join(WORK, "knn_2p"))
+    phase("31 shard lane (one card): randomForestBuilder over "
+          "AVENIR_TPU_SHARD=i/2 == the rafo9s fixture")
+    plans = [lane_plan("one card", True), resume_plan()]
+    stages = start_stages(plans)
+    held(stages[0], "phases 31-32")
+    lane = shard_lane(plans[0], stages[0])
+    shard_resume(plans[1], stages[1])
+    knn_base = os.path.join(WORK, "knn_2p")
+    plans += [scale2_plan(scale_csv), knn2_plan(),
+              joined_plan("one card", True),
+              joined_inputs_plan(scale_csv, knn_base), cache_plan(scale_csv)]
+    stages += start_stages(plans[2:])
+    scale2 = shard_scale(single, trees, counts, stages[2])
+    knn2 = knn_two_process(plans[3], stages[3])
+    joined = joined_lane(plans[4], stages[4])
+    joined_inputs = joined_phases(plans[5], stages[5], trees, knn_base)
     if torch.cuda.device_count() > 1:
         phase("36 phases 31 and 35 again, each process on its own card")
-        shard_lane("distinct cards", False)
-        joined_lane("distinct cards", False)
+        for plan, fn in ((lane_plan("distinct cards", False), shard_lane),
+                         (joined_plan("distinct cards", False),
+                          joined_lane)):
+            fn(plan, start_stages([plan])[0])
     else:
         print("phase 36 (31 and 35 over distinct cards) skipped: one device "
               "visible", flush=True)
+    cached = cache_scale(scale_csv, single["stream"], trees, plans[6],
+                         stages[6])
     return {"lane": lane, "scale2": scale2, "knn2": knn2, "joined": joined,
-            "joined_inputs": joined_inputs}
+            "joined_inputs": joined_inputs, "cache": cached}
 
 
 # --------------------------------------------------------------------------
@@ -4766,7 +5046,7 @@ def _scrape(url, path):
 
 def fleet_phases(dev):
     """Phases 51-55: the fleet tier of predictionService on the card —
-    fleet9's cases through the CLI, the fleet loop alone at 15,000
+    fleet9's cases through the CLI, the fleet loop alone at 10,000
     requests over 1, 2 and 4 workers and 1 and 2 broker shards (and the
     default-stream comparison), the router's cases and a tree-sharded
     fleet, a delta hot-swap and degraded parking under load, the
@@ -5203,7 +5483,7 @@ def fleet_hosts(reg_dir, records, ref):
 RETRAIN9 = os.path.join(ROOT, "tests", "torch_fixtures", "retrain9")
 LR9 = os.path.join(ROOT, "tests", "torch_fixtures", "lr9")
 RETRAIN_SCALE_ROWS = 500_000
-LR_SCALE_ROWS = 1_000_000
+LR_SCALE_ROWS = 500_000
 LR_SCALE_ITERS = 10
 # a coefficient history line against another: max |a - b| over max |b|
 LR9_RTOL = 1e-5          # the card's lr9 history against the JAX fixture
@@ -5681,14 +5961,15 @@ MAB9 = os.path.join(ROOT, "tests", "torch_fixtures", "mab9")
 SA_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "sa")
 MLP_A5_RTOL = 1e-4       # mlp9's first iterations on the card (as the CPU)
 MLP_LOGIT_ATOL = 1e-4    # a predictor label may differ below this gap
-MLP_SCALE_ROWS = 1_000_000
+MLP_SCALE_ROWS = 500_000
+MLP_SCALE_ITERS = 300      # the 1M-row neuralNetwork job's batch iterations
 MLP_INCR_ROWS = 5_000
 MLP_GAP_ITERS = 50       # the card's batch run against the CPU's
 MLP_MINIBATCH_ROWS = 250_000     # the timed minibatch epoch's rows
-SA_SCALE = (64, 32, 8192, 1000)     # tasks, employees, chains, iterations
-SA_CPU_ITERS = 50
+SA_SCALE = (64, 32, 8192, 500)     # tasks, employees, chains, iterations
+SA_CPU_ITERS = 20
 GA_SCALE = (64, 256, 120)           # islands, population, generations
-VB_GROUPS = 250_000
+VB_GROUPS = 100_000
 VB_REWARD_EVENTS = 10_000
 
 
@@ -5772,8 +6053,9 @@ def mlp_phase(dev):
     from avenir_tpu_torch.utils import threefry as tf
     mk = fixture_module("mlp9")
     phase(f"61 mlp: mlp9 a-d through the port's CLI on the card; "
-          f"neuralNetwork over {MLP_SCALE_ROWS:,} churn rows (batch, 1,000 "
-          f"iterations) and its predictor; minibatch and incr epochs")
+          f"neuralNetwork over {MLP_SCALE_ROWS:,} churn rows (batch, "
+          f"{MLP_SCALE_ITERS:,} iterations) and its predictor; minibatch and "
+          f"incr epochs")
     schema = FeatureSchema.load(mk.SCHEMA)
 
     def xy(path):
@@ -5892,7 +6174,8 @@ def mlp_phase(dev):
         churn_svm_csv(np.random.default_rng(20261059), MLP_SCALE_ROWS, csv)
     t0 = time.perf_counter()
     run_cli(["neuralNetwork", *mk.KEYS, "-Dnn.training.mode=batch",
-             "-Dnn.iteration.count=1000", "-Dnn.validation.interval=50",
+             f"-Dnn.iteration.count={MLP_SCALE_ITERS}",
+             "-Dnn.validation.interval=50",
              f"-Dnn.model.file.path={os.path.join(WORK, 'mlp_scale.csv')}",
              csv, os.path.join(WORK, "mlp_scale_train")])
     job_s = time.perf_counter() - t0
@@ -5936,8 +6219,9 @@ def mlp_phase(dev):
            "incr_epoch_s": incr_s,
            "incr_ms_per_step": incr_s / MLP_INCR_ROWS * 1e3,
            "fixture_launches": fixture_launches}
-    print(f"neuralNetwork over {len(ys):,} rows: job {job_s:.2f} s (1,000 "
-          f"batch iterations, CSV load included); the batch step "
+    print(f"neuralNetwork over {len(ys):,} rows: job {job_s:.2f} s "
+          f"({MLP_SCALE_ITERS:,} batch iterations, CSV load included); the "
+          f"batch step "
           f"{batch_ms:.3f} ms an iteration (CPU {cpu_ms:.1f}); the card's "
           f"weights after {MLP_GAP_ITERS} iterations within {gap:.3g} of "
           f"the CPU's; predictor {pred_s:.2f} s ({len(ys) / pred_s:,.0f} "
@@ -6194,8 +6478,8 @@ def bandit_phase(dev):
     os.makedirs(work)
     sys.path.insert(0, RES)
     import importlib
-    # the CPU twin's 1M-group runs: children started now, an algorithm
-    # subset each, read at the end
+    # the CPU twin's VB_GROUPS-group runs: children started now, an
+    # algorithm subset each, read at the end
     algos = VectorBandits.ALGORITHMS
     cpu_children = []
     for j in range(VB_CPU_CHILDREN):
@@ -6274,7 +6558,7 @@ def bandit_phase(dev):
 
 ONLINE9 = os.path.join(ROOT, "tests", "torch_fixtures", "online9")
 ONLINE_MLP_ATOL = 1e-5        # case e's MLP parameters, card against JAX
-ONLINE_SCALE_PREDICTS = 200_000
+ONLINE_SCALE_PREDICTS = 16_000
 ONLINE_SCALE_FEATURES = 32
 ONLINE_SCALE_ARMS = 8
 ONLINE_SCALE_WINDOW = 256
@@ -6641,6 +6925,436 @@ def online_phases(dev):
         if child.poll() is None:
             child.kill()
     return {"online9": o9, "scale": scale, "samplers": samp}
+
+
+# --------------------------------------------------------------------------
+# phases 67-68: the sequence, association and text jobs
+# --------------------------------------------------------------------------
+
+SEQ9 = os.path.join(ROOT, "tests", "torch_fixtures", "seq9")
+GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures")
+# phase 68: sequences, plain / tagged loyalty sequences, transactions,
+# visitors x events a visitor, and the Apriori levels run at scale
+SEQ_SCALE_EVENTS = 125_000
+SEQ_SCALE_PLAIN = 50_000
+SEQ_SCALE_TAGGED = 10_000
+SEQ_SCALE_XACTIONS = 250_000
+SEQ_SCALE_VISITS = (2_000, 250)    # users (the issue's), events a user
+SEQ_SCALE_LEVELS = 3
+SEQ_SCALE_SUPPORT = "0.02"
+
+
+def gen_module(name):
+    """resource/gen/<name>.py (the golden flows' generators)."""
+    if RES not in sys.path:
+        sys.path.insert(0, RES)
+    import importlib
+    return importlib.import_module(f"gen.{name}")
+
+
+def write_lines(path, lines):
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines))
+
+
+def golden_seq_flows(work, plat=()):
+    """tests/golden/flows.py's markov, conv, buyhist, sup, visit and
+    apriori flows through the port's CLI, with the same generator calls
+    and keys.  Returns ({golden file: output path}, {job: wall s})."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    outs, walls = {}, {}
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        run_cli([*args, *plat])
+        walls[name] = round(time.perf_counter() - t0, 3)
+
+    for name, mod, seed, props in (
+            ("markov", "event_seq_gen", 21, "markov.properties"),
+            ("conv", "conv_seq_gen", 34, "conv.properties")):
+        d = os.path.join(work, name)
+        os.makedirs(d)
+        seqs = os.path.join(d, "sequences.csv")
+        write_lines(seqs, gen_module(mod).generate(300, seed))
+        conf = f"-Dconf.path={os.path.join(RES, props)}"
+        run(f"{name} model", ["markovStateTransitionModel", conf, seqs,
+                              os.path.join(d, "model")])
+        run(f"{name} pred", [
+            "markovModelClassifier", conf,
+            f"-Dmmc.mm.model.path={d}/model/part-r-00000", seqs,
+            os.path.join(d, "pred")])
+        outs[f"{name}/model.csv"] = f"{d}/model/part-r-00000"
+        outs[f"{name}/pred.csv"] = f"{d}/pred/part-m-00000"
+    d = os.path.join(work, "buyhist")
+    os.makedirs(d)
+    loyal = gen_module("loyalty_seq_gen")
+    write_lines(f"{d}/tagged.csv", loyal.generate(200, 41, "tagged"))
+    write_lines(f"{d}/plain.csv", loyal.generate(40, 42, "plain"))
+    conf = f"-Dconf.path={os.path.join(RES, 'buyhist.properties')}"
+    run("buyhist model", ["hiddenMarkovModelBuilder", conf,
+                          f"{d}/tagged.csv", f"{d}/model"])
+    run("buyhist decoded", [
+        "viterbiStatePredictor", conf,
+        f"-Dvsp.hmm.model.path={d}/model/part-r-00000", f"{d}/plain.csv",
+        f"{d}/decoded"])
+    outs["buyhist/model.csv"] = f"{d}/model/part-r-00000"
+    outs["buyhist/decoded.csv"] = f"{d}/decoded/part-m-00000"
+    d = os.path.join(work, "sup")
+    os.makedirs(d)
+    write_lines(f"{d}/events.csv",
+                gen_module("supplier_events_gen").generate(4, 50, 35))
+    write_lines(f"{d}/init.csv", [f"S{i:03d},F" for i in range(4)])
+    conf = f"-Dconf.path={os.path.join(RES, 'sup.conf')}"
+    run("sup rates", ["stateTransitionRate", conf, f"{d}/events.csv",
+                      f"{d}/rates"])
+    run("sup forecast", [
+        "contTimeStateTransitionStats", conf,
+        f"-Dstate.trans.file.path={d}/rates/part-r-00000",
+        f"{d}/init.csv", f"{d}/fc"])
+    outs["sup/rates.csv"] = f"{d}/rates/part-r-00000"
+    outs["sup/forecast.csv"] = f"{d}/fc/part-r-00000"
+    d = os.path.join(work, "visit")
+    os.makedirs(d)
+    write_lines(f"{d}/visits.csv",
+                gen_module("visit_events_gen").generate(10, 60, 43))
+    run("visit hist", ["eventTimeDistribution",
+                       f"-Dconf.path={os.path.join(RES, 'visit.properties')}",
+                       f"{d}/visits.csv", f"{d}/hist"])
+    outs["visit/hist.csv"] = f"{d}/hist/part-r-00000"
+    d = os.path.join(work, "apriori")
+    os.makedirs(d)
+    data = f"{d}/xactions.csv"
+    write_lines(data, gen_module("buy_xaction_gen").generate(500, 24))
+    common = [f"-Dconf.path={os.path.join(RES, 'apriori.properties')}",
+              "-Dfia.total.tans.count=500"]
+    run("apriori level_1", ["frequentItemsApriori", *common,
+                            "-Dfia.item.set.length=1",
+                            "-Dfia.trans.id.output=true", data,
+                            f"{d}/level_1"])
+    for length, out in ((1, "freq_1"), (2, "freq_2")):
+        args = ["frequentItemsApriori", *common,
+                f"-Dfia.item.set.length={length}"]
+        if length > 1:
+            args.append(f"-Dfia.item.set.file.path={d}/level_1/part-r-00000")
+        run(f"apriori {out}", args + [data, f"{d}/{out}"])
+    os.makedirs(f"{d}/rules_in")
+    with open(f"{d}/rules_in/part-r-00000", "w") as fh:
+        fh.write(open(f"{d}/freq_1/part-r-00000").read() + "\n" +
+                 open(f"{d}/freq_2/part-r-00000").read())
+    run("apriori rules", ["associationRuleMiner", common[0],
+                          f"{d}/rules_in", f"{d}/rules"])
+    outs["apriori/freq_pairs.csv"] = f"{d}/freq_2/part-r-00000"
+    outs["apriori/rules.csv"] = f"{d}/rules/part-r-00000"
+    return outs, walls
+
+
+def differing_lines(got, want):
+    """Lines of two files that differ (and any length difference)."""
+    a = open(got).read().splitlines()
+    b = open(want).read().splitlines()
+    return sum(x != y for x, y in zip(a, b)) + abs(len(a) - len(b))
+
+
+def seq_fixture_phase():
+    """Phase 67: the golden sequence and apriori flows and every seq9 case
+    through the port's CLI on the card, byte for byte (seq9's counters
+    too), no kernel launched."""
+    import contextlib
+    import io
+    from avenir_tpu_torch.cli import run as cli_run
+    phase("67 sequence on the card: golden markov, conv, buyhist, sup, "
+          "visit and apriori flows and every seq9 case through the port's "
+          "CLI, byte for byte")
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        outs, walls = golden_seq_flows(os.path.join(WORK, "seq_golden"))
+    forecast_diff = differing_lines(outs["sup/forecast.csv"],
+                                    os.path.join(GOLDEN, "sup",
+                                                 "forecast.csv"))
+    for rel, path in outs.items():
+        same_bytes(path, os.path.join(GOLDEN, rel), f"golden {rel}")
+    mk = fixture_module("seq9")
+    work = os.path.join(WORK, "seq9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    for case in mk.CASES:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            text, counters = mk.run_case(cli_run.main, SEQ9, work, case)
+        walls[f"seq9 {case}"] = round(time.perf_counter() - t0, 3)
+        with open(os.path.join(SEQ9, case, "out.csv")) as fh:
+            if fh.read() != text:
+                fail(f"seq9 {case}: the card's output differs from "
+                     f"{case}/out.csv")
+        if counters != read_json(os.path.join(SEQ9, case, "counters.json")):
+            fail(f"seq9 {case}: counters {counters} differ from the "
+                 f"fixture's")
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"phase 67: the sequence jobs launched a kernel: {counts}")
+    print(f"seq9: all {len(mk.CASES)} cases byte-equal (output and "
+          f"counters); sup/forecast.csv lines apart: {forecast_diff}; "
+          f"kernel launches {counts}", flush=True)
+    print(f"job walls (s): {json.dumps(walls)}", flush=True)
+    return {"walls": walls, "seq9_cases": len(mk.CASES),
+            "forecast_lines_apart": forecast_diff, "launches": counts}
+
+
+def markov_chains(rng, n, p_rows, p_first, lens, emit=None):
+    """Vectorised draws of n chains of a Markov model: the first state
+    from ``p_first`` (n, S) rows, each next state from ``p_rows[state]``
+    by one uniform and the cumulative row; with ``emit`` also an
+    observation a step from ``emit[state]`` (drawn before the step, as
+    loyalty_seq_gen does).  Returns (n, max(lens)) states [, obs]."""
+    L = int(lens.max())
+    cdf = np.cumsum(p_rows, axis=-1)
+    first = (rng.random(n)[:, None] >= np.cumsum(p_first, axis=1)).sum(1)
+    states = np.zeros((n, L), np.int64)
+    obs = np.zeros((n, L), np.int64) if emit is not None else None
+    cur = np.minimum(first, p_rows.shape[-1] - 1)
+    ecdf = np.cumsum(emit, axis=1) if emit is not None else None
+    for t in range(L):
+        states[:, t] = cur
+        if emit is not None:
+            obs[:, t] = np.minimum((rng.random(n)[:, None]
+                                    >= ecdf[cur]).sum(1), emit.shape[1] - 1)
+        rows = cdf[np.arange(n), cur] if cdf.ndim == 3 else cdf[cur]
+        cur = np.minimum((rng.random(n)[:, None] >= rows).sum(1),
+                         p_rows.shape[-1] - 1)
+    return (states, obs) if emit is not None else states
+
+
+SEQ_SCALE_INPUTS = ("events", "plain", "tagged", "xactions", "visits")
+
+
+def seq_scale_inputs(work, drawn):
+    """Phase 68's inputs, drawn vectorised from the generators' own models
+    (event_seq_gen's matrices, loyalty_seq_gen's HMM, buy_xaction_gen's
+    bundles and catalog, visit_events_gen's hour profiles) with seeds
+    71-75, in their line formats (the per-row generators take minutes at
+    these sizes), as ``<work>/<name>.csv`` for each name of
+    SEQ_SCALE_INPUTS; ``drawn(path)`` is called as each is written."""
+    paths = {}
+    ev = gen_module("event_seq_gen")
+    rng = np.random.default_rng(71)
+    n = SEQ_SCALE_EVENTS
+    fraud = rng.random(n) < 0.3
+    lens = rng.integers(8, 21, n)
+    S = len(ev.STATES)
+    mats = np.stack([ev.NORMAL, ev.FRAUD])[fraud.astype(int)]   # (n, S, S)
+    chains = markov_chains(rng, n, mats, np.full((n, S), 1.0 / S), lens)
+    names = np.asarray(ev.STATES, dtype=object)[chains]
+    lines = [f"C{i:06d},{'F' if f else 'N'}," + ",".join(c[:ln])
+             for i, (f, c, ln) in enumerate(zip(fraud.tolist(), names,
+                                                lens.tolist()))]
+    paths["events"] = os.path.join(work, "events.csv")
+    write_lines(paths["events"], lines)
+    drawn(paths["events"])
+    lo = gen_module("loyalty_seq_gen")
+    obs_names = np.asarray(lo.OBS, dtype=object)
+    st_names = np.asarray(lo.STATES, dtype=object)
+    for name, n, seed in (("plain", SEQ_SCALE_PLAIN, 72),
+                          ("tagged", SEQ_SCALE_TAGGED, 73)):
+        rng = np.random.default_rng(seed)
+        lens = rng.integers(10, 26, n)
+        states, obs = markov_chains(rng, n, lo.TRANS,
+                                    np.broadcast_to(lo.INIT, (n, 3)), lens,
+                                    emit=lo.EMIT)
+        if name == "plain":
+            lines = [f"U{i:05d}," + ",".join(obs_names[o[:ln]])
+                     for i, (o, ln) in enumerate(zip(obs, lens.tolist()))]
+        else:
+            pairs = np.stack([obs_names[obs], st_names[states]], axis=2)
+            lines = [f"U{i:05d}," + ",".join(p[:ln].ravel())
+                     for i, (p, ln) in enumerate(zip(pairs, lens.tolist()))]
+        paths[name] = os.path.join(work, f"{name}.csv")
+        write_lines(paths[name], lines)
+        drawn(paths[name])
+    bx = gen_module("buy_xaction_gen")
+    rng = np.random.default_rng(74)
+    n = SEQ_SCALE_XACTIONS
+    V = len(bx.CATALOG)
+    member = np.zeros((n, V), bool)
+    hit = rng.random((n, len(bx.BUNDLES))) < 0.35
+    has = hit.any(axis=1)
+    first_bundle = np.argmax(hit, axis=1)
+    col = {it: j for j, it in enumerate(bx.CATALOG)}
+    for b, (x, y) in enumerate(bx.BUNDLES):
+        rows = has & (first_bundle == b)
+        member[rows, col[x]] = member[rows, col[y]] = True
+    active = np.ones(n, bool)
+    while active.any():
+        active &= member.sum(1) < rng.integers(2, 7, n)
+        pick = rng.integers(0, V, n)
+        member[np.flatnonzero(active), pick[active]] = True
+    order = np.argsort(bx.CATALOG)
+    bits = (member[:, order] * (1 << np.arange(V))).sum(1)
+    sorted_names = [bx.CATALOG[j] for j in order]
+    label = [",".join(sorted_names[j] for j in range(V) if m >> j & 1)
+             for m in range(1 << V)]
+    paths["xactions"] = os.path.join(work, "xactions.csv")
+    write_lines(paths["xactions"], [f"T{i:06d},{label[m]}"
+                                    for i, m in enumerate(bits.tolist())])
+    drawn(paths["xactions"])
+    vg = gen_module("visit_events_gen")
+    rng = np.random.default_rng(75)
+    users, per = SEQ_SCALE_VISITS
+    night = (np.arange(users) % 2 == 1).repeat(per)
+    day = rng.integers(0, 30, users * per)
+    hour = np.where(night, (rng.random(users * per)[:, None]
+                            >= np.cumsum(vg._night_p())).sum(1),
+                    (rng.random(users * per)[:, None]
+                     >= np.cumsum(vg._day_p())).sum(1)).clip(0, 23)
+    ts = vg.BASE + day * vg.MS_DAY + hour * vg.MS_HOUR + \
+        rng.integers(0, vg.MS_HOUR, users * per)
+    uid = np.arange(users).repeat(per)
+    paths["visits"] = os.path.join(work, "visits.csv")
+    write_lines(paths["visits"], [f"U{u:04d},{t}" for u, t in
+                                  zip(uid.tolist(), ts.tolist())])
+    drawn(paths["visits"])
+
+
+def seq_scale_jobs(paths, work):
+    """Phase 68's jobs as (name, job, keys, input, output, units): the
+    Markov model and classifier over the event sequences, the HMM and
+    Viterbi, Apriori levels 1..SEQ_SCALE_LEVELS and the event-time
+    histogram."""
+    markov = os.path.join(RES, "markov.properties")
+    buy = os.path.join(RES, "buyhist.properties")
+    apr = os.path.join(RES, "apriori.properties")
+    out = lambda name: os.path.join(work, name)   # noqa: E731
+    jobs = [("markov model", "markovStateTransitionModel", markov, [],
+             paths["events"], out("model"), SEQ_SCALE_EVENTS),
+            ("markov classify", "markovModelClassifier", markov,
+             [f"-Dmmc.mm.model.path={out('model')}/part-r-00000"],
+             paths["events"], out("pred"), SEQ_SCALE_EVENTS),
+            ("hmm model", "hiddenMarkovModelBuilder", buy, [],
+             paths["tagged"], out("hmm"), SEQ_SCALE_TAGGED),
+            ("hmm viterbi", "viterbiStatePredictor", buy,
+             [f"-Dvsp.hmm.model.path={out('hmm')}/part-r-00000"],
+             paths["plain"], out("decoded"), SEQ_SCALE_PLAIN)]
+    for k in range(1, SEQ_SCALE_LEVELS + 1):
+        keys = [f"-Dfia.item.set.length={k}",
+                f"-Dfia.total.tans.count={SEQ_SCALE_XACTIONS}",
+                f"-Dfia.support.threshold={SEQ_SCALE_SUPPORT}"]
+        if k > 1:
+            keys.append(f"-Dfia.item.set.file.path="
+                        f"{out(f'level_{k - 1}')}/part-r-00000")
+        jobs.append((f"apriori level {k}", "frequentItemsApriori", apr, keys,
+                     paths["xactions"], out(f"level_{k}"),
+                     SEQ_SCALE_XACTIONS))
+    jobs.append(("event time", "eventTimeDistribution",
+                 os.path.join(RES, "visit.properties"), [], paths["visits"],
+                 out("hist"), SEQ_SCALE_VISITS[0] * SEQ_SCALE_VISITS[1]))
+    return jobs
+
+
+def seq_cpu_child(jobs_json):
+    """``--seq-cpu-child``: a JSON list of CLI argv (one group of phase
+    68's jobs) run in order with -Dplatform=cpu."""
+    import contextlib
+    import io
+    for argv in read_json(jobs_json):
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_cli(argv + ["-Dplatform=cpu"])
+
+
+def seq_scale_phase(dev):
+    """Phase 68: each job once in a child on the CPU and once on the card
+    (the registered job function with a LayerProfile: the wall of each
+    layer); every output byte-equal.  The CPU children run first, each
+    started as soon as its inputs are drawn, and are waited for before the
+    card's runs, which are timed with no other process beside them."""
+    import torch
+    from avenir_tpu_torch.cli import jobs as J
+    from avenir_tpu_torch.core.config import load_config
+    from avenir_tpu_torch.utils.tracing import LayerProfile
+    users, per = SEQ_SCALE_VISITS
+    phase(f"68 sequence at scale: markov model + classifier over "
+          f"{SEQ_SCALE_EVENTS:,} sequences, Viterbi over "
+          f"{SEQ_SCALE_PLAIN:,} (model of {SEQ_SCALE_TAGGED:,}), Apriori "
+          f"levels 1-{SEQ_SCALE_LEVELS} over {SEQ_SCALE_XACTIONS:,} "
+          f"transactions, event time over {users * per:,} events; card == "
+          f"-Dplatform=cpu")
+    work = os.path.join(WORK, "seq_scale")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    paths = {k: os.path.join(work, f"{k}.csv") for k in SEQ_SCALE_INPUTS}
+    # the CPU reference: one child a group of dependent jobs (the names'
+    # first word), started once the group's inputs are written
+    cpu_work = os.path.join(work, "cpu")
+    groups = {}
+    for name, job, conf, keys, inp, out, _ in seq_scale_jobs(paths,
+                                                             cpu_work):
+        argvs, inputs = groups.setdefault(name.split(" ")[0], ([], set()))
+        argvs.append([job, f"-Dconf.path={conf}", *keys, inp, out])
+        inputs.add(inp)
+    written, kids = set(), []
+
+    def drawn(path):
+        written.add(path)
+        for g, (argvs, inputs) in list(groups.items()):
+            if inputs <= written:
+                del groups[g]
+                spec = os.path.join(work, f"cpu_{g}.json")
+                with open(spec, "w") as fh:
+                    json.dump(argvs, fh)
+                kids.append(Children([(
+                    [sys.executable, os.path.abspath(__file__),
+                     "--seq-cpu-child", spec],
+                    lane_env({"CUDA_VISIBLE_DEVICES": "",
+                              "OMP_NUM_THREADS": "1"}, False))],
+                    timeout=600))
+    t0 = time.perf_counter()
+    seq_scale_inputs(work, drawn)
+    gen_s = time.perf_counter() - t0
+    if groups:
+        fail(f"phase 68: no inputs drawn for {sorted(groups)}")
+    all_ok([r for k in kids for r in k.wait()], "phase 68 CPU children")
+    cpu_s = time.perf_counter() - t0
+    card_work = os.path.join(work, "card")
+    runs = {}
+    zero_launches()
+    for name, job, conf, keys, inp, out, units in seq_scale_jobs(
+            paths, card_work):
+        cfg = load_config(conf)
+        cfg.update(dict(k[2:].split("=", 1) for k in keys))
+        prof = LayerProfile(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        J.resolve(job)(cfg, inp, out, profile=prof)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[name] = {"wall_s": round(wall, 3),
+                      "per_s": round(units / wall, 1),
+                      "layers_s": {k: round(v, 4)
+                                   for k, v in prof.setup.items()}}
+        print(f"{name}: {units:,} in {wall:.3f} s = {units / wall:,.0f}"
+              f"/s; layers (s) {json.dumps(runs[name]['layers_s'])}",
+              flush=True)
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"phase 68: the sequence jobs launched a kernel: {counts}")
+    for _, _, _, _, _, out, _ in seq_scale_jobs(paths, card_work):
+        for part in sorted(os.listdir(out)):
+            if part.startswith("part-"):
+                cpu = os.path.join(cpu_work, os.path.basename(out), part)
+                with open(os.path.join(out, part), "rb") as a, \
+                        open(cpu, "rb") as b:
+                    if a.read() != b.read():
+                        fail(f"phase 68: {os.path.basename(out)}/{part} "
+                             f"on the card differs from -Dplatform=cpu")
+    levels = [sum(1 for _ in open(os.path.join(card_work, f"level_{k}",
+                                               "part-r-00000")))
+              for k in range(1, SEQ_SCALE_LEVELS + 1)]
+    print(f"every output byte-equal to the CPU children's (run before the "
+          f"card's, alone); frequent itemsets a level {levels}; inputs "
+          f"drawn in {gen_s:.1f} s, the CPU children done {cpu_s:.1f} s "
+          f"after the draw began; kernel launches {counts}", flush=True)
+    return {"runs": runs, "gen_s": round(gen_s, 2),
+            "cpu_children_s": round(cpu_s, 2), "levels": levels,
+            "launches": counts}
 
 
 def main():
@@ -7235,11 +7949,16 @@ def main():
     blk = b4_t["rafo_2048"]
 
     streamed = stream_main_path(dev)
-    stream_resume(dev)
-    scale, scale_trees, scale_counts, scale_csv = stream_scale(dev, fs)
+    # phases 29 and 30's five processes start up together, each held at
+    # its gate until its phase lets it go
+    plans = [crash_plan(), scale_plan(os.path.join(WORK, "stream_scale.csv"))]
+    stages = start_stages(plans)
+    stream_resume(plans[0], stages[0])
+    scale, scale_trees, scale_counts, scale_csv = stream_scale(
+        fs, plans[1], stages[1])
     multi = multi_process_phases(scale_csv, scale, scale_trees,
                                  scale_counts)
-    cached = cache_scale(scale_csv, scale["stream"], scale_trees)
+    cached = multi["cache"]
     nb_counts, nb_backends = bayes_main_path()
     nb_train, nb_cli, nb_csv = bayes_scale(dev)
     nb_joined = bayes_joined(nb_csv)
@@ -7253,6 +7972,8 @@ def main():
     opt_r = optimize_phase(dev)
     bandit_r = bandit_phase(dev)
     online_r = online_phases(dev)
+    seq_fix = seq_fixture_phase()
+    seq_scale = seq_scale_phase(dev)
     phase()
     tf_main = {"mlp": mlp_r["fixture_launches"],
                "optimize": opt_r["fixture_launches"],
@@ -7490,6 +8211,7 @@ def main():
         "mlp": mlp_r, "optimize": opt_r,
         "bandits": {k: v for k, v in bandit_r.items() if k != "launches"},
         "online": online_r,
+        "sequence": {"fixtures": seq_fix, "scale": seq_scale},
         "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -7513,5 +8235,7 @@ if __name__ == "__main__":
         bandit_cpu_child(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--online-cpu-child"]:
         online_cpu_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--seq-cpu-child"]:
+        seq_cpu_child(sys.argv[2])
     else:
         main()

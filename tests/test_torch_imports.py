@@ -98,7 +98,19 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.online.plane",
              "avenir_tpu_torch.online.service",
              "avenir_tpu_torch.cli.online_jobs",
-             "avenir_tpu_torch.stats.samplers"):
+             "avenir_tpu_torch.stats.samplers",
+             "avenir_tpu_torch.sequence",
+             "avenir_tpu_torch.sequence.markov",
+             "avenir_tpu_torch.sequence.pst",
+             "avenir_tpu_torch.sequence.positional",
+             "avenir_tpu_torch.explore",
+             "avenir_tpu_torch.explore.rules",
+             "avenir_tpu_torch.association",
+             "avenir_tpu_torch.association.itemsets",
+             "avenir_tpu_torch.association.rules",
+             "avenir_tpu_torch.cli.sequence_jobs",
+             "avenir_tpu_torch.cli.association_jobs",
+             "avenir_tpu_torch.cli.text_jobs"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -106,6 +118,12 @@ for name in names:
 from avenir_tpu_torch.cli import run as _run
 from avenir_tpu_torch.cli.jobs import resolve
 assert resolve("onlineLearner") is resolve("org.avenir.online.OnlineLearner")
+for short, full in (("markovModelClassifier",
+                     "org.avenir.markov.MarkovModelClassifier"),
+                    ("frequentItemsApriori",
+                     "org.avenir.association.FrequentItemsApriori"),
+                    ("wordCounter", "org.avenir.text.WordCounter")):
+    assert resolve(short) is resolve(full)
 importlib.import_module("chip_smoke")
 # the native reader builds and loads the port's own library, never one
 # of the JAX package's
@@ -138,6 +156,7 @@ def test_port_imports_without_jax_or_avenir_tpu():
     assert res.returncode == 0, res.stderr
     # runtime, weights, core x7, utils x5, kernels x6, models x4,
     # serving x9, monitor x5, stats x3, ops x2, cli x10, parallel x4, io x3,
-    # telemetry x5, nn x2, optimize x5, reinforce x5, pipeline x3, online x4
+    # telemetry x5, nn x2, optimize x5, reinforce x5, pipeline x3, online x4,
+    # sequence x4, explore x2, association x3, the three new cli job modules
     # and the package
-    assert int(res.stdout.strip()) >= 81
+    assert int(res.stdout.strip()) >= 93

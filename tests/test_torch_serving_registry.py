@@ -111,7 +111,7 @@ def test_malformed_row_costs_only_its_reply(registry):
 
 def test_unported_jobs_and_serving_tiers_refuse_by_name(registry, tmp_path):
     with pytest.raises(JobNotPorted, match="not ported"):
-        port_run.main(["org.avenir.markov.MarkovStateTransitionModel",
+        port_run.main(["org.avenir.cluster.KmeansCluster",
                        "-Dplatform=cpu", "in.csv", str(tmp_path / "o")])
     req = tmp_path / "req.csv"
     req.write_text("\n".join(",".join(r) for r in _rows(3)) + "\n")

@@ -1,25 +1,33 @@
 #!/usr/bin/env bash
 # Whole-script A/B of two checkouts of the repo on one card.
 #
-# Runs chip_smoke.py from each checkout in the order A B B A, one after
+# Runs chip_smoke.py from each checkout in the order A B B A (or the
+# order given as a sixth argument, a string of A and B), one after
 # another, so that both see the same card and host, and prints each run's
 # exit code, wall seconds and "phase seconds" line.  Each run's whole
 # output goes to <log-dir>/ab_<label>_<n>.log.
 #
-#   bash tools/chip_ab.sh <label-a> <dir-a> <label-b> <dir-b> <log-dir>
+#   bash tools/chip_ab.sh <label-a> <dir-a> <label-b> <dir-b> <log-dir> [order]
 #
 # Each directory is a checkout, e.g. `git archive <commit> | tar -x -C dir`.
 set -u
-if [ $# -ne 5 ]; then
-    echo "usage: $0 <label-a> <dir-a> <label-b> <dir-b> <log-dir>" >&2
+if [ $# -ne 5 ] && [ $# -ne 6 ]; then
+    echo "usage: $0 <label-a> <dir-a> <label-b> <dir-b> <log-dir> [order]" >&2
     exit 2
 fi
+order="${6:-ABBA}"
+case "$order" in
+    *[!AB]*|"") echo "order must be a string of A and B: $order" >&2; exit 2 ;;
+esac
 mkdir -p "$5"
 out="$(cd "$5" && pwd)"
+a="$1 $2"
+b="$3 $4"
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 status=0
 n=0
-for side in "$1 $2" "$3 $4" "$3 $4" "$1 $2"; do
+for ((i = 0; i < ${#order}; i++)); do
+    if [ "${order:i:1}" = A ]; then side="$a"; else side="$b"; fi
     set -- $side
     n=$((n + 1))
     log="$out/ab_${1}_${n}.log"
