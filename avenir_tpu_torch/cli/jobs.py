@@ -26,7 +26,13 @@ candidates, positional clusters, CTMC rates and statistics, event-time
 histograms, ``sequenceGenerator``), ``frequentItemsApriori``,
 ``infrequentItemMarker`` and ``associationRuleMiner``
 (``association_jobs.py``), ``wordCounter``, ``ruleEvaluator`` and
-``temporalFilter`` (``text_jobs.py``).
+``temporalFilter`` (``text_jobs.py``), ``kmeansCluster``,
+``agglomerativeGraphical`` and ``entityDistanceStore``
+(``cluster_jobs.py``), the thirteen explore jobs (``explore_jobs.py``),
+``classPartitionGenerator`` and ``dataPartitioner``
+(``partition_jobs.py``), ``supportVectorMachine``,
+``supportVectorPredictor`` and ``fisherDiscriminant``
+(``discriminant_jobs.py``): all 64 of the JAX package's jobs.
 
 Every job carries its multi-process mode (``register(dist=)``, the JAX
 package's classes), which ``cli.run`` enforces in a joined
@@ -38,12 +44,15 @@ package's classes), which ``cli.run`` enforces in a joined
   others over per-process files; ``bayesianDistribution``;
   ``logisticRegression``, one gradient all-reduce an iteration;
   ``frequentItemsApriori``, the vocabulary and candidates unioned and the
-  counts summed);
+  counts summed; ``kmeansCluster``, one packed partials all-reduce a
+  Lloyd iteration; ``mutualInformation`` and ``numericalCorrelation``,
+  the counts or moments summed);
 * ``map`` — a per-record transform of the local input; each process writes
   its own part file (``modelPredictor``, ``bayesianPredictor``,
   ``logisticRegressionPredictor``, ``neuralNetworkPredictor``,
   ``markovModelClassifier``, ``viterbiStatePredictor``,
-  ``infrequentItemMarker``, ``temporalFilter``);
+  ``infrequentItemMarker``, ``temporalFilter``,
+  ``supportVectorPredictor``);
 * ``partition`` — a global input view, the work split by process
   (``knnPipeline``: the test axis by ``work_slice``, or the train axis
   with ``nen.train.shard=true``; ``simulatedAnnealing`` its chains and
@@ -52,8 +61,9 @@ package's classes), which ``cli.run`` enforces in a joined
   files (``sameTypeSimilarity``, ``nearestNeighbor``,
   ``groupedRecordSimilarity``, ``featureCondProbJoiner``,
   ``neuralNetwork``, the bandit jobs, the other sequence jobs,
-  ``associationRuleMiner``, ``wordCounter`` and ``ruleEvaluator``), read
-  from ``cli.run``'s spool;
+  ``associationRuleMiner``, ``wordCounter``, ``ruleEvaluator``, the
+  cluster, explore, partition and discriminant jobs not named above),
+  read from ``cli.run``'s spool;
 * ``refuse`` — no multi-process form (``predictionService``,
   ``driftMonitor``, ``predictDriftScore``, ``retrainController``).
 """

@@ -52,12 +52,16 @@ from ..core.config import Config, load_config
 from . import jobs
 from . import association_jobs  # noqa: F401  (registers the Apriori jobs)
 from . import bayes_jobs  # noqa: F401  (registers the Naive Bayes jobs)
+from . import cluster_jobs  # noqa: F401  (registers the cluster jobs)
 from . import control_jobs  # noqa: F401  (registers retrainController)
+from . import discriminant_jobs  # noqa: F401  (registers the SVM, Fisher)
+from . import explore_jobs  # noqa: F401  (registers the explore jobs)
 from . import knn_jobs  # noqa: F401  (registers the KNN jobs)
 from . import monitor_jobs  # noqa: F401  (registers the drift jobs)
 from . import nn_jobs  # noqa: F401  (registers the MLP jobs)
 from . import online_jobs  # noqa: F401  (registers onlineLearner)
 from . import optimize_jobs  # noqa: F401  (registers the SA and GA jobs)
+from . import partition_jobs  # noqa: F401  (registers the split jobs)
 from . import regress_jobs  # noqa: F401  (registers the logistic jobs)
 from . import reinforce_jobs  # noqa: F401  (registers the bandit jobs)
 from . import sequence_jobs  # noqa: F401  (registers the sequence jobs)

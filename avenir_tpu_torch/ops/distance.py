@@ -51,6 +51,9 @@ from ..core.schema import FeatureSchema
 from ..core.table import ColumnarTable
 from ..runtime import resolve_device
 from ..utils.tracing import fetch, note_dispatch, note_h2d
+# the correctly rounded float32 root (PyTorch's CPU sqrt is not); a
+# floored distance at an integer edge moves with one ulp of it
+from ..utils.xla_math import sqrt_f32
 
 
 # --------------------------------------------------------------------------
@@ -91,15 +94,6 @@ def cat_matches(toh: torch.Tensor, roh: torch.Tensor) -> torch.Tensor:
         return torch.zeros((toh.shape[0], roh.shape[0]), dtype=torch.float32,
                            device=toh.device)
     return (toh.to(torch.float64) @ roh.to(torch.float64).T).to(torch.float32)
-
-
-def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root: the float64 root cast to
-    float32 (53 ≥ 2·24 + 2 bits, so the double rounding is exact).
-    PyTorch's vectorised float32 ``sqrt`` on the CPU is not correctly
-    rounded (some inputs come out one ulp off), which moves floored
-    distances at integer edges."""
-    return torch.sqrt(x.to(torch.float64)).to(torch.float32)
 
 
 def div_f32(x: torch.Tensor, divisor: float) -> torch.Tensor:

@@ -289,11 +289,30 @@ def xla_log1p_f32(x: torch.Tensor) -> torch.Tensor:
 
 
 def sqrt_f32(x: torch.Tensor) -> torch.Tensor:
-    """The correctly rounded float32 square root (XLA's ``vsqrtps``),
-    through float64: ``torch.sqrt`` of a float32 tensor on the CPU is
-    within half an ulp plus a little, and misses it in about one input
-    in a thousand."""
-    return torch.sqrt(x.double()).float()
+    """The correctly rounded float32 square root (XLA's ``vsqrtps``).
+
+    ``torch.sqrt`` of a float32 tensor on the CPU is within half an ulp
+    plus a little, and misses it in about one input in a thousand; its
+    float64 root is not correctly rounded either, and in a process that
+    has loaded jaxlib its first call has come out less accurate than
+    float32 needs (ROADMAP §C).  So the float64 root, cast to float32, is
+    a first guess (:func:`nearest_root_f32`)."""
+    return nearest_root_f32(x, torch.sqrt(x.double()).float())
+
+
+def nearest_root_f32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded float32 root of float32 ``x`` from a guess
+    ``y`` within one ulp of it, moved one ulp where an exact test says
+    so: the midpoints between the guess and its neighbours have 25 bits,
+    so their squares are exact in float64 and compare exactly with
+    ``x``."""
+    x64 = x.double()
+    up = torch.nextafter(y, torch.full_like(y, float("inf")))
+    down = torch.nextafter(y, torch.zeros_like(y))
+    hi = (y.double() + up.double()) * 0.5
+    lo = (y.double() + down.double()) * 0.5
+    return torch.where(x64 > hi * hi, up,
+                       torch.where(x64 < lo * lo, down, y))
 
 
 # Giles' single-precision erfinv as XLA states it: the polynomial for

@@ -611,6 +611,23 @@ order — any failure exits non-zero before the result line:
               before the card's runs, which are timed alone: every
               output byte-equal; sequences/s, transactions/s a level,
               events/s
+ 69. tail9    the golden carm, disease, hica, mi and svm flows and every
+              tail9 case (tests/torch_fixtures/tail9) through the port's
+              CLI on the card: byte for byte, save the five cases the
+              maker holds to a tolerance (its ``compare``; their
+              differing lines counted); the card's batched SVM model
+              predicts the fixture's predictions; no kernel launch
+ 70. tail scale kmeansCluster over 1,000,000 cust_seg customers (3
+              groups), mutualInformation and numericalCorrelation over
+              1,000,000 hosp_readmit rows, the batched SVM over 100 groups
+              of 1,000 churn_svm rows at C = 0.001 and over 100 groups of
+              100 at svm.properties' C = 1.0 (to its step cap), SMOTE over
+              10,000 minority rows of 125,000 machine_failure rows; five
+              ``--tail-cpu-child`` processes (one a group) draw the inputs
+              and run the jobs
+              with -Dplatform=cpu, started before phase 69 and waited for
+              before the card's runs (the registered functions with a
+              LayerProfile): every output byte-equal; rows/s and layers
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -628,8 +645,8 @@ under ``retrain`` phases 56-58's (B1's, B2's and B4's ``retrain*``
 launches are theirs too), under ``logistic`` phase 59's, under ``mlp``,
 ``optimize`` and ``bandits`` phases 61-63's, under ``online`` phases
 64-66's (the ``threefry2x32`` entry's launches are those of 61-66), under
-``sequence`` phases 67-68's (job walls, rates, layers, launch counts: 0),
-and under ``phase_seconds`` each phase's wall seconds; the last line is
+``sequence`` phases 67-68's and under ``long_tail`` phases 69-70's (job
+walls, rates, layers, launch counts: 0), and under ``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -7357,6 +7374,442 @@ def seq_scale_phase(dev):
             "launches": counts}
 
 
+# --------------------------------------------------------------------------
+# phases 69-70: the long tail (cluster, explore, partition, discriminant)
+# --------------------------------------------------------------------------
+
+TAIL9 = os.path.join(ROOT, "tests", "torch_fixtures", "tail9")
+# phase 70: cust_seg customers (3 cluster groups, at most TAIL_KM_ITERS
+# Lloyd iterations), hosp_readmit rows, churn_svm groups x rows a group,
+# machine_failure rows for SMOTE's minority rows (the generator's ~8%).
+# The SVM's rows a group and SMOTE's rows are cut to half (from 2,000
+# and 20,000 of 250,000): their CPU children set the phase's wall
+TAIL_KM_ROWS = 1_000_000
+TAIL_KM_ITERS = 60
+TAIL_HOSP_ROWS = 1_000_000
+TAIL_SVM = (100, 1_000)
+TAIL_SVM_C = "0.001"
+# svm.properties as published (C = 1.0, where the lock-step solver does not
+# converge on churn_svm's features): groups x rows a group, cut so that its
+# run to the cap of 200 sweeps x rows a group fits the phase
+TAIL_SVM_PUBLISHED = (100, 100)
+TAIL_SMOTE_MINORITY = 10_000
+TAIL_SMOTE_ROWS = 125_000
+TAIL_GROUPS = ("kmeans", "hosp", "svm", "svm1", "smote")
+
+
+def golden_tail_flows(work, plat=()):
+    """tests/golden/flows.py's carm, hica, mi, svm and disease flows
+    through the port's CLI, with the same generator calls and keys.
+    Returns ({golden file: output path}, {job: wall s})."""
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    outs, walls = {}, {}
+
+    def run(name, args):
+        t0 = time.perf_counter()
+        run_cli([*args, *plat])
+        walls[name] = round(time.perf_counter() - t0, 3)
+
+    def data(flow, gen, n, seed, name):
+        d = os.path.join(work, flow)
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, name)
+        write_lines(path, gen_module(gen).generate(n, seed))
+        return d, path
+
+    d, calls = data("carm", "cust_call_gen", 500, 31, "calls.csv")
+    conf = f"-Dconf.path={os.path.join(RES, 'carm.properties')}"
+    schema = os.path.join(RES, "cust_call.json")
+    run("carm mi", ["mutualInformation", conf,
+                    f"-Dmut.feature.schema.file.path={schema}", calls,
+                    f"{d}/mi"])
+    run("carm affinity", ["categoricalClassAffinity", conf,
+                          f"-Dcca.feature.schema.file.path={schema}", calls,
+                          f"{d}/aff"])
+    outs["carm/mi.csv"] = f"{d}/mi/part-r-00000"
+    outs["carm/affinity.csv"] = f"{d}/aff/part-r-00000"
+    d, deliv = data("hica", "delivery_gen", 800, 32, "deliveries.csv")
+    for mode, extra in (("enc", []),
+                        ("woe", ["-Dcoe.encoding.strategy=weightOfEvidence"])):
+        run(f"hica {mode}", [
+            "categoricalContinuousEncoding",
+            f"-Dconf.path={os.path.join(RES, 'hica.properties')}",
+            f"-Dcoe.feature.schema.file.path="
+            f"{os.path.join(RES, 'delivery.json')}", *extra, deliv,
+            f"{d}/{mode}"])
+        outs[f"hica/{mode}.csv"] = f"{d}/{mode}/part-r-00000"
+    d, calls = data("mi", "call_hangup_gen", 500, 23, "calls.csv")
+    run("mi", ["mutualInformation",
+               f"-Dconf.path={os.path.join(RES, 'mutual_info.properties')}",
+               f"-Dmut.feature.schema.file.path="
+               f"{os.path.join(RES, 'call_hangup.json')}", calls,
+               f"{d}/out"])
+    outs["mi/scores.csv"] = f"{d}/out/part-r-00000"
+    d, churn = data("svm", "churn_svm_gen", 300, 33, "churn.csv")
+    conf = f"-Dconf.path={os.path.join(RES, 'svm.properties')}"
+    schema = f"-Dsvm.feature.schema.file.path=" \
+        f"{os.path.join(RES, 'churn_svm.json')}"
+    run("svm model", ["supportVectorMachine", conf, schema, churn,
+                      f"{d}/model"])
+    run("svm pred", ["supportVectorPredictor", conf, schema,
+                     f"-Dsvm.model.file.path={d}/model/part-r-00000", churn,
+                     f"{d}/pred"])
+    outs["svm/model.csv"] = f"{d}/model/part-r-00000"
+    outs["svm/pred.csv"] = f"{d}/pred/part-m-00000"
+    d, pat = data("disease", "patient_gen", 600, 36, "patients.csv")
+    conf = f"-Dconf.path={os.path.join(RES, 'disease.properties')}"
+    schema = f"-Dcpg.feature.schema.file.path=" \
+        f"{os.path.join(RES, 'patient.json')}"
+    run("disease root", ["classPartitionGenerator", conf, schema, pat,
+                         f"{d}/root"])
+    root_info = open(f"{d}/root/part-r-00000").read().strip()
+    run("disease splits", ["classPartitionGenerator", conf, schema,
+                           "-Dcpg.split.attributes=1,2,3,4,5",
+                           f"-Dcpg.parent.info={root_info}", pat,
+                           f"{d}/splits"])
+    run("disease rules", ["ruleEvaluator", conf, "-Drue.data.size=600", pat,
+                          f"{d}/rules"])
+    outs["disease/splits.csv"] = f"{d}/splits/part-r-00000"
+    outs["disease/rules.csv"] = f"{d}/rules/part-r-00000"
+    return outs, walls
+
+
+def tail_fixture_phase():
+    """Phase 69: the golden carm, disease, hica, mi and svm flows and
+    every tail9 case through the port's CLI on the card: byte for byte,
+    save the cases tail9/make.py holds to a tolerance (``compare``), whose
+    differing lines are counted; the batched SVM's card model predicts the
+    fixture's predictions; no kernel launched."""
+    import contextlib
+    import io
+    from avenir_tpu_torch.cli import run as cli_run
+    phase("69 long tail on the card: golden carm, disease, hica, mi and "
+          "svm flows and every tail9 case through the port's CLI")
+    zero_launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        outs, walls = golden_tail_flows(os.path.join(WORK, "tail_golden"))
+    for rel, path in outs.items():
+        same_bytes(path, os.path.join(GOLDEN, rel), f"golden {rel}")
+    mk = fixture_module("tail9")
+    work = os.path.join(WORK, "tail9")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    apart = {}
+    for case in mk.CASES:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            text, counters = mk.run_case(cli_run.main, TAIL9, work, case)
+        walls[f"tail9 {case}"] = round(time.perf_counter() - t0, 3)
+        with open(os.path.join(TAIL9, case, "out.csv")) as fh:
+            want = fh.read()
+        try:
+            n = mk.compare(case, text, want)
+        except AssertionError as exc:
+            fail(f"tail9 {case}: the card's output is off the fixture: "
+                 f"{exc}")
+        if case in mk.TOLERANCE:
+            apart[case] = n
+        want_c = read_json(os.path.join(TAIL9, case, "counters.json"))
+        if not case.startswith("svm_") or case not in mk.TOLERANCE:
+            if counters != want_c:
+                fail(f"tail9 {case}: counters {counters} differ from the "
+                     f"fixture's {want_c}")
+    # the card-trained batched model predicts what the JAX model predicts
+    _, argv = mk.case_args("svm_batched_pred", TAIL9,
+                           os.path.join(work, "card_model"))
+    argv = [a if not a.startswith("-Dsvm.model.file.path=") else
+            f"-Dsvm.model.file.path={work}/svm_batched/part-r-00000"
+            for a in argv]
+    with contextlib.redirect_stdout(io.StringIO()):
+        run_cli(argv)
+    same_bytes(os.path.join(work, "card_model", "svm_batched_pred",
+                            "part-m-00000"),
+               os.path.join(TAIL9, "svm_batched_pred", "out.csv"),
+               "tail9 svm_batched_pred over the card's batched model")
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"phase 69: the long-tail jobs launched a kernel: {counts}")
+    print(f"tail9: all {len(mk.CASES)} cases held (byte-equal but "
+          f"{sorted(mk.TOLERANCE)}); lines apart in those: "
+          f"{json.dumps(apart)}; kernel launches {counts}", flush=True)
+    print(f"job walls (s): {json.dumps(walls)}", flush=True)
+    return {"walls": walls, "tail9_cases": len(mk.CASES),
+            "lines_apart": apart, "launches": counts}
+
+
+def _clipped_int(rng, mean, sd, lo, hi, n):
+    """``int(np.clip(rng.normal(mean, sd), lo, hi))``, n draws."""
+    return np.clip(rng.normal(mean, sd, n), lo, hi).astype(np.int64)
+
+
+def tail_scale_input(work, group):
+    """Phase 70's input of one group, drawn vectorised from its
+    generator's own model (seeds 81-84) and written under ``work``;
+    returns the paths the group's jobs read."""
+    paths = {}
+    if group == "kmeans":
+        cs = gen_module("cust_seg_gen")
+        rng = np.random.default_rng(81)
+        n = TAIL_KM_ROWS
+        seg = rng.integers(len(cs.SEGMENTS), size=n)
+        means = np.asarray(cs.SEGMENTS, np.float64)[seg]
+        lo, hi = np.asarray(cs.CLIP, np.float64).T
+        vals = np.clip(rng.normal(means, cs.SPREAD), lo, hi).astype(np.int64)
+        lines = [f"U{i:07d}," + ",".join(map(str, v))
+                 for i, v in enumerate(vals.tolist())]
+        paths["data"] = os.path.join(work, "customers.csv")
+        write_lines(paths["data"], lines)
+        seeds = []
+        for group_name, k in (("custSeg3", 3), ("custSeg4", 4),
+                              ("custSeg5", 5)):
+            step = n // k
+            for j in range(k):
+                parts = lines[j * step + k].split(",")
+                seeds.append(",".join([group_name, "null"] + parts[1:]
+                                      + ["inf", "active"]))
+        paths["clusters"] = os.path.join(work, "clusters.csv")
+        write_lines(paths["clusters"], seeds)
+    elif group == "hosp":
+        hr = gen_module("hosp_readmit_gen")
+        rng = np.random.default_rng(82)
+        n = TAIL_HOSP_ROWS
+        age = _clipped_int(rng, 62, 18, 18, 95, n)
+        los = np.clip(rng.gamma(2.0, 3.0, n), 1, 30).astype(np.int64)
+        diag = rng.choice(5, n, p=[0.25, 0.2, 0.15, 0.15, 0.25])
+        prior = np.clip(rng.poisson(1.0, n), 0, 9)
+        disch = rng.choice(3, n, p=[0.6, 0.25, 0.15])
+        risk = np.asarray([hr.DIAG_RISK[d] for d in hr.DIAGNOSES])
+        p = risk[diag] + 0.08 * prior + 0.002 * (age - 60)
+        readmit = rng.random(n) < np.clip(p, 0.02, 0.9)
+        age = age.tolist()
+        lines = [f"A{i:07d},{a},{s},{hr.DIAGNOSES[d]},{pr},"
+                 f"{hr.DISCHARGE[ds]},{'T' if r else 'F'}"
+                 for i, (a, s, d, pr, ds, r) in enumerate(zip(
+                     age, los.tolist(), diag.tolist(), prior.tolist(),
+                     disch.tolist(), readmit.tolist()))]
+        paths["data"] = os.path.join(work, "admissions.csv")
+        write_lines(paths["data"], lines)
+    elif group in ("svm", "svm1"):
+        cg = gen_module("churn_svm_gen")
+        rng = np.random.default_rng(83 if group == "svm" else 85)
+        G, m = TAIL_SVM if group == "svm" else TAIL_SVM_PUBLISHED
+        n = G * m
+        minutes = _clipped_int(rng, 90, 40, 0, 199, n)
+        data_gb = _clipped_int(rng, 40, 20, 0, 99, n)
+        calls = np.clip(rng.poisson(2.0, n), 0, 9)
+        score = 1.2 * calls - 0.03 * minutes - 0.05 * data_gb + 1.5 + \
+            rng.normal(0, 1.0, n)
+        plan = rng.integers(len(cg.PLANS), size=n)
+        pay = rng.integers(len(cg.PAYMENTS), size=n)
+        lines = [f"C{i:07d},{cg.PLANS[pl]},{mi},{dg},{ca},{cg.PAYMENTS[py]},"
+                 f"{'churned' if s > 0 else 'active'},R{i // m:03d}"
+                 for i, (pl, mi, dg, ca, py, s) in enumerate(zip(
+                     plan.tolist(), minutes.tolist(), data_gb.tolist(),
+                     calls.tolist(), pay.tolist(), score.tolist()))]
+        paths["data"] = os.path.join(work, f"churn_{group}.csv")
+        write_lines(paths["data"], lines)
+        schema = read_json(os.path.join(RES, "churn_svm.json"))
+        schema["fields"].append({"name": "region", "ordinal": 7,
+                                 "dataType": "string"})
+        paths["schema"] = os.path.join(work, f"churn_region_{group}.json")
+        with open(paths["schema"], "w") as fh:
+            json.dump(schema, fh)
+    else:
+        rng = np.random.default_rng(84)
+        n = TAIL_SMOTE_ROWS
+        fail_ = np.zeros(n, bool)
+        fail_[rng.choice(n, TAIL_SMOTE_MINORITY, replace=False)] = True
+        temp = np.where(fail_, _clipped_int(rng, 95, 12, 20, 120, n),
+                        _clipped_int(rng, 60, 15, 20, 120, n))
+        vib = np.where(fail_, _clipped_int(rng, 70, 15, 0, 100, n),
+                       _clipped_int(rng, 30, 15, 0, 100, n))
+        age = np.where(fail_, _clipped_int(rng, 16, 5, 0, 25, n),
+                       _clipped_int(rng, 7, 5, 0, 25, n))
+        pres = _clipped_int(rng, 150, 35, 50, 250, n)
+        hours = np.clip(rng.gamma(2.0, 3000.0, n), 0, 20000).astype(np.int64)
+        lines = [f"M{i:06d},{t},{v},{p},{h},{a},{'T' if f else 'F'}"
+                 for i, (t, v, p, h, a, f) in enumerate(zip(
+                     temp.tolist(), vib.tolist(), pres.tolist(),
+                     hours.tolist(), age.tolist(), fail_.tolist()))]
+        paths["data"] = os.path.join(work, "machines.csv")
+        write_lines(paths["data"], lines)
+    return paths
+
+
+def tail_scale_jobs(group, paths, out_dir):
+    """Phase 70's jobs of one group as (name, job, keys, input, output,
+    units)."""
+    res = lambda name: os.path.join(RES, name)   # noqa: E731
+    out = lambda name: os.path.join(out_dir, name)   # noqa: E731
+    if group == "kmeans":
+        return [("kmeans", "kmeansCluster",
+                 [f"-Dconf.path={res('cluster.properties')}",
+                  f"-Dkmc.schema.file.path={res('cust_seg.json')}",
+                  f"-Dkmc.cluster.file.path={paths['clusters']}",
+                  f"-Dkmc.num.iterations={TAIL_KM_ITERS}"],
+                 paths["data"], out("kmeans"), TAIL_KM_ROWS)]
+    if group == "hosp":
+        schema = res("hosp_readmit.json")
+        return [("mutual info", "mutualInformation",
+                 [f"-Dmut.feature.schema.file.path={schema}",
+                  "-Dmut.mutual.info.score.algorithms="
+                  "mutual.info.maximization,joint.mutual.info,"
+                  "min.redundancy.max.relevance"],
+                 paths["data"], out("mi"), TAIL_HOSP_ROWS),
+                ("numerical correlation", "numericalCorrelation",
+                 [f"-Dnuc.schema.file.path={schema}"],
+                 paths["data"], out("numcorr"), TAIL_HOSP_ROWS)]
+    if group == "svm":
+        return [("svm batched", "supportVectorMachine",
+                 [f"-Dsvm.feature.schema.file.path={paths['schema']}",
+                  "-Dsvm.positive.class.value=churned",
+                  f"-Dsvm.pnalty.factor={TAIL_SVM_C}",
+                  "-Dsvm.solver=batched", "-Dsvm.group.field.ordinals=7"],
+                 paths["data"], out("svm"), TAIL_SVM[0] * TAIL_SVM[1])]
+    if group == "svm1":
+        return [("svm batched C=1", "supportVectorMachine",
+                 [f"-Dconf.path={res('svm.properties')}",
+                  f"-Dsvm.feature.schema.file.path={paths['schema']}",
+                  "-Dsvm.solver=batched", "-Dsvm.group.field.ordinals=7"],
+                 paths["data"], out("svm1"),
+                 TAIL_SVM_PUBLISHED[0] * TAIL_SVM_PUBLISHED[1])]
+    return [("smote", "classBasedOverSampler",
+             [f"-Dconf.path={res('ovsa.properties')}",
+              f"-Dcbos.feature.schema.file.path={res('machine_failure.json')}"],
+             paths["data"], out("smote"), TAIL_SMOTE_MINORITY)]
+
+
+def tail_cpu_child(group, work):
+    """``--tail-cpu-child``: draw one group's phase-70 input, then run its
+    jobs with -Dplatform=cpu into ``<work>/cpu``; writes
+    ``<work>/<group>.json`` with the paths and the walls."""
+    import contextlib
+    import io
+    t0 = time.perf_counter()
+    paths = tail_scale_input(work, group)
+    gen_s = time.perf_counter() - t0
+    walls = {}
+    for name, job, keys, inp, out, _ in tail_scale_jobs(
+            group, paths, os.path.join(work, "cpu")):
+        t1 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            run_cli([job, *keys, inp, out, "-Dplatform=cpu"])
+        walls[name] = round(time.perf_counter() - t1, 3)
+    with open(os.path.join(work, f"{group}.json"), "w") as fh:
+        json.dump({"paths": paths, "gen_s": round(gen_s, 2),
+                   "cpu_walls_s": walls}, fh)
+
+
+def start_tail_cpu_children():
+    """Phase 70's CPU children, started before phase 69 so that they draw
+    their inputs and run on the CPU while the card replays the fixtures:
+    one process a group, each with its own threads."""
+    work = os.path.join(WORK, "tail_scale")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    threads = {"kmeans": "1", "hosp": "1", "svm": "2", "svm1": "2",
+               "smote": "2"}
+    return work, Children([(
+        [sys.executable, os.path.abspath(__file__), "--tail-cpu-child", g,
+         work],
+        lane_env({"CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": threads[g]},
+                 False)) for g in TAIL_GROUPS], timeout=900)
+
+
+def tail_scale_phase(dev, work, kids):
+    """Phase 70: each job once on the card with a LayerProfile (parse,
+    encode, h2d, device, readback, finalize, write), after its CPU child
+    (started before phase 69) has finished; every output byte-equal to
+    the CPU's; rates printed by layer; no kernel launched."""
+    import torch
+    from avenir_tpu_torch.cli import jobs as J
+    from avenir_tpu_torch.core.config import Config, load_config
+    from avenir_tpu_torch.utils.tracing import LayerProfile
+    G, m = TAIL_SVM
+    phase(f"70 long tail at scale: kmeansCluster over {TAIL_KM_ROWS:,} "
+          f"customers (3 groups, <= {TAIL_KM_ITERS} iterations), "
+          f"mutualInformation + numericalCorrelation over "
+          f"{TAIL_HOSP_ROWS:,} admissions, the batched SVM over {G} groups "
+          f"x {m:,} rows at C={TAIL_SVM_C} and over "
+          f"{TAIL_SVM_PUBLISHED[0]} x {TAIL_SVM_PUBLISHED[1]:,} at "
+          f"svm.properties' C, SMOTE over {TAIL_SMOTE_MINORITY:,} minority rows "
+          f"(a {TAIL_SMOTE_MINORITY:,}^2 pairwise); card == -Dplatform=cpu")
+    t0 = time.perf_counter()
+    all_ok(kids.wait(), "phase 70 CPU children")
+    waited_s = time.perf_counter() - t0
+    info = {g: read_json(os.path.join(work, f"{g}.json"))
+            for g in TAIL_GROUPS}
+    card_dir = os.path.join(work, "card")
+    runs = {}
+    # the batched SVM's lock-step steps and their cap, read off the solver
+    from avenir_tpu_torch.discriminant import smo as S
+    solver_run, steps = S._BatchedSMO.run, []
+
+    def counted_run(self, *args):
+        out = solver_run(self, *args)
+        steps.append((int(out[3]), self.max_iter))
+        return out
+    S._BatchedSMO.run = counted_run
+    zero_launches()
+    for g in TAIL_GROUPS:
+        for name, job, keys, inp, out, units in tail_scale_jobs(
+                g, info[g]["paths"], card_dir):
+            conf = [k for k in keys if k.startswith("-Dconf.path=")]
+            cfg = load_config(conf[0].split("=", 1)[1]) if conf else Config()
+            cfg.update(dict(k[2:].split("=", 1) for k in keys
+                            if not k.startswith("-Dconf.path=")))
+            prof = LayerProfile(dev)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counters = J.resolve(job)(cfg, inp, out, profile=prof)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+            runs[name] = {"wall_s": round(wall, 3),
+                          "per_s": round(units / wall, 1),
+                          "layers_s": {k: round(v, 4)
+                                       for k, v in prof.setup.items()},
+                          "cpu_wall_s": info[g]["cpu_walls_s"][name]}
+            if job == "kmeansCluster":
+                runs[name]["iterations"] = counters.get("Clustering",
+                                                        "iterations")
+            if job == "supportVectorMachine":
+                runs[name]["steps"], runs[name]["cap"] = steps.pop()
+            print(f"{name}: {units:,} in {wall:.3f} s = {units / wall:,.0f}"
+                  f"/s (CPU child {info[g]['cpu_walls_s'][name]} s); "
+                  f"layers (s) {json.dumps(runs[name]['layers_s'])}",
+                  flush=True)
+    S._BatchedSMO.run = solver_run
+    counts = launch_counts()
+    if any(counts.values()):
+        fail(f"phase 70: the long-tail jobs launched a kernel: {counts}")
+    for g in TAIL_GROUPS:
+        for _, _, _, _, out, _ in tail_scale_jobs(g, info[g]["paths"],
+                                                  card_dir):
+            for part in sorted(os.listdir(out)):
+                if part.startswith("part-"):
+                    cpu = os.path.join(work, "cpu", os.path.basename(out),
+                                       part)
+                    with open(os.path.join(out, part), "rb") as a, \
+                            open(cpu, "rb") as b:
+                        if a.read() != b.read():
+                            fail(f"phase 70: {os.path.basename(out)}/"
+                                 f"{part} on the card differs from "
+                                 f"-Dplatform=cpu")
+    print(f"every output byte-equal to the CPU children's; k-means "
+          f"iterations {runs['kmeans']['iterations']}; batched SVM steps "
+          f"(of the cap) C={TAIL_SVM_C} "
+          f"{runs['svm batched']['steps']} ({runs['svm batched']['cap']}), "
+          f"C=1 {runs['svm batched C=1']['steps']} "
+          f"({runs['svm batched C=1']['cap']}); inputs drawn in "
+          f"{json.dumps({g: info[g]['gen_s'] for g in TAIL_GROUPS})} s; "
+          f"waited {waited_s:.1f} s for the CPU children; kernel launches "
+          f"{counts}", flush=True)
+    return {"runs": runs, "waited_s": round(waited_s, 2),
+            "gen_s": {g: info[g]["gen_s"] for g in TAIL_GROUPS},
+            "launches": counts}
+
+
 def main():
     import torch
     phase("1 device")
@@ -7974,6 +8427,9 @@ def main():
     online_r = online_phases(dev)
     seq_fix = seq_fixture_phase()
     seq_scale = seq_scale_phase(dev)
+    tail_work, tail_kids = start_tail_cpu_children()
+    tail_fix = tail_fixture_phase()
+    tail_scale = tail_scale_phase(dev, tail_work, tail_kids)
     phase()
     tf_main = {"mlp": mlp_r["fixture_launches"],
                "optimize": opt_r["fixture_launches"],
@@ -8212,6 +8668,7 @@ def main():
         "bandits": {k: v for k, v in bandit_r.items() if k != "launches"},
         "online": online_r,
         "sequence": {"fixtures": seq_fix, "scale": seq_scale},
+        "long_tail": {"fixtures": tail_fix, "scale": tail_scale},
         "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -8237,5 +8694,7 @@ if __name__ == "__main__":
         online_cpu_child(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--seq-cpu-child"]:
         seq_cpu_child(sys.argv[2])
+    elif sys.argv[1:2] == ["--tail-cpu-child"]:
+        tail_cpu_child(*sys.argv[2:4])
     else:
         main()

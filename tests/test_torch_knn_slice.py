@@ -147,9 +147,21 @@ def test_job_names_resolve(names):
     assert len(fns) == 1
 
 
-def test_unported_knn_neighbours_stay_unported():
+def test_unported_knn_neighbours_stay_unported(monkeypatch):
+    """Every job of the JAX package resolves now; a name absent from both
+    registries, and a tier the port still refuses by name (the per-level
+    tree job on the shard lane), raise ``JobNotPorted``."""
+    from avenir_tpu.cli import jobs as jax_jobs
+    from avenir_tpu.cli import run as jax_run
+    assert jax_run  # the JAX CLI's import registers every job
+    name = "org.avenir.knn.ThirdNearestNeighbor"
+    with pytest.raises(KeyError):
+        jax_jobs.resolve(name)
     with pytest.raises(port_jobs.JobNotPorted):
-        port_jobs.resolve("kmeansCluster")
+        port_jobs.resolve(name)
+    monkeypatch.setenv("AVENIR_TPU_SHARD", "1/2")
+    with pytest.raises(port_jobs.JobNotPorted, match="shard lane"):
+        port_jobs._refuse_multi_shard("decisionTreeBuilder")
 
 
 def test_intra_set_votes_sum_to_k(tmp_path):

@@ -12,9 +12,9 @@ equal (tables built to tie included), the uniformization powers are
 bit-equal for 2-6 states and series lengths from 5 to about 200, and the
 keyed reduce equals the JAX package's.  The registry holds the 17 jobs of
 this family, association mining and the text jobs under every name the JAX
-package registers, with its multi-process modes; the other 21 jobs raise
-``JobNotPorted``; without ``-Dplatform=cpu`` the new jobs raise on a
-machine with no GPU.
+package registers, with its multi-process modes, as do the other 47 of
+its 64 jobs; without ``-Dplatform=cpu`` the new jobs raise on a machine
+with no GPU.
 """
 
 import importlib.util
@@ -320,15 +320,16 @@ def test_new_job_resolves_under_every_reference_name(job):
 
 
 def test_the_other_21_jobs_are_not_ported():
-    missing = []
-    for fn, names in _jax_names().items():
-        if not any(n in port_jobs.JOBS for n in names):
-            missing.append(names)
-            for name in names:
-                with pytest.raises(port_jobs.JobNotPorted):
-                    port_jobs.resolve(name)
-    assert len(missing) == 21, missing
-    assert len(_jax_names()) == 64
+    """The 21 jobs this test once held unported are ported now: all 64 of
+    the JAX package's jobs resolve in the port under every reference name,
+    each with the JAX package's multi-process mode."""
+    names = _jax_names()
+    assert len(names) == 64
+    for jfn, refs in names.items():
+        pfns = {port_jobs.resolve(n) for n in refs}
+        assert len(pfns) == 1, refs
+        assert port_jobs.dist_mode(pfns.pop()) == jax_jobs.dist_mode(jfn), \
+            refs
 
 
 @pytest.mark.parametrize("job", NEW_JOBS)

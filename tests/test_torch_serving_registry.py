@@ -110,9 +110,14 @@ def test_malformed_row_costs_only_its_reply(registry):
 
 
 def test_unported_jobs_and_serving_tiers_refuse_by_name(registry, tmp_path):
+    # every job of the JAX package is ported: a name absent from both
+    # registries, and the fused drift tier, refuse by name
     with pytest.raises(JobNotPorted, match="not ported"):
-        port_run.main(["org.avenir.cluster.KmeansCluster",
+        port_run.main(["org.avenir.cluster.DbscanCluster",
                        "-Dplatform=cpu", "in.csv", str(tmp_path / "o")])
+    with pytest.raises(JobNotPorted, match="fused path"):
+        port_run.main(["predictDriftScore", "-Dplatform=cpu", "in.csv",
+                       str(tmp_path / "o")])
     req = tmp_path / "req.csv"
     req.write_text("\n".join(",".join(r) for r in _rows(3)) + "\n")
     # the fleet keys are ported; without ps.transport=resp they refuse by

@@ -114,3 +114,34 @@ def test_fma_f32_rounds_once():
     # a*a - 1 = 2^-11 + 2^-24: the unfused product rounds the 2^-24 away
     assert xla_math.fma_f32(a, a, c).item() == 2.0 ** -11 + 2.0 ** -24
     assert (a * a + c).item() == 2.0 ** -11
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_sqrt_f32_is_xla_sqrt(seed):
+    """The correctly rounded float32 root, XLA's ``vsqrtps``, on every
+    input class: the jitted JAX root bit for bit."""
+    rng = np.random.default_rng(seed)
+    x = np.concatenate([
+        rng.random(200_000).astype(np.float32),
+        (rng.random(200_000) * 1e6).astype(np.float32),
+        # just above 1/4, where the root lies a hair below a midpoint
+        np.float32(0.25) + np.arange(1, 2001, dtype=np.float32) * 2 ** -25,
+        np.array([0.0, np.inf, 1.0, 2.0, 3.4e38, 1.2e-38], np.float32)])
+    want = np.asarray(jax.jit(jnp.sqrt)(x))
+    np.testing.assert_array_equal(
+        xla_math.sqrt_f32(torch.from_numpy(x)).numpy(), want)
+
+
+def test_nearest_root_corrects_a_guess_one_ulp_off():
+    """A first guess one ulp above or below the root (the CPU's float64
+    root can be that far off on a first call, ROADMAP §C) comes back as
+    the correctly rounded root."""
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(np.concatenate([
+        rng.random(100_000).astype(np.float32) * 1e4,
+        np.float32(0.25) + np.arange(1, 2001, dtype=np.float32) * 2 ** -25]))
+    want = torch.from_numpy(np.sqrt(x.numpy()))
+    for toward in (float("inf"), 0.0):
+        guess = torch.nextafter(want, torch.full_like(want, toward))
+        assert (guess != want).all()
+        assert torch.equal(xla_math.nearest_root_f32(x, guess), want)
