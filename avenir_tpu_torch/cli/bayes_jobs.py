@@ -100,9 +100,13 @@ def bayesian_distribution(cfg: Config, in_path: str, out_path: str
     table = load_csv(in_path, schema, cfg.field_delim_regex,
                      bad_records=_bad_records_policy(cfg, counters, out_path))
     # every process counts the global model, as in the JAX package, so a
-    # joined run's summed counters are the process count times one's
+    # joined run's summed counters are the process count times one's; a
+    # device mesh the caller installed splits each chunk's rows over it
+    from ..parallel.mesh import installed_context
+    ctx = installed_context()
     model = bayes.train(table, counters=counters,
-                        reducer=_joined_reducer("nb-train"))
+                        reducer=_joined_reducer("nb-train"),
+                        mesh=ctx.mesh if ctx is not None else None)
     artifacts.write_text_output(out_path, model.to_lines(cfg.field_delim_out))
     return counters
 

@@ -341,12 +341,15 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
     pipeline (``dtb.streaming.block.rows`` rows a block, default 2^22):
     host memory holds a few parsed blocks instead of the whole encoded
     dataset.  A parse thread reads the CSV, a staging thread encodes each
-    block and uploads it, the job's thread computes its branch codes on
-    the device; the trees are those of the monolithic path.
-    ``dtb.pipeline.fuse`` is accepted and both values run this per-stage
-    form: the reference's fused per-chunk program and its
-    ``ProgramCache`` counters are not ported, and its own tests pin the
-    two forms to the same outputs.
+    block on the host, and the job's thread runs the block on the device;
+    the trees are those of the monolithic path.  ``dtb.pipeline.fuse``
+    (default true) runs each block as one chunk of a fused pipeline: the
+    branch-code encode and, with ``dtb.baseline.publish``, the
+    baseline's bin counts (kernel B4) in one ``pipeline.chunk`` dispatch,
+    and the job writes the run's ``ProgramCache`` group (``Chunks``,
+    ``Hits``, ``Misses``, ``Retraces``) as the JAX package's does.
+    ``false`` runs the per-stage form (an ``ingest.encode`` dispatch and
+    a teed ``baseline.absorb`` a block); both give the same files.
 
     Fault tolerance: ``badrecords.policy`` (both paths) skips or
     quarantines malformed records; ``dtb.streaming.checkpoint.dir`` (+
@@ -447,7 +450,7 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
                 "(torch.distributed, or AVENIR_TPU_SHARD=i/P with "
                 "AVENIR_TPU_ALLREDUCE_DIR); refusing to silently train "
                 "single-host")
-        cfg.get_boolean("dtb.pipeline.fuse", True)   # accepted, see above
+        fuse = cfg.get_boolean("dtb.pipeline.fuse", True)
         if sharded:
             from ..parallel.collectives import AllReducer
             reducer = AllReducer(spec=spec, name="rf-stream")
@@ -496,10 +499,18 @@ def random_forest_builder(cfg: Config, in_path: str, out_path: str) -> Counters:
             cache=_cache_policy(cfg, counters),
             shard=(spec.index, spec.count) if sharded else None),
             consumer_wait_key=None)
+        stream_stats: dict = {}
         models = build_forest_from_stream(
             blocks, schema, params, checkpoint=mgr, checkpoint_every=every,
             resume_state=resume_state, baseline=baseline_builder,
-            reducer=reducer)
+            reducer=reducer, fuse=fuse, stats=stream_stats)
+        pl = stream_stats.get("pipeline")
+        if pl:
+            # the run's own ProgramCache tallies: a warm re-run of an
+            # identical job reports Retraces=0
+            counters.update_group("ProgramCache", {
+                "Chunks": pl["chunks"], "Hits": pl["hits"],
+                "Misses": pl["misses"], "Retraces": pl["retraces"]})
     else:
         table = load_csv(in_path, schema, cfg.field_delim_regex,
                          bad_records=policy)

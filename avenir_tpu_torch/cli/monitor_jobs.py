@@ -39,9 +39,14 @@ B4) into the window's device matrix; with ``dm.score.predictions`` every
 window is also one forest-vote batch (kernel B2, ``make_predictor``).
 
 ``predictDriftScore`` runs the predictions and the drift report in one
-pass.  The port has its unfused path only (``dm.pipeline.fuse=false``);
-the fused ``pipeline.flows.PredictDriftFlow`` of the reference is not
-ported, and an unset or true ``dm.pipeline.fuse`` is refused by name.
+pass.  With ``dm.pipeline.fuse`` unset or true (the default) a forest of
+several members scores each window as one chunk of
+``pipeline.flows.PredictDriftFlow``: the vote (kernel B2) and the window's
+bin counts (kernel B4) with the predicted classes spliced into the class
+row on the device.  A window the flow's gate refuses, and every window
+under ``dm.pipeline.fuse=false``, takes the unfused pair (a forest-vote
+batch, then the absorb); both give the same bytes, and the
+``PredictDrift`` counters say how many windows took each route.
 """
 
 from __future__ import annotations
@@ -54,7 +59,7 @@ import numpy as np
 
 from ..core.config import Config
 from ..core.metrics import Counters
-from .jobs import JobNotPorted, _splitter, register
+from .jobs import _splitter, register
 
 
 def _threshold_overrides(cfg: Config, prefix: str):
@@ -361,11 +366,21 @@ def _refuse_even_forest(loaded) -> None:
           dist="refuse")
 def predict_drift_score(cfg: Config, in_path: str, out_path: str
                         ) -> Counters:
-    """``predict + driftScore`` in one pass over the records, unfused: per
-    window one forest-vote batch (B2), then the window's blocks absorbed
-    (B4) with the predicted classes as the class row, through the same
-    ``StreamDriftMonitor`` path as ``driftMonitor``.  Requires
-    ``dm.pipeline.fuse=false``: the fused flow is not ported.
+    """``predict + driftScore`` in one pass over the records.
+
+    Fused (``dm.pipeline.fuse`` unset or true, a forest of more than one
+    member): every window is one chunk of
+    ``pipeline.flows.PredictDriftFlow``, the forest vote (B2) and the
+    window's bin counts (B4) with the predicted classes flowing device to
+    device into the class row, scored through ``close_counts``.  A
+    window the flow's gate refuses (values that are not float32-exact, an
+    ensemble with no stacked form) takes the unfused pair for that
+    window.  Unfused (``dm.pipeline.fuse=false``, or any other model): per
+    window one forest-vote batch (B2), then the window absorbed (B4) with
+    the predicted classes as the class row.  Both routes go through the
+    same ``StreamDriftMonitor`` scoring as ``driftMonitor`` and give the
+    same bytes; ``PredictDrift/FusedWindows`` and ``UnfusedWindows``
+    count them, and the fused flow writes its ``ProgramCache`` group.
 
     Output: ``<out>/part-r-00000`` and ``<out>/alerts.jsonl`` as
     ``driftMonitor``; predictions in ``<out>/predictions/part-m-00000``
@@ -375,14 +390,8 @@ def predict_drift_score(cfg: Config, in_path: str, out_path: str
     from ..core.table import encode_rows
     from ..monitor.baseline import load_baseline
     from ..serving.predictor import make_predictor
-    from ..serving.registry import ModelRegistry
+    from ..serving.registry import FOREST, ModelRegistry
 
-    if cfg.get_boolean("dm.pipeline.fuse", True):
-        raise JobNotPorted(
-            "predictDriftScore: the fused path (pipeline.flows."
-            "PredictDriftFlow, dm.pipeline.fuse unset or true) is not "
-            "ported to avenir_tpu_torch yet; set dm.pipeline.fuse=false "
-            "for the unfused path")
     counters = Counters()
     registry = ModelRegistry(cfg.must_get("dm.model.registry.dir"))
     name = cfg.must_get("dm.model.name")
@@ -398,7 +407,27 @@ def predict_drift_score(cfg: Config, in_path: str, out_path: str
     tracker = _make_accuracy_tracker(cfg, schema, policy, window_rows)
     cls_spec = baseline.specs[baseline.class_row]
     _refuse_even_forest(loaded)
-    predictor = make_predictor(loaded, schema=schema)
+    flow = None
+    if cfg.get_boolean("dm.pipeline.fuse", True) \
+            and loaded.kind == FOREST and len(loaded.model) > 1:
+        from ..models.forest import EnsembleModel
+        from ..models.tree import DecisionTreeModel
+        from ..pipeline.flows import PredictDriftFlow
+        p = loaded.params
+        ensemble = EnsembleModel(
+            [DecisionTreeModel(pl, schema) for pl in loaded.model],
+            weights=p.get("weights"),
+            min_odds_ratio=float(p.get("min_odds_ratio", 1.0)),
+            require_odd=False)       # _refuse_even_forest applied the rule
+        flow = PredictDriftFlow(ensemble, baseline, schema, window_rows)
+    predictor = None
+
+    def unfused_labels(rows):
+        nonlocal predictor
+        if predictor is None:
+            predictor = make_predictor(loaded, schema=schema)
+        return predictor.predict_rows(rows)
+
     bad_records, is_bad = _make_bad_filter(cfg, schema, out_path, counters)
 
     od = cfg.field_delim_out
@@ -406,19 +435,24 @@ def predict_drift_score(cfg: Config, in_path: str, out_path: str
     pred_dir = os.path.join(out_path, "predictions")
     os.makedirs(pred_dir, exist_ok=True)
     alerts_path = _fresh_alerts_path(out_path)
-    n_windows = 0
+    fused_windows = unfused_windows = 0
 
     def process_window(rows, part_fh, pred_fh) -> None:
-        nonlocal n_windows
+        nonlocal fused_windows, unfused_windows
         table = encode_rows(rows, schema)
-        labels = predictor.predict_rows(rows)
+        res = flow.run_window(table) if flow is not None else None
+        labels = res[0] if res is not None else unfused_labels(rows)
         # accuracy before the window closes, as driftMonitor records a
         # batch's outcomes ahead of observe_table
         _record_accuracy(tracker, cls_spec, table, labels)
-        n_windows += 1
-        monitor.observe_table(
-            table, class_codes=baseline.class_codes_for_labels(labels))
-        monitor.close_window()  # no-op when the absorb closed it
+        if res is not None:
+            fused_windows += 1
+            monitor.close_counts(res[1], table.n_rows)
+        else:
+            unfused_windows += 1
+            monitor.observe_table(
+                table, class_codes=baseline.class_codes_for_labels(labels))
+            monitor.close_window()  # no-op when the absorb closed it
         for r, lab in zip(rows, labels):
             pred_fh.write(od.join(r) + od
                           + (lab if lab is not None else "ambiguous")
@@ -439,6 +473,8 @@ def predict_drift_score(cfg: Config, in_path: str, out_path: str
         if tracker is not None:
             tracker.close()
         _drain(monitor, policy, part_fh, alerts_path, od)
-    counters.set("PredictDrift", "FusedWindows", 0)
-    counters.set("PredictDrift", "UnfusedWindows", n_windows)
+    counters.set("PredictDrift", "FusedWindows", fused_windows)
+    counters.set("PredictDrift", "UnfusedWindows", unfused_windows)
+    if flow is not None:
+        flow.export(counters)
     return counters

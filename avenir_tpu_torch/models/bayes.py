@@ -256,7 +256,7 @@ def _sync(device: torch.device) -> None:
 def train(table: ColumnarTable, device=None,
           counters: Optional[Counters] = None,
           chunk_rows: int = CHUNK_ROWS, reducer=None,
-          stats: Optional[dict] = None) -> NaiveBayesModel:
+          stats: Optional[dict] = None, mesh=None) -> NaiveBayesModel:
     """One-pass distribution computation (== the BayesianDistribution job)
     on ``device`` (default: the process device, ``cuda`` unless asked
     otherwise).
@@ -265,6 +265,13 @@ def train(table: ColumnarTable, device=None,
     the float32 counts of a chunk stay below 2^24 a cell, so exact), into
     one device buffer of the chunk's shape reused for every chunk; the
     chunk's counts are read back and accumulated in host float64.
+
+    ``mesh`` (a ``parallel.mesh.DeviceMesh``, in place of ``device``)
+    splits each chunk's rows over its devices, the JAX package's
+    ``ctx.shard_rows``: each device counts one contiguous slice into its
+    own buffers, and the integer counts and moments are summed on the
+    host, so the model is the one-device model byte for byte.  A mesh may
+    name one device several times (``["cuda:0"] * 4``).
 
     ``reducer`` (a ``parallel.collectives.AllReducer``; a joined run over
     per-process files): the row counts are gathered once to agree the
@@ -280,7 +287,9 @@ def train(table: ColumnarTable, device=None,
             f"chunk_rows={chunk_rows} exceeds 1<<23: a chunk's float32 "
             f"counts are exact only below 2^24 a cell, which chunks of at "
             f"most 8M rows guarantee")
-    dev = resolve_device(device)
+    devs = list(mesh.devices) if mesh is not None \
+        else [resolve_device(device)]
+    dev = devs[0]
     schema = table.schema
     class_field = schema.class_attr_field
     class_values = list(class_field.cardinality or [])
@@ -327,34 +336,44 @@ def train(table: ColumnarTable, device=None,
     # hold finite values (the mask zeroes their one-hot, not a NaN's sum)
     n_goal = max(reducer.allgather(n)) if reducer is not None else n
     chunk = max(1, min(chunk_rows, n_goal))
-    bufs = [torch.zeros((chunk,) + w.shape[1:], dtype=torch.from_numpy(
-        w[:0]).dtype, device=dev) for w in wires]
+    # a chunk splits into one contiguous slice a mesh device
+    part = -(-chunk // len(devs))
+    bufs = [[torch.zeros((part,) + w.shape[1:], dtype=torch.from_numpy(
+        w[:0]).dtype, device=d) for w in wires] for d in devs]
     counts = np.zeros((C, Fb, bmax), dtype=np.float64)
     cls_counts = np.zeros((C,), dtype=np.float64)
     moments = np.zeros((C, Fc, 3), dtype=np.float64)
     h2d = hist = d2h = 0.0
     for lo in range(0, n, chunk):
         e = min(lo + chunk, n)
+        slices = [(b, a, min(a + part, e)) for b, a in
+                  zip(bufs, range(lo, e, part))]
         ta = time.perf_counter()
-        for buf, w in zip(bufs, wires):
-            buf[:e - lo].copy_(torch.from_numpy(w[lo:e]))
-            note_h2d(w[lo:e].nbytes)
+        for sb, a, b in slices:
+            for buf, w in zip(sb, wires):
+                buf[:b - a].copy_(torch.from_numpy(w[a:b]))
+                note_h2d(w[a:b].nbytes)
         if stats is not None:
-            _sync(dev)
+            for d in devs:
+                _sync(d)
         tb = time.perf_counter()
-        if pack4:
-            codes = _unpack4(bufs[0], F_packed)
-            cc, bc = codes[:, 0], codes[:, 1:]
-        else:
-            cc, bc = bufs[0], bufs[1]
-        c_, cl_, mo_ = _train_chunk(cc, bc, bufs[-1], e - lo, C, bmax)
+        parts = []
+        for sb, a, b in slices:
+            if pack4:
+                codes = _unpack4(sb[0], F_packed)
+                cc, bc = codes[:, 0], codes[:, 1:]
+            else:
+                cc, bc = sb[0], sb[1]
+            parts.append(_train_chunk(cc, bc, sb[-1], b - a, C, bmax))
         note_dispatch(site="bayes.train")
         if stats is not None:
-            _sync(dev)
+            for d in devs:
+                _sync(d)
         tc = time.perf_counter()
-        counts += fetch(c_).astype(np.float64)
-        cls_counts += fetch(cl_).astype(np.float64)
-        moments += fetch(mo_)
+        for c_, cl_, mo_ in parts:
+            counts += fetch(c_).astype(np.float64)
+            cls_counts += fetch(cl_).astype(np.float64)
+            moments += fetch(mo_)
         td = time.perf_counter()
         h2d += tb - ta
         hist += tc - tb

@@ -12,8 +12,9 @@ Training (the rafo.sh per-tree rerun loop, in-process):
     chunks accumulate in int32 on the device, and the host fetches the
     stacked counts once a level — never once a tree;
   * ``build_forest_from_stream`` — the same trees from CSV row blocks
-    (``TreeBuilder.from_stream`` assembles the device state; checkpoints,
-    resume and a teed baseline ride the ingest).
+    (``TreeBuilder.from_stream`` assembles the device state, by default as
+    one fused chunk pipeline a block; checkpoints, resume and a teed
+    baseline ride the ingest).
 
 Prediction:
   * ``EnsembleModel``   == model/EnsemblePredictiveModel.java:69-113 —
@@ -479,8 +480,8 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
                              stats: Optional[dict] = None,
                              checkpoint=None, checkpoint_every: int = 0,
                              resume_state=None, baseline=None,
-                             profile=None,
-                             reducer=None) -> List[DecisionPathList]:
+                             profile=None, reducer=None,
+                             fuse: bool = True) -> List[DecisionPathList]:
     """Train the forest from an iterator of ColumnarTable row blocks — the
     streamed CSV -> device ingest's training entry.  Each block is encoded
     to branch and class codes on the device and released, so host memory
@@ -494,8 +495,10 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
     ``prefetch_chunks``), ``stage_wait_s``, ``transfer_s``,
     ``queue_wait_s``, ``ingest_compute_s`` (``TreeBuilder.from_stream``),
     ``ingest_wall_s`` (the whole ingest) and ``build_s`` (the level loop).
-    ``checkpoint``, ``checkpoint_every``, ``resume_state`` and
-    ``baseline`` go to ``TreeBuilder.from_stream``.
+    ``checkpoint``, ``checkpoint_every``, ``resume_state``, ``baseline``
+    and ``fuse`` (the ingest as one chunk pipeline, the default, or the
+    per-stage form; the same trees and baseline either way) go to
+    ``TreeBuilder.from_stream``.
 
     ``reducer`` (a ``parallel.collectives.AllReducer``) makes the build
     data-parallel over processes: ``blocks`` is this process's row-range
@@ -511,7 +514,7 @@ def build_forest_from_stream(blocks, schema: FeatureSchema,
                                    checkpoint_every=checkpoint_every,
                                    resume_state=resume_state,
                                    baseline=baseline, profile=profile,
-                                   reducer=reducer)
+                                   reducer=reducer, fuse=fuse)
     t1 = _time.perf_counter()
     models = ForestBuilder(None, params, profile=profile,
                            base=base).build_all()

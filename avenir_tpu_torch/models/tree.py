@@ -30,13 +30,16 @@ Builder half (level-synchronous growth, tree/DecisionTreeBuilder.java):
 
 Streamed ingest (``TreeBuilder.from_stream``) assembles the same device
 state from CSV row blocks: a staging thread encodes block i+1 and uploads
-it from pinned memory on a side CUDA stream while the consumer computes
-block i's branch codes, with checkpoints of the accumulated state every N
-blocks and resume from one.  A monolithic build pads nothing
+it from pinned memory on a side CUDA stream while the consumer runs block
+i, as one chunk of a fused pipeline (the branch codes and the baseline's
+bin counts) or, unfused, as the branch codes alone beside a teed
+baseline, with checkpoints of the accumulated state every N blocks and
+resume from one.  A monolithic build pads nothing
 (``n_padded == n_rows``); a restored checkpoint written by the JAX package
 on a device mesh carries its pad rows, and weights are placed by mask
-position over the true row count.  Cross-process count reduction is not
-ported yet.
+position over the true row count.  Over several processes each trains
+on its row-range shard and the level counts are summed through a reducer
+(``reducer=``).
 """
 
 from __future__ import annotations
@@ -702,16 +705,28 @@ class SplitSet:
         X's device, over row chunks of :func:`_branch_codes_body`."""
         note_dispatch(site="ingest.encode")
         dev = X.device
-        consts = [torch.from_numpy(a).to(dev) for a in (
-            self.attr_col.astype(np.int64), self.thresholds, self.cat_table,
-            self.is_cat)]
-        n = X.shape[0]
-        out = torch.empty((n, self.n_splits), dtype=torch.int32, device=dev)
-        step = max(1, _BRANCH_CHUNK_ELEMS
-                   // max(self.n_splits * self.thresholds.shape[1], 1))
-        for s in range(0, n, step):
-            out[s:s + step] = _branch_codes_body(X[s:s + step], *consts)
-        return out
+        return _branch_codes_rows(X, **{k: torch.from_numpy(a).to(dev)
+                                        for k, a in self.consts().items()})
+
+    def consts(self) -> Dict[str, np.ndarray]:
+        """The evaluator's tensors (host), as :func:`_branch_codes_rows`
+        takes them."""
+        return {"attr_col": self.attr_col.astype(np.int64),
+                "thresholds": self.thresholds, "cat_table": self.cat_table,
+                "is_cat": self.is_cat}
+
+
+def _branch_codes_rows(X, attr_col, thresholds, cat_table, is_cat):
+    """(n, S) int32 branch codes of X over row chunks of
+    :func:`_branch_codes_body` (its (n, S, width) compare stays near
+    ``_BRANCH_CHUNK_ELEMS`` elements)."""
+    n, S = X.shape[0], thresholds.shape[0]
+    out = torch.empty((n, S), dtype=torch.int32, device=X.device)
+    step = max(1, _BRANCH_CHUNK_ELEMS // max(S * thresholds.shape[1], 1))
+    for s in range(0, n, step):
+        out[s:s + step] = _branch_codes_body(X[s:s + step], attr_col,
+                                             thresholds, cat_table, is_cat)
+    return out
 
 
 def _branch_codes_body(X, attr_col, thresholds, cat_table, is_cat):
@@ -729,6 +744,26 @@ def _branch_codes_body(X, attr_col, thresholds, cat_table, is_cat):
         torch.arange(thresholds.shape[0], device=X.device)[None, :],
         safe]                                                 # (n, S)
     return torch.where(is_cat[None, :], cat_branch, num_branch)
+
+
+def _encode_stage(split_set: SplitSet, cls_ordinal: int):
+    """The streamed build's ``encode`` stage for the chunk pipeline: host
+    half the feature matrix and class codes, device half the branch
+    codes of :func:`_branch_codes_rows`.  The split-set tensors are stage
+    constants, uploaded once."""
+    from ..pipeline.compiler import Stage
+
+    def prepare(block):
+        X = split_set.feature_matrix(block)
+        cc = np.ascontiguousarray(block.columns[cls_ordinal].astype(np.int32))
+        note_h2d(X.nbytes + cc.nbytes, transfers=2)
+        return {"X": X, "cls": cc}
+
+    def kernel(carry, consts, inputs, upstream):
+        return carry, {"branches": _branch_codes_rows(inputs["X"], **consts)}
+
+    return Stage(name="encode", kernel=kernel, version="1", prepare=prepare,
+                 consts=split_set.consts(), returns=("branches",))
 
 
 # --------------------------------------------------------------------------
@@ -948,24 +983,23 @@ def _save_stream_checkpoint(mgr, blocks_done: int, br_parts, cls_parts,
 
 class _BlockStager:
     """The staging-thread half of the streamed ingest, and its hand-off to
-    the consumer.
+    the consumer, for both forms of :meth:`TreeBuilder.from_stream`.
 
-    ``stage`` (staging thread) encodes one block's feature matrix and
-    class codes on the host and uploads them.  On a CUDA device it copies
-    them into one of two pinned host buffers and issues the copies on a
-    side stream with ``non_blocking=True``, recording an event after
-    them; a buffer is refilled only after its previous copy's event has
-    completed.  ``receive`` (consumer) makes the consumer's stream wait on
-    that event and marks the tensors as used on it, so the caching
-    allocator does not hand their memory to a later upload too early.
-    ``pull`` runs the block source's own steps (the baseline tee's B4
-    launch among them) under the same device and side stream.  On the CPU
-    both halves are plain ``torch.from_numpy``."""
+    ``stage`` (staging thread) runs ``prepare(block)``, the block's host
+    half (a dict of numpy arrays), and uploads every array.  On a CUDA
+    device it copies them into one of two pinned host buffers and issues
+    the copies on a side stream with ``non_blocking=True``, recording an
+    event after them; a buffer is refilled only after its previous
+    copy's event has completed.  ``receive`` (consumer) makes the
+    consumer's stream wait on that event and marks the tensors as used on
+    it, so the caching allocator does not hand their memory to a later
+    upload too early.  ``pull`` runs the block source's own steps (the
+    unfused baseline tee's B4 launch among them) under the same device
+    and side stream.  On the CPU both halves are plain
+    ``torch.from_numpy``."""
 
-    def __init__(self, split_set: "SplitSet", cls_ord: int,
-                 device: torch.device):
-        self.split_set = split_set
-        self.cls_ord = cls_ord
+    def __init__(self, prepare, device: torch.device):
+        self.prepare = prepare
         self.device = device
         self.cuda = device.type == "cuda"
         if self.cuda:
@@ -1014,39 +1048,37 @@ class _BlockStager:
         return buf
 
     def stage(self, block: ColumnarTable):
-        bn = block.n_rows
-        X = self.split_set.feature_matrix(block)
-        cc = np.ascontiguousarray(
-            block.columns[self.cls_ord].astype(np.int32))
-        note_h2d(X.nbytes + cc.nbytes, transfers=2)
+        host = self.prepare(block)
         src_end = getattr(block, "source_row_end", None)
         if not self.cuda:
-            return (torch.from_numpy(X).to(self.device),
-                    torch.from_numpy(cc).to(self.device), None, bn, src_end)
-        x_bytes = -(-X.nbytes // 16) * 16       # cc starts 16-byte aligned
+            return ({k: torch.from_numpy(a).to(self.device)
+                     for k, a in host.items()}, None, block.n_rows, src_end)
+        offs, end = {}, 0
+        for k, a in host.items():          # each array 16-byte aligned
+            offs[k] = end
+            end += -(-a.nbytes // 16) * 16
         with self._on_device():
-            buf = self._pinned(x_bytes + cc.nbytes)
-            hx = buf[:X.nbytes].view(torch.from_numpy(X[:0]).dtype
-                                     ).view(X.shape)
-            hc = buf[x_bytes:x_bytes + cc.nbytes].view(torch.int32)
-            hx.numpy()[...] = X
-            hc.numpy()[...] = cc
-            Xd = hx.to(self.device, non_blocking=True)
-            ccd = hc.to(self.device, non_blocking=True)
+            buf = self._pinned(end)
+            dev = {}
+            for k, a in host.items():
+                h = buf[offs[k]:offs[k] + a.nbytes].view(
+                    torch.from_numpy(a[:0]).dtype).view(a.shape)
+                h.numpy()[...] = a
+                dev[k] = h.to(self.device, non_blocking=True)
             done = torch.cuda.Event()
             done.record(self.stream)
         self._bufs[self._slot] = (buf, done)
         self._slot ^= 1
-        return Xd, ccd, done, bn, src_end
+        return dev, done, block.n_rows, src_end
 
     def receive(self, staged):
-        Xd, ccd, done, bn, src_end = staged
+        inputs, done, bn, src_end = staged
         if done is not None:
             cur = torch.cuda.current_stream(self.device)
             cur.wait_event(done)
-            Xd.record_stream(cur)
-            ccd.record_stream(cur)
-        return Xd, ccd, bn, src_end
+            for t in inputs.values():
+                t.record_stream(cur)
+        return inputs, bn, src_end
 
 
 class TreeBuilder:
@@ -1113,24 +1145,41 @@ class TreeBuilder:
                     device=None, stats: Optional[dict] = None,
                     checkpoint=None, checkpoint_every: int = 0,
                     resume_state=None, baseline=None,
-                    profile=None, reducer=None) -> "TreeBuilder":
+                    profile=None, reducer=None,
+                    fuse: bool = True) -> "TreeBuilder":
         """Build the device state from an iterator of ColumnarTable row
         blocks instead of one assembled table — the consume stage of the
-        streamed CSV -> device ingest (``avenir_tpu``'s unfused form).
+        streamed CSV -> device ingest.
 
-        Per block: the host feature matrix and class codes are built and
-        uploaded on a staging thread (:func:`core.table.stage_chunks`,
-        two blocks deep; :class:`_BlockStager`), and the consumer computes
-        the block's branch codes on the device.  Only the (n, S) branch
-        codes and (n,) class codes stay resident, joined by one
-        ``torch.cat`` at the end, so host memory holds a few blocks.
-        ``baseline`` (a ``monitor.baseline.BaselineBuilder``) tees the
-        block stream: its bin-counts launch runs on the staging thread,
-        on the side stream, once a block.
+        Either form stages a block the same way: the staging thread
+        (:func:`core.table.stage_chunks`, two blocks deep) runs the
+        block's host half and uploads it (:class:`_BlockStager`, from
+        pinned memory on a side stream).  ``fuse`` chooses what the
+        consumer runs on it.
 
-        ``stats['transfer_s']`` accumulates the staging thread's encode
-        and upload time, ``stats['ingest_compute_s']`` the consumer's
-        branch-code time plus the final device sync.
+        Fused (``fuse=True``, the JAX package's default): the block is one
+        chunk of a :class:`~avenir_tpu_torch.pipeline.ChunkPipeline`
+        (``rf-ingest``) of the ``encode`` stage (:func:`_encode_stage`)
+        and, with a ``baseline`` (a ``monitor.baseline.BaselineBuilder``),
+        its ``monitor-absorb`` stage (``BaselineBuilder.as_stage``).  The
+        host half is every stage's; the consumer copies the uploaded
+        block into the chunk key's static buffers and runs the chunk, one
+        ``pipeline.chunk`` dispatch: the branch codes and, with a
+        baseline, one bin-counts launch into its carry.
+        ``stats['pipeline']`` holds the run's ProgramCache tallies.
+
+        Unfused (``fuse=False``): the host half is the feature matrix and
+        class codes, the consumer computes the block's branch codes (an
+        ``ingest.encode`` dispatch), and ``baseline`` tees the block
+        stream: its bin-counts launch runs on the staging thread, on the
+        side stream.
+
+        Either way only the (n, S) branch codes and (n,) class codes stay
+        resident, joined by one ``torch.cat`` at the end, so host memory
+        holds a few blocks, and the trees and baseline are the same.
+        ``stats['transfer_s']`` accumulates the staging thread's time,
+        ``stats['ingest_compute_s']`` the consumer's plus the final
+        device sync.
 
         Checkpoint/resume: with a ``checkpoint``
         (``core.checkpoint.CheckpointManager``) and ``checkpoint_every``
@@ -1216,20 +1265,45 @@ class TreeBuilder:
             blocks_done = int(meta.get("blocks_done", 0))
             source_rows_done = meta.get("source_rows_done")
 
-        stager = _BlockStager(self.split_set, self.class_field.ordinal, dev)
-        if baseline is not None:
-            from ..monitor.baseline import tee_blocks
-            blocks = tee_blocks(blocks, baseline)
-        consumer = torch.cuda.device(dev) if stager.cuda \
+        cuda = dev.type == "cuda"
+        encode = _encode_stage(self.split_set, self.class_field.ordinal)
+        pipeline = None
+        if fuse:
+            from ..parallel.mesh import DeviceMesh, MeshContext
+            from ..pipeline import ChunkPipeline, schema_fingerprint
+            stages = [encode]
+            if baseline is not None:
+                stages.append(baseline.as_stage())
+            pipeline = ChunkPipeline(
+                stages, ctx=MeshContext(DeviceMesh([dev])),
+                schema_fp=schema_fingerprint(schema), name="rf-ingest")
+
+            def prepare(block):
+                host = pipeline.prepare(block)
+                host["mask"] = np.ones((block.n_rows,), bool)
+                return host
+        else:
+            prepare = encode.prepare
+            if baseline is not None:
+                from ..monitor.baseline import tee_blocks
+                blocks = tee_blocks(blocks, baseline)
+        stager = _BlockStager(prepare, dev)
+        staged_blocks = stage_chunks(stager.pull(blocks), stager.stage,
+                                     depth=2, stats=stats)
+        consumer = torch.cuda.device(dev) if cuda \
             else contextlib.nullcontext()
         with consumer:
-            for staged in stage_chunks(stager.pull(blocks), stager.stage,
-                                       depth=2, stats=stats):
+            for staged in staged_blocks:
                 t0 = time.perf_counter()
-                Xd, ccd, bn, src_end = stager.receive(staged)
-                br_parts.append(self.split_set.branch_codes(Xd))
-                cls_parts.append(ccd)
-                del Xd
+                inputs, bn, src_end = stager.receive(staged)
+                if pipeline is not None:
+                    with pipeline.staged(inputs) as chunk:
+                        outs = pipeline.run_chunk(chunk)
+                    br_parts.append(outs["encode.branches"])
+                else:
+                    br_parts.append(self.split_set.branch_codes(inputs["X"]))
+                cls_parts.append(inputs["cls"])
+                del inputs
                 mask_parts.append(np.ones((bn,), np.float32))
                 n_rows += bn
                 blocks_done += 1
@@ -1268,7 +1342,10 @@ class TreeBuilder:
                 self.branches = torch.cat(br_parts)
                 self.cls_codes = torch.cat(cls_parts)
             del br_parts, cls_parts
-            if stager.cuda:
+            if pipeline is not None:
+                # each stage's final carry back: the baseline's counts
+                pipeline.finalize()
+            if cuda:
                 torch.cuda.synchronize(dev)
         t_compute += time.perf_counter() - t0
         self.mask_np = np.concatenate(mask_parts)
@@ -1288,6 +1365,8 @@ class TreeBuilder:
         if stats is not None:
             stats["ingest_compute_s"] = (stats.get("ingest_compute_s", 0.0)
                                          + t_compute)
+            if pipeline is not None:
+                stats["pipeline"] = pipeline.run_stats()
         self._w_max = 1.0
         self.splits_by_attr = {}
         for i, s in enumerate(self.splits):

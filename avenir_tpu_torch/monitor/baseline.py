@@ -15,10 +15,13 @@ histogram (``stats/histogram.py``).
 
 Baselines publish into a model's registry version as a ``baseline.json`` +
 ``baseline.npz`` sidecar pair through ``ModelRegistry.add_sidecar``.  A
-streamed training ingest feeds the builder through :func:`tee_blocks`, so
-the baseline rides the same single pass (one bin-counts launch a block, on
-the thread and stream that pull the blocks).  The fused-pipeline stage and
-the multi-process all-reduce of the reference are not ported yet.
+streamed training ingest feeds the builder either as a stage of its fused
+chunk pipeline (:meth:`BaselineBuilder.as_stage`, one bin-counts launch a
+block on the consumer's stream) or, unfused, through :func:`tee_blocks`
+(one launch a block on the thread and stream that pull the blocks); the
+baseline rides the same single pass either way, with the same counts.  A
+run of several processes sums the shards' partial counts
+(:func:`allreduce_partials`) before any process finalises.
 """
 
 from __future__ import annotations
@@ -277,6 +280,54 @@ class BaselineBuilder:
             self._stream = torch.cuda.current_stream(self._counts.device)
         self._n += table.n_rows if mask is None else int(np.sum(mask))
         return self
+
+    def as_stage(self):
+        """This builder as a chunk-pipeline stage (``monitor-absorb``): the
+        monitor codes are encoded on the host in ``prepare`` (the float64
+        clip and floor of :meth:`update`), the bin counts are one
+        bin-counts launch a chunk into the stage's (R, B_max) carry, and
+        ``finish`` installs the final carry here, so :meth:`finalize` and
+        :func:`allreduce_partials` work unchanged.  The carry starts from a
+        copy of a pre-seeded builder's counts (the retrain controller's
+        resumed build re-profiles the consumed head through
+        :meth:`update` first).  Counts are exact integers in float32, so a
+        fused and a tee'd baseline finalise byte-identically."""
+        from ..pipeline.compiler import Stage
+        # an unresolved numeric spec resolves to exactly n_bins bins on the
+        # first chunk, so the carry's width is known before the stream
+        b_max = max([s.n_bins for s in self.specs]
+                    + ([self.n_bins] if any(
+                        s.kind == NUMERIC and s.n_bins == 0
+                        for s in self.specs) else []))
+        builder = self
+
+        def prepare(table):
+            resolve_spec_bounds(builder.specs, table, builder.n_bins)
+            builder._n += table.n_rows
+            codes = encode_monitor_codes(table, builder.specs)
+            note_h2d(codes.nbytes)
+            return {"mon_codes": codes}
+
+        def kernel(carry, consts, inputs, upstream):
+            note_backend("baseline.absorb", resolve_backend(carry.device))
+            return bin_counts(inputs["mon_codes"], b_max, inputs["mask"],
+                              out=carry), {}
+
+        def carry_init():
+            if builder._counts is not None:
+                # a copy (read after the stream that last added to it)
+                return builder.host_counts().astype(np.float32)
+            return np.zeros((len(builder.specs), b_max), np.float32)
+
+        def finish(carry):
+            builder._counts = carry
+            builder._stream = torch.cuda.current_stream(carry.device) \
+                if carry.is_cuda else None
+
+        # b_max fixes the kernel's bins, so it is part of the stage's key
+        return Stage(name="monitor-absorb", kernel=kernel,
+                     version=f"1:b{b_max}", prepare=prepare,
+                     carry_init=carry_init, finish=finish)
 
     def host_counts(self) -> np.ndarray:
         """The (R, B_max) counts as float64 on the host.  The read-back

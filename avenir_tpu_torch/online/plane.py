@@ -39,7 +39,7 @@ import numpy as np
 import torch
 
 from ..nn.mlp import forward_logits
-from ..pipeline.compiler import ChunkPipeline, Stage
+from ..pipeline.compiler import ONLINE_SITE, ChunkPipeline, Stage
 from ..reinforce.online_forms import absorb_plan, absorb_rewards, \
     bandit_scores
 from ..utils import threefry as tf
@@ -237,7 +237,8 @@ class OnlineWindowPlane:
         self.device = ctx.mesh.devices[0]
         self._pipeline = ChunkPipeline(
             self._build_stages(), ctx=ctx,
-            schema_fp=config.fingerprint(), cache=cache)
+            schema_fp=config.fingerprint(), cache=cache,
+            name="online-window", site=ONLINE_SITE)
         # every bucket rounds up to a multiple of the context's device
         # count, as the JAX package pads rows to its mesh
         nd = max(int(self._pipeline.ctx.mesh.size), 1)
@@ -252,7 +253,7 @@ class OnlineWindowPlane:
         cfg = self.config
         bandit0, weights0, rng0 = init_state(cfg, self.device)
 
-        def absorb_kernel(carry, inputs, upstream):
+        def absorb_kernel(carry, consts, inputs, upstream):
             counts, totals, total_sqs = absorb_rewards(
                 carry["counts"], carry["totals"], carry["total_sqs"],
                 inputs["r_arm"], inputs["r_val"], inputs["r_mask"],
@@ -261,7 +262,7 @@ class OnlineWindowPlane:
                   "total_sqs": total_sqs}
             return nc, dict(nc)
 
-        def learn_kernel(carry, inputs, upstream):
+        def learn_kernel(carry, consts, inputs, upstream):
             X, vals, m = inputs["r_x"], inputs["r_val"], inputs["r_mask"]
             n = m.sum()
             any_rows = n > 0
@@ -303,7 +304,7 @@ class OnlineWindowPlane:
                                    params[k])
                     for k, g in zip(names, grads)}
 
-        def predict_kernel(carry, inputs, upstream):
+        def predict_kernel(carry, consts, inputs, upstream):
             X = inputs["x"]
             keys = tf.split(carry["key"], 2)
             key, sub = keys[0], keys[1]

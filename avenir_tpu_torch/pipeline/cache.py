@@ -1,18 +1,22 @@
 """ProgramCache: port of ``avenir_tpu/pipeline/cache.py``, trimmed.
 
 The JAX package caches a chunk's AOT-compiled XLA program under a key of
-everything that fixes its lowered form: the stage graph, the schema, the
-argument signature (flattened shapes and dtypes of every carry, constant
-and input) and the mesh.  The port keeps the key and the LRU, and caches
-what a chunk needs that depends on nothing but that key: its static
-device buffers (``ChunkPipeline``'s input staging tensors).  A miss
-allocates them (``build()``); a hit hands the same tensors back, so a warm
-stream of windows allocates nothing and ``Hits`` / ``Misses`` /
-``Retraces`` count what they count in the JAX package.  Unlike a compiled
-program an entry is mutable, so it is held by one pipeline at a time
-(its lock, taken by ``ChunkPipeline.staged``).  The key leaves
-out the JAX package's kernel-backend axis: the port has no such knob (a
-tensor's device picks the form).  Left out: the disk persistence.
+everything that fixes its lowered form: the stage graph, the schema
+(:func:`schema_fingerprint`), the argument signature (flattened shapes
+and dtypes of every carry, constant and input) and the mesh.  The port
+keeps the key and the LRU, and caches what a chunk needs that depends on
+nothing but that key: its static device buffers (``ChunkPipeline``'s
+input staging tensors).  A miss allocates them (``build()``); a hit hands
+the same tensors back, so a warm stream of windows allocates nothing and
+``Hits`` / ``Misses`` / ``Retraces`` count what they count in the JAX
+package.  Two schemas of one shape differ in their fingerprint, so they
+never share buffers.  Unlike a compiled program an entry is mutable, so
+it is held by one pipeline at a time (its lock, taken by
+``ChunkPipeline.staged``).  The key leaves out the JAX package's
+kernel-backend axis: the port has no such knob (a tensor's device picks
+the form).  Left out: the disk persistence
+(``AVENIR_TPU_PROGRAM_CACHE_DIR``), since the port compiles no program
+at run time.
 
 Telemetry: a miss records a ``pipeline.compile`` span, a hit a
 ``pipeline.cache_hit`` instant.
@@ -21,6 +25,7 @@ Telemetry: a miss records a ``pipeline.compile`` span, a hit a
 from __future__ import annotations
 
 import hashlib
+import json
 import threading
 from collections import OrderedDict
 from typing import Any, Callable, Dict, Optional, Tuple
@@ -31,6 +36,13 @@ import torch
 from ..telemetry import instant, span
 
 DEFAULT_MAXSIZE = 64
+
+
+def schema_fingerprint(schema) -> str:
+    """sha256 over the canonical schema dict: the data-layout half of a
+    key (the JAX package's fingerprint, digit for digit)."""
+    payload = json.dumps(schema.to_dict(), sort_keys=True)
+    return hashlib.sha256(payload.encode()).hexdigest()[:16]
 
 
 def mesh_fingerprint(ctx) -> str:

@@ -245,6 +245,14 @@ order — any failure exits non-zero before the result line:
               ServingMonitor (async_flush=False) serves rafo9's requests:
               its reports must equal an offline StreamDriftMonitor's over
               the same rows and labels, RecordErrors 0
+ 25f. fused   predictDriftScore with the fuse default (pipeline.flows.
+              PredictDriftFlow: B2, the class-row splice and B4 in one
+              pipeline.chunk a window), counts and the ProgramCache zeroed
+              before and read after: drift9/predict_fused (the JAX
+              package's fused job) as in 25, its PredictDrift and
+              ProgramCache counters, and the unfused job's bytes on the
+              card; B2 = B4 = FusedWindows, KernelBackends exactly
+              ensemble.vote.cuda and monitor.absorb.cuda, one a window
  26. scale    a 1,000,000-row drifted replay (numpy draws from
               call_hangup_gen's model; the second half with queue time
               shifted 600 s and the reason mix reweighted) through
@@ -253,6 +261,12 @@ order — any failure exits non-zero before the result line:
               windows/s; per window, median ms of encode (host), the B4
               absorb call, the finalize read-back and the two scores (the
               window and its long window in one pass), each synchronised
+ 26f. fused   the same 1,000,000 rows as a CSV through predictDriftScore,
+              fused then unfused (drift9's thresholds, 2,048-row windows),
+              counts zeroed around each: report, alerts and predictions
+              byte-equal between the forms; fused B2 = B4 = windows, all
+              fused; windows/s and ms a window of each job, and the fused
+              flow's own median ms a window (run_window, synchronised)
  27. b4 times median CUDA-event call and device times of B4, its first
               port's design as "old" in the same turns, and its plain
               version, with the bound (bytes over 3.35 TB/s or adds over
@@ -264,16 +278,22 @@ order — any failure exits non-zero before the result line:
               index and validity mask are the work), so library_ms is null
  28. stream   the streamed training main path, launch counts zeroed before
               and read after: randomForestBuilder with
-              dtb.streaming.ingest=true (777-row blocks, a checkpoint every
+              dtb.streaming.ingest=true and the fuse default (one rf-ingest
+              pipeline.chunk a block: the branch encode and the baseline's
+              B4) (777-row blocks, a checkpoint every
               2 blocks, badrecords.policy=quarantine, both sidecars) over
               tests/torch_fixtures/rafo9s/train.csv (5 malformed records)
               must reproduce the fixture (made by the JAX package's
               streamed job): trees, the registry's meta.json,
               baseline.json and quantized.json bytes and npz arrays (the
               baseline equals the monolithic one), part-q-00000 and the
-              Random forest / BadRecords counters.  Every B1 launch in the
+              Random forest / BadRecords / ProgramCache counters, and the
+              Dispatches of the JAX package's fused job plus the port's
+              tree.reassign and quantized.vote.  Every B1 launch in the
               mma form; B4 launches equal the ingest blocks (the job's
-              ingest.encode dispatches, and ceil(rows / 777)); B2 and B3
+              pipeline.chunk dispatches, and ceil(rows / 777)); 28u runs
+              it again with dtb.pipeline.fuse=false (the ingest.encode and
+              baseline.absorb dispatches a block, no ProgramCache); B2 and B3
               launched by the quantize publish; the ledger shows
               forest.level.cuda, baseline.absorb.cuda and no torch, host
               or atomic form, and every block (the quantize sample's too)
@@ -288,11 +308,12 @@ order — any failure exits non-zero before the result line:
               meta.json and quantized sidecar, and a baseline of the
               re-read rows only (the reference's resume contract)
  30. scale    a 500,000-row CSV (numpy draws from call_hangup_gen's
-              model), trained in three subprocesses (started up
+              model), trained in four subprocesses (started up
               together, each let go alone in turn): streamed at
               262,144-row blocks (iter_csv_chunks -> prefetch_chunks ->
               build_forest_from_stream with a BaselineBuilder) on the
-              native reader and on the Python reader, and monolithic
+              native reader fused (the default) and unfused
+              (fuse=False), on the Python reader, and monolithic
               (load_csv, native -> build_forest); trees and baseline
               counts identical, every B1 launch in the mma form, B4
               launches equal the blocks, and the ledger's IngestReaders
@@ -421,8 +442,11 @@ order — any failure exits non-zero before the result line:
               telecom_churn_gen's model) on the card: two chunks, the
               4-bit wire (3 H2D bytes a row, which it must be); its model
               lines must equal the port's device="cpu" train of the same
-              rows; prints rows/s and the layers (host wire pack, H2D,
-              device counts, D2H, model write)
+              rows, and so must the train's over a mesh of cuda:0 x 4
+              (each chunk's rows in four slices, the JAX package's
+              ctx.shard_rows) at the same H2D bytes; prints rows/s and
+              the layers (host wire pack, H2D, device counts, D2H, model
+              write)
  45. scale    bayesianDistribution and bayesianPredictor (argmax, then the
               feature-prob mode) over a 200,000-row CSV of the same model,
               on the card and with -Dplatform=cpu: model, pred and
@@ -625,7 +649,7 @@ order — any failure exits non-zero before the result line:
               10,000 minority rows of 125,000 machine_failure rows; five
               ``--tail-cpu-child`` processes (one a group) draw the inputs
               and run the jobs
-              with -Dplatform=cpu, started before phase 69 and waited for
+              with -Dplatform=cpu, started before phase 63 and waited for
               before the card's runs (the registered functions with a
               LayerProfile): every output byte-equal; rows/s and layers
 
@@ -2271,8 +2295,10 @@ def drift_main_path(dev):
     """Phase 25: the drift monitor's main path on the card, counts zeroed
     just before and read just after: driftMonitor and predictDriftScore
     (dm.pipeline.fuse=false) over the drift9 fixture's stream against a
-    copy of the rafo9q registry; then the serving hook.  Returns (B4
-    launches, B2 launches, six-decimal strings that differ)."""
+    copy of the rafo9q registry; then (25f) predictDriftScore with the
+    fuse default, its counts zeroed around it alone; then the serving
+    hook.  Returns (B4 launches, B2 launches, six-decimal strings that
+    differ, the fused job's launches and windows)."""
     import torch
     from avenir_tpu_torch.core.table import encode_rows
     from avenir_tpu_torch.kernels import histogram, vote
@@ -2328,6 +2354,7 @@ def drift_main_path(dev):
                             "part-m-00000"),
                os.path.join(DRIFT9, "predict", "predictions", "part-m-00000"),
                "drift9 predictDriftScore predictions")
+    fused = drift_fused_job(reg, mk, stream, outs["predict"][0])
     print(f"drift main path: bin_counts launches={b4_launches} (absorbed "
           f"blocks {absorbed}), ensemble_vote launches={b2_launches} (table "
           f"form {vote.table_launches}); KernelBackends={backends}",
@@ -2376,7 +2403,66 @@ def drift_main_path(dev):
           f"with a ServingMonitor; its {len(mon.reports)} reports equal an "
           f"offline StreamDriftMonitor's; RecordErrors=0", flush=True)
     torch.cuda.synchronize()
-    return b4_launches, b2_launches, strings
+    return b4_launches, b2_launches, strings, fused
+
+
+def drift_fused_job(reg, mk, stream, unfused_out):
+    """Phase 25f: predictDriftScore with the fuse default over the drift9
+    stream, its counts and the ProgramCache zeroed just before and read
+    just after: the drift9 predict_fused files and counters (the JAX
+    package's fused job's), the unfused job's bytes, and B2 = B4 = fused
+    windows, every one a kernel launch."""
+    from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.pipeline import program_cache
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    out = os.path.join(WORK, "drift9_predict_fused")
+    program_cache().clear()
+    histogram.bin_counts_launches = 0
+    vote.launches = vote.table_launches = 0
+    with transfer_ledger() as ledger:
+        phase("25f drift fused main path: predictDriftScore (fuse default) "
+              "== drift9/predict_fused")
+        t0 = time.perf_counter()
+        run_cli(["predictDriftScore", f"-Ddm.model.registry.dir={reg}",
+                 f"-Ddm.model.name={mk.MODEL_NAME}", *mk.KEYS, stream, out])
+        wall = time.perf_counter() - t0
+    got = {"b2": vote.launches, "b4": histogram.bin_counts_launches,
+           "b2_table": vote.table_launches}
+    backends = ledger.backend_snapshot()
+    want = os.path.join(DRIFT9, "predict_fused")
+    n_diff = same_report(os.path.join(out, "part-r-00000"),
+                         os.path.join(want, "part-r-00000"),
+                         "drift9 fused report")
+    same_alerts(os.path.join(out, "alerts.jsonl"),
+                os.path.join(want, "alerts.jsonl"), "drift9 fused")
+    same_bytes(os.path.join(out, "predictions", "part-m-00000"),
+               os.path.join(want, "predictions", "part-m-00000"),
+               "drift9 fused predictDriftScore predictions")
+    for f in ("part-r-00000", "alerts.jsonl",
+              os.path.join("predictions", "part-m-00000")):
+        same_bytes(os.path.join(out, f), os.path.join(unfused_out, f),
+                   f"drift9 fused {f} vs the unfused job's on the card")
+    with open(out + ".counters.json") as fh:
+        counters = json.load(fh)
+    got_c = {g: counters[g] for g in mk.COUNTER_GROUPS if g in counters}
+    with open(os.path.join(DRIFT9, "predict_fused_counters.json")) as fh:
+        if got_c != json.load(fh):
+            fail(f"drift9 fused counters {got_c} != the fixture's")
+    windows = counters["PredictDrift"]["FusedWindows"]
+    got["windows"] = windows
+    print(f"drift9 fused: files equal to the JAX package's fused job's "
+          f"({n_diff} six-decimal statistics differ) and to the unfused "
+          f"job's on the card; counters {got_c}; launches {got}; "
+          f"KernelBackends={backends}; wall {wall:.2f} s", flush=True)
+    if not (got["b2"] == got["b4"] == windows > 0) \
+            or counters["PredictDrift"]["UnfusedWindows"]:
+        fail(f"drift fused main path: B2 {got['b2']} and B4 {got['b4']} "
+             f"launches for {windows} fused windows")
+    if backends != {"ensemble.vote.cuda": windows,
+                    "monitor.absorb.cuda": windows}:
+        fail(f"drift fused main path: KernelBackends {backends}; every "
+             f"fused window must launch B2 and B4")
+    return got
 
 
 def drift_scale(dev, fs):
@@ -2452,7 +2538,113 @@ def drift_scale(dev, fs):
           f"pass) {med['score']:.4f}", flush=True)
     return {"rows_per_s": table.n_rows / wall, "windows_per_s": windows / wall,
             "wall_s": wall, "windows": windows, "launches": launches,
-            "layers_ms": med}
+            "layers_ms": med, "fused_job": drift_fused_scale(dev, table)}
+
+
+# the drifted replay's job keys: drift9's thresholds at 2,048-row windows
+DRIFT_SCALE_KEYS = (f"-Ddm.window.rows={DRIFT_WINDOW_ROWS}",
+                    "-Ddm.score.predictions=true", "-Ddm.warn.psi=0.2",
+                    "-Ddm.warn.chi2=0.18", "-Ddm.accuracy.warn=62",
+                    "-Ddm.accuracy.alert=55")
+
+
+def drift_fused_scale(dev, table):
+    """Phase 26f: phase 26's 1,000,000 rows as a CSV through
+    predictDriftScore on the card, fused (the default) then unfused, each
+    with its counts zeroed just before and read just after: the report,
+    alerts and predictions byte-equal between the two, windows/s and ms a
+    window of each, and the fused flow's own ms a window (run_window over
+    the same windows' tables, synchronised)."""
+    import torch
+    from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.models.forest import EnsembleModel
+    from avenir_tpu_torch.models.tree import DecisionTreeModel
+    from avenir_tpu_torch.monitor.baseline import load_baseline
+    from avenir_tpu_torch.pipeline.flows import PredictDriftFlow
+    from avenir_tpu_torch.serving.registry import ModelRegistry
+    from avenir_tpu_torch.utils.tracing import transfer_ledger
+    phase(f"26f scale: predictDriftScore fused vs unfused over the "
+          f"{DRIFT_SCALE_ROWS:,}-row replay")
+    csv = os.path.join(WORK, "drift_scale.csv")
+    write_hangup_csv(table, csv)
+    reg = os.path.join(WORK, "drift_scale_registry")
+    shutil.copytree(os.path.join(RAFO9Q, "registry"), reg)
+    res = {}
+    for form, extra in (("fused", ()),
+                        ("unfused", ("-Ddm.pipeline.fuse=false",))):
+        out = os.path.join(WORK, f"drift_scale_{form}")
+        histogram.bin_counts_launches = 0
+        vote.launches = 0
+        with transfer_ledger() as ledger:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_cli(["predictDriftScore", f"-Ddm.model.registry.dir={reg}",
+                     "-Ddm.model.name=rafo9", *DRIFT_SCALE_KEYS, *extra,
+                     csv, out])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        with open(out + ".counters.json") as fh:
+            counters = json.load(fh)
+        pd = counters["PredictDrift"]
+        windows = pd["FusedWindows"] + pd["UnfusedWindows"]
+        res[form] = {"wall_s": wall, "windows": windows,
+                     "fused_windows": pd["FusedWindows"],
+                     "windows_per_s": windows / wall,
+                     "ms_per_window": wall * 1e3 / windows,
+                     "b2": vote.launches,
+                     "b4": histogram.bin_counts_launches,
+                     "absorbed": counters["Dispatches"].get(
+                         "monitor.absorb", 0),
+                     "backends": ledger.backend_snapshot(), "out": out}
+        print(f"predictDriftScore {form}: {windows} windows in {wall:.3f} s "
+              f"wall: {windows / wall:,.1f} windows/s, "
+              f"{wall * 1e3 / windows:.4f} ms a window; B2 launches "
+              f"{vote.launches}, B4 launches "
+              f"{histogram.bin_counts_launches}; KernelBackends="
+              f"{res[form]['backends']}", flush=True)
+    fz, uf = res["fused"], res["unfused"]
+    for f in ("part-r-00000", "alerts.jsonl",
+              os.path.join("predictions", "part-m-00000")):
+        same_bytes(os.path.join(fz["out"], f), os.path.join(uf["out"], f),
+                   f"drift replay fused {f} vs unfused")
+    if os.path.getsize(os.path.join(fz["out"], "alerts.jsonl")) == 0:
+        fail("drift replay: the drifted half raised no alert")
+    if not (fz["b2"] == fz["b4"] == fz["fused_windows"] == fz["windows"]):
+        fail(f"drift replay fused: B2 {fz['b2']}, B4 {fz['b4']} for "
+             f"{fz['windows']} windows ({fz['fused_windows']} fused)")
+    if uf["fused_windows"] or uf["b4"] != uf["absorbed"] or uf["b2"] <= 0:
+        fail(f"drift replay unfused: {uf['b4']} B4 launches for "
+             f"{uf['absorbed']} absorbed blocks, {uf['b2']} B2 launches, "
+             f"{uf['fused_windows']} fused windows")
+    if fz["backends"] != {"ensemble.vote.cuda": fz["windows"],
+                          "monitor.absorb.cuda": fz["windows"]}:
+        fail(f"drift replay fused: KernelBackends {fz['backends']}")
+    # the fused flow alone: run_window over the replay's windows,
+    # each synchronised (the job's host work around it excluded)
+    registry = ModelRegistry(reg)
+    loaded = registry.load("rafo9")
+    ens = EnsembleModel([DecisionTreeModel(pl, loaded.schema, device=dev)
+                         for pl in loaded.model], device=dev)
+    flow = PredictDriftFlow(ens, load_baseline(registry, "rafo9"),
+                            loaded.schema, DRIFT_WINDOW_ROWS)
+    w = DRIFT_WINDOW_ROWS
+    tables = [table.take_rows(lo, min(lo + w, table.n_rows))
+              for lo in range(0, table.n_rows, w)]
+    per = []
+    for t in tables:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if flow.run_window(t) is None:
+            fail("drift replay: the fused flow refused a window")
+        per.append(time.perf_counter() - t0)
+    fz["flow_ms_per_window"] = float(np.median(per)) * 1e3
+    print(f"the fused flow alone (host encode, staging copy, B2, splice, "
+          f"B4, read-back; synchronised): median "
+          f"{fz['flow_ms_per_window']:.4f} ms a window over {len(per)} "
+          f"windows", flush=True)
+    for r in res.values():
+        del r["out"], r["backends"]
+    return res
 
 
 def b4_times(dev, fs):
@@ -2532,23 +2724,49 @@ def same_rafo9s(out, reg, what, files=("meta.json", "baseline.json",
                     f"{what} published {f}")
 
 
+# the rafo9s job's Dispatches in a fresh one-device JAX process (fused
+# default) and the two sites only the port records (the forest's reassign,
+# which XLA fuses into its level program, and the int8 publish's sample
+# vote); tests/test_torch_pipeline_flows.py holds both against the JAX job
+RAFO9S_JAX_DISPATCHES = {"ensemble.vote": 1, "forest.level": 4,
+                         "pipeline.chunk": 7}
+RAFO9S_PORT_ONLY_DISPATCHES = {"tree.reassign": 3, "quantized.vote": 1}
+
+
 def stream_main_path(dev):
-    """Phase 28: the streamed training job over the rafo9s fixture's CSV,
-    counts zeroed just before and read just after.  Returns the launches
-    of B1 (and in the mma form), B4, B2 and B3, and the ingest blocks."""
+    """Phase 28: the streamed training job over the rafo9s fixture's CSV
+    with the fuse default (one rf-ingest chunk a block: the branch encode
+    and the baseline's B4), then (28u) with dtb.pipeline.fuse=false, each
+    with its counts zeroed just before and read just after.  Returns the
+    fused run's launches of B1 (and in the mma form), B4, B2 and B3, the
+    ingest blocks, and the unfused run's launches."""
+    got = stream_job(dev, fused=True)
+    got["unfused"] = stream_job(dev, fused=False)
+    return got
+
+
+def stream_job(dev, fused):
     from avenir_tpu_torch.kernels import histogram, vote
+    from avenir_tpu_torch.pipeline import program_cache
     from avenir_tpu_torch.utils.tracing import transfer_ledger
-    out = os.path.join(WORK, "rafo9s_model")
-    reg = os.path.join(WORK, "rafo9s_registry")
-    ck = os.path.join(WORK, "rafo9s_ck")
+    tag = "" if fused else "_unfused"
+    out = os.path.join(WORK, f"rafo9s_model{tag}")
+    reg = os.path.join(WORK, f"rafo9s_registry{tag}")
+    ck = os.path.join(WORK, f"rafo9s_ck{tag}")
+    program_cache().clear()
     histogram.launches = histogram.mma_launches = 0
     histogram.bin_counts_launches = 0
     vote.launches = vote.quantized_launches = vote.table_launches = 0
     with transfer_ledger() as ledger:
-        phase("28 streamed training main path: randomForestBuilder "
-              "dtb.streaming.ingest=true == the rafo9s fixture")
+        if fused:
+            phase("28 streamed training main path: randomForestBuilder "
+                  "dtb.streaming.ingest=true (fused) == the rafo9s fixture")
+        else:
+            phase("28u streamed training, dtb.pipeline.fuse=false == the "
+                  "rafo9s fixture")
         t0 = time.perf_counter()
-        run_cli(rafo9s_job(reg, ck, out))
+        run_cli(rafo9s_job(reg, ck, out,
+                           () if fused else ("-Ddtb.pipeline.fuse=false",)))
         wall = time.perf_counter() - t0
     got = {"b1": histogram.launches, "b1_mma": histogram.mma_launches,
            "b4": histogram.bin_counts_launches, "b2": vote.launches,
@@ -2559,6 +2777,12 @@ def stream_main_path(dev):
         counters = json.load(fh)
     with open(os.path.join(RAFO9S, "train_counters.json")) as fh:
         want = json.load(fh)
+    if not fused:
+        # the per-stage form runs no chunk pipeline
+        want.pop("ProgramCache")
+        if "ProgramCache" in counters:
+            fail(f"rafo9s unfused: a ProgramCache group "
+                 f"{counters['ProgramCache']}")
     for group, values in want.items():
         if counters.get(group) != values:
             fail(f"rafo9s counters {group}: {counters.get(group)} != "
@@ -2567,16 +2791,27 @@ def stream_main_path(dev):
     rows = want["Random forest"]["BaselineRows"]
     blocks = -(-rows // STREAM_BLOCK_ROWS)
     got["blocks"] = blocks
-    encodes = counters["Dispatches"].get("ingest.encode")
-    print(f"streamed main path: {wall:.2f} s wall; launches {got}; "
-          f"{rows} rows in {blocks} ingest blocks (ingest.encode "
-          f"dispatches {encodes}); KernelBackends={backends}", flush=True)
+    disp = counters["Dispatches"]
+    site = "pipeline.chunk" if fused else "ingest.encode"
+    encodes = disp.get(site)
+    print(f"streamed main path ({'fused' if fused else 'unfused'}): "
+          f"{wall:.2f} s wall; launches {got}; {rows} rows in {blocks} "
+          f"ingest blocks ({site} dispatches {encodes}); Dispatches={disp}; "
+          f"KernelBackends={backends}", flush=True)
     if got["b1"] <= 0 or got["b1_mma"] != got["b1"]:
         fail(f"streamed main path: {got['b1']} B1 launches, "
              f"{got['b1_mma']} in the mma form; all must be")
     if got["b4"] != blocks or encodes != blocks:
         fail(f"streamed main path: {got['b4']} B4 launches and {encodes} "
-             f"encoded blocks for {blocks} ingest blocks")
+             f"{site} dispatches for {blocks} ingest blocks")
+    if fused and disp != {**RAFO9S_JAX_DISPATCHES,
+                          **RAFO9S_PORT_ONLY_DISPATCHES}:
+        fail(f"rafo9s fused Dispatches {disp}: the JAX job's "
+             f"{RAFO9S_JAX_DISPATCHES} and the port's "
+             f"{RAFO9S_PORT_ONLY_DISPATCHES}")
+    if not fused and disp.get("baseline.absorb") != blocks:
+        fail(f"rafo9s unfused: {disp.get('baseline.absorb')} teed absorbs "
+             f"for {blocks} blocks")
     if got["b2"] <= 0 or got["b3"] <= 0:
         fail("the streamed quantize publish never launched B2 or B3")
     for site in ("forest.level.cuda", "forest.level.form.mma",
@@ -2762,7 +2997,8 @@ def scale_child(mode, csv, out):
                 use_native=mode != "stream_python", cache=cache),
                 stats=stats, consumer_wait_key=None)
             trees = build_forest_from_stream(blocks, fs, params, device=dev,
-                                             stats=stats, baseline=base)
+                                             stats=stats, baseline=base,
+                                             fuse=mode != "stream_unfused")
         else:
             table = load_csv(csv, fs)
             base.update(table)
@@ -2789,7 +3025,7 @@ def scale_child(mode, csv, out):
                           resource.RUSAGE_SELF).ru_maxrss}), flush=True)
 
 
-STREAM_SCALE_MODES = ("stream", "stream_python", "mono")
+STREAM_SCALE_MODES = ("stream", "stream_unfused", "stream_python", "mono")
 
 
 def scale_plan(csv):
@@ -2806,7 +3042,8 @@ def scale_plan(csv):
 
 def stream_scale(fs, plan, stage):
     """Phase 30: one STREAM_SCALE_ROWS-row CSV trained streamed on the native
-    reader, streamed on the Python reader and monolithic (the native
+    reader (fused and unfused), streamed on the Python reader and
+    monolithic (the native
     whole-file load), each in its own process (:func:`scale_plan`), one
     after another.  Returns the printed numbers, the trees, the baseline
     counts and the CSV's path."""
@@ -2836,7 +3073,7 @@ def stream_scale(fs, plan, stage):
                                                     "baseline_counts.npy"))
     st = runs["stream"]
     trees, counts = st.pop("trees"), st.pop("counts")
-    for mode in ("stream_python", "mono"):
+    for mode in ("stream_unfused", "stream_python", "mono"):
         if runs[mode].pop("trees") != trees:
             fail(f"phase 30: {mode} trees differ from the native stream's")
         if not np.array_equal(runs[mode].pop("counts"), counts):
@@ -2847,10 +3084,11 @@ def stream_scale(fs, plan, stage):
         if r["b1"] <= 0 or r["b1_mma"] != r["b1"]:
             fail(f"phase 30 {name}: {r['b1']} B1 launches, {r['b1_mma']} "
                  f"in the mma form; all must be")
-    want_b4 = {"stream": blocks, "stream_python": blocks, "mono": 1}
+    want_b4 = {"stream": blocks, "stream_unfused": blocks,
+               "stream_python": blocks, "mono": 1}
+    native = {"native.blocks": blocks, "native.rows": STREAM_SCALE_ROWS}
     want_ingest = {
-        "stream": {"native.blocks": blocks,
-                   "native.rows": STREAM_SCALE_ROWS},
+        "stream": native, "stream_unfused": native,
         "stream_python": {"python.blocks": blocks,
                           "python.rows": STREAM_SCALE_ROWS,
                           "python.asked": blocks},
@@ -2864,11 +3102,13 @@ def stream_scale(fs, plan, stage):
                  f"{want_ingest[name]}")
     print("streamed (both readers) and monolithic trees and baselines "
           "identical; every block read by the reader asked for", flush=True)
-    for name in ("stream", "stream_python"):
-        print(f"{name}: {runs[name]['rows_per_s']:,.0f} rows/s, parse_s "
-              f"{runs[name]['parse_s']:.3f} of ingest_wall_s "
-              f"{runs[name]['ingest_wall_s']:.3f}, build_s "
-              f"{runs[name]['build_s']:.3f}", flush=True)
+    for name in ("stream", "stream_unfused", "stream_python"):
+        r = runs[name]
+        print(f"{name}: {r['rows_per_s']:,.0f} rows/s, parse_s "
+              f"{r['parse_s']:.3f}, transfer_s {r['transfer_s']:.3f}, "
+              f"ingest_compute_s {r['ingest_compute_s']:.3f} of "
+              f"ingest_wall_s {r['ingest_wall_s']:.3f}, build_s "
+              f"{r['build_s']:.3f}", flush=True)
     print(json.dumps({"stream_scale": runs}), flush=True)
     return runs, trees, counts, csv
 
@@ -4423,9 +4663,29 @@ def bayes_scale(dev):
              f"from device='cpu'")
     if chunks != -(-n // bayes.CHUNK_ROWS):
         fail(f"bayes.train over {n:,} rows ran {chunks} chunks")
+    # the row split over an in-process mesh, the JAX package's
+    # ctx.shard_rows: four slices of cuda:0 a chunk, summed on the host
+    from avenir_tpu_torch.parallel.mesh import DeviceMesh
+    mesh_n = 4
+    mesh = DeviceMesh([str(dev)] * mesh_n)
+    with transfer_ledger() as ledger:
+        t0 = time.perf_counter()
+        m_mesh = bayes.train(table, mesh=mesh)
+        mesh_wall = time.perf_counter() - t0
+    if m_mesh.to_lines() != lines:
+        fail(f"bayes.train over {n:,} rows on {mesh}: the model lines "
+             f"differ from the one-device train's")
+    if ledger.h2d_bytes != h2d:
+        fail(f"bayes.train on the mesh moved {ledger.h2d_bytes:,} H2D "
+             f"bytes, the one-device train {h2d:,}")
+    print(f"bayes.train {n:,} rows on {mesh} (each chunk's rows in "
+          f"{mesh_n} slices): {mesh_wall:.4f} s = "
+          f"{n / mesh_wall:,.0f} rows/s; model lines equal the one-device "
+          f"train's", flush=True)
     train = {"rows": n, "wall_s": wall, "rows_per_s": n / wall,
              "chunks": chunks, "h2d_bytes": h2d, "model_write_s": write_s,
-             "cpu_wall_s": cpu_wall,
+             "cpu_wall_s": cpu_wall, "mesh_devices": mesh_n,
+             "mesh_wall_s": mesh_wall,
              **{k: v for k, v in stats.items()}}
     print(f"bayes.train {n:,} rows: card {wall:.4f} s = "
           f"{n / wall:,.0f} rows/s ({chunks} chunks, H2D {h2d:,} bytes: "
@@ -7702,8 +7962,8 @@ def tail_cpu_child(group, work):
 
 
 def start_tail_cpu_children():
-    """Phase 70's CPU children, started before phase 69 so that they draw
-    their inputs and run on the CPU while the card replays the fixtures:
+    """Phase 70's CPU children, started before phase 63 so that they draw
+    their inputs and run on the CPU while phases 63-69 use the card:
     one process a group, each with its own threads."""
     work = os.path.join(WORK, "tail_scale")
     shutil.rmtree(work, ignore_errors=True)
@@ -7720,7 +7980,7 @@ def start_tail_cpu_children():
 def tail_scale_phase(dev, work, kids):
     """Phase 70: each job once on the card with a LayerProfile (parse,
     encode, h2d, device, readback, finalize, write), after its CPU child
-    (started before phase 69) has finished; every output byte-equal to
+    (started before phase 63) has finished; every output byte-equal to
     the CPU's; rates printed by layer; no kernel launched."""
     import torch
     from avenir_tpu_torch.cli import jobs as J
@@ -8395,7 +8655,8 @@ def main():
                                       knn_scale, knn_warm_4)
 
     b4_err = max(b4_err, b4_phase(dev, rng))
-    b4_launches, drift_b2, drift_strings = drift_main_path(dev)
+    b4_launches, drift_b2, drift_strings, drift_fused = \
+        drift_main_path(dev)
     drift = drift_scale(dev, fs)
     b4_t = b4_times(dev, fs)
     b4 = b4_t["rafo_1m"]
@@ -8423,11 +8684,13 @@ def main():
     threefry_t = threefry_phase(dev)
     mlp_r = mlp_phase(dev)
     opt_r = optimize_phase(dev)
+    # phase 70's CPU children run on the host's idle cores through the
+    # card-bound phases 63-69
+    tail_work, tail_kids = start_tail_cpu_children()
     bandit_r = bandit_phase(dev)
     online_r = online_phases(dev)
     seq_fix = seq_fixture_phase()
     seq_scale = seq_scale_phase(dev)
-    tail_work, tail_kids = start_tail_cpu_children()
     tail_fix = tail_fixture_phase()
     tail_scale = tail_scale_phase(dev, tail_work, tail_kids)
     phase()
@@ -8466,6 +8729,9 @@ def main():
         "old_ms": rafo9["old_ms"], "device_ms": rafo9["device_ms"],
         "old_device_ms": rafo9["old_device_ms"],
         "drift_launches": drift_b2,
+        "drift_fused_launches": drift_fused["b2"],
+        "drift_fused_windows": drift_fused["windows"],
+        "drift_replay_fused_launches": drift["fused_job"]["fused"]["b2"],
         "stream_launches": streamed["b2"],
         "shard_lane_launches": per_process(lane, "b2"),
         "joined_predictor_launches": [g["b2"] for g in joined["mp"]],
@@ -8558,7 +8824,12 @@ def main():
         "drift_replay_launches": drift["launches"],
         "drift_replay_rows_per_s": drift["rows_per_s"],
         "drift_six_decimal_diffs": drift_strings,
+        "drift_fused_launches": drift_fused["b4"],
+        "drift_fused_windows": drift_fused["windows"],
+        "drift_replay_fused_launches": drift["fused_job"]["fused"]["b4"],
+        "drift_replay_fused_windows": drift["fused_job"]["fused"]["windows"],
         "stream_launches": streamed["b4"],
+        "stream_unfused_launches": streamed["unfused"]["b4"],
         "stream_blocks": streamed["blocks"],
         "stream_scale_launches": scale["stream"]["b4"],
         "shard_lane_launches": per_process(lane, "b4"),
@@ -8669,6 +8940,10 @@ def main():
         "online": online_r,
         "sequence": {"fixtures": seq_fix, "scale": seq_scale},
         "long_tail": {"fixtures": tail_fix, "scale": tail_scale},
+        "fused": {"drift9": drift_fused, "replay": drift["fused_job"],
+                  "rafo9s": {k: v for k, v in streamed.items()
+                             if k != "unfused"},
+                  "rafo9s_unfused": streamed["unfused"]},
         "phase_seconds": PHASE_SECONDS}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

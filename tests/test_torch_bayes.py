@@ -158,6 +158,29 @@ def test_train_chunked_equals_one_chunk(chunk):
     _same_model(bayes.train(tt, device="cpu", chunk_rows=chunk), one)
 
 
+@pytest.mark.parametrize("S,name,pack4,chunk", [
+    (2, "churnlike", "1", 1 << 23), (4, "churnlike", "0", 97),
+    (2, "gauss", "0", 700), (4, "gauss", "1", 1), (4, "wide", "0", 130)])
+def test_train_over_a_cpu_mesh_equals_one_device(S, name, pack4, chunk,
+                                                 jax_ctx, monkeypatch):
+    """The row split over an in-process mesh (the JAX package's
+    ``ctx.shard_rows``): each device counts a slice of every chunk, the
+    integer counts sum, and the model is the one-device model's bytes,
+    and the JAX package's."""
+    from avenir_tpu_torch.parallel.mesh import DeviceMesh
+    monkeypatch.setenv("AVENIR_TPU_WIRE_PACK4", pack4)
+    rows = _rows(name, 700, 3, far=0.02, unknown=0.02)
+    jt, tt = _both(name, rows)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        one = bayes.train(tt, device="cpu", chunk_rows=chunk)
+        got = bayes.train(tt, mesh=DeviceMesh(["cpu"] * S),
+                          chunk_rows=chunk)
+        want = jb.train(jt, jax_ctx)
+    _same_model(got, one)
+    _same_model(got, want)
+
+
 def test_chunk_above_limit_refused():
     _, tt = _both("gauss", _rows("gauss", 10, 3))
     with pytest.raises(ValueError, match="1<<23"):

@@ -98,6 +98,41 @@ def test_batched_smo_within_tolerance_of_the_jax_solver(seed, sizes):
                                       JS.predict(want[g], X))
 
 
+# svm.properties' C = 1.0: the lock-step solver does not converge on these
+# groups and runs to its cap (max_sweeps x the largest group's rows), where
+# the two float32 orders have wandered apart in some groups.  Each case
+# pins the counts of groups whose weights or threshold lie outside
+# W_TOL / B_TOL and of the rows whose predictions differ:
+# (seed, sizes, max_sweeps, groups apart, predictions apart)
+C1_CASES = [(41, (40, 30, 50), 40, 1, 7), (42, (30, 25), 200, 1, 1)]
+
+
+@pytest.mark.parametrize("seed,sizes,sweeps,groups_apart,preds_apart",
+                         C1_CASES)
+def test_batched_smo_at_the_published_c_against_the_jax_solver(
+        seed, sizes, sweeps, groups_apart, preds_apart):
+    groups = _groups(seed, sizes)
+    p = dict(penalty_factor=1.0, tolerance=0.001, eps=0.001, seed=5,
+             max_sweeps=sweeps)
+    want = JS.train_groups_batched(groups, JS.SMOParams(**p))
+    stats = {}
+    got = S.train_groups_batched(groups, S.SMOParams(**p), stats=stats,
+                                 device="cpu")
+    assert stats["iterations"] == sweeps * max(sizes)      # the cap
+    apart = preds = rows = 0
+    for g, (X, _) in groups.items():
+        w0 = want[g].weights
+        apart += bool(np.abs(got[g].weights - w0).max()
+                      > W_TOL * np.abs(w0).max()
+                      or abs(got[g].threshold - want[g].threshold) > B_TOL)
+        preds += int((S.predict(got[g], X, "cpu")
+                      != JS.predict(want[g], X)).sum())
+        rows += len(X)
+    print(f"C=1.0 seed {seed}: {apart} of {len(groups)} weight lines "
+          f"apart, {preds} of {rows} predictions")
+    assert apart <= groups_apart and preds <= preds_apart
+
+
 def test_batched_smo_one_class_group_and_the_cap():
     """A group of one class has an empty I_up or I_low: b = 0, as the
     JAX package's; a cap of a few steps stops the loop there."""

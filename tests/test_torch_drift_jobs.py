@@ -8,10 +8,12 @@ scope, row kind, n_rows, level) byte-equal and the statistics within rtol
 strings is printed and bounded; on this fixture it is 0);
 ``alerts.jsonl``'s records equal apart from ``value`` (within the same
 tolerance); the ``BadRecords``, ``DriftMonitor`` and ``PredictDrift``
-counters equal; ``predictDriftScore``'s predictions byte-equal.  Both jobs
-refuse an unknown ``dm.source`` by name, and ``predictDriftScore`` refuses
-the fused default.  A rerun of ``make.py`` into a temporary directory must
-reproduce the fixture's files.
+counters equal; ``predictDriftScore``'s predictions byte-equal, in its
+unfused form (``dm.pipeline.fuse=false``) and with the fuse default
+(``pipeline.flows.PredictDriftFlow``), whose ``ProgramCache`` counters
+equal the JAX package's fused job's from an empty cache.  Both jobs
+refuse an unknown ``dm.source`` by name.  A rerun of ``make.py`` into a
+temporary directory must reproduce the fixture's files.
 """
 
 import importlib.util
@@ -23,7 +25,7 @@ import numpy as np
 import pytest
 
 from avenir_tpu_torch.cli import run as cli_run
-from avenir_tpu_torch.cli.jobs import JobNotPorted
+from avenir_tpu_torch.pipeline import program_cache
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 DRIFT9 = os.path.join(TESTS, "torch_fixtures", "drift9")
@@ -90,10 +92,9 @@ def _run(job, tmp_path, *extra):
     return out
 
 
-@pytest.mark.parametrize("job,sub,extra", [
-    ("driftMonitor", "drift", ()),
-    ("predictDriftScore", "predict", ("-Ddm.pipeline.fuse=false",))])
+@pytest.mark.parametrize("job,sub,extra", MAKE.CASES)
 def test_job_matches_fixture(tmp_path, job, sub, extra):
+    program_cache().clear()
     out = _run(job, tmp_path, *extra)
     want = os.path.join(DRIFT9, sub)
     strings, n = compare_report(out / "part-r-00000",
@@ -104,7 +105,7 @@ def test_job_matches_fixture(tmp_path, job, sub, extra):
     got_c = counter_groups(f"{out}.counters.json")
     with open(os.path.join(DRIFT9, f"{sub}_counters.json")) as fh:
         assert got_c == json.load(fh)
-    if sub == "predict":
+    if job == "predictDriftScore":
         with open(out / "predictions" / "part-m-00000", "rb") as a, \
                 open(os.path.join(want, "predictions", "part-m-00000"),
                      "rb") as b:
@@ -128,12 +129,6 @@ def test_resp_source_is_refused_by_name(tmp_path, job):
     name."""
     with pytest.raises(ValueError, match="dm.source 'kafka'"):
         _run(job, tmp_path, "-Ddm.source=kafka", "-Ddm.pipeline.fuse=false")
-
-
-@pytest.mark.parametrize("fuse", [(), ("-Ddm.pipeline.fuse=true",)])
-def test_predict_drift_score_refuses_the_fused_path(tmp_path, fuse):
-    with pytest.raises(JobNotPorted, match="PredictDriftFlow"):
-        _run("predictDriftScore", tmp_path, *fuse)
 
 
 def test_bad_records_fail_policy_raises(tmp_path):

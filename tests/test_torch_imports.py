@@ -110,7 +110,13 @@ for name in ("avenir_tpu_torch.monitor.baseline",
              "avenir_tpu_torch.association.rules",
              "avenir_tpu_torch.cli.sequence_jobs",
              "avenir_tpu_torch.cli.association_jobs",
-             "avenir_tpu_torch.cli.text_jobs"):
+             "avenir_tpu_torch.cli.text_jobs",
+             "avenir_tpu_torch.pipeline.flows",
+             "avenir_tpu_torch.utils.pyutil",
+             "avenir_tpu_torch.tools",
+             "avenir_tpu_torch.tools.registrytool",
+             "avenir_tpu_torch.tools.cachetool",
+             "avenir_tpu_torch.tools.tracetool"):
     assert name in names, name
 for name in names:
     importlib.import_module(name)
@@ -125,6 +131,16 @@ for short, full in (("markovModelClassifier",
                     ("wordCounter", "org.avenir.text.WordCounter")):
     assert resolve(short) is resolve(full)
 importlib.import_module("chip_smoke")
+# the operator tools run as modules with jax and avenir_tpu blocked
+import contextlib, io, runpy
+for tool in ("registrytool", "cachetool", "tracetool"):
+    sys.argv = [tool, "--help"]
+    with contextlib.redirect_stdout(io.StringIO()):
+        try:
+            runpy.run_module("avenir_tpu_torch.tools." + tool,
+                             run_name="__main__")
+        except SystemExit as exc:
+            assert exc.code in (0, None), (tool, exc.code)
 # the native reader builds and loads the port's own library, never one
 # of the JAX package's
 import os, tempfile
@@ -157,6 +173,6 @@ def test_port_imports_without_jax_or_avenir_tpu():
     # runtime, weights, core x7, utils x5, kernels x6, models x4,
     # serving x9, monitor x5, stats x3, ops x2, cli x10, parallel x4, io x3,
     # telemetry x5, nn x2, optimize x5, reinforce x5, pipeline x3, online x4,
-    # sequence x4, explore x2, association x3, the three new cli job modules
-    # and the package
-    assert int(res.stdout.strip()) >= 93
+    # sequence x4, explore x2, association x3, the three new cli job
+    # modules, pipeline.flows, utils.pyutil, tools x4 and the package
+    assert int(res.stdout.strip()) >= 99

@@ -8,9 +8,10 @@ fixture — the input CSV, trees, JSON files, quarantine part file and
 counters byte for byte, ``.npz`` files by arrays and dtypes.  The port's
 streamed job over the fixture's CSV (``-Dplatform=cpu``) must give the same
 bytes and arrays and the same job counter groups (``Random forest``,
-``BadRecords``), reading every block with the native reader, and its
-monolithic job must give the same trees, quarantine and published
-forest."""
+``BadRecords``, and the fused ingest's ``ProgramCache``), reading every
+block with the native reader; with ``dtb.pipeline.fuse=false`` it must
+give the same bytes through the per-stage sites, and its monolithic job
+the same trees, quarantine and published forest."""
 
 import importlib.util
 import json
@@ -20,6 +21,7 @@ import numpy as np
 import pytest
 
 from avenir_tpu_torch.cli import run as port_run
+from avenir_tpu_torch.pipeline import program_cache
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 RES = os.path.join(os.path.dirname(TESTS), "resource")
@@ -62,10 +64,14 @@ def regenerated(tmp_path_factory):
 
 
 def _port_job(d, *extra):
+    # the ProgramCache is process-global: an earlier job of the same key
+    # in this process would turn the fixture's misses into hits
+    program_cache().clear()
     out, reg = str(d / "model"), str(d / "registry")
     mk = _make_module()
     keys = mk.STREAM_KEYS if "stream" in extra else [
         k for k in mk.STREAM_KEYS if "streaming" not in k]
+    keys = (*keys, *(k for k in extra if k.startswith("-D")))
     assert port_run.main([
         "randomForestBuilder",
         f"-Dconf.path={os.path.join(RES, 'rafo.properties')}",
@@ -83,6 +89,12 @@ def _port_job(d, *extra):
 @pytest.fixture(scope="module")
 def port_streamed(tmp_path_factory):
     return _port_job(tmp_path_factory.mktemp("port_stream"), "stream")
+
+
+@pytest.fixture(scope="module")
+def port_streamed_unfused(tmp_path_factory):
+    return _port_job(tmp_path_factory.mktemp("port_stream_unfused"),
+                     "stream", "-Ddtb.pipeline.fuse=false")
 
 
 @pytest.fixture(scope="module")
@@ -134,15 +146,43 @@ def test_port_streamed_job_quarantine_counters_and_checkpoints(
         _read(FIXTURE, "part-q-00000")
     want = json.loads(_read(FIXTURE, "train_counters.json"))
     assert {g: counters[g] for g in want} == want
-    # one branch encode and one baseline absorb a block of 777 rows
+    # one fused chunk a block of 777 rows: the branch encode and the
+    # baseline absorb, and no per-stage site
     blocks = -(-4995 // 777)
-    assert counters["Dispatches"]["ingest.encode"] == blocks
+    assert counters["Dispatches"]["pipeline.chunk"] == blocks
+    assert "ingest.encode" not in counters["Dispatches"]
+    assert "baseline.absorb" not in counters["Dispatches"]
     assert counters["KernelBackends"] == {
         "baseline.absorb.torch": blocks, "ensemble.vote.torch": 1,
         "forest.level.torch": 4, "quantized.vote.torch": 1}
     # steps every 2 blocks and the ingest-complete one; the newest 3 kept
     assert sorted(os.listdir(os.path.join(d, "ck"))) == [
         "step_00000004", "step_00000006", "step_00000007"]
+
+
+@pytest.mark.parametrize("name", TREES + [
+    os.path.join(VERSION, f) for f in ("meta.json", "baseline.json",
+                                       "quantized.json")])
+def test_port_streamed_unfused_job_writes_jax_bytes(port_streamed_unfused,
+                                                    name):
+    out, d, _ = port_streamed_unfused
+    where = d if name.startswith("registry") else out
+    assert _read(where, name) == _read(FIXTURE, name)
+
+
+def test_port_streamed_unfused_job_keeps_the_per_stage_sites(
+        port_streamed_unfused):
+    """``dtb.pipeline.fuse=false``: one branch encode and one teed
+    baseline absorb a block, and no ProgramCache group."""
+    counters = port_streamed_unfused[2]
+    blocks = -(-4995 // 777)
+    assert counters["Dispatches"]["ingest.encode"] == blocks
+    assert counters["Dispatches"]["baseline.absorb"] == blocks
+    assert "pipeline.chunk" not in counters["Dispatches"]
+    assert "ProgramCache" not in counters
+    want = json.loads(_read(FIXTURE, "train_counters.json"))
+    assert {g: counters[g] for g in want if g != "ProgramCache"} == \
+        {g: want[g] for g in want if g != "ProgramCache"}
 
 
 def test_port_streamed_job_reads_every_block_natively(port_streamed):
@@ -172,5 +212,8 @@ def test_port_monolithic_job_writes_the_same_bytes(port_monolithic, name):
     assert _read(where, name) == _read(FIXTURE, name)
     assert _read(out, "_quarantine", "part-q-00000") == \
         _read(FIXTURE, "part-q-00000")
+    # the monolithic load runs no chunk pipeline: no ProgramCache group
     want = json.loads(_read(FIXTURE, "train_counters.json"))
+    want.pop("ProgramCache")
+    assert "ProgramCache" not in counters
     assert {g: counters[g] for g in want} == want

@@ -17,6 +17,11 @@ and the accuracy thresholds of ``KEYS``; the malformed lines are skipped
   predict/part-r-00000, predict/alerts.jsonl  predictDriftScore
   predict/predictions/part-m-00000            (dm.pipeline.fuse=false)
   predict_counters.json
+  predict_fused/...                           predictDriftScore with the
+  predict_fused_counters.json                 fuse default (its fused
+                                              flow), + its ProgramCache
+                                              counters (from an empty
+                                              program cache)
 
 The quiet windows raise no alert record; the drifted ones raise warn and
 alert records.  The port (``avenir_tpu_torch``) is held against these files
@@ -54,7 +59,12 @@ MALFORMED = ("K9000000,billing,120", "K9000001,outage,soon,0,1,F",
 KEYS = ("-Ddm.window.rows=512", "-Ddm.score.predictions=true",
         "-Ddm.warn.psi=0.2", "-Ddm.warn.chi2=0.18",
         "-Ddm.accuracy.warn=62", "-Ddm.accuracy.alert=55")
-COUNTER_GROUPS = ("BadRecords", "DriftMonitor", "PredictDrift")
+COUNTER_GROUPS = ("BadRecords", "DriftMonitor", "PredictDrift",
+                  "ProgramCache")
+# (job, output subdirectory, extra keys)
+CASES = (("driftMonitor", "drift", ()),
+         ("predictDriftScore", "predict", ("-Ddm.pipeline.fuse=false",)),
+         ("predictDriftScore", "predict_fused", ()))
 
 
 def stream_rows():
@@ -94,6 +104,7 @@ def make(out_dir: str = HERE) -> None:
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from avenir_tpu.cli import run as cli_run
+    from avenir_tpu.pipeline import program_cache
     os.makedirs(out_dir, exist_ok=True)
     stream = os.path.join(out_dir, "stream.csv")
     with open(stream, "w") as fh:
@@ -103,9 +114,9 @@ def make(out_dir: str = HERE) -> None:
         shutil.copytree(REGISTRY, registry)
         common = [f"-Ddm.model.registry.dir={registry}",
                   f"-Ddm.model.name={MODEL_NAME}", *KEYS]
-        for job, sub, extra in (("driftMonitor", "drift", ()),
-                                ("predictDriftScore", "predict",
-                                 ("-Ddm.pipeline.fuse=false",))):
+        for job, sub, extra in CASES:
+            # the fused flow's ProgramCache tallies are a fresh process's
+            program_cache().clear()
             out = os.path.join(work, sub)
             assert cli_run.main([job, *common, *extra, stream, out]) == 0
             dest = os.path.join(out_dir, sub)

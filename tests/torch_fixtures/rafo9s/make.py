@@ -17,8 +17,10 @@ fields garbled, two rows truncated), trained with
   registry/rafo9s/v_000001/  meta.json, arrays.npz, baseline.json,
                              baseline.npz, quantized.json, quantized.npz
   part-q-00000               the quarantined raw lines
-  train_counters.json        the job's "Random forest" and "BadRecords"
-                             counter groups
+  train_counters.json        the job's "Random forest", "BadRecords" and
+                             "ProgramCache" counter groups (the fused
+                             ingest's tallies, from an empty program
+                             cache)
 
 ``np.savez`` stamps the write time into each zip entry, so the ``.npz``
 files differ in bytes from run to run; they are compared by arrays and
@@ -48,7 +50,7 @@ STREAM_KEYS = ("-Ddtb.streaming.ingest=true",
                "-Ddtb.streaming.checkpoint.blocks=2",
                "-Dbadrecords.policy=quarantine",
                "-Ddtb.model.quantize=true", "-Ddtb.baseline.publish=true")
-COUNTER_GROUPS = ("Random forest", "BadRecords")
+COUNTER_GROUPS = ("Random forest", "BadRecords", "ProgramCache")
 
 
 def make_csv(path: str) -> None:
@@ -67,6 +69,7 @@ def make(out_dir: str = HERE) -> None:
     if ROOT not in sys.path:
         sys.path.insert(0, ROOT)
     from avenir_tpu.cli import run as cli_run
+    from avenir_tpu.pipeline import program_cache
     props = os.path.join(RES, "rafo.properties")
     schema_path = os.path.join(RES, "call_hangup.json")
     os.makedirs(out_dir, exist_ok=True)
@@ -74,6 +77,7 @@ def make(out_dir: str = HERE) -> None:
     shutil.rmtree(registry_dir, ignore_errors=True)
     train = os.path.join(out_dir, "train.csv")
     make_csv(train)
+    program_cache().clear()
     with tempfile.TemporaryDirectory() as work:
         model = os.path.join(work, "model")
         assert cli_run.main([
