@@ -82,6 +82,12 @@ class ItemSet:
     support: float = 0.0
     count: int = 0
 
+    def contains_item(self, item: str) -> bool:
+        return item in self.items
+
+    def contains_trans(self, trans_id: str) -> bool:
+        return trans_id in self.trans_ids
+
 
 def parse_itemset_lines(lines: Sequence[str], itemset_length: int,
                         contains_trans_ids: bool, delim: str = ","
@@ -167,6 +173,10 @@ class TransactionMatrix:
         mat = np.zeros((n, m), dtype=np.uint8)
         mat[rows[keep], cols[keep]] = 1
         self.matrix = mat
+
+    @property
+    def n_trans(self) -> int:
+        return len(self.trans_ids)
 
     def support_counts(self, cand_idx: np.ndarray, device: DeviceLike = None,
                        profile: Optional[LayerProfile] = None) -> np.ndarray:

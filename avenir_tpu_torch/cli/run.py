@@ -35,7 +35,10 @@ a span tracer writing ``trace-<run id>.p<shard>.jsonl`` under
 ``telemetry.trace.dir``, and a metrics registry (the serving services bind
 to it) with a ``/metrics`` + ``/healthz`` endpoint on
 ``telemetry.metrics.port`` and a ``<outPath>.metrics.jsonl`` flight
-recorder every ``telemetry.metrics.snapshot.s`` seconds.
+recorder every ``telemetry.metrics.snapshot.s`` seconds.  The device
+profile is ``profile.trace.dir`` (or ``AVENIR_TPU_TRACE_DIR``): a
+``torch.profiler`` Chrome trace of the job, host and card, one file a
+process (``utils.tracing.trace``).
 """
 
 from __future__ import annotations
@@ -107,10 +110,14 @@ def _telemetry_setup(cfg, job_name: str, in_path: Optional[str]):
       telemetry.metrics.snapshot.s   the snapshot thread's period (the
                                JSONL flight recorder; 0 = off; works
                                without a port)
+      profile.trace.dir        the device profile: a ``torch.profiler``
+                               Chrome trace of the job step, one file a
+                               process, into this directory (read by
+                               :func:`main`, ``utils.tracing.trace``)
 
     Environment twins: AVENIR_TPU_TRACE_EVENTS_DIR, AVENIR_TPU_METRICS_PORT,
-    AVENIR_TPU_METRICS_HOST, AVENIR_TPU_RUN_ID (an empty value means
-    unset)."""
+    AVENIR_TPU_METRICS_HOST, AVENIR_TPU_RUN_ID, AVENIR_TPU_TRACE_DIR (an
+    empty value means unset)."""
     trace_dir = cfg.get("telemetry.trace.dir") or \
         os.environ.get("AVENIR_TPU_TRACE_EVENTS_DIR") or None
     port = cfg.get("telemetry.metrics.port") or \
@@ -348,7 +355,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                         process_index, shard_spec)
     from ..parallel.mesh import set_runtime_context
     from ..runtime import platform_device, set_default_device
-    from ..utils.tracing import StepTimer, transfer_ledger
+    from ..utils.tracing import StepTimer, trace, transfer_ledger
     argv = list(sys.argv[1:] if argv is None else argv)
     job_name, conf_path, overrides, positional = parse_args(argv)
     if job_name is None:
@@ -402,8 +409,12 @@ def main(argv: Optional[List[str]] = None) -> int:
                             f"{out_path.rstrip('/' + os.sep)}"
                             f".metrics.jsonl"
                             if out_path and own else None))
-            with timer.step("job"):
-                counters = fn(cfg, in_path, out_path)
+            # the device profile (profile.trace.dir, else
+            # AVENIR_TPU_TRACE_DIR; empty means unset) around the job step
+            with trace(cfg.get("profile.trace.dir") or
+                       os.environ.get("AVENIR_TPU_TRACE_DIR")):
+                with timer.step("job"):
+                    counters = fn(cfg, in_path, out_path)
         if counters is not None:
             # the ledger before the sum: each process moved its own bytes;
             # the step times after it: wall clocks do not add up

@@ -12,7 +12,7 @@ or shared filesystem:
   * JSON artifacts (registry ``meta.json``) are written by ``write_json``
     with the JAX package's formatting (``json.dump``, indent 2), so the
     bytes match
-  * an ``ArtifactStore`` wraps a base directory with namespaced paths
+  * an ``ArtifactStore`` wraps a base directory with namespaced read/write
 """
 
 from __future__ import annotations
@@ -93,6 +93,11 @@ def write_json(path: str, obj: Any) -> str:
     return path
 
 
+def read_json(path: str) -> Any:
+    with open(path, "r") as fh:
+        return json.load(fh)
+
+
 class ArtifactStore:
     """Namespaced artifact directory: the replacement for the HDFS paths wired
     through the reference's shell scripts (resource/detr.sh:35-41 rotation)."""
@@ -103,3 +108,23 @@ class ArtifactStore:
 
     def path(self, *parts: str) -> str:
         return os.path.join(self.base_dir, *parts)
+
+    def write_lines(self, name: str, lines: Iterable[str]) -> str:
+        return write_text_output(self.path(name), lines)
+
+    def read_lines(self, name: str) -> List[str]:
+        return read_text_input(self.path(name))
+
+    def write_json(self, name: str, obj: Any) -> str:
+        return write_json(self.path(name), obj)
+
+    def read_json(self, name: str) -> Any:
+        return read_json(self.path(name))
+
+    def exists(self, name: str) -> bool:
+        return os.path.exists(self.path(name))
+
+    def rotate(self, src: str, dst: str) -> None:
+        """Move an output artifact into the input slot for the next iteration
+        (detr.sh 'mvDecFiles': decPathOut -> decPathIn)."""
+        os.replace(self.path(src), self.path(dst))

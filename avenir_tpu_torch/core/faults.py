@@ -167,37 +167,47 @@ if os.environ.get("AVENIR_TPU_FAULTS"):
 # retry/backoff
 # --------------------------------------------------------------------------
 
-RETRY_ATTEMPTS = 3
-RETRY_BASE_S = 0.05
+RETRY_ATTEMPTS = int(os.environ.get("AVENIR_TPU_RETRY_ATTEMPTS", "3"))
+RETRY_BASE_S = float(os.environ.get("AVENIR_TPU_RETRY_BASE_S", "0.05"))
 
 # transient by default: an IO hiccup or an allocation spike should be
 # re-attempted before the job gives up
 TRANSIENT = (OSError, MemoryError)
 
 # full-jitter backoff RNG, one stream per process, seeded from the pid so
-# processes that fail together do not retry in lockstep
-_JITTER_RNG = random.Random(os.getpid())
+# processes whose reads fail together (one NFS hiccup, one broker stall) do
+# not retry in lockstep and re-hammer the same file or broker at the same
+# instants.  AVENIR_TPU_RETRY_SEED pins the stream for deterministic tests.
+_JITTER_RNG = random.Random(
+    int(os.environ["AVENIR_TPU_RETRY_SEED"])
+    if os.environ.get("AVENIR_TPU_RETRY_SEED") else os.getpid())
 _JITTER_LOCK = threading.Lock()
 
 
-def with_retry(fn: Callable, *, what: str = "operation"):
-    """Call ``fn()``; on a transient exception retry up to
-    ``RETRY_ATTEMPTS`` total tries with full-jitter exponential backoff:
-    attempt i sleeps a uniform draw from (0, RETRY_BASE_S * 2**i], floored
-    at a hundredth of that ceiling.  Anything else propagates immediately.
-    The final failure re-raises the last exception unchanged."""
-    for i in range(RETRY_ATTEMPTS):
+def with_retry(fn: Callable, *, attempts: Optional[int] = None,
+               base_delay: Optional[float] = None,
+               retry_on: Tuple[type, ...] = TRANSIENT,
+               what: str = "operation"):
+    """Call ``fn()``; on a ``retry_on`` exception retry up to ``attempts``
+    total tries (default ``RETRY_ATTEMPTS``) with full-jitter exponential
+    backoff: attempt i sleeps a uniform draw from (0, base * 2**i]
+    (``base_delay``, default ``RETRY_BASE_S``), floored at a hundredth of
+    that ceiling.  Anything else propagates immediately.  The final failure
+    re-raises the last exception unchanged."""
+    attempts = max(1, RETRY_ATTEMPTS if attempts is None else attempts)
+    base_delay = RETRY_BASE_S if base_delay is None else base_delay
+    for i in range(attempts):
         try:
             return fn()
-        except TRANSIENT as exc:
-            if i + 1 == RETRY_ATTEMPTS:
+        except retry_on as exc:
+            if i + 1 == attempts:
                 raise
             with _JITTER_LOCK:
                 u = _JITTER_RNG.random()
-            delay = RETRY_BASE_S * (1 << i) * max(u, 0.01)
+            delay = base_delay * (1 << i) * max(u, 0.01)
             warnings.warn(
                 f"{what} failed ({type(exc).__name__}: {exc}); "
-                f"retry {i + 1}/{RETRY_ATTEMPTS - 1} after "
+                f"retry {i + 1}/{attempts - 1} after "
                 f"{delay:.3g}s", RuntimeWarning,
                 stacklevel=2)
             time.sleep(delay)

@@ -13,7 +13,7 @@ from __future__ import annotations
 import json
 import threading
 from collections import defaultdict
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -28,6 +28,17 @@ class Counters:
 
     def __init__(self):
         self._c: Dict[Tuple[str, str], int] = defaultdict(int)
+        self._lock = threading.Lock()
+
+    def __getstate__(self):
+        # the lock is process-local; counters cross process boundaries
+        # (shard allgather, subprocess results) as plain data, snapshot
+        # under the lock so pickling a live Counters cannot race an insert
+        with self._lock:
+            return dict(self._c)
+
+    def __setstate__(self, state):
+        self._c = defaultdict(int, state)
         self._lock = threading.Lock()
 
     def increment(self, group: str, name: str, amount: int = 1) -> None:
@@ -59,6 +70,12 @@ class Counters:
         for name, v in values.items():
             self.set(group, name, v)
 
+    def group(self, group: str) -> Dict[str, int]:
+        """All (name, value) pairs of one group."""
+        with self._lock:
+            items = sorted(self._c.items())
+        return {n: v for (g, n), v in items if g == group}
+
     def as_dict(self) -> Dict[str, Dict[str, int]]:
         with self._lock:
             items = sorted(self._c.items())
@@ -84,6 +101,27 @@ class Counters:
         identical bytes (diffable artifacts)."""
         return json.dumps(self.as_dict(), sort_keys=True,
                           separators=(",", ":"))
+
+    @classmethod
+    def from_json(cls, text: str) -> "Counters":
+        """Inverse of :meth:`to_json`: ``from_json(c.to_json())`` holds
+        every (group, name, value) of ``c``."""
+        out = cls()
+        for g, names in json.loads(text).items():
+            for n, v in names.items():
+                out.set(g, n, int(v))
+        return out
+
+    def append_jsonl(self, path: str, tag: Optional[str] = None) -> None:
+        """Append one ``{"tag":..., "counters": {...}}`` line to a JSONL
+        file (key order stable): the per-window or per-run export stream."""
+        record: Dict = {}
+        if tag is not None:
+            record["tag"] = tag
+        record["counters"] = self.as_dict()
+        with open(path, "a") as fh:
+            fh.write(json.dumps(record, sort_keys=True,
+                                separators=(",", ":")) + "\n")
 
 
 class ConfusionMatrix:

@@ -211,6 +211,9 @@ class ColumnarTable:
     # the native reader emits them during the parse (read-only arrays)
     binned_cache: Dict[int, np.ndarray] = dc_field(default_factory=dict)
 
+    def column(self, ordinal: int) -> np.ndarray:
+        return self.columns[ordinal]
+
     def class_codes(self) -> np.ndarray:
         return self.columns[self.schema.class_attr_field.ordinal]
 

@@ -89,6 +89,10 @@ class RuleExpression:
             raise ValueError(f"rule {rule!r} has no condition")
         return cls(conjuncts, consequent.strip())
 
+    @staticmethod
+    def extract_consequent(rule: str) -> str:
+        return rule.partition(CONSEQUENT_SEP)[2].strip()
+
     def match_mask(self, columns: Sequence[np.ndarray]) -> np.ndarray:
         mask = None
         for c in self.conjuncts:

@@ -51,6 +51,7 @@ import warnings
 from collections import OrderedDict, deque
 from typing import Dict, List, Optional, Sequence, Tuple, Union
 
+from ..core.faults import with_retry
 from ..core.metrics import Counters
 from ..telemetry import instant
 from ..telemetry import reqtrace
@@ -59,9 +60,6 @@ from . import qjournal
 
 DURABLE_ENV = "AVENIR_TPU_BROKER_DURABLE"
 DURABLE_MODES = ("off", "commit", "fsync")
-# client reconnects: tries, and the first backoff (doubling)
-_RECONNECT_ATTEMPTS = 4
-_RECONNECT_BASE_S = 0.05
 
 
 def resolve_durable(value: Optional[str] = None) -> str:
@@ -757,6 +755,38 @@ class RespServer:
     def journal_stats(self) -> dict:
         return {} if self._journal is None else self._journal.stats()
 
+    def bind_metrics(self, registry, endpoint: Optional[str] = None):
+        """Export broker durability state on a ``MetricsRegistry``:
+        queue/lease depths, redeliveries, and journal bytes/segments/
+        fsync latency as a labeled gauge family, plus the Broker/*
+        counters via ``attach_counters``.  Returns the probe (for
+        ``unregister_probe`` at teardown)."""
+        ep = endpoint or f"{self.host}:{self.port}"
+        g = registry.gauge(
+            "avenir_broker_durable",
+            "durable broker state (io/respq.py RespServer)",
+            labels=("endpoint", "key"))
+
+        def probe():
+            with self._lock:
+                depth = sum(len(q) for q in self._queues.values())
+                leased = sum(len(t) for t in self._leases.values())
+            g.set(depth, endpoint=ep, key="queue_depth")
+            g.set(leased, endpoint=ep, key="leased")
+            g.set(self.redelivered, endpoint=ep, key="redelivered")
+            g.set(self.journal_replayed, endpoint=ep,
+                  key="journal_replayed")
+            if self._journal is not None:
+                st = self._journal.stats()
+                g.set(st["bytes"], endpoint=ep, key="journal_bytes")
+                g.set(st["segments"], endpoint=ep,
+                      key="journal_segments")
+                g.set(st["fsync_ms_ema"], endpoint=ep,
+                      key="journal_fsync_ms")
+        registry.register_probe(probe)
+        registry.attach_counters(self.counters)
+        return probe
+
 
 # ---------------------------------------------------------------------------
 # client
@@ -818,9 +848,9 @@ class RespClient:
 
     def _reconnect_once(self, why: BaseException) -> None:
         """Drop the poisoned half-connection and re-establish — the
-        connect itself tried 4 times with exponential backoff from 0.05 s;
-        raises the last connect failure when the server stays
-        unreachable."""
+        connect itself retried with ``core.faults.with_retry`` (4 tries,
+        full-jitter backoff from 0.05 s); raises the last connect failure
+        when the server stays unreachable."""
         try:
             if self._rf is not None:
                 self._rf.close()
@@ -828,14 +858,9 @@ class RespClient:
                 self._sock.close()
         except OSError:
             pass
-        for attempt in range(_RECONNECT_ATTEMPTS):
-            try:
-                self._connect()
-                break
-            except OSError:
-                if attempt == _RECONNECT_ATTEMPTS - 1:
-                    raise
-                time.sleep(_RECONNECT_BASE_S * 2 ** attempt)
+        with_retry(self._connect, attempts=4, base_delay=0.05,
+                   retry_on=(OSError,),
+                   what=f"respq reconnect to {self.host}:{self.port}")
         self.reconnects += 1
         if self.counters is not None:
             self.counters.increment("Broker", "Reconnects")

@@ -149,6 +149,22 @@ class Predicate:
             return float(self.other_bound_int)
         return self.other_bound_dbl
 
+    # host-side evaluation of one value; batched matching is PathMatrix's
+    def evaluate(self, value) -> bool:
+        if self.pred_str == ROOT_PATH or self.operator is None:
+            return True
+        if self.operator == "in":
+            return str(value) in (self.categorical_values or [])
+        v = float(value)
+        if self.operator == "le":
+            ok = v <= self.threshold
+            if self.lower_bound is not None:
+                ok = ok and v > self.lower_bound
+            return ok
+        if self.operator == "gt":
+            return v > self.threshold
+        raise ValueError(f"bad operator {self.operator}")
+
 
 @dataclass
 class DecisionPath:
@@ -197,6 +213,12 @@ class DecisionPathList:
                 stopped=pd.get("stopped", False),
                 class_val_pr=pd.get("classValPr", {})))
         return cls(decision_paths=paths)
+
+    def find(self, path_str: str) -> Optional[DecisionPath]:
+        for p in self.decision_paths:
+            if p.path_str == path_str:
+                return p
+        return None
 
 
 # --------------------------------------------------------------------------

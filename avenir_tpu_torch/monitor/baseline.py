@@ -186,6 +186,12 @@ class Baseline:
     def n_bins_max(self) -> int:
         return self.counts.shape[1]
 
+    def row_index(self, name: str) -> int:
+        for i, s in enumerate(self.specs):
+            if s.name == name:
+                return i
+        raise KeyError(f"no monitored row named {name!r}")
+
     @property
     def class_row(self) -> int:
         return len(self.specs) - 1

@@ -101,8 +101,9 @@ class AllReducer:
     A shard count above 1 with neither a directory nor a joined run
     raises: partials would never combine.  ``timeout_s``
     (``AVENIR_TPU_ALLREDUCE_TIMEOUT_S``, default 300) bounds the file
-    transport's wait for a dead peer, and ``heartbeat_s`` (default the
-    smaller of a quarter of it and 15 s; 0 turns it off) the wait before
+    transport's wait for a dead peer, and ``heartbeat_s``
+    (``AVENIR_TPU_STALL_HEARTBEAT_S``, default the smaller of a quarter
+    of it and 15 s; 0 turns it off) the wait before
     a ``RuntimeWarning`` names the shards still missing.  Steps are ordered
     per reducer ``name``: every participant constructs the same reducers in
     the same order and calls the same ops in the same order (lock step, as
@@ -117,8 +118,10 @@ class AllReducer:
         self.name = name
         self.timeout_s = float(timeout_s if timeout_s is not None
                                else distributed.timeout_s())
-        self.heartbeat_s = float(heartbeat_s if heartbeat_s is not None
-                                 else min(self.timeout_s / 4.0, 15.0))
+        self.heartbeat_s = float(
+            heartbeat_s if heartbeat_s is not None
+            else os.environ.get("AVENIR_TPU_STALL_HEARTBEAT_S",
+                                min(self.timeout_s / 4.0, 15.0)))
         self.dir = transport_dir or os.environ.get("AVENIR_TPU_ALLREDUCE_DIR")
         if self.spec.count == 1:
             self.transport = "local"

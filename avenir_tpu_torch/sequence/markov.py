@@ -53,6 +53,14 @@ class MarkovModel:
     matrices: Dict[Optional[str], np.ndarray]
     scale: int = 1000
 
+    @property
+    def state_index(self) -> Dict[str, int]:
+        return {s: i for i, s in enumerate(self.states)}
+
+    def prob(self, label: Optional[str], fr: str, to: str) -> float:
+        si = self.state_index
+        return float(self.matrices[label][si[fr], si[to]])
+
     def to_lines(self, delim: str = ",") -> List[str]:
         lines = [delim.join(self.states)]
         if list(self.matrices.keys()) == [None]:

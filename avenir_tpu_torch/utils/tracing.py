@@ -28,14 +28,21 @@ call in ``avenir_tpu/utils/tracing.py``.
   reader.
 - :class:`LayerProfile` — per-level wall time of the training layers,
   taken only when a caller passes one to a builder.
+- :func:`trace` — ``torch.profiler`` capture of host and device activity
+  into a Chrome trace, behind ``profile.trace.dir`` /
+  ``AVENIR_TPU_TRACE_DIR`` (cli.run); a no-op with no directory, a
+  warning and no capture when the profiler cannot start.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
+import socket
 import threading
 import time
+import warnings
 from collections import defaultdict, deque
 from typing import Dict, Iterator, List, Optional
 
@@ -297,11 +304,21 @@ class StepTimer:
                 q = self.samples[name] = deque(maxlen=self.keep_samples)
             q.append(seconds)
 
+    def mean_ms(self, name: str) -> float:
+        c = self.calls.get(name, 0)
+        return (self.totals[name] / c * 1000.0) if c else 0.0
+
     def percentile_ms(self, name: str, q: float) -> float:
+        """q-th percentile (0-100, linear interpolation) of the recorded
+        sample window in milliseconds; 0.0 when nothing is recorded."""
         s = self.samples.get(name)
         if not s:
             return 0.0
         return float(np.percentile(np.asarray(s), q)) * 1000.0
+
+    def percentiles_ms(self, name: str,
+                       qs=(50.0, 95.0, 99.0)) -> Dict[float, float]:
+        return {q: self.percentile_ms(name, q) for q in qs}
 
     def export(self, counters, group: str = "Profiling") -> None:
         """Every step exports ``<name>.timeMs`` and ``<name>.calls``; steps
@@ -314,6 +331,66 @@ class StepTimer:
                     counters.set(
                         group, f"{name}.p{q}Us",
                         int(round(self.percentile_ms(name, q) * 1000)))
+
+    def summary(self) -> str:
+        return "; ".join(
+            f"{n}: {self.totals[n]*1000:.1f}ms/{self.calls[n]}x"
+            for n in sorted(self.totals))
+
+
+def _trace_worker_name() -> str:
+    """The trace file's worker name: host, process index (the shard spec's
+    or the joined run's rank) and pid, so processes that share one
+    directory never write the same file."""
+    from ..parallel.distributed import process_index, shard_spec
+    spec = shard_spec()
+    index = spec.index if spec.active else process_index()
+    return f"{socket.gethostname()}_p{index}_{os.getpid()}"
+
+
+@contextlib.contextmanager
+def trace(log_dir: Optional[str]) -> Iterator[bool]:
+    """``torch.profiler`` capture into ``log_dir``: host activity always,
+    CUDA activity when the process's device is a CUDA device, written on
+    exit as one Chrome trace ``<host>_p<index>_<pid>.<ns>.pt.trace.json``
+    (``tensorboard_trace_handler``; Perfetto and TensorBoard's profile
+    plugin read it).  Yields whether capture is active.  A None or empty
+    dir is the off switch (silent); a profiler that cannot start degrades
+    to a no-op WITH a warning naming the exception: an operator who asked
+    for a capture and got nothing must learn why from the log, not from
+    an empty directory."""
+    if not log_dir:
+        yield False
+        return
+    try:
+        import torch
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        from ..runtime import default_device
+        activities = [ProfilerActivity.CPU]
+        if torch.device(default_device()).type == "cuda" \
+                and torch.cuda.is_available():
+            activities.append(ProfilerActivity.CUDA)
+        prof = profile(activities=activities,
+                       on_trace_ready=tensorboard_trace_handler(
+                           log_dir, worker_name=_trace_worker_name()))
+        prof.start()
+    except Exception as exc:
+        warnings.warn(
+            f"profiler trace capture into {log_dir!r} unavailable "
+            f"({type(exc).__name__}: {exc}); continuing without capture",
+            RuntimeWarning)
+        yield False
+        return
+    try:
+        yield True
+    finally:
+        try:
+            prof.stop()
+        except Exception as exc:
+            warnings.warn(
+                f"profiler trace export into {log_dir!r} failed "
+                f"({type(exc).__name__}: {exc})", RuntimeWarning)
 
 
 def get_logger(name: str = "avenir_tpu_torch", debug_on: bool = False

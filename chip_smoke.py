@@ -261,7 +261,9 @@ order — any failure exits non-zero before the result line:
               windows/s; per window, median ms of encode (host), the B4
               absorb call, the finalize read-back and the two scores (the
               window and its long window in one pass), each synchronised
- 26f. fused   the same 1,000,000 rows as a CSV through predictDriftScore,
+ 26f. fused   the middle 500,000 of those rows (the last quarter of the quiet
+              half and the first of the drifted one) as a CSV through
+              predictDriftScore,
               fused then unfused (drift9's thresholds, 2,048-row windows),
               counts zeroed around each: report, alerts and predictions
               byte-equal between the forms; fused B2 = B4 = windows, all
@@ -587,7 +589,7 @@ order — any failure exits non-zero before the result line:
               64 islands x 256, 120 generations
  63. bandits  golden bandit and price, every mab9 round and the mab9
               VectorBandits selections byte-equal; VectorBandits at
-              100,000 groups x 4 actions, every algorithm, 3 calls,
+              50,000 groups x 4 actions, every algorithm, 3 calls,
               each call's selections equal to the port's CPU twin's;
               selections/s
  64. online9  every online9 case (ucb1, softMax, sampsonSampler, the
@@ -598,7 +600,7 @@ order — any failure exits non-zero before the result line:
               byte-equal to the JAX fixture (the pin's clock aside); the
               MLP head's parameters within 1e-5, its differing labels
               counted
- 65. online   an ad server's stream (16,000 predicts x 32 features, 8
+ 65. online   an ad server's stream (8,000 predicts x 32 features, 8
               arms, 80% rewarded 1-3 windows late, 1% orphans) in windows
               of 256 through the plane on the card: ucb1/bandit,
               softMax/logistic, and sampsonSampler/MLP (hidden 64) over
@@ -652,6 +654,21 @@ order — any failure exits non-zero before the result line:
               with -Dplatform=cpu, started before phase 63 and waited for
               before the card's runs (the registered functions with a
               LayerProfile): every output byte-equal; rows/s and layers
+ 71. profile  the device profile capture: rafo9's randomForestBuilder and
+              modelPredictor through cli.run with -Dprofile.trace.dir
+              (launch counts zeroed before each, read after) and
+              untraced: byte-equal outputs, exactly one Chrome trace a
+              job that loads with traceEvents, whose kernel events of
+              level_counts_mma_kernel (B1) and vote_kernel (B2) equal the
+              wrappers' counts; then phase 30's CSV trained monolithic
+              untraced, under the capture (byte-equal) and untraced
+              again: the card's busy share (the union of the trace's
+              kernel, memcpy and memset intervals) over the traced job
+              step and over the untraced ones (Profiling/job.timeMs),
+              and its top five kernels by total time.  The profiler's
+              first start in the process (CUPTI's set-up, ~10-15 s)
+              falls in the first traced job's call, outside its job
+              step; every capture starts within seconds of it
 
 The line before the last is one JSON object with the kernel numbers (the
 votes' and B1's ``form``, B5's planned ``splits`` a chunk, each redesigned
@@ -670,8 +687,18 @@ launches are theirs too), under ``logistic`` phase 59's, under ``mlp``,
 ``optimize`` and ``bandits`` phases 61-63's, under ``online`` phases
 64-66's (the ``threefry2x32`` entry's launches are those of 61-66), under
 ``sequence`` phases 67-68's and under ``long_tail`` phases 69-70's (job
-walls, rates, layers, launch counts: 0), and under ``phase_seconds`` each phase's wall seconds; the last line is
+walls, rates, layers, launch counts: 0), under ``profile`` phase 71's
+(launches, trace kernel counts, busy shares, top kernels), and under
+``phase_seconds`` each phase's wall seconds; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``python3 chip_smoke.py --trace-probe`` measures instead whether the
+capture keeps every kernel launch as a process ages: eight processes on
+the first card, each (some after an early warm-up capture) training rafo9
+untraced until its age, then six traced jobs, train and predict in turn;
+one JSON line a capture (B1 and B2 counts from the wrappers and from the
+trace, each B1 launch's host time and traced kernel start) on standard
+output and in ``chiprun_out/trace_probe.jsonl``.
 """
 
 import dataclasses
@@ -736,6 +763,8 @@ B4_BLOCK_ROWS = (64, 256, 2048, 4096)
 B4_GLOBAL_SHAPE = (8, 8192)
 DRIFT9 = os.path.join(ROOT, "tests", "torch_fixtures", "drift9")
 DRIFT_SCALE_ROWS = 1_000_000
+# phase 26f's rows: the middle of phase 26's replay, quiet then drifted
+DRIFT_FUSED_ROWS = (250_000, 750_000)
 DRIFT_WINDOW_ROWS = 2048
 KNN_GOLDEN = os.path.join(ROOT, "tests", "golden", "fixtures", "knn")
 ELEARN_KNN = os.path.join(ROOT, "tests", "torch_fixtures", "elearn_knn")
@@ -2549,12 +2578,12 @@ DRIFT_SCALE_KEYS = (f"-Ddm.window.rows={DRIFT_WINDOW_ROWS}",
 
 
 def drift_fused_scale(dev, table):
-    """Phase 26f: phase 26's 1,000,000 rows as a CSV through
-    predictDriftScore on the card, fused (the default) then unfused, each
-    with its counts zeroed just before and read just after: the report,
-    alerts and predictions byte-equal between the two, windows/s and ms a
-    window of each, and the fused flow's own ms a window (run_window over
-    the same windows' tables, synchronised)."""
+    """Phase 26f: the middle of phase 26's rows (``DRIFT_FUSED_ROWS``) as a
+    CSV through predictDriftScore on the card, fused (the default) then
+    unfused, each with its counts zeroed just before and read just after:
+    the report, alerts and predictions byte-equal between the two,
+    windows/s and ms a window of each, and the fused flow's own ms a
+    window (run_window over the same windows' tables, synchronised)."""
     import torch
     from avenir_tpu_torch.kernels import histogram, vote
     from avenir_tpu_torch.models.forest import EnsembleModel
@@ -2563,8 +2592,10 @@ def drift_fused_scale(dev, table):
     from avenir_tpu_torch.pipeline.flows import PredictDriftFlow
     from avenir_tpu_torch.serving.registry import ModelRegistry
     from avenir_tpu_torch.utils.tracing import transfer_ledger
-    phase(f"26f scale: predictDriftScore fused vs unfused over the "
-          f"{DRIFT_SCALE_ROWS:,}-row replay")
+    lo, hi = DRIFT_FUSED_ROWS
+    phase(f"26f scale: predictDriftScore fused vs unfused over rows {lo:,} "
+          f"to {hi:,} of the replay")
+    table = table.take_rows(lo, hi)
     csv = os.path.join(WORK, "drift_scale.csv")
     write_hangup_csv(table, csv)
     reg = os.path.join(WORK, "drift_scale_registry")
@@ -6246,7 +6277,7 @@ MLP_MINIBATCH_ROWS = 250_000     # the timed minibatch epoch's rows
 SA_SCALE = (64, 32, 8192, 500)     # tasks, employees, chains, iterations
 SA_CPU_ITERS = 20
 GA_SCALE = (64, 256, 120)           # islands, population, generations
-VB_GROUPS = 100_000
+VB_GROUPS = 50_000
 VB_REWARD_EVENTS = 10_000
 
 
@@ -6835,7 +6866,7 @@ def bandit_phase(dev):
 
 ONLINE9 = os.path.join(ROOT, "tests", "torch_fixtures", "online9")
 ONLINE_MLP_ATOL = 1e-5        # case e's MLP parameters, card against JAX
-ONLINE_SCALE_PREDICTS = 16_000
+ONLINE_SCALE_PREDICTS = 8_000
 ONLINE_SCALE_FEATURES = 32
 ONLINE_SCALE_ARMS = 8
 ONLINE_SCALE_WINDOW = 256
@@ -8070,6 +8101,370 @@ def tail_scale_phase(dev, work, kids):
             "launches": counts}
 
 
+# --------------------------------------------------------------------------
+# phase 71: the device profile capture (profile.trace.dir)
+# --------------------------------------------------------------------------
+
+# the device-side event categories of a torch.profiler Chrome trace
+DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+# the kernels whose trace events must match their wrappers' counts
+TRACED_KERNELS = {"b1_mma": "level_counts_mma_kernel", "b2": "vote_kernel"}
+
+
+def load_trace(tdir, what):
+    """The one Chrome trace a traced job wrote under ``tdir``, loaded."""
+    files = sorted(f for f in os.listdir(tdir)
+                   if f.endswith(".pt.trace.json")) \
+        if os.path.isdir(tdir) else []
+    if len(files) != 1:
+        fail(f"{what}: {len(files)} trace files under {tdir}, want 1")
+    with open(os.path.join(tdir, files[0])) as fh:
+        trace = json.load(fh)
+    if not isinstance(trace.get("traceEvents"), list):
+        fail(f"{what}: {files[0]} has no traceEvents")
+    return trace, os.path.getsize(os.path.join(tdir, files[0]))
+
+
+def device_events(trace):
+    return [e for e in trace["traceEvents"]
+            if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS]
+
+
+def busy_share(events, wall_ms):
+    """The card's busy time over ``wall_ms``: the union of the device
+    events' intervals (kernels, memcpys, memsets), so overlapping streams
+    count once."""
+    busy = 0.0
+    end = None
+    for ts, dur in sorted((float(e["ts"]), float(e.get("dur", 0)))
+                          for e in events):
+        if end is None or ts > end:
+            busy += dur
+            end = ts + dur
+        elif ts + dur > end:
+            busy += ts + dur - end
+            end = ts + dur
+    return {"busy_ms": busy / 1e3, "wall_ms": wall_ms,
+            "busy_share": busy / 1e3 / wall_ms if wall_ms else 0.0}
+
+
+def kernel_name(name):
+    """A demangled kernel name without its return type, namespaces'
+    ``(anonymous namespace)``, template arguments and parameters."""
+    name = name.replace("(anonymous namespace)::", "")
+    if name.startswith("void "):
+        name = name[5:]
+    return re.split(r"[<(]", name, maxsplit=1)[0]
+
+
+def top_kernels(events, k=5):
+    """The ``k`` device kernels with the most total time: (short name, ms,
+    launches)."""
+    tot = {}
+    for e in events:
+        if e.get("cat") == "kernel":
+            name = kernel_name(e["name"])
+            ms, n = tot.get(name, (0.0, 0))
+            tot[name] = (ms + float(e.get("dur", 0)) / 1e3, n + 1)
+    return [(name, round(ms, 4), n) for name, (ms, n) in
+            sorted(tot.items(), key=lambda kv: -kv[1][0])[:k]]
+
+
+def busy_shares(events, wall_ms, untraced_ms):
+    """:func:`busy_share` over the traced job step, and the same device
+    time over the job steps of untraced runs of the job (the capture's
+    host-side recording lengthens the traced step)."""
+    got = busy_share(events, wall_ms)
+    got["untraced_wall_ms"] = list(untraced_ms)
+    got["untraced_busy_share"] = [got["busy_ms"] / ms if ms else 0.0
+                                  for ms in untraced_ms]
+    return got
+
+
+def busy_line(r):
+    untraced = ", ".join(f"{100 * s:.2f}% of {ms}"
+                         for s, ms in zip(r["untraced_busy_share"],
+                                          r["untraced_wall_ms"]))
+    return (f"card busy {r['busy_ms']:.3f} ms: {100 * r['busy_share']:.2f}% "
+            f"of the traced job step's {r['wall_ms']} ms, {untraced} ms "
+            f"untraced")
+
+
+def untraced_job(args, out):
+    """One CLI job run without the capture; its job step's wall (ms)."""
+    run_cli(args + [out])
+    with open(out + ".counters.json") as fh:
+        return json.load(fh)["Profiling"]["job.timeMs"]
+
+
+def traced_job(args, out, tdir, what):
+    """One CLI job run with ``-Dprofile.trace.dir``, launch counts zeroed
+    before and read after; returns the counts, the trace's device events,
+    the job step's wall (ms), the trace file's bytes and the whole call's
+    wall (s: the profiler's start, stop and export included)."""
+    shutil.rmtree(tdir, ignore_errors=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    run_cli(args[:1] + [f"-Dprofile.trace.dir={tdir}"] + args[1:] + [out])
+    call_s = time.perf_counter() - t0
+    counts = launch_counts()
+    trace, nbytes = load_trace(tdir, what)
+    with open(out + ".counters.json") as fh:
+        wall_ms = json.load(fh)["Profiling"]["job.timeMs"]
+    return counts, device_events(trace), wall_ms, nbytes, call_s
+
+
+def profile_phase(scale_csv):
+    """Phase 71: rafo9's randomForestBuilder and modelPredictor through
+    cli.run with ``-Dprofile.trace.dir`` (outputs byte-equal to untraced
+    runs; one trace a job; B1's and B2's kernel events in the numbers their
+    wrappers counted), then phase 30's CSV trained monolithic under the
+    capture, between two untraced runs: the card's busy share of the
+    traced and the untraced job steps, and its top kernels."""
+    phase("71 profile capture: rafo9 randomForestBuilder and modelPredictor "
+          f"traced, then the {STREAM_SCALE_ROWS:,}-row monolithic train")
+    props = os.path.join(RES, "rafo.properties")
+    schema = os.path.join(RES, "call_hangup.json")
+    jobs = {
+        "train": ["org.avenir.tree.RandomForestBuilder",
+                  f"-Dconf.path={props}",
+                  f"-Ddtb.feature.schema.file.path={schema}",
+                  os.path.join(WORK, "rafo9_train.csv")],
+        "predict": ["org.avenir.model.ModelPredictor", f"-Dconf.path={props}",
+                    f"-Dmop.model.dir.path={RAFO9}",
+                    f"-Dmop.feature.schema.file.path={schema}",
+                    os.path.join(RAFO9, "requests.csv")]}
+    want_kernel = {"train": "b1_mma", "predict": "b2"}
+    out = {}
+    first = None
+    for name, args in jobs.items():
+        plain = os.path.join(WORK, f"prof_{name}_plain")
+        t0 = time.perf_counter()
+        plain_ms = untraced_job(args, plain)
+        plain_s = time.perf_counter() - t0
+        got = os.path.join(WORK, f"prof_{name}")
+        first = first or time.perf_counter()
+        counts, events, wall_ms, nbytes, call_s = traced_job(
+            args, got, os.path.join(WORK, f"prof_{name}_trace"),
+            f"traced rafo9 {name}")
+        same_files(got, plain, f"traced rafo9 {name}")
+        traced = {key: sum(1 for e in events if e.get("cat") == "kernel"
+                           and kern in e["name"])
+                  for key, kern in TRACED_KERNELS.items()}
+        wrapped = {"b1_mma": counts["b1_mma"],
+                   "b2": counts["b2"] + counts["b3"]}
+        if counts["b1"] != counts["b1_mma"]:
+            fail(f"traced rafo9 {name}: {counts['b1'] - counts['b1_mma']} "
+                 f"B1 launches took the atomic form")
+        if traced != wrapped:
+            fail(f"traced rafo9 {name}: kernel events {traced} in the trace, "
+                 f"the wrappers counted {wrapped}")
+        if not traced[want_kernel[name]]:
+            fail(f"traced rafo9 {name}: no {TRACED_KERNELS[want_kernel[name]]}"
+                 f" event in the trace")
+        out[name] = {"launches": counts, "trace_kernels": traced,
+                     "trace_bytes": nbytes,
+                     **busy_shares(events, wall_ms, [plain_ms]),
+                     "top_kernels": top_kernels(events),
+                     "call_s": call_s, "untraced_call_s": plain_s}
+        print(f"traced rafo9 {name}: outputs byte-equal to the untraced "
+              f"run; one trace ({nbytes:,} bytes); kernel events {traced} "
+              f"== wrapper counts; {busy_line(out[name])}; the call "
+              f"{call_s:.3f} s traced, {plain_s:.3f} s untraced", flush=True)
+    # the scale train untraced before and after the traced run: the
+    # capture records every host op, so its job step is longer
+    scale_args = ["org.avenir.tree.RandomForestBuilder", f"-Dconf.path={props}",
+                  f"-Ddtb.feature.schema.file.path={schema}", scale_csv]
+    plain = os.path.join(WORK, "prof_scale_plain")
+    plain_ms = [untraced_job(scale_args, plain)]
+    # a capture that starts minutes after the process's first loses the
+    # device events of its first ~20 ms (--trace-probe); this phase's
+    # captures all start within seconds of the first
+    since_first_s = time.perf_counter() - first
+    counts, events, wall_ms, nbytes, call_s = traced_job(
+        scale_args, os.path.join(WORK, "prof_scale"),
+        os.path.join(WORK, "prof_scale_trace"), "traced scale train")
+    same_files(os.path.join(WORK, "prof_scale"), plain, "traced scale train")
+    plain_ms.append(untraced_job(scale_args, plain + "2"))
+    traced = sum(1 for e in events if e.get("cat") == "kernel"
+                 and TRACED_KERNELS["b1_mma"] in e["name"])
+    if counts["b1"] <= 0 or traced != counts["b1_mma"] \
+            or counts["b1_mma"] != counts["b1"]:
+        fail(f"traced scale train: {traced} B1 kernel events, the wrapper "
+             f"counted {counts['b1']} ({counts['b1_mma']} mma)")
+    out["scale"] = {"launches": counts, "trace_kernels": {"b1_mma": traced},
+                    "trace_bytes": nbytes,
+                    **busy_shares(events, wall_ms, plain_ms),
+                    "top_kernels": top_kernels(events), "call_s": call_s,
+                    "since_first_capture_s": since_first_s}
+    print(f"{STREAM_SCALE_ROWS:,}-row monolithic randomForestBuilder: "
+          f"outputs byte-equal to the untraced runs; "
+          f"{busy_line(out['scale'])}; the traced call {call_s:.3f} s, "
+          f"started {since_first_s:.1f} s after the phase's first; top "
+          f"kernels (name, ms, launches): {out['scale']['top_kernels']}",
+          flush=True)
+    return out
+
+
+# --------------------------------------------------------------------------
+# --trace-probe: does the capture keep every kernel launch, by process age?
+# --------------------------------------------------------------------------
+
+# (seconds of CUDA work before the process's next capture, whether a
+# capture was started and stopped first): a phase-71-like first start at
+# several process ages, and a start after an early warm-up capture
+TRACE_PROBE_CASES = ((20, False), (200, False), (400, False), (600, False),
+                     (35, True), (215, True), (415, True), (615, True))
+TRACE_PROBE_CAPTURES = 6
+
+
+def trace_probe_child(age_s, warm, out_dir):
+    """One probe process: rafo9's train untraced until ``age_s`` seconds
+    after its first CUDA work (with ``warm``, one traced train first), then
+    TRACE_PROBE_CAPTURES traced jobs, train and predict in turn.  Prints
+    one JSON line a capture: the process age, the profiler start's
+    seconds, the wrappers' and the trace's B1 / B2 counts, and the host
+    time of each B1 launch, each traced B1 kernel's start and the capture's
+    stop, in microseconds after the profiler's start returned (the trace's
+    times through its ``baseTimeNanoseconds``), and the start of the
+    trace's own window."""
+    import torch
+    import torch.profiler as tp
+    from avenir_tpu_torch.kernels import histogram
+    age_s, warm = float(age_s), warm == "1"
+    marks = {}
+    start, stop = tp.profile.start, tp.profile.stop
+
+    def timed_start(self):
+        t0 = time.perf_counter()
+        start(self)
+        marks["start_s"] = time.perf_counter() - t0
+        marks["start_ns"] = time.time_ns()
+
+    def timed_stop(self):
+        marks["stop_ns"] = time.time_ns()
+        stop(self)
+    tp.profile.start, tp.profile.stop = timed_start, timed_stop
+    launch_ns = []
+    mma_lib = histogram._mma_lib
+
+    def timed_lib():
+        fn = mma_lib()
+
+        def call(*args):
+            launch_ns.append(time.time_ns())
+            return fn(*args)
+        return call
+    histogram._mma_lib = timed_lib
+    props = os.path.join(RES, "rafo.properties")
+    schema = os.path.join(RES, "call_hangup.json")
+    jobs = {"train": ["org.avenir.tree.RandomForestBuilder",
+                      f"-Dconf.path={props}",
+                      f"-Ddtb.feature.schema.file.path={schema}",
+                      os.path.join(os.path.dirname(out_dir),
+                                   "rafo9_train.csv")],
+            "predict": ["org.avenir.model.ModelPredictor",
+                        f"-Dconf.path={props}",
+                        f"-Dmop.model.dir.path={RAFO9}",
+                        f"-Dmop.feature.schema.file.path={schema}",
+                        os.path.join(RAFO9, "requests.csv")]}
+    torch.zeros(1, device="cuda").sum().item()
+    born = time.perf_counter()
+
+    def capture(i, name):
+        del launch_ns[:]
+        marks.clear()
+        tdir = os.path.join(out_dir, f"trace_{i}")
+        age = time.perf_counter() - born
+        counts, events, _, _, _ = traced_job(
+            jobs[name], os.path.join(out_dir, f"out_{i}"), tdir,
+            f"probe capture {i}")
+        trace, _ = load_trace(tdir, f"probe capture {i}")
+        base = int(trace.get("baseTimeNanoseconds", 0))
+
+        def rel_us(ns):
+            return round((ns - marks["start_ns"]) / 1e3, 1)
+        kern = sorted(float(e["ts"]) for e in events
+                      if e.get("cat") == "kernel"
+                      and TRACED_KERNELS["b1_mma"] in e["name"])
+        print(json.dumps({
+            "age_s": round(age, 1), "warm": warm, "capture": i, "job": name,
+            "start_s": round(marks["start_s"], 3),
+            "b1": counts["b1_mma"], "b1_traced": len(kern),
+            "b2": counts["b2"] + counts["b3"],
+            "b2_traced": sum(1 for e in events if e.get("cat") == "kernel"
+                             and TRACED_KERNELS["b2"] in e["name"]),
+            "launch_us": [rel_us(ns) for ns in launch_ns],
+            "kernel_us": [rel_us(base + round(ts * 1e3)) for ts in kern],
+            "stop_us": rel_us(marks["stop_ns"]),
+            "window_us": [rel_us(base + round(float(e["ts"]) * 1e3))
+                          for e in trace["traceEvents"]
+                          if e.get("cat") == "Trace"
+                          and e.get("ph") == "X"][:1]}), flush=True)
+    if warm:
+        capture(-1, "train")
+    while time.perf_counter() - born < age_s:
+        run_cli(jobs["train"] + [os.path.join(out_dir, "untraced")])
+    for i in range(TRACE_PROBE_CAPTURES):
+        capture(i, ("train", "predict")[i % 2])
+
+
+def trace_probe():
+    """``--trace-probe``: builds B1 and B2, then runs one
+    :func:`trace_probe_child` a TRACE_PROBE_CASES entry, all at once on
+    the first card; prints each capture's line, then a summary of the
+    captures whose B1 or B2 events differ from the wrappers' counts, and
+    writes every line to ``chiprun_out/trace_probe.jsonl``."""
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device")
+    from avenir_tpu_torch.kernels import build
+    build.build_all(["histogram", "vote"])
+    sys.path.insert(0, RES)
+    from gen.call_hangup_gen import generate
+    work = os.path.join(WORK, "trace_probe")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    with open(os.path.join(work, "rafo9_train.csv"), "w") as fh:
+        fh.write("\n".join(generate(5000, 17)))
+    kids = []
+    for age, warm in TRACE_PROBE_CASES:
+        out_dir = os.path.join(work, f"age{age}_{int(warm)}")
+        os.makedirs(out_dir)
+        with open(out_dir + ".out", "w") as so, \
+                open(out_dir + ".err", "w") as se:
+            kids.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__),
+                 "--trace-probe-child", str(age), str(int(warm)), out_dir],
+                stdout=so, stderr=se, env=lane_env({}, one_card=True)))
+        _CHILD_PROCS.append(kids[-1])
+    lines, failed = [], []
+    for p, (age, warm) in zip(kids, TRACE_PROBE_CASES):
+        out_dir = os.path.join(work, f"age{age}_{int(warm)}")
+        p.wait()
+        if p.returncode != 0:
+            failed.append((age, warm))
+            with open(out_dir + ".err") as fh:
+                print(f"probe {(age, warm)} failed (rc {p.returncode}): "
+                      f"{fh.read()[-2000:]}", flush=True)
+        with open(out_dir + ".out") as fh:
+            lines += [json.loads(l) for l in fh if l.startswith("{")]
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "trace_probe.jsonl"),
+              "w") as fh:
+        fh.writelines(json.dumps(l) + "\n" for l in lines)
+    for l in lines:
+        print(json.dumps(l), flush=True)
+    short = [l for l in lines
+             if l["b1"] != l["b1_traced"] or l["b2"] != l["b2_traced"]]
+    print(json.dumps({"captures": len(lines), "short": len(short),
+                      "short_cases": [(l["age_s"], l["warm"], l["capture"])
+                                      for l in short],
+                      "failed_processes": failed}), flush=True)
+    if failed:
+        sys.exit(1)
+
+
 def main():
     import torch
     phase("1 device")
@@ -8693,6 +9088,7 @@ def main():
     seq_scale = seq_scale_phase(dev)
     tail_fix = tail_fixture_phase()
     tail_scale = tail_scale_phase(dev, tail_work, tail_kids)
+    profile = profile_phase(scale_csv)
     phase()
     tf_main = {"mlp": mlp_r["fixture_launches"],
                "optimize": opt_r["fixture_launches"],
@@ -8940,6 +9336,7 @@ def main():
         "online": online_r,
         "sequence": {"fixtures": seq_fix, "scale": seq_scale},
         "long_tail": {"fixtures": tail_fix, "scale": tail_scale},
+        "profile": profile,
         "fused": {"drift9": drift_fused, "replay": drift["fused_job"],
                   "rafo9s": {k: v for k, v in streamed.items()
                              if k != "unfused"},
@@ -8971,5 +9368,9 @@ if __name__ == "__main__":
         seq_cpu_child(sys.argv[2])
     elif sys.argv[1:2] == ["--tail-cpu-child"]:
         tail_cpu_child(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--trace-probe-child"]:
+        trace_probe_child(*sys.argv[2:5])
+    elif sys.argv[1:2] == ["--trace-probe"]:
+        trace_probe()
     else:
         main()
