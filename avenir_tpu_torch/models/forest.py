@@ -54,6 +54,7 @@ from ..kernels.vote import (ensemble_partial_votes, ensemble_vote,
                             prepare_vote_model, shard_stacked_arrays,
                             vote_merge_finalize)
 from ..runtime import resolve_device
+from ..telemetry.trace import span
 from ..utils.tracing import fetch, layer, note_dispatch
 from .tree import (DecisionPath, DecisionPathList, DecisionTreeModel,
                    FeatureCache, Predicate, TreeBuilder, TreeParams,
@@ -191,12 +192,16 @@ class EnsembleModel:
 
     def predict(self, table: ColumnarTable) -> List[Optional[str]]:
         """Weighted vote: device kernel when available, else one (n, K)
-        host reduction over per-member predictions."""
+        host reduction over per-member predictions.  Spans
+        ``ensemble.encode`` (the host encode and the rows' upload) and
+        ``ensemble.vote`` (the vote, its readback and the labels)."""
         cache = FeatureCache()
-        dev = self.device_inputs(table, cache)
-        if dev is not None:
-            return list(self._lut[fetch(self.vote_device(*dev))])
-        return self._predict_host(table, cache)
+        with span("ensemble.encode", cat="scoring", rows=table.n_rows):
+            dev = self.device_inputs(table, cache)
+        with span("ensemble.vote", cat="scoring", rows=table.n_rows):
+            if dev is not None:
+                return list(self._lut[fetch(self.vote_device(*dev))])
+            return self._predict_host(table, cache)
 
     def vote_device(self, d_vals, d_codes) -> torch.Tensor:
         """(n,) int32 vote indices on the device: ONE kernel launch for the
@@ -260,45 +265,56 @@ def model_predictor(table: ColumnarTable, schema: FeatureSchema,
                     device=None) -> List[str]:
     """The generic predictor job body: ensemble (or single-model) prediction
     with the reference's output modes (model/ModelPredictor.java:87-150) and
-    optional per-member vote weights (:144-151)."""
+    optional per-member vote weights (:144-151).
+
+    Spans a call (``telemetry.trace.span``): ``predictor.models`` (the
+    member models and the ensemble, stacked on the device),
+    ``ensemble.encode`` and ``ensemble.vote`` (:meth:`EnsembleModel.predict`),
+    ``predictor.lines`` and, when counting, ``predictor.errors``."""
     device = resolve_device(device)
-    models = [DecisionTreeModel(pl, schema, device=device)
-              for pl in path_lists]
-    if len(models) == 1:
+    n = table.n_rows
+    with span("predictor.models", cat="scoring", rows=n):
+        models = [DecisionTreeModel(pl, schema, device=device)
+                  for pl in path_lists]
+        ensemble = None if len(models) == 1 else EnsembleModel(
+            models, weights=weights, min_odds_ratio=min_odds_ratio,
+            require_odd=min_odds_ratio <= 1.0 and weights is None,
+            device=device)
+    if ensemble is None:
         preds, _ = models[0].predict(table)
         pred_list: List[Optional[str]] = list(preds)
     else:
-        pred_list = EnsembleModel(models, weights=weights,
-                                  min_odds_ratio=min_odds_ratio,
-                                  require_odd=min_odds_ratio <= 1.0 and
-                                  weights is None,
-                                  device=device).predict(table)
+        pred_list = ensemble.predict(table)
     raw = table.raw_rows
-    preds = [p if p is not None else "ambiguous" for p in pred_list]
-    if output_mode == OUTPUT_WITH_RECORD and raw is not None:
-        lines = [out_delim.join(r) + out_delim + p
-                 for r, p in zip(raw, preds)]
-    elif output_mode == OUTPUT_WITH_ID:
-        rids = table.str_columns[id_ordinal] \
-            if id_ordinal in table.str_columns \
-            else map(str, range(table.n_rows))
-        lines = [rid + out_delim + p for rid, p in zip(rids, preds)]
-    elif output_mode == OUTPUT_WITH_CLASS_ATTR and raw is not None:
-        if class_attr_ordinal is not None:
-            lines = [f"{i}{out_delim}{r[class_attr_ordinal]}{out_delim}{p}"
-                     for i, (r, p) in enumerate(zip(raw, preds))]
+    with span("predictor.lines", cat="scoring", rows=n):
+        preds = [p if p is not None else "ambiguous" for p in pred_list]
+        if output_mode == OUTPUT_WITH_RECORD and raw is not None:
+            lines = [out_delim.join(r) + out_delim + p
+                     for r, p in zip(raw, preds)]
+        elif output_mode == OUTPUT_WITH_ID:
+            rids = table.str_columns[id_ordinal] \
+                if id_ordinal in table.str_columns \
+                else map(str, range(n))
+            lines = [rid + out_delim + p for rid, p in zip(rids, preds)]
+        elif output_mode == OUTPUT_WITH_CLASS_ATTR and raw is not None:
+            if class_attr_ordinal is not None:
+                lines = [f"{i}{out_delim}{r[class_attr_ordinal]}"
+                         f"{out_delim}{p}"
+                         for i, (r, p) in enumerate(zip(raw, preds))]
+            else:
+                lines = [f"{i}{out_delim}{out_delim}{p}"
+                         for i, p in enumerate(preds)]
         else:
-            lines = [f"{i}{out_delim}{out_delim}{p}"
-                     for i, p in enumerate(preds)]
-    else:
-        lines = list(preds)
+            lines = list(preds)
     if error_counting and class_attr_ordinal is not None and raw is not None:
-        actual = np.fromiter((r[class_attr_ordinal] for r in raw),
-                             dtype=object, count=table.n_rows)
-        errors = int((np.asarray(pred_list, dtype=object) != actual).sum())
+        with span("predictor.errors", cat="scoring", rows=n):
+            actual = np.fromiter((r[class_attr_ordinal] for r in raw),
+                                 dtype=object, count=n)
+            errors = int((np.asarray(pred_list, dtype=object) != actual
+                          ).sum())
         if counters is not None:
             counters.increment("Prediction", "Error count", errors)
-            counters.increment("Prediction", "Total count", table.n_rows)
+            counters.increment("Prediction", "Total count", n)
     return lines
 
 
@@ -329,9 +345,12 @@ class ForestBuilder:
                  device=None, profile=None,
                  base: Optional[TreeBuilder] = None, reducer=None):
         """``profile`` (a ``utils.tracing.LayerProfile``) times the layers
-        of each level.  ``base`` injects a built TreeBuilder (one
-        assembled by ``TreeBuilder.from_stream`` over CSV row blocks); it
-        must carry ``replace(params.tree, seed=params.seed)``.  Otherwise
+        of each level and, before the first, ``weights_h2d`` with its
+        ``bootstrap.draw`` and ``bootstrap.upload``; every layer is a
+        program span with or without it.  ``base`` injects a built
+        TreeBuilder (one assembled by ``TreeBuilder.from_stream`` over CSV
+        row blocks); it must carry ``replace(params.tree,
+        seed=params.seed)``.  Otherwise
         the builder is constructed from ``table``, data-parallel over
         processes with a ``reducer`` (``TreeBuilder``)."""
         self.params = params
@@ -379,14 +398,17 @@ class ForestBuilder:
         p = self.params.tree
         T, n = len(builders), base.n_padded
         with layer(self.profile, "weights_h2d"):
-            w_cols = [base._expand_weights(
-                sampling_weights(base.n_rows, b.params, b.rng))
-                for b in builders]
-            # per-record weight cap feeds the exactness bound in level_chunk
-            self._w_max = max((float(c.max()) for c in w_cols if c.size),
-                              default=1.0)
-            weights = weights_to_device(np.stack(w_cols, axis=1),
-                                        self._w_max, base.device)
+            with layer(self.profile, "bootstrap.draw"):
+                w_cols = [base._expand_weights(
+                    sampling_weights(base.n_rows, b.params, b.rng))
+                    for b in builders]
+                # per-record weight cap feeds the exactness bound in
+                # level_chunk
+                self._w_max = max((float(c.max()) for c in w_cols
+                                   if c.size), default=1.0)
+                w = np.stack(w_cols, axis=1)
+            with layer(self.profile, "bootstrap.upload"):
+                weights = weights_to_device(w, self._w_max, base.device)
         node_ids = torch.zeros((n, T), dtype=torch.int32, device=base.device)
         B = base.split_set.max_branches
 

@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..core.metrics import CostBasedArbitrator
+from ..telemetry.trace import span
 
 KERNEL_SCALE = 100
 PROB_SCALE = 100
@@ -180,20 +181,32 @@ def _classify_topk(nd: np.ndarray, ncls: np.ndarray, nfpp: np.ndarray,
                    class_values: Sequence[str], params: KnnParams
                    ) -> KnnResult:
     """Kernel scores -> per-class sums -> classify/arbitrate, given the
-    already-selected top-k neighbors per test row."""
+    already-selected top-k neighbors per test row; spans
+    ``knn.class_scores`` and ``knn.class_pick`` a call."""
     C = len(class_values)
     if params.kernel_function == "sigmoid":
         raise _sigmoid_stub()
     if params.kernel_function not in _KERNELS:
         raise ValueError(f"unknown kernel function {params.kernel_function!r}")
 
-    class_distr, weighted = (x.numpy() for x in _distr_kernel(
-        torch.from_numpy(np.ascontiguousarray(nd, np.int32)),
-        torch.from_numpy(np.ascontiguousarray(ncls)),
-        torch.from_numpy(np.ascontiguousarray(nfpp, np.float32)),
-        params.kernel_function, params.kernel_param, C,
-        params.inverse_distance_weighted))
+    n = len(nd)
+    with span("knn.class_scores", cat="knn", rows=n):
+        class_distr, weighted = (x.numpy() for x in _distr_kernel(
+            torch.from_numpy(np.ascontiguousarray(nd, np.int32)),
+            torch.from_numpy(np.ascontiguousarray(ncls)),
+            torch.from_numpy(np.ascontiguousarray(nfpp, np.float32)),
+            params.kernel_function, params.kernel_param, C,
+            params.inverse_distance_weighted))
+    with span("knn.class_pick", cat="knn", rows=n):
+        return _pick_classes(nd, ncls, class_distr, weighted, class_values,
+                             params)
 
+
+def _pick_classes(nd: np.ndarray, ncls: np.ndarray, class_distr: np.ndarray,
+                  weighted: np.ndarray, class_values: Sequence[str],
+                  params: KnnParams) -> KnnResult:
+    """The per-class sums -> classify/arbitrate (or the regression over
+    the neighbours' values)."""
     if params.prediction_mode == "regression":
         vals = np.asarray(
             [[float(class_values[c]) for c in row] for row in ncls])

@@ -50,6 +50,7 @@ import torch
 from ..core.schema import FeatureSchema
 from ..core.table import ColumnarTable
 from ..runtime import resolve_device
+from ..telemetry.trace import span
 from ..utils.tracing import fetch, note_dispatch, note_h2d
 # the correctly rounded float32 root (PyTorch's CPU sqrt is not); a
 # floored distance at an integer edge moves with one ulp of it
@@ -336,23 +337,34 @@ class DistanceComputer:
         ``knn.topk`` dispatch (over a mesh also 1 ``knn.shard_merge``
         dispatch and 1 gather); several chunks add 1 concat dispatch; the
         call reads back 2 D2H transfers; the train side uploads (2 H2D,
-        over a mesh 2 a shard) once per train table."""
+        over a mesh 2 a shard) once per train table.
+
+        Spans (``telemetry.trace.span``): ``knn.encode`` a call (both
+        encodes and the train side's placement), ``knn.upload`` and
+        ``knn.scan`` a test chunk, ``knn.readback`` a call.  Only the
+        copies synchronise: a chunk's upload from pageable host memory
+        waits for the stream, so a later chunk's ``knn.upload`` holds the
+        wait for the scan before it and ``knn.readback`` the wait for the
+        last; ``knn.scan`` holds the launches (and the whole scan where a
+        caller synchronises around ``topk_scan``)."""
         from ..kernels.dispatch import note_backend, resolve_backend
         from ..kernels.topk import topk_scan, topk_scan_sharded
-        tn, toh = self.encode(test)
-        rn, roh = self._encode_train(train)
-        n_test, n_train = tn.shape[0], rn.shape[0]
-        k_loc = min(k, n_train)
-        if shard_reducer is None:
-            k = k_loc
-            if n_train == 0 or n_test == 0:
-                return (np.zeros((n_test, k), np.int32),
-                        np.zeros((n_test, k), np.int32))
-        self._check_metric()
-        if n_train and self.mesh is not None:
-            shards = self.train_shards()
-        elif n_train:
-            rn_d, roh_d = self.train_device()
+        with span("knn.encode", cat="knn", rows=test.n_rows):
+            tn, toh = self.encode(test)
+            rn, roh = self._encode_train(train)
+            n_test, n_train = tn.shape[0], rn.shape[0]
+            k_loc = min(k, n_train)
+            if shard_reducer is None:
+                k = k_loc
+                if n_train == 0 or n_test == 0:
+                    return (np.zeros((n_test, k), np.int32),
+                            np.zeros((n_test, k), np.int32))
+            self._check_metric()
+            # the train side's encode and upload run once a train table
+            if n_train and self.mesh is not None:
+                shards = self.train_shards()
+            elif n_train:
+                rn_d, roh_d = self.train_device()
         backend = resolve_backend(self.device)
         out_d: List = []
         out_i: List = []
@@ -362,17 +374,19 @@ class DistanceComputer:
             te = min(ts + test_chunk, n_test)
             if n_train:
                 note_h2d(tn[ts:te].nbytes + toh[ts:te].nbytes, transfers=2)
-                tn_c = self._upload(tn[ts:te])
-                toh_c = self._upload(toh[ts:te])
+                with span("knn.upload", cat="knn", rows=te - ts):
+                    tn_c = self._upload(tn[ts:te])
+                    toh_c = self._upload(toh[ts:te])
                 note_dispatch(site="knn.topk")
                 note_backend("knn.topk", backend)
-                if self.mesh is not None:
-                    note_dispatch(site="knn.shard_merge")
-                    best_d, best_i = topk_scan_sharded(
-                        tn_c, toh_c, shards, *consts, self.mesh)
-                else:
-                    best_d, best_i = topk_scan(tn_c, toh_c, rn_d, roh_d,
-                                               *consts)
+                with span("knn.scan", cat="knn", rows=te - ts):
+                    if self.mesh is not None:
+                        note_dispatch(site="knn.shard_merge")
+                        best_d, best_i = topk_scan_sharded(
+                            tn_c, toh_c, shards, *consts, self.mesh)
+                    else:
+                        best_d, best_i = topk_scan(tn_c, toh_c, rn_d,
+                                                   roh_d, *consts)
             if shard_reducer is not None:
                 if n_train:
                     d_h, i_h = fetch(best_d), fetch(best_i)
@@ -392,9 +406,11 @@ class DistanceComputer:
                         np.zeros((0, k_loc), np.int32))
             return (np.concatenate(out_d).astype(np.int32),
                     np.concatenate(out_i))
-        if len(out_d) == 1:
-            d_all, i_all = out_d[0], out_i[0]
-        else:
-            note_dispatch()
-            d_all, i_all = torch.cat(out_d), torch.cat(out_i)
-        return fetch(d_all).astype(np.int32), fetch(i_all)
+        # the host's wait for the last chunk's scan, and the copies
+        with span("knn.readback", cat="knn", rows=n_test):
+            if len(out_d) == 1:
+                d_all, i_all = out_d[0], out_i[0]
+            else:
+                note_dispatch()
+                d_all, i_all = torch.cat(out_d), torch.cat(out_i)
+            return fetch(d_all).astype(np.int32), fetch(i_all)

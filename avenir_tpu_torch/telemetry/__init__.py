@@ -4,7 +4,9 @@ one global read when off.
 * **span tracing** (:mod:`.trace`) — a per-run :class:`Tracer` buffering
   ``span(stage, **attrs)`` events (the serving assemble / predict / reply
   steps among them) into a per-process JSONL trace file whose lines are
-  Chrome trace events, one lane per thread.
+  Chrome trace events, one lane per thread; inside
+  :func:`annotate_capture` each span is also a profiler range
+  ``av:<name>`` in the live ``torch.profiler`` capture.
 * **request tracing** (:mod:`.reqtrace`) — head-sampled serving requests
   carry a wire trace field end to end and leave Chrome flow events
   (:func:`flow`) with their latency decomposition.
@@ -20,8 +22,8 @@ one global read when off.
 ``telemetry.*`` keys; the serving services bind to the default registry.
 """
 
-from .trace import (NULL_SPAN, Tracer, current_tracer, flow,
-                    install_tracer, instant, merge_trace_files,
+from .trace import (NULL_SPAN, Tracer, annotate_capture, current_tracer,
+                    flow, install_tracer, instant, merge_trace_files,
                     read_trace_file, span, uninstall_tracer,
                     validate_trace_events, write_chrome_trace)
 
@@ -47,7 +49,8 @@ def __getattr__(name: str):
 
 __all__ = [
     "Tracer", "span", "instant", "flow", "install_tracer",
-    "uninstall_tracer", "current_tracer", "NULL_SPAN", "read_trace_file",
+    "uninstall_tracer", "current_tracer", "annotate_capture", "NULL_SPAN",
+    "read_trace_file",
     "validate_trace_events", "merge_trace_files", "write_chrome_trace",
     "MetricsRegistry", "set_default_registry", "get_default_registry",
     "MetricsServer",

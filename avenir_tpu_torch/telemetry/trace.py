@@ -2,9 +2,10 @@
 Tracer and the process-global ``span()`` entry.
 
 1. **Free when off.**  Every instrumented hot path calls ``span(...)``
-   unconditionally; with no tracer installed that is one module-global
-   read and the return of a shared null context manager.  The serving
-   batch path is instrumented at batch granularity, never per row.
+   unconditionally; with no tracer installed and no capture annotated
+   that is one module-global read and the return of a shared null
+   context manager.  The paths are instrumented at batch, call or build
+   granularity, never per row, and a span never synchronises a device.
 
 2. **Events ARE Chrome trace events.**  The JSONL buffer flushes lines
    that are already catapult dicts (``ph: "X"`` complete events with
@@ -17,6 +18,14 @@ Tracer and the process-global ``span()`` entry.
 3. **Threads are lanes.**  ``tid`` is a stable small integer per thread
    (announced once via a ``thread_name`` metadata event).
 
+4. **Spans reach the device capture.**  Inside :func:`annotate_capture`
+   (``utils.tracing.trace`` opens it for the length of its
+   ``torch.profiler`` capture) each span also opens a profiler range
+   (``record_function``'s, in its C++ form) named ``av:<name>``, so the
+   capture holds the program's spans beside its kernels.  Its host clock
+   is the epoch's, as the tracer's is, so a span's JSONL ``ts`` and its
+   range start agree to well under a millisecond.
+
 The tracer is process-global (``install_tracer``), like the transfer
 ledger's stack: threads a pipeline spawns land their spans in the run
 that spawned them.  The files this module writes are the JAX package's
@@ -25,15 +34,20 @@ format, so either package's tools read either package's traces.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import threading
 import time
 import weakref
-from typing import Dict, List, Optional
+from typing import Dict, Iterator, List, Optional
 
 TRACE_SUFFIX = ".jsonl"
 CHROME_SUFFIX = ".chrome.json"
+
+# one encoder for every line: json.dumps with separators builds a new
+# encoder per call, a third of a span's cost under a tracer
+_line = json.JSONEncoder(separators=(",", ":")).encode
 
 # Chrome trace-event schema subset this module emits (and the validator
 # checks): complete spans, instants, metadata, and legacy flow events (s/t/f) carrying one sampled request's id across
@@ -80,9 +94,10 @@ class Tracer:
         # Thread objects (and a recycled ident can never alias a lane)
         self._tids: "weakref.WeakKeyDictionary" = \
             weakref.WeakKeyDictionary()
+        # each thread's own lane id, cached where only that thread reads it
+        self._lane = threading.local()
         self._next_tid = 1
         self._closed = False
-        self.events_recorded = 0
         # epoch-anchored monotonic clock: ts = unix time at construction
         # plus a perf_counter delta — monotonic within the process, and
         # aligned across same-machine shard processes to wall-clock skew
@@ -127,7 +142,10 @@ class Tracer:
         recycles idents, so a later thread reusing a dead staging
         thread's ident must get a fresh lane — not record its spans
         under the dead thread's name on the dead thread's lane."""
-        return self._tid_for(threading.current_thread())
+        tid = getattr(self._lane, "tid", None)
+        if tid is None:
+            tid = self._lane.tid = self._tid_for(threading.current_thread())
+        return tid
 
     def _tid_for(self, thread: threading.Thread) -> int:
         tid = self._tids.get(thread)
@@ -148,7 +166,6 @@ class Tracer:
     def _append(self, ev: dict) -> None:
         with self._lock:
             self._buf.append(ev)
-            self.events_recorded += 1
             # after close() nothing will ever flush again, so write
             # through immediately: a straggler thread finishing its span
             # during teardown records the TAIL of an aborted job — the
@@ -164,8 +181,9 @@ class Tracer:
                  cat: Optional[str] = None, args: Optional[dict] = None
                  ) -> None:
         """One finished span as a Chrome complete ('X') event."""
-        ev = {"ph": "X", "name": name, "ts": round(t0_us, 1),
-              "dur": round(max(dur_us, 0.0), 1),
+        # to a tenth of a microsecond: round(x, 1) costs four times more
+        ev = {"ph": "X", "name": name, "ts": int(t0_us * 10.0 + 0.5) / 10.0,
+              "dur": int(max(dur_us, 0.0) * 10.0 + 0.5) / 10.0,
               "pid": self.process_index, "tid": self._tid()}
         if cat:
             ev["cat"] = cat
@@ -225,8 +243,7 @@ class Tracer:
             buf, self._buf = self._buf, []
         if not buf:
             return
-        lines = "".join(json.dumps(ev, separators=(",", ":")) + "\n"
-                        for ev in buf)
+        lines = "".join(_line(ev) + "\n" for ev in buf)
         with self._io_lock:
             with open(self.path, "a") as fh:
                 fh.write(lines)
@@ -256,7 +273,22 @@ class Tracer:
 # the process-global tracer + the span() fast path
 # --------------------------------------------------------------------------
 
+# the name prefix of a span's range in a device capture: the program's own,
+# apart from aten ops and from the ranges other owners of a capture open
+RANGE_PREFIX = "av:"
+
 _active: Optional[Tracer] = None
+# open annotate_capture() scopes, and torch's range type while any is
+_captures = 0
+_range = None
+_captures_lock = threading.Lock()
+# the one global span() reads: a tracer installed or a capture annotated
+_on = False
+
+
+def _refresh() -> None:
+    global _on
+    _on = _active is not None or _captures > 0
 
 
 def install_tracer(tracer: Tracer) -> Tracer:
@@ -264,17 +296,51 @@ def install_tracer(tracer: Tracer) -> Tracer:
     site writes into (one at a time — telemetry is per run)."""
     global _active
     _active = tracer
+    _refresh()
     return tracer
 
 
 def uninstall_tracer() -> Optional[Tracer]:
     global _active
     t, _active = _active, None
+    _refresh()
     return t
 
 
 def current_tracer() -> Optional[Tracer]:
     return _active
+
+
+@contextlib.contextmanager
+def annotate_capture() -> Iterator[None]:
+    """The switch for an owner of a ``torch.profiler`` capture: while
+    open, every ``span()`` also opens a profiler range named
+    ``av:<name>`` that the capture records.  Open it only while a capture
+    is live (a range costs time even with no profiler running).  Scopes
+    nest and may overlap across threads; the last to close turns the
+    ranges off."""
+    global _captures, _range
+    import torch
+    # the C++ form of record_function (torch's compiler annotates with
+    # it): about 2 us to enter and leave under a live capture, and nothing
+    # on the device timeline.  The Python form costs tens of us there and
+    # lays a copy of each range on the device timeline, which a reader of
+    # the capture's kernels would count as device work: never that one
+    ranges = torch._C._profiler._RecordFunctionFast
+    # a process's first range pays the op's set-up, most of a millisecond
+    # between the range's start and the span's clock: pay it here
+    with ranges(RANGE_PREFIX + "annotate_capture"):
+        pass
+    with _captures_lock:
+        _range = ranges
+        _captures += 1
+        _refresh()
+    try:
+        yield
+    finally:
+        with _captures_lock:
+            _captures -= 1
+            _refresh()
 
 
 class _NullSpan:
@@ -295,23 +361,33 @@ NULL_SPAN = _NullSpan()
 
 
 class _LiveSpan:
-    __slots__ = ("_tr", "_name", "_cat", "_args", "_t0")
+    """A span on the tracer, in the capture, or both (either may be
+    None)."""
+    __slots__ = ("_tr", "_name", "_cat", "_args", "_t0", "_range")
 
-    def __init__(self, tr: Tracer, name: str, cat: Optional[str],
-                 args: Optional[dict]):
+    def __init__(self, tr: Optional[Tracer], name: str, cat: Optional[str],
+                 args: Optional[dict], range_type):
         self._tr = tr
         self._name = name
         self._cat = cat
         self._args = args
+        self._range = None if range_type is None else \
+            range_type(RANGE_PREFIX + name)
 
     def __enter__(self):
-        self._t0 = self._tr.now_us()
+        if self._range is not None:
+            self._range.__enter__()
+        if self._tr is not None:
+            self._t0 = self._tr.now_us()
         return self
 
     def __exit__(self, *exc):
-        self._tr.complete(self._name, self._t0,
-                          self._tr.now_us() - self._t0,
-                          cat=self._cat, args=self._args)
+        if self._tr is not None:
+            self._tr.complete(self._name, self._t0,
+                              self._tr.now_us() - self._t0,
+                              cat=self._cat, args=self._args)
+        if self._range is not None:
+            self._range.__exit__(*exc)
         return False
 
     def add(self, **args) -> None:
@@ -325,11 +401,12 @@ class _LiveSpan:
 def span(name: str, cat: Optional[str] = None, **args):
     """Context manager timing one pipeline stage.  THE instrumentation
     entry: ``with span("parse.chunk", cat="parse", block=i): ...``.
-    Returns the shared null span when no tracer is installed."""
-    tr = _active
-    if tr is None:
+    Returns the shared null span when no tracer is installed and no
+    capture is annotated."""
+    if not _on:
         return NULL_SPAN
-    return _LiveSpan(tr, name, cat, args or None)
+    return _LiveSpan(_active, name, cat, args or None,
+                     _range if _captures else None)
 
 
 def instant(name: str, cat: Optional[str] = None,

@@ -26,12 +26,14 @@ call in ``avenir_tpu/utils/tracing.py``.
   ``python.<reason>`` counting the Python blocks by why the native reader
   did not read them), so a Python fallback never passes for the native
   reader.
-- :class:`LayerProfile` — per-level wall time of the training layers,
-  taken only when a caller passes one to a builder.
+- :func:`layer` — a training layer as a program span
+  (``telemetry.trace.span``), timed by a :class:`LayerProfile` (per-level
+  wall time, synchronised) only when a caller passes one to a builder.
 - :func:`trace` — ``torch.profiler`` capture of host and device activity
   into a Chrome trace, behind ``profile.trace.dir`` /
-  ``AVENIR_TPU_TRACE_DIR`` (cli.run); a no-op with no directory, a
-  warning and no capture when the profiler cannot start.
+  ``AVENIR_TPU_TRACE_DIR`` (cli.run), with the program's spans in it as
+  ``av:<name>`` ranges; a no-op with no directory, a warning and no
+  capture when the profiler cannot start.
 """
 
 from __future__ import annotations
@@ -47,6 +49,8 @@ from collections import defaultdict, deque
 from typing import Dict, Iterator, List, Optional
 
 import numpy as np
+
+from ..telemetry.trace import annotate_capture, span
 
 
 class TransferLedger:
@@ -238,7 +242,8 @@ class LayerProfile:
     synchronizes the device before and after, so its time is its own and
     not the queue's; that serializes host and device, so a profiled build
     runs slower than an unprofiled one.  Layers outside any level (branch
-    codes, weights H2D) land in ``setup``."""
+    codes, weights H2D and, inside it, the forest's bootstrap draw and
+    upload) land in ``setup``."""
 
     def __init__(self, device=None):
         import torch
@@ -270,9 +275,19 @@ class LayerProfile:
 
 
 def layer(profile: Optional[LayerProfile], name: str):
-    """``profile.layer(name)``, or a no-op context when not profiling."""
-    return profile.layer(name) if profile is not None \
-        else contextlib.nullcontext()
+    """Program span ``name`` (``telemetry.trace.span``: the shared null
+    span when tracing is off), inside ``profile.layer(name)`` when a
+    profile is passed.  The profile's synchronisations stay outside the
+    span, so the span holds the layer's host work and any real wait."""
+    if profile is None:
+        return span(name, cat="layer")
+    return _profiled_layer(profile, name)
+
+
+@contextlib.contextmanager
+def _profiled_layer(profile, name: str) -> Iterator[None]:
+    with profile.layer(name), span(name, cat="layer"):
+        yield
 
 
 class StepTimer:
@@ -354,11 +369,12 @@ def trace(log_dir: Optional[str]) -> Iterator[bool]:
     CUDA activity when the process's device is a CUDA device, written on
     exit as one Chrome trace ``<host>_p<index>_<pid>.<ns>.pt.trace.json``
     (``tensorboard_trace_handler``; Perfetto and TensorBoard's profile
-    plugin read it).  Yields whether capture is active.  A None or empty
-    dir is the off switch (silent); a profiler that cannot start degrades
-    to a no-op WITH a warning naming the exception: an operator who asked
-    for a capture and got nothing must learn why from the log, not from
-    an empty directory."""
+    plugin read it), the program's spans in it as ``av:<name>`` ranges
+    (``telemetry.trace.annotate_capture``).  Yields whether capture is
+    active.  A None or empty dir is the off switch (silent); a profiler
+    that cannot start degrades to a no-op WITH a warning naming the
+    exception: an operator who asked for a capture and got nothing must
+    learn why from the log, not from an empty directory."""
     if not log_dir:
         yield False
         return
@@ -383,7 +399,8 @@ def trace(log_dir: Optional[str]) -> Iterator[bool]:
         yield False
         return
     try:
-        yield True
+        with annotate_capture():
+            yield True
     finally:
         try:
             prof.stop()

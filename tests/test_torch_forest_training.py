@@ -302,7 +302,8 @@ def test_chunked_build_matches_unchunked(monkeypatch):
     assert led.site_snapshot()["forest.level"] == 16 * levels
     assert {"b1", "accumulate", "counts_d2h", "split_choice"} <= \
         set(prof.median_ms())
-    assert {"branch_codes", "weights_h2d"} == set(prof.setup)
+    assert {"branch_codes", "weights_h2d", "bootstrap.draw",
+            "bootstrap.upload"} == set(prof.setup)
 
 
 # --------------------------------------------------------------------------
